@@ -1,0 +1,114 @@
+"""Inference engine — port of paddle_tpu/fluid/inference.py ``Predictor``
+(ref: paddle/fluid/inference/api/analysis_predictor.cc).
+
+The pruned inference program runs eagerly, op by op, under
+``torch.inference_mode()``, with its parameters resident on the place's
+device (the card unless the caller passes ``place=CPUPlace()``)::
+
+    predictor = Predictor.from_model(dirname)          # load_inference_model
+    out, = predictor.run({"x": batch})
+
+There is no executable to compile, so ``warm`` runs the forward once (it
+builds the CUDA kernels at their first launch). The JAX package's
+analyzer gate and compile cache wait for their own slices.
+"""
+import numpy as np
+import torch
+
+from . import core
+from .executor import (Executor, Scope, feed_dtypes, global_scope,
+                       to_numpy, to_tensor)
+from .lowering import build_step_fn
+
+__all__ = ["Predictor"]
+
+
+class Predictor:
+    """Eager predictor over a pruned inference Program.
+
+    ``dtype_policy="bfloat16"`` stores every floating parameter in
+    bfloat16, so the forward computes in bf16 (statistics and softmax stay
+    f32 inside the kernels); bf16 fetches come back widened to float32.
+    """
+
+    def __init__(self, program, feed_names, fetch_vars, scope=None,
+                 place=None, dtype_policy=None):
+        if dtype_policy not in (None, "bfloat16"):
+            raise ValueError("dtype_policy must be None or 'bfloat16', got %r"
+                             % (dtype_policy,))
+        self.program = program
+        self.feed_names = list(feed_names)
+        self.fetch_names = [
+            v.name if hasattr(v, "name") else v for v in fetch_vars
+        ]
+        self.place = place if place is not None else core.default_place()
+        self.device = self.place.torch_device()
+        scope = scope if scope is not None else global_scope()
+        state = {}
+        for v in program.list_vars():
+            if getattr(v, "persistable", False) and v.name in scope:
+                t = to_tensor(scope[v.name], self.device)
+                if dtype_policy == "bfloat16" and t.is_floating_point():
+                    t = t.to(torch.bfloat16)
+                state[v.name] = t
+        self._state = state
+        self._step = build_step_fn(
+            program, self.feed_names, self.fetch_names, self.device,
+            is_test=True)
+        # feed dtype coercion targets (mirrors Executor._prepare_feeds)
+        self._want_dtypes = feed_dtypes(program, self.feed_names)
+
+    @classmethod
+    def from_model(cls, dirname, model_filename=None, params_filename=None,
+                   **kw):
+        """Load a save_inference_model directory (written by either
+        package). Params land in a private scope per predictor unless
+        ``scope=`` is passed."""
+        from .io import load_inference_model
+
+        scope = kw.pop("scope", None)
+        if scope is None:
+            scope = Scope()
+        program, feed_names, fetch_vars = load_inference_model(
+            dirname, Executor(core.CPUPlace()), model_filename,
+            params_filename, scope=scope)
+        return cls(program, feed_names, fetch_vars, scope=scope, **kw)
+
+    def _prepare(self, feeds):
+        """Normalize one request: dict (or feed_names-aligned list) ->
+        {name: array}. Host feeds become numpy arrays
+        of the program's declared feed dtype (bfloat16 feeds stay float32
+        on the host); tensors pass through, cast to it."""
+        if not isinstance(feeds, dict):
+            feeds = dict(zip(self.feed_names, feeds))
+        prepared = {}
+        for n in self.feed_names:
+            v = feeds[n]
+            want = self._want_dtypes.get(n)
+            if isinstance(v, torch.Tensor):
+                if want is not None and v.dtype != want:
+                    v = v.to(want)
+            else:
+                v = np.asarray(v)
+                if want is not None and v.dtype != core.np_dtype(want):
+                    v = v.astype(core.np_dtype(want))
+            prepared[n] = v
+        return prepared
+
+    def warm(self, feeds):
+        """Run the forward once on `feeds` (builds the kernels at their
+        first launch) and wait for the device; returns ``"eager"``."""
+        self.run(feeds)
+        return "eager"
+
+    def run(self, feeds, return_numpy=True):
+        """feeds: dict name -> array (or list aligned with feed_names)."""
+        prepared = self._prepare(feeds)
+        tensors = {n: to_tensor(v, self.device, self._want_dtypes.get(n))
+                   for n, v in prepared.items()}
+        fetches, _ = self._step(self._state, tensors)
+        if return_numpy:
+            return [to_numpy(o) for o in fetches]
+        return list(fetches)
+
+    __call__ = run

@@ -1,0 +1,16 @@
+"""fluid.layers namespace (ref: python/paddle/fluid/layers/__init__.py):
+the layers this slice of the port covers."""
+from . import nn
+from .nn import *  # noqa: F401,F403
+from . import io
+from .io import *  # noqa: F401,F403
+from . import tensor
+from .tensor import *  # noqa: F401,F403
+from . import loss
+from .loss import *  # noqa: F401,F403
+
+__all__ = []
+__all__ += nn.__all__
+__all__ += io.__all__
+__all__ += tensor.__all__
+__all__ += loss.__all__

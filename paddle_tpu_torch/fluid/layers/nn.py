@@ -1,0 +1,351 @@
+"""Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
+
+Port of the paddle_tpu/fluid/layers/nn.py functions that BERT calls, with
+the same signatures, the same shape inference and the same ops and attrs,
+so both packages build the same Program. Each function appends symbolic
+ops; paddle_tpu_torch/ops lowers them to torch.
+"""
+from ..layer_helper import LayerHelper
+from ..framework import Variable
+from ..initializer import Constant
+
+__all__ = [
+    "fc", "embedding", "dropout", "softmax", "gelu", "layer_norm", "mean",
+    "matmul", "transpose", "reshape", "unsqueeze", "slice",
+    "elementwise_add", "fused_multihead_attention",
+]
+
+
+def _layer(op_type, inputs, attrs=None, out_dtype=None, out_shape=None,
+           helper=None, name_prefix=None):
+    """Append a single-output op and return its out Variable."""
+    helper = helper or LayerHelper(name_prefix or op_type)
+    first = None
+    for vs in inputs.values():
+        for v in (vs if isinstance(vs, (list, tuple)) else [vs]):
+            if isinstance(v, Variable):
+                first = v
+                break
+        if first:
+            break
+    dtype = out_dtype or (first.dtype if first is not None else "float32")
+    out = helper.create_variable_for_type_inference(dtype)
+    if out_shape is not None:
+        out.shape = tuple(out_shape)
+    elif first is not None:
+        out.shape = first.shape
+    helper.append_op(
+        type=op_type,
+        inputs={k: (v if isinstance(v, (list, tuple)) else [v])
+                for k, v in inputs.items()},
+        outputs={"Out": [out]},
+        attrs=attrs or {},
+    )
+    return out
+
+
+def _prod(vals):
+    r = 1
+    for v in vals:
+        r *= int(v)
+    return r
+
+
+def fc(
+    input,
+    size,
+    num_flatten_dims=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    """Fully-connected layer (ref nn.py:189)."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, param in helper.iter_inputs_and_params():
+        in_shape = input_var.shape
+        param_shape = [_prod(in_shape[num_flatten_dims:]), size]
+        w = helper.create_parameter(
+            attr=param, shape=param_shape, dtype=dtype, is_bias=False
+        )
+        tmp = helper.create_variable_for_type_inference(dtype)
+        tmp.shape = tuple(in_shape[:num_flatten_dims]) + (size,)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [input_var], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        pre_bias.shape = mul_results[0].shape
+        helper.append_op(
+            type="sum",
+            inputs={"X": mul_results},
+            outputs={"Out": [pre_bias]},
+            attrs={},
+        )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(
+    input,
+    size,
+    is_sparse=False,
+    is_distributed=False,
+    padding_idx=None,
+    param_attr=None,
+    dtype="float32",
+):
+    """Embedding lookup (ref nn.py:344)."""
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=size, dtype=dtype, is_bias=False
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    in_shape = input.shape or (-1,)
+    if len(in_shape) >= 2 and in_shape[-1] == 1:
+        out.shape = tuple(in_shape[:-1]) + (size[1],)
+    else:
+        out.shape = tuple(in_shape) + (size[1],)
+    padding_idx = (
+        -1
+        if padding_idx is None
+        else padding_idx
+        if padding_idx >= 0
+        else size[0] + padding_idx
+    )
+    helper.append_op(
+        type="lookup_table_v2",
+        inputs={"Ids": [input], "W": [w]},
+        outputs={"Out": [out]},
+        attrs={"padding_idx": padding_idx, "is_sparse": is_sparse,
+               "is_distributed": is_distributed},
+    )
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    return _layer("softmax", {"X": input}, {"axis": axis})
+
+
+def gelu(x, approximate=False):
+    return _layer("gelu", {"X": x}, {"approximate": approximate})
+
+
+def dropout(
+    x,
+    dropout_prob,
+    is_test=False,
+    seed=None,
+    name=None,
+    dropout_implementation="downgrade_in_infer",
+):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    mask = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed if seed is not None else 0,
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
+def layer_norm(
+    input,
+    scale=True,
+    shift=True,
+    begin_norm_axis=1,
+    epsilon=1e-05,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    """Layer normalization (ref nn.py:2898)."""
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = helper.input_dtype()
+    param_shape = [_prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            attr=helper.param_attr,
+            shape=param_shape,
+            dtype=dtype,
+            default_initializer=Constant(1.0),
+        )
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True
+        )
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype, True)
+    var_out = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    return _layer("mean", {"X": x}, out_shape=())
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None and y.shape is not None:
+        xs = list(x.shape)
+        ys = list(y.shape)
+        if transpose_x and len(xs) >= 2:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if transpose_y and len(ys) >= 2:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        if len(xs) >= 2 and len(ys) >= 2:
+            batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+            out.shape = tuple(batch + [xs[-2], ys[-1]])
+    helper.append_op(
+        type="matmul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={
+            "transpose_X": transpose_x,
+            "transpose_Y": transpose_y,
+            "alpha": float(alpha),
+        },
+    )
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    if x.shape is not None:
+        out.shape = tuple(x.shape[p] for p in perm)
+    helper.append_op(
+        type="transpose2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    if x.shape is not None and all(
+        s not in (None, -1) for s in x.shape
+    ):
+        total = _prod(x.shape)
+        s2 = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+        if -1 in s2:
+            known = _prod([s for s in s2 if s != -1])
+            s2[s2.index(-1)] = total // known
+        out.shape = tuple(s2)
+    else:
+        out.shape = tuple(s if s != 0 else (x.shape[i] if x.shape else -1)
+                          for i, s in enumerate(shape))
+    helper.append_op(
+        type="reshape2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"shape": list(shape)},
+    )
+    return helper.append_activation(out)
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    if input.shape is not None:
+        s = list(input.shape)
+        for a in sorted(axes):
+            s.insert(a if a >= 0 else a + len(s) + 1, 1)
+        out.shape = tuple(s)
+    helper.append_op(
+        type="unsqueeze2",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axes": list(axes)},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        s = list(input.shape)
+        for ax, st, en in zip(axes, starts, ends):
+            if s[ax] in (None, -1):
+                continue
+            dim = s[ax]
+            st2 = max(st + dim, 0) if st < 0 else min(st, dim)
+            en2 = max(en + dim, 0) if en < 0 else min(en, dim)
+            s[ax] = max(en2 - st2, 0)
+        out.shape = tuple(s)
+    helper.append_op(
+        type="slice",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", x=x, y=y, axis=axis, act=act,
+                         name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = x.shape
+    helper.append_op(
+        type="elementwise_add",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return helper.append_activation(out)
+
+
+def fused_multihead_attention(query, key, value, key_padding_mask=None,
+                              causal=False, dropout_rate=0.0, name=None):
+    """Fused scaled-dot-product multi-head attention; lowers to the
+    hand-written flash-attention kernel (ops/cuda_attention.py) on the
+    card.
+
+    query/key/value: (B, H, T, D) Variables. key_padding_mask: optional
+    additive (B, T_k) float mask (-1e30 at padded keys).
+    """
+    inputs = {"Q": query, "K": key, "V": value}
+    if key_padding_mask is not None:
+        inputs["KeyPaddingMask"] = key_padding_mask
+    return _layer(
+        "fused_multihead_attention",
+        inputs,
+        {"causal": causal, "dropout_prob": dropout_rate},
+    )

@@ -1,0 +1,65 @@
+"""Tensor manipulation op lowerings: reshape2, transpose2, unsqueeze2,
+slice, fill_constant. Port of the paddle_tpu/ops/tensor_ops.py lowerings
+this slice runs; reshape/transpose/slice return views where torch can.
+"""
+import torch
+
+from ..fluid import core
+from .registry import register_op, single
+
+
+def _xshape(x):
+    # the XShape side output carries only the input's shape (0 elements)
+    return torch.zeros((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+
+@register_op("reshape2")
+def _reshape(ctx, ins, attrs):
+    x = ins["X"][0]
+    if ins.get("ShapeTensor"):
+        shape = [int(s) for s in ins["ShapeTensor"]]
+    else:
+        shape = list(attrs["shape"])
+    # paddle: 0 means copy dim from input, -1 is inferred
+    shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+    return {"Out": [x.reshape(shape)], "XShape": [_xshape(x)]}
+
+
+@register_op("transpose2")
+def _transpose(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
+
+
+@register_op("unsqueeze2")
+def _unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    out = x
+    for a in sorted(attrs["axes"]):
+        out = out.unsqueeze(a)
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(st, en)
+    return single(x[tuple(idx)])
+
+
+@register_op("fill_constant")
+def _fill_constant(ctx, ins, attrs):
+    shape = attrs.get("shape", [])
+    if ins.get("ShapeTensor"):
+        shape = [int(v) for v in ins["ShapeTensor"]]
+    value = attrs.get("value", 0.0)
+    if ins.get("ValueTensor"):
+        value = ins["ValueTensor"][0].item()
+    return single(torch.full(
+        tuple(int(s) for s in shape), value,
+        dtype=core.torch_dtype(attrs["dtype"]), device=ctx.device))

@@ -1,0 +1,104 @@
+"""Shape buckets + micro-batch assembly for the serving engine (a copy of
+paddle_tpu/serving/batcher.py; the jax-typed ``feed_specs`` and
+``max_batch_size``, used only by HBM admission, wait for that slice).
+
+Requests are coalesced along the leading (batch) dimension only: two
+requests join the same micro-batch iff every feed agrees on its *tail*
+shape (dims after axis 0) and dtype. The coalesced rows are padded up
+to a pre-declared bucket batch size by edge-replicating the last real
+row — padding the batch dim is the one padding that keeps per-row
+results bit-identical to an unpadded run (row-independent inference
+graphs: each output row depends only on its own input row), whereas
+padding feature/sequence dims would change real rows' math.
+
+A :class:`BucketSpec` declares the tail shapes, dtypes, and the ladder
+of batch sizes the engine pre-compiles at load time; requests whose
+tail signature matches no declared bucket still batch, rounded up to
+the next power of two (bounded executable count without declarations).
+"""
+import numpy as np
+
+__all__ = [
+    "BucketSpec", "assemble", "round_up_pow2", "tail_signature",
+]
+
+
+def round_up_pow2(n):
+    """Smallest power of two >= n (n >= 1)."""
+    n = int(n)
+    if n < 1:
+        raise ValueError("round_up_pow2 needs n >= 1, got %d" % n)
+    return 1 << (n - 1).bit_length()
+
+
+def tail_signature(prepared):
+    """The coalescing key of a prepared feed dict: per-feed tail shape
+    (dims after the batch axis) + dtype, name-sorted."""
+    return tuple(
+        (n, tuple(int(d) for d in prepared[n].shape[1:]),
+         str(prepared[n].dtype))
+        for n in sorted(prepared)
+    )
+
+
+class BucketSpec:
+    """One pre-declared shape bucket: the tail shape + dtype of every
+    feed, and the batch sizes to pre-compile for it.
+
+    ::
+
+        BucketSpec({"x": (6,)}, batch_sizes=(1, 2, 4, 8))
+        BucketSpec({"ids": (128,)}, dtypes={"ids": "int32"},
+                   batch_sizes=(1, 4, 16))
+    """
+
+    def __init__(self, shapes, dtypes=None, batch_sizes=(1, 2, 4, 8)):
+        if not shapes:
+            raise ValueError("BucketSpec needs at least one feed shape")
+        self.shapes = {
+            str(n): tuple(int(d) for d in s) for n, s in shapes.items()
+        }
+        dtypes = dtypes or {}
+        self.dtypes = {
+            n: str(np.dtype(dtypes.get(n, "float32"))) for n in self.shapes
+        }
+        self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
+        if not self.batch_sizes or self.batch_sizes[0] < 1:
+            raise ValueError(
+                "batch_sizes must be positive ints, got %r" % (batch_sizes,))
+
+    def signature(self):
+        """Tail signature this bucket serves (matches
+        :func:`tail_signature` of conforming requests)."""
+        return tuple(
+            (n, self.shapes[n], self.dtypes[n]) for n in sorted(self.shapes)
+        )
+
+    def feeds_for(self, batch_size):
+        """Zero-filled dummy feeds of one padded batch shape (warmup
+        compiles against these)."""
+        return {
+            n: np.zeros((int(batch_size),) + self.shapes[n],
+                        dtype=self.dtypes[n])
+            for n in self.shapes
+        }
+
+    def __repr__(self):
+        return "BucketSpec(shapes=%r, dtypes=%r, batch_sizes=%r)" % (
+            self.shapes, self.dtypes, self.batch_sizes)
+
+
+def assemble(feed_names, requests, target_rows):
+    """Concatenate the requests' feeds along axis 0 and pad up to
+    ``target_rows`` by edge-replicating the last real row. Returns the
+    padded feed dict for one executable dispatch."""
+    out = {}
+    for name in feed_names:
+        parts = [np.asarray(r.feeds[name]) for r in requests]
+        cat = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+        short = int(target_rows) - cat.shape[0]
+        if short > 0:
+            cat = np.pad(
+                cat, [(0, short)] + [(0, 0)] * (cat.ndim - 1), mode="edge")
+        out[name] = cat
+    return out

@@ -1,0 +1,349 @@
+"""ServingEngine: dynamic micro-batching over a Predictor.
+
+Port of paddle_tpu/serving/engine.py. One bounded request queue + one
+dispatch thread per model. Concurrent ``submit()`` calls enqueue
+requests; the dispatch thread coalesces them into micro-batches
+(flushing on ``max_batch_size`` rows or ``max_wait_ms``, whichever comes
+first), pads each same-tail-shape group up to a declared
+:class:`~paddle_tpu_torch.serving.batcher.BucketSpec` batch size, runs the
+predictor once per group, and slices per-request rows back into each
+caller's future. ``warmup()`` runs every declared (bucket, batch size)
+once through ``Predictor.warm``.
+
+Admission control:
+
+- **load shedding** — a full queue fast-rejects at ``submit()`` with
+  :class:`ShedError` instead of building unbounded latency;
+- **deadlines** — a request whose ``deadline_ms`` expires while queued
+  is dropped at dispatch with :class:`DeadlineExceededError` rather than
+  burning device time on an answer nobody is waiting for;
+- **graceful drain** — ``stop(drain=True)`` rejects new work, finishes
+  everything queued, then parks the dispatch thread.
+
+The JAX engine's telemetry, lock-sanitizer hooks and HBM admission
+(``check_hbm_budget``) wait for the observability and analysis slices.
+"""
+import collections
+import queue
+import threading
+import time
+from concurrent.futures import Future
+
+from .batcher import assemble, round_up_pow2, tail_signature
+
+__all__ = [
+    "DeadlineExceededError", "EngineClosedError", "ServingEngine",
+    "ShedError",
+]
+
+
+class ShedError(RuntimeError):
+    """Fast-reject: the bounded request queue is full (load shedding).
+    ``retry_after`` is the engine's drain-rate-derived backoff hint in
+    seconds."""
+
+    def __init__(self, message="", model=None, replica=None,
+                 retry_after=None):
+        super().__init__(message)
+        self.model = model
+        self.replica = replica
+        self.retry_after = retry_after
+
+
+class DeadlineExceededError(RuntimeError):
+    """The request's deadline expired while it waited in the queue."""
+
+
+class EngineClosedError(RuntimeError):
+    """The engine is stopped or draining; no new work is admitted."""
+
+
+class _Request:
+    __slots__ = ("feeds", "rows", "sig", "deadline", "future", "t_enqueue")
+
+
+class ServingEngine:
+    """Micro-batching dispatch loop around one Predictor."""
+
+    def __init__(self, predictor, buckets=(), max_batch_size=8,
+                 max_wait_ms=2.0, queue_capacity=64,
+                 default_deadline_ms=None, request_timeout_s=60.0,
+                 name="default", replica_id=None, auto_start=True):
+        self._predictor = predictor
+        self.name = str(name)
+        self.replica_id = replica_id
+        self._max_batch_size = int(max_batch_size)
+        self._max_wait_s = float(max_wait_ms) / 1000.0
+        self._default_deadline_ms = default_deadline_ms
+        self.request_timeout_s = float(request_timeout_s)
+        self._q = queue.Queue(maxsize=int(queue_capacity))
+        self._bucket_specs = tuple(buckets)
+        self._buckets = {
+            spec.signature(): spec.batch_sizes for spec in self._bucket_specs
+        }
+        self._stop_event = threading.Event()
+        self._closed = False
+        # admission (closed check + put) and the stop-side closed flip are
+        # atomic under this lock, so every request either reaches the
+        # queue before a drain starts or gets EngineClosedError
+        self._admit_lock = threading.Lock()
+        self._thread = None
+        self._stats_lock = threading.Lock()
+        self._stats = collections.Counter()
+        # (t_done, n_requests) per dispatched group — the drain-rate
+        # window behind retry_after_hint()
+        self._rate = collections.deque(maxlen=64)
+        if auto_start:
+            self.start()
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self):
+        """Start the dispatch thread (idempotent)."""
+        if self._closed:
+            raise EngineClosedError("engine %r is closed" % self.name)
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name="serving-dispatch-%s" % self.name)
+            self._thread.start()
+        return self
+
+    def stop(self, drain=True, timeout=30.0):
+        """Stop admitting work; with ``drain=True`` finish everything
+        already queued first, else fail queued requests with
+        :class:`EngineClosedError`. Idempotent."""
+        with self._admit_lock:
+            self._closed = True
+        alive = self._thread is not None and self._thread.is_alive()
+        if drain and alive:
+            t_end = time.monotonic() + float(timeout)
+            while not self._q.empty() and time.monotonic() < t_end:
+                time.sleep(0.005)
+        self._stop_event.set()
+        if alive:
+            self._thread.join(timeout=max(0.1, float(timeout)))
+        # anything still queued fails loudly rather than hanging
+        while True:
+            try:
+                r = self._q.get_nowait()
+            except queue.Empty:
+                break
+            r.future.set_exception(EngineClosedError(
+                "engine %r stopped before dispatch" % self.name))
+
+    # -- admission -------------------------------------------------------
+    def submit(self, feeds, deadline_ms=None):
+        """Enqueue one request; returns a ``concurrent.futures.Future``
+        resolving to the per-request fetch list (rows sliced back out of
+        the coalesced batch). Raises :class:`ShedError` immediately when
+        the queue is full and :class:`EngineClosedError` after
+        ``stop()``."""
+        if self._closed:  # cheap early reject; re-checked under the lock
+            raise EngineClosedError(
+                "engine %r is draining/stopped" % self.name)
+        prepared = self._predictor._prepare(feeds)
+        if not prepared:
+            raise ValueError("empty request: no feeds")
+        rows = int(next(iter(prepared.values())).shape[0])
+        for n, v in prepared.items():
+            if int(v.shape[0]) != rows:
+                raise ValueError(
+                    "feed %r has %d rows but %r has %d — all feeds must "
+                    "share the leading batch dim"
+                    % (n, v.shape[0], self._predictor.feed_names[0], rows))
+        if rows < 1:
+            raise ValueError("empty request: 0 rows")
+        req = _Request()
+        req.feeds = prepared
+        req.rows = rows
+        req.sig = tail_signature(prepared)
+        if deadline_ms is None:
+            deadline_ms = self._default_deadline_ms
+        req.deadline = (
+            time.monotonic() + float(deadline_ms) / 1000.0
+            if deadline_ms is not None else None)
+        req.future = Future()
+        req.t_enqueue = time.monotonic()
+        try:
+            with self._admit_lock:
+                if self._closed:
+                    raise EngineClosedError(
+                        "engine %r is draining/stopped" % self.name)
+                self._q.put_nowait(req)
+        except queue.Full:
+            self._bump("shed")
+            raise ShedError(
+                "serving queue full (%d) for model %r%s — request shed"
+                % (self._q.maxsize, self.name,
+                   "" if self.replica_id is None
+                   else " (replica %s)" % self.replica_id),
+                model=self.name, replica=self.replica_id,
+                retry_after=self.retry_after_hint())
+        self._bump("requests")
+        return req.future
+
+    def predict(self, feeds, deadline_ms=None, timeout=None):
+        """Synchronous submit + wait: returns the fetch list for this
+        request's rows."""
+        fut = self.submit(feeds, deadline_ms=deadline_ms)
+        return fut.result(
+            timeout if timeout is not None else self.request_timeout_s)
+
+    # -- warmup ----------------------------------------------------------
+    def warmup(self):
+        """Run every declared (bucket, batch size) once through
+        ``Predictor.warm``. Returns the per-entry report."""
+        report = []
+        for spec in self._bucket_specs:
+            for b in spec.batch_sizes:
+                source = self._predictor.warm(spec.feeds_for(b))
+                report.append({
+                    "signature": spec.signature(), "batch_size": b,
+                    "source": source,
+                })
+        return report
+
+    # -- dispatch --------------------------------------------------------
+    def _loop(self):
+        carry = None  # request popped but not fitting the last batch
+        while True:
+            if carry is not None:
+                first, carry = carry, None
+            else:
+                try:
+                    first = self._q.get(timeout=0.05)
+                except queue.Empty:
+                    if self._stop_event.is_set():
+                        return
+                    continue
+            batch = [first]
+            rows = first.rows
+            t_flush = time.monotonic() + self._max_wait_s
+            while rows < self._max_batch_size:
+                remaining = t_flush - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    r = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if rows + r.rows > self._max_batch_size:
+                    # would overshoot the bucket ladder: starts the NEXT
+                    # micro-batch instead of forcing an ad-hoc shape
+                    carry = r
+                    break
+                batch.append(r)
+                rows += r.rows
+            self._execute(batch)
+
+    def _execute(self, batch):
+        now = time.monotonic()
+        live = []
+        for r in batch:
+            if r.deadline is not None and now > r.deadline:
+                self._bump("deadline_miss")
+                r.future.set_exception(DeadlineExceededError(
+                    "deadline expired after %s ms in queue (model %r)"
+                    % (round(1000 * (now - r.t_enqueue), 3), self.name)))
+            else:
+                live.append(r)
+        groups = collections.OrderedDict()
+        for r in live:
+            groups.setdefault(r.sig, []).append(r)
+        for sig, reqs in groups.items():
+            self._run_group(sig, reqs)
+
+    def _bucket_rows(self, sig, rows):
+        """The padded batch size for `rows` rows of tail-shape `sig`:
+        the smallest declared bucket that fits, exact when the request
+        outgrows every bucket, next-pow2 (capped at max_batch_size) for
+        undeclared shapes."""
+        declared = self._buckets.get(sig)
+        if declared:
+            for b in declared:
+                if b >= rows:
+                    return b
+            return rows
+        if rows >= self._max_batch_size:
+            return rows
+        return min(round_up_pow2(rows), self._max_batch_size)
+
+    def _run_group(self, sig, reqs):
+        rows = sum(r.rows for r in reqs)
+        target = self._bucket_rows(sig, rows)
+        try:
+            feeds = assemble(self._predictor.feed_names, reqs, target)
+            outs = self._predictor.run(feeds, return_numpy=True)
+            for o in outs:
+                if getattr(o, "ndim", 0) < 1 or o.shape[0] != target:
+                    raise ValueError(
+                        "fetch output shape %s is not row-aligned with "
+                        "the %d-row batch — ServingEngine needs per-row "
+                        "outputs to slice results back to requests"
+                        % (getattr(o, "shape", None), target))
+        except Exception as e:  # noqa: BLE001 — fail the requests, not the loop
+            self._bump("batch_errors")
+            for r in reqs:
+                r.future.set_exception(e)
+            with self._stats_lock:  # errors still drain the queue
+                self._rate.append((time.monotonic(), len(reqs)))
+            return
+        self._bump("batches")
+        if len(reqs) > 1:
+            self._bump("coalesced")
+        self._bump("rows", rows)
+        with self._stats_lock:
+            self._rate.append((time.monotonic(), len(reqs)))
+        off = 0
+        for r in reqs:
+            # copy the slices: a view would pin the whole padded batch in
+            # memory for as long as the caller holds its result
+            r.future.set_result(
+                [o[off:off + r.rows].copy() for o in outs])
+            off += r.rows
+
+    # -- introspection ---------------------------------------------------
+    def _bump(self, key, n=1):
+        with self._stats_lock:
+            self._stats[key] += n
+
+    def stats(self):
+        """Lifetime counters: requests/shed/deadline_miss/batches/
+        coalesced/rows/batch_errors."""
+        with self._stats_lock:
+            out = dict(self._stats)
+        for k in ("requests", "shed", "deadline_miss", "batches",
+                  "coalesced", "rows", "batch_errors"):
+            out.setdefault(k, 0)
+        return out
+
+    def queue_depth(self):
+        return self._q.qsize()
+
+    def drain_rate(self):
+        """Requests/sec the dispatch loop completed over its recent
+        window (None until the first batch lands, or after 30s idle)."""
+        now = time.monotonic()
+        with self._stats_lock:
+            pts = [(t, n) for t, n in self._rate if now - t < 30.0]
+        if not pts:
+            return None
+        span = max(1e-3, now - min(t for t, _ in pts))
+        return sum(n for _, n in pts) / span
+
+    def retry_after_hint(self):
+        """Seconds until the current queue likely drains at the observed
+        rate — what a shed client should wait before retrying. Clamped to
+        [1, 60]."""
+        rate = self.drain_rate()
+        if not rate:
+            return 1.0
+        return min(60.0, max(1.0, (self.queue_depth() + 1) / rate))
+
+    @property
+    def predictor(self):
+        return self._predictor
+
+    @property
+    def closed(self):
+        return self._closed
