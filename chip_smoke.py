@@ -8,15 +8,30 @@ Phases, each of which exits non-zero on failure:
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/csrc``
    (one nvcc per source, all at once);
 3. each kernel against its plain torch version on the card, f32 and bf16,
-   at the serving path's shapes, within the stated bounds;
+   within the stated bounds: the forward kernels at the serving path's
+   shapes; the backward kernels (flash-attention dQ and dK/dV, LayerNorm)
+   at the training path's, attention (8, 12, 128, 64) plain, causal, with
+   a key-padding mask (and its gradient), T = 131 and dropout p = 0.1, and
+   LayerNorm (1024, 768);
 4. the serving slice at full width: BERT-base (seq 128, random weights
    from a seed) saved, reloaded through ``Predictor.from_model`` and served
    by ``ServingEngine`` to 16 requests from 4 threads, in f32 and in the
    bfloat16 policy; the launch counters must show every dispatch went
-   through both kernels (12 attention and 25 LayerNorm launches per
-   forward), rows must match solo runs, and logits must match the same
+   through both forward kernels (12 attention and 25 LayerNorm launches
+   per forward), rows must match solo runs, and logits must match the same
    port run on the CPU;
-5. times: each kernel, its plain version and the PyTorch library call
+5. the training slice: BERT-base width at depth 2 (batch 2, dropout 0)
+   trained 3 Adam steps on the card and on the CPU from the same
+   parameters (losses and step-1 gradients must agree); then full
+   BERT-base (12 layers, dropout 0.1, batch 8, seq 128, Adam 1e-4) trained
+   23 steps through ``Executor.run`` on one fixed batch: finite, falling
+   loss, and 12 attention forward, 12 dQ, 12 dK/dV, 25 LayerNorm forward
+   and 25 LayerNorm backward launches per step; step time, tokens/s,
+   peak memory and a profile of one step;
+   The profiles of one serving forward and one training step come after
+   every timed phase: a torch.profiler session leaves the host slower for
+   the rest of the process;
+6. times: each kernel, its plain version and the PyTorch library call
    (timed here only, never used by the port) with CUDA events, the least
    time the card could take, and serving requests/s and latency.
 
@@ -41,7 +56,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense
 ATOL_FA_F32 = 2e-5
 ATOL_LN_F32 = 1e-5
+# f32 backward kernels vs their plain versions: sums in other orders only
+RTOL_FA_BWD_F32 = 1e-4          # max|d| <= 1e-4 * max|grad|
+ATOL_LN_BWD_F32 = 1e-3
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
+TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 
 
 def fail(msg):
@@ -158,6 +177,86 @@ def check_kernels(ca, cl):
     return errs
 
 
+def check_bwd_kernels(ca, cl):
+    """The three backward kernels against their plain versions on the same
+    card tensors (forward outputs from the forward kernels); returns the
+    f32 max|d| of the plain attention and LayerNorm cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def judge(name, label, dt, got, ref):
+        err = max_abs(got, ref)
+        if dt == torch.float32:
+            if name == "layer_norm_bwd":
+                bound = ATOL_LN_BWD_F32
+            else:
+                bound = RTOL_FA_BWD_F32 * ref.float().abs().max().item()
+            ok = err <= bound
+            text = "max|d| <= %.3e" % bound
+        else:
+            ok = within_bf16(got, ref)
+            text = "|d| <= %g + %g|ref|" % (BF16_ATOL, BF16_RTOL)
+        print("%-19s %-22s %-8s max|d| %.3e bound %s %s" % (
+            name, label, str(dt)[6:], err, text, "ok" if ok else "EXCEEDED"),
+            flush=True)
+        if not ok:
+            fail("%s %s %s outside its bound" % (name, label, dt))
+        return err
+
+    errs = {}
+    fa_cases = [
+        ("plain", 128, dict()),
+        ("causal", 128, dict(causal=True)),
+        ("kpm", 128, dict(kpm=True)),
+        ("T=131", 131, dict(kpm=True, causal=True)),
+        ("dropout p=0.1 seed=7", 128, dict(dropout_p=0.1, seed=7)),
+    ]
+    for label, t, kw in fa_cases:
+        q, k, v, do = (rnd(8, 12, t, 64) for _ in range(4))
+        kpm = None
+        if kw.pop("kpm", False):
+            kpm = torch.where(torch.rand(8, t, generator=gen, device="cuda")
+                              < 0.2, -1e30, 0.0)
+        seed = kw.pop("seed", None)
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd, dod = q.to(dt), k.to(dt), v.to(dt), do.to(dt)
+            out, lse = ca.flash_attention(qd, kd, vd, kpm, seed, **kw)
+            delta = (dod.float() * out.float()).sum(-1)
+            args = (qd, kd, vd, kpm, seed, dod, lse, delta)
+            dq = ca.flash_attention_dq(*args, **kw)
+            dk, dv, dkpm = ca.flash_attention_dkdv(*args, **kw)
+            rdq, rdk, rdv, rdkpm = ca.flash_attention_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            e = judge("flash_attn_bwd_dq", label, dt, dq, rdq)
+            e = max(judge("flash_attn_bwd_dkdv", label + " dK", dt, dk, rdk),
+                    judge("flash_attn_bwd_dkdv", label + " dV", dt, dv, rdv))
+            if kpm is not None:
+                judge("flash_attn_bwd_dkdv", label + " dkpm", dt, dkpm, rdkpm)
+            elif dkpm is not None:
+                fail("flash_attn_bwd_dkdv gave a mask gradient without a mask")
+            if label == "plain" and dt == torch.float32:
+                errs["flash_attn_bwd_dq"] = max_abs(dq, rdq)
+                errs["flash_attn_bwd_dkdv"] = e
+    for n in (1024, 1000):
+        x = rnd(n, 768) * 2 + 0.5
+        g, b, dy = rnd(768), rnd(768), rnd(n, 768)
+        for dt in (torch.float32, torch.bfloat16):
+            xd, gd, dyd = x.to(dt), g.to(dt), dy.to(dt)
+            _, mean, rstd = cl.layer_norm_fwd(xd, gd, b.to(dt), 1e-5)
+            got = cl.layer_norm_bwd(xd, gd, mean, rstd, dyd)
+            ref = cl.layer_norm_bwd_plain(xd, gd, mean, rstd, dyd)
+            torch.cuda.synchronize()
+            e = max(judge("layer_norm_bwd", "(%d, 768) %s" % (n, part), dt,
+                          a, r)
+                    for part, a, r in zip(("dx", "dgamma", "dbeta"), got, ref))
+            if n == 1024 and dt == torch.float32:
+                errs["layer_norm_bwd"] = e
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
@@ -242,7 +341,161 @@ def serving_phase(fluid, serving, ca, cl, dirname, policy, requests):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+def train_program(fluid, bert, cfg):
+    """BERT pretraining + Adam(1e-4) minimize, as examples/train_bert.py
+    builds it; returns (main, startup, loss var)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        io = bert.build_bert_pretrain(cfg, SEQ)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(io["loss"])
+    startup.random_seed = SEED
+    return main, startup, io["loss"]
+
+
+def train_vs_cpu(fluid, bert):
+    """BERT-base width at depth 2, batch 2, dropout 0: 3 Adam steps on the
+    card and on the CPU from the same parameters."""
+    cfg = bert.BertConfig(num_layers=2, dropout=0.0)
+    main, startup, loss = train_program(fluid, bert, cfg)
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for n, t in scope.items():
+        cpu_scope.set(n, t.cpu().clone())
+    ids, labels = bert.synthetic_batch(cfg, 2, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters())
+    worst_loss, worst_grad = 0.0, ("", 0.0)
+    for step in range(3):
+        fetch = [loss] + (grads if step == 0 else [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        print("train[depth 2] step %d: loss card %.6f cpu %.6f (rel %.2e)"
+              % (step, float(got[0]), float(want[0]), rel), flush=True)
+        worst_loss = max(worst_loss, rel)
+        for name, a, w in zip(grads if step == 0 else [], got[1:], want[1:]):
+            r = float(np.abs(a - w).max()) / max(float(np.abs(w).max()),
+                                                   1e-30)
+            if not np.isfinite(a).all() or r > 1e-3:
+                fail("train[depth 2]: %s on the card differs from the CPU "
+                     "by %.3e of max|grad| (bound 1e-3)" % (name, r))
+            worst_grad = max(worst_grad, (name, r), key=lambda x: x[1])
+    print("train[depth 2] vs the port on the CPU: losses within rel %.2e "
+          "(bound 1e-3); step-1 gradients of %d parameters within %.2e of "
+          "max|grad| (worst %s; bound 1e-3)" % (
+              worst_loss, len(grads), worst_grad[1], worst_grad[0]),
+          flush=True)
+    if worst_loss > 1e-3:
+        fail("train[depth 2]: card losses differ from the CPU run")
+
+
+PER_STEP = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
+            "flash_attn_bwd_dkdv": 12, "layer_norm_fwd": 25,
+            "layer_norm_bwd": 25}
+
+
+def counters(ca, cl):
+    return {"flash_attn_fwd": ca.flash_attention,
+            "flash_attn_bwd_dq": ca.flash_attention_dq,
+            "flash_attn_bwd_dkdv": ca.flash_attention_dkdv,
+            "layer_norm_fwd": cl.layer_norm_fwd,
+            "layer_norm_bwd": cl.layer_norm_bwd}
+
+
+def train_phase(fluid, bert, ca, cl):
+    """Full BERT-base, batch 8, seq 128, dropout 0.1, Adam 1e-4:
+    TRAIN_WARMUP + TRAIN_STEPS counted steps through Executor.run; returns
+    the launch counts of that run and a function that runs one more
+    step."""
+    cfg = bert.bert_base()
+    main, startup, loss = train_program(fluid, bert, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters(ca, cl)
+    for fn in fns.values():
+        fn.launches = 0
+    losses, walls = [], []
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for _ in range(steps):
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.monotonic() - t0)  # the fetch waits for the card
+        losses.append(float(out))
+    launches = {n: fn.launches for n, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print("train[bert_base]: %d steps, losses %s" % (
+        steps, " ".join("%.4f" % x for x in losses)), flush=True)
+    print("train[bert_base]: launches %s (want %s per step x %d)" % (
+        launches, PER_STEP, steps), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("train[bert_base]: loss not finite or not falling")
+    if any(launches[n] != PER_STEP[n] * steps for n in PER_STEP):
+        fail("train[bert_base]: launches %s, want %s per step" % (
+            launches, PER_STEP))
+    timed = sorted(1e3 * w for w in walls[TRAIN_WARMUP:])
+    med = statistics.median(timed)
+    p90 = timed[min(len(timed) - 1, int(0.9 * len(timed)))]
+    print("train[bert_base] step time over %d steps: median %.3f ms, p90 "
+          "%.3f ms, %.1f tokens/s; peak device memory %.3f GiB" % (
+              len(timed), med, p90, 8 * SEQ / med * 1e3, peak / 2 ** 30),
+          flush=True)
+    return launches, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)
+
+
+def profile_train_step(step):
+    """Device busy vs host wall of one training step, the device time by
+    kernel, and the host time of the lowering's three ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    # device-side events only (kernels and copies), without the lowering's
+    # profiler ranges, which the profiler also reports on the device
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("paddle_tpu_torch::")]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    print("profile[train step]: device busy %.3f ms of %.3f ms host wall "
+          "while profiled (idle share %.1f%%)" % (
+              busy, prof_wall, 100 * max(0.0, 1 - busy / prof_wall)),
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print("  %8.3f ms/step %5.1f%% x%-5d %s" % (
+            e.self_device_time_total / 1e3,
+            100 * e.self_device_time_total / 1e3 / busy, e.count,
+            e.key[:90]))
+    # host side: the lowering's three profiler ranges, and kernel launches
+    host = {e.key: e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and (e.key.startswith("paddle_tpu_torch::")
+                 or e.key == "cudaLaunchKernel")}
+    print("profile[train step] host: %s; cudaLaunchKernel x%d" % (
+        ", ".join("%s %.3f ms" % (k.split("::")[1], host[k].cpu_time_total
+                                  / 1e3)
+                  for k in ("paddle_tpu_torch::forward",
+                            "paddle_tpu_torch::backward",
+                            "paddle_tpu_torch::optimizer") if k in host),
+        host["cudaLaunchKernel"].count if "cudaLaunchKernel" in host else 0),
+        flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times
 # ---------------------------------------------------------------------------
 def attention_bound_ms(b, h, t, d, dtype):
     nbytes = 4 * b * h * t * d * torch.finfo(dtype).bits // 8 + b * h * t * 4
@@ -296,6 +549,97 @@ def kernel_times(ca, cl):
               "ms  bound %.4f ms (%s)" % (name, str(dt)[6:], r["ms"],
                                           r["plain_ms"], r["library_ms"],
                                           r["bound_ms"], r["bound_by"]),
+              flush=True)
+    return res
+
+
+def attention_bwd_bound_ms(b, h, t, d, dtype, products, writes):
+    """dQ reads q, k, v, dO, lse, delta and writes dQ (3 T×T×D products);
+    dK/dV reads the same and writes dK, dV (4 products)."""
+    el = torch.finfo(dtype).bits // 8
+    nbytes = (4 + writes) * b * h * t * d * el + 2 * b * h * t * 4
+    flops = 2 * products * b * h * t * t * d
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def layer_norm_bwd_bound_ms(n, h, dtype):
+    """Reads x, dy, gamma, mean, rstd; writes dx, dgamma, dbeta."""
+    el = torch.finfo(dtype).bits // 8
+    nbytes = 3 * n * h * el + 3 * h * el + 2 * n * 4
+    flops = 12 * n * h
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def bwd_kernel_times(ca, cl):
+    """Times at the training path's shapes: attention (8, 12, 128, 64),
+    LayerNorm (8·128, 768). Each kernel's plain version computes that
+    kernel's outputs only. The library yardsticks are the backward of
+    scaled_dot_product_attention, which gives dQ, dK and dV in one call
+    (``library_scope`` says so: compare it with the two kernels' sum), and
+    of F.layer_norm, through autograd. Returns the times by (kernel,
+    dtype) and the two whole attention backwards' (plain, SDPA) by
+    dtype."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    res, whole = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(8, 12, SEQ, 64, generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        out, lse = ca.flash_attention(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, None, None, do, lse, delta)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves)
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(
+            sdpa, leaves, do, retain_graph=True))
+        whole[dt] = (device_ms(lambda: ca.flash_attention_bwd_plain(*args)),
+                     sdpa_bwd)
+        for name, fn, plain, products, writes in (
+                ("flash_attn_bwd_dq", ca.flash_attention_dq,
+                 ca.flash_attention_dq_plain, 3, 1),
+                ("flash_attn_bwd_dkdv", ca.flash_attention_dkdv,
+                 ca.flash_attention_dkdv_plain, 4, 2)):
+            bound, by = attention_bwd_bound_ms(8, 12, SEQ, 64, dt, products,
+                                               writes)
+            res[(name, dt)] = dict(ms=device_ms(lambda: fn(*args)),
+                                   plain_ms=device_ms(lambda: plain(*args)),
+                                   library_ms=sdpa_bwd,
+                                   library_scope="dq+dk+dv",
+                                   bound_ms=bound, bound_by=by)
+        x, dy = (torch.randn(8 * SEQ, 768, generator=gen, device="cuda")
+                 .to(dt) for _ in range(2))
+        g = torch.randn(768, generator=gen, device="cuda").to(dt)
+        b = torch.randn(768, generator=gen, device="cuda").to(dt)
+        _, mean, rstd = cl.layer_norm_fwd(x, g, b, 1e-5)
+        lx, lg, lb = (t.clone().requires_grad_() for t in (x, g, b))
+        ly = F.layer_norm(lx, (768,), lg, lb, 1e-5)
+        bound, by = layer_norm_bwd_bound_ms(8 * SEQ, 768, dt)
+        res[("layer_norm_bwd", dt)] = dict(
+            ms=device_ms(lambda: cl.layer_norm_bwd(x, g, mean, rstd, dy)),
+            plain_ms=device_ms(
+                lambda: cl.layer_norm_bwd_plain(x, g, mean, rstd, dy)),
+            library_ms=device_ms(lambda: torch.autograd.grad(
+                ly, (lx, lg, lb), dy, retain_graph=True)),
+            bound_ms=bound, bound_by=by)
+    for (name, dt), r in res.items():
+        print("time %-19s %-8s kernel %.4f ms  plain %.4f ms  library %.4f "
+              "ms  bound %.4f ms (%s)" % (name, str(dt)[6:], r["ms"],
+                                          r["plain_ms"], r["library_ms"],
+                                          r["bound_ms"], r["bound_by"]),
+              flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        print("time flash_attn_bwd (dQ + dK/dV) %-8s kernels %.4f ms  "
+              "plain (P and dS once) %.4f ms  SDPA backward %.4f ms" % (
+                  str(dt)[6:], res[("flash_attn_bwd_dq", dt)]["ms"]
+                  + res[("flash_attn_bwd_dkdv", dt)]["ms"], *whole[dt]),
               flush=True)
     return res
 
@@ -369,6 +713,7 @@ def main():
         print("  %s: %s" % (name, "; ".join(regs)))
 
     errs = check_kernels(ca, cl)
+    errs.update(check_bwd_kernels(ca, cl))
 
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 30522, size=(1, SEQ), dtype=np.int64)
@@ -410,7 +755,6 @@ def main():
               "p50 %.3f ms, p99 %.3f ms" % (
                   len(load) / wall, lat_ms[len(lat_ms) // 2],
                   lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]))
-        forward_breakdown(pred, requests)
         engine.stop()
 
         bpred, bengine, bouts, blaunches = serving_phase(
@@ -428,23 +772,44 @@ def main():
                   len(load) / bwall, blat_ms[len(blat_ms) // 2],
                   blat_ms[min(len(blat_ms) - 1, int(0.99 * len(blat_ms)))]))
         bengine.stop()
-        del pred, bpred
+        del bpred
+
+        train_vs_cpu(fluid, bert)
+        train_launches, train_step = train_phase(fluid, bert, ca, cl)
+        # profiles last: a torch.profiler session leaves the host slower
+        # for the rest of the process, so nothing is timed after one
+        forward_breakdown(pred, requests)
+        profile_train_step(train_step)
+        del pred, train_step
 
     times = kernel_times(ca, cl)
-    sources = {"flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-                                  "paddle_tpu/ops/pallas_attention.py:93"),
-               "layer_norm_fwd": ("paddle_tpu_torch/csrc/layer_norm_fwd.cu",
-                                  "paddle_tpu/ops/pallas_layernorm.py:26")}
+    times.update(bwd_kernel_times(ca, cl))
+    sources = {
+        "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                           "paddle_tpu/ops/pallas_attention.py:93"),
+        "layer_norm_fwd": ("paddle_tpu_torch/csrc/layer_norm_fwd.cu",
+                           "paddle_tpu/ops/pallas_layernorm.py:26"),
+        "flash_attn_bwd_dq": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                              "paddle_tpu/ops/pallas_attention.py:166"),
+        "flash_attn_bwd_dkdv": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                                "paddle_tpu/ops/pallas_attention.py:212"),
+        "layer_norm_bwd": ("paddle_tpu_torch/csrc/layer_norm_bwd.cu",
+                           "paddle_tpu/ops/pallas_layernorm.py:39")}
+    # launches: the forward kernels' count is the f32 serving run's (and
+    # launches_bf16 the bfloat16 one's), the backward kernels' the training
+    # run's; launches_train is every kernel's count in the training run
     record = []
     for name, (src, replaces) in sources.items():
-        f32 = times[(name, torch.float32)]
-        bf16 = times[(name, torch.bfloat16)]
-        record.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name],
-            ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-            bound_by=f32["bound_by"], library_ms=f32["library_ms"],
-            dtype="float32", launches_bf16=blaunches[name], bf16=bf16))
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=launches.get(name, train_launches[name]),
+                     max_abs_err=errs[name], dtype="float32",
+                     launches_train=train_launches[name])
+        # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
+        entry.update(times[(name, torch.float32)])
+        if name in blaunches:
+            entry["launches_bf16"] = blaunches[name]
+        entry["bf16"] = times[(name, torch.bfloat16)]
+        record.append(entry)
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,9 @@
 // Dropout: the keep bit of score (row, col) is the reference's murmur3 hash
 // in the REFERENCE's tile coordinates (row / ref_bq, col / ref_bk, row %
 // ref_bq, col % ref_bk), whatever tile this kernel uses; the wrapper passes
-// the (ref_bq, ref_bk) that paddle_tpu's flash_attention would pick.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// the (ref_bq, ref_bk) that paddle_tpu's flash_attention would pick. The hash
+// lives in flash_common.cuh, shared with the backward kernels.
+#include "flash_common.cuh"
 
 namespace {
 
@@ -33,39 +32,6 @@ constexpr int kBlockK = 64;
 constexpr int kThreadsPerRow = 4;
 constexpr int kThreads = kBlockQ * kThreadsPerRow;  // 256
 constexpr int kMaxD = 128;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// pallas_attention._tile_random_bits for one element (uint32 wraparound).
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t qi, uint32_t kj,
-                                                 uint32_t r, uint32_t c) {
-  uint32_t h = seed ^ (qi * 0x9E3779B9u) ^ (kj * 0x85EBCA6Bu);
-  h = h + r * 0x27D4EB2Fu + c * 0x165667B1u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -93,8 +59,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (size_t)bh * tk * d;
   const T* vb = v + (size_t)bh * tk * d;
   const float* kpm_row = kpm ? kpm + (size_t)(bh / heads) * tk : nullptr;
-  // fold_bh_seed: int32 seed + bh * 1000003 with wraparound, read as uint32
-  const uint32_t seed_bh = (uint32_t)seed + (uint32_t)bh * 1000003u;
+  const uint32_t seed_bh = fold_bh_seed(seed, bh);
 
   for (int i = tid; i < kBlockQ * d; i += kThreads) {
     const int r = i / d, c = i % d;
@@ -147,10 +112,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       psum += p;
       float pu = p;
       if (use_dropout) {
-        const uint32_t bits = dropout_bits(seed_bh, (uint32_t)(grow / ref_bq),
-                                           (uint32_t)(gc / ref_bk), (uint32_t)(grow % ref_bq),
-                                           (uint32_t)(gc % ref_bk));
-        pu = bits >= threshold ? p * inv_keep : 0.f;
+        pu = dropout_keep(seed_bh, grow, gc, ref_bq, ref_bk, threshold) ? p * inv_keep : 0.f;
       }
       ps[row * pld + c] = pu;
     }

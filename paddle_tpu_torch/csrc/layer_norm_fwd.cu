@@ -15,28 +15,12 @@
 // three times, and the re-reads of a 1.5-3 KB row hit L1/L2, so device
 // memory sees roughly one read of x and one write of y. gamma/beta may be
 // absent (null) and may have a dtype of their own.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kRowsPerBlock = 4;
 constexpr int kThreads = 32 * kRowsPerBlock;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)

@@ -28,3 +28,8 @@ from .layer_helper import LayerHelper  # noqa: F401
 from . import io
 from . import inference
 from .inference import Predictor  # noqa: F401
+from . import backward
+from .backward import append_backward, gradients  # noqa: F401
+from . import clip
+from . import regularizer
+from . import optimizer

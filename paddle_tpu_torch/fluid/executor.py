@@ -5,7 +5,10 @@ executor.py and paddle/fluid/framework/scope.cc). The Scope holds torch
 tensors (or host arrays not yet moved, which the first run moves to its
 device and writes back); ``Executor.run`` runs the program's ops eagerly
 on the place's device. No jit, compile cache or executable ledger: torch
-runs eagerly.
+runs eagerly. A run of a ``minimize``d program trains: autograd is on only
+for the region its ``backward`` op differentiates, and the values written
+back to the scope are detached, so no graph outlives the run
+(fluid/lowering.py).
 """
 import numpy as np
 import torch

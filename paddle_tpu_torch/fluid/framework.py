@@ -309,6 +309,15 @@ class Block:
     def has_var(self, name):
         return name in self.vars
 
+    def _var_recursive(self, name):
+        blk = self
+        while blk is not None:
+            if name in blk.vars:
+                return blk.vars[name]
+            blk = blk.parent_block
+        raise ValueError("var %s not found in block %d or its parents"
+                         % (name, self.idx))
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -348,6 +357,9 @@ class Program:
         self._uid = next(Program._uid_counter)
         self._version = 0
         self._is_start_up_program = False
+        # marks set by append_backward
+        self._loss_name = None
+        self._appending_grad_times = 0
 
     def _bump_version(self):
         self._version += 1
@@ -409,6 +421,7 @@ class Program:
                 nb.ops.append(nop)
             p.blocks.append(nb)
         p.current_block_idx = 0
+        p._loss_name = None if for_test else self._loss_name
         if for_test:
             # drop backward + optimizer ops, then iteratively drop any op
             # whose inputs can no longer be produced

@@ -154,6 +154,29 @@ class LayerHelper:
     def create_variable(self, *args, **kwargs):
         return self.main_program.current_block().create_var(*args, **kwargs)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs
+        )
+
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        block = self.main_program.global_block()
+        if block.has_var(name):
+            return block.var(name)
+        return self.create_global_variable(name=name, *args, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        startup_block = self.startup_program.global_block()
+        if not startup_block.has_var(var.name):
+            sv = startup_block.create_var(
+                name=var.name,
+                shape=var.shape,
+                dtype=var.dtype,
+                persistable=True,
+            )
+            initializer(sv, startup_block)
+        return var
+
     # ------------------------------------------------------------------
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         bias_attr = self.bias_attr

@@ -1,12 +1,16 @@
 """Program → torch execution.
 
-Port of paddle_tpu/fluid/lowering.py, forward part. The JAX package traces
-a block into one jax function for XLA; here ``run_ops`` walks the block
-and calls each op's torch lowering eagerly, on the tensors of the run's
-device. The symbolic ``backward`` op (training) is not ported yet and
-raises.
+Port of paddle_tpu/fluid/lowering.py. The JAX package traces a block into
+one jax function for XLA; here ``run_ops`` walks the block and calls each
+op's torch lowering eagerly, on the tensors of the run's device.
+
+Autodiff: the JAX package lowers the symbolic ``backward`` op by replaying
+the preceding region under jax.vjp. The port runs eagerly, so it records
+that region once with torch.autograd (``_run_training``) and calls
+``torch.autograd.grad`` at the op.
 """
 import torch
+from torch.profiler import record_function
 
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
 from ..ops.registry import LowerContext, get_lowering
@@ -47,6 +51,10 @@ def bind_outputs(op, outs, env):
         if vals is None:
             continue
         for n, v in zip(names, vals):
+            if v.requires_grad:     # never with autograd off (serving)
+                var = op.block.vars.get(n)
+                if var is not None and var.stop_gradient:
+                    v = v.detach()
             env[n] = v
 
 
@@ -67,15 +75,99 @@ def apply_op(op, env, ctx):
 
 
 def run_ops(block, op_list, env, ctx):
-    """Run a list of ops in order on `env` (name -> tensor)."""
+    """Run a list of ops in order on `env` (name -> tensor). A list with a
+    ``backward`` op trains (:func:`_run_training`)."""
+    if any(op.type == "backward" for op in op_list):
+        return _run_training(op_list, env, ctx)
     for op in op_list:
-        if op.type == "backward":
-            raise NotImplementedError(
-                "the 'backward' op (training) is not ported yet: it comes "
-                "with the BERT training slice (torch.autograd in place of "
-                "jax.vjp); this slice runs forward programs only")
         env = apply_op(op, env, ctx)
     return env
+
+
+def _later_slice(what):
+    return NotImplementedError(
+        "%s is not ported yet: it comes with a later training slice of "
+        "paddle_tpu_torch (ROADMAP.md, Queue 1)" % what)
+
+
+def _run_training(op_list, env, ctx):
+    """One ``backward`` op on torch.autograd. Every target bound at program
+    start becomes a fresh leaf (the tensors the caller holds are never
+    marked); the ops before the backward op run under enable_grad; the op
+    calls torch.autograd.grad with the seed ``InitGrad`` (ones by
+    default), and a target the loss does not reach gets zeros, as jax.vjp
+    gives. A target produced inside the region is differentiated at the
+    value its last writer left. The ops after it (the optimizer's) run
+    under no_grad, and the env comes back detached, so no graph outlives
+    the run. The three phases are profiler ranges
+    (``paddle_tpu_torch::forward``, ``::backward``, ``::optimizer``)."""
+    at = [i for i, op in enumerate(op_list) if op.type == "backward"]
+    if len(at) > 1:
+        raise _later_slice("a second 'backward' op in one block")
+    idx = at[0]
+    bw_op = op_list[idx]
+    if any(bw_op.attrs.get("checkpoints") or ()):
+        raise _later_slice("recompute (the backward op's 'checkpoints')")
+    region = op_list[:idx]
+    targets = bw_op.attrs["targets"]
+    env = dict(env)
+    producer = producer_map(region)
+    leaves = {}  # targets bound at program start, as jax.vjp's primals
+    for n in targets:
+        if n in env:
+            leaves[n] = env[n] = env[n].detach().requires_grad_()
+        elif n not in producer:
+            raise OpLoweringError(
+                "backward target '%s' is neither a parameter/feed/state var "
+                "nor produced before the backward op" % n)
+    # no_grad_set vars produced in the region are constants from there on
+    stop_at = {}
+    for n in bw_op.attrs.get("no_grad", ()) or ():
+        if n in producer and n not in env:
+            stop_at.setdefault(producer[n], []).append(n)
+    with torch.enable_grad():
+        with record_function("paddle_tpu_torch::forward"):
+            for j, op in enumerate(region):
+                env = apply_op(op, env, ctx)
+                for n in stop_at.get(j, ()):
+                    env[n] = env[n].detach()
+        with record_function("paddle_tpu_torch::backward"):
+            loss = env[bw_op.input("Loss")[0]]
+            init = bw_op.input("InitGrad")
+            seed = (env[init[0]].detach().to(loss.dtype).expand_as(loss)
+                    if init else torch.ones_like(loss))
+            grads = _grads(loss, [leaves[n] if n in leaves else env[n]
+                                  for n in targets], seed)
+    for n, g in zip(bw_op.output("Grads"), grads):
+        env[n] = g
+    with torch.no_grad(), record_function("paddle_tpu_torch::optimizer"):
+        for op in op_list[idx + 1:]:
+            env = apply_op(op, env, ctx)
+    return {n: v.detach() for n, v in env.items()}
+
+
+def _grads(loss, inputs, seed):
+    """d loss / d input for each of `inputs`, zeros where loss does not
+    depend on it."""
+    live = [i for i, t in enumerate(inputs) if t.requires_grad]
+    got = [None] * len(inputs)
+    if live and loss.requires_grad:
+        for i, g in zip(live, torch.autograd.grad(
+                loss, [inputs[i] for i in live], grad_outputs=seed,
+                allow_unused=True)):
+            got[i] = g
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(inputs, got)]
+
+
+def producer_map(region):
+    """name -> index of the op producing it (last writer wins)."""
+    produce = {}
+    for j, rop in enumerate(region):
+        for names in rop.outputs.values():
+            for n in names:
+                produce[n] = j
+    return produce
 
 
 def persistable_names(program):
@@ -83,15 +175,23 @@ def persistable_names(program):
             if v.persistable]
 
 
-def build_step_fn(program, feed_names, fetch_names, device, is_test=False):
+def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
+                  grad_comm=None):
     """Return step(state, feeds, generator) -> (fetches, new_state).
 
     ``state`` / ``feeds`` are dicts name -> tensor on `device` (the
     device random and constant ops create their tensors on);
     ``new_state`` holds every persistable var with a value after the run.
     The ops run eagerly under ``torch.inference_mode()`` when `is_test`
-    and under ``torch.no_grad()`` otherwise (no op of this slice needs
-    autograd)."""
+    and under ``torch.no_grad()`` otherwise; a ``backward`` op turns
+    autograd on for the region it differentiates (:func:`run_ops`).
+    ``grad_comm``, the JAX package's gradient-communication hook, waits for
+    the port's parallel slice."""
+    if grad_comm is not None:
+        raise NotImplementedError(
+            "the gradient-communication hook (grad_comm) is not ported yet: "
+            "it comes with the parallel slice of paddle_tpu_torch "
+            "(ROADMAP.md, Queue 1)")
     block = program.global_block()
     op_list = list(block.ops)
     persist = set(persistable_names(program))

@@ -1,11 +1,18 @@
-"""Flash-attention forward: a hand-written CUDA kernel, its plain torch
-version, and the ``fused_multihead_attention`` lowering.
+"""Flash attention: hand-written CUDA kernels for the forward and the
+backward, their plain torch versions, the ``torch.autograd.Function``
+that joins them, and the ``fused_multihead_attention`` lowering.
 
-Replaces the Pallas TPU kernel paddle_tpu/ops/pallas_attention.py
-``_fwd_kernel`` / ``_fwd_kernel_nokpm`` (called from ``_fwd_call``). The
-kernel is ``csrc/flash_attn_fwd.cu``: FlashAttention-2 online softmax with
-f32 statistics, one block per (64-row q tile, batch·head), K/V tiles of 64
-rows in shared memory; its note says what bounds it on the H100.
+Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_attention.py:
+``_fwd_kernel`` / ``_fwd_kernel_nokpm`` (called from ``_fwd_call``) by
+``csrc/flash_attn_fwd.cu``, FlashAttention-2 online softmax with f32
+statistics, one block per (64-row q tile, batch·head); ``_dq_kernel`` and
+``_dkdv_kernel`` (called from ``_bwd_call``) by the two kernels of
+``csrc/flash_attn_bwd.cu``, one block per q tile for dQ and one per key
+tile for dK/dV, re-forming P from the saved lse. Their notes say what
+bounds them on the H100. :class:`FlashAttention` is ``_flash``'s
+custom_vjp: its backward computes delta = rowsum(dO∘O) in f32, launches
+both backward kernels and sums the per-(batch·head) key-padding-mask
+partials over the heads, as ``_flash_bwd`` does.
 
 Semantics kept from ``pallas_attention.flash_attention``: q/k/v are
 (B, H, T, D); the default ``sm_scale`` is D^-½; ``key_padding_mask`` is an
@@ -15,9 +22,13 @@ explicit seed, and its keep mask is the reference's murmur3 counter hash,
 taken in the reference's tile coordinates (``reference_blocks``), so the
 two packages drop the same scores.
 
-:func:`flash_attention` launches the kernel on CUDA tensors and takes
-:func:`flash_attention_plain` only for tensors on the CPU. There is no
-fallback on the card: a failed build or launch raises.
+:func:`flash_attention`, :func:`flash_attention_dq` and
+:func:`flash_attention_dkdv` launch their kernels on CUDA tensors and take
+the plain versions (:func:`flash_attention_plain`,
+:func:`flash_attention_dq_plain`, :func:`flash_attention_dkdv_plain`;
+:func:`flash_attention_bwd_plain` is both at once) only for tensors on the
+CPU. There is
+no fallback on the card: a failed build or launch raises.
 """
 import ctypes
 
@@ -26,7 +37,10 @@ import torch
 from . import cuda_build
 from .registry import register_op, single
 
-__all__ = ["flash_attention", "flash_attention_plain", "dropout_keep_mask",
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_dq",
+           "flash_attention_dq_plain", "flash_attention_dkdv",
+           "flash_attention_dkdv_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "FlashAttention", "dropout_keep_mask",
            "reference_blocks"]
 
 NEG_INF = -1e30
@@ -115,6 +129,18 @@ def _check_args(q, k, v, seed, dropout_p):
             "seed (vary it per step, or dropout masks repeat)")
 
 
+def _scores(q, k, key_padding_mask, sm_scale, causal):
+    """S = q·kᵀ·scale + mask in f32, causal entries set to -1e30."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if key_padding_mask is not None:
+        s = s + key_padding_mask.float()[:, None, None, :]
+    if causal:
+        rows = torch.arange(q.shape[2], device=q.device)[:, None]
+        cols = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+    return s
+
+
 def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
                           sm_scale=None, causal=False, dropout_p=0.0):
     """The kernel's function in plain torch (f32 math): returns (out like
@@ -124,13 +150,7 @@ def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
         sm_scale = q.shape[-1] ** -0.5
     b, h, tq, _ = q.shape
     tk = k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    if key_padding_mask is not None:
-        s = s + key_padding_mask.float()[:, None, None, :]
-    if causal:
-        rows = torch.arange(tq, device=q.device)[:, None]
-        cols = torch.arange(tk, device=q.device)[None, :]
-        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+    s = _scores(q, k, key_padding_mask, sm_scale, causal)
     m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True)
@@ -209,22 +229,256 @@ def flash_attention(q, k, v, key_padding_mask=None, seed=None, sm_scale=None,
 flash_attention.launches = 0
 
 
+def _bwd_plain_parts(q, k, v, key_padding_mask, seed, do, lse, delta,
+                     sm_scale, causal, dropout_p):
+    """(sm_scale, P∘keep/(1−p), dS) in f32, as both backward kernels
+    re-form them from the saved lse."""
+    _check_args(q, k, v, seed, dropout_p)
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    s = _scores(q, k, key_padding_mask, sm_scale, causal)
+    lse = lse[..., None]
+    # dead rows carry lse = -1e30: their P is 0, not e^0
+    p = torch.where(lse <= NEG_INF * 0.5, torch.zeros_like(s),
+                    torch.exp(s - lse))
+    dp = torch.matmul(do.to(v.dtype).float(), v.float().transpose(-1, -2))
+    pd = p
+    if dropout_p > 0.0:
+        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device)
+        inv = 1.0 / (1.0 - dropout_p)
+        pd = torch.where(keep, p, torch.zeros_like(p)) * inv
+        dp = torch.where(keep, dp, torch.zeros_like(dp)) * inv
+    return sm_scale, pd, p * (dp - delta[..., None])
+
+
+def _dq_from(q, k, sm_scale, ds):
+    return (torch.matmul(ds.to(k.dtype).float(), k.float())
+            * sm_scale).to(q.dtype)
+
+
+def _dkdv_from(q, k, v, key_padding_mask, do, sm_scale, pd, ds):
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * sm_scale
+    dv = torch.matmul(pd.to(do.dtype).float().transpose(-1, -2), do.float())
+    dkpm = ds.sum(dim=2) if key_padding_mask is not None else None
+    return dk.to(k.dtype), dv.to(v.dtype), dkpm
+
+
+def flash_attention_dq_plain(q, k, v, key_padding_mask, seed, do, lse, delta,
+                             sm_scale=None, causal=False, dropout_p=0.0):
+    """The dQ kernel's function in plain torch: dq like q."""
+    sm_scale, _, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
+                                       lse, delta, sm_scale, causal,
+                                       dropout_p)
+    return _dq_from(q, k, sm_scale, ds)
+
+
+def flash_attention_dkdv_plain(q, k, v, key_padding_mask, seed, do, lse,
+                               delta, sm_scale=None, causal=False,
+                               dropout_p=0.0):
+    """The dK/dV kernel's function in plain torch: (dk like k, dv like v,
+    dkpm per (batch, head) (B, H, Tk) f32 or None)."""
+    sm_scale, pd, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
+                                        lse, delta, sm_scale, causal,
+                                        dropout_p)
+    return _dkdv_from(q, k, v, key_padding_mask, do, sm_scale, pd, ds)
+
+
+def flash_attention_bwd_plain(q, k, v, key_padding_mask, seed, do, lse, delta,
+                              sm_scale=None, causal=False, dropout_p=0.0):
+    """The two backward kernels' function in plain torch (f32 math,
+    rounding to the input dtype where the reference rounds), P and dS
+    formed once: returns (dq like q, dk like k, dv like v, dkpm per
+    (batch, head) (B, H, Tk) f32, or None without a key-padding mask).
+    ``lse`` is the forward's, ``delta`` = rowsum(dO∘O) in f32, both
+    (B, H, Tq)."""
+    sm_scale, pd, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
+                                        lse, delta, sm_scale, causal,
+                                        dropout_p)
+    return (_dq_from(q, k, sm_scale, ds),) + _dkdv_from(
+        q, k, v, key_padding_mask, do, sm_scale, pd, ds)
+
+
+def _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta, sm_scale,
+              causal, dropout_p, name):
+    """Check the backward kernels' inputs; returns the C arguments after
+    the pointers, and the f32 key-padding mask or None."""
+    _check_args(q, k, v, seed, dropout_p)
+    if q.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (name, q.device))
+    for tname, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype \
+                or not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous %s on %s"
+                             % (name, tname, q.dtype, q.device))
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError("%s takes float32/bfloat16, got %s" % (name, q.dtype))
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if d > _MAX_D:
+        raise ValueError("%s: head dim %d > %d" % (name, d, _MAX_D))
+    if do.shape != q.shape:
+        raise ValueError("%s: do must be shaped like q" % name)
+    for tname, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous float32 (%d, %d, %d)"
+                             % (name, tname, b, h, tq))
+    kpm = None
+    if key_padding_mask is not None:
+        kpm = key_padding_mask.to(torch.float32).contiguous()
+        if tuple(kpm.shape) != (b, tk) or kpm.device != q.device:
+            raise ValueError("%s: key_padding_mask must be (%d, %d) on %s"
+                             % (name, b, tk, q.device))
+    ref_bq, ref_bk = reference_blocks(tq, tk)
+    use_dropout = dropout_p > 0.0
+    tail = (b * h, h, tq, tk, d, float(sm_scale), int(bool(causal)),
+            int(use_dropout),
+            _dropout_threshold(dropout_p) if use_dropout else 0,
+            1.0 / (1.0 - dropout_p), _int32(seed) if use_dropout else 0,
+            ref_bq, ref_bk, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return tail, kpm
+
+
+_BWD_TAIL_TYPES = [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def flash_attention_dq(q, k, v, key_padding_mask, seed, do, lse, delta,
+                       sm_scale=None, causal=False, dropout_p=0.0):
+    """dQ of flash attention (B, H, Tq, D) like q. Launches the dQ kernel
+    of ``csrc/flash_attn_bwd.cu`` on CUDA tensors (counted in
+    ``flash_attention_dq.launches``); runs
+    :func:`flash_attention_dq_plain` on CPU tensors."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, key_padding_mask, seed, do,
+                                        lse, delta, sm_scale, causal,
+                                        dropout_p)
+    tail, kpm = _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta,
+                          sm_scale, causal, dropout_p, "flash_attention_dq")
+    fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_dq
+    fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL_TYPES
+    fn.restype = ctypes.c_int
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kpm.data_ptr() if kpm is not None else None, do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
+    cuda_build.check(err, "flash_attn_bwd_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkdv(q, k, v, key_padding_mask, seed, do, lse, delta,
+                         sm_scale=None, causal=False, dropout_p=0.0):
+    """(dK like k, dV like v, dkpm per (batch, head) (B, H, Tk) f32 or
+    None) of flash attention. Launches the dK/dV kernel of
+    ``csrc/flash_attn_bwd.cu`` on CUDA tensors (counted in
+    ``flash_attention_dkdv.launches``); runs
+    :func:`flash_attention_dkdv_plain` on CPU tensors."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_dkdv_plain(q, k, v, key_padding_mask, seed, do,
+                                          lse, delta, sm_scale, causal,
+                                          dropout_p)
+    tail, kpm = _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta,
+                          sm_scale, causal, dropout_p, "flash_attention_dkdv")
+    fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_dkdv
+    fn.argtypes = [ctypes.c_void_p] * 10 + _BWD_TAIL_TYPES
+    fn.restype = ctypes.c_int
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dkpm = None
+    if kpm is not None:
+        dkpm = torch.empty(k.shape[:3], dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kpm.data_ptr() if kpm is not None else None, do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dkpm.data_ptr() if dkpm is not None else None,
+                 *tail)
+    cuda_build.check(err, "flash_attn_bwd_dkdv")
+    flash_attention_dkdv.launches += 1
+    return dk, dv, dkpm
+
+
+flash_attention_dkdv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, key_padding_mask, seed, out, lse, do,
+                        sm_scale=None, causal=False, dropout_p=0.0):
+    """Gradients of flash attention from the forward's out and lse and the
+    output's gradient ``do``: (dq, dk, dv, dkpm per (batch, head) or
+    None). delta = rowsum(dO∘O) is taken here in f32, as
+    pallas_attention._flash_bwd does; then the dQ and the dK/dV kernels
+    (or, on the CPU, the plain version once)."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, key_padding_mask, seed, do, lse, delta, sm_scale,
+            causal, dropout_p)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(*args)
+    return (flash_attention_dq(*args),) + tuple(flash_attention_dkdv(*args))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient (pallas_attention's custom_vjp
+    ``_flash``): the forward launches the forward kernel and saves q, k,
+    v, the mask, the seed, out and lse; the backward launches the two
+    backward kernels. lse is an output without a gradient.
+
+    ``FlashAttention.apply(q, k, v, key_padding_mask, seed, sm_scale,
+    causal, dropout_p)`` -> (out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, seed, sm_scale, causal,
+                dropout_p):
+        out, lse = flash_attention(q, k, v, key_padding_mask, seed, sm_scale,
+                                   causal, dropout_p)
+        ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
+        ctx.seed, ctx.sm_scale = seed, sm_scale
+        ctx.causal, ctx.dropout_p = causal, dropout_p
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kpm, out, lse = ctx.saved_tensors
+        dq, dk, dv, dkpm_bh = flash_attention_bwd(
+            q, k, v, kpm, ctx.seed, out, lse, dout.contiguous(),
+            ctx.sm_scale, ctx.causal, ctx.dropout_p)
+        dkpm = None
+        if kpm is not None and ctx.needs_input_grad[3]:
+            dkpm = dkpm_bh.sum(dim=1).to(kpm.dtype)
+        return dq, dk, dv, dkpm, None, None, None, None
+
+
 @register_op("fused_multihead_attention")
 def _fused_mha_lowering(ctx, ins, attrs):
-    """Q/K/V: (B, H, T, D). Always the flash-attention kernel on the card
+    """Q/K/V: (B, H, T, D). Always the flash-attention kernels on the card
     (the JAX package gates its Pallas kernel behind PADDLE_TPU_FLASH_MIN_SEQ
-    because XLA fused the plain graph; here nothing else would)."""
+    because XLA fused the plain graph; here nothing else would), through
+    :class:`FlashAttention`, so a backward runs the two backward kernels;
+    with autograd off (serving) the Function records no graph and launches
+    the same forward kernel. The dropout seed is drawn on the host
+    (``ctx.next_seed``): no device round trip per layer."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     kpm = ins["KeyPaddingMask"][0] if ins.get("KeyPaddingMask") else None
     causal = bool(attrs.get("causal", False))
     p = float(attrs.get("dropout_prob", 0.0))
     if attrs.get("is_test", False) or ctx.is_test:
         p = 0.0
-    seed = None
-    if p > 0.0:
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=ctx.next_rng(),
-                                 device=ctx.device).item())
-    out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             kpm, seed=seed, causal=causal, dropout_p=p)
+    seed = ctx.next_seed() if p > 0.0 else None
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, _ = FlashAttention.apply(q, k, v, kpm, seed, q.shape[-1] ** -0.5,
+                                  causal, p)
     return single(out)

@@ -3,12 +3,14 @@ ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/<name>-<digest>.so`` beside the package, where ``<digest>``
-hashes the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is compiled at import: a kernel
-is built at its first launch (:func:`load`), or all at once, one nvcc
-process per source running together (:func:`build_all`).
+hashes the source, every header of ``csrc/`` and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+is compiled at import: a kernel is built at its first launch
+(:func:`load`), or all at once, one nvcc process per source running
+together (:func:`build_all`).
 """
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -18,7 +20,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("flash_attn_fwd", "layer_norm_fwd")
+KERNELS = ("flash_attn_fwd", "layer_norm_fwd", "flash_attn_bwd",
+           "layer_norm_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -45,10 +48,13 @@ def source_path(name):
 
 
 def library_path(name):
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest))
+    h = hashlib.sha256()
+    for path in [source_path(name)] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
 def _start(name):

@@ -1,15 +1,21 @@
-"""Row LayerNorm forward: a hand-written CUDA kernel and its plain torch
-version.
+"""Row LayerNorm: hand-written CUDA kernels for the forward and the
+backward, their plain torch versions, and the ``torch.autograd.Function``
+that joins them.
 
-Replaces the Pallas TPU kernel paddle_tpu/ops/pallas_layernorm.py
-``_fwd_kernel`` (called from ``_ln_fwd``). The kernel is
-``csrc/layer_norm_fwd.cu``: one warp per row, f32 statistics, y in the
-input dtype, mean and rstd in f32. It is bound by device memory (a few
-flops per byte); the source's note says what its design does about that.
+Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_layernorm.py:
+``_fwd_kernel`` (called from ``_ln_fwd``) by ``csrc/layer_norm_fwd.cu``,
+one warp per row, f32 statistics, y in the input dtype, mean and rstd in
+f32; ``_bwd_kernel`` (called from ``_ln_bwd``) by
+``csrc/layer_norm_bwd.cu``, dx one warp per row from the saved mean and
+rstd, per-block f32 partials of dγ and dβ that the wrapper sums. Both are
+bound by device memory (a few flops per byte); the sources' notes say
+what their designs do about that. :class:`LayerNorm` is ``_ln``'s
+custom_vjp: mean and rstd carry no gradient.
 
-:func:`layer_norm_fwd` launches the kernel on a CUDA tensor and takes the
-plain version :func:`layer_norm_plain` only for a tensor on the CPU. There
-is no fallback on the card: a failed build or launch raises.
+:func:`layer_norm_fwd` and :func:`layer_norm_bwd` launch their kernels on
+a CUDA tensor and take the plain versions (:func:`layer_norm_plain`,
+:func:`layer_norm_bwd_plain`) only for a tensor on the CPU. There is no
+fallback on the card: a failed build or launch raises.
 """
 import ctypes
 
@@ -17,7 +23,8 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["layer_norm_fwd", "layer_norm_plain"]
+__all__ = ["layer_norm_fwd", "layer_norm_plain", "layer_norm_bwd",
+           "layer_norm_bwd_plain", "LayerNorm"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,17 +45,17 @@ def layer_norm_plain(x, gamma=None, beta=None, eps=1e-5):
     return y.to(x.dtype), mean[:, 0], rstd[:, 0]
 
 
-def _check_param(p, name, x):
+def _check_param(p, name, x, fn="layer_norm_fwd"):
     if p is None:
         return
     if p.device != x.device or p.dtype not in _DTYPE_CODE:
         raise ValueError(
-            "layer_norm_fwd: %s must be float32/bfloat16 on %s, got %s on %s"
-            % (name, x.device, p.dtype, p.device))
+            "%s: %s must be float32/bfloat16 on %s, got %s on %s"
+            % (fn, name, x.device, p.dtype, p.device))
     if tuple(p.shape) != (x.shape[1],) or not p.is_contiguous():
         raise ValueError(
-            "layer_norm_fwd: %s must be a contiguous (%d,) vector, got %s"
-            % (name, x.shape[1], tuple(p.shape)))
+            "%s: %s must be a contiguous (%d,) vector, got %s"
+            % (fn, name, x.shape[1], tuple(p.shape)))
 
 
 def layer_norm_fwd(x, gamma=None, beta=None, eps=1e-5):
@@ -97,3 +104,94 @@ def layer_norm_fwd(x, gamma=None, beta=None, eps=1e-5):
 
 
 layer_norm_fwd.launches = 0
+
+
+def layer_norm_bwd_plain(x, gamma, mean, rstd, dy):
+    """The backward kernel's function in plain torch: from x (n, h), gamma
+    (h,) or None (ones), the forward's f32 mean and rstd (n,) and dy like
+    x, returns (dx like x, dgamma, dbeta) with dgamma/dbeta in gamma's
+    dtype (f32 without gamma), as pallas_layernorm._ln_bwd computes them."""
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    wdy = dyf * gamma.float() if gamma is not None else dyf
+    c1 = wdy.mean(dim=1, keepdim=True)
+    c2 = (wdy * xhat).mean(dim=1, keepdim=True)
+    dx = (wdy - c1 - xhat * c2) * rstd[:, None]
+    w_dtype = gamma.dtype if gamma is not None else torch.float32
+    return (dx.to(x.dtype), (dyf * xhat).sum(dim=0).to(w_dtype),
+            dyf.sum(dim=0).to(w_dtype))
+
+
+def layer_norm_bwd(x, gamma, mean, rstd, dy):
+    """LayerNorm backward over the rows of x (n, h): (dx, dgamma, dbeta).
+    Launches ``csrc/layer_norm_bwd.cu`` on a CUDA tensor (counted in
+    ``layer_norm_bwd.launches``) and sums its per-block dγ/dβ partials;
+    runs :func:`layer_norm_bwd_plain` on a CPU tensor."""
+    if x.dim() != 2 or dy.shape != x.shape:
+        raise ValueError("layer_norm_bwd takes x and dy of one shape (n, h), "
+                         "got %s and %s" % (tuple(x.shape), tuple(dy.shape)))
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+    if x.device.type != "cuda":
+        raise ValueError("layer_norm_bwd: unsupported device %s" % x.device)
+    n, h = x.shape
+    for name, t in (("x", x), ("dy", dy)):
+        if t.dtype != x.dtype or t.dtype not in _DTYPE_CODE \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError("layer_norm_bwd: %s must be contiguous "
+                             "float32/bfloat16 like x" % name)
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if tuple(t.shape) != (n,) or t.dtype != torch.float32 \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError("layer_norm_bwd: %s must be contiguous float32 "
+                             "(%d,)" % (name, n))
+    _check_param(gamma, "gamma", x, "layer_norm_bwd")
+    lib = cuda_build.load("layer_norm_bwd")
+    fn = lib.layer_norm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.layer_norm_bwd_partial_rows.argtypes = [ctypes.c_int]
+    lib.layer_norm_bwd_partial_rows.restype = ctypes.c_int
+    parts = lib.layer_norm_bwd_partial_rows(n)
+    dx = torch.empty_like(x)
+    dg_part = torch.empty((parts, h), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((parts, h), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(),
+                 gamma.data_ptr() if gamma is not None else None,
+                 mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), n, h,
+                 _DTYPE_CODE[x.dtype],
+                 _DTYPE_CODE[gamma.dtype] if gamma is not None else 0,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    w_dtype = gamma.dtype if gamma is not None else torch.float32
+    return dx, dg_part.sum(dim=0).to(w_dtype), db_part.sum(dim=0).to(w_dtype)
+
+
+layer_norm_bwd.launches = 0
+
+
+class LayerNorm(torch.autograd.Function):
+    """Row LayerNorm with its gradient (pallas_layernorm's custom_vjp
+    ``_ln``): the forward launches the forward kernel and saves x, gamma,
+    mean and rstd; the backward launches the backward kernel. mean and
+    rstd are outputs without a gradient.
+
+    ``LayerNorm.apply(x, gamma, beta, eps)`` -> (y, mean, rstd)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _drstd):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x, gamma, mean, rstd, dy.contiguous())
+        return (dx, dg if ctx.needs_input_grad[1] else None,
+                db if ctx.needs_input_grad[2] else None, None)

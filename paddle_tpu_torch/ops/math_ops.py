@@ -1,4 +1,4 @@
-"""Math op lowerings: elementwise_add, mul, matmul.
+"""Math op lowerings: elementwise_add, mul, matmul, mean.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings this slice runs. The
 products go to ``torch.matmul``: they are plain matrix products that the
@@ -69,3 +69,8 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * alpha
     return single(out)
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return single(ins["X"][0].mean())

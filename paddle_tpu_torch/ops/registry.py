@@ -11,6 +11,7 @@ Lowering signature::
 empty lists). ``ctx`` is a LowerContext carrying the run's device, its
 random generator and train/test mode.
 """
+import torch
 
 LOWERINGS = {}
 
@@ -49,6 +50,7 @@ class LowerContext:
     def __init__(self, device, generator=None, is_test=False):
         self.device = device
         self._generator = generator
+        self._seed_generator = None
         self.is_test = is_test
 
     def next_rng(self):
@@ -59,6 +61,17 @@ class LowerContext:
                 "op requires randomness but the run has no torch.Generator"
             )
         return self._generator
+
+    def next_seed(self):
+        """An int32 seed for a kernel that makes its own random bits (the
+        flash-attention dropout hash). It is drawn on the host, from a CPU
+        generator seeded like the run's generator, so a draw never waits
+        for the device."""
+        if self._seed_generator is None:
+            self._seed_generator = torch.Generator()
+            self._seed_generator.manual_seed(self.next_rng().initial_seed())
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._seed_generator))
 
 
 def single(val):

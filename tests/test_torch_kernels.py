@@ -1,4 +1,4 @@
-"""The port's two kernels, held against paddle_tpu's Pallas kernels.
+"""The port's kernels, held against paddle_tpu's Pallas kernels.
 
 On the CPU the wrappers run their plain torch versions (the CUDA kernels
 are compared with those on the card by chip_smoke.py). Here the plain
@@ -7,6 +7,7 @@ mode and its plain-jax references, on the same numpy inputs.
 Tolerances: attention 2e-5 (the JAX tests' own bound, f32); LayerNorm
 1e-5 for Y and Mean, 1e-4 for Variance (the port derives it from rstd).
 """
+import os
 import subprocess
 import sys
 
@@ -235,3 +236,208 @@ def test_kernel_modules_import_without_toolchain(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: the plain versions against jax.grad of the Pallas
+# kernels in interpret mode. The loss is sum(out * G) for a fixed random G,
+# so the cotangent is G. Tolerance: 1e-5 * max|grad| (f32, the two sum in
+# other orders; the dropout keep bits are the same).
+# ---------------------------------------------------------------------------
+ATTN_BWD_CASES = {
+    "plain": dict(t=64),
+    "causal": dict(t=64, causal=True),
+    "kpm": dict(t=64, use_kpm=True),
+    "T=131": dict(t=131, causal=True, use_kpm=True),
+    "dropout": dict(t=64, causal=True, dropout_p=0.25, seed=11),
+}
+
+
+def _attn_bwd_inputs(t, use_kpm=False, **_):
+    q, k, v = _qkv(t, b=2, seed=2)
+    g = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    return q, k, v, (_kpm(2, t, seed=4) if use_kpm else None), g
+
+
+def _jax_attn_grads(q, k, v, kpm, g, causal=False, dropout_p=0.0, seed=None,
+                    **_):
+    def loss(q, k, v, kpm):
+        out = pa.flash_attention(q, k, v, kpm, seed=seed, causal=causal,
+                                 dropout_p=dropout_p, interpret=True)
+        return jnp.sum(out * jnp.asarray(g))
+
+    args = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if kpm is None else jnp.asarray(kpm)]
+    argnums = (0, 1, 2, 3) if kpm is not None else (0, 1, 2)
+    return [np.asarray(x) for x in jax.grad(loss, argnums=argnums)(*args)]
+
+
+def _close_grad(got, want, name):
+    bound = 1e-5 * float(np.abs(want).max())
+    assert got.shape == want.shape, name
+    assert _maxdiff(got, want) <= bound, (name, _maxdiff(got, want), bound)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_CASES))
+def test_attention_bwd_plain_matches_pallas_grad(case):
+    kw = ATTN_BWD_CASES[case]
+    q, k, v, kpm, g = _attn_bwd_inputs(**kw)
+    opts = dict(causal=kw.get("causal", False),
+                dropout_p=kw.get("dropout_p", 0.0))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tkpm = None if kpm is None else torch.from_numpy(kpm)
+    out, lse = ca.flash_attention_plain(tq, tk, tv, tkpm, kw.get("seed"),
+                                        **opts)
+    do = torch.from_numpy(g)
+    delta = (do * out).sum(-1)
+    dq, dk, dv, dkpm = ca.flash_attention_bwd_plain(
+        tq, tk, tv, tkpm, kw.get("seed"), do, lse, delta, **opts)
+    want = _jax_attn_grads(q, k, v, kpm, g, seed=kw.get("seed"), **opts)
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _close_grad(a.numpy(), w, name)
+    if kpm is not None:
+        _close_grad(dkpm.sum(dim=1).numpy(), want[3], "dkpm")
+    else:
+        assert dkpm is None
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_CASES))
+def test_attention_bwd_wrappers_on_cpu_give_each_kernels_plain(case):
+    """The dQ and dK/dV wrappers on CPU tensors run each kernel's own plain
+    version, which gives the same tensors as the whole plain backward."""
+    kw = ATTN_BWD_CASES[case]
+    q, k, v, kpm, g = (None if a is None else torch.from_numpy(a)
+                       for a in _attn_bwd_inputs(**kw))
+    opts = dict(causal=kw.get("causal", False),
+                dropout_p=kw.get("dropout_p", 0.0))
+    out, lse = ca.flash_attention_plain(q, k, v, kpm, kw.get("seed"), **opts)
+    args = (q, k, v, kpm, kw.get("seed"), g, lse, (g * out).sum(-1))
+    whole = ca.flash_attention_bwd_plain(*args, **opts)
+    counts = (ca.flash_attention_dq.launches, ca.flash_attention_dkdv.launches)
+    assert torch.equal(ca.flash_attention_dq(*args, **opts), whole[0])
+    for got, want in zip(ca.flash_attention_dkdv(*args, **opts), whole[1:]):
+        assert (got is None and want is None) or torch.equal(got, want)
+    assert (ca.flash_attention_dq.launches,
+            ca.flash_attention_dkdv.launches) == counts
+
+
+@pytest.mark.parametrize("case", ["kpm", "dropout"])
+def test_attention_function_on_cpu_gives_plain_grads(case, monkeypatch):
+    """FlashAttention (the autograd.Function) on CPU tensors: the plain
+    forward and the plain backward, and no kernel launch or build."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    def no_build(name):
+        raise AssertionError("the CPU path must not build a kernel")
+
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    counts = (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+              ca.flash_attention_dkdv.launches)
+    kw = ATTN_BWD_CASES[case]
+    q, k, v, kpm, g = _attn_bwd_inputs(**kw)
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (q, k, v) + ((kpm,) if kpm is not None else ())]
+    tkpm = leaves[3] if kpm is not None else None
+    opts = dict(causal=kw.get("causal", False),
+                dropout_p=kw.get("dropout_p", 0.0))
+    out, lse = ca.FlashAttention.apply(leaves[0], leaves[1], leaves[2], tkpm,
+                                       kw.get("seed"), 16 ** -0.5,
+                                       opts["causal"], opts["dropout_p"])
+    assert not lse.requires_grad
+    (out * torch.from_numpy(g)).sum().backward()
+    with torch.no_grad():
+        ref_out, ref_lse = ca.flash_attention_plain(
+            *(t.detach() for t in leaves[:3]), None if kpm is None
+            else torch.from_numpy(kpm), kw.get("seed"), **opts)
+        delta = (torch.from_numpy(g) * ref_out).sum(-1)
+        want = ca.flash_attention_bwd_plain(
+            *(t.detach() for t in leaves[:3]), None if kpm is None
+            else torch.from_numpy(kpm), kw.get("seed"), torch.from_numpy(g),
+            ref_lse, delta, **opts)
+    assert torch.equal(out.detach(), ref_out)
+    for leaf, w in zip(leaves[:3], want[:3]):
+        assert torch.allclose(leaf.grad, w, rtol=0, atol=1e-6)
+    if kpm is not None:
+        assert torch.allclose(leaves[3].grad, want[3].sum(dim=1), atol=1e-6)
+    assert (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+            ca.flash_attention_dkdv.launches) == counts
+
+
+@pytest.mark.parametrize("shape,affine", [((64, 96), True), ((37, 64), True),
+                                          ((24, 80), False)])
+def test_layer_norm_bwd_plain_matches_pallas_grad(shape, affine):
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    g = rng.normal(size=shape[1:]).astype(np.float32)
+    b = rng.normal(size=shape[1:]).astype(np.float32)
+    dy = rng.normal(size=shape).astype(np.float32)
+
+    def loss(x, g, b):
+        y = fused_layer_norm(x, g, b, 1e-5, interpret=True)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    if affine:
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    else:
+        want = (jax.grad(lambda x: loss(x, None, None))(jnp.asarray(x)),)
+    tx = torch.from_numpy(x)
+    tg = torch.from_numpy(g) if affine else None
+    _, mean, rstd = cl.layer_norm_plain(tx, tg, None, 1e-5)
+    got = cl.layer_norm_bwd_plain(tx, tg, mean, rstd, torch.from_numpy(dy))
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        bound = 1e-5 * max(1.0, float(np.abs(w).max()))
+        assert _maxdiff(a.numpy(), w) <= bound, name
+    if not affine:   # gamma None means ones; dγ/dβ still come back in f32
+        assert got[1].dtype == got[2].dtype == torch.float32
+
+
+def test_layer_norm_function_on_cpu_gives_plain_grads(monkeypatch):
+    from paddle_tpu_torch.ops import cuda_build
+
+    def no_build(name):
+        raise AssertionError("the CPU path must not build a kernel")
+
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    counts = (cl.layer_norm_fwd.launches, cl.layer_norm_bwd.launches)
+    rng = np.random.default_rng(9)
+    x, dy = (torch.from_numpy(rng.normal(size=(12, 40)).astype(np.float32))
+             for _ in range(2))
+    g, b = (torch.from_numpy(rng.normal(size=40).astype(np.float32))
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+    y, mean, rstd = cl.LayerNorm.apply(*leaves, 1e-5)
+    assert not mean.requires_grad and not rstd.requires_grad
+    (y * dy).sum().backward()
+    _, m, r = cl.layer_norm_plain(x, g, b, 1e-5)
+    want = cl.layer_norm_bwd_plain(x, g, m, r, dy)
+    for leaf, w in zip(leaves, want):
+        assert torch.allclose(leaf.grad, w, rtol=0, atol=1e-6)
+    assert (cl.layer_norm_fwd.launches, cl.layer_norm_bwd.launches) == counts
+
+
+def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a header of csrc/ names a new library, so a stale one is
+    never loaded."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, "common.cuh"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = cuda_build.library_path("k")
+    assert first == cuda_build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert cuda_build.library_path("k") != first
+
+
+def test_backward_wrappers_refuse_other_devices():
+    meta = torch.zeros(1, 2, 8, 4, device="meta")
+    lse = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ca.flash_attention_dq(meta, meta, meta, None, None, meta, lse, lse)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ca.flash_attention_dkdv(meta, meta, meta, None, None, meta, lse, lse)
+    x = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cl.layer_norm_bwd(x, None, x[:, 0], x[:, 0], x)

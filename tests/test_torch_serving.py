@@ -248,12 +248,17 @@ def test_entry_points_need_a_place_without_cuda(tmp_path, monkeypatch):
 
 
 def test_backward_op_names_the_training_slice():
+    """A backward op that asks for recompute (non-empty checkpoints) is
+    not ported yet and says which slice brings it."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.data("x", [None, 4])
         y = fluid.layers.fc(x, 3)
-    main.global_block().append_op(type="backward", inputs={"Loss": [y]},
-                                  outputs={}, attrs={"targets": []})
+    w = main.all_parameters()[0].name
+    main.global_block().append_op(
+        type="backward", inputs={"Loss": [y]},
+        outputs={"Grads": [w + "@GRAD"]},
+        attrs={"targets": [w], "checkpoints": [y.name]})
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
