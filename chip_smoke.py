@@ -6,12 +6,14 @@ Phases, each of which exits non-zero on failure:
 
 1. device stamp: torch/CUDA/nvcc versions, card name and power limit;
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once); print each kernel's registers and
+   spills from ptxas, and the attention backward kernels' blocks per SM;
 3. each kernel against its plain torch version on the card, f32 and bf16,
    within the stated bounds: the forward kernels at the serving path's
    shapes; the backward kernels (flash-attention dQ and dK/dV, LayerNorm)
    at the training path's, attention (8, 12, 128, 64) plain, causal, with
-   a key-padding mask (and its gradient), T = 131 and dropout p = 0.1, and
+   a key-padding mask (and its gradient), T = 131 and dropout p = 0.1,
+   then head dims 128 and 40 and Tq = 128 with Tk = 96 and a mask, and
    LayerNorm (1024, 768);
 4. the serving slice at full width: BERT-base (seq 128, random weights
    from a seed) saved, reloaded through ``Predictor.from_model`` and served
@@ -33,13 +35,15 @@ Phases, each of which exits non-zero on failure:
    the rest of the process;
 6. times: each kernel, its plain version and the PyTorch library call
    (timed here only, never used by the port) with CUDA events, the least
-   time the card could take, and serving requests/s and latency.
+   time the card could take, and serving requests/s and latency; then the
+   device kernels the library's attention backward runs (torch.profiler).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,9 +58,13 @@ SEED = 1234
 SEQ = 128
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense
+# attention's products at f32 accuracy on the tensor cores: 3xTF32, three
+# TF32 passes at 495 TFLOP/s; bf16 at the bf16 rate
+ATTN_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 ATOL_FA_F32 = 2e-5
 ATOL_LN_F32 = 1e-5
-# f32 backward kernels vs their plain versions: sums in other orders only
+# f32 backward kernels vs their plain versions: 3xTF32 products (about
+# f32's accuracy; one TF32 pass would not hold this) summed in other orders
 RTOL_FA_BWD_F32 = 1e-4          # max|d| <= 1e-4 * max|grad|
 ATOL_LN_BWD_F32 = 1e-3
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
@@ -180,7 +188,9 @@ def check_kernels(ca, cl):
 def check_bwd_kernels(ca, cl):
     """The three backward kernels against their plain versions on the same
     card tensors (forward outputs from the forward kernels); returns the
-    f32 max|d| of the plain attention and LayerNorm cases."""
+    f32 max|d| of the plain attention and LayerNorm cases. The f32 attention
+    bound, 1e-4·max|grad|, is what 3xTF32 products keep and one TF32 pass
+    does not (tests/test_torch_kernels.py emulates both)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
 
@@ -207,18 +217,24 @@ def check_bwd_kernels(ca, cl):
         return err
 
     errs = {}
+    # (label, Tq, Tk, D, options): D = 128 and D = 40 take the kernels'
+    # other head-dim instance and the zero padding of D
     fa_cases = [
-        ("plain", 128, dict()),
-        ("causal", 128, dict(causal=True)),
-        ("kpm", 128, dict(kpm=True)),
-        ("T=131", 131, dict(kpm=True, causal=True)),
-        ("dropout p=0.1 seed=7", 128, dict(dropout_p=0.1, seed=7)),
+        ("plain", 128, 128, 64, dict()),
+        ("causal", 128, 128, 64, dict(causal=True)),
+        ("kpm", 128, 128, 64, dict(kpm=True)),
+        ("T=131", 131, 131, 64, dict(kpm=True, causal=True)),
+        ("dropout p=0.1 seed=7", 128, 128, 64, dict(dropout_p=0.1, seed=7)),
+        ("D=128", 128, 128, 128, dict()),
+        ("D=40", 128, 128, 40, dict()),
+        ("Tq=128 Tk=96 kpm", 128, 96, 64, dict(kpm=True)),
     ]
-    for label, t, kw in fa_cases:
-        q, k, v, do = (rnd(8, 12, t, 64) for _ in range(4))
+    for label, tq, tk, d, kw in fa_cases:
+        q, do = rnd(8, 12, tq, d), rnd(8, 12, tq, d)
+        k, v = rnd(8, 12, tk, d), rnd(8, 12, tk, d)
         kpm = None
         if kw.pop("kpm", False):
-            kpm = torch.where(torch.rand(8, t, generator=gen, device="cuda")
+            kpm = torch.where(torch.rand(8, tk, generator=gen, device="cuda")
                               < 0.2, -1e30, 0.0)
         seed = kw.pop("seed", None)
         for dt in (torch.float32, torch.bfloat16):
@@ -474,7 +490,12 @@ def profile_train_step(step):
           "while profiled (idle share %.1f%%)" % (
               busy, prof_wall, 100 * max(0.0, 1 - busy / prof_wall)),
           flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the 15 largest, then every kernel in an anonymous namespace wherever
+    # it ranks: the port's five, and a few of PyTorch's
+    ours = [e for e in ranked[15:]
+            if e.key.startswith("void (anonymous namespace)::")]
+    for e in ranked[:15] + ours:
         print("  %8.3f ms/step %5.1f%% x%-5d %s" % (
             e.self_device_time_total / 1e3,
             100 * e.self_device_time_total / 1e3 / busy, e.count,
@@ -501,7 +522,7 @@ def attention_bound_ms(b, h, t, d, dtype):
     nbytes = 4 * b * h * t * d * torch.finfo(dtype).bits // 8 + b * h * t * 4
     flops = 4 * b * h * t * t * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = flops / ATTN_PEAK_FLOPS[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -560,7 +581,7 @@ def attention_bwd_bound_ms(b, h, t, d, dtype, products, writes):
     nbytes = (4 + writes) * b * h * t * d * el + 2 * b * h * t * 4
     flops = 2 * products * b * h * t * t * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = flops / ATTN_PEAK_FLOPS[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -684,6 +705,75 @@ def forward_breakdown(pred, requests):
             e.key[:90]))
 
 
+def ptxas_summary(log):
+    """(entry function, 'N registers, S B spill stores, L B spill loads')
+    per kernel of one nvcc -Xptxas=-v log."""
+    out, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = "%s B spill stores, %s B spill loads" % m.groups()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out.append((fn, "%s registers, %s" % (m.group(1), spill)))
+            fn = None
+    return out
+
+
+def bwd_occupancy(cuda_build):
+    """Blocks per SM and dynamic shared memory of the attention backward
+    kernels at the training path's head dim 64 (and at 128), by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; returns them by
+    (kernel, dtype) at D = 64."""
+    import ctypes
+
+    fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    res = {}
+    for kernel, name in ((0, "flash_attn_bwd_dq"), (1, "flash_attn_bwd_dkdv")):
+        for dtype, dt in ((0, torch.float32), (1, torch.bfloat16)):
+            for d in (64, 128):
+                blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+                cuda_build.check(fn(kernel, d, dtype, ctypes.byref(blocks),
+                                    ctypes.byref(smem)), name)
+                print("occupancy %-19s %-8s D=%-3d %d blocks/SM, %d B shared "
+                      "memory, 128 threads" % (name, str(dt)[6:], d,
+                                               blocks.value, smem.value))
+                if d == 64:
+                    res[(name, dt)] = dict(blocks_per_sm=blocks.value,
+                                           smem_bytes=smem.value)
+    return res
+
+
+def sdpa_kernel_names():
+    """The device kernels one backward of scaled_dot_product_attention runs
+    at (8, 12, 128, 64), f32 and bf16, by torch.profiler (after every timed
+    phase: the profiler slows the host for the rest of the process)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for dt in (torch.float32, torch.bfloat16):
+        leaves = [torch.randn(8, 12, SEQ, 64, device="cuda").to(dt)
+                  .requires_grad_() for _ in range(3)]
+        out = F.scaled_dot_product_attention(*leaves)
+        do = torch.randn_like(out)
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+                print("SDPA backward %-8s %8.4f ms x%d %s" % (
+                    str(dt)[6:], e.self_device_time_total / 1e3, e.count,
+                    e.key[:150]), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -709,8 +799,9 @@ def main():
     print("built %s from %s in %.1f s" % (
         ", ".join(cuda_build.KERNELS), cuda_build.CSRC_DIR, secs))
     for name, log in sorted(cuda_build.build_logs.items()):
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print("  %s: %s" % (name, "; ".join(regs)))
+        for fn, info in ptxas_summary(log):
+            print("  %s %s: %s" % (name, fn, info))
+    occupancy = bwd_occupancy(cuda_build)
 
     errs = check_kernels(ca, cl)
     errs.update(check_bwd_kernels(ca, cl))
@@ -784,6 +875,7 @@ def main():
 
     times = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
+    sdpa_kernel_names()
     sources = {
         "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
                            "paddle_tpu/ops/pallas_attention.py:93"),
@@ -795,6 +887,14 @@ def main():
                                 "paddle_tpu/ops/pallas_attention.py:212"),
         "layer_norm_bwd": ("paddle_tpu_torch/csrc/layer_norm_bwd.cu",
                            "paddle_tpu/ops/pallas_layernorm.py:39")}
+    # how each kernel computes (route stays "cuda": all are CUDA C++)
+    bwd_design = ("mma.sync bf16 / 3xTF32 f32, cp.async double-buffered, "
+                  "128 threads")
+    design = {"flash_attn_fwd": "CUDA cores f32, 256 threads",
+              "layer_norm_fwd": "CUDA cores f32, warp per row",
+              "flash_attn_bwd_dq": bwd_design,
+              "flash_attn_bwd_dkdv": bwd_design,
+              "layer_norm_bwd": "CUDA cores f32, warp per row"}
     # launches: the forward kernels' count is the f32 serving run's (and
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run
@@ -803,12 +903,16 @@ def main():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=launches.get(name, train_launches[name]),
                      max_abs_err=errs[name], dtype="float32",
-                     launches_train=train_launches[name])
+                     launches_train=train_launches[name],
+                     design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])
         if name in blaunches:
             entry["launches_bf16"] = blaunches[name]
         entry["bf16"] = times[(name, torch.bfloat16)]
+        if (name, torch.float32) in occupancy:
+            entry["occupancy"] = occupancy[(name, torch.float32)]
+            entry["bf16"]["occupancy"] = occupancy[(name, torch.bfloat16)]
         record.append(entry)
     print(card)
     print(json.dumps({"kernels": record}))

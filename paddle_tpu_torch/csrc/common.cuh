@@ -15,12 +15,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// An f32 value rounded to T and back: where the reference casts an f32
-// intermediate to the input dtype before a product.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // Sum over the 32 lanes of a full warp.
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

@@ -10,17 +10,26 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// pallas_attention._tile_random_bits for one element (uint32 wraparound).
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t qi, uint32_t kj,
-                                                 uint32_t r, uint32_t c) {
-  uint32_t h = seed ^ (qi * 0x9E3779B9u) ^ (kj * 0x85EBCA6Bu);
-  h = h + r * 0x27D4EB2Fu + c * 0x165667B1u;
+// The hash's multipliers of the tile row qi, the tile column kj, and the row r
+// and column c inside the tile.
+constexpr uint32_t kHashQi = 0x9E3779B9u, kHashKj = 0x85EBCA6Bu;
+constexpr uint32_t kHashR = 0x27D4EB2Fu, kHashC = 0x165667B1u;
+
+// murmur3's fmix32
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
+}
+
+// pallas_attention._tile_random_bits for one element (uint32 wraparound).
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t qi, uint32_t kj,
+                                                 uint32_t r, uint32_t c) {
+  uint32_t h = seed ^ (qi * kHashQi) ^ (kj * kHashKj);
+  return fmix32(h + r * kHashR + c * kHashC);
 }
 
 // fold_bh_seed: int32 seed + bh * 1000003 with wraparound, read as uint32

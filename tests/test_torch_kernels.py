@@ -416,6 +416,73 @@ def test_layer_norm_function_on_cpu_gives_plain_grads(monkeypatch):
     assert (cl.layer_norm_fwd.launches, cl.layer_norm_bwd.launches) == counts
 
 
+# ---------------------------------------------------------------------------
+# The f32 arithmetic plan of csrc/flash_attn_bwd.cu, emulated on the CPU
+# before it runs on the card: its five products run on the tensor cores in
+# TF32, three passes per product (x = big + small, each rounded to TF32 by
+# cvt.rna; small·big + big·small + big·big summed in f32). The card's f32
+# bound is 1e-4·max|grad| of the plain version (chip_smoke.RTOL_FA_BWD_F32);
+# three passes must keep inside it, and one pass must not, or three would
+# not be needed.
+# ---------------------------------------------------------------------------
+TF32_CASES = {
+    "plain": dict(t=128),
+    "causal": dict(t=128, causal=True),
+    "kpm": dict(t=128, use_kpm=True),
+    "T=131": dict(t=131, causal=True, use_kpm=True),
+    "dropout p=0.1 seed=7": dict(t=128, dropout_p=0.1, seed=7),
+}
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on f32 bits: the mantissa rounded to 10 bits, ties
+    away from zero (half of the 13 dropped bits added to the magnitude,
+    then the 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b with TF32 operands and f32 sums: big·big alone (passes=1) or
+    3xTF32 (passes=3)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_bwd_3xtf32_plan_meets_the_f32_bound(case, monkeypatch):
+    """flash_attention_bwd_plain with its five products (torch.matmul) in
+    TF32 against the same function in f32."""
+    kw = TF32_CASES[case]
+    t = kw["t"]
+    rng = np.random.default_rng(21)
+    q, k, v, do = (torch.from_numpy(
+        rng.normal(size=(2, 12, t, 64)).astype(np.float32)) for _ in range(4))
+    kpm = torch.from_numpy(_kpm(2, t, seed=5)) if kw.get("use_kpm") else None
+    seed = kw.get("seed")
+    opts = dict(causal=kw.get("causal", False),
+                dropout_p=kw.get("dropout_p", 0.0))
+    out, lse = ca.flash_attention_plain(q, k, v, kpm, seed, **opts)
+    delta = (do * out).sum(-1)
+    want = ca.flash_attention_bwd_plain(q, k, v, kpm, seed, do, lse, delta,
+                                        **opts)
+    worst = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(torch, "matmul",
+                            lambda a, b, passes=passes: _mm_tf32(a, b, passes))
+        got = ca.flash_attention_bwd_plain(q, k, v, kpm, seed, do, lse, delta,
+                                           **opts)
+        monkeypatch.undo()
+        worst[passes] = max(
+            _maxdiff(g.numpy(), w.numpy()) / float(w.abs().max())
+            for g, w in zip(got, want) if w is not None)
+    assert worst[3] <= 1e-4, worst      # three passes: inside the bound
+    assert worst[1] > 1e-4, worst       # one pass: outside it
+
+
 def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a header of csrc/ names a new library, so a stale one is
     never loaded."""

@@ -117,6 +117,31 @@ def test_softmax_with_cross_entropy_soft_labels():
     _assert_close(got, want, ("Softmax", "Loss"))
 
 
+@pytest.mark.parametrize("axis", [1, 0])
+def test_softmax_with_cross_entropy_soft_labels_other_axis(axis):
+    # logits (2, 5, 3), soft labels normalised over `axis`; tolerance 1e-6
+    # as for the last axis (f32 on both sides)
+    soft = np.random.default_rng(3).random((2, 5, 3)).astype(np.float32)
+    soft /= soft.sum(axis=axis, keepdims=True)
+    got, want = _run_both("softmax_with_cross_entropy",
+                          {"Logits": [_rand(2, 5, 3) * 3], "Label": [soft]},
+                          {"soft_label": True, "axis": axis})
+    _assert_close(got, want, ("Softmax", "Loss"))
+    assert got["Loss"][0].shape == tuple(1 if i == axis else n
+                                         for i, n in enumerate((2, 5, 3)))
+
+
+def test_softmax_with_cross_entropy_hard_labels_other_axis_raises():
+    # the reference's gather is wrong over a non-last axis: the port raises
+    # and names it instead of copying it
+    lowering = pt_lowering("softmax_with_cross_entropy")
+    with pytest.raises(NotImplementedError, match="reference's lowering"):
+        lowering(LowerContext(torch.device("cpu")),
+                 {"Logits": [torch.zeros(2, 5, 3)],
+                  "Label": [torch.zeros(2, 1, 3, dtype=torch.int64)]},
+                 {"soft_label": False, "axis": 1})
+
+
 @pytest.mark.parametrize("step", [1, 7])
 def test_adam(step):
     b1, b2 = 0.9, 0.999
