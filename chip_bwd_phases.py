@@ -33,12 +33,12 @@ def instrumented_source(src):
                 old[:60], s.count(old), count))
         return s.replace(old, new)
 
-    s = rep(src, "namespace {\n\nconstexpr int kRows", (
+    s = rep(src, '#include "flash_mma.cuh"\n', (
+        '#include "flash_mma.cuh"\n'
         "__device__ long long g_clk[%d];\n"
         "#define STAMP(i, dep) do { asm volatile(\"\" :: \"f\"(dep)); \\\n"
         "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
-        "g_clk[(i)] = clock64(); } while (0)\n"
-        "namespace {\n\nconstexpr int kRows") % STAMPS)
+        "g_clk[(i)] = clock64(); } while (0)\n") % STAMPS)
     s = rep(s, "  const int bh = blockIdx.y;\n",
             "  const int bh = blockIdx.y;\n  const int base = KBASE;\n", 2)
     dq, dkdv = s.split("const int base = KBASE;")[1:]

@@ -7,14 +7,18 @@ Phases, each of which exits non-zero on failure:
 1. device stamp: torch/CUDA/nvcc versions, card name and power limit;
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/csrc``
    (one nvcc per source, all at once); print each kernel's registers and
-   spills from ptxas, and the attention backward kernels' blocks per SM;
+   spills from ptxas, and the three attention kernels' blocks per SM;
 3. each kernel against its plain torch version on the card, f32 and bf16,
-   within the stated bounds: the forward kernels at the serving path's
-   shapes; the backward kernels (flash-attention dQ and dK/dV, LayerNorm)
-   at the training path's, attention (8, 12, 128, 64) plain, causal, with
-   a key-padding mask (and its gradient), T = 131 and dropout p = 0.1,
-   then head dims 128 and 40 and Tq = 128 with Tk = 96 and a mask, and
-   LayerNorm (1024, 768);
+   within the stated bounds, at the serving and training paths' shapes:
+   attention (8, 12, 128, 64) plain, causal, with a key-padding mask (and
+   its gradient), T = 131 and dropout p = 0.1, then head dims 128 and 40
+   and Tq = 128 with Tk = 96 and a mask, forward and backward (the bf16
+   forward also against the plain version on the same bf16 inputs, which
+   rounds P before P·V as the kernel does); LayerNorm forward at
+   (1024, 768) and (1000, 768); LayerNorm backward at those, h = 770
+   (no 16-byte loads), no gamma, bf16 x with f32 gamma, n = 1,
+   (8192, 1024), (256, 4096) and (4, 30000), each launched twice and
+   required to give the same bits;
 4. the serving slice at full width: BERT-base (seq 128, random weights
    from a seed) saved, reloaded through ``Predictor.from_model`` and served
    by ``ServingEngine`` to 16 requests from 4 threads, in f32 and in the
@@ -123,18 +127,24 @@ def check_kernels(ca, cl):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     errs = {}
+    # (label, Tq, Tk, D, options), the backward kernels' cases: D = 128 and
+    # D = 40 take the kernel's other head-dim instance and the zero padding
+    # of D
     fa_cases = [
-        ("plain", 128, dict()),
-        ("causal", 128, dict(causal=True)),
-        ("kpm", 128, dict(kpm=True)),
-        ("T=131", 131, dict(kpm=True, causal=True)),
-        ("dropout p=0.1 seed=7", 128, dict(dropout_p=0.1, seed=7)),
+        ("plain", 128, 128, 64, dict()),
+        ("causal", 128, 128, 64, dict(causal=True)),
+        ("kpm", 128, 128, 64, dict(kpm=True)),
+        ("T=131", 131, 131, 64, dict(kpm=True, causal=True)),
+        ("dropout p=0.1 seed=7", 128, 128, 64, dict(dropout_p=0.1, seed=7)),
+        ("D=128", 128, 128, 128, dict()),
+        ("D=40", 128, 128, 40, dict()),
+        ("Tq=128 Tk=96 kpm", 128, 96, 64, dict(kpm=True)),
     ]
-    for label, t, kw in fa_cases:
-        q, k, v = rnd(8, 12, t, 64), rnd(8, 12, t, 64), rnd(8, 12, t, 64)
+    for label, tq, tk, d, kw in fa_cases:
+        q, k, v = rnd(8, 12, tq, d), rnd(8, 12, tk, d), rnd(8, 12, tk, d)
         kpm = None
         if kw.pop("kpm", False):
-            kpm = torch.where(torch.rand(8, t, generator=gen, device="cuda")
+            kpm = torch.where(torch.rand(8, tk, generator=gen, device="cuda")
                               < 0.2, -1e30, 0.0)
         for dt in (torch.float32, torch.bfloat16):
             qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
@@ -147,12 +157,17 @@ def check_kernels(ca, cl):
             if dt == torch.float32:
                 ok = err <= ATOL_FA_F32 and lse_err <= ATOL_FA_F32
                 bound = "max|d| <= %g" % ATOL_FA_F32
+                same = ""
             else:
-                ok = within_bf16(out, ref)
+                # also against the plain version on the same bf16 inputs,
+                # which rounds P before P·V where the kernel does
+                ref_bf, _ = ca.flash_attention_plain(qd, kd, vd, kpm, **kw)
+                ok = within_bf16(out, ref) and within_bf16(out, ref_bf)
                 bound = "|d| <= %g + %g|ref|" % (BF16_ATOL, BF16_RTOL)
-            print("flash_attn_fwd %-22s %-8s max|d| %.3e (lse %.3e) bound %s"
-                  " %s" % (label, str(dt)[6:], err, lse_err, bound,
-                           "ok" if ok else "EXCEEDED"), flush=True)
+                same = " (bf16 plain %.3e)" % max_abs(out, ref_bf)
+            print("flash_attn_fwd %-22s %-8s max|d| %.3e%s (lse %.3e) bound "
+                  "%s %s" % (label, str(dt)[6:], err, same, lse_err, bound,
+                             "ok" if ok else "EXCEEDED"), flush=True)
             if not ok:
                 fail("flash_attn_fwd %s %s outside its bound" % (label, dt))
             if label == "plain" and dt == torch.float32:
@@ -256,20 +271,48 @@ def check_bwd_kernels(ca, cl):
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_bwd_dq"] = max_abs(dq, rdq)
                 errs["flash_attn_bwd_dkdv"] = e
-    for n in (1024, 1000):
-        x = rnd(n, 768) * 2 + 0.5
-        g, b, dy = rnd(768), rnd(768), rnd(n, 768)
-        for dt in (torch.float32, torch.bfloat16):
-            xd, gd, dyd = x.to(dt), g.to(dt), dy.to(dt)
-            _, mean, rstd = cl.layer_norm_fwd(xd, gd, b.to(dt), 1e-5)
+    # (n, h, x dtypes, gamma: "x" = x's dtype, a dtype, or None): h = 770
+    # takes the path without 16-byte loads, h = 4096 the streamed path, and
+    # h = 30000 the one-warp path whose partials do not fit shared memory
+    ln_cases = [
+        (1024, 768, (torch.float32, torch.bfloat16), "x"),
+        (1000, 768, (torch.float32, torch.bfloat16), "x"),
+        (1024, 770, (torch.float32, torch.bfloat16), "x"),
+        (1024, 768, (torch.float32, torch.bfloat16), None),
+        (1024, 768, (torch.bfloat16,), torch.float32),
+        (1, 768, (torch.float32, torch.bfloat16), "x"),
+        (8192, 1024, (torch.float32, torch.bfloat16), "x"),
+        (256, 4096, (torch.float32, torch.bfloat16), "x"),
+        (4, 30000, (torch.float32,), "x"),
+    ]
+    for n, h, dts, gdt in ln_cases:
+        x = rnd(n, h) * 2 + 0.5
+        g, b, dy = rnd(h), rnd(h), rnd(n, h)
+        for dt in dts:
+            xd, dyd = x.to(dt), dy.to(dt)
+            gd = None if gdt is None else g.to(dt if gdt == "x" else gdt)
+            bd = None if gd is None else b.to(gd.dtype)
+            _, mean, rstd = cl.layer_norm_fwd(xd, gd, bd, 1e-5)
             got = cl.layer_norm_bwd(xd, gd, mean, rstd, dyd)
+            again = cl.layer_norm_bwd(xd, gd, mean, rstd, dyd)
             ref = cl.layer_norm_bwd_plain(xd, gd, mean, rstd, dyd)
             torch.cuda.synchronize()
-            e = max(judge("layer_norm_bwd", "(%d, 768) %s" % (n, part), dt,
-                          a, r)
+            label = "(%d, %d)%s" % (n, h, "" if gdt == "x" else
+                                    " gamma %s" % (gdt and str(gdt)[6:]))
+            e = max(judge("layer_norm_bwd", "%s %s" % (label, part), dt, a, r)
                     for part, a, r in zip(("dx", "dgamma", "dbeta"), got, ref))
-            if n == 1024 and dt == torch.float32:
+            want_w = torch.float32 if gd is None else gd.dtype
+            if got[1].dtype != want_w or got[2].dtype != want_w:
+                fail("layer_norm_bwd %s: dgamma/dbeta in %s, want %s" % (
+                    label, got[1].dtype, want_w))
+            # fixed-order sums, no float atomics: a second launch on the
+            # same inputs gives the same bits
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("layer_norm_bwd %s %s: two launches differ" % (label, dt))
+            if n == 1024 and h == 768 and gdt == "x" and dt == torch.float32:
                 errs["layer_norm_bwd"] = e
+    print("layer_norm_bwd: every case bit-identical over two launches",
+          flush=True)
     return errs
 
 
@@ -723,22 +766,28 @@ def ptxas_summary(log):
     return out
 
 
-def bwd_occupancy(cuda_build):
-    """Blocks per SM and dynamic shared memory of the attention backward
+def attention_occupancy(cuda_build):
+    """Blocks per SM and dynamic shared memory of the three attention
     kernels at the training path's head dim 64 (and at 128), by
     cudaOccupancyMaxActiveBlocksPerMultiprocessor; returns them by
     (kernel, dtype) at D = 64."""
     import ctypes
 
-    fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fwd = cuda_build.load("flash_attn_fwd").flash_attn_fwd_occupancy
+    fwd.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fwd.restype = ctypes.c_int
+    bwd = cuda_build.load("flash_attn_bwd").flash_attn_bwd_occupancy
+    bwd.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    bwd.restype = ctypes.c_int
+    kernels = (("flash_attn_fwd", fwd),
+               ("flash_attn_bwd_dq", lambda *a: bwd(0, *a)),
+               ("flash_attn_bwd_dkdv", lambda *a: bwd(1, *a)))
     res = {}
-    for kernel, name in ((0, "flash_attn_bwd_dq"), (1, "flash_attn_bwd_dkdv")):
+    for name, fn in kernels:
         for dtype, dt in ((0, torch.float32), (1, torch.bfloat16)):
             for d in (64, 128):
                 blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-                cuda_build.check(fn(kernel, d, dtype, ctypes.byref(blocks),
+                cuda_build.check(fn(d, dtype, ctypes.byref(blocks),
                                     ctypes.byref(smem)), name)
                 print("occupancy %-19s %-8s D=%-3d %d blocks/SM, %d B shared "
                       "memory, 128 threads" % (name, str(dt)[6:], d,
@@ -801,7 +850,7 @@ def main():
     for name, log in sorted(cuda_build.build_logs.items()):
         for fn, info in ptxas_summary(log):
             print("  %s %s: %s" % (name, fn, info))
-    occupancy = bwd_occupancy(cuda_build)
+    occupancy = attention_occupancy(cuda_build)
 
     errs = check_kernels(ca, cl)
     errs.update(check_bwd_kernels(ca, cl))
@@ -888,13 +937,15 @@ def main():
         "layer_norm_bwd": ("paddle_tpu_torch/csrc/layer_norm_bwd.cu",
                            "paddle_tpu/ops/pallas_layernorm.py:39")}
     # how each kernel computes (route stays "cuda": all are CUDA C++)
-    bwd_design = ("mma.sync bf16 / 3xTF32 f32, cp.async double-buffered, "
+    mma_design = ("mma.sync bf16 / 3xTF32 f32, cp.async double-buffered, "
                   "128 threads")
-    design = {"flash_attn_fwd": "CUDA cores f32, 256 threads",
+    design = {"flash_attn_fwd": mma_design,
               "layer_norm_fwd": "CUDA cores f32, warp per row",
-              "flash_attn_bwd_dq": bwd_design,
-              "flash_attn_bwd_dkdv": bwd_design,
-              "layer_norm_bwd": "CUDA cores f32, warp per row"}
+              "flash_attn_bwd_dq": mma_design,
+              "flash_attn_bwd_dkdv": mma_design,
+              "layer_norm_bwd": "CUDA cores f32, one launch: warp per row "
+                                "held in registers, dgamma/dbeta summed in "
+                                "a fixed order by the last blocks"}
     # launches: the forward kernels' count is the f32 serving run's (and
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run

@@ -8,11 +8,13 @@ Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_attention.py:
 statistics, one block per (64-row q tile, batch·head); ``_dq_kernel`` and
 ``_dkdv_kernel`` (called from ``_bwd_call``) by the two kernels of
 ``csrc/flash_attn_bwd.cu``, one block per q tile for dQ and one per key
-tile for dK/dV, re-forming P from the saved lse. Their notes say what
-bounds them on the H100. :class:`FlashAttention` is ``_flash``'s
-custom_vjp: its backward computes delta = rowsum(dO∘O) in f32, launches
-both backward kernels and sums the per-(batch·head) key-padding-mask
-partials over the heads, as ``_flash_bwd`` does.
+tile for dK/dV, re-forming P from the saved lse. All three run their
+products on the tensor cores (``mma.sync``: bf16, or 3xTF32 in f32) from
+tiles copied by ``cp.async``, with the parts in ``csrc/flash_mma.cuh``.
+Their notes say what bounds them on the H100. :class:`FlashAttention` is
+``_flash``'s custom_vjp: its backward computes delta = rowsum(dO∘O) in
+f32, launches both backward kernels and sums the per-(batch·head)
+key-padding-mask partials over the heads, as ``_flash_bwd`` does.
 
 Semantics kept from ``pallas_attention.flash_attention``: q/k/v are
 (B, H, T, D); the default ``sm_scale`` is D^-½; ``key_padding_mask`` is an
@@ -143,8 +145,9 @@ def _scores(q, k, key_padding_mask, sm_scale, causal):
 
 def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
                           sm_scale=None, causal=False, dropout_p=0.0):
-    """The kernel's function in plain torch (f32 math): returns (out like
-    q, lse (B, H, Tq) f32)."""
+    """The kernel's function in plain torch (f32 math, P rounded to the
+    input dtype before P·V where the reference rounds it): returns (out
+    like q, lse (B, H, Tq) f32)."""
     _check_args(q, k, v, seed, dropout_p)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -158,6 +161,9 @@ def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
     if dropout_p > 0.0:
         keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device)
         p = torch.where(keep, p, torch.zeros_like(p)) * (1.0 / (1.0 - dropout_p))
+    # P∘keep/(1−p) rounds to the input dtype before P·V, as the reference's
+    # p_use.astype(v.dtype) does (a no-op in f32); l is the unrounded sum
+    p = p.to(v.dtype).float()
     out = torch.matmul(p, v.float()) / l_safe
     dead = m <= NEG_INF * 0.5
     out = torch.where(dead, torch.zeros_like(out), out)

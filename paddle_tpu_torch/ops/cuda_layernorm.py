@@ -6,11 +6,12 @@ Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_layernorm.py:
 ``_fwd_kernel`` (called from ``_ln_fwd``) by ``csrc/layer_norm_fwd.cu``,
 one warp per row, f32 statistics, y in the input dtype, mean and rstd in
 f32; ``_bwd_kernel`` (called from ``_ln_bwd``) by
-``csrc/layer_norm_bwd.cu``, dx one warp per row from the saved mean and
-rstd, per-block f32 partials of dγ and dβ that the wrapper sums. Both are
-bound by device memory (a few flops per byte); the sources' notes say
-what their designs do about that. :class:`LayerNorm` is ``_ln``'s
-custom_vjp: mean and rstd carry no gradient.
+``csrc/layer_norm_bwd.cu``, one launch: dx one warp per row from the
+saved mean and rstd, the row read once into registers, and dγ, dβ summed
+in f32 in a fixed order inside the same launch and written in gamma's
+dtype. Both are bound by device memory (a few flops per byte); the
+sources' notes say what their designs do about that. :class:`LayerNorm` is
+``_ln``'s custom_vjp: mean and rstd carry no gradient.
 
 :func:`layer_norm_fwd` and :func:`layer_norm_bwd` launch their kernels on
 a CUDA tensor and take the plain versions (:func:`layer_norm_plain`,
@@ -124,9 +125,10 @@ def layer_norm_bwd_plain(x, gamma, mean, rstd, dy):
 
 def layer_norm_bwd(x, gamma, mean, rstd, dy):
     """LayerNorm backward over the rows of x (n, h): (dx, dgamma, dbeta).
-    Launches ``csrc/layer_norm_bwd.cu`` on a CUDA tensor (counted in
-    ``layer_norm_bwd.launches``) and sums its per-block dγ/dβ partials;
-    runs :func:`layer_norm_bwd_plain` on a CPU tensor."""
+    Launches ``csrc/layer_norm_bwd.cu`` once on a CUDA tensor (counted in
+    ``layer_norm_bwd.launches``): it writes dx, and dγ/dβ in gamma's dtype
+    (f32 without gamma); runs :func:`layer_norm_bwd_plain` on a CPU
+    tensor."""
     if x.dim() != 2 or dy.shape != x.shape:
         raise ValueError("layer_norm_bwd takes x and dy of one shape (n, h), "
                          "got %s and %s" % (tuple(x.shape), tuple(dy.shape)))
@@ -148,27 +150,32 @@ def layer_norm_bwd(x, gamma, mean, rstd, dy):
     _check_param(gamma, "gamma", x, "layer_norm_bwd")
     lib = cuda_build.load("layer_norm_bwd")
     fn = lib.layer_norm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.layer_norm_bwd_partial_rows.argtypes = [ctypes.c_int]
-    lib.layer_norm_bwd_partial_rows.restype = ctypes.c_int
-    parts = lib.layer_norm_bwd_partial_rows(n)
+    ws = lib.layer_norm_bwd_workspace
+    ws.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ws.restype = ctypes.c_int
+    w_dtype = gamma.dtype if gamma is not None else torch.float32
     dx = torch.empty_like(x)
-    dg_part = torch.empty((parts, h), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((parts, h), dtype=torch.float32, device=x.device)
+    dg = torch.empty(h, dtype=w_dtype, device=x.device)
+    db = torch.empty(h, dtype=w_dtype, device=x.device)
     with torch.cuda.device(x.device):
+        n_scratch = ctypes.c_longlong(0)
+        cuda_build.check(ws(n, h, ctypes.byref(n_scratch)), "layer_norm_bwd")
+        # the blocks' partial rows of dγ and dβ, summed inside the launch
+        scratch = torch.empty(n_scratch.value, dtype=torch.float32,
+                              device=x.device)
         err = fn(x.data_ptr(),
                  gamma.data_ptr() if gamma is not None else None,
                  mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), n, h,
-                 _DTYPE_CODE[x.dtype],
-                 _DTYPE_CODE[gamma.dtype] if gamma is not None else 0,
+                 dx.data_ptr(), scratch.data_ptr(), dg.data_ptr(),
+                 db.data_ptr(), n, h, _DTYPE_CODE[x.dtype],
+                 _DTYPE_CODE[w_dtype],
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    w_dtype = gamma.dtype if gamma is not None else torch.float32
-    return dx, dg_part.sum(dim=0).to(w_dtype), db_part.sum(dim=0).to(w_dtype)
+    return dx, dg, db
 
 
 layer_norm_bwd.launches = 0

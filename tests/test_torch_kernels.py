@@ -8,6 +8,7 @@ Tolerances: attention 2e-5 (the JAX tests' own bound, f32); LayerNorm
 1e-5 for Y and Mean, 1e-4 for Variance (the port derives it from rstd).
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -149,6 +150,40 @@ def test_dropout_forward_matches_pallas(t, causal, use_kpm):
         None if kpm is None else jnp.asarray(kpm), seed=11, causal=causal,
         dropout_p=0.25, interpret=True)
     assert _maxdiff(out.numpy(), want) <= ATOL_ATTN
+
+
+# bf16: the reference rounds P∘keep/(1−p) to the input dtype before P·V
+# (pallas_attention._fwd_kernel's p_use.astype(v.dtype)); so does the plain
+# version, which is the oracle of the card's bf16 forward. What is left is
+# the running max at which the reference rounds, tile by tile.
+BF16_FWD_CASES = {
+    "plain": dict(t=128),
+    "dropout p=0.1 seed=7": dict(t=128, dropout_p=0.1, seed=7),
+    "T=131 causal kpm": dict(t=131, causal=True, use_kpm=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FWD_CASES))
+def test_bf16_forward_rounds_p_where_pallas_does(case):
+    kw = dict(BF16_FWD_CASES[case])
+    t, use_kpm = kw.pop("t"), kw.pop("use_kpm", False)
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(2, 4, t, 64)).astype(np.float32)
+               for _ in range(3))
+    kpm = _kpm(2, t) if use_kpm else None
+    want = pa.flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        None if kpm is None else jnp.asarray(kpm), interpret=True, **kw)
+    want = np.asarray(want.astype(jnp.float32))
+    got, _ = ca.flash_attention_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        None if kpm is None else torch.from_numpy(kpm), **kw)
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.float().numpy() - want)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    # without the rounding: 35-42% of the elements differ, by up to 3.9e-3
+    assert (d > 0).mean() <= 1e-3, (d > 0).mean()
+    assert d.max() <= ulp, (d.max(), ulp)
 
 
 def test_attention_argument_checks():
@@ -483,12 +518,71 @@ def test_bwd_3xtf32_plan_meets_the_f32_bound(case, monkeypatch):
     assert worst[1] > 1e-4, worst       # one pass: outside it
 
 
+# The forward kernel's f32 plan: S = Q·Kᵀ and P·V in 3xTF32, held to the
+# card's f32 forward bound (chip_smoke.ATOL_FA_F32 = 2e-5) for out and lse.
+FWD_TF32_CASES = {
+    "plain": dict(t=128),
+    "causal": dict(t=128, causal=True),
+    "T=131 causal kpm": dict(t=131, causal=True, use_kpm=True),
+    "dropout p=0.1 seed=7": dict(t=128, dropout_p=0.1, seed=7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_TF32_CASES))
+def test_fwd_3xtf32_plan_meets_the_f32_bound(case, monkeypatch):
+    """flash_attention_plain with its two products (torch.matmul) in TF32
+    against the same function in f32."""
+    kw = FWD_TF32_CASES[case]
+    t = kw["t"]
+    rng = np.random.default_rng(22)
+    q, k, v = (torch.from_numpy(
+        rng.normal(size=(2, 12, t, 64)).astype(np.float32)) for _ in range(3))
+    kpm = torch.from_numpy(_kpm(2, t, seed=6)) if kw.get("use_kpm") else None
+    opts = dict(seed=kw.get("seed"), causal=kw.get("causal", False),
+                dropout_p=kw.get("dropout_p", 0.0))
+    want_out, want_lse = ca.flash_attention_plain(q, k, v, kpm, **opts)
+    worst = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(torch, "matmul",
+                            lambda a, b, passes=passes: _mm_tf32(a, b, passes))
+        out, lse = ca.flash_attention_plain(q, k, v, kpm, **opts)
+        monkeypatch.undo()
+        live = want_lse > -1e29
+        worst[passes] = (_maxdiff(out.numpy(), want_out.numpy()),
+                         _maxdiff(lse[live].numpy(), want_lse[live].numpy()))
+    assert max(worst[3]) <= 2e-5, worst     # three passes: inside the bound
+    assert worst[1][0] > 2e-5, worst        # one pass: outside it
+
+
+def test_attention_sources_share_the_mma_header():
+    """The forward and backward kernels take their tile loads, fragments and
+    products from csrc/flash_mma.cuh, and neither carries a copy."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    def read(name):
+        with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+            return f.read()
+
+    header = read("flash_mma.cuh")
+    for fn in ("mma_abt", "mma_pb", "load_tile", "keep_bits", "store_pair",
+               "mma_3xtf32_x4", "cp_async16"):
+        assert re.search(r"__forceinline__ \w+ %s\(" % fn, header), fn
+    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        text = read(src)
+        assert '#include "flash_mma.cuh"' in text, src
+        assert "__device__" not in text.split("__global__")[0], src
+        for fn in ("mma_abt", "mma_pb"):
+            assert "%s<" % fn in text, (src, fn)     # used ...
+            assert "void %s(" % fn not in text, (src, fn)  # ... not defined
+
+
 def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a header of csrc/ names a new library, so a stale one is
     never loaded."""
     from paddle_tpu_torch.ops import cuda_build
 
-    assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, "common.cuh"))
+    for header in ("common.cuh", "flash_common.cuh", "flash_mma.cuh"):
+        assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, header))
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
     (tmp_path / "common.cuh").write_text("// v1\n")
@@ -496,6 +590,16 @@ def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
     assert first == cuda_build.library_path("k")
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert cuda_build.library_path("k") != first
+    # the attention kernels' shared header names new libraries for both
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        (tmp_path / (name + ".cu")).write_text('#include "flash_mma.cuh"\n')
+    (tmp_path / "flash_mma.cuh").write_text("// v1\n")
+    before = [cuda_build.library_path(n)
+              for n in ("flash_attn_fwd", "flash_attn_bwd")]
+    (tmp_path / "flash_mma.cuh").write_text("// v2\n")
+    after = [cuda_build.library_path(n)
+             for n in ("flash_attn_fwd", "flash_attn_bwd")]
+    assert before[0] != after[0] and before[1] != after[1]
 
 
 def test_backward_wrappers_refuse_other_devices():
