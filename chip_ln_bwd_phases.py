@@ -33,8 +33,8 @@ def instrumented_source(src):
                              % (old[:60], s.count(old), count))
         return s.replace(old, new)
 
-    s = rep(src, '#include "common.cuh"\n', (
-        '#include "common.cuh"\n'
+    s = rep(src, '#include "ln_rows.cuh"\n', (
+        '#include "ln_rows.cuh"\n'
         "__device__ unsigned long long g_t[%d];\n"
         "#define STAMP(i) do { if (threadIdx.x == 0) { unsigned long long t; "
         "asm volatile(\"mov.u64 %%0, %%%%globaltimer;\" : \"=l\"(t)); "

@@ -7,7 +7,8 @@ Phases, each of which exits non-zero on failure:
 1. device stamp: torch/CUDA/nvcc versions, card name and power limit;
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/csrc``
    (one nvcc per source, all at once); print each kernel's registers and
-   spills from ptxas, and the three attention kernels' blocks per SM;
+   spills from ptxas (a spill in the LayerNorm forward fails), and the
+   three attention kernels' blocks per SM;
 3. each kernel against its plain torch version on the card, f32 and bf16,
    within the stated bounds, at the serving and training paths' shapes:
    attention (8, 12, 128, 64) plain, causal, with a key-padding mask (and
@@ -15,7 +16,10 @@ Phases, each of which exits non-zero on failure:
    and Tq = 128 with Tk = 96 and a mask, forward and backward (the bf16
    forward also against the plain version on the same bf16 inputs, which
    rounds P before P·V as the kernel does); LayerNorm forward at
-   (1024, 768) and (1000, 768); LayerNorm backward at those, h = 770
+   (1024, 768), (1000, 768), the serving buckets' (128, 768), (256, 768)
+   and (512, 768), h = 770, no gamma and beta, gamma and beta in the other
+   dtype, n = 1, (8192, 1024), (256, 4096) and (4, 30000); LayerNorm
+   backward at (1024, 768), (1000, 768), h = 770
    (no 16-byte loads), no gamma, bf16 x with f32 gamma, n = 1,
    (8192, 1024), (256, 4096) and (4, 30000), each launched twice and
    required to give the same bits;
@@ -39,8 +43,10 @@ Phases, each of which exits non-zero on failure:
    the rest of the process;
 6. times: each kernel, its plain version and the PyTorch library call
    (timed here only, never used by the port) with CUDA events, the least
-   time the card could take, and serving requests/s and latency; then the
-   device kernels the library's attention backward runs (torch.profiler).
+   time the card could take, and serving requests/s and latency; the
+   LayerNorm forward and F.layer_norm also at every serving bucket's rows,
+   beside the launch floor (a one-element fill_); then the device kernels
+   the library's attention backward runs (torch.profiler).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -172,14 +178,38 @@ def check_kernels(ca, cl):
                 fail("flash_attn_fwd %s %s outside its bound" % (label, dt))
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_fwd"] = err
-    for n in (1024, 1000):
-        x = rnd(n, 768) * 2 + 0.5
-        g, b = rnd(768), rnd(768)
-        for dt in (torch.float32, torch.bfloat16):
-            xd, gd, bd = x.to(dt), g.to(dt), b.to(dt)
+    # (n, h, x dtypes, gamma and beta: "x" = x's dtype, a dtype, or None):
+    # the four serving buckets' rows (128·B), h = 770 (no 16-byte loads),
+    # no gamma and beta, their width other than x's, n = 1, and the
+    # backward's long rows: h = 1024 (the longest held in registers), 4096
+    # and 30000 (streamed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    ln_cases = [
+        (1024, 768, (f32, bf16), "x"),
+        (1000, 768, (f32, bf16), "x"),
+        (128, 768, (f32, bf16), "x"),
+        (256, 768, (f32, bf16), "x"),
+        (512, 768, (f32, bf16), "x"),
+        (1024, 770, (f32, bf16), "x"),
+        (1024, 768, (f32, bf16), None),
+        (1024, 768, (bf16,), f32),
+        (1024, 768, (f32,), bf16),
+        (1, 768, (f32, bf16), "x"),
+        (8192, 1024, (f32, bf16), "x"),
+        (256, 4096, (f32, bf16), "x"),
+        (4, 30000, (f32, bf16), "x"),
+    ]
+    for n, h, dts, wdt in ln_cases:
+        x = rnd(n, h) * 2 + 0.5
+        g, b = rnd(h), rnd(h)
+        for dt in dts:
+            xd = x.to(dt)
+            gd = None if wdt is None else g.to(dt if wdt == "x" else wdt)
+            bd = None if wdt is None else b.to(gd.dtype)
             y, mean, rstd = cl.layer_norm_fwd(xd, gd, bd, 1e-5)
             ry, rmean, rrstd = cl.layer_norm_plain(
-                xd.float(), gd.float(), bd.float(), 1e-5)
+                xd.float(), None if gd is None else gd.float(),
+                None if bd is None else bd.float(), 1e-5)
             torch.cuda.synchronize()
             err = max(max_abs(y, ry), max_abs(mean, rmean),
                       max_abs(rstd, rrstd))
@@ -190,12 +220,14 @@ def check_kernels(ca, cl):
                 ok = (within_bf16(y, ry) and max_abs(mean, rmean) <= 1e-5
                       and max_abs(rstd, rrstd) <= 1e-4 * rrstd.abs().max())
                 bound = "|d| <= %g + %g|ref|" % (BF16_ATOL, BF16_RTOL)
-            print("layer_norm_fwd (%d, 768)            %-8s max|d| %.3e "
-                  "bound %s %s" % (n, str(dt)[6:], err, bound,
-                                   "ok" if ok else "EXCEEDED"), flush=True)
+            label = "(%d, %d)%s" % (n, h, "" if wdt == "x" else
+                                    " gamma %s" % (wdt and str(wdt)[6:]))
+            print("layer_norm_fwd %-26s %-8s max|d| %.3e bound %s %s" % (
+                label, str(dt)[6:], err, bound, "ok" if ok else "EXCEEDED"),
+                flush=True)
             if not ok:
-                fail("layer_norm_fwd (%d, 768) %s outside its bound" % (n, dt))
-            if n == 1024 and dt == torch.float32:
+                fail("layer_norm_fwd %s %s outside its bound" % (label, dt))
+            if n == 1024 and h == 768 and wdt == "x" and dt == f32:
                 errs["layer_norm_fwd"] = err
     return errs
 
@@ -582,12 +614,15 @@ def layer_norm_bound_ms(n, h, dtype):
 
 def kernel_times(ca, cl):
     """Times at the serving path's largest bucket: attention (8, 12, 128,
-    64), LayerNorm (8·128, 768)."""
+    64), LayerNorm (8·128, 768); the LayerNorm forward and F.layer_norm also
+    at the other buckets' rows (128·B, 768), B = 1, 2, 4; and the launch
+    floor, the device time of a one-element fill_. Returns the times by
+    (kernel, dtype), the buckets' by (rows, dtype), and the floor."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
-    res = {}
+    res, buckets = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(8, 12, SEQ, 64, generator=gen, device="cuda",
                                dtype=torch.float32).to(dt) for _ in range(3))
@@ -608,13 +643,30 @@ def kernel_times(ca, cl):
             library_ms=device_ms(
                 lambda: F.layer_norm(x, (768,), g, b, 1e-5)),
             bound_ms=ln_bound, bound_by=ln_by)
+        for rows in (SEQ, 2 * SEQ, 4 * SEQ):
+            xb = x[:rows].clone()
+            buckets[(rows, dt)] = dict(
+                ms=device_ms(lambda: cl.layer_norm_fwd(xb, g, b, 1e-5)),
+                library_ms=device_ms(
+                    lambda: F.layer_norm(xb, (768,), g, b, 1e-5)),
+                bound_ms=layer_norm_bound_ms(rows, 768, dt)[0])
+        buckets[(8 * SEQ, dt)] = {key: res[("layer_norm_fwd", dt)][key]
+                                  for key in ("ms", "library_ms", "bound_ms")}
+    one = torch.zeros(1, device="cuda")
+    floor = device_ms(lambda: one.fill_(1.0))
     for (name, dt), r in res.items():
         print("time %-15s %-8s kernel %.4f ms  plain %.4f ms  library %.4f "
               "ms  bound %.4f ms (%s)" % (name, str(dt)[6:], r["ms"],
                                           r["plain_ms"], r["library_ms"],
                                           r["bound_ms"], r["bound_by"]),
               flush=True)
-    return res
+    for (rows, dt), r in sorted(buckets.items(), key=lambda kv: (
+            kv[0][1] != torch.float32, kv[0][0])):
+        print("time layer_norm_fwd (%4d, 768) %-8s kernel %.4f ms  "
+              "F.layer_norm %.4f ms  bound %.4f ms  launch floor %.4f ms" % (
+                  rows, str(dt)[6:], r["ms"], r["library_ms"], r["bound_ms"],
+                  floor), flush=True)
+    return res, buckets, floor
 
 
 def attention_bwd_bound_ms(b, h, t, d, dtype, products, writes):
@@ -850,6 +902,11 @@ def main():
     for name, log in sorted(cuda_build.build_logs.items()):
         for fn, info in ptxas_summary(log):
             print("  %s %s: %s" % (name, fn, info))
+            # the LayerNorm forward holds its rows in registers: a spill
+            # would put them back in memory
+            if name == "layer_norm_fwd" and re.search(r"\b[1-9]\d* B spill",
+                                                      info):
+                fail("layer_norm_fwd %s spills: %s" % (fn, info))
     occupancy = attention_occupancy(cuda_build)
 
     errs = check_kernels(ca, cl)
@@ -922,7 +979,7 @@ def main():
         profile_train_step(train_step)
         del pred, train_step
 
-    times = kernel_times(ca, cl)
+    times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
     sdpa_kernel_names()
     sources = {
@@ -940,12 +997,17 @@ def main():
     mma_design = ("mma.sync bf16 / 3xTF32 f32, cp.async double-buffered, "
                   "128 threads")
     design = {"flash_attn_fwd": mma_design,
-              "layer_norm_fwd": "CUDA cores f32, warp per row",
+              "layer_norm_fwd": "CUDA cores f32: warp per row read once "
+                                "into registers (16-byte loads and stores), "
+                                "gamma/beta staged once per block in shared "
+                                "memory, ceil(n/SMs) warps per block",
               "flash_attn_bwd_dq": mma_design,
               "flash_attn_bwd_dkdv": mma_design,
-              "layer_norm_bwd": "CUDA cores f32, one launch: warp per row "
-                                "held in registers, dgamma/dbeta summed in "
-                                "a fixed order by the last blocks"}
+              "layer_norm_bwd": "CUDA cores f32, one cooperative launch: "
+                                "warp per row held in registers, a partial "
+                                "row of dgamma/dbeta per block, then after "
+                                "a grid barrier each block sums its slice of "
+                                "the columns in a fixed order"}
     # launches: the forward kernels' count is the f32 serving run's (and
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run
@@ -961,6 +1023,15 @@ def main():
         if name in blaunches:
             entry["launches_bf16"] = blaunches[name]
         entry["bf16"] = times[(name, torch.bfloat16)]
+        if name == "layer_norm_fwd":
+            # the serving buckets' rows (128·B, 768), f32 and bf16, and the
+            # device time of a one-element fill_ on the same card
+            entry["buckets"] = [dict(rows=rows, dtype=str(dt)[6:], **r)
+                                for (rows, dt), r in sorted(
+                                    ln_buckets.items(), key=lambda kv: (
+                                        kv[0][1] != torch.float32,
+                                        kv[0][0]))]
+            entry["launch_floor_ms"] = floor_ms
         if (name, torch.float32) in occupancy:
             entry["occupancy"] = occupancy[(name, torch.float32)]
             entry["bf16"]["occupancy"] = occupancy[(name, torch.bfloat16)]

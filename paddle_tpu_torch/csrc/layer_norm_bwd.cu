@@ -41,7 +41,7 @@
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "ln_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -51,38 +51,6 @@ constexpr int kWarps = 8;         // rows in flight per block, one warp each
 constexpr int kMaxCached = 1024;  // longest row held in registers
 constexpr int kSmemBudget = 96 * 1024;  // shared partials per block: two blocks per SM
 constexpr int kSmemMax = 200 * 1024;    // one warp's partials, at most
-
-// Element e of 16 bytes of T as f32, and the other way.
-template <typename T>
-__device__ __forceinline__ float lane_elem(const uint4& r, int e);
-template <>
-__device__ __forceinline__ float lane_elem<float>(const uint4& r, int e) {
-  return __uint_as_float((&r.x)[e]);
-}
-template <>
-__device__ __forceinline__ float lane_elem<__nv_bfloat16>(const uint4& r, int e) {
-  const uint32_t w = (&r.x)[e >> 1];
-  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-
-template <typename T>
-__device__ __forceinline__ void set_elem(uint4& r, int e, float x);
-template <>
-__device__ __forceinline__ void set_elem<float>(uint4& r, int e, float x) {
-  (&r.x)[e] = __float_as_uint(x);
-}
-template <>
-__device__ __forceinline__ void set_elem<__nv_bfloat16>(uint4& r, int e, float x) {
-  const __nv_bfloat16 b = __float2bfloat16(x);
-  const uint32_t bits = (uint32_t)*reinterpret_cast<const unsigned short*>(&b);
-  uint32_t& w = (&r.x)[e >> 1];
-  w = (e & 1) ? ((w & 0x0000ffffu) | (bits << 16)) : ((w & 0xffff0000u) | bits);
-}
-
-template <typename W>
-__device__ __forceinline__ float gamma_at(const W* gamma, int c) {
-  return gamma ? to_f(__ldg(gamma + c)) : 1.f;
-}
 
 // One row held in registers: CH chunks per lane of V elements each; chunk j
 // of a lane holds columns (32 j + lane)·V .. + V - 1. V = 16 bytes of T (the
@@ -315,13 +283,6 @@ Plan plan(int n, int h, int vec, int sms) {
   return p;
 }
 
-int card_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
 template <typename T, typename W, int PATH>
 cudaError_t launch_path(Plan p, int sms, const void* x, const void* gamma, const void* mean,
                         const void* rstd, const void* dy, void* dx, void* scratch, void* dg,
@@ -358,8 +319,8 @@ template <typename T, typename W>
 cudaError_t launch(const void* x, const void* gamma, const void* mean, const void* rstd,
                    const void* dy, void* dx, void* scratch, void* dg, void* db, int n, int h,
                    cudaStream_t stream) {
-  const uintptr_t any = (uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx;
-  const int vec = (h * (int)sizeof(T)) % 16 == 0 && (any & 15) == 0;
+  const int vec =
+      rows_in_16_bytes(h, (int)sizeof(T), (uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx);
   const int sms = card_sms();
   const Plan p = plan(n, h, vec, sms);
   if (p.path == 0)

@@ -4,8 +4,8 @@ that joins them.
 
 Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_layernorm.py:
 ``_fwd_kernel`` (called from ``_ln_fwd``) by ``csrc/layer_norm_fwd.cu``,
-one warp per row, f32 statistics, y in the input dtype, mean and rstd in
-f32; ``_bwd_kernel`` (called from ``_ln_bwd``) by
+one warp per row read once into registers, the rows spread over every SM,
+f32 statistics, y in the input dtype, mean and rstd in f32; ``_bwd_kernel`` (called from ``_ln_bwd``) by
 ``csrc/layer_norm_bwd.cu``, one launch: dx one warp per row from the
 saved mean and rstd, the row read once into registers, and dγ, dβ summed
 in f32 in a fixed order inside the same launch and written in gamma's

@@ -197,19 +197,45 @@ def test_attention_argument_checks():
         ca.flash_attention(meta, meta, meta)
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (37, 64)])
-def test_layer_norm_plain_matches_pallas(shape):
+# (shape, x dtype, gamma and beta: "x" = x's dtype, a dtype, or None): h = 770
+# is the kernel's path without 16-byte loads on the card
+LN_FWD_CASES = [
+    pytest.param((64, 96), "float32", "x", id="shape0"),
+    pytest.param((37, 64), "float32", "x", id="shape1"),
+    pytest.param((64, 770), "float32", "x", id="h770"),
+    pytest.param((64, 96), "float32", None, id="no_gamma_beta"),
+    pytest.param((64, 96), "bfloat16", "float32", id="bf16_x_f32_gamma_beta"),
+]
+
+
+@pytest.mark.parametrize("shape,x_dtype,w_dtype", LN_FWD_CASES)
+def test_layer_norm_plain_matches_pallas(shape, x_dtype, w_dtype):
+    """The wrapper on the CPU against the Pallas forward (interpret mode) on
+    the same inputs: within 1e-5 in f32; a bf16 y within the bf16 bound of
+    chip_smoke.py (|d| <= 2e-2 + 1e-2|ref|), mean and rstd (f32 from the
+    same bf16 x) within 1e-5."""
     rng = np.random.default_rng(5)
     x = (rng.normal(size=shape) * 3 + 1).astype(np.float32)
     g = rng.normal(size=shape[1:]).astype(np.float32)
     b = rng.normal(size=shape[1:]).astype(np.float32)
-    y, mean, rstd = cl.layer_norm_fwd(torch.from_numpy(x),
-                                      torch.from_numpy(g),
-                                      torch.from_numpy(b), 1e-5)
-    jy, jmean, jrstd = fused_layer_norm(jnp.asarray(x), jnp.asarray(g),
-                                        jnp.asarray(b), 1e-5,
+    w_dtype = x_dtype if w_dtype == "x" else w_dtype
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    jx = jnp.asarray(x).astype(x_dtype)
+    if w_dtype is None:
+        tg = tb = jg = jb = None
+    else:
+        tg, tb = (torch.from_numpy(v).to(getattr(torch, w_dtype))
+                  for v in (g, b))
+        jg, jb = (jnp.asarray(v).astype(w_dtype) for v in (g, b))
+    y, mean, rstd = cl.layer_norm_fwd(tx, tg, tb, 1e-5)
+    jy, jmean, jrstd = fused_layer_norm(jx, jg, jb, 1e-5,
                                         interpret=True, return_stats=True)
-    assert _maxdiff(y.numpy(), jy) <= 1e-5
+    assert y.dtype == tx.dtype and jy.dtype == jx.dtype
+    y, jy = y.float().numpy(), np.asarray(jy, np.float32)
+    if x_dtype == "float32":
+        assert _maxdiff(y, jy) <= 1e-5
+    else:
+        assert (np.abs(y - jy) <= 2e-2 + 1e-2 * np.abs(jy)).all()
     assert _maxdiff(mean.numpy(), jmean) <= 1e-5
     assert _maxdiff(rstd.numpy(), jrstd) <= 1e-5
 
@@ -576,12 +602,40 @@ def test_attention_sources_share_the_mma_header():
             assert "void %s(" % fn not in text, (src, fn)  # ... not defined
 
 
+def test_layer_norm_sources_share_the_row_header():
+    """The forward and backward LayerNorm kernels take their row parts (the
+    16-byte chunk accessors, gamma where it is absent, the 16-byte test and
+    the SM count) from csrc/ln_rows.cuh, and neither carries a copy."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    def read(name):
+        with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+            return f.read()
+
+    def defines(text, fn):
+        return re.search(r"\b(inline|__forceinline__)\s+\w+\s+%s\s*(<\w+>)?\s*\("
+                         % fn, text)
+
+    parts = ("lane_elem", "set_elem", "gamma_at", "rows_in_16_bytes",
+             "card_sms")
+    header = read("ln_rows.cuh")
+    for fn in parts:
+        assert defines(header, fn), fn
+    for src in ("layer_norm_fwd.cu", "layer_norm_bwd.cu"):
+        text = read(src)
+        assert '#include "ln_rows.cuh"' in text, src
+        for fn in parts:
+            assert re.search(r"\b%s\s*[<(]" % fn, text), (src, fn)  # used
+            assert not defines(text, fn), (src, fn)           # not defined
+
+
 def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a header of csrc/ names a new library, so a stale one is
     never loaded."""
     from paddle_tpu_torch.ops import cuda_build
 
-    for header in ("common.cuh", "flash_common.cuh", "flash_mma.cuh"):
+    for header in ("common.cuh", "flash_common.cuh", "flash_mma.cuh",
+                   "ln_rows.cuh"):
         assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, header))
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n')

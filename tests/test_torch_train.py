@@ -9,11 +9,13 @@
 - The ``backward`` op: targets the loss does not reach, intermediate
   targets, ``InitGrad`` seeds, and scopes that hold no autograd state.
 - The slice as a whole: bert_tiny (f32, dropout 0) + Adam built in both
-  packages, the JAX startup values copied by name, 5 steps on one batch.
-  Losses within 1e-4 relative at every step, step-1 gradients within
-  1e-4·max|grad| of each parameter's, and each parameter's 5-step update
-  (after − before) within 1e-3·max|update| of the JAX package's, so a
-  wrong step size or bias correction fails.
+  packages, the JAX startup values (fixed seed) copied by name, 5 steps on
+  one batch. Losses within 1e-4 relative and gradients within
+  1e-4·max|grad| of each parameter's at every step, and each parameter's
+  5-step update (after − before) within 1e-3·max|update| of what Adam
+  makes of the port's own gradients and of the JAX package's update (but
+  where Adam passes the gradients' rounding differences through, see the
+  test), so a wrong step size or bias correction fails.
 """
 import json
 
@@ -40,6 +42,8 @@ from paddle_tpu_torch.ops.registry import get_lowering as pt_lowering
 SEQ = 16
 STEPS = 5
 LR = 1e-4
+BETA1, BETA2, EPS = 0.9, 0.999, 1e-8     # fluid.optimizer.Adam's defaults
+INIT_SEED = 1234
 
 
 @pytest.fixture(autouse=True)
@@ -403,9 +407,27 @@ def test_train_program_parity():
     ].input("Loss")[0]
 
 
+def _adam_update(grads):
+    """The update Adam makes from a parameter's gradients of successive
+    steps, in float64: what either package's Adam should make of them."""
+    m = v = 0.0
+    update = 0.0
+    for t, g in enumerate(grads, 1):
+        g = np.asarray(g, np.float64)
+        m = BETA1 * m + (1 - BETA1) * g
+        v = BETA2 * v + (1 - BETA2) * g * g
+        lr_t = LR * np.sqrt(1 - BETA2 ** t) / (1 - BETA1 ** t)
+        update = update - lr_t * m / (np.sqrt(v) + EPS)
+    return update
+
+
 def test_bert_tiny_adam_matches_jax():
     jmain, jstart, jio = _build_train(jfluid, jbert)
     pmain, pstart, pio = _build_train(fluid, bert)
+    # a fixed seed: with random_seed 0 the JAX startup seeds from Python's
+    # string hash, which differs from process to process, so every run
+    # would start from other parameters
+    jstart.random_seed = INIT_SEED
     jexe = jfluid.Executor(jfluid.CPUPlace())
     jscope = jfluid.Scope()
     jexe.run(jstart, scope=jscope)
@@ -421,27 +443,39 @@ def test_bert_tiny_adam_matches_jax():
     feed = {"input_ids": ids, "mlm_labels": labels}
     params = sorted(p.name for p in pmain.all_parameters())
     grads = [p + "@GRAD" for p in params]
+    seen = {p: ([], []) for p in params}    # each step's gradient: port, JAX
     for step in range(STEPS):
-        fetch = ["loss"] + (grads if step == 0 else [])
-        jout = jexe.run(jmain, feed=feed, fetch_list=[jio["loss"]] + fetch[1:],
+        jout = jexe.run(jmain, feed=feed, fetch_list=[jio["loss"]] + grads,
                         scope=jscope)
-        pout = exe.run(pmain, feed=feed, fetch_list=[pio["loss"]] + fetch[1:],
+        pout = exe.run(pmain, feed=feed, fetch_list=[pio["loss"]] + grads,
                        scope=scope)
         jl, pl = float(np.asarray(jout[0])), float(pout[0])
         assert np.isfinite(pl)
         assert abs(pl - jl) <= 1e-4 * abs(jl), (step, pl, jl)
-        for name, a, w in zip(fetch[1:], pout[1:], jout[1:]):
+        for name, a, w in zip(params, pout[1:], jout[1:]):
             w = np.asarray(w)
             assert a.shape == w.shape, name
             assert np.isfinite(a).all(), name
             bound = 1e-4 * float(np.abs(w).max())
-            assert float(np.abs(a - w).max()) <= bound, name
+            assert float(np.abs(a - w).max()) <= bound, (step, name)
+            seen[name][0].append(a)
+            seen[name][1].append(w)
     # the 5 steps' update itself, against the whole of the JAX update
     for n in params:
         a, w = scope[n].numpy(), np.asarray(jscope[n])
         moved, want = a - init[n], w - init[n]
         scale = float(np.abs(want).max())
         assert scale > 0, n                           # Adam moved it
+        # the port's Adam on the port's gradients, every element
+        own = _adam_update(seen[n][0])
+        assert float(np.abs(moved - own).max()) <= 1e-3 * scale, n
+        # Where a gradient stays near Adam's eps (a GELU unit off for the
+        # whole batch), m/sqrt(v) passes the two packages' rounding
+        # differences in the gradients (held to 1e-4 above) into the step
+        # nearly undamped, so their updates differ by what their gradients
+        # make them differ. Such elements are held to the line above; the
+        # rest, nearly all, to the JAX update.
+        held = np.abs(own - _adam_update(seen[n][1])) <= 1e-4 * scale
         if n.endswith("qkv.b"):
             # the key bias adds q·b_k to every score of a row, which softmax
             # cancels: its exact gradient is 0, so each package moves it by
@@ -449,6 +483,7 @@ def test_bert_tiny_adam_matches_jax():
             h = want.size // 3
             for upd in (moved[h:2 * h], want[h:2 * h]):
                 assert float(np.abs(upd).max()) <= 1e-2 * scale, n
-            moved = np.concatenate([moved[:h], moved[2 * h:]])
-            want = np.concatenate([want[:h], want[2 * h:]])
-        assert float(np.abs(moved - want).max()) <= 1e-3 * scale, n
+            moved, want, held = (np.concatenate([u[:h], u[2 * h:]])
+                                 for u in (moved, want, held))
+        assert held.mean() >= 0.99, (n, held.mean())
+        assert float(np.abs(moved - want)[held].max()) <= 1e-3 * scale, n
