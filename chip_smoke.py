@@ -38,9 +38,26 @@ Phases, each of which exits non-zero on failure:
    loss, and 12 attention forward, 12 dQ, 12 dK/dV, 25 LayerNorm forward
    and 25 LayerNorm backward launches per step; step time, tokens/s,
    peak memory and a profile of one step;
-   The profiles of one serving forward and one training step come after
-   every timed phase: a torch.profiler session leaves the host slower for
-   the rest of the process;
+   5b. the training slice in bf16 AMP (``contrib.mixed_precision.decorate``,
+   as bench.py and examples/train_bert.py --bf16 train): (a) BERT-base
+   width at depth 2 in ``decorate(Adam(1e-4), use_bf16=True)``, 3 steps on
+   the card and on the CPU from the same parameters (losses within 1e-2
+   relative, step-1 gradients within 5e-2·max|grad| of each parameter),
+   and the undecorated program as the control: the gradients of the
+   weights read only by casts must be bfloat16 values in the AMP runs and
+   not in the control;
+   (b) dynamic loss scaling: a 2^15 scale gives the undecorated f32
+   program's bits over 3 steps, and an overflow step leaves parameters,
+   moments and beta powers bit-identical while the scale follows the
+   reference's rule down to its floor of 1; (c) full BERT-base in bf16 AMP
+   (dropout 0.1, batch 8, seq 128) trained 23 steps like the f32 run:
+   finite, falling loss, 12/12/12/25/25 kernel launches per step, step
+   time and tokens/s beside the f32 step's;
+   The profiles of one serving forward and one training step of each kind
+   (f32, then bf16 AMP: device busy, idle share, GEMM device time by
+   dtype, the casts' launches and time) come after every timed phase: a
+   torch.profiler session leaves the host slower for the rest of the
+   process;
 6. times: each kernel, its plain version and the PyTorch library call
    (timed here only, never used by the port) with CUDA events, the least
    time the card could take, and serving requests/s and latency; the
@@ -434,13 +451,18 @@ def serving_phase(fluid, serving, ca, cl, dirname, policy, requests):
 # ---------------------------------------------------------------------------
 # phase 5: the training slice
 # ---------------------------------------------------------------------------
-def train_program(fluid, bert, cfg):
+def train_program(fluid, bert, cfg, amp=None):
     """BERT pretraining + Adam(1e-4) minimize, as examples/train_bert.py
-    builds it; returns (main, startup, loss var)."""
+    builds it, the optimizer decorated by
+    ``contrib.mixed_precision.decorate(**amp)`` when `amp` is given;
+    returns (main, startup, loss var)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         io = bert.build_bert_pretrain(cfg, SEQ)
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(io["loss"])
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if amp is not None:
+            opt = fluid.contrib.mixed_precision.decorate(opt, **amp)
+        opt.minimize(io["loss"])
     startup.random_seed = SEED
     return main, startup, io["loss"]
 
@@ -483,6 +505,206 @@ def train_vs_cpu(fluid, bert):
         fail("train[depth 2]: card losses differ from the CPU run")
 
 
+def off_by_more_than_an_ulp(got, want):
+    """(elements, of which off): elements farther from `want` than one
+    bfloat16 ulp (2^-8 relative), not counting differences under 1e-3 of
+    max|want| (tests/test_torch_amp.py uses the same measure)."""
+    scale = float(np.abs(want).max())
+    off = np.abs(got - want) > 2.0 ** -8 * np.abs(want) + 1e-3 * scale
+    return off.size, int(off.sum())
+
+
+def bf16_exact_share(a):
+    """Share of the f32 elements of `a` that a bfloat16 holds exactly (low
+    16 bits zero): all of a gradient that came out of a bfloat16 product,
+    next to none of an f32 one."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return float(((bits & 0xFFFF) == 0).mean())
+
+
+def amp_vs_cpu(fluid, bert):
+    """Phase 5b (a): BERT-base width at depth 2, batch 2, dropout 0, in
+    ``decorate(Adam(1e-4), use_bf16=True)``: 3 steps on the card and on the
+    CPU from the same parameters. Losses within 1e-2 relative, step-1
+    gradients within 5e-2·max|grad| of each parameter. The control, the
+    undecorated program on the card from the same parameters, is printed
+    against the same bounds and must fail the AMP signature: the gradients
+    of the weights that reach the loss only through a cast to bfloat16 are
+    bfloat16 values (the cast's backward widens a bfloat16 product) in the
+    AMP runs, on the card and on the CPU, and f32 values in the control."""
+    cfg = bert.BertConfig(num_layers=2, dropout=0.0)
+    fluid.unique_name.switch()       # both programs: the same var names
+    main, startup, loss = train_program(fluid, bert, cfg,
+                                        amp=dict(use_bf16=True))
+    fluid.unique_name.switch()
+    f32_main, _, f32_loss = train_program(fluid, bert, cfg)
+    scope, cpu_scope, f32_scope = fluid.Scope(), fluid.Scope(), fluid.Scope()
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for n, t in list(scope.items()):
+        cpu_scope.set(n, t.cpu().clone())
+        f32_scope.set(n, t.clone())
+    ops = main.global_block().ops
+    n_cast = sum(op.type == "cast" for op in ops)
+    params = {p.name for p in main.all_parameters()}
+    # weights the forward reads through casts only (word_emb also feeds
+    # the f32 lookup)
+    read = {}
+    for op in ops[:[op.type for op in ops].index("backward")]:
+        for n in op.input_arg_names:
+            read.setdefault(n, set()).add(op.type)
+    cast_only = sorted(n for n in params if read.get(n) == {"cast"})
+    ids, labels = bert.synthetic_batch(cfg, 2, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    grads = sorted(p + "@GRAD" for p in params)
+    worst_loss, worst_grad, off, ctl_off, ctl_worst = 0.0, ("", 0.0), \
+        [0, 0], [0, 0], ("", 0.0)
+    share = {}
+    for step in range(3):
+        fetch = [loss] + (grads if step == 0 else [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        print("train_amp[depth 2] step %d: loss card %.6f cpu %.6f (rel "
+              "%.2e)" % (step, float(got[0]), float(want[0]), rel),
+              flush=True)
+        worst_loss = max(worst_loss, rel)
+        if step:
+            continue
+        ctl = exe.run(f32_main, feed=feed, fetch_list=[f32_loss] + grads,
+                      scope=f32_scope)
+        for name, a, w, c in zip(grads, got[1:], want[1:], ctl[1:]):
+            scale = max(float(np.abs(w).max()), 1e-30)
+            r = float(np.abs(a - w).max()) / scale
+            if not np.isfinite(a).all() or r > 5e-2:
+                fail("train_amp[depth 2]: %s on the card differs from the "
+                     "CPU by %.3e of max|grad| (bound 5e-2)" % (name, r))
+            worst_grad = max(worst_grad, (name, r), key=lambda x: x[1])
+            ctl_worst = max(ctl_worst, (name, float(np.abs(c - w).max())
+                                        / scale), key=lambda x: x[1])
+            for acc, x in ((off, a), (ctl_off, c)):
+                n, k = off_by_more_than_an_ulp(x, w)
+                acc[0] += n
+                acc[1] += k
+            if name[:-len("@GRAD")] in cast_only:
+                for kind, x in (("card", a), ("cpu", w), ("f32", c)):
+                    share[kind] = min(share.get(kind, 1.0),
+                                      bf16_exact_share(x))
+    print("train_amp[depth 2] vs the port on the CPU (%d casts): losses "
+          "within rel %.2e (bound 1e-2); step-1 gradients of %d parameters "
+          "within %.2e of max|grad| (worst %s; bound 5e-2); %.3f%% of "
+          "elements more than a bf16 ulp off" % (
+              n_cast, worst_loss, len(grads), worst_grad[1], worst_grad[0],
+              100 * off[1] / off[0]), flush=True)
+    print("train_amp[depth 2] control (undecorated, f32, on the card) vs "
+          "the AMP run on the CPU: worst %.2e of max|grad| (%s; the AMP "
+          "bound 5e-2), %.3f%% of elements more than a bf16 ulp off" % (
+              ctl_worst[1], ctl_worst[0], 100 * ctl_off[1] / ctl_off[0]),
+          flush=True)
+    print("train_amp[depth 2] gradients of the %d weights read only by "
+          "casts: least share of bfloat16 values %.4f on the card, %.4f on "
+          "the CPU, %.4f in the f32 control" % (
+              len(cast_only), share["card"], share["cpu"], share["f32"]),
+          flush=True)
+    if worst_loss > 1e-2:
+        fail("train_amp[depth 2]: card losses differ from the CPU run")
+    if not cast_only or share["card"] < 1.0 or share["cpu"] < 1.0:
+        fail("train_amp[depth 2]: a cast weight's gradient is not a "
+             "bfloat16 product's: AMP did not run as rewritten")
+    if share["f32"] > 0.5:
+        fail("train_amp[depth 2]: the f32 control looks like AMP: the check "
+             "cannot tell AMP on from off")
+
+
+def dynamic_scaling_checks(fluid, bert):
+    """Phase 5b (b) on the card. A power-of-two loss scale (2^15, dynamic)
+    against the undecorated f32 program from the same parameters, BERT-base
+    width at depth 2, dropout 0, 3 Adam steps: every persistable value
+    bit-identical (a second f32 run tells a scale effect from run-to-run
+    differences). Then a small fc program with Adam(0.1) and dynamic
+    scaling from 8 (decay every bad step by 0.5): a good step, then inf
+    feeds; each overflow step leaves parameters, moments and beta powers
+    bit-identical and halves the scale, down to its floor of 1."""
+    cfg = bert.BertConfig(num_layers=2, dropout=0.0)
+    ids, labels = bert.synthetic_batch(cfg, 2, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    exe = fluid.Executor()
+    finals, start = [], None
+    for amp in (None, dict(use_bf16=False, init_loss_scaling=2.0 ** 15),
+                None):
+        fluid.unique_name.switch()   # the same accumulator names
+        main, startup, loss = train_program(fluid, bert, cfg, amp)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if start is None:
+            start = {n: t.clone() for n, t in scope.items()}
+        for n, t in start.items():
+            scope.set(n, t.clone())
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(3)]
+        finals.append((losses, {n: scope[n] for n in start}))
+    (l0, plain), (l1, scaled), (l2, again) = finals
+
+    def differ(a, b):
+        bad = [n for n in a if not torch.equal(a[n], b[n])]
+        err = max([(a[n] - b[n]).abs().max().item() for n in bad] or [0.0])
+        return bad, err
+
+    bad, err = differ(plain, scaled)
+    rerun, rerun_err = differ(plain, again)
+    print("dynamic scaling [depth 2]: 2^15 scale vs f32, 3 steps: losses "
+          "%s vs %s; %d of %d persistable values differ (max|d| %.3e%s); a "
+          "second f32 run: %d differ (max|d| %.3e%s)" % (
+              " ".join("%.6f" % x for x in l1),
+              " ".join("%.6f" % x for x in l0), len(bad), len(plain), err,
+              (": " + ", ".join(bad[:6])) if bad else "", len(rerun),
+              rerun_err, (": " + ", ".join(rerun[:6])) if rerun else ""),
+          flush=True)
+    # bit-identity, unless the f32 program itself differs from run to run:
+    # then the scale may differ from it by no more than it differs from
+    # itself
+    if (bad or l0 != l1) and not (rerun and err <= rerun_err):
+        fail("dynamic scaling: a 2^15 loss scale changed the f32 step's "
+             "result (%d values, max|d| %.3e; the f32 program itself "
+             "differs from run to run in %d, max|d| %.3e)" % (
+                 len(bad), err, len(rerun), rerun_err))
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=[None, 4], dtype="float32")
+        y = fluid.layers.fc(fluid.layers.fc(x, size=3), size=1)
+        floss = fluid.layers.mean(y)
+        opt = fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.Adam(learning_rate=0.1), use_bf16=False,
+            init_loss_scaling=8.0, decr_every_n_nan_or_inf=1, decr_ratio=0.5)
+        opt.minimize(floss)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    state = [n for n in scope.keys() if ".w_" in n or ".b_" in n
+             or "moment" in n or "beta" in n]
+    fetch = [opt.get_loss_scaling(), opt._good_steps, opt._bad_steps]
+    ok = np.ones((2, 4), np.float32)
+    got = exe.run(main, feed={"x": ok}, fetch_list=fetch, scope=scope)
+    trail = [tuple(float(v[0]) for v in got)]
+    for _ in range(4):
+        before = {n: scope[n].clone() for n in state}
+        got = exe.run(main, feed={"x": np.full((2, 4), np.inf, np.float32)},
+                      fetch_list=fetch, scope=scope)
+        trail.append(tuple(float(v[0]) for v in got))
+        moved = [n for n in state if not torch.equal(before[n], scope[n])]
+        if moved:
+            fail("dynamic scaling: an overflow step moved %s" % moved)
+    print("dynamic scaling [fc]: (scale, good, bad) after a good step and 4 "
+          "overflow steps: %s; %d parameters, moments and beta powers "
+          "bit-identical over each overflow step" % (trail, len(state)),
+          flush=True)
+    # the reference's rule: decay by 0.5 on every bad step, counters reset,
+    # the scale floored at 1
+    if trail != [(8.0, 1.0, 0.0), (4.0, 0.0, 0.0), (2.0, 0.0, 0.0),
+                 (1.0, 0.0, 0.0), (1.0, 0.0, 0.0)]:
+        fail("dynamic scaling: the scale did not follow the rule: %s" % trail)
+
+
 PER_STEP = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
             "flash_attn_bwd_dkdv": 12, "layer_norm_fwd": 25,
             "layer_norm_bwd": 25}
@@ -496,13 +718,14 @@ def counters(ca, cl):
             "layer_norm_bwd": cl.layer_norm_bwd}
 
 
-def train_phase(fluid, bert, ca, cl):
-    """Full BERT-base, batch 8, seq 128, dropout 0.1, Adam 1e-4:
-    TRAIN_WARMUP + TRAIN_STEPS counted steps through Executor.run; returns
-    the launch counts of that run and a function that runs one more
-    step."""
+def train_phase(fluid, bert, ca, cl, amp=None):
+    """Full BERT-base, batch 8, seq 128, dropout 0.1, Adam 1e-4 (decorated
+    by ``decorate(**amp)`` when `amp` is given): TRAIN_WARMUP + TRAIN_STEPS
+    counted steps through Executor.run; returns the launch counts of that
+    run, a function that runs one more step, and the step's numbers."""
+    tag = "bert_base" if amp is None else "bert_base, bf16 AMP"
     cfg = bert.bert_base()
-    main, startup, loss = train_program(fluid, bert, cfg)
+    main, startup, loss = train_program(fluid, bert, cfg, amp)
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
@@ -522,34 +745,64 @@ def train_phase(fluid, bert, ca, cl):
         losses.append(float(out))
     launches = {n: fn.launches for n, fn in fns.items()}
     peak = torch.cuda.max_memory_allocated()
-    print("train[bert_base]: %d steps, losses %s" % (
-        steps, " ".join("%.4f" % x for x in losses)), flush=True)
-    print("train[bert_base]: launches %s (want %s per step x %d)" % (
-        launches, PER_STEP, steps), flush=True)
+    print("train[%s]: %d steps, losses %s" % (
+        tag, steps, " ".join("%.4f" % x for x in losses)), flush=True)
+    print("train[%s]: launches %s (want %s per step x %d)" % (
+        tag, launches, PER_STEP, steps), flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail("train[bert_base]: loss not finite or not falling")
+        fail("train[%s]: loss not finite or not falling" % tag)
     if any(launches[n] != PER_STEP[n] * steps for n in PER_STEP):
-        fail("train[bert_base]: launches %s, want %s per step" % (
-            launches, PER_STEP))
+        fail("train[%s]: launches %s, want %s per step" % (
+            tag, launches, PER_STEP))
     timed = sorted(1e3 * w for w in walls[TRAIN_WARMUP:])
-    med = statistics.median(timed)
-    p90 = timed[min(len(timed) - 1, int(0.9 * len(timed)))]
-    print("train[bert_base] step time over %d steps: median %.3f ms, p90 "
-          "%.3f ms, %.1f tokens/s; peak device memory %.3f GiB" % (
-              len(timed), med, p90, 8 * SEQ / med * 1e3, peak / 2 ** 30),
-          flush=True)
+    stats = dict(median_ms=statistics.median(timed),
+                 p90_ms=timed[min(len(timed) - 1, int(0.9 * len(timed)))],
+                 peak_gib=peak / 2 ** 30)
+    stats["tokens_per_s"] = 8 * SEQ / stats["median_ms"] * 1e3
+    print("train[%s] step time over %d steps: median %.3f ms, p90 %.3f ms, "
+          "%.1f tokens/s; peak device memory %.3f GiB" % (
+              tag, len(timed), stats["median_ms"], stats["p90_ms"],
+              stats["tokens_per_s"], stats["peak_gib"]), flush=True)
     return launches, lambda: exe.run(main, feed=feed, fetch_list=[loss],
-                                     scope=scope)
+                                     scope=scope), stats
 
 
-def profile_train_step(step):
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _subtree_kernels(e):
+    """Device activity launched under a profiler CPU event (kernels only:
+    not memcpys or memsets), as (name, us) pairs."""
+    out = [(k.name, k.duration) for k in e.kernels
+           if not k.name.startswith(("Memcpy", "Memset"))]
+    for c in e.cpu_children:
+        out += _subtree_kernels(c)
+    return out
+
+
+def _input_dtypes(prof):
+    """The input dtypes of each profiled CPU op by event id, from the
+    profiler's own record of them (``record_shapes=True``); an empty list
+    where the profiler gives none."""
+    return {ev.correlation_id(): getattr(ev, "dtypes", list)()
+            for ev in prof.profiler.kineto_results.events()}
+
+
+def _gemm_dtype(dtypes):
+    dt = str(dtypes[0]) if dtypes else "unknown"
+    return {"c10::BFloat16": "bf16", "float": "f32"}.get(dt, dt)
+
+
+def profile_train_step(step, tag="train step"):
     """Device busy vs host wall of one training step, the device time by
-    kernel, and the host time of the lowering's three ranges."""
+    kernel, the GEMMs' device time by input dtype, the dtype conversions'
+    (``aten::_to_copy``) launches and time, and the host time of the
+    lowering's three ranges; returns those numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.monotonic()
         step()
         torch.cuda.synchronize()
@@ -561,10 +814,11 @@ def profile_train_step(step):
               and e.self_device_time_total > 0
               and not e.key.startswith("paddle_tpu_torch::")]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    print("profile[train step]: device busy %.3f ms of %.3f ms host wall "
-          "while profiled (idle share %.1f%%)" % (
-              busy, prof_wall, 100 * max(0.0, 1 - busy / prof_wall)),
-          flush=True)
+    stats = dict(busy_ms=busy, wall_ms=prof_wall,
+                 idle=max(0.0, 1 - busy / prof_wall))
+    print("profile[%s]: device busy %.3f ms of %.3f ms host wall while "
+          "profiled (idle share %.1f%%)" % (tag, busy, prof_wall,
+                                            100 * stats["idle"]), flush=True)
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the 15 largest, then every kernel in an anonymous namespace wherever
     # it ranks: the port's five, and a few of PyTorch's
@@ -575,12 +829,45 @@ def profile_train_step(step):
             e.self_device_time_total / 1e3,
             100 * e.self_device_time_total / 1e3 / busy, e.count,
             e.key[:90]))
+    # GEMMs by input dtype, and the dtype conversions
+    gemm, gemm_names, casts = {}, {}, [0, 0.0]
+    dtypes = _input_dtypes(prof)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in GEMM_OPS and e.kernels:
+            ks = _subtree_kernels(e)
+            dt = _gemm_dtype(dtypes.get(e.id))
+            n, us = gemm.get(dt, (0, 0.0))
+            gemm[dt] = (n + len(ks), us + sum(d for _, d in ks))
+            for name, d in ks:
+                key = (dt, name[:70])
+                gemm_names[key] = gemm_names.get(key, 0.0) + d
+        elif e.name == "aten::_to_copy":
+            ks = _subtree_kernels(e)
+            casts[0] += len(ks)
+            casts[1] += sum(d for _, d in ks)
+    stats["gemm"] = {dt: dict(launches=n, ms=us / 1e3)
+                     for dt, (n, us) in gemm.items()}
+    stats["casts"] = dict(launches=casts[0], ms=casts[1] / 1e3)
+    print("profile[%s] GEMMs by input dtype: %s; dtype conversions "
+          "(aten::_to_copy): %d launches, %.3f ms" % (
+              tag, ", ".join("%s %d launches %.3f ms" % (dt, g["launches"],
+                                                         g["ms"])
+                             for dt, g in sorted(stats["gemm"].items())),
+              casts[0], casts[1] / 1e3), flush=True)
+    for dt in sorted(gemm):
+        for (_, name), us in sorted(((k, v) for k, v in gemm_names.items()
+                                     if k[0] == dt), key=lambda kv: -kv[1])[:3]:
+            print("  GEMM %-4s %8.3f ms/step %s" % (dt, us / 1e3, name),
+                  flush=True)
     # host side: the lowering's three profiler ranges, and kernel launches
     host = {e.key: e for e in prof.key_averages()
             if e.device_type == DeviceType.CPU
             and (e.key.startswith("paddle_tpu_torch::")
                  or e.key == "cudaLaunchKernel")}
-    print("profile[train step] host: %s; cudaLaunchKernel x%d" % (
+    print("profile[%s] host: %s; cudaLaunchKernel x%d" % (
+        tag,
         ", ".join("%s %.3f ms" % (k.split("::")[1], host[k].cpu_time_total
                                   / 1e3)
                   for k in ("paddle_tpu_torch::forward",
@@ -588,6 +875,7 @@ def profile_train_step(step):
                             "paddle_tpu_torch::optimizer") if k in host),
         host["cudaLaunchKernel"].count if "cudaLaunchKernel" in host else 0),
         flush=True)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -972,12 +1260,35 @@ def main():
         del bpred
 
         train_vs_cpu(fluid, bert)
-        train_launches, train_step = train_phase(fluid, bert, ca, cl)
+        train_launches, train_step, f32_stats = train_phase(
+            fluid, bert, ca, cl)
+        amp_vs_cpu(fluid, bert)
+        dynamic_scaling_checks(fluid, bert)
+        amp_launches, amp_step, amp_stats = train_phase(
+            fluid, bert, ca, cl, amp=dict(use_bf16=True))
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
-        profile_train_step(train_step)
-        del pred, train_step
+        f32_stats.update(profile_train_step(train_step, "train step, f32"))
+        amp_stats.update(profile_train_step(amp_step,
+                                            "train step, bf16 AMP"))
+        # the second profiling session runs on a slower host (see above):
+        # the idle share against the unprofiled median step compares them
+        for tag, st in (("f32", f32_stats), ("bf16 AMP", amp_stats)):
+            print("train step %-8s: median %.3f ms, p90 %.3f ms, %.1f "
+                  "tokens/s, peak %.3f GiB; profiled: device busy %.3f ms, "
+                  "idle %.1f%% of the profiled wall, %.1f%% of the median "
+                  "step, GEMMs %s, dtype conversions %d launches %.3f "
+                  "ms" % (
+                      tag, st["median_ms"], st["p90_ms"],
+                      st["tokens_per_s"], st["peak_gib"], st["busy_ms"],
+                      100 * st["idle"],
+                      100 * max(0.0, 1 - st["busy_ms"] / st["median_ms"]),
+                      ", ".join("%s %.3f ms" % (dt, g["ms"]) for dt, g in
+                                sorted(st["gemm"].items())),
+                      st["casts"]["launches"], st["casts"]["ms"]),
+                  flush=True)
+        del pred, train_step, amp_step
 
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
@@ -1010,13 +1321,15 @@ def main():
                                 "the columns in a fixed order"}
     # launches: the forward kernels' count is the f32 serving run's (and
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
-    # run's; launches_train is every kernel's count in the training run
+    # run's; launches_train is every kernel's count in the training run,
+    # launches_train_amp in the bf16 AMP training run
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=launches.get(name, train_launches[name]),
                      max_abs_err=errs[name], dtype="float32",
                      launches_train=train_launches[name],
+                     launches_train_amp=amp_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

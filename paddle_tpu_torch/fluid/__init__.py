@@ -33,3 +33,4 @@ from .backward import append_backward, gradients  # noqa: F401
 from . import clip
 from . import regularizer
 from . import optimizer
+from . import contrib

@@ -12,7 +12,8 @@ from ..initializer import Constant
 __all__ = [
     "fc", "embedding", "dropout", "softmax", "gelu", "layer_norm", "mean",
     "matmul", "transpose", "reshape", "unsqueeze", "slice",
-    "elementwise_add", "fused_multihead_attention",
+    "elementwise_add", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "scale", "reduce_sum", "fused_multihead_attention",
 ]
 
 
@@ -317,19 +318,75 @@ def slice(input, axes, starts, ends):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", x=x, y=y, axis=axis, act=act,
-                         name=name)
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, x=x, y=y, axis=axis, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     if x.shape is not None:
         out.shape = x.shape
     helper.append_op(
-        type="elementwise_add",
+        type=op_type,
         inputs={"X": [x], "Y": [y]},
         outputs={"Out": [out]},
         attrs={"axis": axis},
     )
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", **locals())
+    inputs = {"X": [x]}
+    attrs = {"bias": float(bias), "bias_after_scale": bias_after_scale}
+    if isinstance(scale, Variable):
+        inputs["ScaleTensor"] = [scale]
+    else:
+        attrs["scale"] = float(scale)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="scale", inputs=inputs, outputs={"Out": [out]}, attrs=attrs
+    )
+    return helper.append_activation(out)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", input=input)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        if dim is None:
+            out.shape = () if not keep_dim else (1,) * len(input.shape)
+        else:
+            s = list(input.shape)
+            for a in sorted([d % len(s) for d in dim], reverse=True):
+                if keep_dim:
+                    s[a] = 1
+                else:
+                    s.pop(a)
+            out.shape = tuple(s)
+    helper.append_op(
+        type="reduce_sum",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"dim": dim, "keep_dim": keep_dim, "reduce_all": dim is None},
+    )
+    return out
 
 
 def fused_multihead_attention(query, key, value, key_padding_mask=None,

@@ -9,6 +9,9 @@ the preceding region under jax.vjp. The port runs eagerly, so it records
 that region once with torch.autograd (``_run_training``) and calls
 ``torch.autograd.grad`` at the op.
 """
+import contextlib
+import threading
+
 import torch
 from torch.profiler import record_function
 
@@ -61,6 +64,11 @@ def bind_outputs(op, outs, env):
 def apply_op(op, env, ctx):
     fn = get_lowering(op.type)
     ins = resolve_inputs(op, env)
+    # The generic skip gate (the reference's SkipGate, attached to the
+    # update ops by dynamic loss scaling): where it reads 0, every output
+    # bound to the name of one of the op's inputs (param, moments, beta
+    # powers) keeps its old tensor, so the op is a true no-op.
+    gate = ins.pop("SkipGate", None)
     try:
         outs = fn(ctx, ins, op.attrs)
     except (OpLoweringError, NotImplementedError):
@@ -70,8 +78,22 @@ def apply_op(op, env, ctx):
             "lowering op '%s' failed: %s: %s\n  op: %s\n  defined at:\n%s"
             % (op.type, type(e).__name__, e, op, _format_callstack(op))
         ) from e
+    if gate:
+        _skip_gate(op, ins, outs, gate[0])
     bind_outputs(op, outs, env)
     return env
+
+
+def _skip_gate(op, ins, outs, gate):
+    keep = gate.reshape(()) != 0
+    old = {n: v for slot, names in op.inputs.items() if slot != "SkipGate"
+           for n, v in zip(names, ins.get(slot, []))}
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        outs[slot] = [torch.where(keep, v, old[n]) if n in old else v
+                      for n, v in zip(names, vals)]
 
 
 def run_ops(block, op_list, env, ctx):
@@ -175,6 +197,42 @@ def persistable_names(program):
             if v.persistable]
 
 
+_accumulation_lock = threading.Lock()
+_accumulation_depth = [0, None]      # runs inside, the caller's settings
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """cuBLAS sums bfloat16 and float16 products in f32 while a program
+    runs on the card, as XLA's dots do in the reference (its bf16 dot
+    accumulates in f32). Torch's default,
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+    True`` (and its fp16 twin), lets cuBLAS reduce split-K partials in the
+    narrow type. The two flags are process-wide: they are set to False
+    when the first run enters and restored to the caller's values when the
+    last concurrent run leaves, so a caller's own matmuls between runs see
+    its own settings, and those on other threads during a run see f32
+    sums."""
+    flags = torch.backends.cuda.matmul
+    with _accumulation_lock:
+        if _accumulation_depth[0] == 0:
+            _accumulation_depth[1] = (
+                flags.allow_bf16_reduced_precision_reduction,
+                flags.allow_fp16_reduced_precision_reduction)
+            flags.allow_bf16_reduced_precision_reduction = False
+            flags.allow_fp16_reduced_precision_reduction = False
+        _accumulation_depth[0] += 1
+    try:
+        yield
+    finally:
+        with _accumulation_lock:
+            _accumulation_depth[0] -= 1
+            if _accumulation_depth[0] == 0:
+                (flags.allow_bf16_reduced_precision_reduction,
+                 flags.allow_fp16_reduced_precision_reduction) = \
+                    _accumulation_depth[1]
+
+
 def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
                   grad_comm=None):
     """Return step(state, feeds, generator) -> (fetches, new_state).
@@ -184,7 +242,8 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     ``new_state`` holds every persistable var with a value after the run.
     The ops run eagerly under ``torch.inference_mode()`` when `is_test`
     and under ``torch.no_grad()`` otherwise; a ``backward`` op turns
-    autograd on for the region it differentiates (:func:`run_ops`).
+    autograd on for the region it differentiates (:func:`run_ops`). On
+    the card they run under :func:`f32_accumulation`.
     ``grad_comm``, the JAX package's gradient-communication hook, waits for
     the port's parallel slice."""
     if grad_comm is not None:
@@ -202,7 +261,9 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()
-        with guard:
+        sums = (f32_accumulation() if device.type == "cuda"
+                else contextlib.nullcontext())
+        with guard, sums:
             env = run_ops(block, op_list, env, ctx)
         missing = [n for n in fetch_names if n not in env]
         if missing:

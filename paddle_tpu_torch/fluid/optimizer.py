@@ -59,12 +59,12 @@ class Optimizer:
     def _create_param_lr(self, param_and_grad):
         param = param_and_grad[0]
         param_lr = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
-        if float(param_lr) != 1.0:
-            raise NotImplementedError(
-                "a per-parameter learning rate (%s: %r) needs the 'scale' "
-                "layer, which comes with a later slice of the port"
-                % (param.name, param_lr))
-        return self._global_learning_rate()
+        base = self._global_learning_rate()
+        if float(param_lr) == 1.0:
+            return base
+        from .layers import nn
+
+        return nn.scale(base, scale=float(param_lr))
 
     @property
     def current_step_lr(self):

@@ -1,8 +1,9 @@
 """Weight-decay regularizers (ref: python/paddle/fluid/regularizer.py).
 
 Port of paddle_tpu/fluid/regularizer.py. With no regularizer, the
-(param, grad) pairs pass through untouched; the ops a regularizer appends
-(scale, sign) have no torch lowering yet and raise when the program runs.
+(param, grad) pairs pass through untouched. L2Decay's ops (scale,
+elementwise_add) are lowered; L1Decay's ``sign`` has no torch lowering yet
+and raises when the program runs.
 """
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer"]

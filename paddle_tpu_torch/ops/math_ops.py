@@ -1,11 +1,16 @@
-"""Math op lowerings: elementwise_add, mul, matmul, mean.
+"""Math op lowerings: elementwise_add/mul/div/max, mul, matmul, mean,
+scale, reduce_sum, greater_equal, isfinite.
 
-Port of the paddle_tpu/ops/math_ops.py lowerings this slice runs. The
-products go to ``torch.matmul``: they are plain matrix products that the
-JAX package left to XLA, not Pallas kernels.
+Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
+binary lowering promotes its operands by jax's rules first
+(ops/promotion.py). The products go to ``torch.matmul``: they are plain
+matrix products that the JAX package left to XLA, not Pallas kernels. A
+bfloat16 product must sum in f32 as XLA's does; the executor sees to it on
+the card (fluid/lowering.py ``f32_accumulation``).
 """
 import torch
 
+from .promotion import promote
 from .registry import register_op, single
 
 
@@ -26,11 +31,21 @@ def _broadcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x = ins["X"][0]
-    y = _broadcast_y(x, ins["Y"][0], attrs.get("axis", -1))
-    return single(x + y)
+def _binary(fn):
+    """A lowering of fn(x, y): Paddle's broadcast of Y, jax's promotion."""
+    def lower(ctx, ins, attrs):
+        x = ins["X"][0]
+        y = _broadcast_y(x, ins["Y"][0], attrs.get("axis", -1))
+        return single(fn(*promote(x, y)))
+
+    return lower
+
+
+register_op("elementwise_add")(_binary(torch.add))
+register_op("elementwise_mul")(_binary(torch.mul))
+register_op("elementwise_div")(_binary(torch.true_divide))
+register_op("elementwise_max")(_binary(torch.maximum))
+register_op("greater_equal")(_binary(torch.ge))
 
 
 def _prod(t):
@@ -44,7 +59,7 @@ def _prod(t):
 def _mul(ctx, ins, attrs):
     """Flattening matmul (ref: paddle/fluid/operators/mul_op.cc): x is
     flattened to 2-D at x_num_col_dims, y at y_num_col_dims."""
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = promote(ins["X"][0], ins["Y"][0])
     xnc = attrs.get("x_num_col_dims", 1)
     ync = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
@@ -55,7 +70,7 @@ def _mul(ctx, ins, attrs):
 
 @register_op("matmul")
 def _matmul(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = promote(ins["X"][0], ins["Y"][0])
     alpha = attrs.get("alpha", 1.0)
     if x.dim() == 1:
         x = x[None, :]
@@ -67,10 +82,53 @@ def _matmul(ctx, ins, attrs):
         y = y.transpose(-1, -2)
     out = torch.matmul(x, y)
     if alpha != 1.0:
-        out = out * alpha
+        out = torch.mul(*promote(out, alpha))
     return single(out)
 
 
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return single(ins["X"][0].mean())
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs):
+    """x·scale + bias (or (x + bias)·scale), in x's dtype: the attrs are
+    weak Python scalars, and a ScaleTensor's result is cast back, as the
+    JAX lowering does."""
+    x = ins["X"][0]
+    scale = ins["ScaleTensor"][0] if ins.get("ScaleTensor") else attrs.get(
+        "scale", 1.0)
+    bias = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        out = torch.add(*promote(torch.mul(*promote(x, scale)), bias))
+    else:
+        out = torch.mul(*promote(torch.add(*promote(x, bias)), scale))
+    return single(out.to(x.dtype))
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    """jnp.sum over ``dim`` (all axes with ``reduce_all`` or no dim): a
+    float sums in f32 and keeps its dtype, an int keeps its own, bool sums
+    to int64 (jax: int32, see ops/promotion.py)."""
+    x = ins["X"][0]
+    dim = attrs.get("dim", None)
+    keep_dim = attrs.get("keep_dim", False)
+    dtype = torch.int64 if x.dtype == torch.bool else x.dtype
+    if attrs.get("reduce_all", False) or dim is None:
+        out = x.sum(dtype=dtype)
+        if keep_dim:
+            out = out.reshape((1,) * x.dim())
+    else:
+        axes = tuple(d if d >= 0 else d + x.dim() for d in dim)
+        # torch reads dim=() as every axis, jnp.sum as none
+        out = x.sum(dim=axes, keepdim=keep_dim, dtype=dtype) if axes \
+            else x.to(dtype)
+    return single(out)
+
+
+@register_op("isfinite")
+def _isfinite(ctx, ins, attrs):
+    """One 0-dim bool: every element finite (jnp.all(jnp.isfinite(x)))."""
+    return single(torch.isfinite(ins["X"][0]).all())

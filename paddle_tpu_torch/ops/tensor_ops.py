@@ -1,11 +1,21 @@
-"""Tensor manipulation op lowerings: reshape2, transpose2, unsqueeze2,
-slice, fill_constant. Port of the paddle_tpu/ops/tensor_ops.py lowerings
-this slice runs; reshape/transpose/slice return views where torch can.
+"""Tensor manipulation op lowerings: cast, reshape2, transpose2,
+unsqueeze2, slice, fill_constant, fill_zeros_like, assign, where. Port of
+the paddle_tpu/ops/tensor_ops.py lowerings the port runs;
+reshape/transpose/slice return views where torch can.
 """
 import torch
 
 from ..fluid import core
+from .promotion import promote
 from .registry import register_op, single
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    """x in ``out_dtype``. Differentiable: the gradient of a cast weight
+    comes back in the weight's own dtype, as jax's convert_element_type
+    transposes."""
+    return single(ins["X"][0].to(core.torch_dtype(attrs["out_dtype"])))
 
 
 def _xshape(x):
@@ -63,3 +73,20 @@ def _fill_constant(ctx, ins, attrs):
     return single(torch.full(
         tuple(int(s) for s in shape), value,
         dtype=core.torch_dtype(attrs["dtype"]), device=ctx.device))
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return single(torch.zeros_like(ins["X"][0]))
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return single(ins["X"][0])
+
+
+@register_op("where")
+def _where(ctx, ins, attrs):
+    """Condition ? X : Y, broadcast, X and Y promoted by jax's rules."""
+    x, y = promote(ins["X"][0], ins["Y"][0])
+    return single(torch.where(ins["Condition"][0].to(torch.bool), x, y))

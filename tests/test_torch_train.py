@@ -348,10 +348,15 @@ def test_backward_forms_left_for_later():
                 fetch_list=[loss], scope=scope)
 
 
-@pytest.mark.parametrize("kind", ["global_norm_clip", "l2_decay"])
+@pytest.mark.parametrize("kind", ["global_norm_clip", "l2_decay",
+                                  "l1_decay"])
 def test_clip_and_regularizer_ops_name_the_gap(kind):
-    """A real clip or regularizer appends its ops as the JAX package does;
-    they have no torch lowering yet and raise when the program runs."""
+    """A real clip or regularizer appends its ops as the JAX package does.
+    Global-norm clipping (squared_l2_norm, ...) and L1Decay (sign) have no
+    torch lowering yet and raise when the program runs; L2Decay's scale
+    and elementwise_add are lowered since the mixed-precision slice, so
+    its program trains, each regularized gradient being grad + coeff·param
+    (the param before the update)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.data("x", [None, 4])
@@ -360,18 +365,31 @@ def test_clip_and_regularizer_ops_name_the_gap(kind):
         if kind == "global_norm_clip":
             fluid.clip.set_gradient_clip(
                 fluid.clip.GradientClipByGlobalNorm(1.0), program=main)
+        elif kind == "l2_decay":
+            reg = fluid.regularizer.L2Decay(1e-2)
         else:
-            reg = fluid.regularizer.L2Decay(1e-4)
+            reg = fluid.regularizer.L1Decay(1e-2)
         fluid.optimizer.Adam(0.1, regularization=reg).minimize(loss)
     ops = [op.type for op in main.global_block().ops]
-    assert ("squared_l2_norm" if kind == "global_norm_clip"
-            else "scale") in ops
+    assert {"global_norm_clip": "squared_l2_norm", "l2_decay": "scale",
+            "l1_decay": "sign"}[kind] in ops
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="no torch lowering yet"):
-        exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
-                fetch_list=[loss], scope=scope)
+    feed = {"x": np.ones((2, 4), np.float32)}
+    if kind != "l2_decay":
+        with pytest.raises(NotImplementedError, match="no torch lowering yet"):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return
+    params = [p.name for p in main.all_parameters()]
+    before = {n: scope[n].clone() for n in params}
+    got = exe.run(main, feed=feed, scope=scope, fetch_list=[
+        n + "@GRAD" for n in params] + [n + "@GRAD@REGULARIZED"
+                                         for n in params])
+    for n, g, r in zip(params, got[:len(params)], got[len(params):]):
+        np.testing.assert_allclose(r, g + 1e-2 * before[n].numpy(),
+                                   rtol=1e-6, atol=1e-8, err_msg=n)
+        assert not torch.equal(scope[n], before[n]), n
 
 
 def test_grad_comm_hook_waits_for_the_parallel_slice():
