@@ -63,7 +63,32 @@ Phases, each of which exits non-zero on failure:
    time the card could take, and serving requests/s and latency; the
    LayerNorm forward and F.layer_norm also at every serving bucket's rows,
    beside the launch floor (a one-element fill_); then the device kernels
-   the library's attention backward runs (torch.profiler).
+   the library's attention backward runs (torch.profiler);
+7. the ResNet slice, with torch's default for cuDNN (TF32 on) restored
+   first, so that the port itself must turn it off for its f32 runs:
+   (a) ResNet-50 (1000 classes, every width as published) cut to batch 4
+   at 64x64, Momentum(1e-3, 0.9), 3 f32 steps on the CPU and on the card,
+   each card step from the CPU's state before it: losses and moving
+   statistics within 1e-3, the step-1 gradients' median and all of them
+   together within bounds set by the CPU's own spread (the CPU against
+   itself with the image one f32 ulp up), the issue's per-parameter bound
+   printed beside them; the same card steps with cuDNN TF32 left on inside
+   the run, printed; (b) the same in ``decorate(Momentum(1e-3, 0.9),
+   use_bf16=True)``: losses within 1e-2, all gradients together no
+   farther from the CPU's than twice AMP's own distance from f32, and the
+   gradients of the 54 weights read only through casts bfloat16 values on
+   the card and the CPU, not in f32; (c) 7a's card-trained program saved
+   pruned to the logits, served by ``Predictor.from_model`` on the card
+   and the CPU (8 single requests and a batch of 8, 1e-3·max|logit|, its
+   53 batch norms is_test); (d) bench.py's ResNet-50 measurement (batch
+   128, 224x224, bf16 AMP, Momentum(0.1, 0.9), seed 7, the batch staged on
+   the card once): 3 warm-up and 20 timed steps, step median and p90 from
+   CUDA events between steps, images/s, peak memory, FLOPs per image from
+   the program's shapes beside bench.py's, the share of the bf16 peak, and
+   the five kernels' launches (none on this path); (e), with the other
+   profiles, one profiled step of (d): busy and idle share, convolutions by
+   input dtype, cuDNN's layout transforms, dtype conversions, the momentum
+   updates and the elementwise rest, and cudaLaunchKernel calls.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -515,11 +540,24 @@ def off_by_more_than_an_ulp(got, want):
 
 
 def bf16_exact_share(a):
-    """Share of the f32 elements of `a` that a bfloat16 holds exactly (low
-    16 bits zero): all of a gradient that came out of a bfloat16 product,
-    next to none of an f32 one."""
+    """Share of the nonzero f32 elements of `a` that a bfloat16 holds
+    exactly (low 16 bits zero): all of a gradient that came out of a
+    bfloat16 product, next to none of an f32 one. Exact zeros say
+    nothing (a 3x3 filter's off-centre taps over 1x1 maps get none)."""
     bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
-    return float(((bits & 0xFFFF) == 0).mean())
+    bits = bits[(bits & 0x7FFFFFFF) != 0]
+    return float(((bits & 0xFFFF) == 0).mean()) if bits.size else 1.0
+
+
+def cast_only_params(main):
+    """The parameters the forward of `main` reads through casts only."""
+    ops = main.global_block().ops
+    read = {}
+    for op in ops[:[op.type for op in ops].index("backward")]:
+        for n in op.input_arg_names:
+            read.setdefault(n, set()).add(op.type)
+    return sorted(p.name for p in main.all_parameters()
+                  if read.get(p.name) == {"cast"})
 
 
 def amp_vs_cpu(fluid, bert):
@@ -544,16 +582,11 @@ def amp_vs_cpu(fluid, bert):
     for n, t in list(scope.items()):
         cpu_scope.set(n, t.cpu().clone())
         f32_scope.set(n, t.clone())
-    ops = main.global_block().ops
-    n_cast = sum(op.type == "cast" for op in ops)
+    n_cast = sum(op.type == "cast" for op in main.global_block().ops)
     params = {p.name for p in main.all_parameters()}
     # weights the forward reads through casts only (word_emb also feeds
     # the f32 lookup)
-    read = {}
-    for op in ops[:[op.type for op in ops].index("backward")]:
-        for n in op.input_arg_names:
-            read.setdefault(n, set()).add(op.type)
-    cast_only = sorted(n for n in params if read.get(n) == {"cast"})
+    cast_only = cast_only_params(main)
     ids, labels = bert.synthetic_batch(cfg, 2, SEQ, seed=SEED)
     feed = {"input_ids": ids, "mlm_labels": labels}
     grads = sorted(p + "@GRAD" for p in params)
@@ -793,11 +826,12 @@ def _gemm_dtype(dtypes):
     return {"c10::BFloat16": "bf16", "float": "f32"}.get(dt, dt)
 
 
-def profile_train_step(step, tag="train step"):
+def profile_train_step(step, tag="train step", extra=None):
     """Device busy vs host wall of one training step, the device time by
     kernel, the GEMMs' device time by input dtype, the dtype conversions'
     (``aten::_to_copy``) launches and time, and the host time of the
-    lowering's three ranges; returns those numbers."""
+    lowering's three ranges; ``extra(prof, numbers)`` reads more of the
+    same profile. Returns those numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -875,6 +909,10 @@ def profile_train_step(step, tag="train step"):
                             "paddle_tpu_torch::optimizer") if k in host),
         host["cudaLaunchKernel"].count if "cudaLaunchKernel" in host else 0),
         flush=True)
+    stats["launch_calls"] = (host["cudaLaunchKernel"].count
+                             if "cudaLaunchKernel" in host else 0)
+    if extra is not None:
+        extra(prof, stats)
     return stats
 
 
@@ -1163,6 +1201,582 @@ def sdpa_kernel_names():
                     e.key[:150]), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the ResNet slice
+# ---------------------------------------------------------------------------
+# 7a-7c: ResNet-50 (1000 classes, every width as published), cut to batch 4
+# at 64x64 so that its CPU side takes seconds
+CHECK_IMAGE, CHECK_BATCH, CHECK_STEPS = 64, 4, 3
+# 7d: bench.py's ResNet-50 measurement (bench.py:682-718)
+BENCH_IMAGE, BENCH_BATCH, BENCH_SEED = 224, 128, 7
+BENCH_FLOPS_PER_IMAGE = 3 * 3.86e9           # bench.py:733
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+LAYOUT_KERNELS = re.compile(r"nchwToNhwc|nhwcToNchw|nchw2nhwc|nhwc2nchw",
+                            re.I)
+
+
+def resnet_program(fluid, resnet, image, lr, amp=False):
+    """ResNet-50, 1000 classes, `image` x `image`, Momentum(lr, 0.9) as
+    bench.py trains it, decorated by ``decorate(use_bf16=True)`` when
+    `amp`; fresh names, so every build names its vars alike."""
+    fluid.unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        io = resnet.build_resnet_train(depth=50, class_num=1000,
+                                       image_size=image)
+        opt = fluid.optimizer.Momentum(lr, 0.9)
+        if amp:
+            opt = fluid.contrib.mixed_precision.decorate(opt, use_bf16=True)
+        opt.minimize(io["loss"])
+    return main, startup, io
+
+
+def resnet_feed(image, batch, seed=0):
+    """Synthetic images and labels as bench.py makes them (bench.py:703)."""
+    rng = np.random.default_rng(seed)
+    return {"image": rng.standard_normal((batch, 3, image, image),
+                                         dtype=np.float32),
+            "label": rng.integers(0, 1000, size=(batch, 1), dtype=np.int64)}
+
+
+def rel_err(a, w):
+    return float(np.abs(np.asarray(a, np.float64) - w).max()) / max(
+        float(np.abs(w).max()), 1e-30)
+
+
+def grad_dist(got, want):
+    """All of `got` against all of `want`: sqrt(sum d^2) / sqrt(sum w^2)."""
+    num = sum(float(((np.asarray(a, np.float64) - w) ** 2).sum())
+              for a, w in zip(got, want))
+    den = sum(float((np.asarray(w, np.float64) ** 2).sum()) for w in want)
+    return float(np.sqrt(num / den))
+
+
+def grad_summary(got, want, names):
+    """(worst max|d|/max|grad| and its name, the median over parameters,
+    all gradients together)."""
+    rels = [(rel_err(a, w), n) for n, a, w in zip(names, got, want)]
+    return (max(rels), float(np.median([r for r, _ in rels])),
+            grad_dist(got, want))
+
+
+def host(t):
+    return t.detach().float().cpu().numpy()
+
+
+def step_record(main):
+    """An empty record of steps of `main`: losses, the first step's
+    gradients, the moving statistics after each step."""
+    return dict(losses=[], stats=[], grads=None,
+                names=sorted(p.name + "@GRAD" for p in main.all_parameters()
+                             if p.trainable),
+                stat_names=sorted(p.name for p in main.all_parameters()
+                                  if not p.trainable))
+
+
+def record_step(out, exe, main, io, feed, scope):
+    """Run one step of `main` on `scope` and add it to `out`."""
+    first = not out["losses"]
+    got = exe.run(main, feed=feed, scope=scope,
+                  fetch_list=[io["loss"]] + (out["names"] if first else []))
+    out["losses"].append(float(got[0]))
+    if first:
+        out["grads"] = got[1:]
+    out["stats"].append([host(scope[n]) for n in out["stat_names"]])
+
+
+def run_resnet_steps(fluid, main, io, states, feed, place=None):
+    """One step of `main` from each state in `states` (name -> CPU tensor)
+    on `place` (the card by default), recorded by record_step; the last
+    step's scope comes back as ``scope``."""
+    exe, out = fluid.Executor(place), step_record(main)
+    for state in states:
+        out["scope"] = fluid.Scope()
+        for n, t in state.items():
+            out["scope"].set(n, t.clone())
+        record_step(out, exe, main, io, feed, out["scope"])
+    return out
+
+
+def cpu_run(fluid, main, io, start, feed, steps):
+    """`steps` steps of `main` on the CPU from `start`, recorded by
+    record_step, with the state before each step (name -> CPU tensor) as
+    ``states``."""
+    exe, out = fluid.Executor(fluid.CPUPlace()), step_record(main)
+    out["states"] = []
+    scope = fluid.Scope()
+    for n, t in start.items():
+        scope.set(n, t.clone())
+    for _ in range(steps):
+        out["states"].append({n: t.clone() for n, t in scope.items()})
+        record_step(out, exe, main, io, feed, scope)
+    return out
+
+
+def compare_resnet(tag, card, cpu):
+    """Card against CPU, each step from the same state: the worst loss
+    error, the first step's gradients (grad_summary) and the worst moving
+    statistic after any step (max|d|/max|stat|)."""
+    loss = max(abs(a - w) / abs(w) for a, w in zip(card["losses"],
+                                                   cpu["losses"]))
+    grads = grad_summary(card["grads"], cpu["grads"], cpu["names"])
+    stat = max((rel_err(a, w), n) for got, want in zip(card["stats"],
+                                                      cpu["stats"])
+               for n, a, w in zip(cpu["stat_names"], got, want))
+    print("%s: losses card %s cpu %s (worst rel %.2e); step-1 gradients of "
+          "%d parameters: worst %.2e of max|grad| (%s), median %.2e, all "
+          "together %.2e; moving statistics after each step: worst %.2e of "
+          "max|stat| (%s)" % (
+              tag, " ".join("%.6f" % x for x in card["losses"]),
+              " ".join("%.6f" % x for x in cpu["losses"]), loss,
+              len(cpu["names"]), grads[0][0], grads[0][1], grads[1],
+              grads[2], stat[0], stat[1]), flush=True)
+    return dict(loss=loss, grad=grads[0], median=grads[1], dist=grads[2],
+                stat=stat)
+
+
+def resnet_vs_cpu(fluid, resnet, lowering, image=CHECK_IMAGE,
+                  batch=CHECK_BATCH, steps=CHECK_STEPS):
+    """Phase 7a. ResNet-50 in f32, Momentum(1e-3, 0.9), `steps` steps on
+    the CPU, and on the card each step from the CPU's state before it
+    (a step's gradients are too sensitive for two runs to stay together,
+    see below). Bounds: losses 1e-3 relative, moving statistics after
+    each step 1e-3·max|stat|. The step-1 gradients are held by the median
+    over parameters of max|d|/max|grad| and by all of them together, both
+    within 5e-2 and within 3x what the CPU moves itself when the image
+    moves by one f32 ulp, plus 1e-3 (printed first: the issue's
+    per-parameter bound, 1e-3·max|grad|, is printed beside them but not
+    held: tests/test_torch_resnet_train.py measures the JAX package moving its
+    own gradients by up to 32% of a parameter's max|grad| under that
+    nudge). Then the same card steps with cuDNN's TF32 left on inside the
+    run (printed, not held). Returns (program, io, the card's end scope,
+    the start state, the card's step-1 gradients, the feed)."""
+    main, startup, io = resnet_program(fluid, resnet, image, 1e-3)
+    startup.random_seed = SEED
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    start = {n: t.cpu().clone() for n, t in init.items()}
+    feed = resnet_feed(image, batch)
+    cpu = cpu_run(fluid, main, io, start, feed, steps)
+    states = cpu["states"]
+    nudged = run_resnet_steps(fluid, main, io, states[:1], dict(
+        feed, image=np.nextafter(feed["image"], np.float32(np.inf))),
+        fluid.CPUPlace())
+    own = grad_summary(nudged["grads"], cpu["grads"], cpu["names"])
+    print("resnet50 f32 [%dx%d, batch %d; cut so the CPU side takes "
+          "seconds]: the CPU against itself with the image one f32 ulp up: "
+          "step-1 gradients worst %.2e of max|grad| (%s), median %.2e, all "
+          "together %.2e" % (image, image, batch, own[0][0], own[0][1],
+                             own[1], own[2]), flush=True)
+    card = run_resnet_steps(fluid, main, io, states, feed)
+    got = compare_resnet("7a resnet50 f32 card vs cpu", card, cpu)
+    bound = {k: min(5e-2, 3 * v + 1e-3) for k, v in (("median", own[1]),
+                                                      ("dist", own[2]))}
+    print("7a bounds: losses 1e-3, moving statistics 1e-3, gradients median "
+          "%.2e, all together %.2e (issue's per-parameter bound 1e-3: "
+          "worst %.2e, not held)" % (bound["median"], bound["dist"],
+                                     got["grad"][0]), flush=True)
+    if got["loss"] > 1e-3 or got["stat"][0] > 1e-3:
+        fail("7a: card losses or moving statistics differ from the CPU run")
+    if got["median"] > bound["median"] or got["dist"] > bound["dist"]:
+        fail("7a: card step-1 gradients differ from the CPU run")
+    # cuDNN's algorithms may sum with atomics: the same card steps again
+    again = run_resnet_steps(fluid, main, io, states, feed)
+    differ = [n for n, a, b in zip(card["names"], card["grads"],
+                                   again["grads"]) if not np.array_equal(a, b)]
+    print("7a: two card runs of the same steps: losses %s, step-1 gradients "
+          "bit-identical in %d of %d parameters%s, moving statistics %s" % (
+              "equal" if card["losses"] == again["losses"] else "differ",
+              len(card["names"]) - len(differ), len(card["names"]),
+              " (max|d| %.3e)" % max(float(np.abs(a - b).max()) for a, b in
+                                      zip(card["grads"], again["grads"]))
+              if differ else "",
+              "equal" if all(np.array_equal(a, b) for s, t in zip(
+                  card["stats"], again["stats"]) for a, b in zip(s, t))
+              else "differ"), flush=True)
+    cudnn = torch.backends.cudnn
+    switches = lowering.precision_switches
+    try:
+        cudnn.allow_tf32 = True
+        lowering.precision_switches = lambda: [
+            s for s in switches()
+            if s[0] is not cudnn.conv]
+        tf32 = run_resnet_steps(fluid, main, io, states, feed)
+    finally:
+        lowering.precision_switches = switches
+    compare_resnet("7a with cuDNN TF32 on inside the run (not held)", tf32,
+                   cpu)
+    return main, io, card["scope"], start, card["grads"], feed
+
+
+def amp_resnet_vs_cpu(fluid, resnet, start, f32_grads, feed,
+                      image=CHECK_IMAGE, steps=CHECK_STEPS):
+    """Phase 7b. 7a's configuration in ``decorate(Momentum(1e-3, 0.9),
+    use_bf16=True)`` from 7a's start, each card step from the CPU's state.
+    Losses within 1e-2 relative. The step-1 gradients: the issue's
+    per-parameter bound (5e-2·max|grad|) is printed, not held: in
+    bfloat16 two correct runs round some conv outputs to neighbouring
+    values and ResNet's batch norms spread each flip, so the card's and
+    the CPU's AMP gradients lie about as far apart as either lies from f32
+    (tests/test_torch_resnet.py, test_resnet18_bf16_amp_matches_jax). Held
+    here: all gradients together no farther from the CPU's than twice the
+    CPU's are from the f32 gradients of 7a (the card's, same state). At
+    this configuration that distance exceeds the gradients' own norm, so
+    the bound passes any gradient of a norm near the right one, a zero or
+    a negated one too: the backward is held op by op instead
+    (amp_backward_vs_cpu). Control: the gradients of the weights read only through casts (the 53
+    conv filters and the fc weight) are bfloat16 values in every element
+    on the card and on the CPU, and in next to none of the f32 run's."""
+    main, _, io = resnet_program(fluid, resnet, image, 1e-3, amp=True)
+    cpu = cpu_run(fluid, main, io, start, feed, steps)
+    card = run_resnet_steps(fluid, main, io, cpu["states"], feed)
+    got = compare_resnet("7b resnet50 bf16 AMP card vs cpu", card, cpu)
+    amp_effect = grad_dist(cpu["grads"], f32_grads)
+    cast = {n + "@GRAD" for n in cast_only_params(main)}
+    cast_only = [i for i, n in enumerate(cpu["names"]) if n in cast]
+    share = {kind: [bf16_exact_share(g[i]) for i in cast_only]
+             for kind, g in (("card", card["grads"]), ("cpu", cpu["grads"]),
+                             ("f32", f32_grads))}
+    print("7b bounds: losses 1e-2 (worst %.2e); all gradients together "
+          "%.2e from the CPU's, bound 2 x %.2e (the CPU's AMP gradients "
+          "from 7a's f32 ones); issue's per-parameter bound 5e-2: worst "
+          "%.2e, not held; %d weights read only through casts: least share "
+          "of bfloat16 values %.4f on the card, %.4f on the CPU, most in "
+          "the f32 run %.4f" % (
+              got["loss"], got["dist"], amp_effect, got["grad"][0],
+              len(cast_only), min(share["card"]), min(share["cpu"]),
+              max(share["f32"])), flush=True)
+    if got["loss"] > 1e-2:
+        fail("7b: card AMP losses differ from the CPU run")
+    if got["dist"] > 2 * amp_effect:
+        fail("7b: card AMP gradients farther from the CPU's than AMP is "
+             "from f32")
+    if len(cast_only) != 54 or min(share["card"]) < 1.0 \
+            or min(share["cpu"]) < 1.0:
+        fail("7b: a cast weight's gradient is not a bfloat16 product's")
+    if max(share["f32"]) > 0.5:
+        fail("7b: the f32 run looks like AMP: the check cannot tell them "
+             "apart")
+
+
+def bf16_ulp_ratio(got, want):
+    """max |got - want| / (one bfloat16 ulp of want + 1e-3·max|want|): at
+    most 1 where `got` is `want` or its bfloat16 neighbour."""
+    got, want = host(got).astype(np.float64), host(want).astype(np.float64)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    return float((np.abs(got - want)
+                  / (ulp + 1e-3 * np.abs(want).max())).max())
+
+
+def amp_backward_shapes(fluid, resnet):
+    """The distinct (op type, input shapes, attrs) of the conv2d,
+    batch_norm and max pool2d ops of bench.py's decorated ResNet-50 at
+    batch BENCH_BATCH, 224x224: what 7d's backward runs."""
+    main, _, _ = resnet_program(fluid, resnet, BENCH_IMAGE, 0.1, amp=True)
+    block, seen = main.global_block(), {}
+    for op in block.ops:
+        if op.type not in ("conv2d", "batch_norm", "pool2d") or (
+                op.type == "pool2d" and op.attr("pooling_type") != "max"):
+            continue
+        slot = {"conv2d": "Input"}.get(op.type, "X")
+        x = (BENCH_BATCH,) + tuple(block.var(op.input(slot)[0]).shape[1:])
+        w = (tuple(block.var(op.input("Filter")[0]).shape)
+             if op.type == "conv2d" else ())
+        attrs = {k: v for k, v in sorted(op.attrs.items())
+                 if not k.startswith("op_")}
+        seen.setdefault((op.type, x, w, repr(attrs)), (op.type, x, w, attrs))
+    return list(seen.values())
+
+
+def amp_backward_vs_cpu(fluid, resnet, lowering):
+    """Phase 7b, op by op: the backward of each distinct conv2d (dInput
+    and dFilter), batch_norm (dX with bfloat16 X and f32 statistics,
+    dScale, dBias) and max pool of 7d's bf16 program, at its shapes and
+    batch, through the port's lowering on the card (as a run enters it,
+    in f32_precision) against the port's CPU lowering in f32 on the same
+    bfloat16 values, rounded once to bfloat16. Bounds: bfloat16 gradients
+    within one bfloat16 ulp + 1e-3·max (the f32 sums of card and CPU are
+    taken in other orders, so a value on a rounding boundary may land on
+    its neighbour); f32 gradients (dScale, dBias) within 1e-3·max|grad|.
+    Control: the dFilter of the convolution with the longest reduction,
+    summed image by image in bfloat16 (a split-K with bfloat16 partials,
+    the fault a reduced-precision weight gradient would have), must fail
+    the bound."""
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+    gen = torch.Generator().manual_seed(SEED + 70)
+
+    def bf16(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).bfloat16()
+
+    def run(op_type, ins, attrs, wrt, out_slot, cot, device):
+        ins = {k: [t.to(device).detach().requires_grad_(k in wrt)
+                   for t in v]
+               for k, v in ins.items()}
+        ctx = LowerContext(torch.device(device))
+        out = get_lowering(op_type)(ctx, ins, dict(attrs))[out_slot][0]
+        return torch.autograd.grad(out, [ins[k][0] for k in wrt],
+                                   cot.to(device, out.dtype))
+
+    t0, worst, longest = time.monotonic(), {}, None
+    shapes = amp_backward_shapes(fluid, resnet)
+    for op_type, xs, ws, attrs in shapes:
+        x = bf16(xs)
+        if op_type == "conv2d":
+            ins = {"Input": [x],
+                   "Filter": [bf16(ws, (2.0 / np.prod(ws[1:])) ** 0.5)]}
+            wrt, out_slot, names = ("Input", "Filter"), "Output", (
+                "conv dInput", "conv dFilter")
+        elif op_type == "batch_norm":
+            c = xs[1]
+            ins = {"X": [x], "Scale": [torch.rand(c, generator=gen) + 0.5],
+                   "Bias": [torch.randn(c, generator=gen)],
+                   "Mean": [torch.zeros(c)], "Variance": [torch.ones(c)]}
+            wrt, out_slot, names = ("X", "Scale", "Bias"), "Y", (
+                "bn dX", "bn dScale", "bn dBias")
+        else:
+            ins, wrt, out_slot, names = {"X": [x]}, ("X",), "Out", (
+                "max pool dX",)
+        with torch.no_grad():
+            shape = get_lowering(op_type)(
+                LowerContext(torch.device("cuda")),
+                {k: [t.cuda() for t in v] for k, v in ins.items()},
+                dict(attrs))[out_slot][0].shape
+        cot = bf16(shape)
+        with lowering.f32_precision():
+            card = run(op_type, ins, attrs, wrt, out_slot, cot, "cuda")
+        cpu = run(op_type, {k: [t.float() for t in v]
+                            for k, v in ins.items()},
+                  attrs, wrt, out_slot, cot.float(), "cpu")
+        for name, a, w in zip(names, card, cpu):
+            if a.dtype == torch.bfloat16:
+                r = bf16_ulp_ratio(a, w.bfloat16())
+            else:
+                r = rel_err(host(a), host(w).astype(np.float64)) / 1e-3
+            if r > worst.get(name, (-1.0,))[0]:
+                worst[name] = (r, "%s x%s w%s" % (op_type, xs, ws or ""))
+        if op_type == "conv2d" and (longest is None or np.prod(
+                shape[2:]) > np.prod(longest[0][2:])):
+            longest = (shape, ins, attrs, cot, cpu[1])
+        del card, cpu
+    # the control: dFilter summed image by image in bfloat16
+    shape, ins, attrs, cot, want = longest
+    acc = None
+    with lowering.f32_precision():
+        for i in range(BENCH_BATCH):
+            one = {"Input": [ins["Input"][0][i:i + 1]],
+                   "Filter": ins["Filter"]}
+            g, = run("conv2d", one, attrs, ("Filter",), "Output",
+                     cot[i:i + 1], "cuda")
+            acc = g if acc is None else acc + g
+    control = bf16_ulp_ratio(acc, want.bfloat16())
+    torch.cuda.synchronize()
+    print("7b backward op by op [%s, batch %d, %dx%d, the card's bf16 "
+          "lowering vs the CPU's f32 one on the same bfloat16 values, "
+          "rounded once]: %d distinct shapes, %.1f s; worst error / bound "
+          "(bfloat16: one ulp + 1e-3·max; f32: 1e-3·max|grad|; pass <= 1): "
+          "%s; control (dFilter of %s summed image by image in bfloat16, "
+          "must fail): %.2f" % (
+              torch.cuda.get_device_name(0), BENCH_BATCH, BENCH_IMAGE,
+              BENCH_IMAGE, len(shapes),
+              time.monotonic() - t0,
+              "; ".join("%s %.3f (%s)" % (n, r, where)
+                        for n, (r, where) in sorted(worst.items())),
+              tuple(ins["Filter"][0].shape), control), flush=True)
+    if len(worst) != 6 or max(r for r, _ in worst.values()) > 1.0:
+        fail("7b: a bf16 backward op on the card disagrees with the CPU")
+    if control <= 1.0:
+        fail("7b: a bf16-summed weight gradient passes the op-by-op bound: "
+             "the check cannot tell")
+
+
+def resnet_inference(fluid, main, io, scope, image=CHECK_IMAGE):
+    """Phase 7c. 7a's card-trained program saved with save_inference_model
+    (pruned to the logits), loaded by Predictor.from_model on the card and
+    on the CPU: 8 requests of one image and a batch of 8, logits within
+    1e-3·max|logit| of the CPU's; every batch_norm of the loaded program
+    runs is_test."""
+    rng = np.random.default_rng(SEED + 7)
+    images = rng.standard_normal((8, 3, image, image), dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        fluid.io.save_inference_model(tmp, ["image"], [io["logits"]],
+                                      fluid.Executor(), main_program=main,
+                                      scope=scope)
+        pred = fluid.Predictor.from_model(tmp)
+        cpu = fluid.Predictor.from_model(tmp, place=fluid.CPUPlace())
+        want, = cpu.run({"image": images})
+        singles = [pred.run({"image": images[i:i + 1]})[0] for i in range(8)]
+        batch, = pred.run({"image": images})
+    bns = [op for op in pred.program.global_block().ops
+           if op.type == "batch_norm"]
+    scale = float(np.abs(want).max())
+    err = max(float(np.abs(np.concatenate(singles) - want).max()),
+              float(np.abs(batch - want).max()))
+    print("7c resnet50 inference [%dx%d]: %d batch_norm ops, all is_test: "
+          "%s; 8 single requests and a batch of 8 on the card vs the CPU: "
+          "max|d| %.3e, bound 1e-3·max|logit| = %.3e" % (
+              image, image, len(bns), all(op.attr("is_test") for op in bns),
+              err, 1e-3 * scale), flush=True)
+    if len(bns) != 53 or not all(op.attr("is_test") for op in bns):
+        fail("7c: the loaded program's batch norms do not run is_test")
+    if not np.isfinite(batch).all() or err > 1e-3 * scale:
+        fail("7c: card logits disagree with the CPU's")
+
+
+def program_flops_per_image(main):
+    """Training FLOPs per image from the program's own conv2d and mul
+    shapes: 2 per multiply-add, x3 for the forward and the two products
+    of the backward."""
+    block = main.global_block()
+    macs = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            macs += int(np.prod(out[1:])) * int(np.prod(w[1:]))
+        elif op.type == "mul":
+            x = block.var(op.input("X")[0]).shape
+            y = block.var(op.input("Y")[0]).shape
+            macs += int(np.prod(x[1:])) * int(np.prod(y[1:]))
+    return 3 * 2 * macs
+
+
+def resnet_bench(fluid, resnet, ca, cl, card):
+    """Phase 7d. bench.py's ResNet-50 measurement: 1000 classes, batch
+    128, 224x224, ``decorate(Momentum(0.1, 0.9), use_bf16=True)``,
+    startup seed 7, images and labels from default_rng(0) staged on the
+    card once; 3 warm-up and 20 timed steps with return_numpy=False, the
+    loss fetched after the last. Step times are CUDA events recorded
+    between the steps (the device's timeline; the host runs ahead). The
+    five kernels' counters are read around the timed steps: no kernel of
+    the port lies on this path. Returns one more step as a function, and
+    the numbers."""
+    main, startup, io = resnet_program(fluid, resnet, BENCH_IMAGE, 0.1,
+                                       amp=True)
+    startup.random_seed = BENCH_SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = {n: torch.from_numpy(v).cuda()
+            for n, v in resnet_feed(BENCH_IMAGE, BENCH_BATCH).items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[io["loss"]],
+                       scope=scope, return_numpy=False)
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    fns = counters(ca, cl)
+    for fn in fns.values():
+        fn.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.monotonic()
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        out = step()
+        marks[i + 1].record()
+    loss = float(out[0])                     # waits for the card
+    wall = time.monotonic() - t0
+    launches = {n: fn.launches for n, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = sorted(marks[i].elapsed_time(marks[i + 1])
+                   for i in range(TRAIN_STEPS))
+    stats = dict(median_ms=statistics.median(steps),
+                 p90_ms=steps[min(len(steps) - 1, int(0.9 * len(steps)))],
+                 peak_gib=peak / 2 ** 30, resident_gib=resident / 2 ** 30,
+                 loss=loss, wall_ms=1e3 * wall / TRAIN_STEPS)
+    stats["window_ms"] = marks[0].elapsed_time(marks[-1])
+    stats["images_per_s"] = (TRAIN_STEPS * BENCH_BATCH
+                             / stats["window_ms"] * 1e3)
+    flops = program_flops_per_image(main)
+    stats["share"] = stats["images_per_s"] * flops / PEAK_FLOPS[
+        torch.bfloat16]
+    print("7d resnet50 bench [%s]: batch %d, %dx%d, bf16 AMP, Momentum(0.1, "
+          "0.9): loss %.4f after %d steps; step median %.3f ms, p90 %.3f ms "
+          "(CUDA events between steps; host wall %.3f ms a step); %.1f "
+          "images/s (%d x %d images over the %.3f ms of the %d timed "
+          "steps); peak device memory %.3f GiB (%.3f GiB resident before "
+          "the phase)" % (
+              card, BENCH_BATCH, BENCH_IMAGE, BENCH_IMAGE, loss,
+              TRAIN_WARMUP + TRAIN_STEPS, stats["median_ms"],
+              stats["p90_ms"], stats["wall_ms"], stats["images_per_s"],
+              TRAIN_STEPS, BENCH_BATCH, stats["window_ms"], TRAIN_STEPS,
+              stats["peak_gib"], stats["resident_gib"]), flush=True)
+    print("7d FLOPs per image, counted from the program's 53 conv2d and 1 "
+          "mul shapes (2 per multiply-add, x3 for training): %.4e; "
+          "bench.py:733's 3 x 3.86e9 = %.4e; the share uses the counted "
+          "one: %.4f of the card's bf16 dense peak (989 TFLOP/s) [%s]; "
+          "kernel launches of the port's five kernels in the timed steps: "
+          "%s (none lies on this path)" % (
+              flops, BENCH_FLOPS_PER_IMAGE, stats["share"], card, launches),
+          flush=True)
+    if not np.isfinite(loss):
+        fail("7d: the bench loss is not finite")
+    return step, stats
+
+
+def resnet_profile(step, stats, card):
+    """Phase 7e. One profiled step of 7d: busy and idle share, kernels and
+    GEMMs (profile_train_step), then the convolutions' device time and
+    launches by input dtype, cuDNN's layout transforms around them, the
+    dtype conversions, the 161 momentum updates (the optimizer range) and
+    the rest (batch norm, relu, adds, pools and the loss: elementwise and
+    reduction kernels)."""
+    from torch.autograd import DeviceType
+
+    def extra(prof, st):
+        dtypes = _input_dtypes(prof)
+        conv, layout, casts, optim = {}, [0, 0.0], [0, 0.0], [0, 0.0]
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU:
+                continue
+            if e.name in CONV_OPS:
+                dt = _gemm_dtype(dtypes.get(e.id))
+                for name, us in _subtree_kernels(e):
+                    if LAYOUT_KERNELS.search(name):
+                        layout[0] += 1
+                        layout[1] += us
+                        continue
+                    n, t = conv.get(dt, (0, 0.0))
+                    conv[dt] = (n + 1, t + us)
+            elif e.name == "aten::_to_copy":
+                ks = _subtree_kernels(e)
+                casts[0] += len(ks)
+                casts[1] += sum(us for _, us in ks)
+            elif e.name == "paddle_tpu_torch::optimizer":
+                ks = _subtree_kernels(e)
+                optim[0] += len(ks)
+                optim[1] += sum(us for _, us in ks)
+        conv_ms = sum(t for _, t in conv.values()) / 1e3
+        rest = st["busy_ms"] - conv_ms - layout[1] / 1e3 - casts[1] / 1e3 \
+            - optim[1] / 1e3
+        print("7e resnet50 bench step [%s]: convolutions %s; cuDNN layout "
+              "transforms (nchwToNhwc and the like) %d launches %.3f ms; "
+              "dtype conversions (aten::_to_copy) %d launches %.3f ms; the "
+              "161 momentum updates %d launches %.3f ms; the rest (batch "
+              "norm, relu, adds, pools, loss) %.3f ms of %.3f ms busy" % (
+                  card, ", ".join("%s %d launches %.3f ms" % (
+                      dt, n, t / 1e3) for dt, (n, t) in sorted(conv.items())),
+                  layout[0], layout[1] / 1e3, casts[0], casts[1] / 1e3,
+                  optim[0], optim[1] / 1e3, rest, st["busy_ms"]),
+              flush=True)
+        st.update(conv_ms=conv_ms, layout_ms=layout[1] / 1e3,
+                  optimizer_ms=optim[1] / 1e3, rest_ms=rest)
+
+    stats.update(profile_train_step(step, "resnet50 bench step, bf16 AMP",
+                                    extra=extra))
+    print("7e resnet50 bench step: median %.3f ms (unprofiled), device busy "
+          "%.3f ms of it: idle %.1f%% of the median step" % (
+              stats["median_ms"], stats["busy_ms"],
+              100 * max(0.0, 1 - stats["busy_ms"] / stats["median_ms"])),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1170,7 +1784,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import serving
-    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.models import bert, resnet
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import cuda_layernorm as cl
@@ -1266,6 +1881,19 @@ def main():
         dynamic_scaling_checks(fluid, bert)
         amp_launches, amp_step, amp_stats = train_phase(
             fluid, bert, ca, cl, amp=dict(use_bf16=True))
+
+        # phase 7: the ResNet slice. torch's default (cuDNN TF32 on) from
+        # here: the port's own runs must turn it off for their f32 convs
+        torch.backends.cudnn.allow_tf32 = True
+        t7 = time.monotonic()
+        main7, io7, scope7, start7, f32_grads, feed7 = resnet_vs_cpu(
+            fluid, resnet, lowering)
+        amp_resnet_vs_cpu(fluid, resnet, start7, f32_grads, feed7)
+        amp_backward_vs_cpu(fluid, resnet, lowering)
+        resnet_inference(fluid, main7, io7, scope7)
+        del main7, scope7, start7, f32_grads
+        bench_step, bench_stats = resnet_bench(fluid, resnet, ca, cl, card)
+        secs7 = time.monotonic() - t7
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -1289,6 +1917,11 @@ def main():
                       st["casts"]["launches"], st["casts"]["ms"]),
                   flush=True)
         del pred, train_step, amp_step
+        t7 = time.monotonic()
+        resnet_profile(bench_step, bench_stats, card)
+        del bench_step
+        print("phase 7 (ResNet-50: 7a-7e) took %.1f s" % (
+            secs7 + time.monotonic() - t7), flush=True)
 
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))

@@ -19,6 +19,7 @@ from . import executor
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import initializer
 from . import layers
+from . import nets
 from .data import data  # noqa: F401
 from . import unique_name
 from . import param_attr

@@ -44,7 +44,7 @@ def _rewrite_program_bf16(program, amp_lists):
     """Insert casts so white-list ops consume bf16 inputs.
 
     The products sum in fp32, as XLA's do in the reference (cuBLAS under
-    fluid/lowering.py ``f32_accumulation`` on the card), so this is
+    fluid/lowering.py ``f32_precision`` on the card), so this is
     numerically the standard bf16 training recipe."""
     block = program.global_block()
     new_ops = []

@@ -1,5 +1,5 @@
 """fluid.layers namespace (ref: python/paddle/fluid/layers/__init__.py):
-the layers this slice of the port covers."""
+the layers the port covers so far."""
 from . import nn
 from .nn import *  # noqa: F401,F403
 from . import io
@@ -8,9 +8,12 @@ from . import tensor
 from .tensor import *  # noqa: F401,F403
 from . import loss
 from .loss import *  # noqa: F401,F403
+from . import metric_op
+from .metric_op import *  # noqa: F401,F403
 
 __all__ = []
 __all__ += nn.__all__
 __all__ += io.__all__
 __all__ += tensor.__all__
 __all__ += loss.__all__
+__all__ += metric_op.__all__

@@ -1,16 +1,19 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
-Port of the paddle_tpu/fluid/layers/nn.py functions that BERT calls, with
+Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, ResNet and
+the MNIST models call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
 """
 from ..layer_helper import LayerHelper
 from ..framework import Variable
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "dropout", "softmax", "gelu", "layer_norm", "mean",
+    "conv2d", "pool2d", "batch_norm", "flatten", "topk",
     "matmul", "transpose", "reshape", "unsqueeze", "slice",
     "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_max", "scale", "reduce_sum", "fused_multihead_attention",
@@ -208,6 +211,221 @@ def layer_norm(
     return helper.append_activation(out)
 
 
+# ---------------------------------------------------------------------------
+# conv / pool
+# ---------------------------------------------------------------------------
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def _conv_out_size(i, k, p, s, d=1):
+    if i in (None, -1):
+        return -1
+    ke = d * (k - 1) + 1
+    return (i + 2 * p - ke) // s + 1
+
+
+def conv2d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    """2-D convolution (ref nn.py:1105); the filter drawn from
+    Normal(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    def _std(shape):
+        fan_in = shape[1] * shape[2] * shape[3]
+        return (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=filter_shape,
+        dtype=dtype,
+        default_initializer=Normal(0.0, _std(filter_shape)),
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    n, _, h, wdt = input.shape
+    out.shape = (
+        n,
+        num_filters,
+        _conv_out_size(h, filter_size[0], padding[0], stride[0], dilation[0]),
+        _conv_out_size(wdt, filter_size[1], padding[1], stride[1], dilation[1]),
+    )
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "data_format": data_format,
+        },
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    name=None,
+    exclusive=True,
+    data_format="NCHW",
+):
+    helper = LayerHelper("pool2d", **locals())
+    pool_size = _pair(pool_size)
+    pool_stride = _pair(pool_stride)
+    pool_padding = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    n, c, h, w = input.shape
+    if global_pooling:
+        out.shape = (n, c, 1, 1)
+    else:
+        def _po(i, k, p, s):
+            if i in (None, -1):
+                return -1
+            if ceil_mode:
+                return -(-(i + 2 * p - k) // s) + 1
+            return (i + 2 * p - k) // s + 1
+        out.shape = (
+            n,
+            c,
+            _po(h, pool_size[0], pool_padding[0], pool_stride[0]),
+            _po(w, pool_size[1], pool_padding[1], pool_stride[1]),
+        )
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": pool_size,
+            "strides": pool_stride,
+            "paddings": pool_padding,
+            "global_pooling": global_pooling,
+            "ceil_mode": ceil_mode,
+            "exclusive": exclusive,
+        },
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-05,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    in_place=False,
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=True,
+    use_global_stats=False,
+):
+    """Batch normalization (ref nn.py:2372). The moving mean and variance
+    are persistable, not trainable, and stop the gradient; the op writes
+    them back under their own names once per step."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+
+    scale = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=param_shape,
+        dtype=dtype,
+        default_initializer=Constant(1.0),
+    )
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True
+    )
+    mean = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_mean_name, initializer=Constant(0.0),
+            trainable=False,
+            do_model_average=do_model_average_for_mean_and_var,
+        ),
+        shape=param_shape,
+        dtype=dtype,
+    )
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_variance_name,
+            initializer=Constant(1.0),
+            trainable=False,
+            do_model_average=do_model_average_for_mean_and_var,
+        ),
+        shape=param_shape,
+        dtype=dtype,
+    )
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(dtype, True)
+    saved_var = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="batch_norm",
+        inputs={
+            "X": [input],
+            "Scale": [scale],
+            "Bias": [bias],
+            "Mean": [mean],
+            "Variance": [variance],
+        },
+        outputs={
+            "Y": [out],
+            "MeanOut": [mean],
+            "VarianceOut": [variance],
+            "SavedMean": [saved_mean],
+            "SavedVariance": [saved_var],
+        },
+        attrs={
+            "momentum": momentum,
+            "epsilon": epsilon,
+            "is_test": is_test,
+            "data_layout": data_layout,
+            "use_global_stats": use_global_stats,
+        },
+    )
+    return helper.append_activation(out)
+
+
 def mean(x, name=None):
     return _layer("mean", {"X": x}, out_shape=())
 
@@ -294,6 +512,55 @@ def unsqueeze(input, axes, name=None):
         attrs={"axes": list(axes)},
     )
     return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    if x.shape is not None:
+        lead = _prod(x.shape[:axis]) if all(
+            s not in (None, -1) for s in x.shape[:axis]
+        ) else -1
+        tail = _prod(x.shape[axis:]) if all(
+            s not in (None, -1) for s in x.shape[axis:]
+        ) else -1
+        out.shape = (lead, tail)
+    helper.append_op(
+        type="flatten2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    inputs = {"X": [input]}
+    attrs = {}
+    if isinstance(k, Variable):
+        inputs["K"] = [k]
+        kk = -1
+    else:
+        attrs["k"] = k
+        kk = k
+    if input.shape is not None:
+        s = list(input.shape)
+        s[-1] = kk
+        values.shape = tuple(s)
+        indices.shape = tuple(s)
+    helper.append_op(
+        type="top_k",
+        inputs=inputs,
+        outputs={"Out": [values], "Indices": [indices]},
+        attrs=attrs,
+    )
+    values.stop_gradient = False
+    indices.stop_gradient = True
+    return values, indices
 
 
 def slice(input, axes, starts, ends):

@@ -197,40 +197,52 @@ def persistable_names(program):
             if v.persistable]
 
 
-_accumulation_lock = threading.Lock()
-_accumulation_depth = [0, None]      # runs inside, the caller's settings
+_precision_lock = threading.Lock()
+_precision_depth = [0, None]      # runs inside, the caller's settings
+
+
+def precision_switches():
+    """The process-wide switches a run on the card sets, as (namespace,
+    attribute, value) triples: cuBLAS's reduced-precision bf16 and fp16
+    split-K sums off, and TF32 off for f32 matrix products and for cuDNN's
+    f32 convolutions (torch's default, ``cudnn.allow_tf32 = True``, rounds
+    a convolution's f32 inputs to 10-bit mantissas). TF32 goes off through
+    ``fp32_precision = "ieee"``: reading the legacy ``allow_tf32`` raises
+    once a caller has set the two apart."""
+    matmul = torch.backends.cuda.matmul
+    return [(matmul, "allow_bf16_reduced_precision_reduction", False),
+            (matmul, "allow_fp16_reduced_precision_reduction", False),
+            (matmul, "fp32_precision", "ieee"),
+            (torch.backends.cudnn.conv, "fp32_precision", "ieee")]
 
 
 @contextlib.contextmanager
-def f32_accumulation():
-    """cuBLAS sums bfloat16 and float16 products in f32 while a program
-    runs on the card, as XLA's dots do in the reference (its bf16 dot
-    accumulates in f32). Torch's default,
-    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
-    True`` (and its fp16 twin), lets cuBLAS reduce split-K partials in the
-    narrow type. The two flags are process-wide: they are set to False
-    when the first run enters and restored to the caller's values when the
-    last concurrent run leaves, so a caller's own matmuls between runs see
-    its own settings, and those on other threads during a run see f32
-    sums."""
-    flags = torch.backends.cuda.matmul
-    with _accumulation_lock:
-        if _accumulation_depth[0] == 0:
-            _accumulation_depth[1] = (
-                flags.allow_bf16_reduced_precision_reduction,
-                flags.allow_fp16_reduced_precision_reduction)
-            flags.allow_bf16_reduced_precision_reduction = False
-            flags.allow_fp16_reduced_precision_reduction = False
-        _accumulation_depth[0] += 1
+def f32_precision():
+    """While a program runs on the card, its products compute as the
+    reference's do on the TPU and as the port's do on the CPU: bfloat16
+    and float16 products sum in f32 (XLA's bf16 dot accumulates in f32),
+    and f32 products and convolutions take their f32 inputs whole, not
+    rounded to TF32 (:func:`precision_switches`). The switches are
+    process-wide: they are set when the first run enters and restored to
+    the caller's values when the last concurrent run leaves, so a
+    caller's own work between runs sees its own settings, and that on
+    other threads during a run sees the run's."""
+    with _precision_lock:
+        if _precision_depth[0] == 0:
+            switches = precision_switches()
+            _precision_depth[1] = [(ns, attr, getattr(ns, attr))
+                                   for ns, attr, _ in switches]
+            for ns, attr, value in switches:
+                setattr(ns, attr, value)
+        _precision_depth[0] += 1
     try:
         yield
     finally:
-        with _accumulation_lock:
-            _accumulation_depth[0] -= 1
-            if _accumulation_depth[0] == 0:
-                (flags.allow_bf16_reduced_precision_reduction,
-                 flags.allow_fp16_reduced_precision_reduction) = \
-                    _accumulation_depth[1]
+        with _precision_lock:
+            _precision_depth[0] -= 1
+            if _precision_depth[0] == 0:
+                for ns, attr, value in _precision_depth[1]:
+                    setattr(ns, attr, value)
 
 
 def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
@@ -243,7 +255,7 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     The ops run eagerly under ``torch.inference_mode()`` when `is_test`
     and under ``torch.no_grad()`` otherwise; a ``backward`` op turns
     autograd on for the region it differentiates (:func:`run_ops`). On
-    the card they run under :func:`f32_accumulation`.
+    the card they run under :func:`f32_precision`.
     ``grad_comm``, the JAX package's gradient-communication hook, waits for
     the port's parallel slice."""
     if grad_comm is not None:
@@ -261,7 +273,7 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()
-        sums = (f32_accumulation() if device.type == "cuda"
+        sums = (f32_precision() if device.type == "cuda"
                 else contextlib.nullcontext())
         with guard, sums:
             env = run_ops(block, op_list, env, ctx)

@@ -1,6 +1,7 @@
 """Optimizers (ref: python/paddle/fluid/optimizer.py).
 
-Port of the paddle_tpu/fluid/optimizer.py base class and Adam. minimize()
+Port of the paddle_tpu/fluid/optimizer.py base class, SGD, Momentum and
+Adam. minimize()
 appends the symbolic ``backward`` op plus one update op per parameter, the
 same ops and names as the JAX package; the Executor runs the forward
 region under torch.autograd, differentiates it at the ``backward`` op and
@@ -16,7 +17,8 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -172,6 +174,58 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    """ref optimizer.py:696"""
+
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={
+                "Param": [param],
+                "Grad": [grad],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param]},
+        )
+
+
+class MomentumOptimizer(Optimizer):
+    """ref optimizer.py:767"""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type="momentum",
+            inputs={
+                "Param": [param],
+                "Grad": [grad],
+                "Velocity": [velocity],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     """ref optimizer.py:1466"""
 
@@ -234,4 +288,6 @@ class AdamOptimizer(Optimizer):
         )
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -6,7 +6,7 @@ binary lowering promotes its operands by jax's rules first
 (ops/promotion.py). The products go to ``torch.matmul``: they are plain
 matrix products that the JAX package left to XLA, not Pallas kernels. A
 bfloat16 product must sum in f32 as XLA's does; the executor sees to it on
-the card (fluid/lowering.py ``f32_accumulation``).
+the card (fluid/lowering.py ``f32_precision``).
 """
 import torch
 

@@ -1,13 +1,35 @@
-"""Optimizer update op lowering: adam (ref: paddle/fluid/operators/
-optimizers/adam_op.h). Port of the paddle_tpu/ops/optimizer_ops.py
-lowering: f32 math whatever the parameter's dtype, the bias correction
-folded into the step size, and Beta1PowOut/Beta2PowOut advanced by one
-step. The update is functional (new tensors, as in the JAX package); the
-Executor writes them back to the scope. The other update ops wait for
-later slices."""
+"""Optimizer update op lowerings: sgd, momentum, adam (ref: paddle/fluid/
+operators/optimizers/). Port of the paddle_tpu/ops/optimizer_ops.py
+lowerings. sgd and momentum compute in the parameter's dtype, the gradient
+and learning rate cast to it; adam in f32 whatever the parameter's dtype,
+the bias correction folded into the step size, and Beta1PowOut/
+Beta2PowOut advanced by one step. Each update is functional (new tensors,
+as in the JAX package); the Executor writes them back to the scope. The
+other update ops wait for later slices."""
 import torch
 
 from .registry import register_op
+
+
+@register_op("sgd")
+def _sgd(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    return {"ParamOut": [p - lr.to(p.dtype) * g.to(p.dtype)]}
+
+
+@register_op("momentum")
+def _momentum(ctx, ins, attrs):
+    """v' = mu·v + g; p' = p - lr·v', or with Nesterov p - (g + mu·v')·lr."""
+    p, v = ins["Param"][0], ins["Velocity"][0]
+    g = ins["Grad"][0].to(p.dtype)
+    lr = ins["LearningRate"][0].to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
 
 
 def _adam_core(p, g, m, v, beta1_pow, beta2_pow, lr, beta1, beta2, eps):

@@ -1,5 +1,6 @@
 """Tensor manipulation op lowerings: cast, reshape2, transpose2,
-unsqueeze2, slice, fill_constant, fill_zeros_like, assign, where. Port of
+unsqueeze2, flatten2, slice, top_k, fill_constant, fill_zeros_like,
+assign, where. Port of
 the paddle_tpu/ops/tensor_ops.py lowerings the port runs;
 reshape/transpose/slice return views where torch can.
 """
@@ -50,6 +51,16 @@ def _unsqueeze(ctx, ins, attrs):
     return {"Out": [out], "XShape": [_xshape(x)]}
 
 
+@register_op("flatten2")
+def _flatten(ctx, ins, attrs):
+    """x as (prod(shape[:axis]), prod(shape[axis:]))."""
+    x = ins["X"][0]
+    lead = 1
+    for d in x.shape[:attrs.get("axis", 1)]:
+        lead *= int(d)
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
 @register_op("slice")
 def _slice(ctx, ins, attrs):
     x = ins["Input"][0]
@@ -60,6 +71,17 @@ def _slice(ctx, ins, attrs):
         en = max(en + dim, 0) if en < 0 else min(en, dim)
         idx[ax] = slice(st, en)
     return single(x[tuple(idx)])
+
+
+@register_op("top_k")
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis, in descending order; equal
+    values in index order, as lax.top_k gives them (a stable sort: torch's
+    topk does not order ties). Indices are int64."""
+    x = ins["X"][0]
+    k = int(ins["K"][0]) if ins.get("K") else int(attrs["k"])
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("fill_constant")

@@ -441,10 +441,10 @@ def test_f32_accumulation_is_scoped():
     try:
         flags.allow_bf16_reduced_precision_reduction = True
         flags.allow_fp16_reduced_precision_reduction = True
-        with pt_lowering_mod.f32_accumulation():
+        with pt_lowering_mod.f32_precision():
             assert not flags.allow_bf16_reduced_precision_reduction
             assert not flags.allow_fp16_reduced_precision_reduction
-            with pt_lowering_mod.f32_accumulation():
+            with pt_lowering_mod.f32_precision():
                 flags.allow_bf16_reduced_precision_reduction = False
             # an inner run leaving does not give the settings back
             assert not flags.allow_bf16_reduced_precision_reduction

@@ -191,4 +191,4 @@ def test_uniform_random_shape_dtype_range():
 
 def test_unported_op_names_the_gap():
     with pytest.raises(NotImplementedError, match="no torch lowering yet"):
-        pt_lowering("conv2d")
+        pt_lowering("conv2d_transpose")

@@ -194,7 +194,7 @@ def test_dropout_eval_path(impl):
 
 def test_unported_optimizer_op_names_the_gap():
     with pytest.raises(NotImplementedError, match="no torch lowering yet"):
-        pt_lowering("momentum")
+        pt_lowering("lars_momentum")
 
 
 # ---------------------------------------------------------------------------
