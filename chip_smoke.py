@@ -88,7 +88,29 @@ Phases, each of which exits non-zero on failure:
    the five kernels' launches (none on this path); (e), with the other
    profiles, one profiled step of (d): busy and idle share, convolutions by
    input dtype, cuDNN's layout transforms, dtype conversions, the momentum
-   updates and the elementwise rest, and cudaLaunchKernel calls.
+   updates and the elementwise rest, and cudaLaunchKernel calls;
+8. GPT decode serving at the full width of ``GPTConfig()`` (vocab 32000,
+   hidden 768, 12 layers, 12 heads, ffn 3072), random weights from
+   startup seed 9 initialised once on the CPU: (a) a ``DecodeEngine`` on
+   the card and one on the CPU from that scope (cache_len 128, bucket
+   64): a 50-token prompt's prefill, then 16 steps teacher-forced with
+   the card's tokens, logits and the KV rows written within
+   1e-3·max of the CPU's, the card's token equal to the CPU's wherever the
+   CPU's top-2 gap exceeds that bound (near-ties counted); (b) the main
+   path: ``DecodeEngine(slots=8, cache_len=1024)`` with the default
+   buckets serves 8 closed-loop client threads x 3 requests (prompts of
+   5 / 40 / 200 / 700 tokens in turn, 64 new tokens each) with every
+   counter set to 0 just before and read just after: exactly 24 LayerNorm
+   forward launches per prefill and per step, no attention kernel; every
+   stream bit-identical to its prompt served alone through the same
+   engine; a ``barrier=True`` engine on the same load, its streams the
+   same; (c) each engine serves the load again, timed: tokens/s over the
+   window, time to first token and the gap between tokens (p50, p99),
+   one step's host wall and its device time from CUDA events, peak device
+   memory and ``kv_slot_bytes``; with the other profiles, one profiled
+   step (busy, idle share, GEMMs, the cache copies); and, with phase 6's
+   times, the LayerNorm forward at the step's (8, 768) and a prefill
+   bucket's (64, 768) rows.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -221,6 +243,7 @@ def check_kernels(ca, cl):
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_fwd"] = err
     # (n, h, x dtypes, gamma and beta: "x" = x's dtype, a dtype, or None):
+    # the GPT decode step's rows (8 slots) and its 64-row prefill bucket,
     # the four serving buckets' rows (128·B), h = 770 (no 16-byte loads),
     # no gamma and beta, their width other than x's, n = 1, and the
     # backward's long rows: h = 1024 (the longest held in registers), 4096
@@ -229,6 +252,8 @@ def check_kernels(ca, cl):
     ln_cases = [
         (1024, 768, (f32, bf16), "x"),
         (1000, 768, (f32, bf16), "x"),
+        (8, 768, (f32, bf16), "x"),
+        (64, 768, (f32, bf16), "x"),
         (128, 768, (f32, bf16), "x"),
         (256, 768, (f32, bf16), "x"),
         (512, 768, (f32, bf16), "x"),
@@ -941,7 +966,8 @@ def layer_norm_bound_ms(n, h, dtype):
 def kernel_times(ca, cl):
     """Times at the serving path's largest bucket: attention (8, 12, 128,
     64), LayerNorm (8·128, 768); the LayerNorm forward and F.layer_norm also
-    at the other buckets' rows (128·B, 768), B = 1, 2, 4; and the launch
+    at the other buckets' rows (128·B, 768), B = 1, 2, 4, at the GPT decode
+    step's (8, 768) and at its 64-row prefill bucket; and the launch
     floor, the device time of a one-element fill_. Returns the times by
     (kernel, dtype), the buckets' by (rows, dtype), and the floor."""
     import torch.nn.functional as F
@@ -969,7 +995,9 @@ def kernel_times(ca, cl):
             library_ms=device_ms(
                 lambda: F.layer_norm(x, (768,), g, b, 1e-5)),
             bound_ms=ln_bound, bound_by=ln_by)
-        for rows in (SEQ, 2 * SEQ, 4 * SEQ):
+        # the GPT decode step's rows (8 slots) and a prefill bucket, then
+        # the serving buckets'
+        for rows in (8, 64, SEQ, 2 * SEQ, 4 * SEQ):
             xb = x[:rows].clone()
             buckets[(rows, dt)] = dict(
                 ms=device_ms(lambda: cl.layer_norm_fwd(xb, g, b, 1e-5)),
@@ -1777,6 +1805,402 @@ def resnet_profile(step, stats, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: GPT decode serving
+# ---------------------------------------------------------------------------
+# GPTConfig() (vocab 32000, hidden 768, 12 layers, 12 heads, ffn 3072,
+# max_len 1024: GPT-2 small's shape) with random weights from startup seed
+# 9, initialised once on the CPU. 8a: one 50-token prompt in a bucket of 64
+# (cache_len 128), then 16 steps teacher-forced with the card's tokens, on
+# the card and on the CPU. 8b/8c: 8 slots, cache_len 1024, the default
+# buckets, 8 closed-loop clients x 3 requests, prompts of 5 / 40 / 200 /
+# 700 tokens in turn, 64 new tokens each.
+GPT_SEED = 9
+GPT_CHECK_CACHE, GPT_CHECK_BUCKET = 128, 64
+GPT_CHECK_PROMPT, GPT_CHECK_STEPS = 50, 16
+GPT_SLOTS, GPT_CACHE = 8, 1024
+GPT_CLIENTS, GPT_PER_CLIENT, GPT_MAX_NEW = 8, 3, 64
+GPT_PROMPT_LENS = (5, 40, 200, 700)
+GPT_TOL = 1e-3
+GPT_WAIT = 600.0                 # s: the bound of every wait for a stream
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def gpt_scope(fluid, gpt, cfg):
+    """Every parameter of `cfg` (the LM's startup program creates all that
+    the decode programs read), initialised once on the CPU from startup
+    seed GPT_SEED."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        gpt.build_gpt_lm(cfg, 8, is_test=True)
+    startup.random_seed = GPT_SEED
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return scope
+
+
+def _with_logits(fluid, eng, bucket=None):
+    """A predictor over one of the engine's programs (its step, or the
+    prefill of `bucket`) on the engine's own parameter copy that also
+    fetches the logits."""
+    if bucket is None:
+        prog, vs = eng._step_pred.program, eng._step_vars
+    else:
+        prog, vs = eng._prefill_preds[bucket].program, eng._prefill_vars[bucket]
+    return fluid.Predictor(prog, vs["feed_names"],
+                           [vs["next"], vs["logits"], vs["k"], vs["v"]],
+                           scope=eng._params, place=eng.place)
+
+
+def gpt_vs_cpu(fluid, serving, cfg, scope, cache_len=GPT_CHECK_CACHE,
+               bucket=GPT_CHECK_BUCKET, plen=GPT_CHECK_PROMPT,
+               steps=GPT_CHECK_STEPS, slots=GPT_SLOTS):
+    """Phase 8a. A DecodeEngine on the card and one on the CPU from the
+    same scope: the prefill of one prompt, then `steps` steps of slot 0
+    (the other slots dead, as in the engine) teacher-forced with the
+    card's tokens, each side on its own caches. Logits within
+    GPT_TOL·max|logit| of the CPU's, the card's token equal to the CPU's
+    wherever the CPU's top-2 gap exceeds that bound, and the KV rows
+    written within GPT_TOL·max|kv|."""
+    sides = {}
+    for tag, place in (("card", None), ("cpu", fluid.CPUPlace())):
+        eng = serving.DecodeEngine(cfg, scope, slots=slots,
+                                   cache_len=cache_len,
+                                   prompt_buckets=(bucket,), place=place,
+                                   auto_start=False, name="gpt-8a-" + tag)
+        sides[tag] = (eng, _with_logits(fluid, eng, bucket),
+                      _with_logits(fluid, eng))
+    rng = np.random.default_rng(GPT_SEED)
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :plen] = rng.integers(0, cfg.vocab, plen)
+    feed = {"gpt_prefill_ids": ids,
+            "gpt_prefill_len": np.array([[plen]], np.int64)}
+    state = {}
+    worst = dict(logits=0.0, kv=0.0)
+    near_ties = 0
+    tok = None
+    for t in range(steps + 1):
+        outs = {}
+        for tag, (eng, pre, step) in sides.items():
+            if t == 0:
+                nxt, logits, k, v = pre.run(feed, return_numpy=False)
+                shape = (slots,) + tuple(k.shape[1:])
+                kc = torch.zeros(shape, device=k.device)
+                vc = torch.zeros(shape, device=v.device)
+                kc[0], vc[0] = k[0], v[0]
+            else:
+                toks = np.zeros((slots, 1), np.int64)
+                pos = np.zeros((slots, 1), np.int64)
+                toks[0, 0], pos[0, 0] = tok, plen + t - 1
+                kc, vc = state[tag]
+                nxt, logits, kc, vc = step.run(
+                    {"gpt_step_tok": toks, "gpt_step_pos": pos,
+                     "gpt_step_k": kc, "gpt_step_v": vc},
+                    return_numpy=False)
+            state[tag] = (kc, vc)
+            outs[tag] = (int(nxt.reshape(-1)[0]),
+                         logits[0].detach().cpu().numpy(),
+                         kc[0].cpu().numpy(), vc[0].cpu().numpy())
+        (ctok, clog, ck, cv), (wtok, wlog, wk, wv) = outs["card"], outs["cpu"]
+        bound = GPT_TOL * float(np.abs(wlog).max())
+        err = float(np.abs(clog - wlog).max())
+        top2 = np.sort(wlog)[-2:]
+        gap = float(top2[1] - top2[0])
+        rows = plen + t                         # rows written so far
+        kv_err = max(float(np.abs(ck[:, :rows] - wk[:, :rows]).max())
+                     / float(np.abs(wk[:, :rows]).max()),
+                     float(np.abs(cv[:, :rows] - wv[:, :rows]).max())
+                     / float(np.abs(wv[:, :rows]).max()))
+        unwritten = max(float(np.abs(a[:, rows:]).max()) if rows < cache_len
+                        else 0.0 for a in (ck, cv, wk, wv))
+        worst["logits"] = max(worst["logits"], err / bound * GPT_TOL)
+        worst["kv"] = max(worst["kv"], kv_err)
+        if gap <= bound:
+            near_ties += 1
+        if err > bound or kv_err > GPT_TOL or unwritten != 0.0 or (
+                gap > bound and ctok != wtok):
+            fail("8a %s %d: logits max|d| %.3e (bound %.3e), tokens %d / %d "
+                 "(cpu top-2 gap %.3e), KV %.3e of max (bound %g), "
+                 "unwritten rows max %.3e" % (
+                     "prefill" if t == 0 else "step", t, err, bound, ctok,
+                     wtok, gap, kv_err, GPT_TOL, unwritten))
+        if not np.isfinite(clog).all():
+            fail("8a: non-finite logits on the card")
+        tok = ctok
+    print("8a gpt (GPTConfig(), cache_len %d, bucket %d, a %d-token prompt, "
+          "%d steps teacher-forced with the card's tokens) card vs CPU: "
+          "logits max|d|/max|logit| %.3e, KV rows max|d|/max %.3e, bound "
+          "%g; %d near-ties (CPU top-2 gap within the bound) of %d tokens"
+          % (cache_len, bucket, plen, steps, worst["logits"], worst["kv"],
+             GPT_TOL, near_ties, steps + 1), flush=True)
+    for eng, _, _ in sides.values():
+        eng.stop()
+    return worst, near_ties
+
+
+def gpt_prompts(vocab, seed=GPT_SEED):
+    """One prompt per request, client c sending requests 3c .. 3c+2 with
+    lengths cycling through GPT_PROMPT_LENS."""
+    rng = np.random.default_rng(seed)
+    n = GPT_CLIENTS * GPT_PER_CLIENT
+    return [rng.integers(0, vocab, GPT_PROMPT_LENS[i % len(GPT_PROMPT_LENS)])
+            .astype(np.int64) for i in range(n)]
+
+
+def decode_load(eng, prompts, max_new=GPT_MAX_NEW, n_clients=GPT_CLIENTS):
+    """Closed-loop clients, each streaming its requests one after another
+    (client c takes a contiguous share); returns the tokens by request,
+    the time to first token by request (s), every gap between two tokens
+    of a stream (s), and the wall time of the whole load (s)."""
+    n = len(prompts)
+    per = -(-n // n_clients)
+    toks, ttft, gaps, errors = [None] * n, [None] * n, [], []
+
+    def client(idx):
+        mine = []
+        for i in idx:
+            t0 = time.monotonic()
+            try:
+                h = eng.submit(prompts[i], max_new=max_new)
+                out, last = [], None
+                for tok in h.tokens(timeout=GPT_WAIT):
+                    now = time.monotonic()
+                    if last is None:
+                        ttft[i] = now - t0
+                    else:
+                        mine.append(now - last)
+                    last = now
+                    out.append(tok)
+                toks[i] = out
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("request %d: %s: %s" % (i, type(e).__name__, e))
+        gaps.extend(mine)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c * per, min(n, (c + 1) * per)),))
+               for c in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=GPT_WAIT)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("8b decode load: %s" % (errors or "client threads hung"))
+    return toks, ttft, gaps, wall
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def gpt_serving(fluid, serving, ca, cl, cfg, scope, card,
+                slots=GPT_SLOTS, cache_len=GPT_CACHE, max_new=GPT_MAX_NEW):
+    """Phase 8b, then 8c's timed loads. The main path: DecodeEngine on the
+    card, warmed up, then the load with every kernel counter set to 0 just
+    before it and read just after (24 LayerNorm forward launches per
+    prefill and per step, no attention kernel); every stream bit-identical
+    to its prompt served alone through the same engine; a barrier=True
+    engine on the same load, its streams the same. Then each engine serves
+    the load again, timed. Returns the launches, the numbers, and one more
+    decode step of the continuous engine as a function."""
+    prompts = gpt_prompts(cfg.vocab)
+    per_dispatch = 2 * cfg.num_layers
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = serving.DecodeEngine(cfg, scope, slots=slots, cache_len=cache_len,
+                               name="gpt")
+    eng.warmup()
+    _sync()
+    print("8b gpt engine: %d slots, cache_len %d, buckets %s, built and "
+          "warmed up (every program once) in %.1f s" % (
+              slots, cache_len, eng.prompt_buckets, time.monotonic() - t0),
+          flush=True)
+    fns = counters(ca, cl)
+    for fn in fns.values():
+        fn.launches = 0
+    st0 = eng.stats()
+    toks, _, _, wall = decode_load(eng, prompts, max_new)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    st1 = eng.stats()
+    prefills = st1["prefills"] - st0["prefills"]
+    steps = st1["steps"] - st0["steps"]
+    print("8b gpt continuous batching: %d requests from %d clients (prompts "
+          "%s tokens, %d new each) in %.3f s: %d prefills, %d steps; "
+          "launches %s" % (len(prompts), GPT_CLIENTS,
+                           "/".join(map(str, GPT_PROMPT_LENS)), max_new,
+                           wall, prefills, steps, launches), flush=True)
+    if prefills != len(prompts) or steps < 1:
+        fail("8b: %d prefills and %d steps for %d requests" % (
+            prefills, steps, len(prompts)))
+    if launches["layer_norm_fwd"] != per_dispatch * (prefills + steps):
+        fail("8b: %d LayerNorm forward launches for %d prefills and %d "
+             "steps, want %d per dispatch" % (
+                 launches["layer_norm_fwd"], prefills, steps, per_dispatch))
+    if any(launches[n] for n in launches if n != "layer_norm_fwd"):
+        fail("8b: a kernel off the decode path launched: %s" % launches)
+    if any(len(t) != max_new or min(t) < 0 or max(t) >= cfg.vocab
+           for t in toks):
+        fail("8b: a stream has the wrong length or a token out of range")
+    solo = []
+    t0 = time.monotonic()
+    for p in prompts:
+        solo.append(eng.generate(p, max_new=max_new, timeout=GPT_WAIT))
+    same = sum(a == b for a, b in zip(toks, solo))
+    print("8b streams vs the same prompt served alone through the same "
+          "engine: %d/%d bit-identical (solo runs %.1f s)" % (
+              same, len(prompts), time.monotonic() - t0), flush=True)
+    if same != len(prompts):
+        fail("8b: a stream served among others differs from it served "
+             "alone")
+    # 8c, continuous: the load again, timed
+    c_toks, c_ttft, c_gaps, c_wall = decode_load(eng, prompts, max_new)
+    if c_toks != solo:
+        fail("8c: the timed continuous load gave other tokens")
+    stats = {"continuous": dict(wall=c_wall, ttft=c_ttft, gaps=c_gaps)}
+    step_fn, step_stats = gpt_step_times(eng, card) if cuda else (None, {})
+    stats.update(step_stats)
+    if cuda:
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["resident_gib"] = resident / 2 ** 30
+    eng.stop()
+    beng = serving.DecodeEngine(cfg, scope, slots=slots, cache_len=cache_len,
+                                name="gpt-barrier", barrier=True)
+    beng.warmup()
+    bst0 = beng.stats()
+    btoks, _, _, bwall = decode_load(beng, prompts, max_new)
+    bst1 = beng.stats()
+    print("8b gpt barrier scheduling, the same load: %.3f s, %d prefills, "
+          "%d steps; streams equal to the solo ones: %s" % (
+              bwall, bst1["prefills"] - bst0["prefills"],
+              bst1["steps"] - bst0["steps"], btoks == solo), flush=True)
+    if btoks != solo:
+        fail("8b: barrier scheduling gave other tokens")
+    b_toks, b_ttft, b_gaps, b_wall = decode_load(beng, prompts, max_new)
+    if b_toks != solo:
+        fail("8c: the timed barrier load gave other tokens")
+    beng.stop()
+    stats["barrier"] = dict(wall=b_wall, ttft=b_ttft, gaps=b_gaps)
+    n_tok = len(prompts) * max_new
+    for mode in ("continuous", "barrier"):
+        s = stats[mode]
+        s["tokens_per_s"] = n_tok / s["wall"]
+        print("8c gpt %-10s [%s]: %d tokens in %.3f s: %.1f tokens/s; TTFT "
+              "p50 %.3f ms, p99 %.3f ms (%d requests); per-token gap p50 "
+              "%.3f ms, p99 %.3f ms (%d gaps)" % (
+                  mode, card, n_tok, s["wall"], s["tokens_per_s"],
+                  1e3 * _pct(s["ttft"], 0.5), 1e3 * _pct(s["ttft"], 0.99),
+                  len(s["ttft"]), 1e3 * _pct(s["gaps"], 0.5),
+                  1e3 * _pct(s["gaps"], 0.99), len(s["gaps"])), flush=True)
+    if cuda:
+        print("8c gpt memory [%s]: peak %.3f GiB during the continuous "
+              "engine's runs (%.3f GiB resident before it); kv_slot_bytes "
+              "%d (%.1f MB a slot, %.1f MB for %d slots)" % (
+                  card, stats["peak_gib"], stats["resident_gib"],
+                  serving.kv_slot_bytes(cfg, cache_len),
+                  serving.kv_slot_bytes(cfg, cache_len) / 1e6,
+                  slots * serving.kv_slot_bytes(cfg, cache_len) / 1e6,
+                  slots), flush=True)
+    stats.update(launches=launches, prefills=prefills, steps=steps)
+    return launches, stats, step_fn
+
+
+def gpt_step_times(eng, card, n=20, sleep_cycles=200_000_000):
+    """One decode step of all the engine's slots (random tokens, each slot
+    at its own position, the engine's resident caches): host wall of
+    ``Predictor.run`` plus the token copy to the host, and its device time
+    from CUDA events with the stream held busy by a sleep kernel first, so
+    that the host's enqueueing does not show (unless the launch queue
+    fills before the sleep ends). Returns the step as a function (for the
+    profile) and the medians."""
+    rng = np.random.default_rng(GPT_SEED + 1)
+    s, t = eng.slots, eng.cache_len
+    feeds = {"gpt_step_tok": torch.from_numpy(
+                 rng.integers(0, eng.cfg.vocab, (s, 1))).cuda(),
+             "gpt_step_pos": torch.from_numpy(
+                 rng.integers(0, t, (s, 1))).cuda(),
+             "gpt_step_k": eng._k, "gpt_step_v": eng._v}
+    pred = eng._step_pred
+
+    def step():
+        return pred.run(feeds, return_numpy=False)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        step()[0].cpu()
+        host.append(time.monotonic() - t0)
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    stats = dict(step_host_ms=1e3 * statistics.median(host),
+                 step_device_ms=statistics.median(dev))
+    print("8c gpt decode step [%s] (%d slots, cache_len %d): host wall "
+          "median %.3f ms (run + the tokens' copy to the host), device "
+          "median %.3f ms (CUDA events, stream pre-filled); %d runs each" % (
+              card, s, t, stats["step_host_ms"], stats["step_device_ms"], n),
+          flush=True)
+    return step, stats
+
+
+CACHE_COPY_KERNELS = re.compile(r"scatter|CatArrayBatchedCopy|copy",
+                                re.IGNORECASE)
+
+
+def gpt_profile(step, stats, card):
+    """Phase 8c's profile of one decode step: busy and idle share, kernels
+    and GEMMs (profile_train_step), then the cache copies: the scatter of
+    each decode_cache_write (with the clone of its layer), the stack of
+    the 12 layers (CatArrayBatchedCopy), and the other copies (the heads'
+    reshapes of K and V)."""
+    def extra(prof, st):
+        from torch.autograd import DeviceType
+
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA \
+                    or e.self_device_time_total <= 0 \
+                    or not CACHE_COPY_KERNELS.search(e.key):
+                continue
+            kind = ("scatter" if "scatter" in e.key.lower() else
+                    "stack" if "CatArrayBatchedCopy" in e.key else "copy")
+            n, us = split.get(kind, (0, 0.0))
+            split[kind] = (n + e.count, us + e.self_device_time_total)
+        total = sum(us for _, us in split.values()) / 1e3
+        print("8c gpt decode step [%s]: cache copies %.3f ms of %.3f ms "
+              "busy: %s" % (card, total, st["busy_ms"], ", ".join(
+                  "%s %d launches %.3f ms" % (k, n, us / 1e3)
+                  for k, (n, us) in sorted(split.items()))), flush=True)
+        st["cache_copy_ms"] = total
+
+    stats.update(profile_train_step(step, "gpt decode step", extra=extra))
+    print("8c gpt decode step: host wall %.3f ms (unprofiled median), "
+          "device busy %.3f ms: idle %.1f%% of it; GEMMs %s" % (
+              stats["step_host_ms"], stats["busy_ms"],
+              100 * max(0.0, 1 - stats["busy_ms"] / stats["step_host_ms"]),
+              ", ".join("%s %.3f ms" % (dt, g["ms"])
+                        for dt, g in sorted(stats["gemm"].items()))),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1785,7 +2209,7 @@ def main():
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.fluid import lowering
-    from paddle_tpu_torch.models import bert, resnet
+    from paddle_tpu_torch.models import bert, gpt, resnet
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import cuda_layernorm as cl
@@ -1894,6 +2318,18 @@ def main():
         del main7, scope7, start7, f32_grads
         bench_step, bench_stats = resnet_bench(fluid, resnet, ca, cl, card)
         secs7 = time.monotonic() - t7
+        # phase 8: GPT decode serving at full width (8a, 8b, 8c's timed
+        # loads and step times; its profile comes with the others)
+        t8 = time.monotonic()
+        gcfg = gpt.GPTConfig()
+        gscope = gpt_scope(fluid, gpt, gcfg)
+        print("8 gpt GPTConfig() initialised on the CPU (startup seed %d) in "
+              "%.1f s" % (GPT_SEED, time.monotonic() - t8), flush=True)
+        gpt_vs_cpu(fluid, serving, gcfg, gscope)
+        gpt_launches, gpt_stats, gpt_step = gpt_serving(
+            fluid, serving, ca, cl, gcfg, gscope, card)
+        del gscope
+        secs8 = time.monotonic() - t8
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -1922,6 +2358,11 @@ def main():
         del bench_step
         print("phase 7 (ResNet-50: 7a-7e) took %.1f s" % (
             secs7 + time.monotonic() - t7), flush=True)
+        t8 = time.monotonic()
+        gpt_profile(gpt_step, gpt_stats, card)
+        del gpt_step
+        print("phase 8 (GPT decode serving: 8a-8c) took %.1f s" % (
+            secs8 + time.monotonic() - t8), flush=True)
 
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
@@ -1955,7 +2396,8 @@ def main():
     # launches: the forward kernels' count is the f32 serving run's (and
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run,
-    # launches_train_amp in the bf16 AMP training run
+    # launches_train_amp in the bf16 AMP training run, launches_decode in
+    # phase 8b's GPT decode load
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -1963,6 +2405,7 @@ def main():
                      max_abs_err=errs[name], dtype="float32",
                      launches_train=train_launches[name],
                      launches_train_amp=amp_launches[name],
+                     launches_decode=gpt_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

@@ -26,6 +26,12 @@ __all__ = ["Predictor"]
 class Predictor:
     """Eager predictor over a pruned inference Program.
 
+    ``scope`` is a ``Scope`` or any name -> value mapping. A tensor that
+    is already on the place's device (in the dtype the policy keeps) is
+    held as it is, not copied: every predictor built on one such dict
+    shares one device copy of the parameters, as the programs of one
+    ``DecodeEngine`` do. Host values are copied to the device.
+
     ``dtype_policy="bfloat16"`` stores every floating parameter in
     bfloat16, so the forward computes in bf16 (statistics and softmax stay
     f32 inside the kernels); bf16 fetches come back widened to float32.

@@ -1,7 +1,7 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
-Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, ResNet and
-the MNIST models call, with
+Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet
+and the MNIST models call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
@@ -14,9 +14,11 @@ from ..param_attr import ParamAttr
 __all__ = [
     "fc", "embedding", "dropout", "softmax", "gelu", "layer_norm", "mean",
     "conv2d", "pool2d", "batch_norm", "flatten", "topk",
-    "matmul", "transpose", "reshape", "unsqueeze", "slice",
-    "elementwise_add", "elementwise_mul", "elementwise_div",
-    "elementwise_max", "scale", "reduce_sum", "fused_multihead_attention",
+    "matmul", "transpose", "reshape", "squeeze", "unsqueeze", "slice",
+    "stack", "gather_nd",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "scale", "reduce_sum",
+    "fused_multihead_attention",
 ]
 
 
@@ -496,6 +498,25 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     return helper.append_activation(out)
 
 
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    if input.shape is not None:
+        nd = len(input.shape)
+        drop = {a % nd for a in axes if input.shape[a % nd] == 1}
+        out.shape = tuple(
+            s for i, s in enumerate(input.shape) if i not in drop
+        )
+    helper.append_op(
+        type="squeeze2",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axes": list(axes)},
+    )
+    return out
+
+
 def unsqueeze(input, axes, name=None):
     helper = LayerHelper("unsqueeze", **locals())
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -585,6 +606,39 @@ def slice(input, axes, starts, ends):
     return out
 
 
+def stack(x, axis=0):
+    helper = LayerHelper("stack", x=x, axis=axis)
+    if not isinstance(x, (list, tuple)):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    if x[0].shape is not None:
+        s = list(x[0].shape)
+        ax = axis if axis >= 0 else axis + len(s) + 1
+        s.insert(ax, len(x))
+        out.shape = tuple(s)
+    helper.append_op(
+        type="stack",
+        inputs={"X": list(x)},
+        outputs={"Y": [out]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None and index.shape is not None:
+        k = index.shape[-1]
+        out.shape = tuple(list(index.shape[:-1]) + list(input.shape[k:]))
+    helper.append_op(
+        type="gather_nd",
+        inputs={"X": [input], "Index": [index]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, x=x, y=y, axis=axis, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -601,6 +655,10 @@ def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):

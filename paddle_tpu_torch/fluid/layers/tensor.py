@@ -1,13 +1,18 @@
 """Tensor creation layers (ref: python/paddle/fluid/layers/tensor.py);
-port of paddle_tpu/fluid/layers/tensor.py, the part BERT and the
+port of paddle_tpu/fluid/layers/tensor.py, the part BERT, GPT and the
 mixed-precision decorator call."""
+import numpy as np
+
 from .. import core
 from .. import unique_name
+from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "cast", "fill_constant"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat",
+           "fill_constant", "fill_constant_batch_size_like", "argmax",
+           "range"]
 
 
 def create_parameter(
@@ -62,6 +67,29 @@ def cast(x, dtype):
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", **locals())
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype()
+    )
+    shapes = [v.shape for v in input]
+    if all(s is not None for s in shapes):
+        ref = list(shapes[0])
+        ax = axis if axis >= 0 else axis + len(ref)
+        total = 0
+        for s in shapes:
+            total += s[ax] if s[ax] is not None else 0
+        ref[ax] = total if all(s[ax] not in (None, -1) for s in shapes) else -1
+        out.shape = tuple(ref)
+    helper.append_op(
+        type="concat",
+        inputs={"X": input},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper = LayerHelper("fill_constant", **locals())
     if out is None:
@@ -78,4 +106,66 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         },
     )
     out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(
+    input, shape, dtype, value, input_dim_idx=0, output_dim_idx=0,
+    force_cpu=False
+):
+    helper = LayerHelper("fill_constant_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    out.shape = tuple(shape[:output_dim_idx] + [-1] + shape[output_dim_idx + 1:]) \
+        if input.shape is None else tuple(shape)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "dtype": core.convert_dtype(dtype),
+            "value": float(value),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+        },
+    )
+    out.stop_gradient = True
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max", x=x, axis=axis)
+    out = helper.create_variable_for_type_inference("int64")
+    if x.shape is not None:
+        s = list(x.shape)
+        ax = axis if axis >= 0 else axis + len(s)
+        s.pop(ax)
+        out.shape = tuple(s)
+    helper.append_op(
+        type="arg_max",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def range(start, end, step, dtype):
+    helper = LayerHelper("range", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    try:
+        n = int(np.ceil((float(end) - float(start)) / float(step)))
+        out.shape = (n,)
+    except (TypeError, ValueError):
+        out.shape = (-1,)
+    inputs = {}
+    attrs = {"dtype": core.convert_dtype(dtype)}
+    for key, val in (("Start", start), ("End", end), ("Step", step)):
+        if isinstance(val, Variable):
+            inputs[key] = [val]
+        else:
+            attrs[key.lower()] = float(val)
+    helper.append_op(
+        type="range", inputs=inputs, outputs={"Out": [out]}, attrs=attrs
+    )
     return out

@@ -1,5 +1,6 @@
-"""Math op lowerings: elementwise_add/mul/div/max, mul, matmul, mean,
-scale, reduce_sum, greater_equal, isfinite.
+"""Math op lowerings: elementwise_add/sub/mul/div/max, mul, matmul, mean,
+scale, reduce_sum, the comparisons equal, less_than, less_equal and
+greater_equal, isfinite, cumsum.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
 binary lowering promotes its operands by jax's rules first
@@ -42,9 +43,14 @@ def _binary(fn):
 
 
 register_op("elementwise_add")(_binary(torch.add))
+register_op("elementwise_sub")(_binary(torch.sub))
 register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.true_divide))
 register_op("elementwise_max")(_binary(torch.maximum))
+# comparisons give bool, after the same broadcast and promotion
+register_op("equal")(_binary(torch.eq))
+register_op("less_than")(_binary(torch.lt))
+register_op("less_equal")(_binary(torch.le))
 register_op("greater_equal")(_binary(torch.ge))
 
 
@@ -132,3 +138,31 @@ def _reduce_sum(ctx, ins, attrs):
 def _isfinite(ctx, ins, attrs):
     """One 0-dim bool: every element finite (jnp.all(jnp.isfinite(x)))."""
     return single(torch.isfinite(ins["X"][0]).all())
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """Running sum along ``axis`` (every element with ``flatten``), from
+    the end with ``reverse``; ``exclusive`` shifts it one place, so the
+    first element is 0 and the last one's own value is left out. An int
+    keeps its dtype, bool sums to int64 (jax: int32, see
+    ops/promotion.py)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x = x.reshape(-1)
+        axis = 0
+    axis %= x.dim()
+    rev = attrs.get("reverse", False)
+    if rev:
+        x = x.flip(axis)
+    out = torch.cumsum(x, dim=axis,
+                       dtype=torch.int64 if x.dtype == torch.bool
+                       else x.dtype)
+    if attrs.get("exclusive", False) and out.shape[axis]:
+        zero = torch.zeros_like(out.narrow(axis, 0, 1))
+        out = torch.cat([zero, out.narrow(axis, 0, out.shape[axis] - 1)],
+                        dim=axis)
+    if rev:
+        out = out.flip(axis)
+    return single(out)
