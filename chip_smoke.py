@@ -110,7 +110,37 @@ Phases, each of which exits non-zero on failure:
    memory and ``kv_slot_bytes``; with the other profiles, one profiled
    step (busy, idle share, GEMMs, the cache copies); and, with phase 6's
    times, the LayerNorm forward at the step's (8, 768) and a prefill
-   bucket's (64, 768) rows.
+   bucket's (64, 768) rows;
+9. Transformer NMT at bench.py's width (``NMTConfig(src_vocab=32000,
+   tgt_vocab=32000, hidden=512, heads=8, ffn=2048, enc_layers=4,
+   dec_layers=4)``, random weights from startup seed 7 on the card) and
+   GPT's solo generator: (a) beam translation (src 32, max_out 48, beam
+   4) of a batch of 4 of bench.py's source rows on the card and on the
+   CPU from the same scope: the encoder output within 1e-4 of its max;
+   each row's per-step tokens and parent beams equal up to the first
+   step where the CPU's choice among its 5 best candidates was a
+   near-tie (closer than 2e-6 of their magnitude; counted), the scores
+   before it and, for rows equal to the end, the final ids and scores
+   within 1e-4·max|score|; 584 LayerNorm forward launches (8 + 12 x 48)
+   and no attention launch; (b) the main path, bench.py's
+   _measure_nmt_decode: batch 32, one warm and 8 timed translations
+   fetching ids and scores, every counter zeroed just before: 584
+   LayerNorm forward launches each, tokens/s, ms per batch, peak device
+   memory; the same at batch 128 (6 runs), and, with the other
+   profiles, one profiled b32 translation (busy, idle share, top
+   kernels, the sort behind top_k, the copies, cudaLaunchKernel);
+   (c) NMT training (batch 32, src and tgt 32, dropout 0, Adam 1e-4), 3
+   steps on the card and on the CPU from one state: losses within 1e-3,
+   step-1 gradients printed per parameter and held by their median and
+   all together within 1e-3, each within 1e-3·max|grad| unless a relu
+   unit on the boundary (within 1e-5 of its layer's max) is 0 in one run
+   only, then within 5e-2; 20 LayerNorm forward and 20 backward
+   launches a step; the median of 10 more card steps; (d)
+   ``build_gpt_generate`` (greedy) at ``GPTConfig()`` on phase 8's
+   weights, prompt 16, 16 new tokens, batch 2: ids equal to the CPU's up
+   to the first near-tie (top-2 gap within 1e-3 of their magnitude), 24
+   LayerNorm forward launches a step; and, with phase 6's times, both
+   LayerNorm kernels at the NMT rows (128, 512) and (1024, 512).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -244,7 +274,9 @@ def check_kernels(ca, cl):
                 errs["flash_attn_fwd"] = err
     # (n, h, x dtypes, gamma and beta: "x" = x's dtype, a dtype, or None):
     # the GPT decode step's rows (8 slots) and its 64-row prefill bucket,
-    # the four serving buckets' rows (128·B), h = 770 (no 16-byte loads),
+    # the four serving buckets' rows (128·B), the NMT decode step's
+    # (B·beam = 128, 512) and its encoder's (32·32, 512), h = 770 (no
+    # 16-byte loads),
     # no gamma and beta, their width other than x's, n = 1, and the
     # backward's long rows: h = 1024 (the longest held in registers), 4096
     # and 30000 (streamed)
@@ -257,6 +289,8 @@ def check_kernels(ca, cl):
         (128, 768, (f32, bf16), "x"),
         (256, 768, (f32, bf16), "x"),
         (512, 768, (f32, bf16), "x"),
+        (128, 512, (f32, bf16), "x"),
+        (1024, 512, (f32, bf16), "x"),
         (1024, 770, (f32, bf16), "x"),
         (1024, 768, (f32, bf16), None),
         (1024, 768, (bf16,), f32),
@@ -370,12 +404,15 @@ def check_bwd_kernels(ca, cl):
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_bwd_dq"] = max_abs(dq, rdq)
                 errs["flash_attn_bwd_dkdv"] = e
-    # (n, h, x dtypes, gamma: "x" = x's dtype, a dtype, or None): h = 770
+    # (n, h, x dtypes, gamma: "x" = x's dtype, a dtype, or None): the NMT
+    # training's rows (32·32, 512) and a 128-row (128, 512), h = 770
     # takes the path without 16-byte loads, h = 4096 the streamed path, and
     # h = 30000 the one-warp path whose partials do not fit shared memory
     ln_cases = [
         (1024, 768, (torch.float32, torch.bfloat16), "x"),
         (1000, 768, (torch.float32, torch.bfloat16), "x"),
+        (128, 512, (torch.float32, torch.bfloat16), "x"),
+        (1024, 512, (torch.float32, torch.bfloat16), "x"),
         (1024, 770, (torch.float32, torch.bfloat16), "x"),
         (1024, 768, (torch.float32, torch.bfloat16), None),
         (1024, 768, (torch.bfloat16,), torch.float32),
@@ -2201,6 +2238,509 @@ def gpt_profile(step, stats, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: Transformer NMT at bench.py's width, and GPT's solo generator
+# ---------------------------------------------------------------------------
+NMT_SEED = 7
+NMT_BATCH, NMT_SRC, NMT_TGT, NMT_MAX_OUT, NMT_BEAM = 32, 32, 32, 48, 4
+NMT_CHECK_BATCH = 4
+NMT_ITERS, NMT_B128_ITERS = 8, 6
+NMT_TOL = 1e-4          # 9a: encoder output and beam scores (of max)
+# 9a: a step's selection is a near-tie where two of its beam + 1 best
+# candidates are closer than this share of their magnitude
+NMT_NEAR_TIE = 2e-6
+NMT_TRAIN_TOL = 1e-3    # 9c: losses (relative) and gradients (of max)
+NMT_RELU_EDGE = 1e-5    # 9c: a relu unit this close to 0 may round either way
+NMT_FLIP_TOL = 5e-2     # 9c: a gradient behind such a unit (phase 7's cap)
+NMT_TRAIN_STEPS, NMT_TIMED_STEPS = 3, 10
+GEN_PROMPT, GEN_NEW, GEN_BATCH = 16, 16, 2
+
+
+def nmt_config(nmt):
+    """bench.py:821 _measure_nmt_decode's configuration."""
+    return nmt.NMTConfig(src_vocab=32000, tgt_vocab=32000, hidden=512,
+                         heads=8, ffn=2048, enc_layers=4, dec_layers=4,
+                         max_len=max(64, NMT_MAX_OUT), dropout=0.0)
+
+
+def nmt_beam_program(fluid, nmt, cfg, max_out=NMT_MAX_OUT):
+    """bench.py's translation program (startup seed NMT_SEED), with the
+    names of the encoder output (the last LayerNorm of the global block)
+    and of the decode scan's per-step outputs (scores, token, parent
+    beam, each (T, B, beam))."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        vs = nmt.build_transformer_beam_decode(cfg, NMT_SRC, max_out,
+                                               NMT_BEAM)
+    startup.random_seed = NMT_SEED
+    ops = main.global_block().ops
+    enc = [op for op in ops if op.type == "layer_norm"][-1].output("Y")[0]
+    scan = next(op for op in ops if op.type == "static_rnn")
+    return main, startup, vs, enc, scan.output("Out")[:3]
+
+
+def nmt_ln_per_translation(cfg, max_out=NMT_MAX_OUT):
+    """LayerNorm forward launches of one translation: 2 a layer in the
+    encoder, 3 a layer in each decode step (8 + 12 x 48 = 584)."""
+    return 2 * cfg.enc_layers + 3 * cfg.dec_layers * max_out
+
+
+def nmt_src(cfg, batch, seed=0):
+    """bench.py's source batch: default_rng(0), ids in [3, vocab)."""
+    return np.random.default_rng(seed).integers(
+        3, cfg.src_vocab, size=(batch, NMT_SRC)).astype(np.int64)
+
+
+def zero_counters(ca, cl):
+    fns = counters(ca, cl)
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def check_launches(tag, fns, want):
+    """Every kernel's launches since zero_counters equal `want` (0 where
+    not named)."""
+    got = {n: fn.launches for n, fn in fns.items()}
+    print("%s: kernel launches %s" % (tag, got), flush=True)
+    if any(got[n] != want.get(n, 0) for n in got):
+        fail("%s: launches %s, want %s" % (tag, got, want))
+    return got
+
+
+class record_tops:
+    """While active, the port's `op_type` lowering (top_k, or arg_max)
+    records the `k` + 1 largest values of each row it selects from (k =
+    the op's k; 1 for arg_max), as a (rows, k + 1) numpy array per call:
+    the selection margins, and the values two runs may round apart."""
+
+    def __init__(self, op_type):
+        from paddle_tpu_torch.ops import registry
+
+        self.lowerings, self.op_type = registry.LOWERINGS, op_type
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig = self.lowerings[self.op_type]
+
+        def recording(ctx, ins, attrs):
+            out = orig(ctx, ins, attrs)
+            x = ins["X"][0].float()
+            k = int(attrs.get("k", 1)) if self.op_type == "top_k" else 1
+            top = torch.topk(x, k + 1, dim=-1).values
+            self.calls.append(top.reshape(-1, k + 1).cpu().numpy())
+            return out
+
+        self.lowerings[self.op_type] = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.lowerings[self.op_type] = self.orig
+
+    def tops(self):
+        return np.stack(self.calls)                  # (calls, rows, k + 1)
+
+
+def near_ties(tops, rel):
+    """(calls, rows) bools: the least gap between consecutive values among
+    a row's k + 1 largest (which k candidates are chosen, and in which
+    order) is within `rel` of their largest magnitude; two runs whose
+    values differ by that much may select differently."""
+    gap = (tops[..., :-1] - tops[..., 1:]).min(-1)
+    return gap <= rel * np.abs(tops).max(-1)
+
+
+def first_true(mask):
+    at = np.nonzero(mask)[0]
+    return int(at[0]) if len(at) else len(mask)
+
+
+def nmt_vs_cpu(fluid, nmt, ca, cl, cfg=None, batch=NMT_CHECK_BATCH):
+    """Phase 9a. bench.py's translation program initialised on the card
+    (startup seed 7), its scope copied to a CPUPlace() run; one batch of
+    bench.py's source rows on both. The encoder output within NMT_TOL of
+    its max; each row's per-step (token, parent) equal up to the first
+    step where the CPU's selection was a near-tie (near_ties, from the
+    candidates record_tops saw), the per-step scores before it and, for
+    rows equal to the end, the final ids and beam scores within
+    NMT_TOL·max|score|; 584 LayerNorm forward launches in the card's
+    translation and no attention launch. Prints how far apart the two
+    runs' candidates were while on one path."""
+    cfg = cfg or nmt_config(nmt)
+    main, startup, vs, enc, steps = nmt_beam_program(fluid, nmt, cfg)
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    for n, t in scope.items():
+        cpu_scope.set(n, t.cpu().clone())
+    feed = {"src_ids": nmt_src(cfg, batch)}
+    fetch = [enc, vs["ids"], vs["scores"]] + steps
+    fns = zero_counters(ca, cl)
+    with record_tops("top_k") as card_rec:
+        card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    check_launches("9a nmt translation on the card", fns, {
+        "layer_norm_fwd": nmt_ln_per_translation(cfg)})
+    with record_tops("top_k") as cpu_rec:
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    tops, card_tops = cpu_rec.tops(), card_rec.tops()    # (T, B, beam + 1)
+    ties = near_ties(tops, NMT_NEAR_TIE)                # (T, B)
+    enc_err = float(np.abs(card[0] - cpu[0]).max()) / float(
+        np.abs(cpu[0]).max())
+    if enc_err > NMT_TOL or not np.isfinite(card[0]).all():
+        fail("9a: encoder output %.3e of max off the CPU (bound %g)" % (
+            enc_err, NMT_TOL))
+    (c_sc, c_tok, c_par), (w_sc, w_tok, w_par) = card[3:], cpu[3:]
+    whole, worst_step, worst_final, noise, diverged = 0, 0.0, 0.0, 0.0, []
+    for b in range(batch):
+        first = first_true((c_tok[:, b] != w_tok[:, b]).any(-1)
+                           | (c_par[:, b] != w_par[:, b]).any(-1))
+        tie = first_true(ties[:, b])
+        if first < len(ties) and tie > first:
+            fail("9a row %d: the card's beams leave the CPU's at step %d "
+                 "with no near-tie at or before it" % (b, first))
+        if first:
+            err = float(np.abs(c_sc[:first, b] - w_sc[:first, b]).max()) \
+                / float(np.abs(w_sc[:first, b]).max())
+            worst_step = max(worst_step, err)
+            # the candidates the two runs chose from, while on one path
+            noise = max(noise, float(np.abs(
+                card_tops[:first, b] - tops[:first, b]).max()) / float(
+                np.abs(tops[:first, b]).max()))
+        if first < len(ties):
+            diverged.append((b, first, tie))
+            continue
+        whole += 1
+        if not np.array_equal(card[1][b], cpu[1][b]):
+            fail("9a row %d: per-step beams equal, final ids differ" % b)
+        worst_final = max(worst_final, float(np.abs(
+            card[2][b] - cpu[2][b]).max()) / float(np.abs(cpu[2][b]).max()))
+    print("9a nmt (bench.py's NMTConfig, startup seed %d, batch %d, src %d, "
+          "max_out %d, beam %d) card vs CPU: encoder output max|d|/max %.3e; "
+          "per-step scores before any divergence %.3e of max; %d/%d rows "
+          "equal to the end (ids equal, final scores %.3e of max|score|); "
+          "bound %g; the top %d candidates of each step %.3e of their max "
+          "apart; %d near-ties (CPU margin within %g of the candidates' "
+          "max) in %d row-steps; rows that left the CPU's beams after a "
+          "near-tie (row, step, first near-tie): %s" % (
+              NMT_SEED, batch, NMT_SRC, NMT_MAX_OUT, NMT_BEAM, enc_err,
+              worst_step, whole, batch, worst_final, NMT_TOL, NMT_BEAM + 1,
+              noise, int(ties.sum()), NMT_NEAR_TIE, ties.size,
+              diverged or "none"), flush=True)
+    if worst_step > NMT_TOL or worst_final > NMT_TOL:
+        fail("9a: beam scores off the CPU's beyond %g of max" % NMT_TOL)
+    if not np.isfinite(card[2]).all():
+        fail("9a: non-finite beam scores on the card")
+    return dict(enc_err=enc_err, score_err=max(worst_step, worst_final),
+                noise=noise, near_ties=int(ties.sum()), rows_equal=whole)
+
+
+def nmt_bench(fluid, nmt, ca, cl, card, batch=NMT_BATCH, iters=NMT_ITERS,
+              cfg=None):
+    """Phase 9b, the main path: bench.py's _measure_nmt_decode on the card
+    (batch, src 32, max_out 48, beam 4, startup seed 7, its source batch
+    staged on the card once, fetching ids and scores): one warm run, then
+    `iters` timed runs with every counter zeroed just before: 584
+    LayerNorm forward launches per translation, no attention launch.
+    tokens/s = iters·batch·48 / wall, ms per batch, peak device memory.
+    Returns the launches, one more translation as a function (for the
+    profile), and the numbers."""
+    cfg = cfg or nmt_config(nmt)
+    main, startup, vs, _, _ = nmt_beam_program(fluid, nmt, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = {"src_ids": torch.from_numpy(nmt_src(cfg, batch)).to(exe.device)}
+    fetch = [vs["ids"], vs["scores"]]
+
+    def translate():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    ids, scores = translate()
+    if tuple(ids.shape) != (batch, NMT_MAX_OUT, NMT_BEAM) or not bool(
+            torch.isfinite(scores).all()):
+        fail("9b: ids %s, scores finite %s" % (
+            tuple(ids.shape), bool(torch.isfinite(scores).all())))
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fns = zero_counters(ca, cl)
+    t0 = time.monotonic()
+    for _ in range(iters):
+        out = translate()
+    out[0].cpu()                                   # the sync, as bench.py
+    wall = time.monotonic() - t0
+    launches = check_launches("9b nmt b%d, %d translations" % (batch, iters),
+                              fns, {"layer_norm_fwd": iters
+                                    * nmt_ln_per_translation(cfg)})
+    stats = dict(batch=batch, iters=iters,
+                 tokens_per_s=iters * batch * NMT_MAX_OUT / wall,
+                 ms_per_batch=1e3 * wall / iters,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 resident_gib=resident / 2 ** 30)
+    print("9b nmt_decode%s [%s]: batch %d, src %d, max_out %d, beam %d, %d "
+          "timed translations: %.1f tokens/s, %.3f ms per batch, peak "
+          "device memory %.3f GiB (%.3f GiB above the %.3f resident before)"
+          % ("" if batch == NMT_BATCH else "_b%d" % batch, card, batch,
+             NMT_SRC, NMT_MAX_OUT, NMT_BEAM, iters, stats["tokens_per_s"],
+             stats["ms_per_batch"], stats["peak_gib"],
+             stats["peak_gib"] - stats["resident_gib"],
+             stats["resident_gib"]), flush=True)
+    return launches, translate, stats
+
+
+SORT_KERNELS = re.compile(r"sort|radix|topk", re.IGNORECASE)
+
+
+def nmt_profile(translate, stats, card):
+    """Phase 9b's profile of one translation: busy and idle share, the
+    kernels by device time and cudaLaunchKernel (profile_train_step), and
+    the sort behind top_k over (B, beam·V) each step and the copies (the
+    stacked step outputs, the caches' gathers and writes)."""
+    def extra(prof, st):
+        from torch.autograd import DeviceType
+
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA \
+                    or e.self_device_time_total <= 0:
+                continue
+            kind = ("sort" if SORT_KERNELS.search(e.key) else
+                    "copy" if CACHE_COPY_KERNELS.search(e.key)
+                    or "index" in e.key.lower() else None)
+            if kind:
+                n, us = split.get(kind, (0, 0.0))
+                split[kind] = (n + e.count, us + e.self_device_time_total)
+        st["split"] = {k: dict(launches=n, ms=us / 1e3)
+                       for k, (n, us) in split.items()}
+        print("9b nmt translation [%s]: %s of %.3f ms busy" % (
+            card, ", ".join("%s %d launches %.3f ms" % (k, v["launches"],
+                                                        v["ms"])
+                            for k, v in sorted(st["split"].items())),
+            st["busy_ms"]), flush=True)
+
+    stats.update(profile_train_step(
+        translate, "nmt translation b%d" % stats["batch"], extra=extra))
+    print("9b nmt translation b%d: %.3f ms per batch (unprofiled), device "
+          "busy %.3f ms: idle %.1f%% of it; GEMMs %s" % (
+              stats["batch"], stats["ms_per_batch"], stats["busy_ms"],
+              100 * max(0.0, 1 - stats["busy_ms"] / stats["ms_per_batch"]),
+              ", ".join("%s %.3f ms" % (dt, g["ms"])
+                        for dt, g in sorted(stats["gemm"].items()))),
+          flush=True)
+
+
+def relu_flips(names, got, want):
+    """Units whose relu output is 0 in one run and not in the other:
+    [(var, count, the largest |output| at a flipped unit over the largest
+    of the var)]."""
+    flips = []
+    for name, a, w in zip(names, got, want):
+        m = (a > 0) != (w > 0)
+        if m.any():
+            flips.append((name, int(m.sum()), float(np.maximum(
+                np.abs(a[m]), np.abs(w[m])).max()) / float(np.abs(w).max())))
+    return flips
+
+
+def nmt_train(fluid, nmt, ca, cl, cfg=None, batch=NMT_BATCH,
+              timed=NMT_TIMED_STEPS):
+    """Phase 9c. build_transformer_nmt at bench.py's width (batch 32, src
+    and tgt 32, dropout 0), Adam(1e-4), initialised on the card (startup
+    seed 7) and copied to a CPUPlace() run: 3 steps each from there,
+    losses within NMT_TRAIN_TOL relative; 20 LayerNorm forward and 20
+    backward launches a card step; then the median of `timed` more card
+    steps.
+
+    The step-1 gradients, printed per parameter: the median over
+    parameters of max|d|/max|grad| and all of them together within
+    NMT_TRAIN_TOL; the attention key biases, whose exact gradient is 0,
+    within 1e-4 of the largest gradient; each other parameter within
+    NMT_TRAIN_TOL·max|grad| (the issue's bound), except where a relu unit
+    of the FFNs is 0 in one run and not in the other (relu_flips) at a
+    value within NMT_RELU_EDGE of its layer's largest: a unit on the
+    boundary, which either run may round either way, moves every
+    gradient below it by far more than rounding (one such unit in 2M
+    moved src_emb's by 5.7e-3 of its max on the H100); those parameters
+    are held within NMT_FLIP_TOL."""
+    cfg = cfg or nmt_config(nmt)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        io = nmt.build_transformer_nmt(cfg, NMT_SRC, NMT_TGT)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(io["loss"])
+    startup.random_seed = NMT_SEED
+    relus = [op.output("Out")[0] for op in main.global_block().ops
+             if op.type == "relu"]
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for n, t in scope.items():
+        cpu_scope.set(n, t.cpu().clone())
+    src, tgt, labels = nmt.synthetic_pair_batch(cfg, batch, NMT_SRC, NMT_TGT,
+                                                seed=0)
+    feed = {"src_ids": src, "tgt_ids": tgt, "tgt_labels": labels}
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters())
+    per_step = 2 * cfg.enc_layers + 3 * cfg.dec_layers
+    fns = zero_counters(ca, cl)
+    losses, worst_loss = [], 0.0
+    for step in range(NMT_TRAIN_STEPS):
+        fetch = [io["loss"]] + (grads + relus if step == 0 else [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        losses.append(float(got[0]))
+        worst_loss = max(worst_loss, abs(float(got[0]) - float(want[0]))
+                         / abs(float(want[0])))
+        if step == 0:
+            ng = len(grads)
+            card_grads, cpu_grads = got[1:1 + ng], want[1:1 + ng]
+            flips = relu_flips(relus, got[1 + ng:], want[1 + ng:])
+    launches = check_launches(
+        "9c nmt training, %d card steps" % NMT_TRAIN_STEPS, fns, {
+            "layer_norm_fwd": per_step * NMT_TRAIN_STEPS,
+            "layer_norm_bwd": per_step * NMT_TRAIN_STEPS})
+    top = max(float(np.abs(w).max()) for w in cpu_grads)
+    zero_grads, rels, per_param = 0.0, {}, []
+    for name, a, w in zip(grads, card_grads, cpu_grads):
+        if not np.isfinite(a).all():
+            fail("9c: %s not finite on the card" % name)
+        if name.endswith(".k.b@GRAD"):            # exact gradient 0
+            zero_grads = max(zero_grads, float(np.abs(a - w).max()) / top)
+            continue
+        rels[name] = rel_err(a, w)
+        per_param.append("%s %.2e" % (name[:-5], rels[name]))
+    print("9c step-1 gradients, max|d|/max|grad| per parameter:")
+    for i in range(0, len(per_param), 4):
+        print("  " + ", ".join(per_param[i:i + 4]))
+    over = sorted((r, n) for n, r in rels.items() if r > NMT_TRAIN_TOL)
+    edge = bool(flips) and all(f[2] <= NMT_RELU_EDGE for f in flips)
+    names = [n for n in grads if n in rels]
+    median = float(np.median(list(rels.values())))
+    dist = grad_dist([card_grads[grads.index(n)] for n in names],
+                     [cpu_grads[grads.index(n)] for n in names])
+    print("9c nmt training (bench.py's width, batch %d, src %d, tgt %d, "
+          "Adam 1e-4, startup seed %d) card vs CPU: losses %s within rel "
+          "%.3e (bound %g); step-1 gradients: median over %d parameters "
+          "%.3e, all together %.3e (bounds %g), the key biases' (exact 0) "
+          "%.3e of the largest gradient (bound 1e-4); relu units 0 in one "
+          "run only (var, units, largest |output| there over the var's "
+          "max): %s; over %g: %s" % (
+              batch, NMT_SRC, NMT_TGT, NMT_SEED,
+              " ".join("%.5f" % x for x in losses), worst_loss,
+              NMT_TRAIN_TOL, len(rels), median, dist, NMT_TRAIN_TOL,
+              zero_grads, flips or "none", NMT_TRAIN_TOL,
+              ", ".join("%s %.2e" % (n[:-5], r) for r, n in over[::-1])
+              or "none"), flush=True)
+    if worst_loss > NMT_TRAIN_TOL or median > NMT_TRAIN_TOL \
+            or dist > NMT_TRAIN_TOL or zero_grads > 1e-4:
+        fail("9c: card training differs from the CPU's")
+    if over and not (edge and over[-1][0] <= NMT_FLIP_TOL):
+        fail("9c: gradients beyond %g of max|grad| %s (relu units on the "
+             "boundary only: %s; bound then %g)" % (
+                 NMT_TRAIN_TOL, over[::-1], edge, NMT_FLIP_TOL))
+    walls = []
+    for _ in range(timed):
+        t0 = time.monotonic()
+        exe.run(main, feed=feed, fetch_list=[io["loss"]], scope=scope)
+        walls.append(time.monotonic() - t0)
+    stats = dict(step_ms=1e3 * statistics.median(walls))
+    print("9c nmt training step: median %.3f ms over %d steps (loss fetch "
+          "included), %.1f target tokens/s" % (
+              stats["step_ms"], timed, batch * NMT_TGT / stats["step_ms"]
+              * 1e3), flush=True)
+    return launches, stats
+
+
+def gpt_generate_vs_cpu(fluid, gpt, ca, cl, cfg, scope):
+    """Phase 9d. build_gpt_generate (greedy), prompt 16, 16 new tokens,
+    batch 2, on the GPT scope of phase 8 on the card and on the CPU: each
+    row's ids equal up to the first step where the CPU's greedy choice
+    was a near-tie (top-2 gap within GPT_TOL of their magnitude, as 8a);
+    24 LayerNorm forward launches per step on the card."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        vs = gpt.build_gpt_generate(cfg, GEN_PROMPT, GEN_NEW)
+    exe = fluid.Executor()
+    card_scope = fluid.Scope()
+    for n, t in scope.items():
+        card_scope.set(n, torch.as_tensor(t).to(exe.device))
+    prompt = np.random.default_rng(GPT_SEED).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)).astype(np.int64)
+    feed = {"gpt_prompt": prompt}
+    steps = GEN_PROMPT + GEN_NEW - 1
+    fns = zero_counters(ca, cl)
+    card, = exe.run(main, feed=feed, fetch_list=[vs["ids"]],
+                    scope=card_scope)
+    launches = check_launches("9d gpt generate on the card", fns, {
+        "layer_norm_fwd": 2 * cfg.num_layers * steps})
+    with record_tops("arg_max") as rec:
+        cpu, = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=[vs["ids"]], scope=scope)
+    ties = near_ties(rec.tops(), GPT_TOL)               # (steps, B)
+    diverged = []
+    for b in range(GEN_BATCH):
+        first = first_true(card[b] != cpu[b])
+        tie = first_true(ties[:, b])
+        if first < steps and tie > first:
+            fail("9d row %d: the card's token at step %d differs from the "
+                 "CPU's with no near-tie at or before it" % (b, first))
+        if first < steps:
+            diverged.append((b, first, tie))
+    if not np.array_equal(card[:, :GEN_PROMPT - 1], prompt[:, 1:]):
+        fail("9d: the teacher-forced positions are not the prompt")
+    print("9d gpt generate (GPTConfig(), greedy, batch %d, prompt %d, %d new "
+          "tokens) card vs CPU: %d/%d rows equal; %d near-ties (CPU top-2 "
+          "gap within %g of their magnitude) in %d row-steps; rows that left "
+          "the CPU's after a near-tie (row, step, first near-tie): %s" % (
+              GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_BATCH - len(diverged),
+              GEN_BATCH, int(ties.sum()), GPT_TOL, ties.size,
+              diverged or "none"), flush=True)
+    return launches
+
+
+def nmt_ln_times(cl):
+    """The LayerNorm kernels at the NMT path's rows, h = 512, f32: the
+    forward at a decode step's (B·beam = 128, 512) and the encoder's and
+    training's (32·32 = 1024, 512), the backward at (1024, 512); each
+    beside its plain version, the library call and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    out = []
+    for n in (128, 1024):
+        x, dy = (torch.randn(n, 512, generator=gen, device="cuda")
+                 for _ in range(2))
+        g, b = (torch.randn(512, generator=gen, device="cuda")
+                for _ in range(2))
+        bound, by = layer_norm_bound_ms(n, 512, torch.float32)
+        out.append(dict(
+            kernel="layer_norm_fwd", rows=n, h=512, dtype="float32",
+            ms=device_ms(lambda: cl.layer_norm_fwd(x, g, b, 1e-5)),
+            plain_ms=device_ms(lambda: cl.layer_norm_plain(x, g, b, 1e-5)),
+            library_ms=device_ms(lambda: F.layer_norm(x, (512,), g, b, 1e-5)),
+            bound_ms=bound, bound_by=by))
+        if n == 1024:
+            _, mean, rstd = cl.layer_norm_fwd(x, g, b, 1e-5)
+            lx, lg, lb = (t.clone().requires_grad_() for t in (x, g, b))
+            ly = F.layer_norm(lx, (512,), lg, lb, 1e-5)
+            bound, by = layer_norm_bwd_bound_ms(n, 512, torch.float32)
+            out.append(dict(
+                kernel="layer_norm_bwd", rows=n, h=512, dtype="float32",
+                ms=device_ms(lambda: cl.layer_norm_bwd(x, g, mean, rstd, dy)),
+                plain_ms=device_ms(lambda: cl.layer_norm_bwd_plain(
+                    x, g, mean, rstd, dy)),
+                library_ms=device_ms(lambda: torch.autograd.grad(
+                    ly, (lx, lg, lb), dy, retain_graph=True)),
+                bound_ms=bound, bound_by=by))
+    for r in out:
+        print("time %s (%4d, 512) float32 kernel %.4f ms  plain %.4f ms  "
+              "library %.4f ms  bound %.5f ms (%s)" % (
+                  r["kernel"], r["rows"], r["ms"], r["plain_ms"],
+                  r["library_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2210,6 +2750,7 @@ def main():
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.fluid import lowering
     from paddle_tpu_torch.models import bert, gpt, resnet
+    from paddle_tpu_torch.models import transformer_nmt as nmt
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import cuda_layernorm as cl
@@ -2328,8 +2869,19 @@ def main():
         gpt_vs_cpu(fluid, serving, gcfg, gscope)
         gpt_launches, gpt_stats, gpt_step = gpt_serving(
             fluid, serving, ca, cl, gcfg, gscope, card)
-        del gscope
         secs8 = time.monotonic() - t8
+        # phase 9: Transformer NMT at bench.py's width (9a-9c) and GPT's
+        # solo generator on phase 8's weights (9d); 9b's profile comes
+        # with the others
+        t9 = time.monotonic()
+        nmt_vs_cpu(fluid, nmt, ca, cl)
+        nmt_launches, nmt_translate, nmt_stats = nmt_bench(
+            fluid, nmt, ca, cl, card)
+        nmt_bench(fluid, nmt, ca, cl, card, batch=128, iters=NMT_B128_ITERS)
+        nmt_train_launches, _ = nmt_train(fluid, nmt, ca, cl)
+        gen_launches = gpt_generate_vs_cpu(fluid, gpt, ca, cl, gcfg, gscope)
+        del gscope
+        secs9 = time.monotonic() - t9
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -2363,9 +2915,15 @@ def main():
         del gpt_step
         print("phase 8 (GPT decode serving: 8a-8c) took %.1f s" % (
             secs8 + time.monotonic() - t8), flush=True)
+        t9 = time.monotonic()
+        nmt_profile(nmt_translate, nmt_stats, card)
+        del nmt_translate
+        print("phase 9 (Transformer NMT and GPT generate: 9a-9d) took %.1f "
+              "s" % (secs9 + time.monotonic() - t9), flush=True)
 
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
+    nmt_ln = nmt_ln_times(cl)
     sdpa_kernel_names()
     sources = {
         "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2397,7 +2955,8 @@ def main():
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run,
     # launches_train_amp in the bf16 AMP training run, launches_decode in
-    # phase 8b's GPT decode load
+    # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
+    # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2406,6 +2965,9 @@ def main():
                      launches_train=train_launches[name],
                      launches_train_amp=amp_launches[name],
                      launches_decode=gpt_launches[name],
+                     launches_nmt=nmt_launches[name],
+                     launches_nmt_train=nmt_train_launches[name],
+                     launches_generate=gen_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])
@@ -2421,6 +2983,9 @@ def main():
                                         kv[0][1] != torch.float32,
                                         kv[0][0]))]
             entry["launch_floor_ms"] = floor_ms
+        if name.startswith("layer_norm"):
+            # the NMT path's rows at h = 512, f32
+            entry["nmt_shapes"] = [r for r in nmt_ln if r["kernel"] == name]
         if (name, torch.float32) in occupancy:
             entry["occupancy"] = occupancy[(name, torch.float32)]
             entry["bf16"]["occupancy"] = occupancy[(name, torch.bfloat16)]

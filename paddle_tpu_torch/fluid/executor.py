@@ -151,7 +151,16 @@ class Executor:
 
     def _prepare_feeds(self, program, feed):
         """Feed values as tensors on the device, coerced to the dtype the
-        program declares for each feed."""
+        program declares for each feed. A feed of a ``lod_level`` > 0 var
+        given as a plain (B, T, ...) array gets full lengths, (B,) int32
+        of T, for its ``@SEQ_LEN`` companion unless that is fed too."""
+        block = program.global_block()
+        feed = dict(feed)
+        for name in list(feed):
+            seq_name = name + "@SEQ_LEN"
+            if block.has_var(seq_name) and seq_name not in feed:
+                shape = np.shape(feed[name])
+                feed[seq_name] = np.full((shape[0],), shape[1], "int32")
         want = feed_dtypes(program, list(feed))
         return {name: to_tensor(v, self.device, want[name])
                 for name, v in feed.items()}

@@ -318,6 +318,13 @@ class Block:
         raise ValueError("var %s not found in block %d or its parents"
                          % (name, self.idx))
 
+    def has_var_recursive(self, name):
+        try:
+            self._var_recursive(name)
+            return True
+        except ValueError:
+            return False
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -372,6 +379,29 @@ class Program:
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None):
+        """Append a sub-block (the body of a while, cond or StaticRNN op)
+        under the current block, or `parent_idx`, and make it current."""
+        new_idx = len(self.blocks)
+        parent = (
+            self.current_block_idx if parent_idx is None else parent_idx
+        )
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        self._bump_version()
+        return self.current_block()
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
+    @contextlib.contextmanager
+    def _block_guard(self, parent_idx=None):
+        blk = self._create_block(parent_idx)
+        try:
+            yield blk
+        finally:
+            self._rollback()
 
     def list_vars(self):
         for blk in self.blocks:

@@ -14,6 +14,9 @@ from . import control_flow
 from .control_flow import *  # noqa: F401,F403
 from . import ops
 from .ops import *  # noqa: F401,F403
+from .rnn import gather_tree  # noqa: F401
+from . import rnn_cells
+from .rnn_cells import *  # noqa: F401,F403  (binds `rnn` to the rnn() layer, like the reference)
 
 __all__ = []
 __all__ += nn.__all__
@@ -23,3 +26,5 @@ __all__ += loss.__all__
 __all__ += metric_op.__all__
 __all__ += control_flow.__all__
 __all__ += ops.__all__
+__all__ += ["gather_tree"]
+__all__ += rnn_cells.__all__

@@ -1,7 +1,7 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
-Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet
-and the MNIST models call, with
+Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet,
+the MNIST models and Transformer NMT call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
@@ -15,10 +15,12 @@ __all__ = [
     "fc", "embedding", "dropout", "softmax", "gelu", "layer_norm", "mean",
     "conv2d", "pool2d", "batch_norm", "flatten", "topk",
     "matmul", "transpose", "reshape", "squeeze", "unsqueeze", "slice",
-    "stack", "gather_nd",
+    "stack", "gather", "gather_nd", "expand", "expand_as", "log",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_max", "scale", "reduce_sum",
-    "fused_multihead_attention",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_mod", "elementwise_floordiv", "scale", "reduce_sum",
+    "logical_and", "logical_or", "logical_xor", "logical_not",
+    "sampling_id", "fused_multihead_attention",
 ]
 
 
@@ -139,6 +141,10 @@ def embedding(
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     return _layer("softmax", {"X": input}, {"axis": axis})
+
+
+def log(x, name=None):
+    return _layer("log", {"X": x}, {})
 
 
 def gelu(x, approximate=False):
@@ -625,6 +631,48 @@ def stack(x, axis=0):
     return out
 
 
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None and index.shape is not None:
+        out.shape = tuple([index.shape[0]] + list(input.shape[1:]))
+    helper.append_op(
+        type="gather",
+        inputs={"X": [input], "Index": [index]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(
+            s * t if s not in (None, -1) else -1
+            for s, t in zip(x.shape, expand_times)
+        )
+    helper.append_op(
+        type="expand",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = target_tensor.shape
+    helper.append_op(
+        type="expand_as",
+        inputs={"X": [x], "target_tensor": [target_tensor]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
 def gather_nd(input, index, name=None):
     helper = LayerHelper("gather_nd", **locals())
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -671,6 +719,60 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
 
 def elementwise_max(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def _logical(op_type, x, y=None, out=None, name=None):
+    helper = LayerHelper(op_type, x=x, y=y, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference("bool")
+        out.shape = x.shape
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical("logical_and", x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical("logical_xor", x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical("logical_not", x, None, out, name)
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id", **locals())
+    out = helper.create_variable_for_type_inference("int64")
+    if x.shape is not None:
+        out.shape = (x.shape[0],)
+    helper.append_op(
+        type="sampling_id",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"min": min, "max": max, "seed": seed},
+    )
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

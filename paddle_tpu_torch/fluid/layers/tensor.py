@@ -1,6 +1,6 @@
 """Tensor creation layers (ref: python/paddle/fluid/layers/tensor.py);
-port of paddle_tpu/fluid/layers/tensor.py, the part BERT, GPT and the
-mixed-precision decorator call."""
+port of paddle_tpu/fluid/layers/tensor.py, the part BERT, GPT, the
+mixed-precision decorator and the decoders of the NMT slice call."""
 import numpy as np
 
 from .. import core
@@ -11,8 +11,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "fill_constant", "fill_constant_batch_size_like", "argmax",
-           "range"]
+           "assign", "fill_constant", "fill_constant_batch_size_like",
+           "argmax", "range", "zeros_like"]
 
 
 def create_parameter(
@@ -88,6 +88,41 @@ def concat(input, axis=0, name=None):
         attrs={"axis": axis},
     )
     return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (the ``assign`` op), or a numpy array, list or
+    number into a new one (``assign_value``: the values travel in the
+    op's attrs)."""
+    helper = LayerHelper("assign", **locals())
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype
+            )
+            output.shape = input.shape
+        helper.append_op(
+            type="assign", inputs={"X": [input]}, outputs={"Out": [output]}
+        )
+    elif isinstance(input, (np.ndarray, list, tuple, float, int)):
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=core.convert_dtype(arr.dtype)
+            )
+            output.shape = arr.shape
+        helper.append_op(
+            type="assign_value",
+            outputs={"Out": [output]},
+            attrs={
+                "dtype": core.convert_dtype(arr.dtype),
+                "shape": list(arr.shape),
+                "values": arr.reshape(-1).tolist(),
+            },
+        )
+    else:
+        raise TypeError("assign: unsupported input %r" % (input,))
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
@@ -167,5 +202,16 @@ def range(start, end, step, dtype):
             attrs[key.lower()] = float(val)
     helper.append_op(
         type="range", inputs=inputs, outputs={"Out": [out]}, attrs=attrs
+    )
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="fill_zeros_like", inputs={"X": [x]}, outputs={"Out": [out]}
     )
     return out

@@ -8,6 +8,10 @@ Autodiff: the JAX package lowers the symbolic ``backward`` op by replaying
 the preceding region under jax.vjp. The port runs eagerly, so it records
 that region once with torch.autograd (``_run_training``) and calls
 ``torch.autograd.grad`` at the op.
+
+Control flow: a while, cond or static_rnn op runs its sub-block through
+``run_ops`` on a copy of the env at the op (ops/control_ops.py), as the
+JAX package traces it into lax.while_loop / cond / scan.
 """
 import contextlib
 import threading
@@ -69,6 +73,7 @@ def apply_op(op, env, ctx):
     # bound to the name of one of the op's inputs (param, moments, beta
     # powers) keeps its old tensor, so the op is a true no-op.
     gate = ins.pop("SkipGate", None)
+    ctx.current_env = env  # control-flow ops run their blocks on a copy
     try:
         outs = fn(ctx, ins, op.attrs)
     except (OpLoweringError, NotImplementedError):
@@ -131,6 +136,11 @@ def _run_training(op_list, env, ctx):
     if any(bw_op.attrs.get("checkpoints") or ()):
         raise _later_slice("recompute (the backward op's 'checkpoints')")
     region = op_list[:idx]
+    for op in region:
+        if any(a in op.attrs for a in _BLOCK_ATTRS):
+            raise _later_slice(
+                "autograd through a control-flow op ('%s' before the "
+                "'backward' op)" % op.type)
     targets = bw_op.attrs["targets"]
     env = dict(env)
     producer = producer_map(region)
@@ -166,6 +176,11 @@ def _run_training(op_list, env, ctx):
         for op in op_list[idx + 1:]:
             env = apply_op(op, env, ctx)
     return {n: v.detach() for n, v in env.items()}
+
+
+# the attrs by which an op names the blocks it runs (while, static_rnn,
+# conditional_block: sub_block; cond: true_block and false_block)
+_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
 
 
 def _grads(loss, inputs, seed):
@@ -269,7 +284,8 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     device = torch.device(device)
 
     def step(state, feeds, generator=None):
-        ctx = LowerContext(device, generator=generator, is_test=is_test)
+        ctx = LowerContext(device, generator=generator, is_test=is_test,
+                           program=program, run_ops=run_ops)
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()

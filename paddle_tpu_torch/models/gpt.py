@@ -1,14 +1,15 @@
 """GPT-style decoder-only causal LM with KV-cache decode (port of
-paddle_tpu/models/gpt.py, the training graph and the continuous-batching
-decode programs).
+paddle_tpu/models/gpt.py: the training graph, the solo generator and the
+continuous-batching decode programs).
 
 Training and decoding share parameter names, so a trained scope drives
-:class:`~paddle_tpu_torch.serving.DecodeEngine` directly. The
-``dynamic_decode`` generator (``GPTDecodeCell``, ``SamplingDecoder``,
-``build_gpt_generate``) waits for the control-flow slice, the delta
-prefill for the prefix pool, the verify block for speculative decoding,
-the int8-resident step for disaggregation, and ``tp_rules`` for the
-parallel slice (ROADMAP.md Queue 1, items 6.2, 7.3, 7.4 and 8).
+:func:`build_gpt_generate` and :class:`~paddle_tpu_torch.serving.DecodeEngine`
+directly; the generator (``GPTDecodeCell`` under ``SamplingDecoder`` and
+``dynamic_decode``) is the solo reference the engine's bit-exactness is
+held to. The delta prefill waits for the prefix pool, the verify block
+for speculative decoding, the int8-resident step for disaggregation, and
+``tp_rules`` for the parallel slice (ROADMAP.md Queue 1, items 7.3, 7.4
+and 8).
 """
 import numpy as np
 
@@ -16,7 +17,8 @@ from .. import fluid
 from ..fluid import layers
 from ..fluid.param_attr import ParamAttr
 
-__all__ = ["GPTConfig", "gpt_tiny", "build_gpt_lm", "build_gpt_prefill",
+__all__ = ["GPTConfig", "gpt_tiny", "build_gpt_lm", "GPTDecodeCell",
+           "SamplingDecoder", "build_gpt_generate", "build_gpt_prefill",
            "build_gpt_decode_step", "synthetic_lm_batch"]
 
 
@@ -117,6 +119,166 @@ def build_gpt_lm(cfg, seq_len, is_test=False):
         flat, layers.reshape(labels, [-1, 1])))
     return {"ids": ids, "labels": labels, "logits": logits,
             "loss": loss}
+
+
+class GPTDecodeCell:
+    """One incremental decode step with per-layer KV caches (the
+    decoder-only sibling of transformer_nmt.TransformerDecodeCell).
+
+    States: ``[pos (B,1) int64, k0, v0, k1, v1, ...]`` with each cache
+    (B, tmax, hidden). Parameter names match build_gpt_lm, so trained
+    weights generate directly."""
+
+    def __init__(self, cfg, tmax):
+        self.cfg = cfg
+        self.tmax = tmax
+
+    def call(self, inputs, states):
+        from .decode_utils import step_masks, update_cache
+
+        cfg = self.cfg
+        h = cfg.hidden
+        pos, caches = states[0], states[1:]
+        pos_table = layers.create_parameter(
+            shape=[cfg.max_len, h], dtype="float32", name="gpt_pos_emb")
+        x = layers.elementwise_add(
+            inputs, layers.gather_nd(pos_table, pos))    # (B, H)
+        x = layers.unsqueeze(x, [1])                      # (B, 1, H)
+
+        # the write masks are unused on the pos fast path (the JAX package
+        # builds them too, so the Programs stay the same)
+        _w3, _k3, self_mask = step_masks(pos, self.tmax)
+
+        new_caches = []
+        for i in range(cfg.num_layers):
+            n = "gpt%d" % i
+            q = _proj(x, h, n + ".self.q")
+            k_cache = update_cache(caches[2 * i],
+                                   _proj(x, h, n + ".self.k"),
+                                   pos=pos)
+            v_cache = update_cache(caches[2 * i + 1],
+                                   _proj(x, h, n + ".self.v"),
+                                   pos=pos)
+            new_caches += [k_cache, v_cache]
+            attn = _proj(_attend(cfg, q, k_cache, v_cache, self_mask),
+                         h, n + ".self.o")
+            x = _ln(layers.elementwise_add(x, attn), n + ".ln1")
+            f = _proj(x, cfg.ffn, n + ".ffn.fc1")
+            f = layers.gelu(f)
+            f = _proj(f, h, n + ".ffn.fc2")
+            x = _ln(layers.elementwise_add(x, f), n + ".ln2")
+
+        logits = _proj(layers.squeeze(x, [1]), cfg.vocab, "gpt_out",
+                       nfd=1)
+        one = layers.fill_constant([1], "int64", 1)
+        return logits, [layers.elementwise_add(pos, one)] + new_caches
+
+    def __call__(self, inputs, states, **kwargs):
+        return self.call(inputs, states)
+
+
+class SamplingDecoder(layers.Decoder):
+    """Greedy / top-k sampling generation with prompt teacher-forcing.
+
+    Step t consumes the token at position t and emits the token chosen
+    for position t+1; while t+1 is still inside the prompt the choice
+    is overridden by the prompt token, so caches are prefilled within
+    the SAME scan that generates (no separate prefill program)."""
+
+    def __init__(self, cell, prompt, prompt_len, mode="greedy",
+                 topk=10, temperature=1.0):
+        if mode not in ("greedy", "topk"):
+            raise ValueError("mode must be 'greedy' or 'topk'")
+        self.cell = cell
+        self.prompt = prompt          # (B, prompt_len) int64
+        self.prompt_len = int(prompt_len)
+        self.mode = mode
+        self.topk = int(topk)
+        self.temperature = float(temperature)
+        cfg = cell.cfg
+        self._embed = lambda ids: layers.reshape(
+            layers.embedding(ids, size=[cfg.vocab, cfg.hidden],
+                             param_attr=_p("gpt_tok_emb")),
+            [-1, cfg.hidden])
+        # (plen, B): per-step gather of the forced token by time index
+        self._prompt_t = layers.transpose(prompt, [1, 0])
+
+    def _prompt_tok(self, idx):
+        """Prompt column ``idx`` (clipped) as (B, 1) int64."""
+        last = layers.fill_constant([1], "int64", self.prompt_len - 1)
+        idx = layers.elementwise_min(idx, last)
+        col = layers.gather(self._prompt_t, idx)          # (1, B)
+        return layers.transpose(col, [1, 0])              # (B, 1)
+
+    def initialize(self, inits):
+        first = self._prompt_tok(layers.fill_constant([1], "int64", 0))
+        finished = layers.cast(
+            layers.zeros_like(layers.cast(first, "float32")), "bool")
+        return self._embed(first), inits, finished
+
+    def step(self, time, inputs, states, **kwargs):
+        logits, next_states = self.cell(inputs, states)   # (B, V)
+        if self.mode == "greedy":
+            chosen = layers.unsqueeze(
+                layers.argmax(logits, axis=-1), [1])      # (B, 1)
+        else:
+            vals, idx = layers.topk(logits, k=self.topk)
+            probs = layers.softmax(
+                layers.scale(vals, scale=1.0 / self.temperature))
+            j = layers.sampling_id(probs)                 # (B,)
+            j2 = layers.unsqueeze(layers.cast(j, "int64"), [1])
+            chosen = layers.cast(_gather_rowwise(idx, j2), "int64")
+        chosen = layers.cast(chosen, "int64")
+        # teacher-force while t+1 is still a prompt position
+        one = layers.fill_constant([1], "int64", 1)
+        nxt = layers.elementwise_add(time, one)           # (1,)
+        plen = layers.fill_constant([1], "int64", self.prompt_len)
+        forced = layers.cast(layers.less_than(nxt, plen), "int64")
+        tok = layers.elementwise_add(
+            layers.elementwise_mul(self._prompt_tok(nxt), forced),
+            layers.elementwise_mul(
+                chosen, layers.elementwise_sub(one, forced)))
+        finished = layers.cast(
+            layers.zeros_like(layers.cast(tok, "float32")), "bool")
+        return tok, next_states, self._embed(tok), finished
+
+
+def _gather_rowwise(x, j):
+    """x (B, K), j (B, 1) int64 -> x[b, j[b]] as (B, 1)."""
+    ones = layers.fill_constant_batch_size_like(
+        input=j, shape=[-1, 1], dtype="float32", value=1.0)
+    rows = layers.cast(
+        layers.cumsum(ones, axis=0, exclusive=True), "int64")
+    coords = layers.concat([rows, j], axis=1)             # (B, 2)
+    return layers.unsqueeze(layers.gather_nd(x, coords), [1])
+
+
+def build_gpt_generate(cfg, prompt_len, max_new, mode="greedy",
+                       topk=10, temperature=1.0):
+    """Fixed-length generation graph. Feeds gpt_prompt (B, prompt_len);
+    returns ids (B, prompt_len + max_new - 1): positions 1..plen-1 echo
+    the prompt (teacher-forced), the rest are generated."""
+    tmax = prompt_len + max_new
+    if tmax > cfg.max_len:
+        raise ValueError("prompt_len + max_new (%d) exceeds cfg.max_len "
+                         "(%d)" % (tmax, cfg.max_len))
+    prompt = fluid.data("gpt_prompt", shape=[None, prompt_len],
+                        dtype="int64")
+    cell = GPTDecodeCell(cfg, tmax)
+    decoder = SamplingDecoder(cell, prompt, prompt_len, mode=mode,
+                              topk=topk, temperature=temperature)
+    pos0 = layers.fill_constant_batch_size_like(
+        prompt, shape=[-1, 1], dtype="int64", value=0)
+    inits = [pos0]
+    for _ in range(cfg.num_layers):
+        for _ in ("k", "v"):
+            inits.append(layers.fill_constant_batch_size_like(
+                prompt, shape=[-1, tmax, cfg.hidden], dtype="float32",
+                value=0.0))
+    ids, _ = layers.dynamic_decode(
+        decoder, inits=inits, max_step_num=prompt_len + max_new - 2)
+    ids = layers.squeeze(ids, [2])                        # (B, steps)
+    return {"prompt": prompt, "ids": ids}
 
 
 def _row_coords(col):

@@ -1,6 +1,7 @@
-"""Math op lowerings: elementwise_add/sub/mul/div/max, mul, matmul, mean,
-scale, reduce_sum, the comparisons equal, less_than, less_equal and
-greater_equal, isfinite, cumsum.
+"""Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv,
+mul, matmul, mean, scale, reduce_sum, the comparisons equal, not_equal,
+less_than, less_equal, greater_than and greater_equal, logical_and/or/xor/
+not, isfinite, cumsum.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
 binary lowering promotes its operands by jax's rules first
@@ -47,11 +48,28 @@ register_op("elementwise_sub")(_binary(torch.sub))
 register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.true_divide))
 register_op("elementwise_max")(_binary(torch.maximum))
+register_op("elementwise_min")(_binary(torch.minimum))
+# jnp.mod and jnp.floor_divide: the remainder takes the divisor's sign and
+# the quotient rounds toward -inf (torch.fmod and trunc would not)
+register_op("elementwise_mod")(_binary(torch.remainder))
+register_op("elementwise_floordiv")(_binary(
+    lambda x, y: torch.div(x, y, rounding_mode="floor")))
 # comparisons give bool, after the same broadcast and promotion
 register_op("equal")(_binary(torch.eq))
+register_op("not_equal")(_binary(torch.ne))
 register_op("less_than")(_binary(torch.lt))
 register_op("less_equal")(_binary(torch.le))
+register_op("greater_than")(_binary(torch.gt))
 register_op("greater_equal")(_binary(torch.ge))
+# logical ops read any dtype as nonzero and give bool, as jnp's do
+register_op("logical_and")(_binary(torch.logical_and))
+register_op("logical_or")(_binary(torch.logical_or))
+register_op("logical_xor")(_binary(torch.logical_xor))
+
+
+@register_op("logical_not")
+def _logical_not(ctx, ins, attrs):
+    return single(torch.logical_not(ins["X"][0]))
 
 
 def _prod(t):

@@ -1,4 +1,4 @@
-"""NN op lowerings: relu, softmax, gelu, lookup_table_v2, conv2d,
+"""NN op lowerings: relu, log, softmax, gelu, lookup_table_v2, conv2d,
 depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout.
 
 Port of the paddle_tpu/ops/nn_ops.py lowerings the port runs.
@@ -27,6 +27,11 @@ from .registry import register_op, single
 @register_op("relu")
 def _relu(ctx, ins, attrs):
     return single(F.relu(ins["X"][0]))
+
+
+@register_op("log")
+def _log(ctx, ins, attrs):
+    return single(torch.log(ins["X"][0]))
 
 
 @register_op("softmax")

@@ -1,5 +1,5 @@
-"""Random op lowerings: uniform_random, gaussian_random (port of
-paddle_tpu/ops/random_ops.py). Both draw from the run's
+"""Random op lowerings: uniform_random, gaussian_random, sampling_id
+(port of paddle_tpu/ops/random_ops.py). Each draws from the run's
 ``torch.Generator`` on the run's device; the values differ from jax's for
 the same seed."""
 import torch
@@ -33,3 +33,17 @@ def _gaussian_random(ctx, ins, attrs):
                     device=ctx.device, dtype=torch.float32)
     out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return single(out.to(core.torch_dtype(attrs.get("dtype", "float32"))))
+
+
+@register_op("sampling_id")
+def _sampling_id(ctx, ins, attrs):
+    """One index per row of X (B, K), drawn with probability X[b, k]:
+    ``jax.random.categorical`` of log(max(X, 1e-20)), the Gumbel-max
+    draw. int64."""
+    x = ins["X"][0]
+    u = torch.rand(x.shape, generator=ctx.next_rng(), device=x.device,
+                   dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+    logits = torch.log(x.float().clamp(min=1e-20))
+    return single(torch.argmax(logits + gumbel, dim=-1))

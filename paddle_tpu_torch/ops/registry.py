@@ -9,7 +9,8 @@ Lowering signature::
 
 ``ins`` maps input slot -> list of tensors (missing optional slots are
 empty lists). ``ctx`` is a LowerContext carrying the run's device, its
-random generator and train/test mode.
+random generator and train/test mode, and for the control-flow ops the
+program, the env at the op and the runner of a block.
 """
 import torch
 
@@ -44,14 +45,35 @@ class LowerContext:
     ``generator`` is the ``torch.Generator`` random ops draw from (on
     ``device``); the JAX package threads a PRNG key instead, so the
     values drawn differ between the packages — parity tests copy
-    parameters across rather than re-drawing them.
+    parameters across rather than re-drawing them. A random op inside a
+    loop body draws fresh values every iteration by itself (jax folds an
+    iteration token into its key for that).
+
+    The control-flow lowerings (ops/control_ops.py) run their sub-blocks
+    through ``run_ops(block, ops, env, ctx)`` on a copy of
+    ``current_env``, the env as it stands when the op runs (set by
+    ``fluid/lowering.py`` ``apply_op``): a sub-block reads the outer
+    block's values, the parameters among them, by name.
     """
 
-    def __init__(self, device, generator=None, is_test=False):
+    def __init__(self, device, generator=None, is_test=False, program=None,
+                 run_ops=None):
         self.device = device
         self._generator = generator
         self._seed_generator = None
         self.is_test = is_test
+        self.program = program
+        self.run_ops = run_ops
+        self.current_env = None
+        self._constants = {}
+
+    def constant(self, key, make):
+        """``make()``'s tensor, made once a run for the object `key` (an op's
+        attr): a constant op inside a loop body runs every iteration."""
+        hit = self._constants.get(id(key))
+        if hit is None or hit[0] is not key:
+            hit = self._constants[id(key)] = (key, make())
+        return hit[1]
 
     def next_rng(self):
         """The generator random draws come from; raises if the run has

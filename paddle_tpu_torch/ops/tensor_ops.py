@@ -1,14 +1,17 @@
 """Tensor manipulation op lowerings: cast, concat, reshape2, transpose2,
 squeeze2, unsqueeze2, flatten2, slice, top_k, arg_max, fill_constant,
-fill_constant_batch_size_like, fill_zeros_like, assign, where, gather_nd,
-stack, range, decode_cache_write. Port of the
+fill_constant_batch_size_like, fill_zeros_like, assign, assign_value,
+increment, where, gather, gather_nd, expand, expand_as, stack, range,
+decode_cache_write. Port of the
 paddle_tpu/ops/tensor_ops.py lowerings the port runs;
 reshape/transpose/slice/squeeze return views where torch can.
 
 Indices follow the reference's jax semantics, not torch's: ``gather_nd``
 and ``decode_cache_write`` (its start, as ``lax.dynamic_update_slice``)
-wrap a negative index once and clamp the rest into range. Integer results the reference gives as int32 (jax without x64:
-``arg_max``, an int64 ``range`` or ``fill_constant_batch_size_like``) are
+wrap a negative index once and clamp the rest into range; ``gather``
+(``jnp.take``) wraps once and fills the rest. Integer results the
+reference gives as int32 (jax without x64: ``arg_max``, an int64
+``range``, ``fill_constant_batch_size_like`` or ``assign_value``) are
 int64 here (ROADMAP.md Queue 3).
 """
 import numpy as np
@@ -149,6 +152,27 @@ def _assign(ctx, ins, attrs):
     return single(ins["X"][0])
 
 
+@register_op("assign_value")
+def _assign_value(ctx, ins, attrs):
+    """The attrs' ``values`` list as a ``shape`` tensor of ``dtype`` on the
+    run's device. Made once a run (``ctx.constant``): inside a loop body
+    the op runs every iteration, and beam search's row is vocab long."""
+    def make():
+        dtype = core.convert_dtype(attrs["dtype"])
+        values = np.array(attrs["values"], dtype=core.np_dtype(dtype))
+        return torch.as_tensor(values.reshape(attrs["shape"])).to(
+            ctx.device)
+
+    return single(ctx.constant(attrs["values"], make))
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    """X + step, step a weak Python float (an int X gives float32, as jax
+    promotes)."""
+    return single(torch.add(*promote(ins["X"][0], attrs.get("step", 1.0))))
+
+
 @register_op("where")
 def _where(ctx, ins, attrs):
     """Condition ? X : Y, broadcast, X and Y promoted by jax's rules."""
@@ -180,6 +204,47 @@ def _gather_nd(ctx, ins, attrs):
     k = idx.shape[-1]
     return single(x[tuple(_jax_index(idx[..., j], x.shape[j])
                           for j in range(k))])
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    """Rows Index of X (an (N, 1) Index read as (N,)): ``jnp.take`` along
+    axis 0 in jax's fill mode. A negative index counts from the end once;
+    a row outside [-n, n) reads the fill value, NaN for floats, the
+    dtype's least value for ints, True for bool."""
+    x, idx = ins["X"][0], ins["Index"][0].long()
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx[:, 0]
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    out = x[idx.clamp(0, n - 1)]
+    if x.dtype == torch.bool:
+        fill = True
+    elif x.dtype.is_floating_point:
+        fill = float("nan")
+    else:
+        fill = torch.iinfo(x.dtype).min
+    valid = valid.reshape(valid.shape + (1,) * (x.dim() - 1))
+    return single(torch.where(valid, out, torch.full(
+        (), fill, dtype=x.dtype, device=x.device)))
+
+
+def _tile(x, times):
+    """``jnp.tile``: a short ``times`` is padded with leading 1s."""
+    times = [int(t) for t in times]
+    return x.repeat([1] * (x.dim() - len(times)) + times)
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    return single(_tile(ins["X"][0], attrs["expand_times"]))
+
+
+@register_op("expand_as")
+def _expand_as(ctx, ins, attrs):
+    x, tgt = ins["X"][0], ins["target_tensor"][0]
+    return single(_tile(x, [t // s for t, s in zip(tgt.shape, x.shape)]))
 
 
 @register_op("stack")
