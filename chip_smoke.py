@@ -140,7 +140,34 @@ Phases, each of which exits non-zero on failure:
    weights, prompt 16, 16 new tokens, batch 2: ids equal to the CPU's up
    to the first near-tie (top-2 gap within 1e-3 of their magnitude), 24
    LayerNorm forward launches a step; and, with phase 6's times, both
-   LayerNorm kernels at the NMT rows (128, 512) and (1024, 512).
+   LayerNorm kernels at the NMT rows (128, 512) and (1024, 512). 9b also
+   runs bench.py's translation at b32 and b128 once with the full op list
+   (``lowering.live_plan`` returning None, as before the dead step outputs
+   were pruned) and once with the live ops, each from a reset peak: peak
+   memory above what was resident, the beams bit-identical, and, with the
+   other profiles, the copy kernels of one b32 translation with the full
+   op list (the profiled translation above has the live ops');
+10. Wide&Deep CTR trained through ``Executor.train_from_dataset``, as
+   bench.py:746 _measure_ctr runs it (``build_wide_deep()``: 26 sparse
+   fields over a 100,000-row embedding of 16, 13 dense, hidden [400, 400,
+   400]; Adam(1e-3); startup seed 7): (a) initialised once on the CPU,
+   copied to the card and the CPU, 3 steps of batch 2048 from one shard
+   with ``set_thread(1)`` on each (twice on the card, and once more as a
+   ``run`` loop over the same batches): each parameter's update within
+   1e-2 of its largest against the CPU's, the auc statistics' totals
+   equal and at most 1% of the samples in another bin, the eval batch's
+   loss within 1e-3 and AUC within 1e-5, and whether two card runs give
+   the same bits; (b) the main path: 49,152 synthetic Criteo-shaped rows
+   in 4 shards made as bench.py makes them, ``InMemoryDataset`` with
+   ``set_thread(2)``, batch 2048, one warm-up epoch and 2 timed epochs
+   with every counter zeroed just before (none of the five kernels lies on
+   this path): examples/s, the step median from CUDA events, peak memory,
+   the pipeline that ran (native, or the phase fails) and bench.py's
+   loss_first and loss_last (finite, falling); (c) ``infer_from_dataset``
+   over one epoch leaves every trainable parameter bit-identical and adds
+   an epoch of samples to the auc statistics; and, with the other
+   profiles, one profiled epoch (busy, idle share, top kernels, the
+   embedding gradient, Adam, the host-to-device copies, cudaLaunchKernel).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -2490,6 +2517,94 @@ def nmt_bench(fluid, nmt, ca, cl, card, batch=NMT_BATCH, iters=NMT_ITERS,
     return launches, translate, stats
 
 
+def nmt_repair_ab(fluid, nmt, lowering, card, cfg=None):
+    """Phase 9b before and after the repair of the dead step outputs:
+    bench.py's translation at b32 and b128, one run with the full op list
+    (``lowering.live_plan`` returning None: every op runs and
+    ``static_rnn`` stacks all 16 step outputs, as before the repair) and
+    one with the live ops only, each from a reset peak: the peak device
+    memory above what was resident, and the fetched ids and scores, which
+    must be bit-identical. Returns the numbers and a b32 translation with
+    the full op list (for its copy launches in the profile)."""
+    cfg = cfg or nmt_config(nmt)
+    main, startup, vs, _, _ = nmt_beam_program(fluid, nmt, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    fetch = [vs["ids"], vs["scores"]]
+    live_plan = lowering.live_plan
+    runs = {}
+
+    def translate(feed, mode):
+        lowering.live_plan = live_plan if mode == "live" else (
+            lambda program, fetch_names: None)
+        try:
+            return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                           return_numpy=False)
+        finally:
+            lowering.live_plan = live_plan
+
+    for batch in (NMT_BATCH, 128):
+        feed = {"src_ids": torch.from_numpy(nmt_src(cfg, batch)).to(
+            exe.device)}
+        got = {}
+        for mode in ("full", "live"):
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.monotonic()
+            ids, scores = translate(feed, mode)
+            ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+            wall = time.monotonic() - t0
+            peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+            got[mode] = (ids, scores)
+            runs[(batch, mode)] = dict(peak_above_gib=peak, wall_ms=1e3 * wall,
+                                       resident_gib=resident / 2 ** 30)
+        same = all(np.array_equal(a, b) for a, b in zip(got["full"],
+                                                        got["live"]))
+        print("9b repair [%s] nmt b%d: full op list peak %.3f GiB above the "
+              "%.3f resident, %.1f ms; live ops only peak %.3f GiB above, "
+              "%.1f ms; ids and scores bit-identical: %s" % (
+                  card, batch, runs[(batch, "full")]["peak_above_gib"],
+                  runs[(batch, "full")]["resident_gib"],
+                  runs[(batch, "full")]["wall_ms"],
+                  runs[(batch, "live")]["peak_above_gib"],
+                  runs[(batch, "live")]["wall_ms"], same), flush=True)
+        if not same:
+            fail("9b: the live-op run's beams differ from the full op list's")
+    feed = {"src_ids": torch.from_numpy(nmt_src(cfg, NMT_BATCH)).to(
+        exe.device)}
+    return runs, lambda: translate(feed, "full")
+
+
+def nmt_copy_launches(translate, card):
+    """With the other profiles: the copy kernels of one b32 translation
+    with the full op list, classified as nmt_profile classifies them (the
+    live-op translation's are nmt_profile's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        translate()
+        torch.cuda.synchronize()
+    n, us, busy = 0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA \
+                or e.self_device_time_total <= 0 \
+                or e.key.startswith("paddle_tpu_torch::"):
+            continue
+        busy += e.self_device_time_total
+        if not SORT_KERNELS.search(e.key) and (
+                CACHE_COPY_KERNELS.search(e.key)
+                or "index" in e.key.lower()):
+            n += e.count
+            us += e.self_device_time_total
+    print("9b repair [%s] nmt b%d translation with the full op list: copy "
+          "%d launches %.3f ms of %.3f ms busy" % (
+              card, NMT_BATCH, n, us / 1e3, busy / 1e3), flush=True)
+    return dict(copy_launches=n, copy_ms=us / 1e3, busy_ms=busy / 1e3)
+
 SORT_KERNELS = re.compile(r"sort|radix|topk", re.IGNORECASE)
 
 
@@ -2741,6 +2856,341 @@ def nmt_ln_times(cl):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Wide&Deep CTR trained through train_from_dataset
+# ---------------------------------------------------------------------------
+CTR_SEED = 7
+CTR_BATCH, CTR_ROWS, CTR_SHARDS, CTR_EPOCHS = 2048, 49152, 4, 2
+CTR_CHECK_STEPS = 3
+CTR_LOSS_TOL = 1e-3     # 10a: the eval batch's loss, relative
+CTR_AUC_TOL = 1e-5      # 10a: the AUC
+# 10a: each parameter's 3-step update against the CPU's, of its largest
+# update (Adam gives an element whose gradients are rounding noise a full
+# step in the noise's direction; tests/test_torch_dataset.py measures the
+# same between the two packages on the CPU)
+CTR_UPDATE_TOL = 1e-2
+# 10a: samples whose probability fell in another auc bin on the card, of
+# all (a probability a few ulps away lands across a bin edge)
+CTR_MOVED_TOL = 1e-2
+EMB_GRAD_KERNELS = re.compile(r"index|sort|scatter|embedding|radix",
+                              re.IGNORECASE)
+
+
+def write_ctr_shards(dirname, rows, shards, seed=0):
+    """bench.py:768-785's synthetic Criteo-shaped MultiSlot shards (26
+    sparse ids below 100,000, 13 dense, the label of a fixed direction;
+    slot order dense, sparse, label)."""
+    os.makedirs(dirname, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(1).standard_normal(13)
+    files = []
+    for s in range(shards):
+        path = os.path.join(dirname, "part_%d.txt" % s)
+        with open(path, "w") as f:
+            for _ in range(rows // shards):
+                sparse = rng.integers(0, 100000, size=26)
+                dense = rng.standard_normal(13)
+                label = int(dense @ w > 0)
+                f.write("13 %s 26 %s 1 %d\n" % (
+                    " ".join("%.4f" % x for x in dense),
+                    " ".join(map(str, sparse)), label))
+        files.append(path)
+    return files
+
+
+def ctr_program(fluid, wd):
+    """bench.py's Wide&Deep: ``build_wide_deep()`` (26 fields, vocab
+    100,000, emb 16, 13 dense, hidden [400, 400, 400]) + Adam(1e-3),
+    startup seed 7."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = CTR_SEED
+    with fluid.program_guard(main, startup):
+        vs = wd.build_wide_deep()
+        fluid.optimizer.Adam(1e-3).minimize(vs["loss"])
+    return main, startup, vs
+
+
+def ctr_dataset(fluid, vs, files, thread):
+    ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_batch_size(CTR_BATCH)
+    ds.set_thread(thread)
+    ds.set_filelist(files)
+    ds.set_use_var([vs["dense"], vs["sparse"], vs["label"]])
+    ds.load_into_memory()
+    return ds
+
+
+def ctr_pipeline(ds, tag):
+    """The pipeline the dataset's loader ran; fails unless native."""
+    loader = ds._loader_cache[1]
+    if loader.pipeline != "native":
+        from paddle_tpu_torch.native import build as native_build
+
+        fail("%s: the loader ran the %s pipeline, not the native one (%s)"
+             % (tag, loader.pipeline, native_build.load_error))
+    return loader.pipeline, loader.pinned
+
+
+def ctr_eval_feed(wd):
+    dense, sparse, label = wd.synthetic_ctr_batch(CTR_BATCH)
+    return {"dense": dense, "sparse": sparse, "ctr_label": label}
+
+
+def ctr_vs_cpu(fluid, wd, tmp):
+    """Phase 10a. bench.py's Wide&Deep initialised once on the CPU (startup
+    seed 7), copied into three card scopes and a CPU scope; 3 steps of
+    train_from_dataset (set_thread(1), batch 2048, 3 x 2048 rows in one
+    shard made as bench.py makes them) on the card twice and on the CPU,
+    and the same batches through a ``run`` loop on the card. Each
+    parameter's update within CTR_UPDATE_TOL of its largest against the
+    CPU's; the auc statistics' totals equal and at most CTR_MOVED_TOL of
+    the samples in another bin; then the test clone on a fixed eval batch:
+    loss within CTR_LOSS_TOL and AUC within CTR_AUC_TOL of the CPU's.
+    Prints whether two card runs, and train_from_dataset and the run loop,
+    give the same bits."""
+    main, startup, vs = ctr_program(fluid, wd)
+    files = write_ctr_shards(os.path.join(tmp, "ctr_check"),
+                             rows=CTR_CHECK_STEPS * CTR_BATCH, shards=1,
+                             seed=1)
+    ds = ctr_dataset(fluid, vs, files, thread=1)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+
+    place = fluid.CUDAPlace(0)
+
+    def scope_on(device):
+        sc = fluid.Scope()
+        for n, t in init.items():
+            sc.set(n, t.to(device, copy=True))
+        return sc
+
+    cpu, card, card2, loop = (scope_on(d) for d in (
+        torch.device("cpu"),) + (place.torch_device(),) * 3)
+    fluid.Executor(place).train_from_dataset(main, ds, scope=card)
+    pipe = ctr_pipeline(ds, "10a")
+    fluid.Executor(place).train_from_dataset(main, ds, scope=card2)
+    exe = fluid.Executor(place)
+    feeder = fluid.DataFeeder([vs["dense"], vs["sparse"], vs["label"]],
+                              place)
+    for batch in ds._batch_iterator():
+        exe.run(main, feed=feeder.feed(batch), scope=loop)
+    fluid.Executor(fluid.CPUPlace()).train_from_dataset(main, ds,
+                                                        scope=cpu)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    persist = params + stats + [
+        v.name for v in main.global_block().vars.values()
+        if v.persistable and v.name not in params + stats]
+
+    def same_bits(a, b):
+        return all(torch.equal(a[n], b[n]) for n in persist if n in a)
+
+    worst, per = 0.0, []
+    for n in params:
+        start = init[n]
+        du = card[n].cpu() - start
+        dw = cpu[n] - start
+        rel = float((du - dw).abs().max()) / max(float(dw.abs().max()),
+                                                 1e-30)
+        per.append("%s %.2e" % (n, rel))
+        worst = max(worst, rel)
+    totals, moved = [], 0.0
+    for n in stats:
+        a, w = card[n].cpu().numpy(), cpu[n].numpy()
+        totals.append((float(a.sum()), float(w.sum())))
+        moved += float(np.abs(a - w).sum()) / 2
+    n_samples = CTR_CHECK_STEPS * CTR_BATCH
+    twice, as_loop = same_bits(card, card2), same_bits(card, loop)
+    loop_rel = 0.0 if as_loop else max(
+        float((loop[n] - card[n]).abs().max()) / max(float(
+            (card[n].cpu() - init[n]).abs().max()), 1e-30) for n in params)
+    test = main.clone(for_test=True)
+    feed = ctr_eval_feed(wd)
+    got = fluid.Executor(place).run(test, feed=feed, scope=card,
+                                    fetch_list=[vs["loss"], vs["auc"]])
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, scope=cpu, fetch_list=[vs["loss"], vs["auc"]])
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    auc_err = abs(float(got[1]) - float(want[1]))
+    print("10a ctr (bench.py's Wide&Deep, startup seed %d, %d steps of "
+          "train_from_dataset, batch %d, set_thread(1), pipeline %s, pinned "
+          "%s) card vs CPU: updates %.3e of the largest at worst (bound %g: "
+          "%s); auc statistics totals card %s CPU %s, %.0f of %d samples "
+          "in another bin (bound %g); eval batch loss %.6f vs %.6f (%.3e "
+          "relative, bound %g), AUC %.7f vs %.7f (%.3e, bound %g); two "
+          "card runs bit-identical: %s; train_from_dataset and a run loop "
+          "on the card bit-identical: %s (%.3e of the largest update)" % (
+              CTR_SEED, CTR_CHECK_STEPS, CTR_BATCH, pipe[0], pipe[1], worst,
+              CTR_UPDATE_TOL, ", ".join(per), [t[0] for t in totals],
+              [t[1] for t in totals], moved, n_samples, CTR_MOVED_TOL,
+              float(got[0]), float(want[0]), loss_rel, CTR_LOSS_TOL,
+              float(got[1]), float(want[1]), auc_err, CTR_AUC_TOL, twice,
+              as_loop, loop_rel), flush=True)
+    if worst > CTR_UPDATE_TOL:
+        fail("10a: a parameter's update is %.3e of its largest off the "
+             "CPU's" % worst)
+    if any(a != w for a, w in totals) or moved > CTR_MOVED_TOL * n_samples:
+        fail("10a: auc statistics off the CPU's (totals %s, %.0f moved)"
+             % (totals, moved))
+    if not (np.isfinite(float(got[0])) and loss_rel <= CTR_LOSS_TOL
+            and auc_err <= CTR_AUC_TOL):
+        fail("10a: eval loss or AUC off the CPU's")
+    if loop_rel > CTR_UPDATE_TOL:
+        fail("10a: train_from_dataset and a run loop differ on the card")
+    ds.release_memory()
+    return dict(update_rel=worst, moved=moved, loss_rel=loss_rel,
+                auc_err=auc_err, twice=twice, as_loop=as_loop)
+
+
+def ctr_bench(fluid, wd, ca, cl, card, tmp):
+    """Phase 10b, the main path: bench.py:746 _measure_ctr on the card.
+    bench.py's Wide&Deep (startup seed 7), 49,152 rows in 4 shards made as
+    bench.py makes them, InMemoryDataset with set_thread(2) and batch 2048;
+    loss_first from a run on synthetic_ctr_batch(2048) (which trains on
+    it, as bench.py's does), one warm-up epoch, then CTR_EPOCHS timed
+    epochs with every counter zeroed just before (none of the five kernels
+    lies on this path), then loss_last. examples/s over the timed wall
+    (ending in a synchronize); the step median from CUDA events recorded
+    after each step; peak device memory above what was resident; the
+    pipeline that ran (native, or the phase fails); loss_last finite and
+    below loss_first. Then 10c: infer_from_dataset over one epoch leaves
+    every trainable parameter bit-identical and adds an epoch of samples
+    to the auc statistics. Returns the launches, one more epoch as a
+    function (for the profile) and the numbers."""
+    main, startup, vs = ctr_program(fluid, wd)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    t0 = time.monotonic()
+    files = write_ctr_shards(os.path.join(tmp, "ctr_bench"), CTR_ROWS,
+                             CTR_SHARDS)
+    t1 = time.monotonic()
+    ds = ctr_dataset(fluid, vs, files, thread=2)
+    t2 = time.monotonic()
+    feed = ctr_eval_feed(wd)
+    loss_first = float(exe.run(main, feed=feed, fetch_list=[vs["loss"]],
+                               scope=scope)[0])
+    t3 = time.monotonic()
+    exe.train_from_dataset(program=main, dataset=ds, scope=scope)
+    _sync()
+    warm = time.monotonic() - t3
+    marks = []
+    run = exe.run
+
+    def clocked(*args, **kwargs):
+        out = run(*args, **kwargs)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return out
+
+    exe.run = clocked
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fns = zero_counters(ca, cl)
+    t0w = time.monotonic()
+    for _ in range(CTR_EPOCHS):
+        exe.train_from_dataset(program=main, dataset=ds, scope=scope)
+    _sync()
+    wall = time.monotonic() - t0w
+    del exe.run
+    launches = check_launches("10b ctr, %d epochs" % CTR_EPOCHS, fns, {})
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    pipe = ctr_pipeline(ds, "10b")
+    steps = CTR_EPOCHS * (CTR_ROWS // CTR_BATCH)
+    if len(marks) != steps:
+        fail("10b: %d steps ran, want %d" % (len(marks), steps))
+    gaps = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    loss_last = float(exe.run(main, feed=feed, fetch_list=[vs["loss"]],
+                              scope=scope)[0])
+    stats = dict(examples_per_s=steps * CTR_BATCH / wall,
+                 epoch_ms=1e3 * wall / CTR_EPOCHS,
+                 step_median_ms=statistics.median(gaps),
+                 step_p90_ms=gaps[min(len(gaps) - 1, int(0.9 * len(gaps)))],
+                 step_mean_ms=1e3 * wall / steps, peak_above_gib=peak,
+                 resident_gib=resident / 2 ** 30, pipeline=pipe[0],
+                 pinned=pipe[1], loss_first=loss_first, loss_last=loss_last,
+                 warm_epoch_ms=1e3 * warm)
+    print("10b ctr [%s] (bench.py:746 _measure_ctr: batch %d, %d rows in %d "
+          "shards, InMemoryDataset, set_thread(2), %d timed epochs): %.1f "
+          "examples/s, %.3f ms an epoch (warm-up epoch %.3f ms), step "
+          "median %.3f ms and p90 %.3f ms between CUDA events (mean %.3f "
+          "ms of host wall), peak device memory %.4f GiB above the %.4f "
+          "resident, pipeline %s (pinned %s), loss_first %.4f loss_last "
+          "%.4f; shards written in %.1f s, parsed into memory in %.1f s" % (
+              card, CTR_BATCH, CTR_ROWS, CTR_SHARDS, CTR_EPOCHS,
+              stats["examples_per_s"], stats["epoch_ms"], 1e3 * warm,
+              stats["step_median_ms"], stats["step_p90_ms"],
+              stats["step_mean_ms"], peak, stats["resident_gib"], pipe[0],
+              pipe[1], loss_first, loss_last, t1 - t0, t2 - t1), flush=True)
+    if not (np.isfinite(loss_last) and loss_last < loss_first):
+        fail("10b: loss_last %.4f not finite and below loss_first %.4f" % (
+            loss_last, loss_first))
+    # 10c: infer_from_dataset
+    before = {p.name: scope[p.name].clone() for p in main.all_parameters()}
+    exe.infer_from_dataset(program=main, dataset=ds, scope=scope)
+    kept = [p.name for p in main.all_parameters()
+            if p.trainable and not torch.equal(scope[p.name],
+                                               before[p.name])]
+    added = sum(float((scope[p.name] - before[p.name]).sum())
+                for p in main.all_parameters() if not p.trainable)
+    print("10c ctr infer_from_dataset over one epoch: trainable parameters "
+          "bit-identical: %s; auc statistics gained %.0f samples (want %d)"
+          % (not kept, added, CTR_ROWS), flush=True)
+    if kept or added != CTR_ROWS:
+        fail("10c: infer_from_dataset changed %s or added %.0f samples" % (
+            kept, added))
+    return launches, lambda: exe.train_from_dataset(
+        program=main, dataset=ds, scope=scope), stats
+
+
+def ctr_profile(epoch, stats, card):
+    """Phase 10b's profile of one epoch (24 steps): busy and idle share
+    against the unprofiled epoch, the kernels by device time and
+    cudaLaunchKernel (profile_train_step), the embeddings' gather and
+    gradient (the index, sort and scatter kernels, by name: autograd runs
+    the backward on its own device thread, outside the backward range),
+    Adam (the optimizer range's kernels) and the host-to-device copies."""
+    def extra(prof, st):
+        from torch.autograd import DeviceType
+
+        split = {"embedding gather and gradient": [0, 0.0],
+                 "adam": [0, 0.0], "host-to-device copies": [0, 0.0]}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU \
+                    and e.name == "paddle_tpu_torch::optimizer":
+                ks = _subtree_kernels(e)
+                split["adam"][0] += len(ks)
+                split["adam"][1] += sum(d for _, d in ks)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA \
+                    or e.self_device_time_total <= 0:
+                continue
+            kind = ("host-to-device copies" if "HtoD" in e.key else
+                    "embedding gather and gradient"
+                    if EMB_GRAD_KERNELS.search(e.key) else None)
+            if kind:
+                split[kind][0] += e.count
+                split[kind][1] += e.self_device_time_total
+        st["split"] = {k: dict(launches=n, ms=us / 1e3)
+                       for k, (n, us) in split.items()}
+        print("10b ctr epoch [%s]: %s of %.3f ms busy" % (
+            card, ", ".join("%s %d launches %.3f ms" % (k, v["launches"],
+                                                        v["ms"])
+                            for k, v in st["split"].items()),
+            st["busy_ms"]), flush=True)
+
+    stats.update(profile_train_step(epoch, "ctr epoch", extra=extra))
+    print("10b ctr epoch: %.3f ms unprofiled, device busy %.3f ms: idle "
+          "%.1f%% of it; %.3f ms busy a step; GEMMs %s" % (
+              stats["epoch_ms"], stats["busy_ms"],
+              100 * max(0.0, 1 - stats["busy_ms"] / stats["epoch_ms"]),
+              stats["busy_ms"] / (CTR_ROWS // CTR_BATCH),
+              ", ".join("%s %.3f ms" % (dt, g["ms"])
+                        for dt, g in sorted(stats["gemm"].items()))),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2751,6 +3201,7 @@ def main():
     from paddle_tpu_torch.fluid import lowering
     from paddle_tpu_torch.models import bert, gpt, resnet
     from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.models import wide_deep as wd
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import cuda_layernorm as cl
@@ -2878,10 +3329,19 @@ def main():
         nmt_launches, nmt_translate, nmt_stats = nmt_bench(
             fluid, nmt, ca, cl, card)
         nmt_bench(fluid, nmt, ca, cl, card, batch=128, iters=NMT_B128_ITERS)
+        repair_runs, repair_translate = nmt_repair_ab(fluid, nmt,
+                                                      lowering, card)
         nmt_train_launches, _ = nmt_train(fluid, nmt, ca, cl)
         gen_launches = gpt_generate_vs_cpu(fluid, gpt, ca, cl, gcfg, gscope)
         del gscope
         secs9 = time.monotonic() - t9
+        # phase 10: Wide&Deep CTR through train_from_dataset (10a-10c; the
+        # profile comes with the others)
+        t10 = time.monotonic()
+        ctr_vs_cpu(fluid, wd, tmp)
+        ctr_launches, ctr_epoch, ctr_stats = ctr_bench(fluid, wd, ca, cl,
+                                                       card, tmp)
+        secs10 = time.monotonic() - t10
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -2918,8 +3378,15 @@ def main():
         t9 = time.monotonic()
         nmt_profile(nmt_translate, nmt_stats, card)
         del nmt_translate
+        nmt_copy_launches(repair_translate, card)
+        del repair_translate
         print("phase 9 (Transformer NMT and GPT generate: 9a-9d) took %.1f "
               "s" % (secs9 + time.monotonic() - t9), flush=True)
+        t10 = time.monotonic()
+        ctr_profile(ctr_epoch, ctr_stats, card)
+        del ctr_epoch
+        print("phase 10 (Wide&Deep CTR: 10a-10c) took %.1f s" % (
+            secs10 + time.monotonic() - t10), flush=True)
 
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
@@ -2956,7 +3423,8 @@ def main():
     # run's; launches_train is every kernel's count in the training run,
     # launches_train_amp in the bf16 AMP training run, launches_decode in
     # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
-    # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d
+    # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
+    # launches_ctr in 10b's timed epochs
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2968,6 +3436,7 @@ def main():
                      launches_nmt=nmt_launches[name],
                      launches_nmt_train=nmt_train_launches[name],
                      launches_generate=gen_launches[name],
+                     launches_ctr=ctr_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

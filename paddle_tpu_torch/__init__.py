@@ -11,6 +11,7 @@ place::
     from paddle_tpu_torch import serving
 """
 from . import fluid  # noqa: F401
+from . import reader  # noqa: F401
 from . import serving  # noqa: F401
 
 __version__ = "0.1.0"

@@ -35,3 +35,22 @@ from . import clip
 from . import regularizer
 from . import optimizer
 from . import contrib
+from . import data_feeder
+from .data_feeder import DataFeeder  # noqa: F401
+from . import data_feed_desc
+from .data_feed_desc import DataFeedDesc  # noqa: F401
+from . import reader
+from .reader import DataLoader  # noqa: F401
+from . import dataset
+from .dataset import DatasetFactory, InMemoryDataset, QueueDataset  # noqa: F401
+from . import device_worker
+from . import trainer_desc
+from .trainer_desc import (  # noqa: F401
+    DistMultiTrainer,
+    MultiTrainer,
+    PipelineTrainer,
+    TrainerDesc,
+)
+from . import trainer_factory
+from .trainer_factory import FetchHandler  # noqa: F401
+from . import incubate

@@ -9,6 +9,12 @@ runs eagerly. A run of a ``minimize``d program trains: autograd is on only
 for the region its ``backward`` op differentiates, and the values written
 back to the scope are detached, so no graph outlives the run
 (fluid/lowering.py).
+
+``train_from_dataset`` / ``infer_from_dataset`` (ref executor.py:1033,
+1103) run the step on every batch of a ``fluid.dataset``, one ``run``
+after another: the reference's k-step ``lax.scan`` dispatch has no eager
+counterpart, so a dataset epoch equals a ``run`` loop over the same
+batches.
 """
 import numpy as np
 import torch
@@ -181,6 +187,156 @@ class Executor:
                 scope.update(v.name, val)
             state[v.name] = val
         return state
+
+    # -- dataset trainer path (ref executor.py:1033,1103) --------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None):
+        """Run the program's step on every batch of ``dataset``, in order
+        (ref executor.py train_from_dataset). The reference fans the work
+        across C++ Hogwild threads; here `thread` sets host-side parsing
+        parallelism, batches stage through the native C++ slot ring
+        (fluid/reader.py), and one ``run`` a batch trains on this
+        executor's device. With ``fetch_list``, every ``print_period``-th
+        step (each one with ``debug``) prints the fetched values;
+        ``fetch_handler`` samples the scope from a thread."""
+        return self._run_from_dataset(
+            program, dataset, scope, thread, False, debug, fetch_list,
+            fetch_info, print_period, fetch_handler)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None):
+        """Like train_from_dataset but runs a clone without the training
+        ops (:meth:`_strip_training_ops`): no backward op, no parameter
+        update, and nothing that depends on them; forward and metric ops
+        (``auc``'s statistics among them) still run, as the reference's
+        infer-mode skip_ops do."""
+        return self._run_from_dataset(
+            program, dataset, scope, thread, True, debug, fetch_list,
+            fetch_info, print_period, fetch_handler)
+
+    def _run_from_dataset(self, program, dataset, scope, thread, is_infer,
+                          debug, fetch_list, fetch_info, print_period,
+                          fetch_handler):
+        from .reader import _GeneratorLoader
+        from .trainer_factory import FetchHandlerMonitor, TrainerFactory
+
+        if dataset is None:
+            raise ValueError(
+                "train/infer_from_dataset requires a dataset (build one "
+                "with fluid.DatasetFactory().create_dataset())"
+            )
+        program = program if program is not None else default_main_program()
+        run_prog = self._strip_training_ops(program) if is_infer else program
+        # trainer desc for parity/introspection (Hogwild contract)
+        trainer = TrainerFactory()._create_trainer(
+            getattr(program, "_fleet_opt", None))
+        trainer.device_worker._set_infer(is_infer)
+        trainer._set_thread(thread or dataset.thread_num)
+
+        dataset._prepare_to_run()
+        dataset._dynamic_adjust_before_train(thread or dataset.thread_num)
+        monitor = None
+        if fetch_handler is not None:
+            monitor = FetchHandlerMonitor(
+                scope or global_scope(), fetch_handler)
+            monitor.start()
+        fetch_vars = list(fetch_list or [])
+        infos = list(fetch_info or [
+            getattr(v, "name", str(v)) for v in fetch_vars])
+        # One loader (and its native C++ pipe: page-locked arena + worker
+        # pool) per (dataset, feed names, place), reused across calls;
+        # the cache lives ON the dataset, so its lifetime tracks the data
+        # (DatasetBase._release_loader frees it).
+        cache_key = (
+            tuple(v.name for v in dataset.use_vars),
+            type(self.place).__name__,
+        )
+        cached = getattr(dataset, "_loader_cache", None)
+        if cached is not None and cached[0] == cache_key:
+            loader = cached[1]
+            # the key matches on NAMES; refresh the Variable objects so a
+            # same-named feed list from another program can't feed
+            # through stale dtype/shape metadata
+            loader._feed_list = list(dataset.use_vars)
+        else:
+            loader = _GeneratorLoader(
+                feed_list=dataset.use_vars, capacity=8)
+            dataset._loader_cache = (cache_key, loader)
+        loader.set_sample_list_generator(
+            lambda: dataset._batch_iterator(thread), places=self.place)
+        step = 0
+        try:
+            for feed in loader():
+                step += 1
+                want_fetch = fetch_vars and (
+                    debug or step % print_period == 0)
+                out = self.run(
+                    run_prog, feed=feed,
+                    fetch_list=fetch_vars if want_fetch else None,
+                    scope=scope,
+                )
+                if want_fetch:
+                    msg = ", ".join(
+                        "%s=%s" % (i, np.asarray(v).reshape(-1)[:8])
+                        for i, v in zip(infos, out)
+                    )
+                    print("[dataset step %d] %s" % (step, msg))
+        finally:
+            if monitor is not None:
+                monitor.stop()
+            dataset._dynamic_adjust_after_train()
+            dataset._finish_to_run()
+        return None
+
+    # per-param update op types (mirror of the reference infer-mode
+    # skip-ops list: grad + optimizer ops)
+    _OPT_UPDATE_TYPES = frozenset({
+        "sgd", "momentum", "dgc_momentum", "lars_momentum", "adagrad",
+        "decayed_adagrad", "adadelta", "adam", "adamax", "rmsprop",
+        "ftrl", "lamb", "dpsgd",
+    })
+
+    @classmethod
+    def _strip_training_ops(cls, program):
+        """Clone with the training ops removed: the symbolic `backward`
+        op, per-param update ops, and anything dataflow-dependent on
+        their outputs (clip/regularizer/loss-scaling ops consuming @GRAD
+        vars). Forward/metric ops appended AFTER minimize() survive —
+        the reference infer mode skips op types, it doesn't truncate."""
+        pruned = program.clone()
+        block = pruned.global_block()
+        dead = set()
+        defined = set()  # vars produced by kept ops so far
+        kept = []
+        for op in block.ops:
+            drop = (
+                op.type == "backward"
+                or op.type in cls._OPT_UPDATE_TYPES
+                or any(n in dead for n in op.input_arg_names)
+            )
+            if drop:
+                ins = set(op.input_arg_names)
+                for n in op.output_arg_names:
+                    # only fresh vars die: in-place writes, vars a kept
+                    # op already produced, and persistable vars (their
+                    # startup-initialized value stays valid — e.g. an
+                    # AMP loss-scaling var whose update op is dropped)
+                    var = block.vars.get(n)
+                    if (n not in ins and n not in defined
+                            and not (var is not None and var.persistable)):
+                        dead.add(n)
+            else:
+                kept.append(op)
+                defined.update(op.output_arg_names)
+                dead.difference_update(op.output_arg_names)
+        if len(kept) != len(block.ops):
+            block.ops = kept
+            pruned._bump_version()
+        return pruned
 
     def _next_generator(self, program):
         """A fresh generator per run: seeded from ``program.random_seed``

@@ -1,7 +1,7 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
 Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet,
-the MNIST models and Transformer NMT call, with
+the MNIST models, Transformer NMT and Wide&Deep call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
@@ -20,7 +20,7 @@ __all__ = [
     "elementwise_div", "elementwise_max", "elementwise_min",
     "elementwise_mod", "elementwise_floordiv", "scale", "reduce_sum",
     "logical_and", "logical_or", "logical_xor", "logical_not",
-    "sampling_id", "fused_multihead_attention",
+    "sampling_id", "fused_multihead_attention", "clip", "log_loss",
 ]
 
 
@@ -833,3 +833,20 @@ def fused_multihead_attention(query, key, value, key_padding_mask=None,
         inputs,
         {"causal": causal, "dropout_prob": dropout_rate},
     )
+
+
+def clip(x, min, max, name=None):
+    return _layer("clip", {"X": x}, {"min": float(min), "max": float(max)})
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="log_loss",
+        inputs={"Predicted": [input], "Labels": [label]},
+        outputs={"Loss": [out]},
+        attrs={"epsilon": epsilon},
+    )
+    return out

@@ -1,10 +1,21 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
-of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs call.
-The activation layers wait for the op library (ROADMAP.md Queue 1, item
-6)."""
+of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs and
+Wide&Deep call. The other activation layers wait for the op library
+(ROADMAP.md Queue 1, item 6)."""
 from .nn import _layer
 
-__all__ = ["cumsum"]
+__all__ = ["sigmoid", "cumsum"]
+
+
+def _make_unary(op_type):
+    def layer(x, name=None):
+        return _layer(op_type, {"X": x})
+
+    layer.__name__ = op_type
+    return layer
+
+
+sigmoid = _make_unary("sigmoid")
 
 
 def cumsum(x, axis=-1, exclusive=False, reverse=False):

@@ -12,6 +12,14 @@ that region once with torch.autograd (``_run_training``) and calls
 Control flow: a while, cond or static_rnn op runs its sub-block through
 ``run_ops`` on a copy of the env at the op (ops/control_ops.py), as the
 JAX package traces it into lax.while_loop / cond / scan.
+
+Liveness: XLA drops what the reference's compiled step computes and never
+reads. The port runs eagerly, so :class:`LivePlan` marks, once per
+(program, version, fetch names), the ops the fetches need, going backward
+from the fetch list through the sub-blocks; every other op is skipped,
+and ``static_rnn`` stacks only its live step outputs. An op that writes
+a persistable, draws from the run's generator (:data:`DRAWS`), has no
+outputs, or is a ``backward`` op always runs, with what it reads.
 """
 import contextlib
 import threading
@@ -58,6 +66,8 @@ def bind_outputs(op, outs, env):
         if vals is None:
             continue
         for n, v in zip(names, vals):
+            if v is None:           # an output no live op reads
+                continue
             if v.requires_grad:     # never with autograd off (serving)
                 var = op.block.vars.get(n)
                 if var is not None and var.stop_gradient:
@@ -74,6 +84,7 @@ def apply_op(op, env, ctx):
     # powers) keeps its old tensor, so the op is a true no-op.
     gate = ins.pop("SkipGate", None)
     ctx.current_env = env  # control-flow ops run their blocks on a copy
+    ctx.current_op = op
     try:
         outs = fn(ctx, ins, op.attrs)
     except (OpLoweringError, NotImplementedError):
@@ -260,6 +271,118 @@ def f32_precision():
                     setattr(ns, attr, value)
 
 
+# op types whose lowering draws from the run's generator (``next_rng`` or
+# ``next_seed``): they run whether or not anything reads them, so that a
+# later draw is the one the unpruned run makes
+DRAWS = frozenset({"dropout", "uniform_random", "gaussian_random",
+                   "sampling_id", "fused_multihead_attention"})
+
+
+def _sub_blocks(op):
+    return [op.block.program.block(op.attrs[a]) for a in _BLOCK_ATTRS
+            if a in op.attrs]
+
+
+class LivePlan:
+    """The ops a run that fetches `fetch_names` executes, block by block.
+
+    ``ops[idx]`` lists block idx's live ops in program order; ``rnn[id(op)]``
+    holds a live ``static_rnn``'s live output positions and carried memory
+    positions. An op is live when a later live op, a fetch or its block's
+    outputs read what it writes, or when it has an effect
+    (:meth:`has_effect`). A control-flow op reads its inputs and what its
+    sub-blocks' live ops read from the outer env."""
+
+    def __init__(self, program, fetch_names):
+        self._persist = set(v.name for v in program.list_vars()
+                            if v.persistable)
+        self._effect = {}
+        self.ops = {}
+        self.rnn = {}
+        self.ops[0], _ = self._block(program.global_block(),
+                                     set(fetch_names))
+
+    def has_effect(self, op):
+        """Writes a persistable, draws, has no outputs, is a ``backward``
+        op, or holds such an op in a sub-block."""
+        hit = self._effect.get(id(op))
+        if hit is None:
+            outs = op.output_arg_names
+            hit = self._effect[id(op)] = bool(
+                op.type == "backward" or op.type in DRAWS or not outs
+                or any(n in self._persist for n in outs)
+                or any(self.has_effect(s) for b in _sub_blocks(op)
+                       for s in b.ops))
+        return hit
+
+    def _block(self, block, seeds):
+        """(the live ops of `block` when `seeds` must hold their values at
+        its end, the names those ops read before the block writes them)."""
+        needed = set(seeds)
+        live = []
+        for op in reversed(block.ops):
+            if not (self.has_effect(op)
+                    or any(n in needed for n in op.output_arg_names)):
+                continue
+            reads = self._reads(op, needed)
+            needed.difference_update(op.output_arg_names)
+            needed.update(reads)
+            live.append(op)
+        live.reverse()
+        return live, needed
+
+    def _reads(self, op, needed):
+        reads = set(op.input_arg_names)
+        if op.type == "backward":
+            reads.update(op.attrs.get("targets", ()))
+        a = op.attrs
+        if op.type == "static_rnn":
+            sub = op.block.program.block(a["sub_block"])
+            outs = {i for i, n in enumerate(op.output("Out")) if n in needed}
+            mems = set()
+            while True:     # a memory is live when a live op reads it
+                live, free = self._block(
+                    sub, {a["out_names"][i] for i in outs}
+                    | {a["mem_updated"][j] for j in mems})
+                more = {j for j, n in enumerate(a["mem_names"])
+                        if n in free} - mems
+                if not more:
+                    break
+                mems |= more
+            self.ops[sub.idx] = live
+            self.rnn[id(op)] = (outs, mems)
+            return reads | free
+        if op.type == "while":
+            seeds = {a["sub_block"]: set(a["carried_names"])
+                     | {a["cond_name"]}}
+        elif op.type == "conditional_block":
+            seeds = {a["sub_block"]: set(a["written_names"])}
+        elif op.type == "cond":
+            seeds = {a["true_block"]: set(a["true_out_names"]),
+                     a["false_block"]: set(a["false_out_names"])}
+        else:       # any other block runs whole
+            seeds = {b.idx: {n for o in b.ops for n in o.output_arg_names}
+                     for b in _sub_blocks(op)}
+        for idx, names in seeds.items():
+            self.ops[idx], free = self._block(op.block.program.block(idx),
+                                              names)
+            reads |= free
+        return reads
+
+
+def live_plan(program, fetch_names):
+    """The program's :class:`LivePlan` for `fetch_names`, made once per
+    program version and kept on the program."""
+    cache = getattr(program, "_live_plans", None)
+    if cache is None or cache[0] != program._version:
+        cache = program._live_plans = (program._version, {})
+    key = tuple(fetch_names)
+    plan = cache[1].get(key)
+    if plan is None:
+        plan = cache[1][key] = LivePlan(program, fetch_names)
+    return plan
+
+
 def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
                   grad_comm=None):
     """Return step(state, feeds, generator) -> (fetches, new_state).
@@ -271,6 +394,7 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     and under ``torch.no_grad()`` otherwise; a ``backward`` op turns
     autograd on for the region it differentiates (:func:`run_ops`). On
     the card they run under :func:`f32_precision`.
+    Only the ops of :func:`live_plan` run.
     ``grad_comm``, the JAX package's gradient-communication hook, waits for
     the port's parallel slice."""
     if grad_comm is not None:
@@ -279,13 +403,14 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
             "it comes with the parallel slice of paddle_tpu_torch "
             "(ROADMAP.md, Queue 1)")
     block = program.global_block()
-    op_list = list(block.ops)
+    plan = live_plan(program, fetch_names)      # None: every op runs
+    op_list = list(block.ops) if plan is None else plan.ops[0]
     persist = set(persistable_names(program))
     device = torch.device(device)
 
     def step(state, feeds, generator=None):
         ctx = LowerContext(device, generator=generator, is_test=is_test,
-                           program=program, run_ops=run_ops)
+                           program=program, run_ops=run_ops, plan=plan)
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()

@@ -11,11 +11,13 @@ on the host, one synchronisation per iteration or branch: the eager cost
 of data-dependent control flow. A scan's step count is a shape, so
 ``static_rnn`` never synchronises.
 
-``static_rnn`` stacks every step output into a (T, ...) tensor, as
-lax.scan does; ``dynamic_decode`` emits every decoder state as a step
-output, so the stack holds each KV cache T times (the values must be the
-reference's). The stack is allocated once, at the first step, and each
-step is copied into it.
+``static_rnn`` stacks its step outputs into (T, ...) tensors, as lax.scan
+does, but only those the run reads (``ctx.rnn_live``, from the run's
+liveness plan; XLA drops the rest of the reference's scan): under
+``dynamic_decode``, which emits every decoder state as a step output, the
+KV caches are carried and never stacked. Each live stack is allocated
+once, at the first step, and each step is copied into it. A block runs
+its live ops only (``ctx.live_ops``).
 
 ``dynamic_rnn`` needs LoD lengths end to end and waits for the sequence
 slice.
@@ -29,7 +31,7 @@ from .tensor_ops import _jax_index
 
 def _run_block(ctx, idx, env):
     block = ctx.program.block(idx)
-    return ctx.run_ops(block, block.ops, env, ctx)
+    return ctx.run_ops(block, ctx.live_ops(block), env, ctx)
 
 
 def _truth(t):
@@ -85,12 +87,13 @@ def _cond(ctx, ins, attrs):
 @register_op("static_rnn")
 def _static_rnn(ctx, ins, attrs):
     """StaticRNN: the step sub-block once per slice of the (T, ...) step
-    inputs along axis 0 (once with none), memories carried; the step
-    outputs stacked to (T, ...)."""
+    inputs along axis 0 (once with none), the live memories carried; the
+    live step outputs stacked to (T, ...), None in a dead output's place."""
     mem_names = attrs["mem_names"]
     mem_updated = attrs["mem_updated"]
     x_names = attrs["x_names"]
     out_names = attrs["out_names"]
+    live_out, live_mem = ctx.rnn_live(len(out_names), len(mem_names))
     outer = dict(ctx.current_env)
     mems = list(ins["Mem"])
     xs = ins["X"]
@@ -101,12 +104,15 @@ def _static_rnn(ctx, ins, attrs):
         env.update(zip(mem_names, mems))
         env.update((n, x[t]) for n, x in zip(x_names, xs))
         env = _run_block(ctx, attrs["sub_block"], env)
-        mems = [env[n] for n in mem_updated]
-        outs = [env[n] for n in out_names]
+        mems = [env[n] if j in live_mem else m
+                for j, (n, m) in enumerate(zip(mem_updated, mems))]
         if stacked is None:
-            stacked = [o.new_empty((steps,) + tuple(o.shape)) for o in outs]
-        for s, o in zip(stacked, outs):
-            s[t] = o
+            stacked = [None] * len(out_names)
+            for i in live_out:
+                o = env[out_names[i]]
+                stacked[i] = o.new_empty((steps,) + tuple(o.shape))
+        for i in live_out:
+            stacked[i][t] = env[out_names[i]]
     return {"Out": stacked or []}
 
 

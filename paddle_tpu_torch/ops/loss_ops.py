@@ -1,6 +1,7 @@
-"""Loss op lowering: softmax_with_cross_entropy (ref: paddle/fluid/
-operators/softmax_with_cross_entropy_op.cc). Port of the paddle_tpu/ops/
-loss_ops.py lowering BERT's pretraining head runs: log-softmax over
+"""Loss op lowerings: softmax_with_cross_entropy (ref: paddle/fluid/
+operators/softmax_with_cross_entropy_op.cc) and log_loss (log_loss_op.cc).
+Port of the paddle_tpu/ops/loss_ops.py lowerings. softmax_with_cross_entropy
+is the one BERT's pretraining head runs: log-softmax over
 ``axis``, soft labels over any axis, hard labels with ``ignore_index``
 (those rows give loss 0) over the last axis, and the Softmax side output.
 
@@ -64,3 +65,13 @@ def _softmax_with_ce(ctx, ins, attrs):
             -1, lab.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
         loss = (-picked).masked_fill(lab == ignore, 0.0)[..., None]
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("log_loss")
+def _log_loss(ctx, ins, attrs):
+    """-label·log(p + eps) - (1 - label)·log(1 - p + eps), elementwise,
+    ``epsilon`` from the attr (the layer's default 1e-4)."""
+    pred, label = promote(ins["Predicted"][0], ins["Labels"][0])
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(pred + eps)
+                     - (1 - label) * torch.log(1 - pred + eps)]}

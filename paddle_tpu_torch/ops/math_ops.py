@@ -1,7 +1,7 @@
 """Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv,
 mul, matmul, mean, scale, reduce_sum, the comparisons equal, not_equal,
 less_than, less_equal, greater_than and greater_equal, logical_and/or/xor/
-not, isfinite, cumsum.
+not, isfinite, cumsum, clip.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
 binary lowering promotes its operands by jax's rules first
@@ -184,3 +184,28 @@ def _cumsum(ctx, ins, attrs):
     if rev:
         out = out.flip(axis)
     return single(out)
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    """jnp.clip(x, Min, Max): minimum(maximum(x, lo), hi), the bounds from
+    the Min/Max inputs or the min/max attrs (weak scalars, rounded to x's
+    dtype as jax rounds them). Not ``torch.clamp``: its gradient is 1 at a
+    bound, where jax's maximum and minimum give each side of a tie half,
+    so x's gradient is 0.5 at lo and at hi (torch.maximum and
+    torch.minimum split ties the same way); a saturated sigmoid clipped
+    to [1e-7, 1 - 1e-7] lands on the bound."""
+    x = ins["X"][0]
+    lo = ins["Min"][0] if ins.get("Min") else attrs["min"]
+    hi = ins["Max"][0] if ins.get("Max") else attrs["max"]
+    out = torch.maximum(*_as_tensors(x, lo))
+    return single(torch.minimum(*_as_tensors(out, hi)))
+
+
+def _as_tensors(x, v):
+    """(x, v) promoted by jax's rules, a Python scalar `v` made a 0-dim
+    tensor of the result dtype on x's device."""
+    x, v = promote(x, v)
+    if not isinstance(v, torch.Tensor):
+        v = torch.tensor(v, dtype=x.dtype, device=x.device)
+    return x, v

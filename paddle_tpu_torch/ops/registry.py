@@ -52,20 +52,38 @@ class LowerContext:
     The control-flow lowerings (ops/control_ops.py) run their sub-blocks
     through ``run_ops(block, ops, env, ctx)`` on a copy of
     ``current_env``, the env as it stands when the op runs (set by
-    ``fluid/lowering.py`` ``apply_op``): a sub-block reads the outer
-    block's values, the parameters among them, by name.
+    ``fluid/lowering.py`` ``apply_op`` with ``current_op``): a sub-block
+    reads the outer block's values, the parameters among them, by name.
+    ``plan``, the run's ``fluid/lowering.py`` ``LivePlan`` (None: every
+    op is live), says which ops of a block run (:meth:`live_ops`) and
+    which outputs and memories a ``static_rnn`` keeps (:meth:`rnn_live`).
     """
 
     def __init__(self, device, generator=None, is_test=False, program=None,
-                 run_ops=None):
+                 run_ops=None, plan=None):
         self.device = device
         self._generator = generator
         self._seed_generator = None
         self.is_test = is_test
         self.program = program
         self.run_ops = run_ops
+        self.plan = plan
         self.current_env = None
+        self.current_op = None
         self._constants = {}
+
+    def live_ops(self, block):
+        """The ops of `block` this run executes, in order."""
+        if self.plan is None:
+            return block.ops
+        return self.plan.ops.get(block.idx, block.ops)
+
+    def rnn_live(self, n_out, n_mem):
+        """(live output positions, live memory positions) of the
+        ``static_rnn`` op being lowered."""
+        got = None if self.plan is None else self.plan.rnn.get(
+            id(self.current_op))
+        return got or (set(range(n_out)), set(range(n_mem)))
 
     def constant(self, key, make):
         """``make()``'s tensor, made once a run for the object `key` (an op's

@@ -22,6 +22,13 @@
   the RNN cells and ``rnn()`` (the RNN slice).
 - A ``lod_level`` = 1 feed gets its ``@SEQ_LEN`` companion filled with
   full lengths, as in the JAX package, unless the caller feeds it.
+- Liveness (``fluid/lowering.py`` ``LivePlan``): a ``static_rnn`` stacks
+  only the outputs a run reads, and its step block runs only the ops they
+  and its live memories need; ops nothing reads are skipped, except a
+  dropout, which still draws (a later draw is unchanged, bit for bit), and
+  an op that writes a persistable (``auc``'s statistics, the optimizer's
+  update) with no fetched output. A fetch name no op computes still
+  raises ``OpLoweringError``.
 """
 import json
 
@@ -39,6 +46,7 @@ from paddle_tpu.ops.registry import get_lowering as jax_lowering
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import executor as pt_executor
 from paddle_tpu_torch.fluid import framework as pt_framework
+from paddle_tpu_torch.fluid import lowering as pt_lowering_mod
 from paddle_tpu_torch.fluid import unique_name as pt_unique_name
 from paddle_tpu_torch.fluid.io import params_from_numpy
 from paddle_tpu_torch.ops.registry import LowerContext
@@ -556,3 +564,137 @@ def test_lod_feed_gets_full_lengths():
     got, = exe.run(pmain, feed={"ids": ids, "ids@SEQ_LEN": lens},
                    fetch_list=pfetch)
     np.testing.assert_array_equal(got, lens)
+
+
+# ---------------------------------------------------------------------------
+# liveness: what a run skips, and what it never skips
+# ---------------------------------------------------------------------------
+class _record_static_rnn:
+    """While active, the port's static_rnn lowering records its outputs."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops import registry
+
+        self.lowerings, self.outs = registry.LOWERINGS, []
+
+    def __enter__(self):
+        orig = self.orig = self.lowerings["static_rnn"]
+
+        def recording(ctx, ins, attrs):
+            out = orig(ctx, ins, attrs)
+            self.outs.append(list(out["Out"]))
+            return out
+
+        self.lowerings["static_rnn"] = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.lowerings["static_rnn"] = self.orig
+
+
+def test_static_rnn_stacks_only_the_outputs_a_run_reads(monkeypatch):
+    pmain, pstart, (hs, sums) = _build(fluid, pt_unique_name,
+                                       _static_rnn_prog)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(pstart, scope=scope)
+    feed = {"xs": _rand(5, 2, 3, seed=3), "h0": _rand(2, 4, seed=4)}
+    with _record_static_rnn() as rec:
+        only, = exe.run(pmain, feed=feed, fetch_list=[sums], scope=scope)
+        both = exe.run(pmain, feed=feed, fetch_list=[hs, sums], scope=scope)
+    # fetching the sums alone: no stack of the hidden states, and the step
+    # block's fc ops and its memory are dead
+    assert rec.outs[0][0] is None and rec.outs[0][1].shape == (5, 2)
+    assert all(o is not None for o in rec.outs[1])
+    np.testing.assert_array_equal(only, both[1])
+    plan = pt_lowering_mod.live_plan(pmain, [sums.name])
+    assert [op.type for op in plan.ops[1]] == ["reduce_sum"]
+    rnn = pmain.global_block().ops[-1]
+    assert plan.rnn[id(rnn)] == ({1}, set())
+    # the full op list (no plan) gives the same bits
+    monkeypatch.setattr(pt_lowering_mod, "live_plan", lambda p, f: None)
+    full = exe.run(pmain, feed=feed, fetch_list=[hs, sums], scope=scope)
+    for a, b in zip(both, full):
+        np.testing.assert_array_equal(a, b)
+
+
+def _two_dropouts(first=True):
+    main, start = fluid.Program(), fluid.Program()
+    main.random_seed = 3
+    with fluid.program_guard(main, start):
+        x = fluid.data("x", [-1, 64], dtype="float32")
+        d1 = fluid.layers.dropout(x, 0.5) if first else None
+        d2 = fluid.layers.dropout(x, 0.5)
+    return main, d1, d2
+
+
+def test_a_dead_dropout_still_draws():
+    x = np.ones((4, 64), np.float32)
+    main, d1, d2 = _two_dropouts()
+    plan = pt_lowering_mod.live_plan(main, [d2.name])
+    assert [op.type for op in plan.ops[0]] == ["dropout", "dropout"]
+    alone, = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"x": x}, fetch_list=[d2])
+    both = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"x": x}, fetch_list=[d1, d2])
+    np.testing.assert_array_equal(alone, both[1])
+    # the first draw is what moves the second: without it the mask differs
+    main1, _, d2b = _two_dropouts(first=False)
+    main1.random_seed = 3
+    single, = fluid.Executor(fluid.CPUPlace()).run(
+        main1, feed={"x": x}, fetch_list=[d2b])
+    assert not np.array_equal(single, alone)
+
+
+def test_ops_that_write_persistables_run_unfetched():
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        x = fluid.data("x", [-1, 3], dtype="float32")
+        label = fluid.data("label", [-1, 1], dtype="int64")
+        prob = fluid.layers.sigmoid(fluid.layers.fc(x, 1))
+        loss = fluid.layers.mean(fluid.layers.log_loss(
+            prob, fluid.layers.cast(label, "float32")))
+        _, (pos, neg) = fluid.layers.auc(prob, label)
+        fluid.layers.scale(loss, scale=2.0)           # read by nothing
+        fluid.optimizer.SGD(0.5).minimize(loss)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(start, scope=scope)
+    w = main.all_parameters()[0].name
+    before = scope[w].clone()
+    plan = pt_lowering_mod.live_plan(main, [])
+    assert "scale" not in [op.type for op in plan.ops[0]]
+    assert {"auc", "sgd", "backward"} <= {op.type for op in plan.ops[0]}
+    assert exe.run(main, feed={"x": _rand(8, 3),
+                               "label": np.ones((8, 1), np.int64)},
+                   scope=scope) == []
+    assert float(scope[pos.name].sum()) == 8.0
+    assert float(scope[neg.name].sum()) == 0.0
+    assert not torch.equal(scope[w], before)
+
+
+def test_a_fetch_no_op_computes_still_raises():
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        x = fluid.data("x", [-1, 3], dtype="float32")
+        fluid.layers.scale(x, scale=2.0)
+        orphan = main.global_block().create_var(name="orphan", shape=(3,),
+                                                dtype="float32")
+    with pytest.raises(pt_lowering_mod.OpLoweringError,
+                       match="never computed"):
+        fluid.Executor(fluid.CPUPlace()).run(
+            main, feed={"x": _rand(2, 3)}, fetch_list=[orphan])
+
+
+def test_every_lowering_that_draws_is_kept_live():
+    """Each lowering that reads the run's generator (``next_rng`` or
+    ``next_seed``) is in ``DRAWS``, so a run never skips its draw."""
+    import inspect
+    import re
+
+    from paddle_tpu_torch.ops.registry import LOWERINGS
+
+    draws = {name for name, fn in LOWERINGS.items()
+             if re.search(r"next_(rng|seed)\(", inspect.getsource(fn))}
+    assert draws and draws <= pt_lowering_mod.DRAWS
+    assert pt_lowering_mod.DRAWS <= set(LOWERINGS)

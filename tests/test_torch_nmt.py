@@ -20,6 +20,10 @@ package, on the CPU.
   gradients 7.7e-7). The attention key biases' exact gradient is 0
   (softmax cancels them), so both packages' are held to rounding noise,
   1e-7 of the largest gradient, instead (measured 6.6e-9).
+- Liveness: the beam program's fetched ids and scores are bit-identical
+  with the pruned op list and the full one; at bench.py's width the run
+  skips 24 global ops and stacks 3 of ``static_rnn``'s 16 step outputs
+  (none of the 8 KV caches).
 - ``build_gpt_generate`` at gpt_tiny on JAX-initialised parameters:
   greedy ids equal to the JAX package's; top-k with k = 1 gives the
   greedy ids through ``sampling_id``; top-k with k = 3 is deterministic
@@ -39,6 +43,7 @@ from paddle_tpu.models import transformer_nmt as jnmt
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import executor as pt_executor
 from paddle_tpu_torch.fluid import framework as pt_framework
+from paddle_tpu_torch.fluid import lowering as pt_lowering
 from paddle_tpu_torch.fluid import unique_name as pt_unique_name
 from paddle_tpu_torch.fluid.inference import Predictor
 from paddle_tpu_torch.fluid.io import params_from_numpy
@@ -190,6 +195,42 @@ def test_beam_translation_matches_jax():
     _assert_beams(*got, *want)
     # beams keep their score order, and finished beams stay finished
     assert (np.diff(got[1], axis=1) <= 0).all()
+
+
+def test_pruned_beam_program_is_bit_identical_to_the_full_one(
+        monkeypatch):
+    pmain, pstart, pvs = _build(fluid, pt_unique_name,
+                                _beam(nmt, _small(nmt)))
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(pstart, scope=scope)
+    feed = {"src_ids": _src(_small(nmt), seed=4)}
+    fetch = [pvs["ids"], pvs["scores"]]
+    pruned = exe.run(pmain, feed=feed, fetch_list=fetch, scope=scope)
+    monkeypatch.setattr(pt_lowering, "live_plan", lambda p, f: None)
+    full = exe.run(pmain, feed=feed, fetch_list=fetch, scope=scope)
+    for a, b in zip(pruned, full):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bench_beam_program_skips_the_unread_states():
+    pmain, _, pvs = _build(fluid, pt_unique_name,
+                           _beam(nmt, nmt.NMTConfig(**BENCH), 32, 48, 4))
+    plan = pt_lowering.live_plan(pmain, [pvs["ids"].name,
+                                         pvs["scores"].name])
+    ops = pmain.global_block().ops
+    dead = [op.type for op in ops if op not in plan.ops[0]]
+    assert len(ops) == 224 and sorted(set(dead)) == ["slice", "squeeze2"]
+    assert len(dead) == 24
+    rnn = next(op for op in ops if op.type == "static_rnn")
+    outs, mems = plan.rnn[id(rnn)]
+    assert len(rnn.output("Out")) == 16 and sorted(outs) == [1, 2, 13]
+    assert len(plan.ops[1]) == 314 and len(pmain.block(1).ops) == 331
+    # the 8 KV caches (two per decoder layer) are carried, never stacked
+    caches = [i for i, n in enumerate(rnn.attrs["mem_names"])
+              if any(n in op.input("X") for op in pmain.block(1).ops
+                     if op.type == "decode_cache_write")]
+    assert len(mems) == 12 and not outs & set(caches)
 
 
 def test_jax_saved_beam_program_served_by_port(tmp_path):
