@@ -167,7 +167,37 @@ Phases, each of which exits non-zero on failure:
    over one epoch leaves every trainable parameter bit-identical and adds
    an epoch of samples to the auc statistics; and, with the other
    profiles, one profiled epoch (busy, idle share, top kernels, the
-   embedding gradient, Adam, the host-to-device copies, cudaLaunchKernel).
+   embedding gradient, Adam, the host-to-device copies, cudaLaunchKernel);
+11. the serving front door, after phase 10 and before the profiles: (a)
+   ``fluid.core.create_paddle_predictor(fluid.core.AnalysisConfig(dir))``
+   on phase 4's model runs on the card, a batch of 8 bit-identical to
+   ``Predictor.from_model(dir)``, and with ``disable_gpu()`` on the CPU
+   within 1e-3·max|logit| of the card; (b) the main path of
+   ``:predict``: phase 4's BERT-base (seed 1234, seq 128, f32) saved
+   pruned to ``encoder_out``, ``ModelRegistry.load`` with buckets (1, 2,
+   4, 8) behind ``ServingServer``, 4 closed-loop urllib clients x 16
+   requests of 1-4 rows with every counter at 0 just before: 12 attention
+   and 25 LayerNorm forward launches per dispatch, each reply within
+   1e-3·max|x| of the same rows through a solo card ``Predictor``; req/s,
+   the client's p50/p99, the server's ``serving.request_seconds`` p50 from
+   ``/metrics``, the share of client latency outside the engine, the
+   padding waste, the coalesced batches, one reply row's JSON cost; (c)
+   the main path of ``:generate``: phase 8's ``DecodeEngine(slots=8,
+   cache_len=1024)`` configuration published behind the same server,
+   phase 8c's chat traffic streamed over chunked HTTP with every counter
+   at 0 just before: 24 LayerNorm forward launches per prefill and per
+   step, every stream equal to its prompt served alone in 8b; tokens/s,
+   TTFT and gap p50/p99, the ``slot_utilization`` gauge's peak sampled as
+   bench.py does; one ``"stream": false`` request; a client that hangs up
+   after 3 tokens (cancelled, its slot free); a ``"trace": true`` request
+   whose span file holds ``http.generate``, ``decode.queue`` and
+   ``decode.prefill`` under one trace id; (d) ``python -m
+   paddle_tpu_torch.serving.http --model bert=DIR --port 0`` as a child:
+   its ``serving bert on`` line, one ``:predict`` equal to (b)'s reply
+   within (b)'s bound, ``/healthz`` and ``/metrics``, exit 0 on SIGINT;
+   (e) (b)'s load and a phase-8c-sized decode load with
+   ``PADDLE_TPU_TELEMETRY=off`` and ``on`` in alternation (the cost is
+   printed, not gated).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -482,17 +512,20 @@ def check_bwd_kernels(ca, cl):
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
-def build_bert_base(fluid, bert, dirname):
-    """BERT-base (seq 128, inference, pruned to logits) built in the port,
-    its startup run on the card from a seeded generator, saved."""
+def build_bert_base(fluid, bert, dirname, target="logits", cfg=None,
+                    seq=SEQ):
+    """BERT-base (seq 128, inference, pruned to `target`: the logits, or
+    phase 11's ``encoder_out``) built in the port, its startup run on the
+    card from a seeded generator, saved."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
-        io = bert.build_bert_pretrain(bert.bert_base(), SEQ, is_test=True)
+        io = bert.build_bert_pretrain(cfg or bert.bert_base(), seq,
+                                      is_test=True)
     startup.random_seed = SEED
     scope = fluid.Scope()
     exe = fluid.Executor()      # the card
     exe.run(startup, scope=scope)
-    fluid.io.save_inference_model(dirname, ["input_ids"], [io["logits"]],
+    fluid.io.save_inference_model(dirname, ["input_ids"], [io[target]],
                                   exe, main_program=main, scope=scope)
 
 
@@ -2130,7 +2163,8 @@ def gpt_serving(fluid, serving, ca, cl, cfg, scope, card,
     c_toks, c_ttft, c_gaps, c_wall = decode_load(eng, prompts, max_new)
     if c_toks != solo:
         fail("8c: the timed continuous load gave other tokens")
-    stats = {"continuous": dict(wall=c_wall, ttft=c_ttft, gaps=c_gaps)}
+    stats = {"continuous": dict(wall=c_wall, ttft=c_ttft, gaps=c_gaps),
+             "solo": solo}     # 11c holds its HTTP streams to these
     step_fn, step_stats = gpt_step_times(eng, card) if cuda else (None, {})
     stats.update(step_stats)
     if cuda:
@@ -3191,6 +3225,577 @@ def ctr_profile(epoch, stats, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving front door
+# ---------------------------------------------------------------------------
+# 11a: AnalysisConfig / create_paddle_predictor on phase 4's model. 11b:
+# BERT-base (phase 4's seed and width) pruned to encoder_out (B, 128, 768),
+# behind ModelRegistry + ServingServer: 4 closed-loop urllib clients x 16
+# :predict requests of 1-4 rows. 11c: phase 8's engine configuration
+# published behind the same server, phase 8c's chat traffic streamed over
+# chunked :generate. 11d: the standalone entry point in a child process.
+# 11e: 11b's load and a phase-8c-sized load with telemetry off and on.
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_MAX_ROWS = 4, 16, 4
+HTTP_TOL = 1e-3                  # x max|x|, as phase 4 holds card vs CPU
+HTTP_WAIT = 300.0                # s: the bound of every wait in phase 11
+HTTP_CANCEL_AFTER = 3            # tokens a client reads before hanging up
+
+
+def http_post(url, doc, timeout=HTTP_WAIT):
+    """(status, parsed JSON body) of one POST; an HTTP error is an
+    answer here, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, json.loads(e.read() or b"{}")
+
+
+def http_get(url, timeout=HTTP_WAIT):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def reply_array(doc):
+    o = doc["outputs"][0]
+    return np.asarray(o["data"], dtype=o["dtype"]).reshape(o["shape"])
+
+
+def prom_value(text, name):
+    """The value of the sample line `name` in Prometheus text, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    return None
+
+
+def analysis_config_phase(fluid, dirname, requests):
+    """11a: create_paddle_predictor(AnalysisConfig(dir)) on phase 4's logits
+    model runs on the card, bit-identical to Predictor.from_model(dir) on a
+    batch of 8; with disable_gpu() it runs on the CPU, within phase 4's
+    1e-3 x max|logit| of the card."""
+    batch = {"input_ids": np.concatenate(requests[:8])}
+    cfg = fluid.core.AnalysisConfig(dirname)
+    cfg.switch_ir_optim(True)
+    pred = fluid.core.create_paddle_predictor(cfg)
+    if pred.place != fluid.CUDAPlace(0) or not cfg.use_gpu():
+        fail("11a: a fresh AnalysisConfig runs on %s, not the card"
+             % pred.place)
+    got = pred.run(batch)[0]
+    ref = fluid.Predictor.from_model(dirname).run(batch)[0]
+    same = bool(np.array_equal(got, ref))
+    cfg.disable_gpu()
+    cpu = fluid.core.create_paddle_predictor(cfg)
+    if cpu.place != fluid.CPUPlace():
+        fail("11a: disable_gpu() runs on %s, not the CPU" % cpu.place)
+    t0 = time.monotonic()
+    on_cpu = cpu.run(batch)[0]
+    scale = float(np.abs(got).max())
+    err = float(np.abs(on_cpu - got).max())
+    print("11a AnalysisConfig: create_paddle_predictor on %s, batch 8 "
+          "bit-identical to Predictor.from_model: %s; disable_gpu() on %s "
+          "(%.1f s): max|d| %.3e, bound %.3e" % (
+              pred.place, same, cpu.place, time.monotonic() - t0, err,
+              HTTP_TOL * scale), flush=True)
+    if not same:
+        fail("11a: create_paddle_predictor differs from Predictor.from_model "
+             "on the card")
+    if not np.isfinite(got).all() or err > HTTP_TOL * scale:
+        fail("11a: the CPU predictor disagrees with the card's")
+
+
+def http_requests(n, vocab, seq=SEQ, seed=SEED + 11):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=(int(rng.integers(
+        1, HTTP_MAX_ROWS + 1)), seq), dtype=np.int64) for _ in range(n)]
+
+
+def http_predict_load(url, requests, n_clients=HTTP_CLIENTS):
+    """Closed-loop :predict clients (client c sends requests c, c + n, ...);
+    returns the replies as arrays, the latencies (s) and the wall (s)."""
+    replies = [None] * len(requests)
+    lat = [None] * len(requests)
+    errors = []
+
+    def client(idx):
+        for i in idx:
+            t0 = time.monotonic()
+            try:
+                code, doc = http_post(
+                    url, {"feeds": {"input_ids": requests[i].tolist()}})
+                if code != 200:
+                    raise RuntimeError("status %d: %s" % (code, doc))
+                replies[i] = reply_array(doc)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("request %d: %s: %s" % (i, type(e).__name__, e))
+            lat[i] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(requests), n_clients),))
+               for c in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_WAIT)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("11b :predict load: %s" % (errors or "client threads hung"))
+    return replies, lat, wall
+
+
+def json_round_trip_ms(reply):
+    """Host ms of one reply row's trip through JSON: the server's tolist +
+    dumps, the client's loads + asarray (float32 comes back bit-exact)."""
+    t0 = time.perf_counter()
+    text = json.dumps({"outputs": [{"data": reply.tolist(),
+                                    "shape": list(reply.shape),
+                                    "dtype": str(reply.dtype)}]})
+    t1 = time.perf_counter()
+    back = reply_array(json.loads(text))
+    t2 = time.perf_counter()
+    if not np.array_equal(back, reply):
+        fail("11b: a float32 reply did not survive its JSON round trip")
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1), len(text)
+
+
+def http_predict_phase(fluid, serving, ca, cl, bert, dirname, card,
+                       cfg=None, seq=SEQ):
+    """11b: BERT-base pruned to encoder_out behind ModelRegistry.load and
+    ServingServer; 4 closed-loop clients x 16 :predict requests of 1-4 rows
+    with every counter at 0 just before (12 attention and 25 LayerNorm
+    forward launches per dispatch); each reply within 1e-3 x max|x| of the
+    same rows through a solo card Predictor. Returns the registry, the
+    server, the requests and replies, the launches and the numbers."""
+    from paddle_tpu_torch import observability as obs
+
+    cfg = cfg or bert.bert_base()
+    t0 = time.monotonic()
+    build_bert_base(fluid, bert, dirname, target="encoder_out", cfg=cfg,
+                    seq=seq)
+    reg = serving.ModelRegistry(max_batch_size=8, max_wait_ms=5.0)
+    engine = reg.load("bert", dirname, buckets=[serving.BucketSpec(
+        {"input_ids": (seq,)}, dtypes={"input_ids": "int64"},
+        batch_sizes=(1, 2, 4, 8))])
+    srv = serving.ServingServer(reg).start()
+    _sync()
+    print("11b bert encoder_out: built, saved, loaded and warmed up (every "
+          "bucket once) behind %s in %.1f s" % (srv.url,
+                                                time.monotonic() - t0),
+          flush=True)
+    requests = http_requests(HTTP_CLIENTS * HTTP_PER_CLIENT, cfg.vocab_size,
+                             seq)
+    url = srv.url + "/v1/models/bert:predict"
+    st0 = engine.stats()
+    obs.reset()
+    fns = zero_counters(ca, cl)
+    replies, lat, wall = http_predict_load(url, requests)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    st1 = engine.stats()
+    dispatches = st1["batches"] - st0["batches"]
+    coalesced = st1["coalesced"] - st0["coalesced"]
+    rows = sum(r.shape[0] for r in requests)
+    print("11b :predict load [%s]: %d requests (%d rows) from %d clients in "
+          "%.3f s over %d dispatches (%d coalesced); launches %s" % (
+              card, len(requests), rows, HTTP_CLIENTS, wall, dispatches,
+              coalesced, launches), flush=True)
+    # per forward: one attention a layer; two LayerNorms a layer and the
+    # embeddings' (12 and 25 at BERT-base)
+    check_launches("11b", fns, {
+        "flash_attn_fwd": cfg.num_layers * dispatches,
+        "layer_norm_fwd": (2 * cfg.num_layers + 1) * dispatches})
+    if dispatches < 1:
+        fail("11b: no dispatch")
+    solo_pred = fluid.Predictor.from_model(dirname)
+    solo = [solo_pred.run({"input_ids": r})[0] for r in requests]
+    scale = max(float(np.abs(s).max()) for s in solo)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(replies, solo))
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(replies, solo))
+    shapes_ok = all(a.shape == (r.shape[0], seq, cfg.hidden)
+                    for a, r in zip(replies, requests))
+    print("11b replies vs a solo card Predictor: max|d| %.3e (%d/%d "
+          "bit-identical), bound %.3e x max|x| = %.3e" % (
+              err, same, len(requests), HTTP_TOL, HTTP_TOL * scale),
+          flush=True)
+    # cuBLAS picks its kernel by M, so coalesced rows may be summed in
+    # another order than the same rows alone
+    if not shapes_ok or not all(np.isfinite(a).all() for a in replies) \
+            or err > HTTP_TOL * scale:
+        fail("11b: replies differ from the solo predictor's")
+    os.environ["PADDLE_TPU_PROM_STYLE"] = "summary"
+    try:
+        _, prom = http_get(srv.url + "/metrics")
+    finally:
+        del os.environ["PADDLE_TPU_PROM_STYLE"]
+    p50_server = prom_value(
+        prom, 'paddle_tpu_serving_request_seconds{quantile="0.5"}')
+    server_sum = prom_value(prom, "paddle_tpu_serving_request_seconds_sum")
+    server_n = prom_value(prom, "paddle_tpu_serving_request_seconds_count")
+    waste = prom_value(prom, "paddle_tpu_serving_padding_waste_sum") / \
+        prom_value(prom, "paddle_tpu_serving_padding_waste_count")
+    if server_n != len(requests) or p50_server is None:
+        fail("11b: /metrics counts %s requests, want %d" % (
+            server_n, len(requests)))
+    lat_ms = sorted(1e3 * x for x in lat)
+    outside = 1 - server_sum / sum(lat)
+    dumps_ms, loads_ms, nbytes = json_round_trip_ms(replies[0][:1])
+    stats = dict(wall=wall, req_per_s=len(requests) / wall,
+                 rows_per_s=rows / wall, p50_ms=_pct(lat_ms, 0.5),
+                 p99_ms=_pct(lat_ms, 0.99),
+                 server_p50_ms=1e3 * p50_server, outside_share=outside,
+                 padding_waste=waste, dispatches=dispatches,
+                 coalesced=coalesced, json_dumps_ms=dumps_ms,
+                 json_loads_ms=loads_ms, reply_row_bytes=nbytes)
+    print("11b :predict [%s]: %.2f req/s (%.2f rows/s); client p50 %.3f "
+          "ms, p99 %.3f ms; server serving.request_seconds p50 %.3f ms "
+          "(/metrics); %.1f%% of client latency outside the engine (JSON, "
+          "sockets, threads); padding waste mean %.3f; %d dispatches, %d "
+          "coalesced; one reply row's JSON: server tolist+dumps %.1f ms, "
+          "client loads+asarray %.1f ms, %d bytes" % (
+              card, stats["req_per_s"], stats["rows_per_s"], stats["p50_ms"],
+              stats["p99_ms"], stats["server_p50_ms"], 100 * outside, waste,
+              dispatches, coalesced, dumps_ms, loads_ms, nbytes), flush=True)
+    del solo_pred
+    return reg, srv, requests, replies, launches, stats
+
+
+def http_stream(url, body, timeout=GPT_WAIT):
+    """One streamed :generate: (token ids, time to first token s, the gaps
+    between tokens s, the done line)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, times, done = [], [], None
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            doc = json.loads(line)
+            if "token" in doc:
+                toks.append(doc["token"])
+                times.append(time.monotonic())
+            else:
+                done = doc
+    if not times:
+        raise RuntimeError("no token streamed: %s" % done)
+    return (toks, times[0] - t0, [b - a for a, b in zip(times, times[1:])],
+            done)
+
+
+def http_generate_load(url, prompts, max_new=GPT_MAX_NEW,
+                       n_clients=GPT_CLIENTS):
+    """decode_load over chunked HTTP: closed-loop clients, each streaming
+    its contiguous share of `prompts` one after another."""
+    n = len(prompts)
+    per = -(-n // n_clients)
+    toks, ttft, gaps, dones, errors = [None] * n, [None] * n, [], [None] * n, []
+    lock = threading.Lock()
+
+    def client(idx):
+        for i in idx:
+            try:
+                toks[i], ttft[i], g, dones[i] = http_stream(
+                    url, {"prompt": prompts[i].tolist(),
+                          "max_new_tokens": max_new})
+                with lock:
+                    gaps.extend(g)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("request %d: %s: %s" % (i, type(e).__name__, e))
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c * per, min(n, (c + 1) * per)),))
+               for c in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=GPT_WAIT)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("11c :generate load: %s" % (errors or "client threads hung"))
+    return toks, ttft, gaps, dones, wall
+
+
+def gauge_peak(name):
+    """Samples the hub gauge `name` every 2 ms (as bench.py:1087-1092 does)
+    until the returned stop() is called; stop() gives the peak."""
+    from paddle_tpu_torch import observability as obs
+
+    peak, done = [0.0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            g = obs.gauge(name)
+            if g is not None:
+                peak[0] = max(peak[0], g)
+            time.sleep(0.002)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join(timeout=10)
+        return peak[0]
+
+    return stop
+
+
+def http_cancel_after(srv, path, body, n_tokens):
+    """A raw client that reads `n_tokens` token chunks of a streamed
+    :generate and hangs up; returns the token lines it saw."""
+    import socket
+
+    data = json.dumps(body).encode()
+    raw = socket.create_connection((srv.host, srv.port), timeout=HTTP_WAIT)
+    try:
+        raw.sendall(b"POST %s HTTP/1.1\r\nHost: smoke\r\nContent-Type: "
+                    b"application/json\r\nContent-Length: %d\r\n\r\n%s" % (
+                        path.encode(), len(data), data))
+        got = b""
+        while got.count(b'"token"') < n_tokens:
+            chunk = raw.recv(65536)
+            if not chunk:
+                break
+            got += chunk
+    finally:
+        raw.close()
+    return got.count(b'"token"')
+
+
+def http_generate_phase(fluid, serving, ca, cl, cfg, scope, solo, reg, srv,
+                        card, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                        max_new=GPT_MAX_NEW):
+    """11c: phase 8's engine configuration published behind the server;
+    phase 8c's chat traffic over chunked :generate with every counter at 0
+    just before (24 LayerNorm forward launches per prefill and per step);
+    every stream equal to its prompt served alone in phase 8b. Then one
+    "stream": false request, a client that hangs up after 3 tokens (the
+    stream ends cancelled and its slot is free), and a "trace": true
+    request whose spans land in a temporary PADDLE_TPU_TRACE_DIR. Returns
+    the engine, the launches and the numbers."""
+    from paddle_tpu_torch import observability as obs
+
+    prompts = gpt_prompts(cfg.vocab)
+    t0 = time.monotonic()
+    eng = serving.DecodeEngine(cfg, scope, slots=slots, cache_len=cache_len,
+                               name="gpt")
+    eng.warmup()
+    reg.publish("gpt", eng)
+    _sync()
+    print("11c gpt engine: %d slots, cache_len %d, built, warmed up and "
+          "published in %.1f s" % (slots, cache_len, time.monotonic() - t0),
+          flush=True)
+    url = srv.url + "/v1/models/gpt:generate"
+    st0 = eng.stats()
+    fns = zero_counters(ca, cl)
+    util = gauge_peak("serving.decode.slot_utilization.gpt")
+    toks, ttft, gaps, dones, wall = http_generate_load(url, prompts, max_new)
+    peak = util()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    st1 = eng.stats()
+    prefills = st1["prefills"] - st0["prefills"]
+    steps = st1["steps"] - st0["steps"]
+    print("11c :generate load [%s]: %d requests from %d clients in %.3f s: "
+          "%d prefills, %d steps; launches %s" % (
+              card, len(prompts), GPT_CLIENTS, wall, prefills, steps,
+              launches), flush=True)
+    check_launches("11c", fns, {
+        "layer_norm_fwd": 2 * cfg.num_layers * (prefills + steps)})
+    same = sum(a == b for a, b in zip(toks, solo))
+    ends = all(d == {"done": True, "finish_reason": "length", "tokens": t,
+                     "n_tokens": max_new} for d, t in zip(dones, toks))
+    print("11c streams vs the same prompt served alone (phase 8b): %d/%d "
+          "bit-identical; every done line's tokens equal the stream's: %s"
+          % (same, len(prompts), ends), flush=True)
+    if same != len(prompts) or not ends:
+        fail("11c: a stream over HTTP differs from its prompt served alone")
+    n_tok = len(prompts) * max_new
+    stats = dict(wall=wall, tokens_per_s=n_tok / wall,
+                 ttft_p50_ms=1e3 * _pct(ttft, 0.5),
+                 ttft_p99_ms=1e3 * _pct(ttft, 0.99),
+                 gap_p50_ms=1e3 * _pct(gaps, 0.5),
+                 gap_p99_ms=1e3 * _pct(gaps, 0.99), slot_util_peak=peak,
+                 prefills=prefills, steps=steps)
+    print("11c :generate [%s]: %d tokens in %.3f s: %.1f tokens/s; TTFT p50 "
+          "%.3f ms, p99 %.3f ms; gap p50 %.3f ms, p99 %.3f ms (%d gaps); "
+          "slot_utilization peak %.3f (sampled every 2 ms)" % (
+              card, n_tok, wall, stats["tokens_per_s"], stats["ttft_p50_ms"],
+              stats["ttft_p99_ms"], stats["gap_p50_ms"], stats["gap_p99_ms"],
+              len(gaps), peak), flush=True)
+    # "stream": false: one aggregate document
+    code, doc = http_post(url, {"prompt": prompts[1].tolist(),
+                                "max_new_tokens": max_new, "stream": False})
+    if code != 200 or doc["tokens"] != solo[1] \
+            or doc["finish_reason"] != "length":
+        fail("11c: the non-streamed request answered %d %s" % (
+            code, {k: v for k, v in doc.items() if k != "tokens"}))
+    # a client that hangs up after 3 tokens: its stream ends cancelled and
+    # its slot is free at the next step
+    st0 = eng.stats()
+    obs.get_recorder().clear()
+    seen = http_cancel_after(srv, "/v1/models/gpt:generate",
+                             {"prompt": prompts[0].tolist(),
+                              "max_new_tokens": max_new}, HTTP_CANCEL_AFTER)
+    t_gone = time.monotonic()
+    retired = []
+    while time.monotonic() - t_gone < HTTP_WAIT:
+        retired = obs.get_recorder().of("slot_retired")
+        if retired and eng.stats()["live_slots"] == 0:
+            break
+        time.sleep(0.001)
+    st1 = eng.stats()
+    steps_after = st1["steps"] - st0["steps"]
+    print("11c client hung up after %d tokens: retired %s, %d of %d tokens "
+          "generated, slot free after %.1f ms, %d steps in all, cancelled "
+          "%d" % (seen, [r["reason"] for r in retired],
+                  retired[0]["tokens"] if retired else -1, max_new,
+                  1e3 * (time.monotonic() - t_gone), steps_after,
+                  st1["cancelled"] - st0["cancelled"]), flush=True)
+    if seen < HTTP_CANCEL_AFTER or [r["reason"] for r in retired] != \
+            ["cancelled"] or st1["cancelled"] - st0["cancelled"] != 1 \
+            or st1["live_slots"] != 0 or retired[0]["tokens"] >= max_new:
+        fail("11c: the hung-up stream was not cancelled and its slot freed")
+    # a traced request: the span file holds http.generate and the engine's
+    # decode.queue and decode.prefill under one trace id
+    with tempfile.TemporaryDirectory() as trace_dir:
+        os.environ["PADDLE_TPU_TRACE_DIR"] = trace_dir
+        try:
+            t_toks, _, _, done = http_stream(url, {
+                "prompt": prompts[2].tolist(), "max_new_tokens": 4,
+                "trace": True})
+            t_end = time.monotonic() + HTTP_WAIT
+            while time.monotonic() < t_end and "decode.stream" not in {
+                    sp["name"] for sp in obs.read_spans(trace_dir)}:
+                time.sleep(0.01)
+            spans = obs.read_spans(trace_dir)
+        finally:
+            del os.environ["PADDLE_TPU_TRACE_DIR"]
+    names = sorted({sp["name"] for sp in spans})
+    ids = {sp["trace"] for sp in spans}
+    print("11c traced request: trace %s, %d spans %s under %d trace id(s)"
+          % (done.get("trace_id"), len(spans), names, len(ids)), flush=True)
+    if t_toks != solo[2][:4] or ids != {done.get("trace_id")} or not {
+            "http.generate", "decode.queue", "decode.prefill"} <= set(names):
+        fail("11c: the traced request's spans are missing or split")
+    return eng, launches, stats
+
+
+def http_cli_phase(dirname, request, reply):
+    """11d: python -m paddle_tpu_torch.serving.http --model bert=DIR --port 0
+    in a child process: its 'serving bert on' line within HTTP_WAIT s, one
+    :predict within 11b's tolerance of 11b's reply for the same rows,
+    /healthz listing bert, /metrics non-empty, and exit 0 within 30 s of
+    SIGINT."""
+    import queue
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    # the child must see SIGINT's default action so that python installs
+    # its KeyboardInterrupt handler (an ignored SIGINT would be inherited)
+    old = signal.signal(signal.SIGINT, signal.default_int_handler)
+    try:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.serving.http",
+             "--model", "bert=%s" % dirname, "--port", "0"],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    finally:
+        signal.signal(signal.SIGINT, old)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(x) for x in child.stdout] + [lines.put(None)],
+        daemon=True)
+    reader.start()
+    t0 = time.monotonic()
+    try:
+        url, log = None, []
+        while url is None and time.monotonic() - t0 < HTTP_WAIT:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            log.append(line.rstrip())
+            m = re.match(r"serving bert on (http://\S+)", line)
+            if m:
+                url = m.group(1)
+        if url is None:
+            fail("11d: no 'serving bert on' line in %.0f s: %s" % (
+                time.monotonic() - t0, log[-20:]))
+        t_up = time.monotonic() - t0
+        code, doc = http_post(url + "/v1/models/bert:predict",
+                              {"feeds": {"input_ids": request.tolist()}})
+        if code != 200:
+            fail("11d: :predict answered %d: %s" % (code, doc))
+        got = reply_array(doc)
+        scale = float(np.abs(reply).max())
+        err = float(np.abs(got - reply).max())
+        _, health = http_get(url + "/healthz")
+        _, prom = http_get(url + "/metrics")
+        models = sorted(json.loads(health)["models"])
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=30)
+        print("11d CLI: 'serving bert on %s' after %.1f s; :predict of %d "
+              "rows vs 11b's reply: max|d| %.3e, bound %.3e; /healthz "
+              "models %s; /metrics %d bytes; exit %d after SIGINT" % (
+                  url, t_up, request.shape[0], err, HTTP_TOL * scale,
+                  models, len(prom), rc), flush=True)
+        if err > HTTP_TOL * scale or models != ["bert"] or not prom \
+                or rc != 0:
+            fail("11d: the standalone server misbehaved")
+    except subprocess.TimeoutExpired:
+        fail("11d: the child did not exit within 30 s of SIGINT")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        reader.join(timeout=10)
+
+
+def telemetry_cost(url, requests, eng, prompts, solo, card,
+                   max_new=GPT_MAX_NEW):
+    """11e: 11b's :predict load and a phase-8c-sized decode load (direct to
+    the engine, as 8c times it), each run twice with PADDLE_TPU_TELEMETRY
+    off and on in alternation. The cost is a finding, not a gate; the
+    decode load's tokens must still be the solo ones."""
+    out = {}
+    for mode in ("off", "on"):
+        os.environ["PADDLE_TPU_TELEMETRY"] = mode
+        try:
+            _, _, wall = http_predict_load(url, requests)
+            toks, _, _, dwall = decode_load(eng, prompts, max_new)
+        finally:
+            del os.environ["PADDLE_TPU_TELEMETRY"]
+        if toks != solo:
+            fail("11e: the decode load with telemetry %s gave other tokens"
+                 % mode)
+        out[mode] = dict(predict_req_per_s=len(requests) / wall,
+                         decode_tokens_per_s=len(prompts) * max_new / dwall)
+        print("11e telemetry %-3s [%s]: :predict load %.3f s, %.2f req/s; "
+              "decode load %.3f s, %.1f tokens/s" % (
+                  mode, card, wall, out[mode]["predict_req_per_s"], dwall,
+                  out[mode]["decode_tokens_per_s"]), flush=True)
+    for key in ("predict_req_per_s", "decode_tokens_per_s"):
+        out[key + "_on_vs_off"] = out["on"][key] / out["off"][key] - 1
+    print("11e telemetry on vs off: :predict req/s %+.1f%%, decode tokens/s "
+          "%+.1f%% (one pair each, in this call)" % (
+              100 * out["predict_req_per_s_on_vs_off"],
+              100 * out["decode_tokens_per_s_on_vs_off"]), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3333,7 +3938,6 @@ def main():
                                                       lowering, card)
         nmt_train_launches, _ = nmt_train(fluid, nmt, ca, cl)
         gen_launches = gpt_generate_vs_cpu(fluid, gpt, ca, cl, gcfg, gscope)
-        del gscope
         secs9 = time.monotonic() - t9
         # phase 10: Wide&Deep CTR through train_from_dataset (10a-10c; the
         # profile comes with the others)
@@ -3342,6 +3946,28 @@ def main():
         ctr_launches, ctr_epoch, ctr_stats = ctr_bench(fluid, wd, ca, cl,
                                                        card, tmp)
         secs10 = time.monotonic() - t10
+        # phase 11: the serving front door (11a-11e) on phase 4's model and
+        # phase 8's weights; its loads are timed, so before the profiles
+        t11 = time.monotonic()
+        analysis_config_phase(fluid, tmp, requests)
+        enc_dir = os.path.join(tmp, "bert_encoder_out")
+        reg11, srv11, http_reqs, http_replies, predict_launches, \
+            predict_stats = http_predict_phase(fluid, serving, ca, cl, bert,
+                                               enc_dir, card)
+        gpt_eng11, generate_launches, generate_stats = http_generate_phase(
+            fluid, serving, ca, cl, gcfg, gscope, gpt_stats["solo"], reg11,
+            srv11, card)
+        http_cli_phase(enc_dir, http_reqs[0], http_replies[0])
+        telemetry_cost(srv11.url + "/v1/models/bert:predict", http_reqs,
+                       gpt_eng11, gpt_prompts(gcfg.vocab), gpt_stats["solo"],
+                       card)
+        srv11.stop(close_registry=True)
+        del gscope, gpt_eng11, reg11, http_replies
+        # launches_http: every kernel's count in 11b's and 11c's timed loads
+        http_launches = {n: predict_launches[n] + generate_launches[n]
+                         for n in predict_launches}
+        print("phase 11 (serving front door: 11a-11e) took %.1f s" % (
+            time.monotonic() - t11), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -3424,7 +4050,8 @@ def main():
     # launches_train_amp in the bf16 AMP training run, launches_decode in
     # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
     # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
-    # launches_ctr in 10b's timed epochs
+    # launches_ctr in 10b's timed epochs, launches_http in 11b's :predict
+    # and 11c's :generate loads
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -3437,6 +4064,7 @@ def main():
                      launches_nmt_train=nmt_train_launches[name],
                      launches_generate=gen_launches[name],
                      launches_ctr=ctr_launches[name],
+                     launches_http=http_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

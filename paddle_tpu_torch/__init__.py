@@ -11,6 +11,7 @@ place::
     from paddle_tpu_torch import serving
 """
 from . import fluid  # noqa: F401
+from . import observability  # noqa: F401
 from . import reader  # noqa: F401
 from . import serving  # noqa: F401
 

@@ -127,3 +127,14 @@ def np_dtype(dtype):
     to float32 (host copies of bf16 tensors are widened)."""
     s = convert_dtype(dtype)
     return np.dtype("float32" if s == VarType.BF16 else s)
+
+
+def __getattr__(name):
+    # deployment scripts reach AnalysisConfig / create_paddle_predictor
+    # through fluid.core (the reference exposes them via pybind); lazy to
+    # avoid a core <-> inference import cycle
+    if name in ("AnalysisConfig", "create_paddle_predictor"):
+        from . import inference
+
+        return getattr(inference, name)
+    raise AttributeError("module 'core' has no attribute %r" % name)

@@ -11,6 +11,12 @@ device (the card unless the caller passes ``place=CPUPlace()``)::
 There is no executable to compile, so ``warm`` runs the forward once (it
 builds the CUDA kernels at their first launch). The JAX package's
 analyzer gate and compile cache wait for their own slices.
+
+Deployment scripts reach the predictor through the reference's inference
+API, ``AnalysisConfig`` and ``create_paddle_predictor`` (also on
+``fluid.core``). Unlike the JAX package's, whose config runs on the CPU
+until ``enable_use_gpu()``, a fresh config here uses the card: the CPU is
+an explicit ``disable_gpu()``.
 """
 import numpy as np
 import torch
@@ -20,7 +26,7 @@ from .executor import (Executor, Scope, feed_dtypes, global_scope,
                        to_numpy, to_tensor)
 from .lowering import build_step_fn
 
-__all__ = ["Predictor"]
+__all__ = ["AnalysisConfig", "Predictor", "create_paddle_predictor"]
 
 
 class Predictor:
@@ -118,3 +124,82 @@ class Predictor:
         return list(fetches)
 
     __call__ = run
+
+
+class AnalysisConfig:
+    """Deployment config (ref: paddle/fluid/inference/api/
+    paddle_analysis_config.h via core.AnalysisConfig).
+
+    The place follows the port's rule: the card unless the caller asks
+    for the CPU. A fresh config uses ``CUDAPlace(0)``,
+    ``enable_use_gpu(device_id=i)`` picks ``CUDAPlace(i)``, and
+    ``disable_gpu()`` is the explicit request for ``CPUPlace()``. The
+    reference's IR passes, TensorRT and MKLDNN switches cannot apply to
+    an eager torch forward; they are accepted and recorded, so
+    deployment scripts run unchanged."""
+
+    def __init__(self, model_dir=None, params_file=None):
+        self.model_dir = model_dir
+        self.params_file = params_file
+        self._use_gpu = True
+        self._device_id = 0
+        self._switches = {}
+
+    # -- device ----------------------------------------------------------
+    def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
+        self._use_gpu = True
+        self._device_id = device_id
+
+    def disable_gpu(self):
+        self._use_gpu = False
+
+    def use_gpu(self):
+        return self._use_gpu
+
+    def gpu_device_id(self):
+        return self._device_id
+
+    def _place(self):
+        """The place a predictor built from this config runs on."""
+        if self._use_gpu:
+            return core.CUDAPlace(self._device_id)
+        return core.CPUPlace()
+
+    # -- accepted no-op switches ------------------------------------------
+    def switch_ir_optim(self, x=True):
+        self._switches["ir_optim"] = x
+
+    def enable_tensorrt_engine(self, **kw):
+        self._switches["tensorrt"] = kw
+
+    def enable_mkldnn(self):
+        self._switches["mkldnn"] = True
+
+    def switch_use_feed_fetch_ops(self, x=False):
+        self._switches["feed_fetch_ops"] = x
+
+    def switch_specify_input_names(self, x=True):
+        self._switches["specify_input_names"] = x
+
+    def set_cpu_math_library_num_threads(self, n):
+        self._switches["cpu_threads"] = n
+
+
+def create_paddle_predictor(config_or_dirname, **kw):
+    """ref inference api: create_paddle_predictor(AnalysisConfig | dir).
+    A dirname runs on the card, as ``Predictor.from_model`` does."""
+    if isinstance(config_or_dirname, str):
+        return Predictor.from_model(config_or_dirname, **kw)
+    if isinstance(config_or_dirname, AnalysisConfig):
+        cfg = config_or_dirname
+        if not cfg.model_dir:
+            raise ValueError("AnalysisConfig has no model_dir set")
+        if cfg.use_gpu() and not torch.cuda.is_available():
+            raise RuntimeError(
+                "AnalysisConfig asks for the card, and no CUDA device is "
+                "visible to torch; call disable_gpu() to run on the "
+                "CPU (CPUPlace)")
+        return Predictor.from_model(cfg.model_dir, place=cfg._place(), **kw)
+    raise TypeError(
+        "pass an AnalysisConfig or a save_inference_model dirname"
+    )

@@ -1,0 +1,265 @@
+"""Ring-buffer flight recorder + crash dumps.
+
+Port of paddle_tpu/observability/recorder.py; the crash dump leaves
+out the executable ledger and run-health state (ROADMAP.md Queue 1
+item 11).
+
+The recorder absorbs every structured event stream in the process —
+executor compile events, resilience retries/skips/saves, fleet
+heartbeat transitions — into ONE bounded ring, each event stamped with
+a monotonic timestamp so streams from different layers interleave in
+true order. ``dump_jsonl()`` writes the ring on demand;
+``install_excepthook()`` (installed automatically the first time an
+enabled recorder records) writes the last N events, the active span
+stacks, and the telemetry snapshot to a crash-dump file when an
+uncaught exception kills the process or a thread — the black box you
+read AFTER the run died, instead of re-running under a debugger.
+
+Crash-dump path: ``PADDLE_TPU_CRASH_DUMP`` env var, else
+``<tmpdir>/paddle_tpu_crash_<pid>.json``.
+"""
+import collections
+import itertools
+import json
+import os
+import sys
+import tempfile
+import threading
+import time
+import traceback
+
+from . import telemetry as _t
+from . import tracing as _tr
+
+__all__ = [
+    "FlightRecorder", "get_recorder", "install_excepthook",
+    "crash_dump_path", "CRASH_DUMP_ENV",
+]
+
+CRASH_DUMP_ENV = "PADDLE_TPU_CRASH_DUMP"
+
+
+def crash_dump_path(per_pid=False):
+    """Where a crash dump would be written right now.
+
+    ``per_pid=True`` derives a pid-suffixed variant of the
+    ``$PADDLE_TPU_CRASH_DUMP`` override (``dump.json`` ->
+    ``dump.<pid>.json``) so several crashing worker processes that
+    inherited one env value don't clobber each other's dump. The
+    default (unset env) path already embeds the pid. Idempotent: a
+    path that already carries this pid's suffix is returned as-is."""
+    base = os.environ.get(CRASH_DUMP_ENV)
+    if not base:
+        return os.path.join(
+            tempfile.gettempdir(),
+            "paddle_tpu_crash_%d.json" % os.getpid())
+    if not per_pid:
+        return base
+    root, ext = os.path.splitext(base)
+    tag = ".%d" % os.getpid()
+    if root.endswith(tag):
+        return base
+    return root + tag + (ext or ".json")
+
+
+def _san(v):
+    """JSON-safe view of an event field (numpy scalars/arrays, torch
+    tensors, exceptions — anything may ride in an event)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (list, tuple, set, frozenset)):
+        return [_san(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _san(x) for k, x in v.items()}
+    item = getattr(v, "item", None)
+    if item is not None and getattr(v, "ndim", None) == 0:
+        try:
+            return item()
+        except Exception:  # noqa: BLE001 — fall through to repr
+            pass
+    tolist = getattr(v, "tolist", None)
+    size = getattr(v, "size", 1 << 30)
+    if callable(size):  # torch.Tensor.size is a method; numel() counts
+        numel = getattr(v, "numel", None)
+        size = numel() if callable(numel) else 1 << 30
+    if tolist is not None and size <= 64:
+        try:
+            return tolist()
+        except Exception:  # noqa: BLE001
+            pass
+    return repr(v)[:200]
+
+
+class FlightRecorder:
+    """Bounded ring of timestamped events.
+
+    ``enabled=None`` (the global recorder) follows the live
+    ``PADDLE_TPU_TELEMETRY`` mode; an explicitly constructed recorder
+    defaults to ``enabled=True`` so wiring one into a TrainGuard /
+    FleetGuard records regardless of the env switch.
+    """
+
+    def __init__(self, maxlen=4096, enabled=True):
+        self._lock = threading.Lock()
+        self._seq = itertools.count()
+        self.events = collections.deque(maxlen=int(maxlen))
+        self._enabled = enabled
+
+    def _live(self):
+        if self._enabled is None:
+            return _t.mode() != _t.OFF
+        return bool(self._enabled)
+
+    def record(self, kind, **fields):
+        """Append one event; returns it (None when disabled)."""
+        if not self._live():
+            return None
+        ev = {"seq": next(self._seq), "ts": time.monotonic(),
+              "wall": time.time(), "kind": kind}
+        ev.update(fields)
+        with self._lock:
+            self.events.append(ev)
+        _maybe_install_excepthook()
+        return ev
+
+    def sink(self, source=None):
+        """An ``EventLog``-style sink callback routing into this ring:
+        ``log = EventLog(sink=recorder.sink("resilience"))``."""
+
+        def _sink(ev):
+            ev = dict(ev)
+            kind = ev.pop("kind", "event")
+            if source is not None:
+                ev.setdefault("source", source)
+            self.record(kind, **ev)
+
+        return _sink
+
+    def of(self, kind):
+        with self._lock:
+            return [ev for ev in self.events if ev["kind"] == kind]
+
+    def tail(self, n=None):
+        """The newest `n` events (all, when n is None), ordered by
+        monotonic timestamp so multi-thread streams interleave true."""
+        with self._lock:
+            evs = sorted(self.events, key=lambda e: (e["ts"], e["seq"]))
+        return evs if n is None else evs[-int(n):]
+
+    def clear(self):
+        with self._lock:
+            self.events.clear()
+
+    # -- dumps -----------------------------------------------------------
+    def dump_jsonl(self, path):
+        """Write every held event as one JSON object per line, ordered
+        by monotonic timestamp. Returns the path."""
+        evs = self.tail()
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            for ev in evs:
+                f.write(json.dumps({k: _san(v) for k, v in ev.items()}))
+                f.write("\n")
+        return path
+
+    def crash_dump(self, path=None, exc=None):
+        """Write the black box: last events + active spans + telemetry
+        snapshot + the compile-cache hit/miss counters, plus the
+        exception when given. The JAX package's dump also carries the
+        executable-ledger tail and the run-health state; their modules
+        come with ROADMAP.md Queue 1 item 11, and until then the dump
+        keeps those keys empty (``executables`` [], ``runhealth`` None).
+        Returns the path, or None if even the dump write failed (a
+        crash path must not raise)."""
+        path = path or crash_dump_path()
+        doc = {
+            "wall": time.time(),
+            "pid": os.getpid(),
+            "events": [{k: _san(v) for k, v in ev.items()}
+                       for ev in self.tail()],
+            "active_spans": _tr.active_spans(),
+            "telemetry": _t.get_telemetry().snapshot(),
+            "executables": [],
+            "runhealth": None,
+        }
+        try:
+            hub = _t.get_telemetry()
+            doc["compile_cache"] = {
+                k: hub.counter("compile_cache." + k)
+                for k in ("disk_hit", "disk_miss", "corrupt",
+                          "corrupt_digest", "corrupt_deserialize",
+                          "store", "store_error")}
+        except Exception:  # noqa: BLE001
+            doc["compile_cache"] = {}
+        if exc is not None:
+            doc["exception"] = {
+                "type": type(exc).__name__,
+                "message": str(exc)[:2000],
+                "traceback": "".join(traceback.format_exception(
+                    type(exc), exc, exc.__traceback__))[-8000:],
+            }
+        try:
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+            tmp = "%s.tmp-%d" % (path, os.getpid())
+            with open(tmp, "w") as f:
+                json.dump(doc, f, default=_san)
+            os.replace(tmp, path)
+            return path
+        except Exception:  # noqa: BLE001 — crash path must not raise
+            return None
+
+
+_global = FlightRecorder(enabled=None)
+
+
+def get_recorder():
+    """The process-wide flight recorder (follows the env mode)."""
+    return _global
+
+
+# ---------------------------------------------------------------------------
+# excepthook
+# ---------------------------------------------------------------------------
+
+_hook_lock = threading.Lock()
+_hook_installed = False
+
+
+def install_excepthook():
+    """Chain crash-dump writers onto ``sys.excepthook`` and
+    ``threading.excepthook`` (idempotent). The previous hooks still run
+    — the dump is written first, so a hook that exits hard can't lose
+    it."""
+    global _hook_installed
+    with _hook_lock:
+        if _hook_installed:
+            return
+        _hook_installed = True
+
+        prev_sys = sys.excepthook
+
+        def _sys_hook(exc_type, exc, tb):
+            if exc is not None and exc.__traceback__ is None:
+                exc = exc.with_traceback(tb)
+            _global.crash_dump(exc=exc)
+            prev_sys(exc_type, exc, tb)
+
+        sys.excepthook = _sys_hook
+
+        prev_thread = threading.excepthook
+
+        def _thread_hook(args):
+            if not issubclass(args.exc_type, SystemExit):
+                _global.crash_dump(exc=args.exc_value)
+            prev_thread(args)
+
+        threading.excepthook = _thread_hook
+
+
+def _maybe_install_excepthook():
+    # flight-recorder contract: once an enabled recorder holds events,
+    # an uncaught crash writes them out — no explicit opt-in needed
+    if not _hook_installed:
+        install_excepthook()

@@ -34,6 +34,15 @@ Retry-After hint from the observed retire rate), and a queued request
 whose deadline expires is shed BEFORE its prefill with
 :class:`~paddle_tpu_torch.serving.engine.DeadlineExceededError`.
 
+Telemetry, under the JAX engine's names: ``serving.decode.slot_utilization``
+/ ``serving.decode.cache_occupancy`` gauges,
+``serving.decode.prefill_seconds`` / ``step_seconds`` /
+``ttft_seconds`` / ``request_seconds`` histograms, and
+``serving.decode.tokens`` / ``requests`` / ``retired`` / ``shed`` /
+``deadline_miss`` / ``cancelled`` counters. A request submitted with a
+sampled ``trace_ctx`` exports its ``decode.queue``, ``decode.prefill``,
+per-token ``decode.token`` and ``decode.stream`` spans.
+
 ``barrier=True`` is the ablation mode benches compare against: slots are
 only refilled once EVERY slot has retired — the classic full-batch
 generation schedule, identical programs, no in-flight admission.
@@ -41,10 +50,10 @@ generation schedule, identical programs, no in-flight admission.
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: the int8-resident cache, the decode-only role and
 ``submit_prefilled`` (disaggregation, Queue 1 item 7.3); the prefix pool,
-the session tier and the speculative draft (item 7.4); the SDC sentinel,
-``check_hbm_budget`` and ``check_ladder`` (item 11). The JAX engine's
-telemetry, lock-sanitizer hooks, fault sites and executable-ledger feed
-wait for item 11 as well.
+the session tier (``submit(session=)``) and the speculative draft (item
+7.4); the SDC sentinel, ``check_hbm_budget`` and ``check_ladder`` (item
+11). The JAX engine's lock-sanitizer hooks, fault sites, executable-ledger
+feed and cost-model predictions on spans wait for item 11 as well.
 """
 import collections
 import os
@@ -55,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..fluid import core
 from .engine import DeadlineExceededError, EngineClosedError, ShedError
 
@@ -103,6 +113,9 @@ class DecodeStream:
     ``"cancelled"`` / ``"error"`` once done. :meth:`cancel` (idempotent,
     thread-safe) frees the request's slot at the dispatch loop's next
     iteration — or drops it from the queue if it never reached a slot."""
+
+    # distributed-trace context of a sampled request (None otherwise)
+    trace = None
 
     def __init__(self, prompt_len, max_new, stall_timeout_s=60.0):
         self.prompt_len = int(prompt_len)
@@ -183,16 +196,24 @@ class DecodeStream:
 
 class _Request:
     __slots__ = ("prompt", "plen", "bucket", "max_new", "eos_id",
-                 "deadline", "handle")
+                 "deadline", "handle", "tenant", "priority", "trace",
+                 "t_wall")
 
 
 class _Slot:
-    __slots__ = ("handle", "remaining", "eos_id")
+    __slots__ = ("handle", "remaining", "eos_id", "t_prefill", "trace",
+                 "t_wall", "t_last")
 
-    def __init__(self, handle, remaining, eos_id):
+    def __init__(self, handle, remaining, eos_id, trace=None):
         self.handle = handle
         self.remaining = remaining
         self.eos_id = eos_id
+        self.t_prefill = time.monotonic()
+        # sampled TraceContext of the span that filled this slot; the
+        # per-token spans and the retire summary parent to it
+        self.trace = trace
+        self.t_wall = time.time() if trace is not None else None
+        self.t_last = self.t_prefill
 
 
 class DecodeEngine:
@@ -214,6 +235,8 @@ class DecodeEngine:
     device ONCE (a snapshot: later training of the scope does not reach a
     running engine) and that one copy is shared by every program. The
     engine runs on the card unless ``place`` says otherwise."""
+
+    engine_kind = "decode"
 
     def __init__(self, cfg, scope, slots=4, cache_len=64,
                  prompt_buckets=None, eos_id=None, queue_capacity=64,
@@ -377,6 +400,8 @@ class DecodeEngine:
                 self._slots[i] = None
                 s.handle._fail(EngineClosedError(
                     "engine %r stopped mid-generation" % self.name))
+        obs.event("engine_stop", source="serving", count=False,
+                  model=self.name, engine="decode", drained=bool(drain))
 
     # -- admission -------------------------------------------------------
     def _bucket_for(self, plen):
@@ -385,14 +410,22 @@ class DecodeEngine:
                 return b
         return None
 
-    def submit(self, prompt, max_new=None, eos_id=None, deadline_ms=None):
+    def submit(self, prompt, max_new=None, eos_id=None, deadline_ms=None,
+               tenant=None, priority=None, trace_ctx=None, session=None):
         """Enqueue one generation request; returns a
         :class:`DecodeStream`. Raises :class:`ShedError` when the queue
         is full, :class:`EngineClosedError` after ``stop()``, and
-        ``ValueError`` for prompts that cannot fit the ladder."""
+        ``ValueError`` for prompts that cannot fit the ladder.
+        ``tenant``/``priority`` are carried for observability — the
+        disagg router schedules on them; a lone engine records them.
+        A sampled ``trace_ctx`` puts this request's queue/prefill/
+        per-token spans into its distributed trace. ``session`` (a
+        resumable conversation) comes with the session tier."""
         if self._closed:
             raise EngineClosedError(
                 "engine %r is draining/stopped" % self.name)
+        if session is not None:
+            raise _later("resumable sessions (submit(session=))", "7.4")
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         plen = int(prompt.shape[0])
         if plen < 1:
@@ -419,12 +452,20 @@ class DecodeEngine:
         req.bucket = bucket
         req.max_new = max_new
         req.eos_id = self.eos_id if eos_id is None else eos_id
+        req.tenant = tenant
+        req.priority = priority
         if deadline_ms is None:
             deadline_ms = self._default_deadline_ms
         req.deadline = (time.monotonic() + float(deadline_ms) / 1000.0
                         if deadline_ms is not None else None)
+        sampled = trace_ctx is not None and trace_ctx.sampled
+        req.trace = trace_ctx if sampled else None
+        req.t_wall = time.time() if sampled else None
         req.handle = DecodeStream(
             plen, max_new, stall_timeout_s=self.request_timeout_s)
+        req.handle.tenant = tenant
+        req.handle.priority = priority
+        req.handle.trace = req.trace
         try:
             with self._admit_lock:
                 if self._closed:
@@ -433,11 +474,16 @@ class DecodeEngine:
                 self._q.put_nowait(req)
         except queue.Full:
             self._bump("shed")
+            obs.event("shed", source="serving", model=self.name,
+                      engine="decode", prompt_len=plen,
+                      queue_capacity=self._q.maxsize)
             raise ShedError(
                 "decode queue full (%d) for model %r — request shed"
                 % (self._q.maxsize, self.name),
                 model=self.name, retry_after=self.retry_after_hint())
         self._bump("requests")
+        obs.set_gauge("serving.queue_depth.%s" % self.name,
+                      self._q.qsize())
         return req.handle
 
     def generate(self, prompt, max_new=None, eos_id=None,
@@ -480,6 +526,11 @@ class DecodeEngine:
                 "gpt_prefill_len": np.ones((1, 1), np.int64)})
             report.append({"program": "prefill", "bucket": b,
                            "source": source})
+        obs.event(
+            "warmup", source="serving", count=False, model=self.name,
+            engine="decode", engines=len(report),
+            compiled=sum(1 for r in report if r["source"] == "compile"),
+            disk_warm=sum(1 for r in report if r["source"] == "disk"))
         return report
 
     # -- dispatch loop ---------------------------------------------------
@@ -530,6 +581,9 @@ class DecodeEngine:
                 try:
                     req = self._q.get_nowait()
                 except queue.Empty:
+                    obs.set_gauge(
+                        "serving.queue_depth.%s" % self.name,
+                        self._q.qsize())
                     return
                 if req.handle.cancelled:
                     req.handle._finish("cancelled")
@@ -543,11 +597,16 @@ class DecodeEngine:
                     self._bump("deadline_miss")
                     waited_ms = round(
                         1000 * (now - req.handle.t_submit), 3)
+                    obs.event("deadline_miss", source="serving",
+                              model=self.name, engine="decode",
+                              waited_ms=waited_ms)
                     req.handle._fail(DeadlineExceededError(
                         "deadline expired after %s ms in decode queue "
                         "(model %r)" % (waited_ms, self.name)))
                     req = None
             self._fill_slot(i, req)
+        obs.set_gauge("serving.queue_depth.%s" % self.name,
+                      self._q.qsize())
 
     def _fill_slot(self, slot, req):
         """Route one admitted request onto its fill path: the cold
@@ -563,7 +622,26 @@ class DecodeEngine:
             self._k[slot].copy_(k1[0])
             self._v[slot].copy_(v1[0])
 
+    def _trace_queue_span(self, req, now):
+        """Export the (already finished) queue-wait span for a traced
+        request; returns the context its work span should parent to."""
+        ctx = req.trace.child()
+        obs.export_span(
+            "decode.queue", ctx, req.t_wall,
+            now - req.handle.t_submit,
+            {"proc": "decode:%s" % self.name, "tenant": req.tenant})
+        return ctx
+
     def _prefill(self, slot, req):
+        t0 = time.monotonic()
+        ctx = (self._trace_queue_span(req, t0)
+               if req.trace is not None else None)
+        sp = None
+        if ctx is not None:
+            sp = obs.span("decode.prefill", ctx=ctx,
+                          proc="decode:%s" % self.name, slot=slot,
+                          bucket=req.bucket, plen=req.plen)
+            sp.__enter__()
         ids = np.zeros((1, req.bucket), np.int64)
         ids[0, :req.plen] = req.prompt
         plen = np.asarray([[req.plen]], np.int64)
@@ -574,15 +652,27 @@ class DecodeEngine:
             self._write_slot_cache(slot, k1, v1)
             tok = int(nxt[0, 0])
         except Exception as e:  # noqa: BLE001 — fail the request, not the loop
+            if sp is not None:
+                sp.__exit__(type(e), e, None)
             self._bump("prefill_errors")
+            obs.event("prefill_error", source="serving", model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
             req.handle._fail(e)
             return
+        if sp is not None:
+            sp.__exit__(None, None, None)
         self._tok[slot, 0] = tok
         self._pos[slot, 0] = req.plen
-        self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id)
+        self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
+                                  trace=sp.ctx if sp is not None else None)
         self._bump("prefill_rows_computed", req.bucket)
+        now = time.monotonic()
+        obs.observe("serving.decode.prefill_seconds", now - t0)
+        obs.observe("serving.decode.ttft_seconds",
+                    now - req.handle.t_submit)
         self._bump("prefills")
         self._emit(slot, tok)
+        self._gauges()
 
     def _emit(self, slot, tok):
         """Deliver one generated token to a slot's stream; retires the
@@ -591,6 +681,17 @@ class DecodeEngine:
         s.handle._emit(tok)
         s.remaining -= 1
         self._bump("tokens")
+        obs.inc("serving.decode.tokens")
+        if s.trace is not None:
+            # one tiny span per generated token on a SAMPLED request:
+            # dur is the inter-token gap (the per-token-p99 SLO leg)
+            now = time.monotonic()
+            gap = now - s.t_last
+            s.t_last = now
+            obs.export_span(
+                "decode.token", s.trace.child(), time.time() - gap, gap,
+                {"proc": "decode:%s" % self.name, "slot": slot,
+                 "index": len(s.handle._tokens)})
         if s.eos_id is not None and tok == s.eos_id:
             self._retire(slot, "eos")
         elif s.remaining <= 0:
@@ -608,10 +709,23 @@ class DecodeEngine:
         self._bump("retired")
         if reason == "cancelled":
             self._bump("cancelled")
+        now = time.monotonic()
+        obs.observe("serving.decode.request_seconds",
+                    now - s.handle.t_submit)
+        if s.trace is not None:
+            obs.export_span(
+                "decode.stream", s.trace.child(), s.t_wall,
+                now - s.t_prefill,
+                {"proc": "decode:%s" % self.name, "slot": slot,
+                 "reason": reason, "tokens": len(s.handle._tokens)})
         with self._stats_lock:
-            self._rate.append((time.monotonic(), 1))
+            self._rate.append((now, 1))
+        obs.event("slot_retired", source="serving", count=False,
+                  model=self.name, slot=slot, reason=reason,
+                  tokens=len(s.handle._tokens))
 
     def _step(self):
+        t0 = time.monotonic()
         try:
             # the step's outputs replace the resident pair
             nxt, self._k, self._v = self._step_pred.run(
@@ -621,10 +735,13 @@ class DecodeEngine:
             nxt_np = nxt.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the slots, not the loop
             self._bump("step_errors")
+            obs.event("step_error", source="serving", model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
             for i, s in enumerate(self._slots):
                 if s is not None:
                     self._retire(i, "error", error=e)
             return
+        obs.observe("serving.decode.step_seconds", time.monotonic() - t0)
         self._bump("steps")
         for i, s in enumerate(self._slots):
             if s is None:
@@ -633,11 +750,25 @@ class DecodeEngine:
             self._pos[i, 0] += 1
             self._tok[i, 0] = tok
             self._emit(i, tok)
+        self._gauges()
+
+    def _gauges(self):
+        live = sum(1 for s in self._slots if s is not None)
+        obs.set_gauge("serving.decode.slot_utilization.%s" % self.name,
+                      live / float(self.slots))
+        occupancy = float(self._pos.sum()) / (self.slots * self.cache_len)
+        obs.set_gauge("serving.decode.cache_occupancy.%s" % self.name,
+                      occupancy)
 
     # -- introspection ---------------------------------------------------
     def _bump(self, key, n=1):
         with self._stats_lock:
             self._stats[key] += n
+        # mirror every lifecycle counter into the hub so /metrics sees
+        # the same numbers stats() reports ("tokens" incs at its own
+        # site to keep the hot emit path one call)
+        if key != "tokens":
+            obs.inc("serving.decode.%s" % key, n)
 
     def stats(self):
         """Local lifetime counters: requests/tokens/prefills/steps/
@@ -654,6 +785,24 @@ class DecodeEngine:
         out["kv_dtype"] = self.kv_dtype
         out["role"] = self.role
         return out
+
+    def reuse_info(self):
+        """KV-reuse + speculation state for ``/healthz`` (the registry's
+        ``info()`` attaches it), in the JAX engine's shape: no draft,
+        prefix pool or session tier attaches to the port's engine yet
+        (ROADMAP.md Queue 1 item 7.4), so those read None and no prefill
+        row is saved."""
+        with self._stats_lock:
+            computed = self._stats.get("prefill_rows_computed", 0)
+        return {
+            "draft": None,
+            "spec_accept_rate": None,
+            "prefix_pool": None,
+            "session_tier": None,
+            "prefill_rows_computed": computed,
+            "prefill_rows_saved": 0,
+            "prefill_rows_saved_pct": 0.0 if computed else None,
+        }
 
     def slot_bytes(self):
         """Device bytes one slot's resident KV pair occupies (see

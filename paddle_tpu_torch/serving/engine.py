@@ -20,8 +20,14 @@ Admission control:
 - **graceful drain** — ``stop(drain=True)`` rejects new work, finishes
   everything queued, then parks the dispatch thread.
 
-The JAX engine's telemetry, lock-sanitizer hooks and HBM admission
-(``check_hbm_budget``) wait for the observability and analysis slices.
+Telemetry, under the JAX engine's names: ``serving.queue_wait_seconds``
+/ ``serving.batch_size`` / ``serving.batch_rows`` /
+``serving.padding_waste`` / ``serving.request_seconds`` histograms,
+``serving.shed`` and ``serving.deadline_miss`` counters (every reject also
+lands in the flight recorder), and a ``serving.queue_depth.<model>``
+gauge. The JAX engine's lock-sanitizer hooks and its HBM admission
+(``check_hbm_budget``, with its ``serving.predicted_peak_hbm.<model>``
+gauge and ``bucket_rejected`` event) wait for ROADMAP.md Queue 1 item 11.
 """
 import collections
 import queue
@@ -29,6 +35,7 @@ import threading
 import time
 from concurrent.futures import Future
 
+from .. import observability as obs
 from .batcher import assemble, round_up_pow2, tail_signature
 
 __all__ = [
@@ -130,14 +137,18 @@ class ServingEngine:
                 break
             r.future.set_exception(EngineClosedError(
                 "engine %r stopped before dispatch" % self.name))
+        obs.event("engine_stop", source="serving", count=False,
+                  model=self.name, drained=bool(drain))
 
     # -- admission -------------------------------------------------------
-    def submit(self, feeds, deadline_ms=None):
+    def submit(self, feeds, deadline_ms=None, trace_ctx=None):
         """Enqueue one request; returns a ``concurrent.futures.Future``
         resolving to the per-request fetch list (rows sliced back out of
         the coalesced batch). Raises :class:`ShedError` immediately when
         the queue is full and :class:`EngineClosedError` after
-        ``stop()``."""
+        ``stop()``. A sampled ``trace_ctx`` exports one
+        ``serving.predict`` span (queue wait + batch compute) when the
+        request resolves."""
         if self._closed:  # cheap early reject; re-checked under the lock
             raise EngineClosedError(
                 "engine %r is draining/stopped" % self.name)
@@ -172,6 +183,8 @@ class ServingEngine:
                 self._q.put_nowait(req)
         except queue.Full:
             self._bump("shed")
+            obs.event("shed", source="serving", model=self.name, rows=rows,
+                      queue_capacity=self._q.maxsize)
             raise ShedError(
                 "serving queue full (%d) for model %r%s — request shed"
                 % (self._q.maxsize, self.name,
@@ -180,6 +193,16 @@ class ServingEngine:
                 model=self.name, replica=self.replica_id,
                 retry_after=self.retry_after_hint())
         self._bump("requests")
+        obs.set_gauge("serving.queue_depth.%s" % self.name, self._q.qsize())
+        if trace_ctx is not None and getattr(trace_ctx, "sampled", False):
+            ctx = trace_ctx.child()
+            t_wall = time.time()
+            req.future.add_done_callback(
+                lambda f, c=ctx, t=t_wall: obs.export_span(
+                    "serving.predict", c, t, time.time() - t,
+                    {"proc": "engine:%s" % self.name, "rows": rows,
+                     "error": (type(f.exception()).__name__
+                               if f.exception() else None)}))
         return req.future
 
     def predict(self, feeds, deadline_ms=None, timeout=None):
@@ -201,6 +224,12 @@ class ServingEngine:
                     "signature": spec.signature(), "batch_size": b,
                     "source": source,
                 })
+        if report:
+            obs.event(
+                "warmup", source="serving", count=False, model=self.name,
+                engines=len(report),
+                compiled=sum(1 for r in report if r["source"] == "compile"),
+                disk_warm=sum(1 for r in report if r["source"] == "disk"))
         return report
 
     # -- dispatch --------------------------------------------------------
@@ -234,6 +263,8 @@ class ServingEngine:
                     break
                 batch.append(r)
                 rows += r.rows
+            obs.set_gauge(
+                "serving.queue_depth.%s" % self.name, self._q.qsize())
             self._execute(batch)
 
     def _execute(self, batch):
@@ -242,9 +273,13 @@ class ServingEngine:
         for r in batch:
             if r.deadline is not None and now > r.deadline:
                 self._bump("deadline_miss")
+                waited_ms = round(1000 * (now - r.t_enqueue), 3)
+                obs.event("deadline_miss", source="serving",
+                          model=self.name, rows=r.rows,
+                          waited_ms=waited_ms)
                 r.future.set_exception(DeadlineExceededError(
                     "deadline expired after %s ms in queue (model %r)"
-                    % (round(1000 * (now - r.t_enqueue), 3), self.name)))
+                    % (waited_ms, self.name)))
             else:
                 live.append(r)
         groups = collections.OrderedDict()
@@ -269,8 +304,11 @@ class ServingEngine:
         return min(round_up_pow2(rows), self._max_batch_size)
 
     def _run_group(self, sig, reqs):
+        t0 = time.monotonic()
         rows = sum(r.rows for r in reqs)
         target = self._bucket_rows(sig, rows)
+        for r in reqs:
+            obs.observe("serving.queue_wait_seconds", t0 - r.t_enqueue)
         try:
             feeds = assemble(self._predictor.feed_names, reqs, target)
             outs = self._predictor.run(feeds, return_numpy=True)
@@ -283,6 +321,9 @@ class ServingEngine:
                         % (getattr(o, "shape", None), target))
         except Exception as e:  # noqa: BLE001 — fail the requests, not the loop
             self._bump("batch_errors")
+            obs.event("batch_error", source="serving", model=self.name,
+                      rows=rows, error="%s: %s"
+                      % (type(e).__name__, str(e)[:200]))
             for r in reqs:
                 r.future.set_exception(e)
             with self._stats_lock:  # errors still drain the queue
@@ -292,8 +333,12 @@ class ServingEngine:
         if len(reqs) > 1:
             self._bump("coalesced")
         self._bump("rows", rows)
+        obs.observe("serving.batch_size", len(reqs))
+        obs.observe("serving.batch_rows", rows)
+        obs.observe("serving.padding_waste", (target - rows) / float(target))
+        done = time.monotonic()
         with self._stats_lock:
-            self._rate.append((time.monotonic(), len(reqs)))
+            self._rate.append((done, len(reqs)))
         off = 0
         for r in reqs:
             # copy the slices: a view would pin the whole padded batch in
@@ -301,6 +346,7 @@ class ServingEngine:
             r.future.set_result(
                 [o[off:off + r.rows].copy() for o in outs])
             off += r.rows
+            obs.observe("serving.request_seconds", done - r.t_enqueue)
 
     # -- introspection ---------------------------------------------------
     def _bump(self, key, n=1):

@@ -12,8 +12,10 @@ greedy tokens of the same prompt. Then the engine's semantics as
 tests/test_decode_serving.py holds them (EOS, in-flight admission,
 deadlines, shedding, validation, cancel), ``barrier=True`` scheduling, the
 parts left for later slices, and one device copy of the parameters for
-every program. HTTP, the HBM budget, the compile cache and the registry
-are not ported. Every blocking wait has its own timeout.
+every program. The HBM budget and the compile cache are not ported; HTTP
+and the registry are held in tests/test_torch_http.py, the engine's
+telemetry in tests/test_torch_observability.py. Every blocking wait has
+its own timeout.
 """
 import threading
 import time
@@ -346,10 +348,14 @@ def test_slot_geometry_and_stats(m):
     ({"draft": object()}, "7.4"),
     ({"prefix_pool": object()}, "7.4"),
     ({"session_tier": object()}, "7.4"),
+    ({"session": "chat-1"}, "7.4"),
 ])
 def test_later_options_raise(m, kw, item):
     with pytest.raises(NotImplementedError, match="item %s" % item):
-        _engine(m, auto_start=False, **kw)
+        if "session" in kw:     # a submit option, not an engine one
+            m["eng"].submit(_prompt(3), max_new=1, **kw)
+        else:
+            _engine(m, auto_start=False, **kw)
 
 
 @pytest.mark.parametrize("call,item", [
