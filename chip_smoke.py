@@ -197,7 +197,60 @@ Phases, each of which exits non-zero on failure:
    within (b)'s bound, ``/healthz`` and ``/metrics``, exit 0 on SIGINT;
    (e) (b)'s load and a phase-8c-sized decode load with
    ``PADDLE_TPU_TELEMETRY=off`` and ``on`` in alternation (the cost is
-   printed, not gated).
+   printed, not gated);
+12. the serving fleet, after phase 11 and before the profiles: (a) the
+   main path of the router: 11b's BERT-base (encoder_out, seq 128, f32,
+   seed 1234) behind ``local_fleet(n_replicas=4, per_device=True)`` with
+   buckets (1, 2, 4, 8, 16), max batch 16, max wait 1 ms, queue 256 (on
+   one card every replica shares cuda:0, each with its own parameters),
+   and bench.py:953's load, 8 closed-loop clients x 30 requests of 1-4
+   rows, driven on one replica alone and round-robin on the raw engines,
+   then through the router with every counter at 0 just before (the
+   main path's launches): 12 attention and 25 LayerNorm forward launches
+   a dispatch, every reply within 1e-3·max|x| of the same rows through a
+   solo predictor at the bucket a lone engine pads them to; req/s of the
+   three, the router's own cost (``serving.dispatch_seconds``),
+   failovers, live replicas, the routed requests per replica; then the
+   fleet's 4 predictors without their engines in 1, 2 and 4 threads (a
+   thread's CPU time a forward); (b) drills, 0 client failures and every
+   reply within the bound: on a router of the same model and engine
+   options whose replica 0 and warm standby 3 are held (built, not
+   started: their queues fill), kill() of replica 0 (its queue replayed
+   on the survivors; the time until the monitor declared it dead and the
+   standby took its place), then remove_replica(3, drain=True) with the
+   standby's queue filled and its engine started; on 12a's fleet, a
+   rolling reload to a v3 directory whose parameter file is torn
+   (RolloutError, rolled back, v1 serves), and a rolling reload to v2
+   (the model saved from seed 1235) under 4 clients, every reply v1's or
+   v2's; (c) two ``python -m
+   paddle_tpu_torch.serving.router`` workers on the card over a FileStore
+   behind a ``ServingRouter`` of ``StoreReplica``s: each worker's time to
+   its first beacon, one of them SIGKILLed, the time to declare it dead,
+   4 more requests answered by the survivor within the bound; (d) the
+   main path of disaggregated serving at ``GPTConfig()`` (phase 8's
+   weights, cache_len 1024, the default buckets) under bench.py:1232's
+   mixed-tenant load (6 latency clients x 3 requests of 3/5/6 prompt
+   tokens and 16 new; 2 bulk clients x 3 of 700 and 6 new), every counter
+   at 0 just before each leg: (i) a colocated ``DecodeEngine(slots=4)``,
+   (ii) the main path, ``disagg_fleet(2 prefill + 2 decode, slots=2,
+   fp32-resident, int8 wire, tenants latency (interactive, 250 ms
+   per-token SLO) and bulk (batch))`` traced, its phase breakdown, (iii)
+   an 80-token canary whose decode replica is killed after 40 tokens
+   (migrated, 0 failed streams, 80 tokens): 24 LayerNorm forward launches
+   a prefill and a step of the leg's engines, no attention kernel;
+   tokens/s, the latency tenant's per-token gaps, the
+   handoff's wire bytes and compression; (e) the fp32-wire fleet's
+   streams equal token for token to a colocated engine with its
+   replicas' slots, cache_len and buckets; the int8-resident cache:
+   slot bytes and their ratio to fp32, the first token, an int8 handoff
+   adopted by an idle engine, its payload and its distance from the
+   lossless handoff (scale/2
+   a row), a bitflipped handoff re-prefilled with 0 failed streams, the
+   int8 step's host and device ms against the fp32 step's; (f) the
+   lossless fleet published behind ``ServingServer``: ``:generate`` with
+   tenant and priority streams 12e's tokens, a bad priority answers 400,
+   a capped tenant 429, ``/metrics?scope=fleet`` carries the ``fleet_``
+   families and a ``fleet_slo_burn`` gauge for each tenant.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -284,11 +337,14 @@ def check_kernels(ca, cl):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     errs = {}
-    # (label, Tq, Tk, D, options), the backward kernels' cases: D = 128 and
-    # D = 40 take the kernel's other head-dim instance and the zero padding
-    # of D
+    # (label, Tq, Tk, D, options; batch 8 unless given), the backward
+    # kernels' cases: D = 128 and D = 40 take the kernel's other head-dim
+    # instance and the zero padding of D; B = 1 and B = 16 are the
+    # smallest and largest of the fleet's buckets (phase 12a)
     fa_cases = [
         ("plain", 128, 128, 64, dict()),
+        ("B=1", 128, 128, 64, dict(batch=1)),
+        ("B=16", 128, 128, 64, dict(batch=16)),
         ("causal", 128, 128, 64, dict(causal=True)),
         ("kpm", 128, 128, 64, dict(kpm=True)),
         ("T=131", 131, 131, 64, dict(kpm=True, causal=True)),
@@ -298,10 +354,11 @@ def check_kernels(ca, cl):
         ("Tq=128 Tk=96 kpm", 128, 96, 64, dict(kpm=True)),
     ]
     for label, tq, tk, d, kw in fa_cases:
-        q, k, v = rnd(8, 12, tq, d), rnd(8, 12, tk, d), rnd(8, 12, tk, d)
+        b = kw.pop("batch", 8)
+        q, k, v = rnd(b, 12, tq, d), rnd(b, 12, tk, d), rnd(b, 12, tk, d)
         kpm = None
         if kw.pop("kpm", False):
-            kpm = torch.where(torch.rand(8, tk, generator=gen, device="cuda")
+            kpm = torch.where(torch.rand(b, tk, generator=gen, device="cuda")
                               < 0.2, -1e30, 0.0)
         for dt in (torch.float32, torch.bfloat16):
             qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
@@ -330,10 +387,10 @@ def check_kernels(ca, cl):
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_fwd"] = err
     # (n, h, x dtypes, gamma and beta: "x" = x's dtype, a dtype, or None):
-    # the GPT decode step's rows (8 slots) and its 64-row prefill bucket,
-    # the four serving buckets' rows (128·B), the NMT decode step's
-    # (B·beam = 128, 512) and its encoder's (32·32, 512), h = 770 (no
-    # 16-byte loads),
+    # the GPT decode step's rows (8 slots; 4 and 2 in phase 12d-12e) and
+    # its 64-row prefill bucket, the serving buckets' rows (128·B; B = 16
+    # in phase 12a), the NMT decode step's (B·beam = 128, 512) and its
+    # encoder's (32·32, 512), h = 770 (no 16-byte loads),
     # no gamma and beta, their width other than x's, n = 1, and the
     # backward's long rows: h = 1024 (the longest held in registers), 4096
     # and 30000 (streamed)
@@ -342,10 +399,13 @@ def check_kernels(ca, cl):
         (1024, 768, (f32, bf16), "x"),
         (1000, 768, (f32, bf16), "x"),
         (8, 768, (f32, bf16), "x"),
+        (4, 768, (f32, bf16), "x"),
+        (2, 768, (f32, bf16), "x"),
         (64, 768, (f32, bf16), "x"),
         (128, 768, (f32, bf16), "x"),
         (256, 768, (f32, bf16), "x"),
         (512, 768, (f32, bf16), "x"),
+        (2048, 768, (f32, bf16), "x"),
         (128, 512, (f32, bf16), "x"),
         (1024, 512, (f32, bf16), "x"),
         (1024, 770, (f32, bf16), "x"),
@@ -513,15 +573,15 @@ def check_bwd_kernels(ca, cl):
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
 def build_bert_base(fluid, bert, dirname, target="logits", cfg=None,
-                    seq=SEQ):
+                    seq=SEQ, seed=SEED):
     """BERT-base (seq 128, inference, pruned to `target`: the logits, or
     phase 11's ``encoder_out``) built in the port, its startup run on the
-    card from a seeded generator, saved."""
+    card from a seeded generator (phase 12b's v2 from seed 1235), saved."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         io = bert.build_bert_pretrain(cfg or bert.bert_base(), seq,
                                       is_test=True)
-    startup.random_seed = SEED
+    startup.random_seed = seed
     scope = fluid.Scope()
     exe = fluid.Executor()      # the card
     exe.run(startup, scope=scope)
@@ -2212,7 +2272,8 @@ def gpt_serving(fluid, serving, ca, cl, cfg, scope, card,
     return launches, stats, step_fn
 
 
-def gpt_step_times(eng, card, n=20, sleep_cycles=200_000_000):
+def gpt_step_times(eng, card, n=20, sleep_cycles=200_000_000,
+                   tag="8c gpt decode step"):
     """One decode step of all the engine's slots (random tokens, each slot
     at its own position, the engine's resident caches): host wall of
     ``Predictor.run`` plus the token copy to the host, and its device time
@@ -2227,6 +2288,9 @@ def gpt_step_times(eng, card, n=20, sleep_cycles=200_000_000):
              "gpt_step_pos": torch.from_numpy(
                  rng.integers(0, t, (s, 1))).cuda(),
              "gpt_step_k": eng._k, "gpt_step_v": eng._v}
+    if eng.kv_dtype == "int8":     # 12e: the int8-resident step
+        feeds.update(gpt_step_kscale=eng._kscale,
+                     gpt_step_vscale=eng._vscale)
     pred = eng._step_pred
 
     def step():
@@ -2251,11 +2315,11 @@ def gpt_step_times(eng, card, n=20, sleep_cycles=200_000_000):
         dev.append(start.elapsed_time(end))
     stats = dict(step_host_ms=1e3 * statistics.median(host),
                  step_device_ms=statistics.median(dev))
-    print("8c gpt decode step [%s] (%d slots, cache_len %d): host wall "
+    print("%s [%s] (%d slots, cache_len %d): host wall "
           "median %.3f ms (run + the tokens' copy to the host), device "
           "median %.3f ms (CUDA events, stream pre-filled); %d runs each" % (
-              card, s, t, stats["step_host_ms"], stats["step_device_ms"], n),
-          flush=True)
+              tag, card, s, t, stats["step_host_ms"],
+              stats["step_device_ms"], n), flush=True)
     return step, stats
 
 
@@ -3796,6 +3860,876 @@ def telemetry_cost(url, requests, eng, prompts, solo, card,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the serving fleet
+# ---------------------------------------------------------------------------
+# 12a: 11b's BERT-base (encoder_out, seq 128, f32, seed 1234) behind
+# local_fleet(n_replicas=4, per_device=True) with bench.py:953's buckets
+# and queue, and its load: 8 closed-loop clients x 30 requests of 1-4
+# rows, once round-robin on the raw engines, once through the router.
+# 12b: failover drills on that fleet. 12c: two worker processes over a
+# FileStore, one SIGKILLed. 12d: GPT-2 small (phase 8's scope) served
+# colocated and disaggregated under bench.py:1232's mixed-tenant load,
+# then a decode-replica kill under an 80-token canary. 12e: the lossless
+# fleet token for token against a colocated engine; the int8-resident
+# cache. 12f: the lossless fleet behind the HTTP server.
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 30
+FLEET_ROWS, FLEET_BATCHES = (1, 2, 3, 4), (1, 2, 4, 8, 16)
+FLEET_TOL = 1e-3                 # x max|x|: replies against a solo bucket
+FLEET_WAIT = 300.0               # s: the bound of every wait in phase 12
+DIS_LAT_CLIENTS, DIS_LAT_LENS, DIS_LAT_NEW = 6, (3, 5, 6), 16
+DIS_BULK_CLIENTS, DIS_BULK_LEN, DIS_BULK_NEW = 2, 700, 6
+DIS_PER_CLIENT, DIS_CANARY_NEW = 3, 80
+DIS_SLO_MS = 250.0               # the latency tenant's per-token SLO
+
+
+def fleet_config(**kw):
+    """The fleets' heartbeat: an interval of 0.1 s (a replica beats twice
+    an interval), dead after 5 intervals (0.5 s) of silence; a replica's
+    beater shares the GIL with the other replicas' dispatch threads and 8
+    clients."""
+    from paddle_tpu_torch.parallel.elastic import ElasticConfig
+
+    kw.setdefault("heartbeat_interval", 0.1)
+    kw.setdefault("miss_threshold", 5)
+    kw.setdefault("startup_grace", 300.0)
+    return ElasticConfig(**kw)
+
+
+def bucket_of(rows):
+    return next(b for b in FLEET_BATCHES if b >= rows)
+
+
+def solo_bucket(pred, ids):
+    """The rows of `ids` through a solo predictor at the bucket a lone
+    engine pads them to (one M: the same cuBLAS kernels)."""
+    pad = np.zeros((bucket_of(ids.shape[0]), ids.shape[1]), ids.dtype)
+    pad[:ids.shape[0]] = ids
+    return pred.run({"input_ids": pad})[0][:ids.shape[0]]
+
+
+def wait_until(cond, what, timeout=FLEET_WAIT):
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            fail("12: timed out waiting for %s" % what)
+        time.sleep(0.005)
+
+
+def fleet_drive(predict, feeds, n_clients=FLEET_CLIENTS,
+                per_client=FLEET_PER_CLIENT):
+    """bench.py:953's drive: client i sends requests k = 0..per_client-1,
+    feed (i + k) % len(feeds), closed loop. Returns [(feed index, reply)]
+    and the wall (s); any client failure fails the phase."""
+    out, errors = [], []
+
+    def client(i):
+        for k in range(per_client):
+            fi = (i + k) % len(feeds)
+            try:
+                out.append((fi, predict(i, k, feeds[fi])[0]))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("client %d request %d: %s: %s" % (
+                    i, k, type(e).__name__, e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_WAIT)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("12 fleet load: %s" % (errors[:3] or "client threads hung"))
+    return out, wall
+
+
+def check_replies(tag, replies, refs, scale):
+    """Every (feed index, reply) within FLEET_TOL x max|x| of its solo
+    bucket reference; returns the largest difference."""
+    err = 0.0
+    for fi, out in replies:
+        if out.shape != refs[fi].shape or not np.isfinite(out).all():
+            fail("%s: a reply of shape %s, want %s" % (
+                tag, out.shape, refs[fi].shape))
+        err = max(err, float(np.abs(out - refs[fi]).max()))
+    if err > FLEET_TOL * scale:
+        fail("%s: a reply %.3e off its solo bucket, bound %.3e" % (
+            tag, err, FLEET_TOL * scale))
+    return err
+
+
+def drill_replica(srouter, rid, spec, store, dirname, held=False):
+    """A LocalReplica of `dirname` on cuda:0 with 12a's engine options;
+    a `held` one's engine is built and warmed but not started
+    (``auto_start=False``): it queues what the router sends it and
+    dispatches nothing until its ``start()``."""
+    factory = srouter.make_engine_factory(
+        buckets=[spec], name="bert-drill", replica_id=rid,
+        device=torch.device("cuda", 0), max_batch_size=16, max_wait_ms=1.0,
+        queue_capacity=256, auto_start=not held)
+    return srouter.LocalReplica(rid, factory, store, name="bert-drill",
+                                config=fleet_config(), dirname=dirname)
+
+
+def submit_until_queued(router, feeds, engine, at_least):
+    """Submit through the router until `engine` (held) holds queued
+    work and at least `at_least` requests are out; a held queue only
+    grows, so the gate cannot race."""
+    futs = []
+    while len(futs) < at_least or engine.queue_depth() == 0:
+        if len(futs) >= 256:
+            fail("12b: 256 requests and none queued on the held replica")
+        fi = len(futs) % len(feeds)
+        futs.append((fi, router.submit(feeds[fi])))
+    return futs
+
+
+def resolve(tag, futs):
+    try:
+        return [(fi, f.result(timeout=FLEET_WAIT)[0]) for fi, f in futs]
+    except Exception as e:  # noqa: BLE001 — a client failure fails 12b
+        fail("%s: a client saw %s: %s" % (tag, type(e).__name__, e))
+
+
+def fleet_contention(preds, feeds, card, forwards=20):
+    """Where four in-process replicas' time goes, without their engines:
+    1, 2 and 4 threads each running `forwards` forwards of its own
+    predictor on `feeds`, then 4 with a 0.5 ms GIL switch interval and 4
+    with a CUDA stream each. Per forward, its host wall and the CPU time
+    its thread spent in it (``time.thread_time``: a forward whose wall
+    grows while its CPU time does not is waiting, one whose CPU time grows
+    is working harder). Returns {config: forwards/s, wall and CPU ms}."""
+    def run(n, own_streams=False):
+        walls, cpus = [], []
+
+        def worker(p):
+            stream = torch.cuda.Stream() if own_streams else None
+            with torch.cuda.stream(stream):
+                for _ in range(forwards):
+                    t0, c0 = time.monotonic(), time.thread_time()
+                    p.run(feeds)     # returns numpy: waits for the device
+                    walls.append(time.monotonic() - t0)
+                    cpus.append(time.thread_time() - c0)
+
+        threads = [threading.Thread(target=worker, args=(preds[i],))
+                   for i in range(n)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=FLEET_WAIT)
+        if any(t.is_alive() for t in threads):
+            fail("12a contention: a forward thread hung")
+        return dict(forwards_per_s=n * forwards / (time.monotonic() - t0),
+                    wall_ms=1e3 * statistics.median(walls),
+                    cpu_ms=1e3 * statistics.median(cpus))
+
+    out = {"%d threads" % n: run(n) for n in (1, 2, len(preds))}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        out["%d threads, switch interval 0.5 ms" % len(preds)] = run(
+            len(preds))
+    finally:
+        sys.setswitchinterval(old)
+    out["%d threads, a stream each" % len(preds)] = run(len(preds), True)
+    print("12a contention [%s]: the fleet's predictors without their "
+          "engines, %d forwards of %d rows a thread: %s" % (
+              card, forwards, feeds["input_ids"].shape[0], "; ".join(
+                  "%s %.1f forwards/s, a forward's wall %.3f ms and thread "
+                  "CPU %.3f ms" % (k, r["forwards_per_s"], r["wall_ms"],
+                                   r["cpu_ms"]) for k, r in out.items())),
+          flush=True)
+    return out
+
+
+def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
+                cfg=None):
+    """Phases 12a-12c on 11b's model in `enc_dir` (built from `cfg`,
+    BERT-base). Returns the kernels' launches in 12a's routed load (the
+    counters zeroed just before it, read just after), and the numbers."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.parallel.elastic import FileStore, InMemoryStore
+    from paddle_tpu_torch.serving import router as srouter
+
+    cfg = cfg or bert.bert_base()
+    spec = serving.BucketSpec({"input_ids": (SEQ,)},
+                              dtypes={"input_ids": "int64"},
+                              batch_sizes=FLEET_BATCHES)
+    rng = np.random.default_rng(SEED + 12)
+    feeds = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(r, SEQ),
+                                        dtype=np.int64)}
+             for r in FLEET_ROWS]
+    solo = fluid.Predictor.from_model(enc_dir)
+    refs = [solo_bucket(solo, f["input_ids"]) for f in feeds]
+    scale = max(float(np.abs(r).max()) for r in refs)
+    t0 = time.monotonic()
+    obs.reset()
+    router = srouter.local_fleet(
+        enc_dir, n_replicas=FLEET_REPLICAS, per_device=True, buckets=[spec],
+        name="bert-fleet", config=fleet_config(), max_batch_size=16,
+        max_wait_ms=1.0, queue_capacity=256)
+    stats = dict(build_s=time.monotonic() - t0)
+    engines = [router._live[rid].engine for rid in sorted(router._live)]
+    print("12a fleet: %d BERT-base replicas (encoder_out) on %s, each "
+          "built from %s and warmed up (buckets %s) in %.1f s" % (
+              FLEET_REPLICAS, sorted({str(e.predictor.device)
+                                      for e in engines}),
+              os.path.basename(enc_dir), FLEET_BATCHES, stats["build_s"]),
+          flush=True)
+
+    # -- 12a: the same warmed engines, the same load, two dispatch paths
+    # (and first one replica alone: what 4 replicas in one process add);
+    # the counters are zeroed before each, the routed load's are the main
+    # path's
+    st0 = [e.stats() for e in engines]
+    fns = zero_counters(ca, cl)
+    alone, a_wall = fleet_drive(
+        lambda i, k, f: engines[0].predict(f, timeout=FLEET_WAIT), feeds)
+    direct, d_wall = fleet_drive(
+        lambda i, k, f: engines[(i + k) % len(engines)].predict(
+            f, timeout=FLEET_WAIT), feeds)
+    st1 = [e.stats() for e in engines]
+    raw = sum(b["batches"] - a["batches"] for a, b in zip(st0, st1))
+    check_launches("12a one replica and round-robin", fns, {
+        "flash_attn_fwd": cfg.num_layers * raw,
+        "layer_norm_fwd": (2 * cfg.num_layers + 1) * raw})
+    fns = zero_counters(ca, cl)
+    routed, r_wall = fleet_drive(
+        lambda i, k, f: router.predict(f, timeout=FLEET_WAIT), feeds)
+    st2 = [e.stats() for e in engines]
+    dispatches = sum(b["batches"] - a["batches"] for a, b in zip(st1, st2))
+    launches = check_launches("12a routed (the main path)", fns, {
+        "flash_attn_fwd": cfg.num_layers * dispatches,
+        "layer_norm_fwd": (2 * cfg.num_layers + 1) * dispatches})
+    check_replies("12a one replica", alone, refs, scale)
+    d_err = check_replies("12a direct", direct, refs, scale)
+    r_err = check_replies("12a routed", routed, refs, scale)
+    n = FLEET_CLIENTS * FLEET_PER_CLIENT
+    rst = router.stats()
+    spread = [b["requests"] - a["requests"] for a, b in zip(st1, st2)]
+    # the router's own cost: each request's submit-to-handoff time
+    disp = obs.histogram("serving.dispatch_seconds") or {}
+    if not disp.get("count"):
+        fail("12a: no serving.dispatch_seconds from the routed load")
+    stats.update(router_requests_per_sec=n / r_wall,
+                 direct_requests_per_sec=n / d_wall,
+                 one_replica_requests_per_sec=n / a_wall,
+                 router_dispatch_p50_ms=1e3 * disp["p50"],
+                 router_dispatch_p99_ms=1e3 * disp["p99"],
+                 failovers=int(rst.get("failovers", 0)),
+                 replicas_live=int(rst["replicas_live"]),
+                 dispatch_spread=spread, dispatches=dispatches)
+    # the gap between two loads that four in-process replicas slow alike
+    # (see fleet_contention): contention's spread, not the router's cost
+    stats["router_overhead_pct"] = 100.0 * (
+        stats["direct_requests_per_sec"] - stats["router_requests_per_sec"]
+    ) / stats["direct_requests_per_sec"]
+    print("12a fleet load [%s]: %d requests a path from %d clients; one "
+          "replica alone %.3f s, %.2f req/s; direct round-robin over %d "
+          "%.3f s, %.2f req/s; routed %.3f s, %.2f req/s; the router's "
+          "cost (serving.dispatch_seconds, submit to a replica's queue) "
+          "p50 %.3f ms, p99 %.3f ms over %d dispatches; router_overhead_pct "
+          "%.1f%% (routed against direct req/s, both bound by the "
+          "replicas' contention, not the router's cost); failovers %d, "
+          "replicas_live %d; routed requests per replica %s in %d "
+          "dispatches; replies vs a solo bucket: direct max|d| %.3e, "
+          "routed %.3e, bound %.3e" % (
+              card, n, FLEET_CLIENTS, a_wall,
+              stats["one_replica_requests_per_sec"], FLEET_REPLICAS, d_wall,
+              stats["direct_requests_per_sec"], r_wall,
+              stats["router_requests_per_sec"],
+              stats["router_dispatch_p50_ms"],
+              stats["router_dispatch_p99_ms"], disp["count"],
+              stats["router_overhead_pct"], stats["failovers"],
+              stats["replicas_live"], spread, dispatches, d_err, r_err,
+              FLEET_TOL * scale), flush=True)
+    if stats["replicas_live"] != FLEET_REPLICAS or min(spread) < 1:
+        fail("12a: the router did not spread over every replica: %s"
+             % spread)
+    stats["contention"] = fleet_contention(
+        [e.predictor for e in engines], feeds[3], card)
+
+    # -- 12b: failover drills. kill() and the drain on a router of the
+    # same model and engine options: replicas 1 and 2 serve; 0 and the
+    # warm standby 3 are held (built, not started), so what the router
+    # sends them waits in their queues until the drill acts
+    t12b = time.monotonic()
+    dstore = InMemoryStore()
+    reps = [drill_replica(srouter, rid, spec, dstore, enc_dir,
+                          held=rid in (0, 3)) for rid in range(4)]
+    victim, standby = reps[0], reps[3]
+    drill = srouter.ServingRouter(
+        reps[:3], store=dstore, name="bert-drill", config=fleet_config(),
+        dirname=enc_dir, standby=[standby],
+        scale_up_depth=1 << 30)   # no pressure scale-up of the held standby
+    try:
+        futs = submit_until_queued(drill, feeds, victim.engine, 16)
+        queued = victim.engine.queue_depth()
+        t_kill = time.monotonic()
+        victim.kill()
+        replies = resolve("12b kill", futs)
+        wait_until(lambda: drill.replicas_live() == [1, 2, 3],
+                   "the monitor to declare replica 0 dead and the standby "
+                   "to take its place")
+        stats["dead_after_s"] = time.monotonic() - t_kill
+        err = check_replies("12b kill", replies, refs, scale)
+        fo = stats["failovers_kill"] = int(drill.stats().get("failovers", 0))
+        print("12b kill: replica 0 held %d queued requests of %d; all "
+              "answered (max|d| %.3e), failovers %d; the monitor declared "
+              "it dead and standby 3 took its place %.3f s after kill() "
+              "(silence bound %.2f s); live %s" % (
+                  queued, len(futs), err, fo, stats["dead_after_s"],
+                  drill.config.dead_after, drill.replicas_live()),
+              flush=True)
+        if fo < 1:
+            fail("12b: the kill replayed nothing")
+
+        futs = submit_until_queued(drill, feeds, standby.engine, 8)
+        queued = standby.engine.queue_depth()
+        dead0 = drill.stats()["replica_dead"]
+        standby.engine.start()
+        drill.remove_replica(3, drain=True)
+        err = check_replies("12b remove", resolve("12b remove", futs),
+                            refs, scale)
+        if drill.stats()["replica_dead"] != dead0 or \
+                drill.replicas_live() != [1, 2]:
+            fail("12b: the drained replica was not removed cleanly: live %s"
+                 % drill.replicas_live())
+        print("12b remove_replica(3, drain=True): %d queued requests "
+              "drained on it, all %d answered (max|d| %.3e), no replica "
+              "declared dead; live %s" % (
+                  queued, len(futs), err, drill.replicas_live()),
+              flush=True)
+    finally:
+        drill.stop(drain=False, timeout=30.0)
+
+    # a v3 directory with a torn parameter file: the first rebuild fails
+    # its health gate, the rollout rolls back, v1 keeps serving
+    v3 = os.path.join(tmp, "bert_v3")
+    os.makedirs(v3)
+    for fn in os.listdir(enc_dir):
+        with open(os.path.join(enc_dir, fn), "rb") as f:
+            data = f.read()
+        if fn != "__model__":
+            data = data[:len(data) // 2]
+        with open(os.path.join(v3, fn), "wb") as f:
+            f.write(data)
+    t0 = time.monotonic()
+    try:
+        router.rolling_reload(v3, probe_feeds=feeds[0],
+                              reload_timeout=FLEET_WAIT)
+        fail("12b: the rollout to a torn v3 succeeded")
+    except srouter.RolloutError as e:
+        rolled = str(e)
+    if router.dirname != enc_dir or any(
+            r.dirname != enc_dir for r in router._live.values()) \
+            or obs.gauge("serving.rollout_state") != 2:
+        fail("12b: the failed rollout left the fleet on %s" % [
+            r.dirname for r in router._live.values()])
+    err = check_replies("12b rollback", [
+        (fi, router.predict(feeds[fi], timeout=FLEET_WAIT)[0])
+        for fi in range(len(feeds))], refs, scale)
+    print("12b rolling_reload(torn v3): RolloutError after %.1f s (%s); "
+          "every replica on v1, which answers within %.3e" % (
+              time.monotonic() - t0, rolled[:120], err), flush=True)
+
+    # v2: the same model saved from seed 1235, rolled out under 4 clients
+    v2 = os.path.join(tmp, "bert_v2")
+    build_bert_base(fluid, bert, v2, target="encoder_out", cfg=cfg,
+                    seed=SEED + 1)
+    solo2 = fluid.Predictor.from_model(v2)
+    refs2 = [solo_bucket(solo2, f["input_ids"]) for f in feeds]
+    del solo2
+    results, errors, stop = [], [], threading.Event()
+
+    def hammer(i):
+        k = 0
+        while not stop.is_set():
+            fi = (i + k) % len(feeds)
+            k += 1
+            try:
+                results.append((fi, router.predict(
+                    feeds[fi], timeout=FLEET_WAIT)[0]))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("%s: %s" % (type(e).__name__, e))
+                return
+
+    threads = [threading.Thread(target=hammer, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    wait_until(lambda: len(results) >= 8 or errors, "traffic before v2")
+    t0 = time.monotonic()
+    done = router.rolling_reload(v2, probe_feeds=feeds[0],
+                                 reload_timeout=FLEET_WAIT)
+    reload_s = time.monotonic() - t0
+    n_at = len(results)
+    wait_until(lambda: len(results) >= n_at + 8 or errors,
+               "traffic after v2")
+    stop.set()
+    for t in threads:
+        t.join(timeout=FLEET_WAIT)
+    if errors:
+        fail("12b rolling_reload: %s" % errors[:3])
+    n_v1 = n_v2 = 0
+    for fi, out in results:
+        d1 = float(np.abs(out - refs[fi]).max())
+        d2 = float(np.abs(out - refs2[fi]).max())
+        if d1 <= FLEET_TOL * scale:
+            n_v1 += 1
+        elif d2 <= FLEET_TOL * scale:
+            n_v2 += 1
+        else:
+            fail("12b: a reply matches neither v1 (%.3e) nor v2 (%.3e)"
+                 % (d1, d2))
+    if sorted(done) != list(range(FLEET_REPLICAS)) or router.dirname != v2:
+        fail("12b: the rollout upgraded %s" % done)
+    check_replies("12b v2", [
+        (fi, router.predict(feeds[fi], timeout=FLEET_WAIT)[0])
+        for fi in range(len(feeds))], refs2, scale)
+    print("12b rolling_reload(v2) under 4 clients: %.1f s for replicas %s; "
+          "%d replies, %d from v1 and %d from v2, none a blend, 0 client "
+          "failures; the fleet answers as v2" % (
+              reload_s, done, len(results), n_v1, n_v2), flush=True)
+    stats["reload_s"] = reload_s
+    stats["failovers_reload"] = int(router.stats().get("failovers", 0))
+    router.stop()
+    stats["drills_s"] = time.monotonic() - t12b
+
+    # -- 12c: two worker processes on the card over a FileStore
+    store_dir = os.path.join(tmp, "fleet_store")
+    buckets = json.dumps([{"feeds": {"input_ids": [SEQ]},
+                           "batch_sizes": list(FLEET_BATCHES),
+                           "dtypes": {"input_ids": "int64"}}])
+    logs = [open(os.path.join(tmp, "worker%d.log" % rid), "w")
+            for rid in (0, 1)]
+    t_spawn = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.router",
+         "--store", store_dir, "--rid", str(rid), "--name", "bert-proc",
+         "--model-dir", enc_dir, "--heartbeat-interval", "0.1",
+         "--max-batch-size", "16", "--max-wait-ms", "1",
+         "--buckets", buckets],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=logs[rid], stderr=subprocess.STDOUT) for rid in (0, 1)]
+    prouter = None
+    try:
+        store = FileStore(store_dir)
+        pconf = fleet_config(miss_threshold=10)
+        prouter = srouter.ServingRouter(
+            [srouter.StoreReplica(rid, store, name="bert-proc",
+                                  config=pconf) for rid in (0, 1)],
+            store=store, name="bert-proc", config=pconf, dirname=enc_dir)
+        started = {}
+
+        def up():
+            table = prouter.monitor.table()
+            for rid in (0, 1):
+                if rid in table and rid not in started:
+                    started[rid] = time.monotonic() - t_spawn
+                if procs[rid].poll() is not None:
+                    fail("12c: worker %d exited with %s: %s" % (
+                        rid, procs[rid].returncode, log_tail(tmp, rid)))
+            return len(started) == 2
+
+        wait_until(up, "both workers' first beacons")
+        replies = [(fi, prouter.predict(feeds[fi], timeout=FLEET_WAIT)[0])
+                   for fi in (0, 1)]
+        procs[0].kill()           # SIGKILL: no drain, no goodbye
+        t_kill = time.monotonic()
+        wait_until(lambda: 0 not in prouter.replicas_live(),
+                   "the router to declare worker 0 dead")
+        stats["proc_dead_after_s"] = time.monotonic() - t_kill
+        replies += [(fi, prouter.predict(feeds[fi], timeout=FLEET_WAIT)[0])
+                    for fi in (0, 1, 2, 3)]
+        err = check_replies("12c", replies, refs, scale)
+        stats["worker_start_s"] = [started[0], started[1]]
+        print("12c process fleet: workers up (first beacon) %.1f s and "
+              "%.1f s after spawn; 2 requests before and 4 after SIGKILL "
+              "of worker 0 (max|d| %.3e over the FileStore's JSON); the "
+              "router declared it dead %.3f s after the kill (silence "
+              "bound %.2f s); live %s" % (
+                  started[0], started[1], err, stats["proc_dead_after_s"],
+                  pconf.dead_after, prouter.replicas_live()), flush=True)
+    finally:
+        if prouter is not None:
+            prouter.stop(timeout=30.0)
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    if procs[1].returncode != 0:
+        fail("12c: worker 1 exited %s after the stop: %s" % (
+            procs[1].returncode, log_tail(tmp, 1)))
+    return launches, stats
+
+
+def log_tail(tmp, rid):
+    with open(os.path.join(tmp, "worker%d.log" % rid)) as f:
+        return f.read()[-2000:]
+
+
+def dis_tenants(disagg, model, capped=False):
+    specs = [disagg.TenantSpec("latency", priority="interactive",
+                               per_token_slo_ms=DIS_SLO_MS),
+             disagg.TenantSpec("bulk", priority="batch")]
+    if capped:
+        specs.append(disagg.TenantSpec("capped", max_live=0))
+    return disagg.TenantTable(specs=specs, model=model)
+
+
+def dis_requests(vocab):
+    """bench.py:1232's mixed-tenant load: per client, (tenant, prompt,
+    new tokens) x 3; 6 latency clients cycle 3/5/6-token prompts, 2 bulk
+    clients send 700-token prompts."""
+    rng = np.random.default_rng(GPT_SEED + 12)
+    clients = []
+    for c in range(DIS_LAT_CLIENTS):
+        clients.append([("latency", rng.integers(0, vocab, DIS_LAT_LENS[
+            k % len(DIS_LAT_LENS)]).astype(np.int64), DIS_LAT_NEW)
+            for k in range(DIS_PER_CLIENT)])
+    for c in range(DIS_BULK_CLIENTS):
+        clients.append([("bulk", rng.integers(0, vocab, DIS_BULK_LEN)
+                         .astype(np.int64), DIS_BULK_NEW)
+                        for _ in range(DIS_PER_CLIENT)])
+    return clients
+
+
+def dis_load(submit, clients):
+    """Closed-loop clients streaming their requests; returns the tokens
+    by (client, request), the latency tenant's gaps between tokens (s),
+    every TTFT (s) and the wall (s)."""
+    toks, gaps, ttft, errors = {}, [], [], []
+
+    def client(c):
+        for k, (tenant, prompt, new) in enumerate(clients[c]):
+            t0 = time.monotonic()
+            try:
+                out, last = [], None
+                for tok in submit(prompt, new, tenant).tokens(
+                        timeout=FLEET_WAIT):
+                    now = time.monotonic()
+                    if last is None:
+                        ttft.append(now - t0)
+                    elif tenant == "latency":
+                        gaps.append(now - last)
+                    last = now
+                    out.append(tok)
+                toks[(c, k)] = out
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append("client %d request %d: %s: %s" % (
+                    c, k, type(e).__name__, e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(clients))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_WAIT)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("12d load: %s" % (errors[:3] or "client threads hung"))
+    return toks, gaps, ttft, wall
+
+
+def dis_report(tag, card, clients, toks, gaps, wall, wire=None):
+    n_tok = sum(len(t) for t in toks.values())
+    want = sum(new for reqs in clients for _, _, new in reqs)
+    if n_tok != want:
+        fail("%s: %d tokens delivered, want %d" % (tag, n_tok, want))
+    out = dict(tokens_per_s=n_tok / wall, wall=wall,
+               latency_gap_p50_ms=1e3 * _pct(gaps, 0.5),
+               latency_gap_p99_ms=1e3 * _pct(gaps, 0.99))
+    print("%s [%s]: %d tokens in %.3f s: %.1f tokens/s; latency tenant's "
+          "per-token gap p50 %.3f ms, p99 %.3f ms (%d gaps)%s" % (
+              tag, card, n_tok, wall, out["tokens_per_s"],
+              out["latency_gap_p50_ms"], out["latency_gap_p99_ms"],
+              len(gaps), wire or ""), flush=True)
+    return out
+
+
+def fleet_counts(engines):
+    """Prefill and step dispatches over a set of engines, from stats()."""
+    return sum(e.stats().get("prefills", 0) + e.stats().get("steps", 0)
+               for e in engines)
+
+
+def disagg_phase(fluid, serving, ca, cl, cfg, scope, card, tmp):
+    """Phases 12d-12f. Returns the kernels' launches in 12d's leg (ii),
+    the disaggregated load (the counters zeroed just before it, read just
+    after), and the numbers."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.fluid.resilience import FaultInjector
+    from paddle_tpu_torch.serving import disagg
+
+    clients = dis_requests(cfg.vocab)
+    wire_int8 = disagg.handoff_wire_bytes(cfg.num_layers, GPT_CACHE,
+                                          cfg.hidden, "int8")
+    wire_fp32 = disagg.handoff_wire_bytes(cfg.num_layers, GPT_CACHE,
+                                          cfg.hidden, "fp32")
+    ratio = disagg.handoff_compression(cfg.num_layers, GPT_CACHE,
+                                       cfg.hidden, "int8")
+    stats = {}
+    t0 = time.monotonic()
+    obs.reset()
+    coloc = serving.DecodeEngine(cfg, scope, slots=4, cache_len=GPT_CACHE,
+                                 name="gpt-coloc")
+    coloc.warmup()
+    fleet = disagg.disagg_fleet(
+        cfg, scope, n_prefill=2, n_decode=2, slots=2, cache_len=GPT_CACHE,
+        kv_dtype="fp32", wire_dtype="int8",
+        tenants=dis_tenants(disagg, "gpt-disagg"), name="gpt-disagg",
+        request_timeout_s=FLEET_WAIT, warm=True)
+    _sync()
+    fleet_engines = [r.engine for r in list(fleet._prefill.values())
+                     + list(fleet._decode.values())]
+    print("12d colocated DecodeEngine(slots=4) and disagg_fleet(2 prefill "
+          "+ 2 decode, slots=2, int8 wire, fp32-resident) at cache_len %d, "
+          "buckets %s: built and warmed up in %.1f s" % (
+              GPT_CACHE, coloc.prompt_buckets, time.monotonic() - t0),
+          flush=True)
+
+    # every leg between zeroed counters: 24 LayerNorm forwards in each
+    # prefill and step of the leg's engines; leg (ii)'s are the main path's
+    def leg_launches(tag, engines, n0):
+        return check_launches(tag, fns, {"layer_norm_fwd": 2 * cfg.num_layers
+                                         * (fleet_counts(engines) - n0)})
+
+    # leg (i): colocated
+    fns = zero_counters(ca, cl)
+    n0 = fleet_counts([coloc])
+    toks_c, gaps, _, wall = dis_load(
+        lambda p, new, tenant: coloc.submit(p, max_new=new, tenant=tenant),
+        clients)
+    leg_launches("12d leg (i)", [coloc], n0)
+    stats["colocated"] = dis_report("12d leg (i) colocated", card, clients,
+                                    toks_c, gaps, wall)
+    # leg (ii): disaggregated, every request traced
+    trace_dir = os.path.join(tmp, "trace12")
+    os.environ[obs.TRACE_DIR_ENV] = trace_dir
+    fns = zero_counters(ca, cl)
+    n0 = fleet_counts(fleet_engines)
+    try:
+        toks_d, gaps, _, wall = dis_load(
+            lambda p, new, tenant: fleet.submit(
+                p, max_new=new, tenant=tenant,
+                trace_ctx=obs.TraceContext.new()), clients)
+    finally:
+        del os.environ[obs.TRACE_DIR_ENV]
+    launches = leg_launches("12d leg (ii) (the main path)", fleet_engines,
+                            n0)
+    hist = obs.histogram("serving.disagg.per_token_seconds.latency") or {}
+    stats["disagg"] = dis_report(
+        "12d leg (ii) disaggregated", card, clients, toks_d, gaps, wall,
+        "; router's per-token p50 %s; handoff %d wire bytes (%.1f MB, "
+        "fp32 %.1f MB): handoff_compression %.3f" % (
+            "%.3f ms" % (1e3 * hist["p50"]) if hist.get("p50") is not None
+            else "n/a", wire_int8, wire_int8 / 1e6, wire_fp32 / 1e6, ratio))
+    first_same = sum(toks_d[k][0] == toks_c[k][0] for k in toks_c)
+    breakdown = obs.phase_breakdown(obs.read_spans(trace_dir))
+    stats["phase_breakdown_ms"] = {
+        ph: dict(count=b["count"], mean_ms=1e3 * b["mean_s"],
+                 max_ms=1e3 * b["max_s"], total_ms=1e3 * b["total_s"])
+        for ph, b in breakdown.items()}
+    print("12d leg (ii) phase_breakdown (ms, from %d traced requests): %s; "
+          "first tokens equal to leg (i)'s: %d/%d" % (
+              len(toks_d), ", ".join(
+                  "%s n=%d mean %.3f max %.3f" % (
+                      ph, b["count"], 1e3 * b["mean_s"], 1e3 * b["max_s"])
+                  for ph, b in sorted(breakdown.items())),
+              first_same, len(toks_c)), flush=True)
+    if first_same != len(toks_c) or not {
+            "queue", "prefill", "handoff", "adopt", "decode"} <= set(
+                breakdown):
+        fail("12d: first tokens or the phase breakdown are off: %s"
+             % sorted(breakdown))
+    # leg (iii): an 80-token canary; its decode replica killed at half
+    st_before = fleet.stats()
+    fns = zero_counters(ca, cl)
+    n0 = fleet_counts(fleet_engines)
+    canary_prompt = clients[0][1][1]
+    t0 = time.monotonic()
+    canary = fleet.submit(canary_prompt, max_new=DIS_CANARY_NEW,
+                          tenant="latency")
+    wait_until(lambda: len(canary.so_far()) >= DIS_CANARY_NEW // 2,
+               "the canary's first half")
+    with fleet._lock:
+        victim = next(rid for rid, hs in fleet._sessions.items()
+                      if canary in hs)
+    fleet.kill_replica(victim)
+    got = canary.result(FLEET_WAIT)
+    wall = time.monotonic() - t0
+    leg_launches("12d leg (iii)", fleet_engines, n0)
+    st = fleet.stats()
+    migrations = st["migrations"] - st_before["migrations"]
+    stats["canary"] = dict(tokens=len(got), migrations=migrations,
+                           failed_streams=st["failed_streams"],
+                           tokens_per_s=len(got) / wall)
+    print("12d leg (iii) [%s]: 80-token canary, decode replica %d killed "
+          "after %d tokens: %d tokens in %.3f s (%.1f tokens/s), migrations "
+          "%d, failed_streams %d, decode_live %d" % (
+              card, victim, DIS_CANARY_NEW // 2, len(got), wall,
+              len(got) / wall, migrations, st["failed_streams"],
+              st["decode_live"]), flush=True)
+    if len(got) != DIS_CANARY_NEW or migrations < 1 or \
+            st["failed_streams"] != 0:
+        fail("12d: the canary got %d tokens, %d migrations, %d failed "
+             "streams" % (len(got), migrations, st["failed_streams"]))
+    fleet.stop(drain=False, timeout=30.0)
+    coloc.stop()
+    del coloc, fleet, fleet_engines
+
+    # -- 12e: the lossless fleet token for token; the int8 residency
+    t0 = time.monotonic()
+    exact = disagg.disagg_fleet(
+        cfg, scope, n_prefill=2, n_decode=2, slots=2, cache_len=GPT_CACHE,
+        kv_dtype="fp32", wire_dtype="fp32",
+        tenants=dis_tenants(disagg, "gpt-exact", capped=True),
+        name="gpt-exact", request_timeout_s=FLEET_WAIT, warm=True)
+    ref = serving.DecodeEngine(cfg, scope, slots=2, cache_len=GPT_CACHE,
+                               name="gpt-ref")
+    ref.warmup()
+    print("12e fp32-wire fleet and a colocated DecodeEngine(slots=2) built "
+          "and warmed up in %.1f s" % (time.monotonic() - t0), flush=True)
+    toks_x, _, _, wall_x = dis_load(
+        lambda p, new, tenant: exact.submit(p, max_new=new, tenant=tenant),
+        clients)
+    toks_r, _, _, _ = dis_load(
+        lambda p, new, tenant: ref.submit(p, max_new=new), clients)
+    same = sum(toks_x[k] == toks_r[k] for k in toks_r)
+    print("12e lossless fleet vs the colocated engine with its replicas' "
+          "slots, cache_len and buckets: %d/%d streams equal token for token "
+          "(%d tokens in %.3f s through the fleet)" % (
+              same, len(toks_r), sum(map(len, toks_x.values())), wall_x),
+          flush=True)
+    if same != len(toks_r):
+        fail("12e: a lossless-fleet stream differs from the colocated one")
+
+    q8 = disagg.disagg_fleet(
+        cfg, scope, n_prefill=1, n_decode=1, slots=2, cache_len=GPT_CACHE,
+        kv_dtype="int8", wire_dtype="int8", name="gpt-q8",
+        request_timeout_s=FLEET_WAIT, warm=True)
+    qeng = next(iter(q8._decode.values())).engine
+    qpre = next(iter(q8._prefill.values())).engine
+    fp32_b = serving.kv_slot_bytes(cfg, GPT_CACHE)
+    int8_b = serving.kv_slot_bytes(cfg, GPT_CACHE, "int8")
+    slot_ratio = fp32_b / float(int8_b)
+    if qeng.slot_bytes() != int8_b or not 3.5 < slot_ratio < 4.0 \
+            or qeng._k.dtype != torch.int8:
+        fail("12e: int8 slot bytes %d (%s), ratio %.3f" % (
+            qeng.slot_bytes(), qeng._k.dtype, slot_ratio))
+    prompt = clients[0][0][1]
+    want = toks_r[(0, 0)]
+    got = q8.generate(prompt, max_new=DIS_LAT_NEW, tenant="latency")
+    # an idle int8 engine adopts one int8 handoff (max_new 1: the
+    # handoff's own token, no step); slot 0 holds the handoff's payload,
+    # within scale/2 per row of the lossless one
+    idle8 = serving.DecodeEngine(cfg, scope, slots=2, cache_len=GPT_CACHE,
+                                  kv_dtype="int8", role="decode",
+                                  name="gpt-q8-idle")
+    h32 = qpre.prefill(prompt, wire_dtype="fp32", timeout=FLEET_WAIT)
+    h8 = qpre.prefill(prompt, timeout=FLEET_WAIT)
+    adopted = idle8.submit_prefilled(h8, max_new=1).result(FLEET_WAIT)
+    if adopted != [int(h8.next_token)] or idle8.stats()["steps"] != 0:
+        fail("12e: the int8 adoption gave %s after %d steps" % (
+            adopted, idle8.stats()["steps"]))
+    k8 = idle8._k[0].cpu().numpy()
+    s8 = idle8._kscale[0].cpu().numpy()
+    k32, _ = h32.dense()
+    dev = np.abs(k8.astype(np.float32) * s8 - k32)
+    row_ok = bool((dev <= 0.5 * s8 + 1e-7 * np.abs(k32).max()).all())
+    print("12e int8 residency [%s]: slot_bytes %d = kv_slot_bytes(cfg, %d, "
+          "'int8') (fp32 %d, ratio %.3f); first token %d vs the fp32 "
+          "engine's %d; adopted cache payload equal to the handoff's: %s, "
+          "max|dequantized - lossless| %.3e, within scale/2 per row: %s" % (
+              card, int8_b, GPT_CACHE, fp32_b, slot_ratio, got[0], want[0],
+              bool((k8 == h8.k).all()), float(dev.max()), row_ok),
+          flush=True)
+    if got[0] != want[0] or len(got) != DIS_LAT_NEW or not row_ok \
+            or not (k8 == h8.k).all():
+        fail("12e: the int8-resident checks failed")
+    st0 = q8.stats()
+    FaultInjector.install("wire:at=1:corrupt=bitflip")
+    try:
+        got2 = q8.generate(prompt, max_new=DIS_LAT_NEW, tenant="latency")
+    finally:
+        FaultInjector.uninstall()
+    st1 = q8.stats()
+    print("12e corrupted handoff (wire:at=1:corrupt=bitflip) on the int8 "
+          "fleet: adopt_errors +%d, migrations +%d, failed_streams %d; "
+          "stream of %d tokens equal to the clean run's: %s" % (
+              st1["adopt_errors"] - st0.get("adopt_errors", 0),
+              st1["migrations"] - st0["migrations"], st1["failed_streams"],
+              len(got2), got2 == got), flush=True)
+    if st1["failed_streams"] != 0 or st1["migrations"] <= st0["migrations"] \
+            or st1["adopt_errors"] - st0.get("adopt_errors", 0) != 1 \
+            or len(got2) != DIS_LAT_NEW:
+        fail("12e: the corrupted handoff was not re-prefilled cleanly")
+    q8.stop(drain=False, timeout=30.0)
+    # the int8 step against the fp32 step, 2 slots each, on idle engines
+    f32 = serving.DecodeEngine(cfg, scope, slots=2, cache_len=GPT_CACHE,
+                               role="decode", name="gpt-f32-idle")
+    _, qt = gpt_step_times(idle8, card, tag="12e int8-resident step")
+    _, ft = gpt_step_times(f32, card, tag="12e fp32 step")
+    stats["int8_step"] = dict(host_ms=qt["step_host_ms"],
+                              device_ms=qt["step_device_ms"],
+                              fp32_host_ms=ft["step_host_ms"],
+                              fp32_device_ms=ft["step_device_ms"])
+    idle8.stop(drain=False)
+    f32.stop(drain=False)
+    del idle8, f32, q8, qeng, qpre
+
+    # -- 12f: the lossless fleet behind the HTTP server
+    reg = serving.ModelRegistry()
+    reg.publish("gpt", exact)
+    srv = serving.ServingServer(reg).start()
+    try:
+        url = srv.url + "/v1/models/gpt:generate"
+        htoks, _, _, done = http_stream(url, {
+            "prompt": prompt.tolist(), "max_new_tokens": DIS_LAT_NEW,
+            "tenant": "latency", "priority": "interactive"})
+        bad, _ = http_post(url, {"prompt": prompt.tolist(),
+                                 "max_new_tokens": 2, "priority": "vip"})
+        capped, _ = http_post(url, {"prompt": prompt.tolist(),
+                                    "max_new_tokens": 2,
+                                    "tenant": "capped"})
+        for rep in list(exact._prefill.values()) + list(
+                exact._decode.values()):
+            rep._beat_once()      # beacons carry the load's counters
+        _, prom = http_get(srv.url + "/metrics?scope=fleet")
+        fams = sorted({ln.split()[2] for ln in prom.splitlines()
+                       if ln.startswith("# TYPE paddle_tpu_fleet_")})
+        burn = [f for f in fams if f.startswith("paddle_tpu_fleet_slo_burn")]
+        tenants_burn = {t for t in ("latency", "bulk")
+                        if any(f.endswith("_" + t) for f in burn)}
+        print("12f HTTP: :generate (tenant latency, priority interactive) "
+              "streamed %d tokens, equal to 12e's: %s (done %s); "
+              "priority 'vip' -> %d; tenant 'capped' -> %d; "
+              "/metrics?scope=fleet: %d fleet families (replicas %s), "
+              "slo burn gauges for %s" % (
+                  len(htoks), htoks == want, done.get("finish_reason"),
+                  bad, capped, len(fams),
+                  prom_value(prom, "paddle_tpu_fleet_replicas"),
+                  sorted(tenants_burn)), flush=True)
+        if htoks != want or bad != 400 or capped != 429 \
+                or "paddle_tpu_fleet_replicas" not in fams \
+                or tenants_burn != {"latency", "bulk"}:
+            fail("12f: the HTTP statuses or the fleet exposition are off")
+    finally:
+        srv.stop()
+        exact.stop(drain=False, timeout=30.0)
+        ref.stop()
+    stats.update(wire_bytes=wire_int8, handoff_compression=ratio)
+    return launches, stats
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3962,12 +4896,24 @@ def main():
                        gpt_eng11, gpt_prompts(gcfg.vocab), gpt_stats["solo"],
                        card)
         srv11.stop(close_registry=True)
-        del gscope, gpt_eng11, reg11, http_replies
+        del gpt_eng11, reg11, http_replies
         # launches_http: every kernel's count in 11b's and 11c's timed loads
         http_launches = {n: predict_launches[n] + generate_launches[n]
                          for n in predict_launches}
         print("phase 11 (serving front door: 11a-11e) took %.1f s" % (
             time.monotonic() - t11), flush=True)
+        # phase 12: the serving fleet (12a-12c on 11b's model, 12d-12f on
+        # phase 8's weights); its loads are timed, so before the profiles
+        t12 = time.monotonic()
+        fleet_launches, _ = fleet_phase(fluid, serving, ca, cl, bert,
+                                        enc_dir, tmp, card)
+        t12d = time.monotonic()
+        disagg_launches, _ = disagg_phase(fluid, serving, ca, cl, gcfg,
+                                          gscope, card, tmp)
+        del gscope
+        print("phase 12 (serving fleet: 12a-12c %.1f s, 12d-12f %.1f s) "
+              "took %.1f s" % (t12d - t12, time.monotonic() - t12d,
+                               time.monotonic() - t12), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -4051,7 +4997,8 @@ def main():
     # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
     # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
     # launches_ctr in 10b's timed epochs, launches_http in 11b's :predict
-    # and 11c's :generate loads
+    # and 11c's :generate loads, launches_fleet in 12a's routed load and
+    # launches_disagg in 12d's disaggregated load, leg (ii)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -4065,6 +5012,8 @@ def main():
                      launches_generate=gen_launches[name],
                      launches_ctr=ctr_launches[name],
                      launches_http=http_launches[name],
+                     launches_fleet=fleet_launches[name],
+                     launches_disagg=disagg_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

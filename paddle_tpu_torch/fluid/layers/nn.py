@@ -18,7 +18,7 @@ __all__ = [
     "stack", "gather", "gather_nd", "expand", "expand_as", "log",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_mod", "elementwise_floordiv", "scale", "reduce_sum",
+    "elementwise_mod", "elementwise_floordiv", "scale", "reduce_sum", "reduce_max",
     "logical_and", "logical_or", "logical_xor", "logical_not",
     "sampling_id", "fused_multihead_attention", "clip", "log_loss",
 ]
@@ -791,8 +791,8 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", input=input)
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, input=input)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -808,12 +808,20 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                     s.pop(a)
             out.shape = tuple(s)
     helper.append_op(
-        type="reduce_sum",
+        type=op_type,
         inputs={"X": [input]},
         outputs={"Out": [out]},
         attrs={"dim": dim, "keep_dim": keep_dim, "reduce_all": dim is None},
     )
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
 
 
 def fused_multihead_attention(query, key, value, key_padding_mask=None,

@@ -1,10 +1,11 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
 of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs and
-Wide&Deep call. The other activation layers wait for the op library
+Wide&Deep call, and ``abs``/``round``, which the int8-resident decode
+step calls. The other activation layers wait for the op library
 (ROADMAP.md Queue 1, item 6)."""
 from .nn import _layer
 
-__all__ = ["sigmoid", "cumsum"]
+__all__ = ["sigmoid", "abs", "round", "cumsum"]
 
 
 def _make_unary(op_type):
@@ -16,6 +17,8 @@ def _make_unary(op_type):
 
 
 sigmoid = _make_unary("sigmoid")
+abs = _make_unary("abs")
+round = _make_unary("round")
 
 
 def cumsum(x, axis=-1, exclusive=False, reverse=False):

@@ -6,10 +6,10 @@ Training and decoding share parameter names, so a trained scope drives
 :func:`build_gpt_generate` and :class:`~paddle_tpu_torch.serving.DecodeEngine`
 directly; the generator (``GPTDecodeCell`` under ``SamplingDecoder`` and
 ``dynamic_decode``) is the solo reference the engine's bit-exactness is
-held to. The delta prefill waits for the prefix pool, the verify block
-for speculative decoding, the int8-resident step for disaggregation, and
-``tp_rules`` for the parallel slice (ROADMAP.md Queue 1, items 7.3, 7.4
-and 8).
+held to. :func:`build_gpt_decode_step_q` is the int8-resident step of
+the disaggregated fleet's decode replicas. The delta prefill waits for
+the prefix pool, the verify block for speculative decoding (ROADMAP.md
+Queue 1 item 7.4), and ``tp_rules`` for the parallel slice (item 8).
 """
 import numpy as np
 
@@ -19,7 +19,8 @@ from ..fluid.param_attr import ParamAttr
 
 __all__ = ["GPTConfig", "gpt_tiny", "build_gpt_lm", "GPTDecodeCell",
            "SamplingDecoder", "build_gpt_generate", "build_gpt_prefill",
-           "build_gpt_decode_step", "synthetic_lm_batch"]
+           "build_gpt_decode_step", "build_gpt_decode_step_q",
+           "synthetic_lm_batch"]
 
 
 class GPTConfig:
@@ -428,6 +429,104 @@ def build_gpt_decode_step(cfg, cache_len):
             "feed_names": ["gpt_step_tok", "gpt_step_pos",
                            "gpt_step_k", "gpt_step_v"],
             "fetch_vars": [nxt, k_out, v_out]}
+
+
+def _quantize_cache_rows(t):
+    """In-graph per-(slot, layer, row) block-scaled int8 encode of a
+    (S, L, T, H) fp32 cache: block = hidden width, matching
+    serving.disagg.kv_wire. Returns (payload int8, scales fp32 with the
+    hidden axis collapsed to 1). The 1e-30 clamp keeps all-zero rows
+    (unwritten cache positions) at scale 1e-30 / payload 0, and rows
+    decoded from an existing (payload, scale) re-encode identically
+    (max |element| is exactly 127 * scale), so requantizing the whole
+    cache every step does not compound error on unwritten rows."""
+    amax = layers.reduce_max(layers.abs(t), dim=3, keep_dim=True)
+    scale = layers.scale(layers.clip(amax, 1e-30, 3.0e38),
+                         scale=1.0 / 127.0)
+    q = layers.round(layers.elementwise_div(t, scale))
+    payload = layers.cast(layers.clip(q, -127.0, 127.0), "int8")
+    return payload, scale
+
+
+def build_gpt_decode_step_q(cfg, cache_len):
+    """:func:`build_gpt_decode_step` with an int8-**resident** KV
+    cache: the engine keeps (payload int8, per-row fp32 scale) buffers
+    instead of fp32 caches — ~4x more decode slots per card at equal
+    device memory — and this program dequantizes on entry and requantizes the
+    updated caches before returning them.
+
+    Extra feeds beyond the fp32 step: ``gpt_step_kscale`` /
+    ``gpt_step_vscale`` (S, num_layers, cache_len, 1) fp32, with
+    ``gpt_step_k`` / ``gpt_step_v`` now int8. Fetches next tokens plus
+    the requantized (k, v, k_scale, v_scale) quadruple. Compute after
+    dequantize is identical op-for-op to the fp32 step, so the only
+    numeric delta is the per-row int8 rounding (bounded by scale/2 per
+    element — the round-trip tolerance the kv_wire tests pin).
+    """
+    from .decode_utils import step_masks, update_cache
+
+    if cache_len > cfg.max_len:
+        raise ValueError("cache_len (%d) exceeds cfg.max_len (%d)"
+                         % (cache_len, cfg.max_len))
+    h = cfg.hidden
+    nl = cfg.num_layers
+    tok = fluid.data("gpt_step_tok", shape=[None, 1], dtype="int64")
+    pos = fluid.data("gpt_step_pos", shape=[None, 1], dtype="int64")
+    k_all = fluid.data("gpt_step_k", shape=[None, nl, cache_len, h],
+                       dtype="int8")
+    v_all = fluid.data("gpt_step_v", shape=[None, nl, cache_len, h],
+                       dtype="int8")
+    k_sc = fluid.data("gpt_step_kscale", shape=[None, nl, cache_len, 1],
+                      dtype="float32")
+    v_sc = fluid.data("gpt_step_vscale", shape=[None, nl, cache_len, 1],
+                      dtype="float32")
+    k_f = layers.elementwise_mul(layers.cast(k_all, "float32"), k_sc)
+    v_f = layers.elementwise_mul(layers.cast(v_all, "float32"), v_sc)
+    emb = layers.reshape(
+        layers.embedding(tok, size=[cfg.vocab, h],
+                         param_attr=_p("gpt_tok_emb")), [-1, h])
+    pos_table = layers.create_parameter(
+        shape=[cfg.max_len, h], dtype="float32", name="gpt_pos_emb")
+    x = layers.elementwise_add(emb, layers.gather_nd(pos_table, pos))
+    x = layers.unsqueeze(x, [1])                          # (S, 1, H)
+    _w3, _k3, self_mask = step_masks(pos, cache_len)      # per-row mask
+
+    def layer_cache(t, i):
+        return layers.squeeze(
+            layers.slice(t, axes=[1], starts=[i], ends=[i + 1]), [1])
+
+    new_ks, new_vs = [], []
+    for i in range(nl):
+        n = "gpt%d" % i
+        q = _proj(x, h, n + ".self.q")
+        k_cache = update_cache(layer_cache(k_f, i),
+                               _proj(x, h, n + ".self.k"),
+                               pos=pos, per_row=True)
+        v_cache = update_cache(layer_cache(v_f, i),
+                               _proj(x, h, n + ".self.v"),
+                               pos=pos, per_row=True)
+        new_ks.append(k_cache)
+        new_vs.append(v_cache)
+        attn = _proj(_attend(cfg, q, k_cache, v_cache, self_mask),
+                     h, n + ".self.o")
+        x = _ln(layers.elementwise_add(x, attn), n + ".ln1")
+        f = _proj(x, cfg.ffn, n + ".ffn.fc1")
+        f = layers.gelu(f)
+        f = _proj(f, h, n + ".ffn.fc2")
+        x = _ln(layers.elementwise_add(x, f), n + ".ln2")
+    logits = _proj(layers.squeeze(x, [1]), cfg.vocab, "gpt_out", nfd=1)
+    nxt = layers.cast(
+        layers.unsqueeze(layers.argmax(logits, axis=-1), [1]), "int64")
+    k_q, k_s = _quantize_cache_rows(layers.stack(new_ks, axis=1))
+    v_q, v_s = _quantize_cache_rows(layers.stack(new_vs, axis=1))
+    return {"tok": tok, "pos": pos, "k_in": k_all, "v_in": v_all,
+            "k_scale_in": k_sc, "v_scale_in": v_sc,
+            "next": nxt, "logits": logits, "k": k_q, "v": v_q,
+            "k_scale": k_s, "v_scale": v_s,
+            "feed_names": ["gpt_step_tok", "gpt_step_pos",
+                           "gpt_step_k", "gpt_step_v",
+                           "gpt_step_kscale", "gpt_step_vscale"],
+            "fetch_vars": [nxt, k_q, v_q, k_s, v_s]}
 
 
 def synthetic_lm_batch(cfg, batch, seq_len, seed=0):

@@ -68,8 +68,9 @@ Well-known distributed-tracing metrics (``observability.distributed``):
   ``http.generate``, ``serving.predict``, ``decode.queue`` /
   ``decode.prefill`` / ``decode.token`` / ``decode.stream``.
 - ``fleet.*`` families and ``fleet.slo_burn_*`` gauges —
-  :class:`FleetMetrics` and :class:`SLOMonitor`, for the fleet
-  (ROADMAP.md Queue 1 item 7.3) to feed.
+  :class:`FleetMetrics` and :class:`SLOMonitor`, fed from the fleet's
+  heartbeat beacons (``DisaggRouter.fleet_metrics`` /
+  ``fleet_render_prom``, served at ``/metrics?scope=fleet``).
 
 Not ported yet (ROADMAP.md Queue 1 item 11): the executable ledger
 (``ledger``), the drift table (``perf``), run health (``runhealth``) and

@@ -1,7 +1,7 @@
 """Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv,
-mul, matmul, mean, scale, reduce_sum, the comparisons equal, not_equal,
-less_than, less_equal, greater_than and greater_equal, logical_and/or/xor/
-not, isfinite, cumsum, clip.
+mul, matmul, mean, scale, reduce_sum, reduce_max, abs, the comparisons
+equal, not_equal, less_than, less_equal, greater_than and greater_equal,
+logical_and/or/xor/not, isfinite, cumsum, clip.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
 binary lowering promotes its operands by jax's rules first
@@ -150,6 +150,29 @@ def _reduce_sum(ctx, ins, attrs):
         out = x.sum(dim=axes, keepdim=keep_dim, dtype=dtype) if axes \
             else x.to(dtype)
     return single(out)
+
+
+@register_op("reduce_max")
+def _reduce_max(ctx, ins, attrs):
+    """jnp.max over ``dim`` (all axes with ``reduce_all`` or no dim), in
+    x's dtype. A NaN anywhere in the reduced slice gives NaN, as in jax."""
+    x = ins["X"][0]
+    dim = attrs.get("dim", None)
+    keep_dim = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False) or dim is None:
+        out = x.amax()
+        if keep_dim:
+            out = out.reshape((1,) * x.dim())
+    else:
+        axes = tuple(d if d >= 0 else d + x.dim() for d in dim)
+        # torch reads dim=() as every axis, jnp.max as none
+        out = x.amax(dim=axes, keepdim=keep_dim) if axes else x
+    return single(out)
+
+
+@register_op("abs")
+def _abs(ctx, ins, attrs):
+    return single(torch.abs(ins["X"][0]))
 
 
 @register_op("isfinite")

@@ -1,5 +1,5 @@
-"""NN op lowerings: relu, sigmoid, log, softmax, gelu, lookup_table_v2, conv2d,
-depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout.
+"""NN op lowerings: relu, sigmoid, log, round, softmax, gelu, lookup_table_v2,
+conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout.
 
 Port of the paddle_tpu/ops/nn_ops.py lowerings the port runs.
 ``layer_norm`` always goes through ``LayerNorm`` (ops/cuda_layernorm.py),
@@ -38,6 +38,14 @@ def _sigmoid(ctx, ins, attrs):
 @register_op("log")
 def _log(ctx, ins, attrs):
     return single(torch.log(ins["X"][0]))
+
+
+@register_op("round")
+def _round(ctx, ins, attrs):
+    """jnp.round: to the nearest integer, halves to even (torch.round's
+    rule too), in x's dtype. The int8-resident decode step rounds its
+    cache rows with it."""
+    return single(torch.round(ins["X"][0]))
 
 
 @register_op("softmax")

@@ -1,6 +1,7 @@
 """DecodeEngine: slotted KV-cache decode with continuous batching.
 
-Port of paddle_tpu/serving/decode.py, its colocated fp32 core. The
+Port of paddle_tpu/serving/decode.py: the colocated engine, the
+int8-resident cache and the decode-only role of a disaggregated fleet. The
 micro-batching :class:`~paddle_tpu_torch.serving.engine.ServingEngine`
 coalesces fixed-shape ``predict`` calls; autoregressive *decode* needs
 more: a full-batch generator makes every request wait for the slowest
@@ -47,13 +48,29 @@ per-token ``decode.token`` and ``decode.stream`` spans.
 only refilled once EVERY slot has retired — the classic full-batch
 generation schedule, identical programs, no in-flight admission.
 
+Disaggregation (:mod:`paddle_tpu_torch.serving.disagg`):
+
+- ``kv_dtype="int8"`` keeps the resident cache as int8 payloads with one
+  fp32 scale per (slot, layer, row) — ~4x the slots per device-memory
+  budget — stepped by ``build_gpt_decode_step_q``, which dequantizes on
+  entry and requantizes the whole cache on exit (the codec is idempotent
+  on rows it did not write).
+- ``role="decode"`` builds no prefill program: the replica only steps,
+  and its slots are filled by :meth:`DecodeEngine.submit_prefilled` from
+  a prefill replica's :class:`~paddle_tpu_torch.serving.disagg.kv_wire.
+  KVHandoff`. The handoff's digest is verified before any row lands in a
+  slot; an int8 handoff drops straight into int8 residency.
+
+The ``dispatch`` fault site (``PADDLE_TPU_FAULT_SPEC``) fires in the
+step, as in the JAX engine.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the int8-resident cache, the decode-only role and
-``submit_prefilled`` (disaggregation, Queue 1 item 7.3); the prefix pool,
-the session tier (``submit(session=)``) and the speculative draft (item
-7.4); the SDC sentinel, ``check_hbm_budget`` and ``check_ladder`` (item
-11). The JAX engine's lock-sanitizer hooks, fault sites, executable-ledger
-feed and cost-model predictions on spans wait for item 11 as well.
+ROADMAP.md item: the prefix pool, the session tier (``submit(session=)``)
+and the speculative draft (Queue 1 item 7.4); the SDC sentinel,
+``check_hbm_budget`` and ``check_ladder`` (item 11). The JAX engine's
+lock-sanitizer hooks, executable-ledger feed and cost-model predictions
+on spans wait for item 11 as well: the locks here are plain
+``threading`` locks.
 """
 import collections
 import os
@@ -66,6 +83,7 @@ import torch
 
 from .. import observability as obs
 from ..fluid import core
+from ..fluid import resilience as R
 from .engine import DeadlineExceededError, EngineClosedError, ShedError
 
 __all__ = ["DecodeEngine", "DecodeStream", "default_prompt_buckets",
@@ -197,7 +215,7 @@ class DecodeStream:
 class _Request:
     __slots__ = ("prompt", "plen", "bucket", "max_new", "eos_id",
                  "deadline", "handle", "tenant", "priority", "trace",
-                 "t_wall")
+                 "t_wall", "handoff")
 
 
 class _Slot:
@@ -248,7 +266,8 @@ class DecodeEngine:
                  place=None):
         from .. import fluid
         from ..fluid.inference import Predictor
-        from ..models.gpt import build_gpt_decode_step, build_gpt_prefill
+        from ..models.gpt import (build_gpt_decode_step,
+                                  build_gpt_decode_step_q, build_gpt_prefill)
 
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError("kv_dtype must be 'fp32' or 'int8', got %r"
@@ -256,11 +275,6 @@ class DecodeEngine:
         if role not in ("colocated", "decode"):
             raise ValueError("role must be 'colocated' or 'decode', "
                              "got %r" % (role,))
-        if kv_dtype == "int8":
-            raise _later("the int8-resident KV cache (kv_dtype='int8')",
-                         "7.3")
-        if role == "decode":
-            raise _later("the decode-only role (role='decode')", "7.3")
         if draft is not None:
             raise _later("speculative decoding (draft=)", "7.4")
         if prefix_pool is not None:
@@ -292,14 +306,17 @@ class DecodeEngine:
 
         # -- build the program pair (never touching the caller's
         # default_main_program) and share ONE device param set ---------
+        build_step = (build_gpt_decode_step_q if self.kv_dtype == "int8"
+                      else build_gpt_decode_step)
         with fluid.program_guard(fluid.Program(), fluid.Program()):
-            step_vars = build_gpt_decode_step(cfg, self.cache_len)
+            step_vars = build_step(cfg, self.cache_len)
             step_prog = fluid.default_main_program()
         prefill = {}
-        for b in self.prompt_buckets:
-            with fluid.program_guard(fluid.Program(), fluid.Program()):
-                pv = build_gpt_prefill(cfg, b, self.cache_len)
-                prefill[b] = (fluid.default_main_program(), pv)
+        if self.role != "decode":  # a pure decode replica never prefills
+            for b in self.prompt_buckets:
+                with fluid.program_guard(fluid.Program(), fluid.Program()):
+                    pv = build_gpt_prefill(cfg, b, self.cache_len)
+                    prefill[b] = (fluid.default_main_program(), pv)
         persist = {}
         for prog in [step_prog] + [p for p, _ in prefill.values()]:
             for v in prog.list_vars():
@@ -326,8 +343,16 @@ class DecodeEngine:
 
         # -- the persistent slot buffer pair + host-side slot state ----
         shape = (self.slots, cfg.num_layers, self.cache_len, cfg.hidden)
-        self._k = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self._v = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        cache_dtype = torch.int8 if self.kv_dtype == "int8" else torch.float32
+        self._k = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        self._v = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        self._kscale = self._vscale = None
+        if self.kv_dtype == "int8":
+            sshape = shape[:-1] + (1,)
+            self._kscale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=self.device)
+            self._vscale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=self.device)
         self._tok = np.zeros((self.slots, 1), np.int64)
         self._pos = np.zeros((self.slots, 1), np.int64)
         self._slots = [None] * self.slots
@@ -424,6 +449,11 @@ class DecodeEngine:
         if self._closed:
             raise EngineClosedError(
                 "engine %r is draining/stopped" % self.name)
+        if self.role == "decode":
+            raise RuntimeError(
+                "engine %r is a decode-role (step-only) replica: it "
+                "builds no prefill programs — hand it a prefilled KV "
+                "cache via submit_prefilled()" % self.name)
         if session is not None:
             raise _later("resumable sessions (submit(session=))", "7.4")
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
@@ -452,6 +482,13 @@ class DecodeEngine:
         req.bucket = bucket
         req.max_new = max_new
         req.eos_id = self.eos_id if eos_id is None else eos_id
+        req.handoff = None
+        return self._enqueue(req, deadline_ms, tenant, priority, trace_ctx)
+
+    def _enqueue(self, req, deadline_ms, tenant, priority, trace_ctx):
+        """Stamp the admission fields of a validated request and put it
+        on the queue (shedding when it is full); returns its stream."""
+        handoff = req.handoff is not None
         req.tenant = tenant
         req.priority = priority
         if deadline_ms is None:
@@ -462,7 +499,7 @@ class DecodeEngine:
         req.trace = trace_ctx if sampled else None
         req.t_wall = time.time() if sampled else None
         req.handle = DecodeStream(
-            plen, max_new, stall_timeout_s=self.request_timeout_s)
+            req.plen, req.max_new, stall_timeout_s=self.request_timeout_s)
         req.handle.tenant = tenant
         req.handle.priority = priority
         req.handle.trace = req.trace
@@ -475,11 +512,13 @@ class DecodeEngine:
         except queue.Full:
             self._bump("shed")
             obs.event("shed", source="serving", model=self.name,
-                      engine="decode", prompt_len=plen,
-                      queue_capacity=self._q.maxsize)
+                      engine="decode", prompt_len=req.plen,
+                      queue_capacity=self._q.maxsize,
+                      **({"handoff": True} if handoff else {}))
             raise ShedError(
-                "decode queue full (%d) for model %r — request shed"
-                % (self._q.maxsize, self.name),
+                "decode queue full (%d) for model %r — %s shed"
+                % (self._q.maxsize, self.name,
+                   "handoff" if handoff else "request"),
                 model=self.name, retry_after=self.retry_after_hint())
         self._bump("requests")
         obs.set_gauge("serving.queue_depth.%s" % self.name,
@@ -494,8 +533,52 @@ class DecodeEngine:
         return h.result(
             timeout if timeout is not None else self.request_timeout_s)
 
-    def submit_prefilled(self, handoff, **kw):
-        raise _later("adopting a remote prefill (submit_prefilled)", "7.3")
+    def submit_prefilled(self, handoff, max_new=None, eos_id=None,
+                         deadline_ms=None, tenant=None, priority=None,
+                         trace_ctx=None, session=None):
+        """Enqueue a generation whose prefill already happened on
+        another replica: ``handoff`` is a
+        :class:`~paddle_tpu_torch.serving.disagg.kv_wire.KVHandoff` whose
+        KV pair is adopted into a free slot (no prefill program runs here
+        — works on ``role="decode"`` replicas). The stream's first token
+        is the handoff's ``next_token``; ``max_new`` counts it, matching
+        :meth:`submit` semantics, so a handoff at ``plen`` with
+        ``max_new`` N delivers N tokens total. ``session`` comes with the
+        session tier (ROADMAP.md Queue 1 item 7.4)."""
+        if self._closed:
+            raise EngineClosedError(
+                "engine %r is draining/stopped" % self.name)
+        if session is not None:
+            raise _later("resumable sessions (submit_prefilled(session=))",
+                         "7.4")
+        expect = (self.cfg.num_layers, self.cache_len, self.cfg.hidden)
+        if tuple(handoff.shape) != expect:
+            raise ValueError(
+                "handoff cache shape %r does not match this engine's "
+                "geometry %r" % (tuple(handoff.shape), expect))
+        plen = int(handoff.plen)
+        if plen < 1 or plen > self.cache_len:
+            raise ValueError("handoff plen %d outside [1, cache_len=%d]"
+                             % (plen, self.cache_len))
+        max_new = self.default_max_new if max_new is None else int(max_new)
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if plen + max_new - 1 > self.cache_len:
+            raise ValueError(
+                "handoff plen %d + max_new %d - 1 exceeds cache_len %d"
+                % (plen, max_new, self.cache_len))
+        req = _Request()
+        req.prompt = np.asarray(handoff.prompt, np.int64).reshape(-1)
+        req.plen = plen
+        req.bucket = None
+        req.max_new = max_new
+        req.eos_id = self.eos_id if eos_id is None else eos_id
+        req.handoff = handoff
+        if trace_ctx is None:
+            # the handoff's embedded context keeps the prefill-side
+            # trace alive across a transport that dropped the kwarg
+            trace_ctx = getattr(handoff, "trace", None)
+        return self._enqueue(req, deadline_ms, tenant, priority, trace_ctx)
 
     def check_hbm_budget(self, budget_bytes=None):
         raise _later("the device-memory admission check "
@@ -507,16 +590,21 @@ class DecodeEngine:
     def warmup(self, check_hbm=False):
         """Run the step program and every prompt-bucket prefill once (the
         first launch builds the CUDA kernels) on zero caches, without
-        touching the engine's slots. Returns the per-program report.
+        touching the engine's slots — a decode-role replica's whole
+        ladder is the step. Returns the per-program report.
         ``check_hbm=True`` asks for :meth:`check_hbm_budget`, which is
         not ported yet."""
         if check_hbm:
             self.check_hbm_budget()
         report = []
-        source = self._step_pred.warm({
+        warm_feeds = {
             "gpt_step_tok": self._tok, "gpt_step_pos": self._pos,
             "gpt_step_k": torch.zeros_like(self._k),
-            "gpt_step_v": torch.zeros_like(self._v)})
+            "gpt_step_v": torch.zeros_like(self._v)}
+        if self.kv_dtype == "int8":
+            warm_feeds["gpt_step_kscale"] = torch.zeros_like(self._kscale)
+            warm_feeds["gpt_step_vscale"] = torch.zeros_like(self._vscale)
+        source = self._step_pred.warm(warm_feeds)
         report.append({"program": "step", "slots": self.slots,
                        "cache_len": self.cache_len,
                        "kv_dtype": self.kv_dtype, "source": source})
@@ -609,18 +697,30 @@ class DecodeEngine:
                       self._q.qsize())
 
     def _fill_slot(self, slot, req):
-        """Route one admitted request onto its fill path: the cold
-        prefill (adoption, prefix hits and session resumes come with
-        ROADMAP.md Queue 1 items 7.3 and 7.4)."""
+        """Route one admitted request onto its fill path: a remote
+        handoff's adoption or the cold prefill (prefix hits and session
+        resumes come with ROADMAP.md Queue 1 item 7.4)."""
+        if req.handoff is not None:
+            return self._adopt(slot, req)
         return self._prefill(slot, req)
 
-    def _write_slot_cache(self, slot, k1, v1):
-        """Install one sequence's (1, L, T, H) cache pair into slot
-        ``slot`` of the resident pair, in place (the buffers stay where
-        they are; the reference's donated ``dynamic_update_slice``)."""
+    def _write_slot_cache(self, slot, k1, v1, ks=None, vs=None):
+        """Install one sequence's cache pair into slot ``slot`` of the
+        resident buffers, in place (the buffers stay where they are; the
+        reference's donated ``dynamic_update_slice``). ``k1``/``v1`` are
+        (1, L, T, H) in the engine's residency dtype, host arrays or
+        tensors; int8 engines also take the (1, L, T, 1) fp32 scale
+        pair."""
+        pairs = [(self._k, k1), (self._v, v1)]
+        if self.kv_dtype == "int8":
+            pairs += [(self._kscale, ks), (self._vscale, vs)]
         with torch.inference_mode():
-            self._k[slot].copy_(k1[0])
-            self._v[slot].copy_(v1[0])
+            for buf, val in pairs:
+                if not isinstance(val, torch.Tensor):
+                    # a handoff read off the wire is a read-only view
+                    val = torch.from_numpy(
+                        np.require(val, requirements=("C", "W")))
+                buf[slot].copy_(val[0])
 
     def _trace_queue_span(self, req, now):
         """Export the (already finished) queue-wait span for a traced
@@ -649,7 +749,17 @@ class DecodeEngine:
             nxt, k1, v1 = self._prefill_preds[req.bucket].run(
                 {"gpt_prefill_ids": ids, "gpt_prefill_len": plen},
                 return_numpy=False)
-            self._write_slot_cache(slot, k1, v1)
+            if self.kv_dtype == "int8":
+                # the prefill program stays fp32; quantize per row on the
+                # way into the resident buffers (same codec as the wire)
+                from .disagg import kv_wire
+
+                kq, ks = kv_wire.quantize_rows(k1[0])
+                vq, vs = kv_wire.quantize_rows(v1[0])
+                self._write_slot_cache(slot, kq[None], vq[None],
+                                       ks[None], vs[None])
+            else:
+                self._write_slot_cache(slot, k1, v1)
             tok = int(nxt[0, 0])
         except Exception as e:  # noqa: BLE001 — fail the request, not the loop
             if sp is not None:
@@ -673,6 +783,83 @@ class DecodeEngine:
         self._bump("prefills")
         self._emit(slot, tok)
         self._gauges()
+
+    def _adopt(self, slot, req):
+        """Install a remote prefill's :class:`KVHandoff` into a slot —
+        the decode half of the disaggregated handoff. The digest is
+        checked first; an int8 handoff whose block is the hidden width
+        drops payload+scales straight into an int8-resident engine (no
+        requantize); every other combination goes through fp32."""
+        t0 = time.monotonic()
+        h = req.handoff
+        if req.trace is not None:
+            self._trace_queue_span(req, t0)
+        # the adopt span parents to the PREFILL side's span when the
+        # handoff carries one — that's the cross-process flow arrow
+        actx = getattr(h, "trace", None) or req.trace
+        sp = None
+        if actx is not None and actx.sampled:
+            sp = obs.span("decode.adopt", ctx=actx,
+                          proc="decode:%s" % self.name, slot=slot,
+                          plen=req.plen, wire_dtype=h.wire_dtype,
+                          wire_bytes=h.wire_bytes())
+            sp.__enter__()
+        try:
+            # digest check FIRST: a corrupted handoff must fail the
+            # inner stream here (the router's migration path then
+            # re-prefills) — never install garbage into a slot
+            if getattr(h, "digest", None) is not None:
+                h.verify()
+            if self.kv_dtype == "int8":
+                if h.wire_dtype == "int8":
+                    kq, ks = np.asarray(h.k, np.int8), h.k_scales
+                    vq, vs = np.asarray(h.v, np.int8), h.v_scales
+                else:
+                    from .disagg import kv_wire
+
+                    kd, vd = h.dense()
+                    kq, ks = kv_wire.quantize_rows(kd)
+                    vq, vs = kv_wire.quantize_rows(vd)
+                self._write_slot_cache(
+                    slot, kq[None], vq[None],
+                    np.asarray(ks, np.float32)[None],
+                    np.asarray(vs, np.float32)[None])
+            else:
+                kd, vd = h.dense()
+                self._write_slot_cache(slot, kd[None], vd[None])
+        except Exception as e:  # noqa: BLE001 — fail the request, not the loop
+            if sp is not None:
+                sp.__exit__(type(e), e, None)
+            self._bump("adopt_errors")
+            from ..integrity.digest import IntegrityError
+            if isinstance(e, IntegrityError):
+                obs.inc("integrity.handoff_digest_mismatch")
+                obs.event("integrity_violation", source="serving",
+                          model=self.name, check="kv_handoff",
+                          op="adopt", tensor=e.tensor,
+                          error=str(e)[:200])
+            obs.event("adopt_error", source="serving", model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
+            req.handle._fail(e)
+            return
+        if sp is not None:
+            sp.__exit__(None, None, None)
+        self._tok[slot, 0] = tok = int(h.next_token)
+        self._pos[slot, 0] = req.plen
+        self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
+                                  trace=sp.ctx if sp is not None else None)
+        obs.observe("serving.disagg.adopt_seconds", time.monotonic() - t0)
+        self._bump("adopts")
+        self._emit(slot, tok)
+        self._gauges()
+
+    def _step_feeds(self):
+        feeds = {"gpt_step_tok": self._tok, "gpt_step_pos": self._pos,
+                 "gpt_step_k": self._k, "gpt_step_v": self._v}
+        if self.kv_dtype == "int8":
+            feeds["gpt_step_kscale"] = self._kscale
+            feeds["gpt_step_vscale"] = self._vscale
+        return feeds
 
     def _emit(self, slot, tok):
         """Deliver one generated token to a slot's stream; retires the
@@ -727,11 +914,17 @@ class DecodeEngine:
     def _step(self):
         t0 = time.monotonic()
         try:
-            # the step's outputs replace the resident pair
-            nxt, self._k, self._v = self._step_pred.run(
-                {"gpt_step_tok": self._tok, "gpt_step_pos": self._pos,
-                 "gpt_step_k": self._k, "gpt_step_v": self._v},
-                return_numpy=False)
+            # chaos site: a 'slow' clause stalls the step in place; an
+            # exception clause flows to the step_error path below
+            R.fault_check("dispatch")
+            # the step's outputs replace the resident buffers
+            outs = self._step_pred.run(self._step_feeds(),
+                                       return_numpy=False)
+            if self.kv_dtype == "int8":
+                (nxt, self._k, self._v, self._kscale,
+                 self._vscale) = outs
+            else:
+                nxt, self._k, self._v = outs
             nxt_np = nxt.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the slots, not the loop
             self._bump("step_errors")
@@ -771,14 +964,15 @@ class DecodeEngine:
             obs.inc("serving.decode.%s" % key, n)
 
     def stats(self):
-        """Local lifetime counters: requests/tokens/prefills/steps/
-        retired/shed/deadline_miss/cancelled/prefill_errors/
-        step_errors."""
+        """Local lifetime counters: requests/tokens/prefills/adopts/
+        steps/retired/shed/deadline_miss/cancelled/prefill_errors/
+        adopt_errors/step_errors, plus ``kv_dtype`` and ``role``."""
         with self._stats_lock:
             out = dict(self._stats)
-        for k in ("requests", "tokens", "prefills", "steps", "retired",
-                  "shed", "deadline_miss", "cancelled", "prefill_errors",
-                  "step_errors", "prefill_rows_computed"):
+        for k in ("requests", "tokens", "prefills", "adopts", "steps",
+                  "retired", "shed", "deadline_miss", "cancelled",
+                  "prefill_errors", "adopt_errors", "step_errors",
+                  "prefill_rows_computed"):
             out.setdefault(k, 0)
         out["live_slots"] = sum(1 for s in self._slots if s is not None)
         out["slots"] = self.slots

@@ -2,8 +2,8 @@
 
 Port of paddle_tpu/serving/disagg/tenancy.py, unchanged. The HTTP
 frontend validates a ``:generate`` request's ``priority`` with
-:func:`resolve_priority`; the fleet that schedules on the tables comes
-with ROADMAP.md Queue 1 item 7.3.
+:func:`resolve_priority`; :class:`~.router.DisaggRouter` schedules on the
+tables.
 
 A tenant is a traffic class, not a user: "interactive" chat sessions
 that buy per-token p99, "batch" summarization that buys throughput.

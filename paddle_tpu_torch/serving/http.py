@@ -17,9 +17,9 @@ thread per model does the batching):
   as JSON numbers coerce to the program's int32/int64), so a plain
   nested-list payload round-trips bit-exact for float32 models.
 - ``POST /v1/models/<name>:generate`` — decode engines only
-  (:class:`~paddle_tpu_torch.serving.decode.DecodeEngine` published into
-  the registry; the disaggregated router comes with ROADMAP.md Queue 1
-  item 7.3). Body ``{"prompt": [ids], "max_new_tokens": 32?,
+  (:class:`~paddle_tpu_torch.serving.decode.DecodeEngine` or a
+  :class:`~paddle_tpu_torch.serving.disagg.DisaggRouter` published into
+  the registry). Body ``{"prompt": [ids], "max_new_tokens": 32?,
   "eos_id": 2?, "deadline_ms": 50?, "timeout_s": 10?, "stream": true?,
   "tenant": "chat"?, "priority": "interactive"|0..2?}`` — ``tenant``
   must be a non-empty string and ``priority`` an int 0..2 or a named

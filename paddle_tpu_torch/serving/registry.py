@@ -92,8 +92,10 @@ class ModelRegistry:
         """Publish a pre-built engine-like object — anything with the
         ServingEngine surface (``submit``/``predict``/``stats``/
         ``queue_depth``/``stop``), notably a
-        :class:`~paddle_tpu_torch.serving.decode.DecodeEngine` (or, with
-        ROADMAP.md Queue 1 item 7.3, a router fronting N replicas) —
+        :class:`~paddle_tpu_torch.serving.decode.DecodeEngine`, a
+        :class:`~paddle_tpu_torch.serving.router.ServingRouter` fronting N
+        replicas or a disaggregated
+        :class:`~paddle_tpu_torch.serving.disagg.DisaggRouter` —
         under `name` with the same atomic-swap semantics as :meth:`load`.
         The registry does not build, warm, or reload it; lifecycle
         beyond the swap/drain belongs to the caller."""
@@ -128,8 +130,8 @@ class ModelRegistry:
         if cur.get("published"):
             raise ValueError(
                 "model %r was publish()ed, not load()ed — reload it "
-                "through its own surface (publish its replacement)"
-                % name)
+                "through its own surface (e.g. "
+                "ServingRouter.rolling_reload)" % name)
         return self.load(
             name, dirname if dirname is not None else cur["dirname"],
             buckets=cur["buckets"], warm=cur["warm"],

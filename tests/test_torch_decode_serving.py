@@ -342,13 +342,14 @@ def test_slot_geometry_and_stats(m):
     assert 1.0 <= eng.retry_after_hint() <= 60.0
 
 
+# The int8-resident cache and the decode-only role (item 7.3) are ported:
+# tests/test_torch_disagg.py holds them. The ids keep the names these
+# cases had when the list began with the two 7.3 options.
 @pytest.mark.parametrize("kw,item", [
-    ({"kv_dtype": "int8"}, "7.3"),
-    ({"role": "decode"}, "7.3"),
-    ({"draft": object()}, "7.4"),
-    ({"prefix_pool": object()}, "7.4"),
-    ({"session_tier": object()}, "7.4"),
-    ({"session": "chat-1"}, "7.4"),
+    pytest.param({"draft": object()}, "7.4", id="kw2-7.4"),
+    pytest.param({"prefix_pool": object()}, "7.4", id="kw3-7.4"),
+    pytest.param({"session_tier": object()}, "7.4", id="kw4-7.4"),
+    pytest.param({"session": "chat-1"}, "7.4", id="kw5-7.4"),
 ])
 def test_later_options_raise(m, kw, item):
     with pytest.raises(NotImplementedError, match="item %s" % item):
@@ -358,12 +359,16 @@ def test_later_options_raise(m, kw, item):
             _engine(m, auto_start=False, **kw)
 
 
+# submit_prefilled (item 7.3) is ported: tests/test_torch_disagg.py holds
+# it. The ids keep the names these cases had before.
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.submit_prefilled(None), "7.3"),
-    (lambda e: e.attach_sentinel(None), "11"),
-    (lambda e: e.check_hbm_budget(), "11"),
-    (lambda e: e.check_ladder(), "11"),
-    (lambda e: e.warmup(check_hbm=True), "11"),
+    pytest.param(lambda e: e.attach_sentinel(None), "11",
+                 id="<lambda>-11_0"),
+    pytest.param(lambda e: e.check_hbm_budget(), "11",
+                 id="<lambda>-11_1"),
+    pytest.param(lambda e: e.check_ladder(), "11", id="<lambda>-11_2"),
+    pytest.param(lambda e: e.warmup(check_hbm=True), "11",
+                 id="<lambda>-11_3"),
 ])
 def test_later_methods_raise(m, call, item):
     with pytest.raises(NotImplementedError, match="item %s" % item):
