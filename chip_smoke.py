@@ -251,6 +251,33 @@ Phases, each of which exits non-zero on failure:
    tenant and priority streams 12e's tokens, a bad priority answers 400,
    a capped tenant 429, ``/metrics?scope=fleet`` carries the ``fleet_``
    families and a ``fleet_slo_burn`` gauge for each tenant.
+13. KV reuse and speculative decoding, after phase 12 and before the
+   profiles, on phase 8's weights (``GPTConfig()``, cache_len 1024, the
+   default buckets) under bench.py:1472's traffic (12 clients, a shared
+   24-token system prompt plus unique 4-8 token tails, 12 new tokens, 2
+   slots, k = 4): (a) a plain ``DecodeEngine`` against the main path, the
+   same engine with ``PrefixPool(prefix_lens=(24,))`` and a self-draft
+   ``DraftModel(GPTConfig(), phase 8's scope, k=4)``, run twice (cold and
+   delta prefills, then full hits) with every counter at 0 just before:
+   24 LayerNorm forward launches in each cold prefill, delta prefill,
+   verify dispatch and step, and in each draft step and draft slot
+   prefill; prefill rows saved above 50%, the acceptance rate, spec
+   rounds and fallback steps, tokens/s both ways, the pool's insert,
+   delta and full-hit times; then the two distances on the same inputs
+   (verify column 0's logits against the step's, a delta prefill's k/v
+   rows against a cold prefill's) and one delta prefill's, verify
+   dispatch's and draft step's launches; (b) an early-exit draft, the
+   target's own first 2 layers, its acceptance and tokens/s; (c) 6
+   two-turn conversations on 2 slots through a ``SessionTier``, fp32
+   wire (6 resumes, turn 2 against a cold replay of the transcript) and
+   int8 wire (its bytes), with each hibernate's and resume's time; (d) a
+   ``PrefillEngine(prefix_pool=)`` behind a ``DisaggRouter`` (1 prefill +
+   1 decode replica, fp32 wire) serving the same load, and a full and a
+   partial pool hit against a cold prefill (first tokens equal, the k/v
+   distance). Every stream of (a), (b), (c) and (d) equals the plain
+   engine's token for token; a stream that diverges fails the phase
+   unless the plain engine's top-2 logit margin at the divergence is
+   below the measured distance.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -387,9 +414,11 @@ def check_kernels(ca, cl):
             if label == "plain" and dt == torch.float32:
                 errs["flash_attn_fwd"] = err
     # (n, h, x dtypes, gamma and beta: "x" = x's dtype, a dtype, or None):
-    # the GPT decode step's rows (8 slots; 4 and 2 in phase 12d-12e) and
-    # its 64-row prefill bucket, the serving buckets' rows (128·B; B = 16
-    # in phase 12a), the NMT decode step's (B·beam = 128, 512) and its
+    # the GPT decode step's rows (8 slots; 4 and 2 in phase 12d-12e and
+    # 13) and its 64-row prefill bucket, phase 13's verify block (2 slots
+    # x 5) and prefill bucket of 32 (its delta bucket is 8), the serving
+    # buckets' rows (128·B; B = 16 in phase 12a), the NMT decode step's
+    # (B·beam = 128, 512) and its
     # encoder's (32·32, 512), h = 770 (no 16-byte loads),
     # no gamma and beta, their width other than x's, n = 1, and the
     # backward's long rows: h = 1024 (the longest held in registers), 4096
@@ -401,6 +430,8 @@ def check_kernels(ca, cl):
         (8, 768, (f32, bf16), "x"),
         (4, 768, (f32, bf16), "x"),
         (2, 768, (f32, bf16), "x"),
+        (10, 768, (f32, bf16), "x"),
+        (32, 768, (f32, bf16), "x"),
         (64, 768, (f32, bf16), "x"),
         (128, 768, (f32, bf16), "x"),
         (256, 768, (f32, bf16), "x"),
@@ -4730,6 +4761,511 @@ def disagg_phase(fluid, serving, ca, cl, cfg, scope, card, tmp):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 13: KV reuse and speculative decoding
+# ---------------------------------------------------------------------------
+# bench.py:1472 _measure_spec_serving's traffic on phase 8's GPTConfig()
+# weights: 12 clients, one shared 24-token system prompt plus a unique tail
+# of 4-8 tokens each (rng seed 0, drawn in the lane's order), 12 new tokens,
+# 2 slots, cache_len 1024, the default buckets, drafts of k = 4; 6 two-turn
+# conversations on 2 slots (turn 1 the first 6-8 prompt tokens, turn 2 four
+# new ones, 6 new tokens each turn).
+SPEC_CLIENTS, SPEC_SHARED, SPEC_MAX_NEW = 12, 24, 12
+SPEC_SLOTS, SPEC_K, SPEC_SESSIONS, SPEC_TURN_NEW = 2, 4, 6, 6
+# host bytes of the pool and the tier: an fp32 entry or handoff of one
+# GPTConfig() slot at cache_len 1024 is 75.5 MB, and the JAX package's
+# defaults (64 MiB, 256 MiB) would hold none or 3 of them
+SPEC_POOL_BYTES = SPEC_TIER_BYTES = 2 << 30
+SPEC_WAIT = 600.0
+
+
+def spec_prompts(vocab):
+    """The lane's prompts and its generator, drawn in the lane's order."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, vocab, SPEC_SHARED).astype(np.int64)
+    prompts = [np.concatenate([shared, rng.integers(
+        1, vocab, 4 + (c % 5)).astype(np.int64)])
+        for c in range(SPEC_CLIENTS)]
+    return prompts, rng
+
+
+def spec_drive(submit, prompts, max_new=SPEC_MAX_NEW):
+    """Every prompt submitted at once, then every stream read; returns the
+    tokens by prompt and the wall time from the first submit."""
+    t0 = time.monotonic()
+    handles = [submit(p, max_new) for p in prompts]
+    toks = [h.result(SPEC_WAIT) for h in handles]
+    return toks, time.monotonic() - t0
+
+
+class call_ms:
+    """Wraps methods of objects to record each call's host time in ms,
+    ended by a device synchronise."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def wrap(self, obj, name, tag):
+        fn = getattr(obj, name)
+        sink = self.ms.setdefault(tag, [])
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                _sync()
+                sink.append(1e3 * (time.perf_counter() - t0))
+
+        setattr(obj, name, timed)
+
+    def summary(self, tag):
+        xs = self.ms.get(tag) or []
+        if not xs:
+            return "%s: no call" % tag
+        return "%s: %d calls, median %.3f ms, max %.3f ms" % (
+            tag, len(xs), statistics.median(xs), max(xs))
+
+
+def stats_delta(eng, st0):
+    """An engine's integer counters since `st0` (a stats() snapshot)."""
+    st1 = eng.stats()
+    return {k: st1[k] - st0.get(k, 0) for k in st1
+            if isinstance(st1[k], int) and not isinstance(st1[k], bool)}
+
+
+def spec_ln_launches(cfg, st, draft_layers=0, k=SPEC_K):
+    """LayerNorm forward launches of a DecodeEngine's work in `st` (a
+    stats delta): 2 a layer in every cold prefill, delta prefill, verify
+    dispatch and step of the target, and in every step and slot prefill of
+    its draft (k + 1 steps a round, one a fallback step, one prefill a
+    filled slot)."""
+    target = (st["prefills"] + st["delta_prefills"] + st["spec_rounds"]
+              + st["steps"])
+    draft = 0
+    if draft_layers:
+        fills = (st["prefills"] + st["delta_prefills"]
+                 + st["prefix_full_hits"] + st["adopts"])
+        draft = st["spec_rounds"] * (k + 1) + st["spec_fallback_steps"] \
+            + fills
+    return 2 * cfg.num_layers * target + 2 * draft_layers * draft
+
+
+def _logits_pred(fluid, eng, builder, *args):
+    """A predictor of `builder`'s program on the engine's own parameter
+    copy that fetches next, logits, k and v."""
+    with fluid.program_guard(fluid.Program(), fluid.Program()):
+        vs = builder(eng.cfg, *args)
+        prog = fluid.default_main_program()
+    return fluid.Predictor(prog, vs["feed_names"],
+                           [vs["next"], vs["logits"], vs["k"], vs["v"]],
+                           scope=eng._params, place=eng.place)
+
+
+def top2_margin(logits):
+    """The least gap between the two largest logits of any row."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min().item()
+
+
+def spec_distances(fluid, gpt, ca, cl, eng, prompts):
+    """The two distances behind the bit-exactness contract, on the card, in
+    the reuse engine's programs and parameters: verify column 0's logits
+    against the single-token step's on the same caches (2 slots, each
+    prefilled cold), and the k/v rows of a delta prefill (24 adopted rows
+    + the tail) against a cold prefill of the whole prompt. Also the
+    LayerNorm forward launches of one delta prefill, one verify dispatch
+    and one draft step. Returns the numbers."""
+    T = eng.cache_len
+    cold = _logits_pred(fluid, eng, gpt.build_gpt_prefill, 32, T)
+    step = _logits_pred(fluid, eng, gpt.build_gpt_decode_step, T)
+    verify = _logits_pred(fluid, eng, gpt.build_gpt_verify_block,
+                          SPEC_K + 1, T)
+    delta = _logits_pred(fluid, eng, gpt.build_gpt_prefill_delta, 8, T)
+
+    def prefill(p, n):
+        ids = np.zeros((1, 32), np.int64)
+        ids[0, :n] = p[:n]
+        return cold.run({"gpt_prefill_ids": ids,
+                         "gpt_prefill_len": np.asarray([[n]], np.int64)},
+                        return_numpy=False)
+
+    launches = {}
+    kv_d, kv_scale, next_same = 0.0, 0.0, 0
+    for p in prompts[:4]:
+        n = len(p)
+        c_next, _, c_k, c_v = prefill(p, n)
+        _, _, h_k, h_v = prefill(p, SPEC_SHARED)
+        ids = np.zeros((1, 8), np.int64)
+        ids[0, :n - SPEC_SHARED] = p[SPEC_SHARED:]
+        fns = zero_counters(ca, cl)
+        d_next, _, d_k, d_v = delta.run(
+            {"gpt_dpre_ids": ids,
+             "gpt_dpre_len": np.asarray([[n - SPEC_SHARED]], np.int64),
+             "gpt_dpre_start": np.asarray([[SPEC_SHARED]], np.int64),
+             "gpt_dpre_k": h_k, "gpt_dpre_v": h_v}, return_numpy=False)
+        _sync()
+        launches["delta_prefill"] = fns["layer_norm_fwd"].launches
+        kv_d = max(kv_d, max_abs(d_k, c_k), max_abs(d_v, c_v))
+        kv_scale = max(kv_scale, c_k.abs().max().item(),
+                       c_v.abs().max().item())
+        next_same += int(d_next.item() == c_next.item())
+    caches = [prefill(p, len(p)) for p in prompts[:2]]
+    tok = torch.cat([c[0] for c in caches]).cpu().numpy().astype(np.int64)
+    k = torch.cat([c[2] for c in caches])
+    v = torch.cat([c[3] for c in caches])
+    pos = np.asarray([[len(p)] for p in prompts[:2]], np.int64)
+    s_next, s_logits, _, _ = step.run(
+        {"gpt_step_tok": tok, "gpt_step_pos": pos, "gpt_step_k": k,
+         "gpt_step_v": v}, return_numpy=False)
+    block = np.concatenate(
+        [tok, np.asarray(prompts[2][:SPEC_K])[None].repeat(2, 0)], axis=1)
+    fns = zero_counters(ca, cl)
+    v_next, v_logits, _, _ = verify.run(
+        {"gpt_vrf_tok": block, "gpt_vrf_pos": pos, "gpt_vrf_k": k,
+         "gpt_vrf_v": v}, return_numpy=False)
+    _sync()
+    launches["verify"] = fns["layer_norm_fwd"].launches
+    dr = eng._draft
+    fns = zero_counters(ca, cl)
+    dr._step_pred.run({"gpt_step_tok": tok, "gpt_step_pos": pos,
+                       "gpt_step_k": torch.zeros_like(dr._k_buf),
+                       "gpt_step_v": torch.zeros_like(dr._v_buf)},
+                      return_numpy=False)
+    _sync()
+    launches["draft_step"] = fns["layer_norm_fwd"].launches
+    out = dict(
+        launches=launches,
+        verify_vs_step=max_abs(v_logits[:, 0], s_logits),
+        logit_scale=s_logits.abs().max().item(),
+        verify_next_same=int((v_next[:, 0] == s_next[:, 0]).sum().item()),
+        step_margin=top2_margin(s_logits),
+        delta_vs_cold=kv_d, kv_scale=kv_scale, delta_next_same=next_same)
+    print("13 distances on the card: verify column 0 vs the step (2 slots, "
+          "same caches): max|d logits| %.3e (max|logit| %.3e, top-2 margin "
+          ">= %.3e), next tokens equal %d/2; delta prefill (24 adopted rows "
+          "+ a 4-8 token tail, bucket 8) vs a cold prefill of the whole "
+          "prompt (bucket 32), 4 prompts: max|d k/v| %.3e (max|kv| %.3e), "
+          "next tokens equal %d/4; LayerNorm forward launches: %s" % (
+              out["verify_vs_step"], out["logit_scale"], out["step_margin"],
+              out["verify_next_same"], kv_d, kv_scale, next_same, launches),
+          flush=True)
+    want = {"delta_prefill": 2 * eng.cfg.num_layers,
+            "verify": 2 * eng.cfg.num_layers,
+            "draft_step": 2 * dr.cfg.num_layers}
+    if launches != want:
+        fail("13: LayerNorm launches %s, want %s" % (launches, want))
+    return out
+
+
+def plain_margin(fluid, eng, prompt, toks, idx):
+    """The plain engine's top-2 logit margin where it chose token `idx` of
+    `prompt`'s stream `toks`: its prefill, then its step teacher-forced
+    with `toks` in slot 0 of its rows (the others dead), each program on
+    the engine's parameters."""
+    bucket = eng._bucket_for(len(prompt))
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :len(prompt)] = prompt
+    _, logits, k, v = _with_logits(fluid, eng, bucket).run(
+        {"gpt_prefill_ids": ids,
+         "gpt_prefill_len": np.asarray([[len(prompt)]], np.int64)},
+        return_numpy=False)
+    if idx > 0:
+        step = _with_logits(fluid, eng)
+        pad = (eng.slots - 1,) + tuple(k.shape[1:])
+        k = torch.cat([k, torch.zeros(pad, device=k.device)])
+        v = torch.cat([v, torch.zeros(pad, device=v.device)])
+        tok = np.zeros((eng.slots, 1), np.int64)
+        pos = np.zeros((eng.slots, 1), np.int64)
+        for j in range(1, idx + 1):
+            tok[0, 0], pos[0, 0] = toks[j - 1], len(prompt) + j - 1
+            _, logits, k, v = step.run(
+                {"gpt_step_tok": tok, "gpt_step_pos": pos, "gpt_step_k": k,
+                 "gpt_step_v": v}, return_numpy=False)
+    return top2_margin(logits[0])
+
+
+def check_streams(tag, fluid, plain, prompts, got, want, dist):
+    """`got` must equal `want` (the plain engine's streams) token for
+    token. A stream that diverges is a kept difference only where the
+    plain engine's top-2 margin at the first divergence is below the
+    distance `dist` measured between the two paths' numbers; otherwise the
+    phase fails. Returns the number of equal streams."""
+    same = sum(a == b for a, b in zip(got, want))
+    print("%s: %d/%d streams equal to the plain engine's" % (
+        tag, same, len(want)), flush=True)
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        idx = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        margin = plain_margin(fluid, plain, p, b, idx)
+        print("%s: the stream of a %d-token prompt diverges at token %d "
+              "(%s vs the plain %s): the plain engine's top-2 margin there "
+              "%.3e, the measured distance %.3e" % (
+                  tag, len(p), idx, a[idx:idx + 1], b[idx:idx + 1], margin,
+                  dist), flush=True)
+        if not margin < dist:
+            fail("%s: a stream diverges where the plain engine's margin "
+                 "%.3e is not below the measured distance %.3e" % (
+                     tag, margin, dist))
+    return same
+
+
+def spec_phase(fluid, serving, gpt, ca, cl, cfg, scope, card):
+    """Phase 13 (13a-13d). Returns the kernels' launches in 13a's reuse
+    engine (its two runs of the lane's load: counters zeroed just before,
+    read just after) and the numbers."""
+    from paddle_tpu_torch.parallel.elastic import InMemoryStore
+    from paddle_tpu_torch.serving import disagg
+
+    prompts, rng = spec_prompts(cfg.vocab)
+    n_tok = SPEC_CLIENTS * SPEC_MAX_NEW
+    kw = dict(slots=SPEC_SLOTS, cache_len=GPT_CACHE, queue_capacity=256,
+              request_timeout_s=SPEC_WAIT)
+
+    def submit(eng):
+        return lambda p, n: eng.submit(p, max_new=n)
+
+    stats = {}
+    # 13a: the plain engine, then the reuse engine (pool + self-draft)
+    t0 = time.monotonic()
+    plain = serving.DecodeEngine(cfg, scope, name="spec-plain", **kw)
+    plain.warmup()
+    spec_drive(submit(plain), prompts)          # warms the dispatch path
+    fns = zero_counters(ca, cl)
+    st0 = plain.stats()
+    ref, plain_wall = spec_drive(submit(plain), prompts)
+    pst = stats_delta(plain, st0)
+    check_launches("13a plain engine", fns,
+                   {"layer_norm_fwd": spec_ln_launches(cfg, pst)})
+    pool = serving.PrefixPool(capacity_bytes=SPEC_POOL_BYTES,
+                              prefix_lens=(SPEC_SHARED,), name="spec-bench")
+    times = call_ms()
+    reuse = serving.DecodeEngine(
+        cfg, scope, name="spec-reuse", prefix_pool=pool,
+        draft=serving.DraftModel(cfg, scope, k=SPEC_K, name="self-draft"),
+        **kw)
+    report = reuse.warmup()
+    _sync()
+    print("13a plain and reuse engines (slots %d, cache_len %d, buckets %s; "
+          "PrefixPool(prefix_lens=(%d,), host, fp32) and DraftModel("
+          "GPTConfig(), k=%d) on the target's scope, %d programs warmed) "
+          "built in %.1f s" % (
+              SPEC_SLOTS, GPT_CACHE, plain.prompt_buckets, SPEC_SHARED,
+              SPEC_K, len(report), time.monotonic() - t0), flush=True)
+    times.wrap(reuse, "_delta_prefill", "13a pool delta prefill")
+    times.wrap(reuse, "_adopt_prefix", "13a pool full-hit adoption")
+    times.wrap(pool, "put", "13a pool insert")
+    # the main path: both runs of the reuse engine between zeroed counters
+    fns = zero_counters(ca, cl)
+    st0 = reuse.stats()
+    seeded, seed_wall = spec_drive(submit(reuse), prompts)
+    st_seed = stats_delta(reuse, st0)
+    got, reuse_wall = spec_drive(submit(reuse), prompts)
+    st = stats_delta(reuse, st0)
+    launches = check_launches(
+        "13a reuse engine, both runs (the main path)", fns,
+        {"layer_norm_fwd": spec_ln_launches(cfg, st, cfg.num_layers)})
+    info = reuse.reuse_info()
+    acc = st["spec_accepted"] / float(max(1, st["spec_proposed"]))
+    errors = {k: st.get(k, 0) for k in (
+        "draft_fill_errors", "draft_step_errors", "step_errors",
+        "delta_errors", "prefix_insert_errors")}
+    print("13a reuse engine: run 1 %d cold + %d delta prefills, run 2 %d "
+          "full hits; %d spec rounds, %d fallback steps, %d/%d proposals "
+          "accepted: spec_accept_rate %.4f; prefill rows computed %d, saved "
+          "%d: prefill_rows_saved_pct %.2f (the plain engine computes %d "
+          "rows a run); pool %s; errors %s" % (
+              st_seed["prefills"], st_seed["delta_prefills"],
+              st["prefix_full_hits"] - st_seed["prefix_full_hits"],
+              st["spec_rounds"], st["spec_fallback_steps"],
+              st["spec_accepted"], st["spec_proposed"], acc,
+              info["prefill_rows_computed"], info["prefill_rows_saved"],
+              info["prefill_rows_saved_pct"], pst["prefill_rows_computed"],
+              {k: v for k, v in info["prefix_pool"].items()
+               if k in ("hits", "misses", "entries", "bytes")}, errors),
+          flush=True)
+    print("13a tokens/s [%s]: plain %.1f (%d tokens in %.3f s); reuse run 1 "
+          "(cold + delta prefills, speculation) %.1f in %.3f s, run 2 (full "
+          "hits, speculation) %.1f in %.3f s; %s; %s; %s" % (
+              card, n_tok / plain_wall, n_tok, plain_wall,
+              n_tok / seed_wall, seed_wall, n_tok / reuse_wall, reuse_wall,
+              times.summary("13a pool delta prefill"),
+              times.summary("13a pool full-hit adoption"),
+              times.summary("13a pool insert")), flush=True)
+    if info["prefill_rows_saved_pct"] is None or \
+            info["prefill_rows_saved_pct"] <= 50.0:
+        fail("13a: prefill rows saved %r%%, want more than 50%%"
+             % info["prefill_rows_saved_pct"])
+    if any(errors.values()):
+        fail("13a: errors on the reuse path: %s" % errors)
+    dist = spec_distances(fluid, gpt, ca, cl, reuse, prompts)
+    dmax = max(dist["verify_vs_step"], dist["delta_vs_cold"])
+    same = check_streams("13a reuse run 1", fluid, plain, prompts, seeded,
+                         ref, dmax)
+    same += check_streams("13a reuse run 2", fluid, plain, prompts, got,
+                          ref, dmax)
+    reuse.stop()
+    stats["13a"] = dict(
+        plain_tokens_per_s=n_tok / plain_wall,
+        reuse_tokens_per_s=[n_tok / seed_wall, n_tok / reuse_wall],
+        spec_accept_rate=acc, spec_rounds=st["spec_rounds"],
+        spec_fallback_steps=st["spec_fallback_steps"],
+        saved_pct=info["prefill_rows_saved_pct"], equal=same,
+        distances=dist, ms=dict(times.ms))
+
+    # 13b: an early-exit draft, the target's first 2 layers
+    t0 = time.monotonic()
+    dcfg = gpt.GPTConfig(vocab=cfg.vocab, hidden=cfg.hidden, num_layers=2,
+                         heads=cfg.heads, ffn=cfg.ffn, max_len=cfg.max_len)
+    early = serving.DecodeEngine(
+        cfg, scope, name="spec-early",
+        draft=serving.DraftModel(dcfg, scope, k=SPEC_K, name="early-exit"),
+        **kw)
+    early.warmup()
+    fns = zero_counters(ca, cl)
+    st0 = early.stats()
+    etoks, ewall = spec_drive(submit(early), prompts)
+    est = stats_delta(early, st0)
+    check_launches("13b early-exit draft engine", fns, {
+        "layer_norm_fwd": spec_ln_launches(cfg, est, dcfg.num_layers)})
+    eacc = est["spec_accepted"] / float(max(1, est["spec_proposed"]))
+    print("13b early-exit draft (GPTConfig(num_layers=2) on the target's "
+          "gpt0.*, gpt1.*, embeddings and gpt_out): %d spec rounds, %d/%d "
+          "proposals accepted: spec_accept_rate %.4f; %.1f tokens/s [%s] "
+          "(%.3f s; built and warmed in %.1f s)" % (
+              est["spec_rounds"], est["spec_accepted"],
+              est["spec_proposed"], eacc, n_tok / ewall, card, ewall,
+              time.monotonic() - t0 - ewall), flush=True)
+    check_streams("13b early-exit draft", fluid, plain, prompts, etoks, ref,
+                  dmax)
+    early.stop()
+    stats["13b"] = dict(spec_accept_rate=eacc, tokens_per_s=n_tok / ewall)
+
+    # 13c: session tiering, 6 two-turn conversations on 2 slots
+    turn1 = [prompts[c][:6 + (c % 3)] for c in range(SPEC_SESSIONS)]
+    turn2 = [rng.integers(1, cfg.vocab, 4).astype(np.int64)
+             for _ in range(SPEC_SESSIONS)]
+    stats["13c"] = {}
+    for wire in ("fp32", "int8"):
+        tier = serving.SessionTier(capacity_bytes=SPEC_TIER_BYTES,
+                                   wire_dtype=wire, name="spec-" + wire)
+        sess = serving.DecodeEngine(cfg, scope, name="spec-sess-" + wire,
+                                    session_tier=tier, **kw)
+        sess.warmup()
+        stimes = call_ms()
+        stimes.wrap(sess, "_hibernate", "hibernate")
+        stimes.wrap(sess, "_delta_prefill", "resume")
+        t0 = time.monotonic()
+        first = [sess.submit(turn1[c], max_new=SPEC_TURN_NEW,
+                             session="conv%d" % c).result(SPEC_WAIT)
+                 for c in range(SPEC_SESSIONS)]
+        second = [sess.submit(turn2[c], max_new=SPEC_TURN_NEW,
+                              session="conv%d" % c).result(SPEC_WAIT)
+                  for c in range(SPEC_SESSIONS)]
+        swall = time.monotonic() - t0
+        sst, tst = sess.stats(), tier.stats()
+        sess.stop()
+        print("13c %s wire: %d conversations x 2 turns on %d slots in "
+              "%.3f s: resumed %d, hibernated %d, tier %d sessions, %d "
+              "bytes (%.1f MB); %s; %s (verify, dense, upload, delta "
+              "prefill) [%s]" % (
+                  wire, SPEC_SESSIONS, SPEC_SLOTS, swall, sst["resumed"],
+                  sst["hibernated"], tst["sessions"], tst["bytes"],
+                  tst["bytes"] / 1e6, stimes.summary("hibernate"),
+                  stimes.summary("resume"), card), flush=True)
+        if sst["resumed"] != SPEC_SESSIONS or any(
+                len(t) != SPEC_TURN_NEW for t in first + second):
+            fail("13c %s wire: %d of %d sessions resumed" % (
+                wire, sst["resumed"], SPEC_SESSIONS))
+        stats["13c"][wire] = dict(bytes=tst["bytes"], wall=swall,
+                                  ms=dict(stimes.ms))
+        if wire == "fp32":
+            transcripts = [np.concatenate(
+                [turn1[c], np.asarray(first[c], np.int64), turn2[c]])
+                for c in range(SPEC_SESSIONS)]
+            replay = [plain.generate(t, max_new=SPEC_TURN_NEW,
+                                     timeout=SPEC_WAIT)
+                      for t in transcripts]
+            check_streams("13c fp32 wire: turn 2 vs a cold replay of the "
+                          "transcript", fluid, plain, transcripts, second,
+                          replay, dmax)
+
+    # 13d: a pooled PrefillEngine behind a disaggregated fleet (1 prefill
+    # + 1 decode replica, fp32 wire, fp32-resident), the lane's load
+    t0 = time.monotonic()
+    fpool = serving.PrefixPool(capacity_bytes=SPEC_POOL_BYTES,
+                               prefix_lens=(SPEC_SHARED,), name="spec-fleet")
+    pre = disagg.PrefillEngine(cfg, scope, cache_len=GPT_CACHE,
+                               wire_dtype="fp32", name="spec-pre",
+                               request_timeout_s=SPEC_WAIT,
+                               prefix_pool=fpool)
+    dec = serving.DecodeEngine(cfg, scope, role="decode", name="spec-dec",
+                               **kw)
+    store, config = InMemoryStore(), fleet_config()
+    fleet = disagg.DisaggRouter(
+        [disagg.DisaggReplica(0, pre, store, name="spec-fleet",
+                              config=config)],
+        [disagg.DisaggReplica(1, dec, store, name="spec-fleet",
+                              config=config)],
+        store=store, name="spec-fleet", config=config,
+        request_timeout_s=SPEC_WAIT)
+    cold = disagg.PrefillEngine(cfg, scope, cache_len=GPT_CACHE,
+                                wire_dtype="fp32", name="spec-pre-cold",
+                                request_timeout_s=SPEC_WAIT)
+    try:
+        fleet.warmup()
+        _sync()
+        fns = zero_counters(ca, cl)
+        pst0, dst0 = pre.stats(), dec.stats()
+        ftoks, fwall = spec_drive(
+            lambda p, n: fleet.submit(p, max_new=n), prompts)
+        fst, dst = stats_delta(pre, pst0), stats_delta(dec, dst0)
+        # a prefill replica's "prefills" counts every handoff: its cold
+        # and delta prefills, and its full hits, which run no program
+        check_launches("13d pooled prefill fleet", fns, {
+            "layer_norm_fwd": 2 * cfg.num_layers * (
+                fst["prefills"] - fst["prefix_full_hits"] + dst["steps"])})
+        # a pool hit (full, then partial) against a cold prefill
+        hdist, hsame = 0.0, 0
+        probe = np.concatenate([prompts[0][:SPEC_SHARED], rng.integers(
+            1, cfg.vocab, 5).astype(np.int64)])
+        for p in (prompts[0], probe):
+            h = pre.prefill(p, timeout=SPEC_WAIT)
+            c = cold.prefill(p, timeout=SPEC_WAIT)
+            hsame += int(h.next_token == c.next_token)
+            hdist = max([hdist] + [float(np.abs(a - b).max())
+                                   for a, b in zip(h.dense(), c.dense())])
+        info = pre.reuse_info()
+        print("13d pooled PrefillEngine behind a DisaggRouter (1 prefill + "
+              "1 decode replica, fp32 wire; built and warmed with a cold "
+              "PrefillEngine in %.1f s): %d cold + %d delta prefills, %d "
+              "full hits, rows saved %.2f%%; %.1f tokens/s [%s]; a full and "
+              "a partial pool hit vs a cold prefill: first tokens equal "
+              "%d/2, max|d k/v| %.3e; pool %s" % (
+                  time.monotonic() - t0 - fwall,
+                  fst["prefills"] - fst["delta_prefills"]
+                  - fst["prefix_full_hits"],
+                  fst["delta_prefills"], fst["prefix_full_hits"],
+                  info["prefill_rows_saved_pct"] or 0.0, n_tok / fwall,
+                  card, hsame, hdist,
+                  {k: v for k, v in info["prefix_pool"].items()
+                   if k in ("hits", "misses", "entries")}), flush=True)
+        if hsame != 2 or info["prefix_pool"] != fpool.stats():
+            fail("13d: a pool hit handed off another first token, or "
+                 "reuse_info does not carry the pool's stats")
+        check_streams("13d pooled prefill fleet", fluid, plain, prompts,
+                      ftoks, ref, max(dmax, hdist))
+        stats["13d"] = dict(tokens_per_s=n_tok / fwall,
+                            handoff_vs_cold=hdist)
+    finally:
+        fleet.stop(drain=False)
+        cold.stop(drain=False)
+        plain.stop()
+    return launches, stats
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -4910,10 +5446,17 @@ def main():
         t12d = time.monotonic()
         disagg_launches, _ = disagg_phase(fluid, serving, ca, cl, gcfg,
                                           gscope, card, tmp)
-        del gscope
         print("phase 12 (serving fleet: 12a-12c %.1f s, 12d-12f %.1f s) "
               "took %.1f s" % (t12d - t12, time.monotonic() - t12d,
                                time.monotonic() - t12), flush=True)
+        # phase 13: KV reuse and speculative decoding on phase 8's
+        # weights; its loads are timed, so before the profiles
+        t13 = time.monotonic()
+        spec_launches, _ = spec_phase(fluid, serving, gpt, ca, cl, gcfg,
+                                      gscope, card)
+        del gscope
+        print("phase 13 (KV reuse and speculative decoding: 13a-13d) took "
+              "%.1f s" % (time.monotonic() - t13), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -4997,8 +5540,9 @@ def main():
     # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
     # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
     # launches_ctr in 10b's timed epochs, launches_http in 11b's :predict
-    # and 11c's :generate loads, launches_fleet in 12a's routed load and
-    # launches_disagg in 12d's disaggregated load, leg (ii)
+    # and 11c's :generate loads, launches_fleet in 12a's routed load,
+    # launches_disagg in 12d's disaggregated load, leg (ii), and
+    # launches_spec in 13a's reuse engine (prefix pool + self-draft)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -5014,6 +5558,7 @@ def main():
                      launches_http=http_launches[name],
                      launches_fleet=fleet_launches[name],
                      launches_disagg=disagg_launches[name],
+                     launches_spec=spec_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

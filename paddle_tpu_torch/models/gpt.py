@@ -7,9 +7,10 @@ Training and decoding share parameter names, so a trained scope drives
 directly; the generator (``GPTDecodeCell`` under ``SamplingDecoder`` and
 ``dynamic_decode``) is the solo reference the engine's bit-exactness is
 held to. :func:`build_gpt_decode_step_q` is the int8-resident step of
-the disaggregated fleet's decode replicas. The delta prefill waits for
-the prefix pool, the verify block for speculative decoding (ROADMAP.md
-Queue 1 item 7.4), and ``tp_rules`` for the parallel slice (item 8).
+the disaggregated fleet's decode replicas, :func:`build_gpt_prefill_delta`
+the prefix pool's and the session tier's suffix prefill, and
+:func:`build_gpt_verify_block` the target half of speculative decoding.
+``tp_rules`` waits for the parallel slice (ROADMAP.md Queue 1 item 8).
 """
 import numpy as np
 
@@ -19,6 +20,7 @@ from ..fluid.param_attr import ParamAttr
 
 __all__ = ["GPTConfig", "gpt_tiny", "build_gpt_lm", "GPTDecodeCell",
            "SamplingDecoder", "build_gpt_generate", "build_gpt_prefill",
+           "build_gpt_prefill_delta", "build_gpt_verify_block",
            "build_gpt_decode_step", "build_gpt_decode_step_q",
            "synthetic_lm_batch"]
 
@@ -356,6 +358,226 @@ def build_gpt_prefill(cfg, prompt_len, cache_len):
             "k": k_cache, "v": v_cache,
             "feed_names": ["gpt_prefill_ids", "gpt_prefill_len"],
             "fetch_vars": [nxt, k_cache, v_cache]}
+
+
+def build_gpt_prefill_delta(cfg, suffix_len, cache_len):
+    """Delta-prefill program: extend an ALREADY-prefilled KV cache by a
+    (right-padded) prompt suffix in one parallel pass — the prefix-cache
+    fast path. Where :func:`build_gpt_prefill` computes every prompt
+    row, this one adopts ``start`` rows verbatim from a cached prefix
+    (a :class:`~paddle_tpu_torch.serving.prefix_pool.PrefixPool` hit or a
+    hibernated session's wire payload) and computes only the suffix
+    rows, so shared-prefix traffic pays prefill FLOPs proportional to
+    the UNSHARED tail.
+
+    Feeds: ``gpt_dpre_ids`` (B, suffix_len) int64 suffix tokens right-
+    padded with any token, ``gpt_dpre_len`` (B, 1) int64 real suffix
+    lengths, ``gpt_dpre_start`` (B, 1) int64 adopted-prefix lengths
+    (suffix token i sits at absolute position ``start + i``), and the
+    adopted fp32 base caches ``gpt_dpre_k`` / ``gpt_dpre_v``
+    (B, num_layers, cache_len, hidden) — rows >= ``start`` are ignored
+    and overwritten. The caller must guarantee ``start + suffix_len <=
+    cache_len`` (``decode_cache_write`` clamps out-of-range starts, as
+    ``lax.dynamic_update_slice`` does, which would silently corrupt
+    adopted rows).
+
+    Bit-exactness: suffix row ``start + i`` attends over adopted rows
+    ``<= start + i`` with the same exact-zero masked-softmax padding as
+    the cold prefill, and adopted rows are bit-identical to what a cold
+    prefill of the full prompt computes for those positions (the
+    prefill-vs-incremental parity the decode tests already pin), so
+    ``next`` and the outgoing cache match the cold path bit-for-bit.
+
+    Returns vars ``next`` (B, 1) int64 — the greedy token for position
+    ``start + len`` — and the full updated ``k``/``v`` caches.
+    """
+    from .decode_utils import update_cache
+
+    if not (1 <= suffix_len <= cache_len):
+        raise ValueError(
+            "need 1 <= suffix_len (%d) <= cache_len (%d)"
+            % (suffix_len, cache_len))
+    if cache_len > cfg.max_len:
+        raise ValueError("cache_len (%d) exceeds cfg.max_len (%d)"
+                         % (cache_len, cfg.max_len))
+    h = cfg.hidden
+    nl = cfg.num_layers
+    ids = fluid.data("gpt_dpre_ids", shape=[None, suffix_len],
+                     dtype="int64")
+    slen = fluid.data("gpt_dpre_len", shape=[None, 1], dtype="int64")
+    start = fluid.data("gpt_dpre_start", shape=[None, 1], dtype="int64")
+    k_all = fluid.data("gpt_dpre_k", shape=[None, nl, cache_len, h],
+                       dtype="float32")
+    v_all = fluid.data("gpt_dpre_v", shape=[None, nl, cache_len, h],
+                       dtype="float32")
+    steps = layers.range(0, suffix_len, 1, "int64")
+    steps0 = layers.unsqueeze(steps, [0])                 # (1, P)
+    pos_idx = layers.elementwise_add(steps0, start)       # (B, P) abs pos
+    tok = layers.reshape(
+        layers.embedding(ids, size=[cfg.vocab, h],
+                         param_attr=_p("gpt_tok_emb")),
+        [-1, suffix_len, h])
+    pos_table = layers.create_parameter(
+        shape=[cfg.max_len, h], dtype="float32", name="gpt_pos_emb")
+    pe = layers.reshape(
+        layers.gather_nd(pos_table, layers.reshape(pos_idx, [-1, 1])),
+        [-1, suffix_len, h])
+    x = layers.elementwise_add(tok, pe)                   # (B, P, H)
+    # suffix row i (absolute start+i) sees cache columns j <= start+i:
+    # the adopted prefix plus the causal part of the suffix itself
+    csteps = layers.range(0, cache_len, 1, "int64")
+    csteps2 = layers.unsqueeze(csteps, [0, 1])            # (1, 1, T)
+    seen = layers.cast(
+        layers.less_equal(csteps2, layers.unsqueeze(pos_idx, [2])),
+        "float32")                                        # (B, P, T)
+    mask = layers.unsqueeze(
+        layers.scale(seen, scale=1e9, bias=-1e9), [1])    # (B, 1, P, T)
+    # suffix rows >= len are pad: zero their k/v before the block write
+    # so dead rows land as zeros (matching the incremental fill)
+    valid = layers.cast(layers.less_than(steps0, slen), "float32")
+    valid3 = layers.unsqueeze(valid, [2])                 # (B, P, 1)
+
+    def layer_cache(t, i):
+        return layers.squeeze(
+            layers.slice(t, axes=[1], starts=[i], ends=[i + 1]), [1])
+
+    new_ks, new_vs = [], []
+    for i in range(nl):
+        n = "gpt%d" % i
+        q = _proj(x, h, n + ".self.q")
+        k_new = layers.elementwise_mul(
+            _proj(x, h, n + ".self.k"), valid3)
+        v_new = layers.elementwise_mul(
+            _proj(x, h, n + ".self.v"), valid3)
+        k_cache = update_cache(layer_cache(k_all, i), k_new,
+                               pos=start, per_row=True)
+        v_cache = update_cache(layer_cache(v_all, i), v_new,
+                               pos=start, per_row=True)
+        new_ks.append(k_cache)
+        new_vs.append(v_cache)
+        attn = _proj(_attend(cfg, q, k_cache, v_cache, mask),
+                     h, n + ".self.o")
+        x = _ln(layers.elementwise_add(x, attn), n + ".ln1")
+        f = _proj(x, cfg.ffn, n + ".ffn.fc1")
+        f = layers.gelu(f)
+        f = _proj(f, h, n + ".ffn.fc2")
+        x = _ln(layers.elementwise_add(x, f), n + ".ln2")
+    one = layers.fill_constant([1], "int64", 1)
+    last = layers.elementwise_sub(slen, one)              # (B, 1)
+    x_last = layers.gather_nd(x, _row_coords(last))       # (B, H)
+    logits = _proj(x_last, cfg.vocab, "gpt_out", nfd=1)
+    nxt = layers.cast(
+        layers.unsqueeze(layers.argmax(logits, axis=-1), [1]), "int64")
+    k_out = layers.stack(new_ks, axis=1)                  # (B, L, T, H)
+    v_out = layers.stack(new_vs, axis=1)
+    return {"ids": ids, "len": slen, "start": start,
+            "k_in": k_all, "v_in": v_all,
+            "next": nxt, "logits": logits, "k": k_out, "v": v_out,
+            "feed_names": ["gpt_dpre_ids", "gpt_dpre_len",
+                           "gpt_dpre_start", "gpt_dpre_k",
+                           "gpt_dpre_v"],
+            "fetch_vars": [nxt, k_out, v_out]}
+
+
+def build_gpt_verify_block(cfg, block_len, cache_len):
+    """Speculative-decoding verify program: score a block of
+    ``block_len`` candidate tokens for EVERY slot in one batched pass —
+    the target-model half of draft/verify speculation. Row semantics
+    extend :func:`build_gpt_decode_step` from one token to a block:
+    slot s feeds its current token plus the draft's proposals at
+    absolute positions ``pos .. pos + block_len - 1``, and gets back
+    the greedy next-token for each of those positions.
+
+    Feeds: ``gpt_vrf_tok`` (S, block_len) int64 — column 0 is the
+    slot's current token (what the non-speculative step would feed),
+    columns 1.. are draft proposals — ``gpt_vrf_pos`` (S, 1) int64,
+    and the fp32 caches ``gpt_vrf_k`` / ``gpt_vrf_v``
+    (S, num_layers, cache_len, hidden). The caller must guarantee
+    ``pos + block_len <= cache_len`` for every live row (the engine
+    falls back to the single-token step near the cache edge).
+
+    Returns ``next`` (S, block_len) int64 where ``next[s, i]`` is the
+    target's greedy pick after consuming block tokens 0..i — column 0
+    is bit-identical to the non-speculative step's output by
+    construction (same math, same mask at position pos) — plus the
+    updated caches with ALL block rows written. Rows past the accepted
+    prefix are dirty-but-invisible: every consumer masks by position,
+    and the next write at those positions overwrites them, the same
+    contract dead slots already rely on.
+    """
+    from .decode_utils import update_cache
+
+    if not (1 <= block_len <= cache_len):
+        raise ValueError(
+            "need 1 <= block_len (%d) <= cache_len (%d)"
+            % (block_len, cache_len))
+    if cache_len > cfg.max_len:
+        raise ValueError("cache_len (%d) exceeds cfg.max_len (%d)"
+                         % (cache_len, cfg.max_len))
+    h = cfg.hidden
+    nl = cfg.num_layers
+    tok = fluid.data("gpt_vrf_tok", shape=[None, block_len],
+                     dtype="int64")
+    pos = fluid.data("gpt_vrf_pos", shape=[None, 1], dtype="int64")
+    k_all = fluid.data("gpt_vrf_k", shape=[None, nl, cache_len, h],
+                       dtype="float32")
+    v_all = fluid.data("gpt_vrf_v", shape=[None, nl, cache_len, h],
+                       dtype="float32")
+    steps = layers.range(0, block_len, 1, "int64")
+    steps0 = layers.unsqueeze(steps, [0])                 # (1, K)
+    pos_idx = layers.elementwise_add(steps0, pos)         # (S, K) abs pos
+    emb = layers.reshape(
+        layers.embedding(tok, size=[cfg.vocab, h],
+                         param_attr=_p("gpt_tok_emb")),
+        [-1, block_len, h])
+    pos_table = layers.create_parameter(
+        shape=[cfg.max_len, h], dtype="float32", name="gpt_pos_emb")
+    pe = layers.reshape(
+        layers.gather_nd(pos_table, layers.reshape(pos_idx, [-1, 1])),
+        [-1, block_len, h])
+    x = layers.elementwise_add(emb, pe)                   # (S, K, H)
+    # block row i (absolute pos+i) sees cache columns j <= pos+i —
+    # the per-row visibility the single-token step's mask generalizes
+    csteps = layers.range(0, cache_len, 1, "int64")
+    csteps2 = layers.unsqueeze(csteps, [0, 1])            # (1, 1, T)
+    seen = layers.cast(
+        layers.less_equal(csteps2, layers.unsqueeze(pos_idx, [2])),
+        "float32")                                        # (S, K, T)
+    mask = layers.unsqueeze(
+        layers.scale(seen, scale=1e9, bias=-1e9), [1])    # (S, 1, K, T)
+
+    def layer_cache(t, i):
+        return layers.squeeze(
+            layers.slice(t, axes=[1], starts=[i], ends=[i + 1]), [1])
+
+    new_ks, new_vs = [], []
+    for i in range(nl):
+        n = "gpt%d" % i
+        q = _proj(x, h, n + ".self.q")
+        k_cache = update_cache(layer_cache(k_all, i),
+                               _proj(x, h, n + ".self.k"),
+                               pos=pos, per_row=True)
+        v_cache = update_cache(layer_cache(v_all, i),
+                               _proj(x, h, n + ".self.v"),
+                               pos=pos, per_row=True)
+        new_ks.append(k_cache)
+        new_vs.append(v_cache)
+        attn = _proj(_attend(cfg, q, k_cache, v_cache, mask),
+                     h, n + ".self.o")
+        x = _ln(layers.elementwise_add(x, attn), n + ".ln1")
+        f = _proj(x, cfg.ffn, n + ".ffn.fc1")
+        f = layers.gelu(f)
+        f = _proj(f, h, n + ".ffn.fc2")
+        x = _ln(layers.elementwise_add(x, f), n + ".ln2")
+    logits = _proj(x, cfg.vocab, "gpt_out")               # (S, K, V)
+    nxt = layers.cast(layers.argmax(logits, axis=-1), "int64")
+    k_out = layers.stack(new_ks, axis=1)                  # (S, L, T, H)
+    v_out = layers.stack(new_vs, axis=1)
+    return {"tok": tok, "pos": pos, "k_in": k_all, "v_in": v_all,
+            "next": nxt, "logits": logits, "k": k_out, "v": v_out,
+            "feed_names": ["gpt_vrf_tok", "gpt_vrf_pos",
+                           "gpt_vrf_k", "gpt_vrf_v"],
+            "fetch_vars": [nxt, k_out, v_out]}
 
 
 def build_gpt_decode_step(cfg, cache_len):

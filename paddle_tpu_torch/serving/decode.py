@@ -61,16 +61,40 @@ Disaggregation (:mod:`paddle_tpu_torch.serving.disagg`):
   KVHandoff`. The handoff's digest is verified before any row lands in a
   slot; an int8 handoff drops straight into int8 residency.
 
+KV reuse and speculation (:mod:`paddle_tpu_torch.serving.prefix_pool`,
+:mod:`paddle_tpu_torch.serving.spec`):
+
+- ``prefix_pool=PrefixPool(...)`` — before a cold prefill the engine
+  hashes the prompt against the pool; a full hit adopts the cached rows
+  and emits the cached first token with NO program run, a prefix hit
+  adopts ``plen`` rows and **delta-prefills** only the suffix
+  (:func:`~paddle_tpu_torch.models.gpt.build_gpt_prefill_delta`), and
+  every cold/delta prefill inserts its rows back. Redundant-prefill
+  economics land in the ``prefill_rows_computed`` /
+  ``prefill_rows_saved`` counters.
+- ``draft=DraftModel(...)`` — speculative decoding (fp32-resident
+  engines): each iteration the draft proposes ``k`` tokens and ONE
+  verify dispatch (:func:`~paddle_tpu_torch.models.gpt.
+  build_gpt_verify_block`) scores the block; the longest prefix matching
+  the target's own greedy picks is emitted (plus the correction/bonus
+  token), so one dispatch yields up to ``k + 1`` tokens, each the
+  target's argmax. Near the cache edge the engine falls back to the
+  plain step (mirrored into the draft via ``sync_step``). Acceptance is
+  exported as ``serving.spec.accept_rate``.
+- ``session_tier=SessionTier(...)`` — ``submit(session=...)`` hibernates
+  the slot's KV rows to host RAM (the KVHandoff wire format) when the
+  stream retires, and a later submit with the same session id re-adopts
+  them and delta-prefills only the new turn, so concurrent sessions stop
+  being bounded by live slots.
+
 The ``dispatch`` fault site (``PADDLE_TPU_FAULT_SPEC``) fires in the
-step, as in the JAX engine.
+step and the verify dispatch, as in the JAX engine.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the prefix pool, the session tier (``submit(session=)``)
-and the speculative draft (Queue 1 item 7.4); the SDC sentinel,
-``check_hbm_budget`` and ``check_ladder`` (item 11). The JAX engine's
-lock-sanitizer hooks, executable-ledger feed and cost-model predictions
-on spans wait for item 11 as well: the locks here are plain
-``threading`` locks.
+ROADMAP.md item: the SDC sentinel, ``check_hbm_budget`` and
+``check_ladder`` (Queue 1 item 11). The JAX engine's lock-sanitizer
+hooks, executable-ledger feed and cost-model predictions on spans wait
+for item 11 as well: the locks here are plain ``threading`` locks.
 """
 import collections
 import os
@@ -108,6 +132,24 @@ def kv_slot_bytes(cfg, cache_len, kv_dtype="fp32"):
         rows = int(cfg.num_layers) * int(cache_len)
         return 2 * (n + rows * 4)
     return 2 * n * 4
+
+
+def _pool_entry_fits(engine, entry, plen):
+    """Whether a prefix-pool entry is adoptable for a `plen`-token prompt
+    by `engine` (a decode or prefill engine): its geometry matches the
+    engine's, a FULL hit knows its first token, and a partial hit's
+    suffix fits a delta bucket without the block write running off the
+    cache edge (``decode_cache_write`` clamps — never risk it)."""
+    if entry.shape != (engine.cfg.num_layers, engine.cache_len,
+                       engine.cfg.hidden):
+        return False
+    if entry.plen > plen:
+        return False
+    if entry.plen == plen:
+        return entry.next_token is not None
+    sbucket = engine._bucket_for(plen - entry.plen)
+    return (sbucket is not None
+            and entry.plen + sbucket <= engine.cache_len)
 
 
 def default_prompt_buckets(cache_len, smallest=8):
@@ -215,14 +257,21 @@ class DecodeStream:
 class _Request:
     __slots__ = ("prompt", "plen", "bucket", "max_new", "eos_id",
                  "deadline", "handle", "tenant", "priority", "trace",
-                 "t_wall", "handoff")
+                 "t_wall", "handoff",
+                 # KV-reuse routing: "session" id (tiering), "base"
+                 # (adopted rows: a KVHandoff on resume, a pool entry
+                 # on a prefix hit), "start" adopted row count,
+                 # "suffix"/"sbucket" the delta-prefill tail, "hist"
+                 # the token-per-written-row history
+                 "session", "base", "start", "suffix", "sbucket", "hist")
 
 
 class _Slot:
     __slots__ = ("handle", "remaining", "eos_id", "t_prefill", "trace",
-                 "t_wall", "t_last")
+                 "t_wall", "t_last", "session", "hist")
 
-    def __init__(self, handle, remaining, eos_id, trace=None):
+    def __init__(self, handle, remaining, eos_id, trace=None,
+                 session=None, hist=None):
         self.handle = handle
         self.remaining = remaining
         self.eos_id = eos_id
@@ -232,6 +281,11 @@ class _Slot:
         self.trace = trace
         self.t_wall = time.time() if trace is not None else None
         self.t_last = self.t_prefill
+        # tiering: session id to hibernate under at retire, plus the
+        # token history whose rows the slot held at admission (the
+        # emitted tokens extend it — see _hibernate)
+        self.session = session
+        self.hist = hist
 
 
 class DecodeEngine:
@@ -267,7 +321,9 @@ class DecodeEngine:
         from .. import fluid
         from ..fluid.inference import Predictor
         from ..models.gpt import (build_gpt_decode_step,
-                                  build_gpt_decode_step_q, build_gpt_prefill)
+                                  build_gpt_decode_step_q, build_gpt_prefill,
+                                  build_gpt_prefill_delta,
+                                  build_gpt_verify_block)
 
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError("kv_dtype must be 'fp32' or 'int8', got %r"
@@ -275,12 +331,17 @@ class DecodeEngine:
         if role not in ("colocated", "decode"):
             raise ValueError("role must be 'colocated' or 'decode', "
                              "got %r" % (role,))
-        if draft is not None:
-            raise _later("speculative decoding (draft=)", "7.4")
-        if prefix_pool is not None:
-            raise _later("the prefix pool (prefix_pool=)", "7.4")
-        if session_tier is not None:
-            raise _later("the session tier (session_tier=)", "7.4")
+        if draft is not None and kv_dtype != "fp32":
+            raise ValueError(
+                "speculative decoding needs an fp32-resident cache "
+                "(the verify program scores the raw fp32 rows); drop "
+                "the draft or use kv_dtype='fp32'")
+        if role == "decode" and (prefix_pool is not None
+                                 or session_tier is not None):
+            raise ValueError(
+                "prefix_pool/session_tier need the delta-prefill "
+                "program a pure decode-role replica does not build — "
+                "attach them to the router's prefill side instead")
         self.cfg = cfg
         self.name = str(name)
         self.slots = int(slots)
@@ -304,6 +365,10 @@ class DecodeEngine:
                 "largest prompt bucket (%d) exceeds cache_len (%d)"
                 % (self.prompt_buckets[-1], self.cache_len))
 
+        self._prefix_pool = prefix_pool
+        self._session_tier = session_tier
+        self._draft = draft
+
         # -- build the program pair (never touching the caller's
         # default_main_program) and share ONE device param set ---------
         build_step = (build_gpt_decode_step_q if self.kv_dtype == "int8"
@@ -317,8 +382,26 @@ class DecodeEngine:
                 with fluid.program_guard(fluid.Program(), fluid.Program()):
                     pv = build_gpt_prefill(cfg, b, self.cache_len)
                     prefill[b] = (fluid.default_main_program(), pv)
+        # delta-prefill ladder (prefix-pool hits + session resumes):
+        # same bucket widths as cold prefill, suffix-sized at use
+        delta = {}
+        if prefix_pool is not None or session_tier is not None:
+            for b in self.prompt_buckets:
+                with fluid.program_guard(fluid.Program(), fluid.Program()):
+                    dv = build_gpt_prefill_delta(cfg, b, self.cache_len)
+                    delta[b] = (fluid.default_main_program(), dv)
+        # block-verify program (speculative decoding): k proposals +
+        # the slot's current token = a k+1 wide block per dispatch
+        verify = None
+        if draft is not None:
+            with fluid.program_guard(fluid.Program(), fluid.Program()):
+                vv = build_gpt_verify_block(cfg, draft.k + 1,
+                                            self.cache_len)
+                verify = (fluid.default_main_program(), vv)
         persist = {}
-        for prog in [step_prog] + [p for p, _ in prefill.values()]:
+        for prog in ([step_prog] + [p for p, _ in prefill.values()]
+                     + [p for p, _ in delta.values()]
+                     + ([verify[0]] if verify is not None else [])):
             for v in prog.list_vars():
                 if not getattr(v, "persistable", False) or v.name in persist:
                     continue
@@ -340,6 +423,17 @@ class DecodeEngine:
                 prog, pv["feed_names"], pv["fetch_vars"], scope=persist,
                 place=self.place)
             self._prefill_vars[b] = pv
+        self._delta_preds = {}
+        for b, (prog, dv) in delta.items():
+            self._delta_preds[b] = Predictor(
+                prog, dv["feed_names"], dv["fetch_vars"], scope=persist,
+                place=self.place)
+        self._verify_pred = None
+        if verify is not None:
+            prog, vv = verify
+            self._verify_pred = Predictor(
+                prog, vv["feed_names"], vv["fetch_vars"], scope=persist,
+                place=self.place)
 
         # -- the persistent slot buffer pair + host-side slot state ----
         shape = (self.slots, cfg.num_layers, self.cache_len, cfg.hidden)
@@ -366,6 +460,10 @@ class DecodeEngine:
         self._stats = collections.Counter()
         self._rate = collections.deque(maxlen=64)  # (t_done, 1) retires
         self._thread = None
+        if prefix_pool is not None:
+            prefix_pool.bind(self.device)
+        if draft is not None:
+            draft.bind(self)
         if auto_start:
             self.start()
 
@@ -435,6 +533,53 @@ class DecodeEngine:
                 return b
         return None
 
+    def _route_request(self, prompt, plen, h):
+        """Build a partially-filled :class:`_Request` routed either
+        through a resumed session handoff ``h`` (adopt ``h.plen`` rows,
+        delta-prefill ``[h.next_token] + prompt``) or the cold path.
+        A resume whose geometry no longer fits a delta pass falls back
+        to cold-prefilling the full transcript."""
+        req = _Request()
+        req.base = None
+        req.start = 0
+        req.suffix = None
+        req.sbucket = None
+        if h is not None:
+            suffix = np.concatenate(
+                [[np.int64(h.next_token)], prompt]).astype(np.int64)
+            sbucket = self._bucket_for(len(suffix))
+            start = int(h.plen)
+            expect = (self.cfg.num_layers, self.cache_len,
+                      self.cfg.hidden)
+            if (tuple(h.shape) == expect and sbucket is not None
+                    and start + sbucket <= self.cache_len):
+                req.base = h
+                req.start = start
+                req.suffix = suffix
+                req.sbucket = sbucket
+                req.prompt = prompt
+                req.plen = plen
+                req.bucket = None
+                req.hist = np.concatenate(
+                    [np.asarray(h.prompt, np.int64), suffix])
+                self._bump("resumed")
+                return req
+            # transcript no longer delta-fits: replay it cold
+            prompt = np.concatenate(
+                [np.asarray(h.prompt, np.int64), suffix])
+            plen = int(prompt.size)
+        bucket = self._bucket_for(plen)
+        if bucket is None:
+            raise ValueError(
+                "prompt length %d exceeds the largest prompt bucket "
+                "(%d) — raise cache_len/prompt_buckets"
+                % (plen, self.prompt_buckets[-1]))
+        req.prompt = prompt
+        req.plen = plen
+        req.bucket = bucket
+        req.hist = prompt
+        return req
+
     def submit(self, prompt, max_new=None, eos_id=None, deadline_ms=None,
                tenant=None, priority=None, trace_ctx=None, session=None):
         """Enqueue one generation request; returns a
@@ -444,8 +589,15 @@ class DecodeEngine:
         ``tenant``/``priority`` are carried for observability — the
         disagg router schedules on them; a lone engine records them.
         A sampled ``trace_ctx`` puts this request's queue/prefill/
-        per-token spans into its distributed trace. ``session`` (a
-        resumable conversation) comes with the session tier."""
+        per-token spans into its distributed trace.
+
+        ``session`` (with a ``session_tier`` attached) names a
+        resumable conversation: when the stream retires, the slot's KV
+        rows hibernate to host RAM under that id, and a later submit
+        with the same id adopts them back and delta-prefills only the
+        new ``prompt`` tokens (the continuation — NOT the transcript
+        so far, which the tier already holds). A first-time or evicted
+        session cold-prefills ``prompt`` as usual."""
         if self._closed:
             raise EngineClosedError(
                 "engine %r is draining/stopped" % self.name)
@@ -454,8 +606,6 @@ class DecodeEngine:
                 "engine %r is a decode-role (step-only) replica: it "
                 "builds no prefill programs — hand it a prefilled KV "
                 "cache via submit_prefilled()" % self.name)
-        if session is not None:
-            raise _later("resumable sessions (submit(session=))", "7.4")
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         plen = int(prompt.shape[0])
         if plen < 1:
@@ -463,31 +613,38 @@ class DecodeEngine:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
             raise ValueError(
                 "prompt token out of range [0, %d)" % self.cfg.vocab)
-        bucket = self._bucket_for(plen)
-        if bucket is None:
-            raise ValueError(
-                "prompt length %d exceeds the largest prompt bucket "
-                "(%d) — raise cache_len/prompt_buckets"
-                % (plen, self.prompt_buckets[-1]))
-        max_new = self.default_max_new if max_new is None else int(max_new)
-        if max_new < 1:
-            raise ValueError("max_new must be >= 1")
-        if plen + max_new - 1 > self.cache_len:
-            raise ValueError(
-                "context %d + max_new %d - 1 exceeds cache_len %d"
-                % (plen, max_new, self.cache_len))
-        req = _Request()
-        req.prompt = prompt
-        req.plen = plen
-        req.bucket = bucket
-        req.max_new = max_new
-        req.eos_id = self.eos_id if eos_id is None else eos_id
-        req.handoff = None
-        return self._enqueue(req, deadline_ms, tenant, priority, trace_ctx)
+        session = None if session is None else str(session)
+        h = None
+        if session is not None and self._session_tier is not None:
+            h = self._session_tier.resume(session)
+        try:
+            req = self._route_request(prompt, plen, h)
+            max_new = (self.default_max_new if max_new is None
+                       else int(max_new))
+            if max_new < 1:
+                raise ValueError("max_new must be >= 1")
+            total = (req.start + len(req.suffix) if req.base is not None
+                     else req.plen)
+            if total + max_new - 1 > self.cache_len:
+                raise ValueError(
+                    "context %d + max_new %d - 1 exceeds cache_len %d"
+                    % (total, max_new, self.cache_len))
+            req.session = session
+            req.max_new = max_new
+            req.eos_id = self.eos_id if eos_id is None else eos_id
+            req.handoff = None
+            return self._enqueue(req, plen, deadline_ms, tenant, priority,
+                                 trace_ctx)
+        except Exception:
+            if h is not None:
+                # a failed resume must not lose the hibernated session
+                self._session_tier.hibernate(session, h)
+            raise
 
-    def _enqueue(self, req, deadline_ms, tenant, priority, trace_ctx):
-        """Stamp the admission fields of a validated request and put it
-        on the queue (shedding when it is full); returns its stream."""
+    def _enqueue(self, req, plen, deadline_ms, tenant, priority, trace_ctx):
+        """Stamp the admission fields of a validated request whose caller
+        sent `plen` prompt tokens and put it on the queue (shedding when
+        it is full); returns its stream."""
         handoff = req.handoff is not None
         req.tenant = tenant
         req.priority = priority
@@ -499,7 +656,7 @@ class DecodeEngine:
         req.trace = trace_ctx if sampled else None
         req.t_wall = time.time() if sampled else None
         req.handle = DecodeStream(
-            req.plen, req.max_new, stall_timeout_s=self.request_timeout_s)
+            plen, req.max_new, stall_timeout_s=self.request_timeout_s)
         req.handle.tenant = tenant
         req.handle.priority = priority
         req.handle.trace = req.trace
@@ -512,7 +669,7 @@ class DecodeEngine:
         except queue.Full:
             self._bump("shed")
             obs.event("shed", source="serving", model=self.name,
-                      engine="decode", prompt_len=req.plen,
+                      engine="decode", prompt_len=plen,
                       queue_capacity=self._q.maxsize,
                       **({"handoff": True} if handoff else {}))
             raise ShedError(
@@ -543,14 +700,12 @@ class DecodeEngine:
         — works on ``role="decode"`` replicas). The stream's first token
         is the handoff's ``next_token``; ``max_new`` counts it, matching
         :meth:`submit` semantics, so a handoff at ``plen`` with
-        ``max_new`` N delivers N tokens total. ``session`` comes with the
-        session tier (ROADMAP.md Queue 1 item 7.4)."""
+        ``max_new`` N delivers N tokens total. ``session`` names the
+        conversation the stream hibernates under when it retires, on an
+        engine with a session tier."""
         if self._closed:
             raise EngineClosedError(
                 "engine %r is draining/stopped" % self.name)
-        if session is not None:
-            raise _later("resumable sessions (submit_prefilled(session=))",
-                         "7.4")
         expect = (self.cfg.num_layers, self.cache_len, self.cfg.hidden)
         if tuple(handoff.shape) != expect:
             raise ValueError(
@@ -574,11 +729,18 @@ class DecodeEngine:
         req.max_new = max_new
         req.eos_id = self.eos_id if eos_id is None else eos_id
         req.handoff = handoff
+        req.session = None if session is None else str(session)
+        req.base = None
+        req.start = 0
+        req.suffix = None
+        req.sbucket = None
+        req.hist = req.prompt
         if trace_ctx is None:
             # the handoff's embedded context keeps the prefill-side
             # trace alive across a transport that dropped the kwarg
             trace_ctx = getattr(handoff, "trace", None)
-        return self._enqueue(req, deadline_ms, tenant, priority, trace_ctx)
+        return self._enqueue(req, plen, deadline_ms, tenant, priority,
+                             trace_ctx)
 
     def check_hbm_budget(self, budget_bytes=None):
         raise _later("the device-memory admission check "
@@ -588,10 +750,11 @@ class DecodeEngine:
         raise _later("the ladder lint (check_ladder)", "11")
 
     def warmup(self, check_hbm=False):
-        """Run the step program and every prompt-bucket prefill once (the
-        first launch builds the CUDA kernels) on zero caches, without
-        touching the engine's slots — a decode-role replica's whole
-        ladder is the step. Returns the per-program report.
+        """Run the step program, every prompt-bucket prefill, every
+        delta-prefill bucket, the verify block and the draft's programs
+        once (the first launch builds the CUDA kernels) on zero caches,
+        without touching the engine's slots — a decode-role replica's
+        whole ladder is the step. Returns the per-program report.
         ``check_hbm=True`` asks for :meth:`check_hbm_budget`, which is
         not ported yet."""
         if check_hbm:
@@ -614,6 +777,26 @@ class DecodeEngine:
                 "gpt_prefill_len": np.ones((1, 1), np.int64)})
             report.append({"program": "prefill", "bucket": b,
                            "source": source})
+        cache1 = (1, self.cfg.num_layers, self.cache_len, self.cfg.hidden)
+        for b in sorted(self._delta_preds):
+            source = self._delta_preds[b].warm({
+                "gpt_dpre_ids": np.zeros((1, b), np.int64),
+                "gpt_dpre_len": np.ones((1, 1), np.int64),
+                "gpt_dpre_start": np.zeros((1, 1), np.int64),
+                "gpt_dpre_k": torch.zeros(cache1, device=self.device),
+                "gpt_dpre_v": torch.zeros(cache1, device=self.device)})
+            report.append({"program": "delta_prefill", "bucket": b,
+                           "source": source})
+        if self._verify_pred is not None:
+            blk = self._draft.k + 1
+            source = self._verify_pred.warm({
+                "gpt_vrf_tok": np.zeros((self.slots, blk), np.int64),
+                "gpt_vrf_pos": np.zeros((self.slots, 1), np.int64),
+                "gpt_vrf_k": torch.zeros_like(self._k),
+                "gpt_vrf_v": torch.zeros_like(self._v)})
+            report.append({"program": "verify", "block": blk,
+                           "source": source})
+            report.extend(self._draft.warmup())
         obs.event(
             "warmup", source="serving", count=False, model=self.name,
             engine="decode", engines=len(report),
@@ -635,7 +818,10 @@ class DecodeEngine:
                     return
                 time.sleep(0.002)
                 continue
-            self._step()
+            if self._draft is not None:
+                self._spec_step()
+            else:
+                self._step()
 
     def _fail_all(self):
         while True:
@@ -697,11 +883,23 @@ class DecodeEngine:
                       self._q.qsize())
 
     def _fill_slot(self, slot, req):
-        """Route one admitted request onto its fill path: a remote
-        handoff's adoption or the cold prefill (prefix hits and session
-        resumes come with ROADMAP.md Queue 1 item 7.4)."""
+        """Route one admitted request onto its cheapest fill path:
+        remote handoff adopt, session-resume delta, prefix-pool
+        full-hit adopt, prefix-pool delta, or cold prefill."""
         if req.handoff is not None:
             return self._adopt(slot, req)
+        if req.base is not None:  # session resume (handoff from tier)
+            return self._delta_prefill(slot, req)
+        if self._prefix_pool is not None:
+            entry = self._prefix_pool.lookup(req.prompt)
+            if entry is not None and _pool_entry_fits(self, entry, req.plen):
+                req.base = entry
+                req.start = entry.plen
+                if entry.plen == req.plen:
+                    return self._adopt_prefix(slot, req)
+                req.suffix = req.prompt[entry.plen:]
+                req.sbucket = self._bucket_for(len(req.suffix))
+                return self._delta_prefill(slot, req)
         return self._prefill(slot, req)
 
     def _write_slot_cache(self, slot, k1, v1, ks=None, vs=None):
@@ -774,8 +972,17 @@ class DecodeEngine:
         self._tok[slot, 0] = tok
         self._pos[slot, 0] = req.plen
         self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
-                                  trace=sp.ctx if sp is not None else None)
+                                  trace=sp.ctx if sp is not None else None,
+                                  session=req.session, hist=req.hist)
         self._bump("prefill_rows_computed", req.bucket)
+        if self._prefix_pool is not None:
+            # bank this prompt's rows (fp32, pre-residency) so the
+            # next shared-prefix request adopts instead of recomputing
+            try:
+                self._prefix_pool.put(req.prompt, k1, v1, next_token=tok)
+            except Exception:  # noqa: BLE001 — caching is best-effort
+                self._bump("prefix_insert_errors")
+        self._draft_fill(slot, req.hist)
         now = time.monotonic()
         obs.observe("serving.decode.prefill_seconds", now - t0)
         obs.observe("serving.decode.ttft_seconds",
@@ -783,6 +990,126 @@ class DecodeEngine:
         self._bump("prefills")
         self._emit(slot, tok)
         self._gauges()
+
+    def _adopt_prefix(self, slot, req):
+        """FULL prefix-pool hit: the pool holds rows for the whole
+        prompt AND the greedy token after it — adopt and emit with no
+        program dispatch at all (zero prefill FLOPs)."""
+        t0 = time.monotonic()
+        entry = req.base
+        if req.trace is not None:
+            self._trace_queue_span(req, t0)
+        if self.kv_dtype == "int8":
+            if entry.store_dtype == "int8":
+                kq, ks, vq, vs = (entry.k, entry.k_scales, entry.v,
+                                  entry.v_scales)
+            else:
+                from .disagg import kv_wire
+
+                kq, ks = kv_wire.quantize_rows(entry.k)
+                vq, vs = kv_wire.quantize_rows(entry.v)
+            self._write_slot_cache(slot, kq[None], vq[None],
+                                   ks[None], vs[None])
+        else:
+            kd, vd = entry.dense()
+            self._write_slot_cache(slot, kd[None], vd[None])
+        self._tok[slot, 0] = tok = int(entry.next_token)
+        self._pos[slot, 0] = req.plen
+        self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
+                                  session=req.session, hist=req.hist)
+        self._bump("prefix_full_hits")
+        self._bump("prefill_rows_saved", entry.plen)
+        self._draft_fill(slot, req.hist)
+        now = time.monotonic()
+        obs.observe("serving.decode.prefill_seconds", now - t0)
+        obs.observe("serving.decode.ttft_seconds",
+                    now - req.handle.t_submit)
+        self._emit(slot, tok)
+        self._gauges()
+
+    def _delta_prefill(self, slot, req):
+        """Adopt ``req.start`` base rows (a prefix-pool entry or a
+        hibernated session's handoff) and run the delta-prefill program
+        over only the suffix — prefill FLOPs proportional to the
+        unshared tail. The base rows feed the program in fp32; int8-
+        resident engines requantize the returned cache, which is
+        bit-stable on untouched rows (idempotent codec)."""
+        t0 = time.monotonic()
+        base = req.base
+        if req.trace is not None:
+            self._trace_queue_span(req, t0)
+        suffix = np.asarray(req.suffix, np.int64).reshape(-1)
+        slen = int(suffix.size)
+        ids = np.zeros((1, req.sbucket), np.int64)
+        ids[0, :slen] = suffix
+        try:
+            # a hibernated handoff is verified against its sealed
+            # digest before any row lands in a slot (same contract as
+            # _adopt); pool entries live in-process — their digest is
+            # the lookup key, not a seal, and they carry no verify()
+            if (getattr(base, "digest", None) is not None
+                    and callable(getattr(base, "verify", None))):
+                base.verify()
+            kd, vd = base.dense()
+            nxt, k1, v1 = self._delta_preds[req.sbucket].run(
+                {"gpt_dpre_ids": ids,
+                 "gpt_dpre_len": np.asarray([[slen]], np.int64),
+                 "gpt_dpre_start": np.asarray([[req.start]], np.int64),
+                 "gpt_dpre_k": kd[None], "gpt_dpre_v": vd[None]},
+                return_numpy=False)
+            if self.kv_dtype == "int8":
+                from .disagg import kv_wire
+
+                kq, ks = kv_wire.quantize_rows(k1[0])
+                vq, vs = kv_wire.quantize_rows(v1[0])
+                self._write_slot_cache(slot, kq[None], vq[None],
+                                       ks[None], vs[None])
+            else:
+                self._write_slot_cache(slot, k1, v1)
+            tok = int(nxt[0, 0])
+        except Exception as e:  # noqa: BLE001 — fail the request, not the loop
+            self._bump("delta_errors")
+            obs.event("delta_error", source="serving", model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
+            req.handle._fail(e)
+            return
+        self._tok[slot, 0] = tok
+        self._pos[slot, 0] = req.start + slen
+        self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
+                                  session=req.session, hist=req.hist)
+        self._bump("delta_prefills")
+        self._bump("prefill_rows_computed", req.sbucket)
+        self._bump("prefill_rows_saved", req.start)
+        if self._prefix_pool is not None and req.session is None:
+            # extend the pool's coverage to the full prompt (resumed
+            # sessions skip this: transcripts are not shared prefixes)
+            try:
+                self._prefix_pool.put(req.prompt, k1, v1, next_token=tok)
+            except Exception:  # noqa: BLE001 — caching is best-effort
+                self._bump("prefix_insert_errors")
+        self._draft_fill(slot, req.hist)
+        now = time.monotonic()
+        obs.observe("serving.decode.prefill_seconds", now - t0)
+        obs.observe("serving.decode.ttft_seconds",
+                    now - req.handle.t_submit)
+        self._emit(slot, tok)
+        self._gauges()
+
+    def _draft_fill(self, slot, hist):
+        """Mirror a freshly filled slot into the draft's cache (the
+        draft prefills the same token history). Draft staleness can
+        only cost acceptance, never correctness — so a draft prefill
+        failure downgrades the slot to effectively non-speculative
+        instead of failing the stream."""
+        if self._draft is None:
+            return
+        try:
+            self._draft.prefill_slot(slot, hist)
+        except Exception as e:  # noqa: BLE001 — speculation is optional
+            self._bump("draft_fill_errors")
+            obs.event("draft_fill_error", source="serving",
+                      model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
 
     def _adopt(self, slot, req):
         """Install a remote prefill's :class:`KVHandoff` into a slot —
@@ -847,7 +1174,9 @@ class DecodeEngine:
         self._tok[slot, 0] = tok = int(h.next_token)
         self._pos[slot, 0] = req.plen
         self._slots[slot] = _Slot(req.handle, req.max_new, req.eos_id,
-                                  trace=sp.ctx if sp is not None else None)
+                                  trace=sp.ctx if sp is not None else None,
+                                  session=req.session, hist=req.hist)
+        self._draft_fill(slot, req.hist)
         obs.observe("serving.disagg.adopt_seconds", time.monotonic() - t0)
         self._bump("adopts")
         self._emit(slot, tok)
@@ -886,6 +1215,16 @@ class DecodeEngine:
 
     def _retire(self, slot, reason, error=None):
         s = self._slots[slot]
+        if (self._session_tier is not None and s.session is not None
+                and reason in ("eos", "length") and error is None):
+            try:
+                self._hibernate(slot, s)
+            except Exception as e:  # noqa: BLE001 — tiering is best-effort
+                self._bump("hibernate_errors")
+                obs.event("hibernate_error", source="serving",
+                          model=self.name, session=s.session,
+                          error="%s: %s" % (type(e).__name__,
+                                            str(e)[:200]))
         self._slots[slot] = None
         self._tok[slot, 0] = 0
         self._pos[slot, 0] = 0
@@ -910,6 +1249,44 @@ class DecodeEngine:
         obs.event("slot_retired", source="serving", count=False,
                   model=self.name, slot=slot, reason=reason,
                   tokens=len(s.handle._tokens))
+
+    def _hibernate(self, slot, s):
+        """Encode a retiring session slot's live KV rows into the
+        KVHandoff wire format and park them in the session tier.
+        ``prompt`` carries the token-per-row history (admission history
+        + every emitted token but the last), ``next_token`` the last
+        emitted token — exactly what the resume delta-prefill consumes
+        first — and ``plen`` the written row count. The slot's rows are
+        read back to the host; int8-resident engines ship payload +
+        scales verbatim (no requantize), fp32 engines encode at the
+        tier's wire dtype."""
+        from .disagg import kv_wire
+
+        emitted = np.asarray(s.handle._tokens, np.int64)
+        if emitted.size == 0:
+            return
+        pos = int(self._pos[slot, 0])
+        hist = np.concatenate([np.asarray(s.hist, np.int64),
+                               emitted[:-1]])
+        if hist.size != pos:
+            raise ValueError(
+                "slot %d history %d rows != pos %d — refusing to "
+                "hibernate a misaligned session"
+                % (slot, hist.size, pos))
+        # a host copy of the slot: on the CPU a numpy view would alias
+        # the buffer the slot's next occupant is written into
+        bufs = [self._k, self._v]
+        if self.kv_dtype == "int8":
+            bufs += [self._kscale, self._vscale]
+        rows = [b[slot].to("cpu", copy=True).numpy() for b in bufs]
+        if self.kv_dtype == "int8":
+            h = kv_wire.encode_kv_q(*rows, int(emitted[-1]), pos, hist)
+        else:
+            h = kv_wire.encode_kv(
+                rows[0], rows[1], int(emitted[-1]), pos, hist,
+                wire_dtype=self._session_tier.wire_dtype)
+        self._session_tier.hibernate(s.session, h)
+        self._bump("hibernated")
 
     def _step(self):
         t0 = time.monotonic()
@@ -945,6 +1322,82 @@ class DecodeEngine:
             self._emit(i, tok)
         self._gauges()
 
+    def _spec_step(self):
+        """One speculative iteration: ``k`` draft proposals per slot,
+        ONE target verify dispatch over the ``k + 1`` block, emit the
+        longest prefix matching the target's own greedy picks plus the
+        correction/bonus token. Every emitted token is the target's
+        argmax. Any live slot without ``k + 1`` rows of cache headroom
+        demotes the whole iteration to the plain step (mirrored into
+        the draft so its cache stays gapless)."""
+        k = self._draft.k
+        blk = k + 1
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        if any(int(self._pos[i, 0]) + blk > self.cache_len
+               for i in live):
+            # cache-edge fallback: single-token step, draft mirrored
+            self._bump("spec_fallback_steps")
+            try:
+                self._draft.sync_step(self._tok, self._pos)
+            except Exception:  # noqa: BLE001 — speculation is optional
+                self._bump("draft_step_errors")
+            self._step()
+            return
+        t0 = time.monotonic()
+        try:
+            proposals = self._draft.propose(self._tok, self._pos)
+        except Exception as e:  # noqa: BLE001 — draft down ≠ engine down
+            self._bump("draft_step_errors")
+            obs.event("draft_step_error", source="serving",
+                      model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
+            self._step()
+            return
+        feeds = {"gpt_vrf_tok": np.concatenate(
+                     [self._tok, proposals], axis=1),
+                 "gpt_vrf_pos": self._pos,
+                 "gpt_vrf_k": self._k, "gpt_vrf_v": self._v}
+        try:
+            R.fault_check("dispatch")
+            y, self._k, self._v = self._verify_pred.run(
+                feeds, return_numpy=False)
+            y = y.cpu().numpy()                           # (S, k+1)
+        except Exception as e:  # noqa: BLE001 — fail the slots, not the loop
+            self._bump("step_errors")
+            obs.event("step_error", source="serving", model=self.name,
+                      error="%s: %s" % (type(e).__name__, str(e)[:200]))
+            for i, s in enumerate(self._slots):
+                if s is not None:
+                    self._retire(i, "error", error=e)
+            return
+        obs.observe("serving.spec.round_seconds", time.monotonic() - t0)
+        accepted = 0
+        for i in live:
+            # longest prefix of the draft's proposals matching the
+            # target's picks; emit those + the correction/bonus token
+            m = 0
+            while m < k and proposals[i, m] == y[i, m]:
+                m += 1
+            accepted += m
+            for j in range(m + 1):
+                if self._slots[i] is None:
+                    break  # EOS/length retired the slot mid-block
+                tok = int(y[i, j])
+                self._pos[i, 0] += 1
+                self._tok[i, 0] = tok
+                self._emit(i, tok)
+        self._bump("spec_rounds")
+        self._bump("spec_proposed", k * len(live))
+        self._bump("spec_accepted", accepted)
+        with self._stats_lock:
+            proposed = self._stats["spec_proposed"]
+            acc = self._stats["spec_accepted"]
+        if proposed:
+            rate = acc / float(proposed)
+            obs.set_gauge("serving.spec.accept_rate", rate)
+            obs.set_gauge("serving.spec.accept_rate.%s" % self.name, rate)
+        self._gauges()
+
     def _gauges(self):
         live = sum(1 for s in self._slots if s is not None)
         obs.set_gauge("serving.decode.slot_utilization.%s" % self.name,
@@ -966,14 +1419,21 @@ class DecodeEngine:
     def stats(self):
         """Local lifetime counters: requests/tokens/prefills/adopts/
         steps/retired/shed/deadline_miss/cancelled/prefill_errors/
-        adopt_errors/step_errors, plus ``kv_dtype`` and ``role``."""
+        adopt_errors/step_errors, the KV-reuse and speculation counters
+        and ``spec_accept_rate``, plus ``kv_dtype`` and ``role``."""
         with self._stats_lock:
             out = dict(self._stats)
         for k in ("requests", "tokens", "prefills", "adopts", "steps",
                   "retired", "shed", "deadline_miss", "cancelled",
                   "prefill_errors", "adopt_errors", "step_errors",
-                  "prefill_rows_computed"):
+                  "prefill_rows_computed", "prefill_rows_saved",
+                  "prefix_full_hits", "delta_prefills", "delta_errors",
+                  "spec_rounds", "spec_proposed", "spec_accepted",
+                  "spec_fallback_steps", "hibernated", "resumed"):
             out.setdefault(k, 0)
+        out["spec_accept_rate"] = (
+            out["spec_accepted"] / float(out["spec_proposed"])
+            if out["spec_proposed"] else None)
         out["live_slots"] = sum(1 for s in self._slots if s is not None)
         out["slots"] = self.slots
         out["kv_dtype"] = self.kv_dtype
@@ -982,20 +1442,30 @@ class DecodeEngine:
 
     def reuse_info(self):
         """KV-reuse + speculation state for ``/healthz`` (the registry's
-        ``info()`` attaches it), in the JAX engine's shape: no draft,
-        prefix pool or session tier attaches to the port's engine yet
-        (ROADMAP.md Queue 1 item 7.4), so those read None and no prefill
-        row is saved."""
+        ``info()`` attaches it): draft-model attachment, prefix-pool and
+        session-tier stats, and the redundant-prefill economics
+        counters."""
         with self._stats_lock:
-            computed = self._stats.get("prefill_rows_computed", 0)
+            st = dict(self._stats)
+        computed = st.get("prefill_rows_computed", 0)
+        saved = st.get("prefill_rows_saved", 0)
+        proposed = st.get("spec_proposed", 0)
         return {
-            "draft": None,
-            "spec_accept_rate": None,
-            "prefix_pool": None,
-            "session_tier": None,
+            "draft": (self._draft.info()
+                      if self._draft is not None else None),
+            "spec_accept_rate": (
+                st.get("spec_accepted", 0) / float(proposed)
+                if proposed else None),
+            "prefix_pool": (self._prefix_pool.stats()
+                            if self._prefix_pool is not None else None),
+            "session_tier": (self._session_tier.stats()
+                             if self._session_tier is not None
+                             else None),
             "prefill_rows_computed": computed,
-            "prefill_rows_saved": 0,
-            "prefill_rows_saved_pct": 0.0 if computed else None,
+            "prefill_rows_saved": saved,
+            "prefill_rows_saved_pct": (
+                100.0 * saved / float(saved + computed)
+                if (saved + computed) else None),
         }
 
     def slot_bytes(self):

@@ -24,10 +24,15 @@ Admission mirrors the decode engine: a full queue fast-rejects with
 :class:`~paddle_tpu_torch.serving.engine.ShedError` carrying a Retry-After
 from the observed drain rate.
 
-Not ported yet: the prefix pool (``prefix_pool=`` raises, naming
-ROADMAP.md Queue 1 item 7.4) and the cost-model ``predicted_s`` span
-annotation (item 11). The JAX engine's lock-sanitizer hooks wait for item
-11 as well: the locks here are plain ``threading`` locks.
+``prefix_pool=PrefixPool(...)`` makes the replica a delta-prefill source:
+a full pool hit hands off the cached rows with no program run, a prefix
+hit runs :func:`~paddle_tpu_torch.models.gpt.build_gpt_prefill_delta`
+over the unshared tail only, and every cold or delta prefill banks its
+rows back.
+
+Not ported yet: the cost-model ``predicted_s`` span annotation (ROADMAP.md
+Queue 1 item 11). The JAX engine's lock-sanitizer hooks wait for item 11
+as well: the locks here are plain ``threading`` locks.
 """
 import collections
 import contextlib
@@ -115,11 +120,9 @@ class PrefillEngine:
                  auto_start=True, build_prefill=None, prefix_pool=None,
                  place=None):
         from ... import fluid
-        from ..decode import _later, _snapshot, default_prompt_buckets
+        from ..decode import _snapshot, default_prompt_buckets
         from ...fluid.inference import Predictor
 
-        if prefix_pool is not None:
-            raise _later("the prefix pool (prefix_pool=)", "7.4")
         if build_prefill is None:
             from ...models.gpt import build_gpt_prefill
 
@@ -130,6 +133,7 @@ class PrefillEngine:
         self.name = str(name)
         self.cache_len = int(cache_len)
         self.wire_dtype = str(wire_dtype)
+        self._prefix_pool = prefix_pool
         self.ttft_slo_ms = (None if ttft_slo_ms is None
                             else float(ttft_slo_ms))
         self.request_timeout_s = float(request_timeout_s)
@@ -148,8 +152,19 @@ class PrefillEngine:
             with fluid.program_guard(fluid.Program(), fluid.Program()):
                 pv = build_prefill(cfg, b, self.cache_len)
                 prefill[b] = (fluid.default_main_program(), pv)
+        # a prefix pool turns this replica into a delta-prefill source:
+        # pooled base rows + the suffix program cost only the unshared
+        # tail of each prompt (same ladder widths as cold prefill)
+        delta = {}
+        if prefix_pool is not None:
+            from ...models.gpt import build_gpt_prefill_delta
+
+            for b in self.prompt_buckets:
+                with fluid.program_guard(fluid.Program(), fluid.Program()):
+                    dv = build_gpt_prefill_delta(cfg, b, self.cache_len)
+                    delta[b] = (fluid.default_main_program(), dv)
         persist = {}
-        for prog, _ in prefill.values():
+        for prog, _ in list(prefill.values()) + list(delta.values()):
             for v in prog.list_vars():
                 if not getattr(v, "persistable", False):
                     continue
@@ -166,6 +181,13 @@ class PrefillEngine:
             self._prefill_preds[b] = Predictor(
                 prog, pv["feed_names"], pv["fetch_vars"], scope=persist,
                 place=self.place)
+        self._delta_preds = {}
+        for b, (prog, dv) in delta.items():
+            self._delta_preds[b] = Predictor(
+                prog, dv["feed_names"], dv["fetch_vars"], scope=persist,
+                place=self.place)
+        if prefix_pool is not None:
+            prefix_pool.bind(self.device)
 
         self._capacity = int(queue_capacity)
         self._heap = []          # (priority, seq, req) — min-heap
@@ -374,28 +396,77 @@ class PrefillEngine:
         req.ticket._set(handoff)
 
     def _compute_kv(self, req):
-        """Produce ``(next_token, k, v)`` for one prompt through the cold
-        bucket program, read back to the host (the prefix pool's full
-        and partial hits come with ROADMAP.md Queue 1 item 7.4)."""
+        """Produce ``(next_token, k, v)`` for one prompt by the
+        cheapest route: pool full hit (zero dispatch), pool partial hit
+        (delta-prefill of the suffix), or the cold bucket program; the
+        cache comes back to the host. Cold and delta results are banked
+        back into the pool so the next shared-prefix prompt adopts
+        instead of recomputing."""
+        from ..decode import _pool_entry_fits
+
+        entry = (self._prefix_pool.lookup(req.prompt)
+                 if self._prefix_pool is not None else None)
+        if entry is not None and _pool_entry_fits(self, entry, req.plen):
+            kd, vd = entry.dense()
+            if entry.plen == req.plen:
+                self._bump("prefix_full_hits")
+                self._bump("prefill_rows_saved", entry.plen)
+                return int(entry.next_token), kd, vd
+            suffix = req.prompt[entry.plen:]
+            slen = int(suffix.size)
+            sbucket = self._bucket_for(slen)
+            ids = np.zeros((1, sbucket), np.int64)
+            ids[0, :slen] = suffix
+            nxt, k1, v1 = self._delta_preds[sbucket].run(
+                {"gpt_dpre_ids": ids,
+                 "gpt_dpre_len": np.asarray([[slen]], np.int64),
+                 "gpt_dpre_start": np.asarray([[entry.plen]], np.int64),
+                 "gpt_dpre_k": kd[None], "gpt_dpre_v": vd[None]})
+            tok = int(nxt[0, 0])
+            k1, v1 = k1[0], v1[0]
+            self._bump("delta_prefills")
+            self._bump("prefill_rows_computed", sbucket)
+            self._bump("prefill_rows_saved", entry.plen)
+            try:
+                self._prefix_pool.put(req.prompt, k1, v1, next_token=tok)
+            except Exception:  # noqa: BLE001 — caching is best-effort
+                self._bump("prefix_insert_errors")
+            return tok, k1, v1
         ids = np.zeros((1, req.bucket), np.int64)
         ids[0, :req.plen] = req.prompt
         nxt, k1, v1 = self._prefill_preds[req.bucket].run(
             {"gpt_prefill_ids": ids,
              "gpt_prefill_len": np.asarray([[req.plen]], np.int64)})
-        tok = int(np.asarray(nxt)[0, 0])
+        tok = int(nxt[0, 0])
         self._bump("prefill_rows_computed", req.bucket)
+        if self._prefix_pool is not None:
+            try:
+                self._prefix_pool.put(req.prompt, k1, v1, next_token=tok)
+            except Exception:  # noqa: BLE001 — caching is best-effort
+                self._bump("prefix_insert_errors")
         return tok, k1, v1
 
     # -- warmup / introspection ------------------------------------------
     def warmup(self):
-        """Run every bucket program once (the first launch builds the
-        CUDA kernels); returns the per-program report."""
+        """Run every bucket program and every delta-prefill bucket once
+        (the first launch builds the CUDA kernels); returns the
+        per-program report."""
         report = []
         for b in self.prompt_buckets:
             source = self._prefill_preds[b].warm({
                 "gpt_prefill_ids": np.zeros((1, b), np.int64),
                 "gpt_prefill_len": np.ones((1, 1), np.int64)})
             report.append({"program": "prefill", "bucket": b,
+                           "source": source})
+        cache1 = (1, self.cfg.num_layers, self.cache_len, self.cfg.hidden)
+        for b in sorted(self._delta_preds):
+            source = self._delta_preds[b].warm({
+                "gpt_dpre_ids": np.zeros((1, b), np.int64),
+                "gpt_dpre_len": np.ones((1, 1), np.int64),
+                "gpt_dpre_start": np.zeros((1, 1), np.int64),
+                "gpt_dpre_k": np.zeros(cache1, np.float32),
+                "gpt_dpre_v": np.zeros(cache1, np.float32)})
+            report.append({"program": "delta_prefill", "bucket": b,
                            "source": source})
         obs.event(
             "warmup", source="serving", count=False, model=self.name,
@@ -423,14 +494,14 @@ class PrefillEngine:
 
     def reuse_info(self):
         """Prefix-pool reuse snapshot (``/healthz`` + router
-        aggregation) — mirrors ``DecodeEngine.reuse_info``'s shape. No
-        prefix pool attaches yet (ROADMAP.md Queue 1 item 7.4)."""
+        aggregation) — mirrors ``DecodeEngine.reuse_info``'s shape."""
         with self._stats_lock:
             st = dict(self._stats)
         computed = st.get("prefill_rows_computed", 0)
         saved = st.get("prefill_rows_saved", 0)
         return {
-            "prefix_pool": None,
+            "prefix_pool": (self._prefix_pool.stats()
+                            if self._prefix_pool is not None else None),
             "prefill_rows_computed": computed,
             "prefill_rows_saved": saved,
             "prefill_rows_saved_pct": (

@@ -701,9 +701,8 @@ class DisaggRouter:
 
     def reuse_info(self):
         """Fleet-wide KV-reuse snapshot: per-replica ``reuse_info()``
-        docs plus summed redundant-prefill economics (no prefix pool,
-        draft or session tier attaches until ROADMAP.md Queue 1 item
-        7.4) —
+        docs (prefix pools on the prefill side, draft/pool/tier state
+        on decode replicas) plus summed redundant-prefill economics —
         the ``reuse`` block ``/healthz`` shows for a published
         router."""
         with self._lock:

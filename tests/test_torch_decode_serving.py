@@ -12,7 +12,9 @@ greedy tokens of the same prompt. Then the engine's semantics as
 tests/test_decode_serving.py holds them (EOS, in-flight admission,
 deadlines, shedding, validation, cancel), ``barrier=True`` scheduling, the
 parts left for later slices, and one device copy of the parameters for
-every program. The HBM budget and the compile cache are not ported; HTTP
+every program. The int8-resident cache and the decode-only role are held
+in tests/test_torch_disagg.py, the prefix pool, the session tier and
+speculative decoding in tests/test_torch_spec_prefix.py. The HBM budget and the compile cache are not ported; HTTP
 and the registry are held in tests/test_torch_http.py, the engine's
 telemetry in tests/test_torch_observability.py. Every blocking wait has
 its own timeout.
@@ -340,23 +342,6 @@ def test_slot_geometry_and_stats(m):
     assert st["slots"] == 2 and st["kv_dtype"] == "fp32"
     assert eng.queue_depth() == 0
     assert 1.0 <= eng.retry_after_hint() <= 60.0
-
-
-# The int8-resident cache and the decode-only role (item 7.3) are ported:
-# tests/test_torch_disagg.py holds them. The ids keep the names these
-# cases had when the list began with the two 7.3 options.
-@pytest.mark.parametrize("kw,item", [
-    pytest.param({"draft": object()}, "7.4", id="kw2-7.4"),
-    pytest.param({"prefix_pool": object()}, "7.4", id="kw3-7.4"),
-    pytest.param({"session_tier": object()}, "7.4", id="kw4-7.4"),
-    pytest.param({"session": "chat-1"}, "7.4", id="kw5-7.4"),
-])
-def test_later_options_raise(m, kw, item):
-    with pytest.raises(NotImplementedError, match="item %s" % item):
-        if "session" in kw:     # a submit option, not an engine one
-            m["eng"].submit(_prompt(3), max_new=1, **kw)
-        else:
-            _engine(m, auto_start=False, **kw)
 
 
 # submit_prefilled (item 7.3) is ported: tests/test_torch_disagg.py holds

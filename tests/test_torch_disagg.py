@@ -57,7 +57,7 @@ from paddle_tpu_torch.ops.registry import get_lowering as pt_lowering
 from paddle_tpu_torch.parallel.comms import quantize as PQ
 from paddle_tpu_torch.serving import (
     DeadlineExceededError, DecodeEngine, EngineClosedError, ModelRegistry,
-    ServingServer, ShedError, kv_slot_bytes,
+    PrefixPool, ServingServer, ShedError, kv_slot_bytes,
 )
 from paddle_tpu_torch.serving.disagg import (
     KVHandoff, PrefillEngine, TenantSpec, TenantTable, dequantize_rows,
@@ -448,8 +448,13 @@ def test_prefill_priority_queue_deadline_and_shed(m):
 
 
 def test_prefill_engine_later_parts_and_place(m, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        _prefill(m, prefix_pool=object(), auto_start=False)
+    # the prefix pool attaches: it adds the delta-prefill ladder
+    pool = PrefixPool(name="attach")
+    pooled = _prefill(m, prefix_pool=pool, auto_start=False)
+    assert [r["program"] for r in pooled.warmup()] == [
+        "prefill", "delta_prefill"]
+    assert pooled.reuse_info()["prefix_pool"] == pool.stats()
+    pooled.stop()
     pre = _prefill(m, auto_start=False)
     assert [r["program"] for r in pre.warmup()] == ["prefill"]
     assert pre.reuse_info()["prefix_pool"] is None
@@ -498,8 +503,10 @@ def test_fp32_handoff_adoption_bit_identical(m):
             eng.submit_prefilled(
                 encode_kv(full, full, 1, 60, _prompt(8),
                           wire_dtype="fp32"), max_new=8)
-        with pytest.raises(NotImplementedError, match="item 7.4"):
-            eng.submit_prefilled(h, max_new=2, session="s")
+        # a session on an engine without a session tier is carried and
+        # ignored (tests/test_torch_spec_prefix.py holds the tier)
+        assert eng.submit_prefilled(h, max_new=2,
+                                    session="s").result(WAIT) == toks[:2]
     finally:
         pre.stop(drain=False)
         eng.stop(drain=False)
@@ -839,8 +846,7 @@ def test_serving_package_exports():
     from paddle_tpu.serving import disagg as jdisagg
     from paddle_tpu_torch.serving import disagg
 
-    later = {"DraftModel", "PrefixPool", "SessionTier", "prefix_digest"}
-    assert set(serving.__all__) >= set(jserving.__all__) - later
+    assert set(serving.__all__) >= set(jserving.__all__)
     assert set(disagg.__all__) == set(jdisagg.__all__)
     for name in ("DisaggRouter", "DisaggReplica", "DisaggStream",
                  "PrefillEngine", "PrefillTicket", "KVHandoff",

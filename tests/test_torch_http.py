@@ -782,13 +782,16 @@ def test_generate_shed_and_stopped_match_jax(gen):
 
 
 def test_generate_session_names_its_item(gen):
-    """Resumable sessions come with the session tier (ROADMAP.md item
-    7.4): the port's engine refuses them, and the server says why."""
-    code, _, body = _request(gen["port"].url + "/v1/models/gpt:generate",
-                             {"prompt": [1, 2], "session": "chat-1"})
-    assert code == 500
-    assert "NotImplementedError" in json.loads(body)["error"]
-    assert "item 7.4" in json.loads(body)["error"]
+    """A session id rides :generate to the engine in both servers; an
+    engine without a session tier carries it and serves the request as
+    it would without one (tests/test_torch_spec_prefix.py holds the
+    tier), so the two replies are the same."""
+    body = {"prompt": _prompt(5), "max_new_tokens": 3, "stream": False,
+            "session": "chat-1"}
+    (jc, _, jb), (pc, _, pb) = _both(gen, "/v1/models/gpt:generate", body)
+    assert pc == jc == 200
+    assert json.loads(pb) == json.loads(jb)
+    assert json.loads(pb)["n_tokens"] == 3
 
 
 def test_client_disconnect_frees_the_slot(gen):
