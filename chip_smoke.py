@@ -278,6 +278,30 @@ Phases, each of which exits non-zero on failure:
    engine's token for token; a stream that diverges fails the phase
    unless the plain engine's top-2 logit margin at the divergence is
    below the measured distance.
+14. the training surface, after phase 13 and before the profiles, under
+   the LAMB recipe for BERT: ``Lamb(lamb_weight_decay=0.01)`` with no
+   decay on biases and LayerNorm parameters, ``linear_lr_warmup`` over
+   10 steps into ``polynomial_decay(1e-4, 1000, 0)``, a global-norm clip
+   at 1.0 and ``RecomputeOptimizer`` over each encoder layer's output:
+   (a) BERT-base width at depth 2 (batch 2, dropout 0) 3 steps on the
+   card and on the CPU from the same parameters: losses within 1e-3
+   relative, step-1 gradients within 1e-3·max|grad|, the learning rate
+   equal to the CPU's and to the schedule's closed form; (b) the ten
+   update ops (dgc_momentum after its rampup at sparsity 0.999, dpsgd at
+   sigma 0) 3 updates each at word_emb's (30522, 768) and a (768,) f32
+   parameter, card against CPU within 1e-5·max|param|, and ModelAverage,
+   EMA and Lookahead over 5 steps of an fc model, card against CPU,
+   each apply/restore round trip bit-identical; (c) full BERT-base
+   (dropout 0.1, batch 8, seq 128) TRAIN_WARMUP + TRAIN_STEPS steps
+   without and with recompute from the same parameters: finite, falling
+   losses, 12/12/12/25/25 launches a step and, with recompute, the
+   counts derived from the segments the Executor wraps (24/12/12/50/25),
+   the learning rate's closed form at every step, step median and p90,
+   tokens/s and peak memory of each, and the two runs' losses and final
+   persistable values bit-identical.
+
+Phases 5 and 5b seed their dropout draws (``main.random_seed``), so
+their losses are the same in every process.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -692,8 +716,8 @@ def serving_phase(fluid, serving, ca, cl, dirname, policy, requests):
 def train_program(fluid, bert, cfg, amp=None):
     """BERT pretraining + Adam(1e-4) minimize, as examples/train_bert.py
     builds it, the optimizer decorated by
-    ``contrib.mixed_precision.decorate(**amp)`` when `amp` is given;
-    returns (main, startup, loss var)."""
+    ``contrib.mixed_precision.decorate(**amp)`` when `amp` is given, the
+    startup and dropout seeds SEED; returns (main, startup, loss var)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         io = bert.build_bert_pretrain(cfg, SEQ)
@@ -701,7 +725,9 @@ def train_program(fluid, bert, cfg, amp=None):
         if amp is not None:
             opt = fluid.contrib.mixed_precision.decorate(opt, **amp)
         opt.minimize(io["loss"])
-    startup.random_seed = SEED
+    # the dropout draws' seed too: with 0 the Executor salts it per
+    # process, and the falling-loss gates would vary from run to run
+    main.random_seed = startup.random_seed = SEED
     return main, startup, io["loss"]
 
 
@@ -5266,6 +5292,441 @@ def spec_phase(fluid, serving, gpt, ca, cl, cfg, scope, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training surface
+# ---------------------------------------------------------------------------
+# The LAMB recipe for BERT (You et al., 2019): Lamb(weight decay 0.01, none
+# on biases and LayerNorm), linear warmup over 10 steps into polynomial
+# decay from 1e-4 over 1000, a global-norm clip at 1.0, and recompute with
+# each encoder layer's output as a checkpoint. 14a: BERT-base width at
+# depth 2 (batch 2, dropout 0), 3 steps on the card and on the CPU. 14b:
+# the ten update ops at word_emb's (30522, 768) and a (768,) f32
+# parameter, 3 updates each on the card and on the CPU; ModelAverage, EMA
+# and Lookahead over 5 steps of a small fc model. 14c: full BERT-base
+# (dropout 0.1, batch 8, seq 128), TRAIN_WARMUP + TRAIN_STEPS steps without
+# and with RecomputeOptimizer from the same parameters.
+SURFACE_LR, SURFACE_WARMUP, SURFACE_DECAY = 1e-4, 10, 1000
+SURFACE_TOL = 1e-3      # 14a: losses (relative), step-1 gradients (of max)
+UPDATE_TOL = 1e-5       # 14b: x max|param|
+LR_TOL = 1e-6           # the fetched learning rate against its closed form
+UPDATE_SHAPES = ((30522, 768), (768,))
+
+
+def no_decay(param):
+    """The LAMB recipe's exclusions: biases and LayerNorm parameters."""
+    return param.name.endswith(".b") or "ln" in param.name
+
+
+def layer_outputs(main, n_layers):
+    """Each encoder layer's output: the Y of the layer_norm op whose Scale
+    is enc_l{i}_ln2.w."""
+    ys = {op.input("Scale")[0]: op.output("Y")[0]
+          for op in main.global_block().ops if op.type == "layer_norm"}
+    return [ys["enc_l%d_ln2.w" % i] for i in range(n_layers)]
+
+
+def surface_program(fluid, bert, cfg, recompute):
+    """BERT pretraining under the LAMB recipe (above), with
+    RecomputeOptimizer when `recompute`; main.random_seed is SEED, so the
+    dropout draws are the same in every process. Returns (main, startup,
+    loss var, learning-rate var)."""
+    fluid.unique_name.switch()          # the same names in every build
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        io = bert.build_bert_pretrain(cfg, SEQ)
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(SURFACE_LR, SURFACE_DECAY,
+                                          end_learning_rate=0.0),
+            warmup_steps=SURFACE_WARMUP, start_lr=0.0, end_lr=SURFACE_LR)
+        fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(1.0))
+        opt = fluid.optimizer.Lamb(learning_rate=lr, lamb_weight_decay=0.01,
+                                   exclude_from_weight_decay_fn=no_decay)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(layer_outputs(main, cfg.num_layers))
+        opt.minimize(io["loss"])
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, io["loss"], lr
+
+
+def surface_lr(step):
+    """The closed form of the schedule at counter value `step` (0 on the
+    first run): linear warmup from 0, then polynomial decay (power 1) to
+    0."""
+    if step < SURFACE_WARMUP:
+        return SURFACE_LR * step / SURFACE_WARMUP
+    return SURFACE_LR * (1 - min(step, SURFACE_DECAY) / SURFACE_DECAY)
+
+
+def check_lr(tag, lrs):
+    want = [surface_lr(s) for s in range(len(lrs))]
+    err = max(abs(a - w) for a, w in zip(lrs, want))
+    print("%s: learning rates %s; max|d| from the closed form %.3e (bound "
+          "%.0e of %.0e)" % (tag, " ".join("%.6g" % x for x in lrs), err,
+                             LR_TOL, SURFACE_LR), flush=True)
+    if err > LR_TOL * SURFACE_LR:
+        fail("%s: the learning rate is not warmup then polynomial decay"
+             % tag)
+
+
+def recompute_counts(main, lowering):
+    """The forward kernels a recompute step launches again: the attention
+    and LayerNorm ops of the segments the Executor wraps (every segment
+    but the last, cut by lowering.segment_cuts as the run cuts them)."""
+    ops = main.global_block().ops
+    first = [op.type for op in ops].index("backward")
+    cuts = lowering.segment_cuts(ops[:first],
+                                 ops[first].attrs["checkpoints"])
+    wrapped = [op.type for op in ops[:cuts[-1] + 1]] if cuts else []
+    per_step = dict(PER_STEP)
+    per_step["flash_attn_fwd"] += wrapped.count("fused_multihead_attention")
+    per_step["layer_norm_fwd"] += wrapped.count("layer_norm")
+    return per_step, len(cuts)
+
+
+def surface_vs_cpu(fluid, bert, lowering):
+    """14a: BERT-base width at depth 2, batch 2, dropout 0, the stack with
+    recompute: 3 steps on the card and on the CPU from the same
+    parameters."""
+    cfg = bert.BertConfig(num_layers=2, dropout=0.0)
+    main, startup, loss, lr = surface_program(fluid, bert, cfg, True)
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for n, t in scope.items():
+        cpu_scope.set(n, t.cpu().clone())
+    ids, labels = bert.synthetic_batch(cfg, 2, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters())
+    worst_loss, worst_grad, lrs = 0.0, ("", 0.0), []
+    for step in range(3):
+        fetch = [loss, lr] + (grads if step == 0 else [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        print("14a surface[depth 2] step %d: loss card %.6f cpu %.6f (rel "
+              "%.2e)" % (step, float(got[0]), float(want[0]), rel),
+              flush=True)
+        worst_loss = max(worst_loss, rel)
+        lrs.append(float(got[1][0]))
+        if float(got[1][0]) != float(want[1][0]):
+            fail("14a: the card's learning rate differs from the CPU's")
+        for name, a, w in zip(grads if step == 0 else [], got[2:], want[2:]):
+            r = float(np.abs(a - w).max()) / max(float(np.abs(w).max()),
+                                                   1e-30)
+            if not np.isfinite(a).all() or r > SURFACE_TOL:
+                fail("14a: %s on the card differs from the CPU by %.3e of "
+                     "max|grad| (bound %.0e)" % (name, r, SURFACE_TOL))
+            worst_grad = max(worst_grad, (name, r), key=lambda x: x[1])
+    print("14a surface[depth 2] (Lamb + warmup/decay + global-norm clip + "
+          "recompute, %d segments) vs the port on the CPU: losses within "
+          "rel %.2e, step-1 gradients of %d parameters within %.2e of "
+          "max|grad| (worst %s; bounds %.0e)" % (
+              recompute_counts(main, lowering)[1], worst_loss, len(grads),
+              worst_grad[1], worst_grad[0], SURFACE_TOL), flush=True)
+    if worst_loss > SURFACE_TOL:
+        fail("14a: card losses differ from the CPU run")
+    check_lr("14a surface[depth 2]", lrs)
+
+
+def update_cases(shape, rng):
+    """op type -> (inputs as numpy, attrs, {output slot: input slot} carried
+    from one update to the next) for a parameter of `shape`: values of
+    BERT's scale (params N(0, 0.02), gradients N(0, 1e-3)), accumulators
+    that are nonnegative where the update takes a root of them."""
+    def normal(scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def pos(scale):
+        return np.abs(normal(scale))
+
+    def lr(v):
+        return np.array([v], np.float32)
+
+    p, g = normal(0.02), normal(1e-3)
+    return {
+        "dgc_momentum": (
+            {"Param": p, "Grad": g, "U": normal(1e-3), "V": normal(1e-3),
+             "CurrentStep": np.array([5.0], np.float32),
+             "LearningRate": lr(0.1)},
+            {"mu": 0.9, "rampup_begin_step": 0, "rampup_step": 1,
+             "sparsity": [0.999], "local_grad_clip_norm": -1.0},
+            {"ParamOut": "Param", "UOut": "U", "VOut": "V",
+             "StepOut": "CurrentStep"}),
+        "lars_momentum": (
+            {"Param": p, "Grad": g, "Velocity": normal(1e-4),
+             "LearningRate": lr(0.1)},
+            {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005},
+            {"ParamOut": "Param", "VelocityOut": "Velocity"}),
+        "adagrad": (
+            {"Param": p, "Grad": g, "Moment": pos(1e-3),
+             "LearningRate": lr(1e-2)},
+            {"epsilon": 1e-6}, {"ParamOut": "Param", "MomentOut": "Moment"}),
+        "decayed_adagrad": (
+            {"Param": p, "Grad": g, "Moment": pos(1e-6),
+             "LearningRate": lr(1e-3)},
+            {"decay": 0.95, "epsilon": 1e-6},
+            {"ParamOut": "Param", "MomentOut": "Moment"}),
+        "adadelta": (
+            {"Param": p, "Grad": g, "AvgSquaredGrad": pos(1e-6),
+             "AvgSquaredUpdate": pos(1e-6)},
+            {"rho": 0.95, "epsilon": 1e-6},
+            {"ParamOut": "Param", "AvgSquaredGradOut": "AvgSquaredGrad",
+             "AvgSquaredUpdateOut": "AvgSquaredUpdate"}),
+        "adamax": (
+            {"Param": p, "Grad": g, "Moment": normal(1e-4),
+             "InfNorm": pos(1e-3), "Beta1Pow": lr(0.9 ** 3),
+             "LearningRate": lr(1e-3)},
+            {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+            {"ParamOut": "Param", "MomentOut": "Moment",
+             "InfNormOut": "InfNorm"}),
+        "rmsprop": (
+            {"Param": p, "Grad": g, "MeanSquare": pos(1e-6),
+             "Moment": normal(1e-4), "MeanGrad": normal(1e-5),
+             "LearningRate": lr(1e-3)},
+            {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9,
+             "centered": True},
+            {"ParamOut": "Param", "MeanSquareOut": "MeanSquare",
+             "MomentOut": "Moment", "MeanGradOut": "MeanGrad"}),
+        "ftrl": (
+            {"Param": p, "Grad": g, "SquaredAccumulator": pos(1e-6),
+             "LinearAccumulator": normal(1e-3), "LearningRate": lr(0.1)},
+            {"l1": 1e-4, "l2": 1e-4, "lr_power": -0.5},
+            {"ParamOut": "Param", "SquaredAccumOut": "SquaredAccumulator",
+             "LinearAccumOut": "LinearAccumulator"}),
+        "lamb": (
+            {"Param": p, "Grad": g, "Moment1": normal(1e-4),
+             "Moment2": pos(1e-7), "Beta1Pow": lr(0.9 ** 3),
+             "Beta2Pow": lr(0.999 ** 3), "LearningRate": lr(1e-3)},
+            {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+             "weight_decay": 0.01},
+            {"ParamOut": "Param", "Moment1Out": "Moment1",
+             "Moment2Out": "Moment2", "Beta1PowOut": "Beta1Pow",
+             "Beta2PowOut": "Beta2Pow"}),
+        "dpsgd": (
+            {"Param": p, "Grad": g, "LearningRate": lr(0.1)},
+            {"clip": 1e-3, "batch_size": 16.0, "sigma": 0.0},
+            {"ParamOut": "Param"}),
+    }
+
+
+def run_updates(lower, device, ins, attrs, carry, grads):
+    """3 updates of one op on `device`: each takes the next gradient of
+    `grads` and the state the last one left; returns the final outputs."""
+    from paddle_tpu_torch.ops.registry import LowerContext
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    state = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+    for g in grads:
+        state["Grad"] = torch.from_numpy(g).to(device)
+        outs = lower(LowerContext(torch.device(device), generator=gen),
+                     {k: [v] for k, v in state.items()}, dict(attrs))
+        for slot, name in carry.items():
+            state[name] = outs[slot][0]
+    return {slot: outs[slot][0] for slot in carry}
+
+
+def update_ops_vs_cpu():
+    """14b, first part: the ten update ops, card against CPU."""
+    from paddle_tpu_torch.ops.registry import get_lowering
+
+    worst = {}
+    for shape in UPDATE_SHAPES:
+        rng = np.random.default_rng(SEED)
+        for op, (ins, attrs, carry) in update_cases(shape, rng).items():
+            grads = [ins["Grad"]] + [
+                (rng.standard_normal(shape) * 1e-3).astype(np.float32)
+                for _ in range(2)]
+            lower = get_lowering(op)
+            got = run_updates(lower, "cuda", ins, attrs, carry, grads)
+            want = run_updates(lower, "cpu", ins, attrs, carry, grads)
+            torch.cuda.synchronize()
+            scale = float(want["ParamOut"].abs().max())
+            moved = float((want["ParamOut"] - torch.from_numpy(
+                ins["Param"])).abs().max())
+            err = max(float((got[s].cpu() - want[s]).abs().max())
+                      for s in carry)
+            if not (moved > 0 and err <= UPDATE_TOL * scale
+                    and all(torch.isfinite(t).all() for t in got.values())):
+                fail("14b %s %s: card vs CPU max|d| %.3e (bound %.0e x "
+                     "max|param| %.3e), update max %.3e" % (
+                         op, shape, err, UPDATE_TOL, scale, moved))
+            worst[(op, shape)] = err / scale
+            del got, want
+    print("14b update ops, card vs CPU, 3 updates at %s (max|d| of "
+          "max|param|; bound %.0e): %s" % (
+              " and ".join(str(s) for s in UPDATE_SHAPES), UPDATE_TOL,
+              ", ".join("%s %.2e/%.2e" % (op, worst[(op, UPDATE_SHAPES[0])],
+                                          worst[(op, UPDATE_SHAPES[1])])
+                        for op in sorted({k[0] for k in worst}))),
+          flush=True)
+    return worst
+
+
+def wrapper_program(fluid, kind):
+    """A small fc model (8 -> 16 -> 1, Momentum(0.1, 0.9)) under one of
+    the wrappers; returns (main, startup, loss, wrapper)."""
+    fluid.unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 8])
+        h = fluid.layers.fc(fluid.layers.fc(x, 16, act="relu"), 1)
+        loss = fluid.layers.mean(fluid.layers.elementwise_mul(h, h))
+        opt = fluid.optimizer.Momentum(0.1, 0.9)
+        wrap = None
+        if kind == "lookahead":
+            fluid.optimizer.LookaheadOptimizer(opt, alpha=0.5, k=2).minimize(
+                loss)
+        else:
+            opt.minimize(loss)
+            if kind == "model_average":
+                wrap = fluid.optimizer.ModelAverage(
+                    0.15, min_average_window=2, max_average_window=3)
+            else:
+                wrap = fluid.optimizer.ExponentialMovingAverage(0.9)
+                wrap.update()
+    startup.random_seed = SEED
+    return main, startup, loss, wrap
+
+
+def wrappers_vs_cpu(fluid):
+    """14b, second part: ModelAverage, EMA and Lookahead over 5 steps of
+    the fc model on the card and on the CPU from the same parameters; for
+    the first two, the parameters inside apply() against the CPU's and
+    those after it bit-identical to those before."""
+    out = []
+    for kind in ("model_average", "ema", "lookahead"):
+        main, startup, loss, wrap = wrapper_program(fluid, kind)
+        params = [p.name for p in main.all_parameters()]
+        runs = {}
+        init = None
+        for place in (None, fluid.CPUPlace()):
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            if init is None:
+                exe.run(startup, scope=scope)
+                init = {n: t.cpu().clone() for n, t in scope.items()}
+            for n, t in init.items():
+                scope.set(n, t.clone())
+            rng = np.random.default_rng(SEED)
+            for _ in range(5):
+                exe.run(main, feed={"x": rng.standard_normal(
+                    (4, 8)).astype(np.float32)}, fetch_list=[loss],
+                    scope=scope)
+            trained = {n: scope[n].cpu().clone() for n in params}
+            applied = None
+            if wrap is not None:
+                with fluid.scope_guard(scope):
+                    with wrap.apply(exe):
+                        applied = {n: scope[n].cpu().clone()
+                                   for n in params}
+                for n in params:
+                    if not torch.equal(scope[n].cpu(), trained[n]):
+                        fail("14b %s: restore did not put back %s" % (
+                            kind, n))
+            runs[place is None] = (trained, applied)
+        err = 0.0
+        for i in (0, 1):
+            if runs[True][i] is None:
+                continue
+            for n in params:
+                a, w = runs[True][i][n], runs[False][i][n]
+                scale = max(float(w.abs().max()), 1e-30)
+                err = max(err, float((a - w).abs().max()) / scale)
+        moved = (runs[False][1] is None or any(
+            not torch.equal(runs[False][1][n], runs[False][0][n])
+            for n in params))
+        if err > UPDATE_TOL or not moved:
+            fail("14b %s: card vs CPU %.3e of max|param| (bound %.0e), "
+                 "apply changed the parameters: %s" % (kind, err,
+                                                       UPDATE_TOL, moved))
+        out.append("%s %.2e" % (kind, err))
+    print("14b wrappers, 5 steps of an fc model, card vs CPU (trained and "
+          "applied parameters, of max|param|; bound %.0e): %s; each "
+          "apply/restore round trip bit-identical" % (
+              UPDATE_TOL, ", ".join(out)), flush=True)
+
+
+def surface_phase(fluid, bert, ca, cl, lowering):
+    """14c: full BERT-base under the stack, TRAIN_WARMUP + TRAIN_STEPS
+    steps without and with RecomputeOptimizer from the same parameters
+    and dropout seed. Returns the launch counts of the two runs and their
+    numbers."""
+    cfg = bert.bert_base()
+    ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    init, runs = None, {}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for recompute in (False, True):
+        tag = "14c bert_base, Lamb stack%s" % (
+            ", recompute" if recompute else "")
+        main, startup, loss, lr = surface_program(fluid, bert, cfg,
+                                                  recompute)
+        want = PER_STEP
+        if recompute:
+            want, n_seg = recompute_counts(main, lowering)
+            print("%s: %d segments wrapped; derived launches per step %s" % (
+                tag, n_seg, want), flush=True)
+        if init is None:
+            scope = fluid.Scope()
+            fluid.Executor().run(startup, scope=scope)
+            init = {n: t.cpu().clone() for n, t in scope.items()}
+        # a fresh Executor: its run count, which seeds each step's dropout
+        # draws, starts where the other run's did
+        scope, exe = fluid.Scope(), fluid.Executor()
+        for n, t in init.items():
+            scope.set(n, t.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fns = zero_counters(ca, cl)
+        losses, lrs, walls = [], [], []
+        for _ in range(steps):
+            t0 = time.monotonic()
+            out, lr_v = exe.run(main, feed=feed, fetch_list=[loss, lr],
+                                scope=scope)
+            walls.append(time.monotonic() - t0)   # the fetch waits
+            losses.append(float(out))
+            lrs.append(float(lr_v[0]))
+        launches = {n: fn.launches for n, fn in fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print("%s: %d steps, losses %s" % (
+            tag, steps, " ".join("%.4f" % x for x in losses)), flush=True)
+        print("%s: launches %s (want %s per step x %d)" % (
+            tag, launches, want, steps), flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail("%s: loss not finite or not falling" % tag)
+        if any(launches[n] != want[n] * steps for n in want):
+            fail("%s: launches %s, want %s per step" % (tag, launches, want))
+        check_lr(tag, lrs)
+        timed = sorted(1e3 * w for w in walls[TRAIN_WARMUP:])
+        stats = dict(median_ms=statistics.median(timed),
+                     p90_ms=timed[min(len(timed) - 1,
+                                      int(0.9 * len(timed)))],
+                     peak_gib=peak / 2 ** 30,
+                     resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
+        stats["tokens_per_s"] = 8 * SEQ / stats["median_ms"] * 1e3
+        print("%s step time over %d steps: median %.3f ms, p90 %.3f ms, "
+              "%.1f tokens/s; peak device memory %.3f GiB (%.3f GiB "
+              "resident after the run)" % (
+                  tag, len(timed), stats["median_ms"], stats["p90_ms"],
+                  stats["tokens_per_s"], stats["peak_gib"],
+                  stats["resident_gib"]), flush=True)
+        final = {n: scope[n].cpu() for n in init}
+        runs[recompute] = (losses, final, launches, stats)
+        del scope, exe
+    (l0, f0, _, s0), (l1, f1, _, s1) = runs[False], runs[True]
+    differ = [n for n in f0 if not torch.equal(f0[n], f1[n])]
+    print("14c recompute vs none: losses %s, %d of %d persistable values "
+          "differ%s; step %.3f vs %.3f ms, peak %.3f vs %.3f GiB" % (
+              "bit-identical" if l0 == l1 else "DIFFER", len(differ),
+              len(f0), (": " + ", ".join(differ[:6])) if differ else "",
+              s1["median_ms"], s0["median_ms"], s1["peak_gib"],
+              s0["peak_gib"]), flush=True)
+    if l0 != l1 or differ:
+        fail("14c: recompute changed the run's losses or parameters")
+    return runs[False][2], runs[True][2], s0, s1
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5457,6 +5918,18 @@ def main():
         del gscope
         print("phase 13 (KV reuse and speculative decoding: 13a-13d) took "
               "%.1f s" % (time.monotonic() - t13), flush=True)
+        # phase 14: the training surface; its runs are timed, so before
+        # the profiles
+        t14 = time.monotonic()
+        surface_vs_cpu(fluid, bert, lowering)
+        update_ops_vs_cpu()
+        wrappers_vs_cpu(fluid)
+        t14c = time.monotonic()
+        lamb_launches, recompute_launches, _, _ = surface_phase(
+            fluid, bert, ca, cl, lowering)
+        print("phase 14 (the training surface: 14a-14b %.1f s, 14c %.1f s) "
+              "took %.1f s" % (t14c - t14, time.monotonic() - t14c,
+                               time.monotonic() - t14), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         forward_breakdown(pred, requests)
@@ -5541,8 +6014,9 @@ def main():
     # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
     # launches_ctr in 10b's timed epochs, launches_http in 11b's :predict
     # and 11c's :generate loads, launches_fleet in 12a's routed load,
-    # launches_disagg in 12d's disaggregated load, leg (ii), and
-    # launches_spec in 13a's reuse engine (prefix pool + self-draft)
+    # launches_disagg in 12d's disaggregated load, leg (ii),
+    # launches_spec in 13a's reuse engine (prefix pool + self-draft), and
+    # launches_lamb and launches_recompute in 14c's two runs
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -5559,6 +6033,8 @@ def main():
                      launches_fleet=fleet_launches[name],
                      launches_disagg=disagg_launches[name],
                      launches_spec=spec_launches[name],
+                     launches_lamb=lamb_launches[name],
+                     launches_recompute=recompute_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

@@ -1,10 +1,9 @@
 """Gradient clipping (ref: python/paddle/fluid/clip.py).
 
-Port of paddle_tpu/fluid/clip.py: the same attrs append the same ops. With
-no clip attribute on any parameter, append_gradient_clip_ops returns the
-(param, grad) pairs untouched. The ops a real clip appends (clip,
-clip_by_norm, squared_l2_norm, ...) have no torch lowering yet and raise
-when the program runs; ROADMAP.md names the slice that brings them."""
+Port of paddle_tpu/fluid/clip.py: the same attrs append the same ops
+(clip, clip_by_norm; squared_l2_norm, sum, sqrt and the scaling of the
+global-norm group). With no clip attribute on any parameter,
+append_gradient_clip_ops returns the (param, grad) pairs untouched."""
 import copy
 
 from . import framework
@@ -220,3 +219,14 @@ def append_gradient_clip_ops(param_grads):
             res.append((p, g))
     return res
 
+
+
+# The reference's own docstrings import the dygraph GradClip* classes
+# from fluid.clip (ref dygraph_grad_clip.py:70): both import paths resolve.
+def __getattr__(name):
+    if name in ("GradClipByValue", "GradClipByNorm",
+                "GradClipByGlobalNorm"):
+        from . import dygraph_grad_clip
+
+        return getattr(dygraph_grad_clip, name)
+    raise AttributeError("module 'fluid.clip' has no attribute %r" % name)

@@ -338,6 +338,12 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _prepend_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        return op
+
     def to_string(self, throw_on_error=True, with_details=False):
         lines = ["  block %d (parent %d):" % (self.idx, self.parent_idx)]
         for v in self.vars.values():

@@ -10,6 +10,8 @@ from . import loss
 from .loss import *  # noqa: F401,F403
 from . import metric_op
 from .metric_op import *  # noqa: F401,F403
+from . import learning_rate_scheduler
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from . import control_flow
 from .control_flow import *  # noqa: F401,F403
 from . import ops
@@ -24,6 +26,7 @@ __all__ += io.__all__
 __all__ += tensor.__all__
 __all__ += loss.__all__
 __all__ += metric_op.__all__
+__all__ += learning_rate_scheduler.__all__
 __all__ += control_flow.__all__
 __all__ += ops.__all__
 __all__ += ["gather_tree"]

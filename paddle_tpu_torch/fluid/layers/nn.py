@@ -18,9 +18,11 @@ __all__ = [
     "stack", "gather", "gather_nd", "expand", "expand_as", "log",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_mod", "elementwise_floordiv", "scale", "reduce_sum", "reduce_max",
+    "elementwise_mod", "elementwise_floordiv", "elementwise_pow",
+    "elementwise_equal", "scale", "reduce_sum", "reduce_mean", "reduce_max",
     "logical_and", "logical_or", "logical_xor", "logical_not",
-    "sampling_id", "fused_multihead_attention", "clip", "log_loss",
+    "sampling_id", "fused_multihead_attention", "clip", "clip_by_norm",
+    "log_loss", "sign", "pow", "autoincreased_step_counter",
 ]
 
 
@@ -729,6 +731,14 @@ def elementwise_mod(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mod", x, y, axis, act, name)
 
 
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_equal(x, y, name=None):
+    return _layer("equal", {"X": x, "Y": y}, out_dtype="bool")
+
+
 def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_floordiv", x, y, axis, act, name)
 
@@ -820,6 +830,10 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_sum", input, dim, keep_dim, name)
 
 
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
 def reduce_max(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_max", input, dim, keep_dim, name)
 
@@ -858,3 +872,35 @@ def log_loss(input, label, epsilon=1e-4, name=None):
         attrs={"epsilon": epsilon},
     )
     return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _layer("clip_by_norm", {"X": x}, {"max_norm": float(max_norm)})
+
+
+def sign(x):
+    return _layer("sign", {"X": x}, {})
+
+
+def pow(x, factor=1.0, name=None):
+    if isinstance(factor, Variable):
+        return _layer("pow", {"X": x, "FactorTensor": factor})
+    return _layer("pow", {"X": x}, {"factor": factor})
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Persistable int64 step counter incremented once per executor run
+    (ref nn.py:5327): the first call for a name prepends its ``increment``
+    to the block."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype="int64", shape=[1], persistable=True)
+    if not helper.startup_program.global_block().has_var(counter_name):
+        helper.set_variable_initializer(
+            counter, Constant(value=float(begin - 1)))
+        helper.main_program.current_block()._prepend_op(
+            type="increment", inputs={"X": [counter]},
+            outputs={"Out": [counter]}, attrs={"step": float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -1,11 +1,12 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
-of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs and
-Wide&Deep call, and ``abs``/``round``, which the int8-resident decode
-step calls. The other activation layers wait for the op library
-(ROADMAP.md Queue 1, item 6)."""
+of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs,
+Wide&Deep and the learning-rate schedules call, and ``abs``/``round``,
+which the int8-resident decode step calls. The other activation layers
+wait for the op library (ROADMAP.md Queue 1, item 6)."""
 from .nn import _layer
 
-__all__ = ["sigmoid", "abs", "round", "cumsum"]
+__all__ = ["sigmoid", "exp", "sqrt", "abs", "ceil", "floor", "cos", "round",
+           "square", "cumsum"]
 
 
 def _make_unary(op_type):
@@ -17,8 +18,14 @@ def _make_unary(op_type):
 
 
 sigmoid = _make_unary("sigmoid")
+exp = _make_unary("exp")
+sqrt = _make_unary("sqrt")
 abs = _make_unary("abs")
+ceil = _make_unary("ceil")
+floor = _make_unary("floor")
+cos = _make_unary("cos")
 round = _make_unary("round")
+square = _make_unary("square")
 
 
 def cumsum(x, axis=-1, exclusive=False, reverse=False):

@@ -11,8 +11,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "assign", "fill_constant", "fill_constant_batch_size_like",
-           "argmax", "range", "zeros_like"]
+           "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "argmax", "range", "zeros_like"]
 
 
 def create_parameter(
@@ -87,6 +87,16 @@ def concat(input, axis=0, name=None):
         outputs={"Out": [out]},
         attrs={"axis": axis},
     )
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype())
+        out.shape = input[0].shape
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
     return out
 
 

@@ -4,10 +4,14 @@ Port of paddle_tpu/fluid/lowering.py. The JAX package traces a block into
 one jax function for XLA; here ``run_ops`` walks the block and calls each
 op's torch lowering eagerly, on the tensors of the run's device.
 
-Autodiff: the JAX package lowers the symbolic ``backward`` op by replaying
-the preceding region under jax.vjp. The port runs eagerly, so it records
-that region once with torch.autograd (``_run_training``) and calls
-``torch.autograd.grad`` at the op.
+Autodiff: the JAX package lowers each symbolic ``backward`` op by
+replaying the preceding region under jax.vjp. The port runs eagerly, so it
+records that region once with torch.autograd (``_run_training``), for
+every backward op of the block, and calls ``torch.autograd.grad`` at each
+op; recompute segments run under torch.utils.checkpoint. Control-flow
+sub-blocks run eagerly under the same tape, so autograd reaches through
+``cond``, ``conditional_block`` and ``static_rnn``; a ``while`` on the tape
+raises, as jax.vjp refuses ``lax.while_loop``.
 
 Control flow: a while, cond or static_rnn op runs its sub-block through
 ``run_ops`` on a copy of the env at the op (ops/control_ops.py), as the
@@ -26,6 +30,7 @@ import threading
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
 from ..ops.registry import LowerContext, get_lowering
@@ -122,71 +127,219 @@ def run_ops(block, op_list, env, ctx):
     return env
 
 
-def _later_slice(what):
-    return NotImplementedError(
-        "%s is not ported yet: it comes with a later training slice of "
-        "paddle_tpu_torch (ROADMAP.md, Queue 1)" % what)
-
-
 def _run_training(op_list, env, ctx):
-    """One ``backward`` op on torch.autograd. Every target bound at program
-    start becomes a fresh leaf (the tensors the caller holds are never
-    marked); the ops before the backward op run under enable_grad; the op
-    calls torch.autograd.grad with the seed ``InitGrad`` (ones by
-    default), and a target the loss does not reach gets zeros, as jax.vjp
-    gives. A target produced inside the region is differentiated at the
-    value its last writer left. The ops after it (the optimizer's) run
-    under no_grad, and the env comes back detached, so no graph outlives
-    the run. The three phases are profiler ranges
+    """The ``backward`` ops of a block on one torch.autograd tape.
+
+    Every target of any backward op that is bound at program start becomes
+    one fresh leaf (the tensors the caller holds are never marked), as the
+    JAX package's jax.vjp primals; the ops up to the last backward op run
+    under enable_grad, once. At each backward op, torch.autograd.grad with
+    the seed ``InitGrad`` (ones by default) gives the gradient of each
+    target, zeros where the loss does not reach it, and the tape is kept
+    until the last backward op. A target produced inside the region is
+    differentiated at the value its last writer left (a fresh leaf there
+    if nothing before it is differentiable). An earlier backward op's
+    ``Grads`` are constants to a later one, unless the later one targets
+    them: then they are fresh leaves. A var in a backward op's
+    ``no_grad`` set is a constant to that backward op from where it is
+    produced (:func:`_stop_gradient`).
+
+    Recompute: the checkpoint vars of the backward ops cut the ops before
+    the first backward op into segments (:func:`segment_cuts`), and each
+    segment but the last runs under ``torch.utils.checkpoint``, so autograd
+    keeps its inputs only and replays it in the backward pass. Across a
+    cut the env keeps only what a later op reads, a fetch or a persistable
+    (:func:`_needed_after`); a replay draws what the first pass drew
+    (:func:`_segment`).
+
+    The ops after the last backward op (the optimizer's) run under
+    no_grad, and the env comes back detached, so no graph outlives the
+    run. The three phases are profiler ranges
     (``paddle_tpu_torch::forward``, ``::backward``, ``::optimizer``)."""
     at = [i for i, op in enumerate(op_list) if op.type == "backward"]
-    if len(at) > 1:
-        raise _later_slice("a second 'backward' op in one block")
-    idx = at[0]
-    bw_op = op_list[idx]
-    if any(bw_op.attrs.get("checkpoints") or ()):
-        raise _later_slice("recompute (the backward op's 'checkpoints')")
-    region = op_list[:idx]
-    for op in region:
-        if any(a in op.attrs for a in _BLOCK_ATTRS):
-            raise _later_slice(
-                "autograd through a control-flow op ('%s' before the "
-                "'backward' op)" % op.type)
-    targets = bw_op.attrs["targets"]
     env = dict(env)
-    producer = producer_map(region)
-    leaves = {}  # targets bound at program start, as jax.vjp's primals
-    for n in targets:
-        if n in env:
-            leaves[n] = env[n] = env[n].detach().requires_grad_()
-        elif n not in producer:
-            raise OpLoweringError(
-                "backward target '%s' is neither a parameter/feed/state var "
-                "nor produced before the backward op" % n)
-    # no_grad_set vars produced in the region are constants from there on
-    stop_at = {}
-    for n in bw_op.attrs.get("no_grad", ()) or ():
-        if n in producer and n not in env:
-            stop_at.setdefault(producer[n], []).append(n)
+    start = set(env)
+    leaves, later_targets = {}, set()
+    stop_at = _stop_gradient(op_list, at, start)
+    for i in at:
+        before = producer_map(op_list[:i])
+        for n in op_list[i].attrs["targets"]:
+            if n in start:
+                if n not in leaves:
+                    leaves[n] = env[n] = env[n].detach().requires_grad_()
+            elif n not in before:
+                raise OpLoweringError(
+                    "backward target '%s' is neither a parameter/feed/state "
+                    "var nor produced before the backward op" % n)
+            elif op_list[before[n]].type == "backward":
+                later_targets.add(n)
+            else:   # differentiable where it is produced, even from consts
+                stop_at.setdefault(before[n], []).append((n, _TARGET))
+    state = [None]      # the backward op running, for _ConstFor
+    first = at[0]
+    cuts = segment_cuts(op_list[:first], [
+        c for i in at for c in (op_list[i].attrs.get("checkpoints") or ())
+        if c])
+    lo = 0
     with torch.enable_grad():
         with record_function("paddle_tpu_torch::forward"):
-            for j, op in enumerate(region):
-                env = apply_op(op, env, ctx)
-                for n in stop_at.get(j, ()):
-                    env[n] = env[n].detach()
-        with record_function("paddle_tpu_torch::backward"):
-            loss = env[bw_op.input("Loss")[0]]
-            init = bw_op.input("InitGrad")
-            seed = (env[init[0]].detach().to(loss.dtype).expand_as(loss)
-                    if init else torch.ones_like(loss))
-            grads = _grads(loss, [leaves[n] if n in leaves else env[n]
-                                  for n in targets], seed)
-    for n, g in zip(bw_op.output("Grads"), grads):
-        env[n] = g
+            if cuts:
+                needed = _needed_after(op_list, cuts, ctx)
+                for cut in cuts:
+                    # a replay runs its segment whole (an early stop would
+                    # surface inside an op's lowering as an error)
+                    with set_checkpoint_early_stop(False):
+                        env = checkpoint(
+                            _segment(op_list, lo, cut + 1, needed[cut], ctx,
+                                     stop_at, state, env),
+                            use_reentrant=False, preserve_rng_state=False)
+                    lo = cut + 1
+            env = _run_span(op_list, lo, first, env, ctx, stop_at, state)
+        for k, idx in enumerate(at):
+            bw_op = op_list[idx]
+            if k:
+                with record_function("paddle_tpu_torch::forward"):
+                    env = _run_span(op_list, at[k - 1] + 1, idx, env, ctx,
+                                    stop_at, state)
+            with record_function("paddle_tpu_torch::backward"):
+                loss = env[bw_op.input("Loss")[0]]
+                init = bw_op.input("InitGrad")
+                seed = (env[init[0]].detach().to(loss.dtype).expand_as(loss)
+                        if init else torch.ones_like(loss))
+                state[0] = idx
+                grads = _grads(loss, [leaves.get(n, env[n]) for n in
+                                      bw_op.attrs["targets"]],
+                               seed, retain=idx != at[-1])
+            for n, g in zip(bw_op.output("Grads"), grads):
+                env[n] = g.requires_grad_() if n in later_targets else g
     with torch.no_grad(), record_function("paddle_tpu_torch::optimizer"):
-        for op in op_list[idx + 1:]:
+        for op in op_list[at[-1] + 1:]:
             env = apply_op(op, env, ctx)
     return {n: v.detach() for n, v in env.items()}
+
+
+# a backward op's target produced in the region: made differentiable where
+# its last writer before that op produces it (a leaf if nothing before it
+# is), as the JAX package's zero probe
+_TARGET = object()
+
+
+def _run_span(op_list, lo, hi, env, ctx, stop_at, state):
+    """Ops lo..hi-1 of `op_list` on `env`, each no_grad var made a
+    constant and each produced target differentiable where it is
+    produced."""
+    for j in range(lo, hi):
+        env = apply_op(op_list[j], env, ctx)
+        for n, which in stop_at.get(j, ()):
+            if which is _TARGET:
+                if not env[n].requires_grad:
+                    env[n] = env[n].detach().requires_grad_()
+            elif which is None:
+                env[n] = env[n].detach()
+            else:
+                env[n] = _ConstFor.apply(env[n], which, state)
+    return env
+
+
+def _segment(op_list, lo, hi, live, ctx, stop_at, state, env):
+    """The function torch.utils.checkpoint runs for ops lo..hi-1: on a copy
+    of `env`, returning the names in `live`. The env is held here, not
+    passed through checkpoint, which would walk its every tensor on each
+    call and replay. The replay in the backward pass sets the run's
+    generators (:meth:`LowerContext.rng_states`) to the states they had
+    when the first pass began, so every dropout mask and kernel seed is
+    drawn again as it was, and puts back their states afterwards; what
+    the replay computes is discarded except what autograd saved, so a
+    persistable (the step counter) is written once."""
+    drawn = []
+
+    def run():
+        replay = bool(drawn)
+        if replay:
+            now = ctx.rng_states()
+            ctx.set_rng_states(drawn[0])
+        else:
+            drawn.append(ctx.rng_states())
+        try:
+            out = _run_span(op_list, lo, hi, dict(env), ctx, stop_at, state)
+        finally:
+            if replay:
+                ctx.set_rng_states(now)
+        return {n: v for n, v in out.items() if n in live}
+
+    return run
+
+
+class _ConstFor(torch.autograd.Function):
+    """Identity whose gradient is zero while one of the backward ops at
+    `which` runs (``state[0]``): a no_grad var of some, not all, of the
+    backward ops that reach it."""
+
+    @staticmethod
+    def forward(ctx, x, which, state):
+        ctx.which, ctx.state = which, state
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None if ctx.state[0] in ctx.which else g), None, None
+
+
+def _stop_gradient(op_list, at, start):
+    """op index -> [(name, None or backward op indices)]: each var a
+    backward op lists in ``no_grad`` at the op before it that last writes
+    it (a var bound at program start is a constant unless it is a target).
+    None: every backward op after that op lists it, and it is detached;
+    else a :class:`_ConstFor` stops it for the listed ones only."""
+    lists = {}
+    for i in at:
+        before = producer_map(op_list[:i])
+        for n in op_list[i].attrs.get("no_grad") or ():
+            if n in before and n not in start:
+                lists.setdefault((before[n], n), set()).add(i)
+    stop = {}
+    for (j, n), which in lists.items():
+        every = len(which) == sum(i > j for i in at)
+        stop.setdefault(j, []).append((n, None if every else
+                                       frozenset(which)))
+    return stop
+
+
+def _needed_after(op_list, cuts, ctx):
+    """cut index -> the names read after that op: by a later op (its
+    sub-blocks' reads and a backward op's targets included), a fetch, or
+    a persistable (``ctx.keep_names``)."""
+    need, at = set(ctx.keep_names), set(cuts)
+    needed = {}
+    for j in range(len(op_list) - 1, cuts[0] - 1, -1):
+        if j in at:
+            needed[j] = set(need)
+        need |= op_read_names(op_list[j])
+    return needed
+
+
+def op_read_names(op):
+    """Every name an op may read: its inputs, a backward op's targets, and
+    the outer names its sub-blocks' ops read before writing them."""
+    names = set(op.input_arg_names)
+    if op.type == "backward":
+        names.update(op.attrs.get("targets", ()))
+    for blk in _sub_blocks(op):
+        produced = set()
+        for sop in blk.ops:
+            names |= op_read_names(sop) - produced
+            produced.update(sop.output_arg_names)
+    return names
+
+
+def segment_cuts(region, cut_var_names):
+    """Indices of the ops ending a segment: each cut var's producing op
+    closes its segment; a cut at the region's last op is dropped."""
+    produce = producer_map(region)
+    cuts = sorted({produce[c] for c in cut_var_names if c in produce})
+    if cuts and cuts[-1] == len(region) - 1:
+        cuts = cuts[:-1]
+    return cuts
 
 
 # the attrs by which an op names the blocks it runs (while, static_rnn,
@@ -194,15 +347,15 @@ def _run_training(op_list, env, ctx):
 _BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
 
 
-def _grads(loss, inputs, seed):
+def _grads(loss, inputs, seed, retain=False):
     """d loss / d input for each of `inputs`, zeros where loss does not
-    depend on it."""
+    depend on it; `retain` keeps the tape for a later backward op."""
     live = [i for i, t in enumerate(inputs) if t.requires_grad]
     got = [None] * len(inputs)
     if live and loss.requires_grad:
         for i, g in zip(live, torch.autograd.grad(
                 loss, [inputs[i] for i in live], grad_outputs=seed,
-                allow_unused=True)):
+                allow_unused=True, retain_graph=retain)):
             got[i] = g
     return [torch.zeros_like(t) if g is None else g
             for t, g in zip(inputs, got)]
@@ -275,7 +428,7 @@ def f32_precision():
 # ``next_seed``): they run whether or not anything reads them, so that a
 # later draw is the one the unpruned run makes
 DRAWS = frozenset({"dropout", "uniform_random", "gaussian_random",
-                   "sampling_id", "fused_multihead_attention"})
+                   "sampling_id", "fused_multihead_attention", "dpsgd"})
 
 
 def _sub_blocks(op):
@@ -406,11 +559,13 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     plan = live_plan(program, fetch_names)      # None: every op runs
     op_list = list(block.ops) if plan is None else plan.ops[0]
     persist = set(persistable_names(program))
+    keep = persist | set(fetch_names)
     device = torch.device(device)
 
     def step(state, feeds, generator=None):
         ctx = LowerContext(device, generator=generator, is_test=is_test,
                            program=program, run_ops=run_ops, plan=plan)
+        ctx.keep_names = keep
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()

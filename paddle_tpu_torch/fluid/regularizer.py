@@ -1,9 +1,8 @@
 """Weight-decay regularizers (ref: python/paddle/fluid/regularizer.py).
 
-Port of paddle_tpu/fluid/regularizer.py. With no regularizer, the
-(param, grad) pairs pass through untouched. L2Decay's ops (scale,
-elementwise_add) are lowered; L1Decay's ``sign`` has no torch lowering yet
-and raises when the program runs.
+Port of paddle_tpu/fluid/regularizer.py: the same ops (L2Decay: scale;
+L1Decay: sign, scale; then elementwise_add onto the gradient). With no
+regularizer, the (param, grad) pairs pass through untouched.
 """
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer"]

@@ -19,8 +19,12 @@ KV caches are carried and never stacked. Each live stack is allocated
 once, at the first step, and each step is copied into it. A block runs
 its live ops only (``ctx.live_ops``).
 
-``dynamic_rnn`` needs LoD lengths end to end and waits for the sequence
-slice.
+In a training run the sub-blocks run under the forward region's
+autograd tape, so a ``backward`` op differentiates through ``cond``,
+``conditional_block`` and ``static_rnn``; a ``while`` whose carried values
+hold a gradient raises, as the JAX package's jax.vjp refuses
+``lax.while_loop`` in reverse mode. ``dynamic_rnn`` needs LoD lengths end
+to end and waits for the sequence slice.
 """
 import torch
 
@@ -56,6 +60,12 @@ def _while(ctx, ins, attrs):
         env.update(state)
         env = _run_block(ctx, attrs["sub_block"], env)
         state = {n: env[n] for n in carried + [cond_name]}
+    if any(state[n].requires_grad for n in carried):
+        raise NotImplementedError(
+            "autograd through a 'while' op: a backward op's region carries "
+            "a gradient through the loop, and the reference cannot "
+            "differentiate 'while' either (jax.vjp refuses lax.while_loop "
+            "in reverse mode)")
     return {"Out": [state[n] for n in carried]}
 
 

@@ -1,6 +1,7 @@
-"""Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv,
-mul, matmul, mean, scale, reduce_sum, reduce_max, abs, the comparisons
-equal, not_equal, less_than, less_equal, greater_than and greater_equal,
+"""Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv/pow,
+mul, matmul, mean, scale, reduce_sum, reduce_mean, reduce_max, sum, abs,
+sign, pow, squared_l2_norm, clip_by_norm, the comparisons equal,
+not_equal, less_than, less_equal, greater_than and greater_equal,
 logical_and/or/xor/not, isfinite, cumsum, clip.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
@@ -49,6 +50,7 @@ register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.true_divide))
 register_op("elementwise_max")(_binary(torch.maximum))
 register_op("elementwise_min")(_binary(torch.minimum))
+register_op("elementwise_pow")(_binary(torch.pow))
 # jnp.mod and jnp.floor_divide: the remainder takes the divisor's sign and
 # the quotient rounds toward -inf (torch.fmod and trunc would not)
 register_op("elementwise_mod")(_binary(torch.remainder))
@@ -152,6 +154,26 @@ def _reduce_sum(ctx, ins, attrs):
     return single(out)
 
 
+@register_op("reduce_mean")
+def _reduce_mean(ctx, ins, attrs):
+    """jnp.mean over ``dim`` (all axes with ``reduce_all`` or no dim): a
+    float keeps its dtype, an int or bool averages in float32."""
+    x = ins["X"][0]
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    dim = attrs.get("dim", None)
+    keep_dim = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False) or dim is None:
+        out = x.mean()
+        if keep_dim:
+            out = out.reshape((1,) * x.dim())
+    else:
+        axes = tuple(d if d >= 0 else d + x.dim() for d in dim)
+        # torch reads dim=() as every axis, jnp.mean as none
+        out = x.mean(dim=axes, keepdim=keep_dim) if axes else x
+    return single(out)
+
+
 @register_op("reduce_max")
 def _reduce_max(ctx, ins, attrs):
     """jnp.max over ``dim`` (all axes with ``reduce_all`` or no dim), in
@@ -173,6 +195,52 @@ def _reduce_max(ctx, ins, attrs):
 @register_op("abs")
 def _abs(ctx, ins, attrs):
     return single(torch.abs(ins["X"][0]))
+
+
+@register_op("sign")
+def _sign(ctx, ins, attrs):
+    return single(torch.sign(ins["X"][0]))
+
+
+@register_op("pow")
+def _pow(ctx, ins, attrs):
+    """x ** factor: the FactorTensor input, else the ``factor`` attr (a
+    weak Python scalar)."""
+    x = ins["X"][0]
+    factor = ins["FactorTensor"][0] if ins.get("FactorTensor") else \
+        attrs.get("factor", 1.0)
+    return single(torch.pow(*promote(x, factor)))
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    """X[0] + X[1] + ..., left to right, each add promoted by jax's
+    rules."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.add(*promote(out, x))
+    return single(out)
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    """sum(x·x) as a 0-dim tensor of x's dtype."""
+    x = ins["X"][0]
+    return single((x * x).sum().reshape(()))
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """x · max_norm / ||x|| where the L2 norm ||x|| exceeds ``max_norm``,
+    else x, in x's dtype (the JAX lowering's weak scalars)."""
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt((x * x).sum())
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return single(x * scale.to(x.dtype))
 
 
 @register_op("isfinite")

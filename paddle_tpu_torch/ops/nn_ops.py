@@ -1,5 +1,6 @@
-"""NN op lowerings: relu, sigmoid, log, round, softmax, gelu, lookup_table_v2,
-conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout.
+"""NN op lowerings: relu, sigmoid, log, exp, sqrt, square, floor, ceil,
+cos, round, softmax, gelu, lookup_table_v2, conv2d, depthwise_conv2d,
+pool2d, batch_norm, layer_norm, dropout.
 
 Port of the paddle_tpu/ops/nn_ops.py lowerings the port runs.
 ``layer_norm`` always goes through ``LayerNorm`` (ops/cuda_layernorm.py),
@@ -38,6 +39,22 @@ def _sigmoid(ctx, ins, attrs):
 @register_op("log")
 def _log(ctx, ins, attrs):
     return single(torch.log(ins["X"][0]))
+
+
+def _unary(fn):
+    def lower(ctx, ins, attrs):
+        return single(fn(ins["X"][0]))
+
+    return lower
+
+
+# elementwise, in x's dtype, as the JAX lowerings compute them
+register_op("exp")(_unary(torch.exp))
+register_op("sqrt")(_unary(torch.sqrt))
+register_op("square")(_unary(lambda x: x * x))
+register_op("floor")(_unary(torch.floor))
+register_op("ceil")(_unary(torch.ceil))
+register_op("cos")(_unary(torch.cos))
 
 
 @register_op("round")
@@ -79,7 +96,10 @@ def _lookup_table(ctx, ins, attrs):
     vocab = w.shape[0]
     idx = torch.where(ids < 0, ids + vocab, ids)
     valid = (idx >= 0) & (idx < vocab)
-    out = w[idx.clamp(0, vocab - 1)]
+    # F.embedding, not w[idx]: the indexing's backward (index_put_ with
+    # accumulate) sums a repeated id's rows in another order on every CPU
+    # run; the embedding backward sums them in one order
+    out = F.embedding(idx.clamp(0, vocab - 1), w)
     out = torch.where(valid[..., None], out,
                       torch.full((), float("nan"), dtype=w.dtype,
                                  device=w.device))

@@ -57,6 +57,8 @@ class LowerContext:
     ``plan``, the run's ``fluid/lowering.py`` ``LivePlan`` (None: every
     op is live), says which ops of a block run (:meth:`live_ops`) and
     which outputs and memories a ``static_rnn`` keeps (:meth:`rnn_live`).
+    ``keep_names``, the run's fetches and persistables, stay live across
+    a recompute segment's end.
     """
 
     def __init__(self, device, generator=None, is_test=False, program=None,
@@ -70,6 +72,7 @@ class LowerContext:
         self.plan = plan
         self.current_env = None
         self.current_op = None
+        self.keep_names = ()
         self._constants = {}
 
     def live_ops(self, block):
@@ -112,6 +115,24 @@ class LowerContext:
             self._seed_generator.manual_seed(self.next_rng().initial_seed())
         return int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_generator))
+
+    def rng_states(self):
+        """The states of the run's generator and of the seed generator
+        (None for one not made yet), for :meth:`set_rng_states`: a
+        recomputed segment draws again what its first pass drew."""
+        return tuple(None if g is None else g.get_state()
+                     for g in (self._generator, self._seed_generator))
+
+    def set_rng_states(self, states):
+        gen, seed = states
+        if gen is not None:
+            self._generator.set_state(gen)
+        if seed is None:        # made anew, from the same seed, when drawn
+            self._seed_generator = None
+        else:
+            if self._seed_generator is None:
+                self._seed_generator = torch.Generator()
+            self._seed_generator.set_state(seed)
 
 
 def single(val):

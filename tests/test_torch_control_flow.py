@@ -17,9 +17,10 @@
   (sub-blocks included), and the same results on the same feeds and
   parameters, exact for integer results and within 1e-6·max of float
   ones (the same f32 ops; a StaticRNN's fc sums in another order).
-- A ``backward`` over a control-flow op raises, naming the later slice,
-  as do DynamicRNN and the ``dynamic_rnn`` op (the sequence slice) and
-  the RNN cells and ``rnn()`` (the RNN slice).
+- A ``backward`` whose region carries a gradient through a ``while``
+  raises in both packages (jax.vjp refuses lax.while_loop in reverse
+  mode). DynamicRNN and the ``dynamic_rnn`` op (the sequence slice) and
+  the RNN cells and ``rnn()`` (the RNN slice) raise, naming their slice.
 - A ``lod_level`` = 1 feed gets its ``@SEQ_LEN`` companion filled with
   full lengths, as in the JAX package, unless the caller feeds it.
 - Liveness (``fluid/lowering.py`` ``LivePlan``): a ``static_rnn`` stacks
@@ -31,6 +32,7 @@
   raises ``OpLoweringError``.
 """
 import json
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -506,27 +508,48 @@ def test_static_rnn_stacks_every_step():
 
 
 # ---------------------------------------------------------------------------
-# what waits for a later slice
+# what raises
 # ---------------------------------------------------------------------------
+def _while_grad_prog(fl):
+    L = fl.layers
+    x = fl.data("x", [-1, 3], dtype="float32")
+    y = L.fc(x, 3)
+    i = L.fill_constant([1], "int64", 0)
+    two = L.fill_constant([1], "int64", 2)
+    one = L.fill_constant([1], "int64", 1)
+    _, out = L.while_loop(
+        lambda i, s: L.less_than(i, two),
+        lambda i, s: [L.elementwise_add(i, one), L.scale(s, scale=2.0)],
+        [i, y])
+    loss = L.mean(out)
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return [loss]
+
+
 def test_backward_through_control_flow_raises():
-    main, start = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, start):
-        x = fluid.data("x", [-1, 3], dtype="float32")
-        n = fluid.data("n", [1], dtype="float32")
-        y = fluid.layers.fc(x, 3)
-        out = fluid.layers.cond(
-            fluid.layers.greater_than(n, fluid.layers.fill_constant(
-                [1], "float32", 0.0)),
-            lambda: fluid.layers.scale(y, scale=2.0),
-            lambda: fluid.layers.scale(y, scale=3.0))
-        loss = fluid.layers.mean(out)
-        fluid.optimizer.SGD(0.1).minimize(loss)
+    """A backward op whose region carries a gradient through a ``while``
+    raises in both packages: jax.vjp refuses lax.while_loop in reverse
+    mode (ValueError), and the port says that the reference cannot
+    differentiate it either (``cond``, ``conditional_block`` and
+    ``static_rnn`` train: tests/test_torch_recompute.py)."""
+    jmain, jstart, jfetch = _build(jfluid, jax_unique_name, _while_grad_prog)
+    pmain, pstart, pfetch = _build(fluid, pt_unique_name, _while_grad_prog)
+    assert json.loads(pmain.to_json()) == json.loads(jmain.to_json())
+    feed = {"x": _X}
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    jscope = jfluid.Scope()
+    jexe.run(jstart, scope=jscope)
+    with warnings.catch_warnings(), pytest.raises(
+            ValueError, match="Reverse-mode differentiation does not work "
+                              "for lax.while_loop"):
+        warnings.simplefilter("ignore")     # the executor's AOT fallback
+        jexe.run(jmain, feed=feed, fetch_list=jfetch, scope=jscope)
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
-    exe.run(start, scope=scope)
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        exe.run(main, feed={"x": _X, "n": np.array([1.0], np.float32)},
-                fetch_list=[loss], scope=scope)
+    exe.run(pstart, scope=scope)
+    with pytest.raises(NotImplementedError,
+                       match="cannot differentiate 'while' either"):
+        exe.run(pmain, feed=feed, fetch_list=pfetch, scope=scope)
 
 
 def test_dynamic_rnn_waits_for_the_sequence_slice():

@@ -248,8 +248,10 @@ def test_entry_points_need_a_place_without_cuda(tmp_path, monkeypatch):
 
 
 def test_backward_op_names_the_training_slice():
-    """A backward op that asks for recompute (non-empty checkpoints) is
-    not ported yet and says which slice brings it."""
+    """A backward op that asks for recompute (non-empty checkpoints), which
+    raised until the training slice brought recompute, gives the
+    gradient of the same op without them, bit for bit (a checkpoint at
+    the region's last op cuts no segment)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.data("x", [None, 4])
@@ -262,9 +264,14 @@ def test_backward_op_names_the_training_slice():
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
-                fetch_list=[y], scope=scope)
+    feed = {"x": np.arange(8, dtype=np.float32).reshape(2, 4)}
+    got, = exe.run(main, feed=feed, fetch_list=[w + "@GRAD"], scope=scope)
+    main.global_block().ops[-1].attrs["checkpoints"] = []
+    main._bump_version()
+    want, = exe.run(main, feed=feed, fetch_list=[w + "@GRAD"], scope=scope)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(want, np.tile(feed["x"].sum(0)[:, None],
+                                             (1, 3)), rtol=1e-6)
 
 
 def test_port_imports_no_jax():

@@ -193,8 +193,15 @@ def test_dropout_eval_path(impl):
 
 
 def test_unported_optimizer_op_names_the_gap():
-    with pytest.raises(NotImplementedError, match="no torch lowering yet"):
-        pt_lowering("lars_momentum")
+    """lars_momentum, which raised "no torch lowering yet" until the
+    training surface was ported, now matches the JAX lowering (1e-6,
+    f32); tests/test_torch_optimizers.py holds every update op."""
+    ins = {"Param": [_rand(6, 5)], "Grad": [_rand(6, 5, seed=1)],
+           "Velocity": [_rand(6, 5, seed=2) * 0.1],
+           "LearningRate": [np.array([0.1], np.float32)]}
+    got, want = _run_both("lars_momentum", ins, {
+        "mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005})
+    _assert_close(got, want, ("ParamOut", "VelocityOut"))
 
 
 # ---------------------------------------------------------------------------
@@ -323,40 +330,45 @@ def test_training_run_leaves_no_autograd_state():
 
 
 def test_backward_forms_left_for_later():
-    """A second backward op in a block and recompute raise, naming the
-    later training slice."""
+    """The two backward forms that raised until the training surface was
+    ported now run: a second backward op in a block (the same loss and
+    target: the same gradient, bit for bit, and the tape kept for it), and
+    recompute ('checkpoints' on the backward op: the gradient of the run
+    without them, bit for bit)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.data("x", [None, 4])
-        loss = fluid.layers.mean(fluid.layers.fc(x, 3))
+        h = fluid.layers.fc(x, 5, act="relu")
+        loss = fluid.layers.mean(fluid.layers.fc(h, 3))
     w = main.all_parameters()[0].name
-    for _ in range(2):     # a second backward op in the block
+    for k in range(2):     # a second backward op in the block
         main.global_block().append_op(
             type="backward", inputs={"Loss": [loss]},
-            outputs={"Grads": [w + "@GRAD"]},
+            outputs={"Grads": [w + "@GRAD%d" % k]},
             attrs={"targets": [w], "checkpoints": []})
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="second 'backward' op"):
-        exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
-                fetch_list=[loss], scope=scope)
+    feed = {"x": np.arange(8, dtype=np.float32).reshape(2, 4) / 8}
+    g0, g1 = exe.run(main, feed=feed, fetch_list=[w + "@GRAD0",
+                                                  w + "@GRAD1"], scope=scope)
+    assert np.abs(g0).max() > 0
+    np.testing.assert_array_equal(g0, g1)
     main.global_block().ops.pop()
-    main.global_block().ops[-1].attrs["checkpoints"] = [loss.name]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
-                fetch_list=[loss], scope=scope)
+    main.global_block().ops[-1].attrs["checkpoints"] = [h.name]
+    main._bump_version()
+    got, = exe.run(main, feed=feed, fetch_list=[w + "@GRAD0"], scope=scope)
+    np.testing.assert_array_equal(got, g0)
 
 
 @pytest.mark.parametrize("kind", ["global_norm_clip", "l2_decay",
                                   "l1_decay"])
 def test_clip_and_regularizer_ops_name_the_gap(kind):
-    """A real clip or regularizer appends its ops as the JAX package does.
-    Global-norm clipping (squared_l2_norm, ...) and L1Decay (sign) have no
-    torch lowering yet and raise when the program runs; L2Decay's scale
-    and elementwise_add are lowered since the mixed-precision slice, so
-    its program trains, each regularized gradient being grad + coeff·param
-    (the param before the update)."""
+    """A real clip or regularizer appends its ops as the JAX package does,
+    and its program trains: the global-norm clip scales each gradient by
+    1 / max(||g||, 1) over all gradients together, L2Decay adds
+    coeff·param and L1Decay coeff·sign(param) to each gradient (the param
+    before the update), each within 1e-6 relative (f32)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.data("x", [None, 4])
@@ -376,20 +388,26 @@ def test_clip_and_regularizer_ops_name_the_gap(kind):
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = {"x": np.ones((2, 4), np.float32)}
-    if kind != "l2_decay":
-        with pytest.raises(NotImplementedError, match="no torch lowering yet"):
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        return
+    feed = {"x": np.full((2, 4), 3.0, np.float32)}   # ||g|| > 1
     params = [p.name for p in main.all_parameters()]
     before = {n: scope[n].clone() for n in params}
+    suffix = "@GCLIP" if kind == "global_norm_clip" else "@REGULARIZED"
     got = exe.run(main, feed=feed, scope=scope, fetch_list=[
-        n + "@GRAD" for n in params] + [n + "@GRAD@REGULARIZED"
+        n + "@GRAD" for n in params] + [n + "@GRAD" + suffix
                                          for n in params])
-    for n, g, r in zip(params, got[:len(params)], got[len(params):]):
-        np.testing.assert_allclose(r, g + 1e-2 * before[n].numpy(),
-                                   rtol=1e-6, atol=1e-8, err_msg=n)
+    grads, outs = got[:len(params)], got[len(params):]
+    norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                       for g in grads))
+    for n, g, r in zip(params, grads, outs):
+        p = before[n].numpy()
+        want = {"global_norm_clip": g / max(norm, 1.0),
+                "l2_decay": g + 1e-2 * p,
+                "l1_decay": g + 1e-2 * np.sign(p)}[kind]
+        np.testing.assert_allclose(r, want, rtol=1e-6, atol=1e-8,
+                                   err_msg=n)
         assert not torch.equal(scope[n], before[n]), n
+    if kind == "global_norm_clip":
+        assert norm > 1.0
 
 
 def test_grad_comm_hook_waits_for_the_parallel_slice():
