@@ -299,6 +299,33 @@ Phases, each of which exits non-zero on failure:
    the learning rate's closed form at every step, step median and p90,
    tokens/s and peak memory of each, and the two runs' losses and final
    persistable values bit-identical.
+15. the feed and dispatch surface, after phase 14, on bench.py:518's f32
+   step (BERT-base, batch 8, seq 128, dropout 0.1, Adam(1e-4), seed
+   1234) over 12 distinct synthetic batches from the same parameters:
+   (a) a ``run`` loop against the main path, ``Executor.run_pipelined(
+   depth=2)``, every counter at 0 just before each: 12/12/12/25/25
+   launches a step, the 12 losses and every parameter after the last
+   step bit-identical, both ways' step median and p90 and
+   ``overlap_ratio()``; (b) the batches through
+   ``create_py_reader_by_data`` with ``prefetch_to_device(CUDAPlace(0))``
+   and ``Executor.run`` with no feed until ``core.EOFException``: 12
+   steps, the popped feeds on the card, the losses bit-identical to
+   (a)'s run loop, ``reset()`` and ``start()`` deliver batch 0 again;
+   (c) with the profiles: ``fluid.profiler.profile_op_stats`` over the
+   step (1 warm-up, 2 steps) gives the program's op types, its top five
+   printed, and ``fluid.profiler.profiler("All")`` around one step
+   writes a Chrome trace naming the five kernels' symbols; (d) a program
+   built with Variable's operators (``* + - / **`` with scalars and
+   Variables, reflected, unary minus) on the card within 1e-6 relative
+   of the port on the CPU.
+
+Phase 12 prints, after 12a's loads, after the contention measurement
+(during which the router's health tick is held: the measurement does not
+go through the router and starves the replicas' beaters) and before
+each 12b drill, the 12a fleet's live set, its ``replica_dead`` count,
+the longest beacon silence a health tick saw and the longest garbage
+collection pause (:class:`BeaconWatch`); the v2 rollout starts only on
+the whole fleet.
 
 Phases 5 and 5b seed their dropout draws (``main.random_seed``), so
 their losses are the same in every process.
@@ -306,6 +333,7 @@ their losses are the same in every process.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import os
 import re
@@ -4050,6 +4078,71 @@ def resolve(tag, futs):
         fail("%s: a client saw %s: %s" % (tag, type(e).__name__, e))
 
 
+class BeaconWatch:
+    """What a router's health tick sees: wraps its heartbeat monitor's
+    ``dead_peers`` to record the longest beacon silence of a live
+    replica at each tick and the replicas the monitor names dead. Also
+    the longest pause of each garbage collection generation
+    (``gc.callbacks``): a collection holds the GIL, and so stops every
+    beater of an in-process fleet at once."""
+
+    def __init__(self, router):
+        import gc
+
+        self.monitor = router.monitor
+        self.orig = router.monitor.dead_peers
+        self.worst, self.would = 0.0, set()
+        self.gc_worst, self._gc0 = {}, None
+        router.monitor.dead_peers = self._dead_peers
+        gc.callbacks.append(self._gc)
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc0 = time.monotonic()
+        elif self._gc0 is not None:
+            gen = info.get("generation")
+            dt = time.monotonic() - self._gc0
+            self.gc_worst[gen] = max(self.gc_worst.get(gen, 0.0), dt)
+            self._gc0 = None
+
+    def silences(self, members):
+        now, table = time.time(), self.monitor.table()
+        return {w: now - rec["time"] for w, rec in table.items()
+                if w in members and isinstance(rec, dict) and "time" in rec
+                and rec.get("state") != "left"}
+
+    def _dead_peers(self, members=None, now=None):
+        ages = self.silences(set(members or ()))
+        self.worst = max([self.worst] + list(ages.values()))
+        dead = self.orig(members=members, now=now)
+        self.would |= set(dead)
+        return dead
+
+    def report(self, tag, router, ids):
+        """Print the fleet's live set, its replica_dead count, the
+        replicas silent past the bound now, and since the last report the
+        longest silence and collection pause and the replicas the
+        monitor named dead; then start a new window."""
+        now_dead = sorted(self.orig(members=set(ids)))
+        gc_ms = {g: round(1e3 * s, 3) for g, s in sorted(
+            self.gc_worst.items())}
+        print("%s: fleet live %s, replica_dead %d, dead_peers now %s; since "
+              "the last report the longest beacon silence a health tick "
+              "saw %.3f s (bound %.2f s), replicas it named dead %s, the "
+              "longest gc pause by generation %s ms" % (
+                  tag, router.replicas_live(),
+                  int(router.stats().get("replica_dead", 0)), now_dead,
+                  self.worst, router.config.dead_after, sorted(self.would),
+                  gc_ms), flush=True)
+        self.worst, self.would, self.gc_worst = 0.0, set(), {}
+
+    def close(self):
+        import gc
+
+        if self._gc in gc.callbacks:
+            gc.callbacks.remove(self._gc)
+
+
 def fleet_contention(preds, feeds, card, forwards=20):
     """Where four in-process replicas' time goes, without their engines:
     1, 2 and 4 threads each running `forwards` forwards of its own
@@ -4124,12 +4217,22 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
     scale = max(float(np.abs(r).max()) for r in refs)
     t0 = time.monotonic()
     obs.reset()
+    # a garbage collection holds the GIL while it walks the heap, and so
+    # silences every beater of this in-process fleet at once: the full
+    # collections of 12a-12b paused the process 0.22-0.32 s in a run of
+    # phase 12 alone on an H100, and one past the 0.5 s bound makes the
+    # health tick declare live replicas dead. The collector rests from
+    # here to the end of 12b, after one collection before the fleet beats
+    gc.collect()
+    gc.disable()
     router = srouter.local_fleet(
         enc_dir, n_replicas=FLEET_REPLICAS, per_device=True, buckets=[spec],
         name="bert-fleet", config=fleet_config(), max_batch_size=16,
         max_wait_ms=1.0, queue_capacity=256)
     stats = dict(build_s=time.monotonic() - t0)
     engines = [router._live[rid].engine for rid in sorted(router._live)]
+    ids = list(range(FLEET_REPLICAS))
+    watch = BeaconWatch(router)
     print("12a fleet: %d BERT-base replicas (encoder_out) on %s, each "
           "built from %s and warmed up (buckets %s) in %.1f s" % (
               FLEET_REPLICAS, sorted({str(e.predictor.device)
@@ -4206,8 +4309,10 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
     if stats["replicas_live"] != FLEET_REPLICAS or min(spread) < 1:
         fail("12a: the router did not spread over every replica: %s"
              % spread)
+    watch.report("12a after the loads", router, ids)
     stats["contention"] = fleet_contention(
         [e.predictor for e in engines], feeds[3], card)
+    watch.report("12a contention", router, ids)
 
     # -- 12b: failover drills. kill() and the drain on a router of the
     # same model and engine options: replicas 1 and 2 serve; 0 and the
@@ -4223,6 +4328,7 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
         dirname=enc_dir, standby=[standby],
         scale_up_depth=1 << 30)   # no pressure scale-up of the held standby
     try:
+        watch.report("12b before kill", router, ids)
         futs = submit_until_queued(drill, feeds, victim.engine, 16)
         queued = victim.engine.queue_depth()
         t_kill = time.monotonic()
@@ -4244,6 +4350,7 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
         if fo < 1:
             fail("12b: the kill replayed nothing")
 
+        watch.report("12b before remove", router, ids)
         futs = submit_until_queued(drill, feeds, standby.engine, 8)
         queued = standby.engine.queue_depth()
         dead0 = drill.stats()["replica_dead"]
@@ -4274,6 +4381,7 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
             data = data[:len(data) // 2]
         with open(os.path.join(v3, fn), "wb") as f:
             f.write(data)
+    watch.report("12b before the torn v3 rollout", router, ids)
     t0 = time.monotonic()
     try:
         router.rolling_reload(v3, probe_feeds=feeds[0],
@@ -4318,10 +4426,17 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
     for t in threads:
         t.start()
     wait_until(lambda: len(results) >= 8 or errors, "traffic before v2")
+    watch.report("12b before the v2 rollout", router, ids)
+    if router.replicas_live() != ids:
+        fail("12b: replicas %s left 12a's fleet before the v2 rollout (the "
+             "reports above say when)" % sorted(
+                 set(ids) - set(router.replicas_live())))
     t0 = time.monotonic()
     done = router.rolling_reload(v2, probe_feeds=feeds[0],
                                  reload_timeout=FLEET_WAIT)
     reload_s = time.monotonic() - t0
+    watch.report("12b after the v2 rollout", router, ids)
+    gc.enable()
     n_at = len(results)
     wait_until(lambda: len(results) >= n_at + 8 or errors,
                "traffic after v2")
@@ -4352,6 +4467,7 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
               reload_s, done, len(results), n_v1, n_v2), flush=True)
     stats["reload_s"] = reload_s
     stats["failovers_reload"] = int(router.stats().get("failovers", 0))
+    watch.close()
     router.stop()
     stats["drills_s"] = time.monotonic() - t12b
 
@@ -5727,6 +5843,263 @@ def surface_phase(fluid, bert, ca, cl, lowering):
     return runs[False][2], runs[True][2], s0, s1
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the feed and dispatch surface
+# ---------------------------------------------------------------------------
+# bench.py:518's f32 step (BERT-base, batch 8, seq 128, dropout 0.1,
+# Adam(1e-4), seed 1234) on FEED_STEPS distinct synthetic batches: 15a a run
+# loop against Executor.run_pipelined(depth=2) from the same parameters,
+# 15b an attached py_reader staged to the card, 15c profile_op_stats and a
+# torch.profiler trace of the step, 15d a program built with Variable's
+# operators, card against CPU.
+FEED_STEPS = 12
+FEED_DEPTH = 2
+OPERATOR_RTOL = 1e-6
+KERNEL_SYMBOLS = {"flash_attn_fwd": "flash_fwd_kernel",
+                  "flash_attn_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_attn_bwd_dkdv": "flash_bwd_dkdv_kernel",
+                  "layer_norm_fwd": "ln_fwd_kernel",
+                  "layer_norm_bwd": "ln_bwd_kernel"}
+
+
+def step_stats(walls):
+    """Median and p90 ms of step walls in seconds."""
+    timed = sorted(1e3 * w for w in walls)
+    return dict(median_ms=statistics.median(timed),
+                p90_ms=timed[min(len(timed) - 1, int(0.9 * len(timed)))])
+
+
+def feed_phase(fluid, bert, ca, cl, cfg=None, batch=8):
+    """15a and 15b. Returns the launches of the pipelined run (the main
+    path), the program, its loss, the feeds and a scope trained by the
+    run loop (for 15c), and the numbers."""
+    cfg = cfg or bert.bert_base()
+    main, startup, loss = train_program(fluid, bert, cfg)
+    feeds = []
+    for i in range(FEED_STEPS):
+        ids, labels = bert.synthetic_batch(cfg, batch, SEQ, seed=SEED + i)
+        feeds.append({"input_ids": ids, "mlm_labels": labels})
+    scope0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope0)
+    init = {n: t.clone() for n, t in scope0.items()}
+    del scope0
+
+    def fresh():
+        # a fresh Executor: its run count, which seeds each step's
+        # dropout draws, starts where the other runs' did
+        scope = fluid.Scope()
+        for n, t in init.items():
+            scope.set(n, t.clone())
+        return scope, fluid.Executor()
+
+    def run_loop():
+        scope, exe = fresh()
+        losses, walls = [], []
+        for f in feeds:
+            t0 = time.monotonic()
+            out, = exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            walls.append(time.monotonic() - t0)   # the fetch waits
+            losses.append(out)
+        return scope, losses, walls, None
+
+    def run_pipelined():
+        scope, exe = fresh()
+        runner = exe.run_pipelined(main, feeds=feeds, fetch_list=[loss],
+                                   scope=scope, depth=FEED_DEPTH)
+        losses, walls = [], []
+        t0 = time.monotonic()
+        for out in runner:
+            # a step's wall here: from one materialized step to the next
+            walls.append(time.monotonic() - t0)
+            t0 = time.monotonic()
+            losses.append(out[0])
+        if runner.steps != FEED_STEPS:
+            fail("15a: run_pipelined ran %d steps" % runner.steps)
+        return scope, losses, walls, runner.overlap_ratio()
+
+    # 15a: in turns, loop, pipelined, pipelined, loop; the counters are
+    # zeroed before the first two, the pipelined run's are the main path's
+    want = {n: PER_STEP[n] * FEED_STEPS for n in PER_STEP}
+    runs, ref = [], None
+    for kind, fn in (("run loop", run_loop), ("pipelined", run_pipelined),
+                     ("pipelined", run_pipelined), ("run loop", run_loop)):
+        fns = zero_counters(ca, cl) if len(runs) < 2 else None
+        scope, losses, walls, overlap = fn()
+        if fns is not None:
+            got = check_launches("15a %s" % kind, fns, want)
+            if kind == "pipelined":
+                pipe_launches = got
+        if ref is None:
+            ref, loop_losses = scope, losses
+            print("15a bert_base f32, %d distinct batches: losses %s" % (
+                FEED_STEPS, " ".join("%.6f" % float(x) for x in losses)),
+                flush=True)
+            if not all(np.isfinite(float(x)) for x in losses):
+                fail("15a: a loss is not finite")
+        else:
+            same = sum(a.tobytes() == b.tobytes()
+                       for a, b in zip(loop_losses, losses))
+            differ = [n for n in init if not torch.equal(ref[n], scope[n])]
+            print("15a %s run %d vs the first run loop: %d of %d losses "
+                  "bit-identical; after the last step %d of %d values "
+                  "differ%s" % (kind, len(runs) + 1, same, FEED_STEPS,
+                                len(differ), len(init),
+                                (": " + ", ".join(differ[:6])) if differ
+                                else ""), flush=True)
+            if same != FEED_STEPS or differ:
+                fail("15a: the %s run is not bit-identical to the run loop"
+                     % kind)
+            del scope
+        runs.append((kind, walls, overlap))
+    stats = {}
+    for kind in ("run loop", "pipelined"):
+        # each run's first step is left out
+        walls = [w for k, ws, _ in runs if k == kind for w in ws[1:]]
+        stats[kind] = step_stats(walls)
+    stats["overlap_ratio"] = [o for _, _, o in runs if o is not None]
+    print("15a step time over 2 x %d steps each [in turns: loop, pipelined, "
+          "pipelined, loop]: run loop median %.3f ms, p90 %.3f ms; "
+          "run_pipelined(depth=%d) median %.3f ms, p90 %.3f ms; "
+          "overlap_ratio %s" % (
+              FEED_STEPS - 1, stats["run loop"]["median_ms"],
+              stats["run loop"]["p90_ms"], FEED_DEPTH,
+              stats["pipelined"]["median_ms"], stats["pipelined"]["p90_ms"],
+              " ".join("%.4f" % o for o in stats["overlap_ratio"])),
+          flush=True)
+    s_loop = ref
+
+    # 15b: the same batches through an attached py_reader staged to the
+    # card, Executor.run with no feed until EOFException
+    with fluid.program_guard(main, startup):
+        block = main.global_block()
+        reader = fluid.layers.create_py_reader_by_data(
+            capacity=4, feed_list=[block.var("input_ids"),
+                                   block.var("mlm_labels")],
+            name="feed15")
+    reader.decorate_batch_generator(lambda: iter(feeds))
+    reader.prefetch_to_device(fluid.CUDAPlace(0))
+    s_read, exe = fresh()
+    popped, pop = [], reader._next_feed
+
+    def recording_pop():
+        item = pop()
+        popped.append({k: (v.device.type if isinstance(v, torch.Tensor)
+                           else type(v).__name__) for k, v in item.items()})
+        return item
+
+    reader._next_feed = recording_pop
+    reader.start()
+    read_losses = []
+    try:
+        while True:
+            out, = exe.run(main, fetch_list=[loss], scope=s_read)
+            read_losses.append(out)
+    except fluid.core.EOFException:
+        pass
+    devices = sorted({d for p in popped for d in p.values()})
+    same = [a.tobytes() == b.tobytes()
+            for a, b in zip(loop_losses, read_losses)]
+    reader.reset()
+    reader.start()
+    first = reader._next_feed()
+    again = all(torch.equal(first[k].cpu(), torch.from_numpy(feeds[0][k]))
+                for k in feeds[0])
+    reader.reset()
+    del reader._next_feed
+    main._py_readers.remove(reader)
+    print("15b py_reader + prefetch_to_device(CUDAPlace(0)): %d steps until "
+          "EOFException; popped feeds on %s; %d of %d losses bit-identical "
+          "to 15a's run loop; reset() + start() delivers batch 0 again: "
+          "%s" % (len(read_losses), devices, sum(same), FEED_STEPS, again),
+          flush=True)
+    if len(read_losses) != FEED_STEPS or devices != [exe.device.type] \
+            or not all(same) or not again:
+        fail("15b: the attached reader did not match the run loop")
+    del s_read
+    return pipe_launches, (main, loss, feeds, s_loop), stats
+
+
+def feed_profile(fluid, step15, tmp):
+    """15c: profile_op_stats over the step (1 warm-up, 2 steps) and a
+    torch.profiler trace of one step through fluid.profiler."""
+    main, loss, feeds, scope = step15
+    t0 = time.monotonic()
+    stats = fluid.profiler.profile_op_stats(
+        main, feed=feeds[0], scope=scope, steps=2, warmup=1,
+        print_table=False)
+    types = {op.type for op in main.global_block().ops}
+    rows = sorted(stats.items(), key=lambda kv: -kv[1]["total"])
+    print("15c profile_op_stats (1 warm-up, 2 steps, %.1f s): %d op types "
+          "(the program's %d); the top five by total: %s" % (
+              time.monotonic() - t0, len(stats), len(types), "; ".join(
+                  "%s x%d %.3f ms (%.1f%%)" % (
+                      t, s["calls"], 1e3 * s["total"], 100 * s["ratio"])
+                  for t, s in rows[:5])), flush=True)
+    if set(stats) != types:
+        fail("15c: profile_op_stats gave op types %s, the program has %s"
+             % (sorted(stats), sorted(types)))
+    exe = fluid.Executor()
+    path = os.path.join(tmp, "profile15")
+    with fluid.profiler.profiler("All", profile_path=path):
+        exe.run(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    trace, = [os.path.join(path, n) for n in os.listdir(path)]
+    with open(trace) as f:
+        text = f.read()
+    missing = [s for s in KERNEL_SYMBOLS.values() if s not in text]
+    print("15c fluid.profiler.profiler('All') around one step wrote %s "
+          "(%.1f MB), naming %d of the 5 kernels' symbols%s" % (
+              os.path.basename(trace), len(text) / 1e6, 5 - len(missing),
+              (": missing " + ", ".join(missing)) if missing else ""),
+          flush=True)
+    if missing:
+        fail("15c: the trace does not name %s" % missing)
+
+
+def operator_program(fluid):
+    """15d: a loss built with Variable's operators (scalars and Variables,
+    reflected forms and unary minus), every intermediate positive."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 16], dtype="float32")
+        h = fluid.layers.fc(x, size=16)
+        a = h * h + 1.0                 # Variable * Variable, + scalar
+        b = 2.0 * a - 0.5               # reflected *, - scalar
+        c = 3.0 - 1.0 / a               # reflected - and /
+        d = (a * 0.5) ** c              # * scalar, Variable ** Variable
+        e = b / a + d / 4.0 + 2.0 ** (c - 2.0) + (-a) * -1.0 \
+            + a ** 2.0                  # / Variable, / scalar, reflected
+        y = 1.0 + e - 0.25              # **, unary -, ** scalar
+        loss = fluid.layers.reduce_mean(y)
+    return main, startup, y, loss
+
+
+def operator_vs_cpu(fluid):
+    """15d: the operator program on the card and on the CPU from the same
+    parameters, within OPERATOR_RTOL relative."""
+    main, startup, y, loss = operator_program(fluid)
+    types = [op.type for op in main.global_block().ops]
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_scope, scope = fluid.Scope(), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    for n, t in cpu_scope.items():
+        scope.set(n, t.clone())
+    x = np.random.default_rng(SEED).uniform(-1, 1, (8, 16)).astype(
+        np.float32)
+    got = fluid.Executor().run(main, feed={"x": x}, fetch_list=[y, loss],
+                               scope=scope)
+    want = cpu_exe.run(main, feed={"x": x}, fetch_list=[y, loss],
+                       scope=cpu_scope)
+    rel = max(float(np.max(np.abs(g - w) / np.abs(w)))
+              for g, w in zip(got, want))
+    print("15d a program of Variable operators (%d ops: %s): card vs the "
+          "port on the CPU, max relative difference %.3e (bound %.0e)" % (
+              len(types), ", ".join(sorted(set(types))), rel,
+              OPERATOR_RTOL), flush=True)
+    if not all(np.isfinite(g).all() for g in got) or rel > OPERATOR_RTOL:
+        fail("15d: the operator program on the card differs from the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5930,8 +6303,19 @@ def main():
         print("phase 14 (the training surface: 14a-14b %.1f s, 14c %.1f s) "
               "took %.1f s" % (t14c - t14, time.monotonic() - t14c,
                                time.monotonic() - t14), flush=True)
+        # phase 15: the feed and dispatch surface; 15a's runs are timed,
+        # so before the profiles (15c profiles, with them)
+        t15 = time.monotonic()
+        pipe_launches, step15, _ = feed_phase(fluid, bert, ca, cl)
+        operator_vs_cpu(fluid)
+        secs15 = time.monotonic() - t15
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
+        t15 = time.monotonic()
+        feed_profile(fluid, step15, tmp)
+        del step15
+        print("phase 15 (the feed and dispatch surface: 15a-15d) took %.1f "
+              "s" % (secs15 + time.monotonic() - t15), flush=True)
         forward_breakdown(pred, requests)
         f32_stats.update(profile_train_step(train_step, "train step, f32"))
         amp_stats.update(profile_train_step(amp_step,
@@ -6016,7 +6400,8 @@ def main():
     # and 11c's :generate loads, launches_fleet in 12a's routed load,
     # launches_disagg in 12d's disaggregated load, leg (ii),
     # launches_spec in 13a's reuse engine (prefix pool + self-draft), and
-    # launches_lamb and launches_recompute in 14c's two runs
+    # launches_lamb and launches_recompute in 14c's two runs, and
+    # launches_pipelined in 15a's run_pipelined
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -6035,6 +6420,7 @@ def main():
                      launches_spec=spec_launches[name],
                      launches_lamb=lamb_launches[name],
                      launches_recompute=recompute_launches[name],
+                     launches_pipelined=pipe_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

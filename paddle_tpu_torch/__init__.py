@@ -10,9 +10,22 @@ place::
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import serving
 """
+from . import reader  # noqa: F401
+# like the reference: import the module, then rebind the name to the
+# function, so paddle.batch(...) calls it and import ...batch works
+from . import batch  # noqa: F401
+batch = batch.batch
 from . import fluid  # noqa: F401
 from . import observability  # noqa: F401
-from . import reader  # noqa: F401
 from . import serving  # noqa: F401
+from . import dataset  # noqa: F401
+from . import compat  # noqa: F401
+from . import sysconfig  # noqa: F401
+from . import utils  # noqa: F401
+# ref paddle/__init__.py runs the Windows scipy-DLL diagnosis at import
+from .check_import_scipy import check_import_scipy
+import os as _os
+
+check_import_scipy(_os.name)
 
 __version__ = "0.1.0"

@@ -54,3 +54,10 @@ from .trainer_desc import (  # noqa: F401
 from . import trainer_factory
 from .trainer_factory import FetchHandler  # noqa: F401
 from . import incubate
+from . import average
+from . import profiler
+from . import annotations
+from . import wrapped_decorator
+from . import default_scope_funcs
+from . import log_helper
+from . import op

@@ -17,6 +17,9 @@ finite is skipped through the update ops' ``SkipGate`` input
 (fluid/lowering.py ``apply_op``) and the scale follows the reference's
 rule, floored at 1.
 """
+import numpy as np
+import torch
+
 from ... import framework
 
 __all__ = ["decorate", "AutoMixedPrecisionLists", "bf16_compute_guard"]
@@ -121,12 +124,37 @@ class OptimizerWithMixedPrecision:
         return getattr(self, "_finite_flag", None)
 
     def publish_step_telemetry(self, scope=None, skipped=None):
-        """Publishes the AMP state to the telemetry hub in the reference;
-        the hub is not ported yet."""
-        raise NotImplementedError(
-            "publish_step_telemetry needs the observability hub, which is "
-            "not ported yet (ROADMAP.md, Queue 1 item 11); fetch "
-            "get_loss_scaling() and get_finite_flag() instead")
+        """Publish this step's AMP state to the telemetry hub: the
+        ``amp.loss_scale`` gauge (read from the scope on the dynamic
+        path, where the scale lives in the program's state; the static
+        float otherwise) and the ``amp.skipped_steps`` counter when
+        ``skipped`` is true (the skip gate zeroed this update). Returns
+        the published scale, or None when the dynamic scale has no value
+        in the scope yet."""
+        from .... import observability as obs
+
+        val = None
+        if self._scale_var is not None:
+            if scope is None:
+                from ...executor import global_scope
+
+                scope = global_scope()
+            raw = scope.find_value(self._scale_var.name)
+            if raw is not None:
+                try:
+                    if isinstance(raw, torch.Tensor):
+                        val = float(raw.detach().reshape(-1)[0])
+                    else:
+                        val = float(np.asarray(raw).reshape(-1)[0])
+                except (TypeError, ValueError, IndexError):
+                    val = None
+        else:
+            val = float(self._loss_scaling)
+        if val is not None:
+            obs.set_gauge("amp.loss_scale", val)
+        if skipped:
+            obs.inc("amp.skipped_steps")
+        return val
 
     def _ensure_scale_state(self):
         from ...layers import tensor

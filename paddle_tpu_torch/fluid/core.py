@@ -129,6 +129,18 @@ def np_dtype(dtype):
     return np.dtype("float32" if s == VarType.BF16 else s)
 
 
+class EOFException(Exception):
+    """Raised by Executor.run when an attached py_reader is exhausted
+    (ref: paddle/fluid/framework/reader.h EOFException): catch it to end
+    the epoch, then reader.reset()."""
+
+
+class ReaderNotStartedError(RuntimeError):
+    """Raised by Executor.run when no feed was given and the program's
+    py_reader is decorated but not started (or went EOF without a
+    reset() and start()). A configuration error, not a transient one."""
+
+
 def __getattr__(name):
     # deployment scripts reach AnalysisConfig / create_paddle_predictor
     # through fluid.core (the reference exposes them via pybind); lazy to

@@ -15,15 +15,41 @@ back to the scope are detached, so no graph outlives the run
 after another: the reference's k-step ``lax.scan`` dispatch has no eager
 counterpart, so a dataset epoch equals a ``run`` loop over the same
 batches.
+
+``run`` with no feed pops one batch from a started py_reader attached to
+the program (``layers.py_reader``), raising ``core.EOFException`` at the
+end of its epoch; ``run_pipelined`` (fluid/async_pipeline.py) prepares
+the next batch's feeds on a stager thread while the current step runs.
 """
 import numpy as np
 import torch
 
 from . import core
+from .. import observability as obs
 from .framework import Variable, default_main_program
 from .lowering import build_step_fn
+from .resilience import fault_check
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "to_numpy"]
+
+
+class _TensorView:
+    """Compat shim for ``scope.find_var(name).get_tensor()`` usage."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self):
+        return self._scope[self._name]
+
+    def set(self, value, place=None):
+        self._scope.set(self._name, value)
+
+    def __array__(self, dtype=None, copy=None):
+        v = self._scope[self._name]
+        arr = to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+        return arr.astype(dtype) if dtype else arr
 
 
 class Scope:
@@ -50,6 +76,19 @@ class Scope:
 
     def items(self):
         return self._vars.items()
+
+    def find_var(self, name):
+        """Look up a var here or in any ancestor scope (ref
+        framework/scope.cc Scope::FindVar parent-chain semantics)."""
+        scope = self
+        while scope is not None:
+            if name in scope._vars:
+                return _TensorView(scope, name)
+            scope = scope._parent
+        return None
+
+    def var(self, name):
+        return _TensorView(self, name)
 
     def find_value(self, name, default=None):
         """Parent-chain value lookup (FindVar semantics, raw value)."""
@@ -110,6 +149,22 @@ def to_tensor(value, device, dtype=None):
     return t.to(device=device, dtype=dtype)
 
 
+def stage_tensor(value, device, dtype=None):
+    """`value` as a tensor on `device`, cast to `dtype` when given, its
+    copy to the card issued without waiting: a host array is copied from
+    page-locked memory with ``non_blocking=True``. The block comes from
+    torch's caching host allocator, which keeps it until the copy that
+    reads it has completed on the stream, so the caller does not wait
+    for the work queued ahead of the copy (a copy from pageable memory
+    would). Off the card, and for a tensor, this is :func:`to_tensor`."""
+    if isinstance(value, torch.Tensor) or device.type != "cuda":
+        return to_tensor(value, device, dtype)
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_numpy(t):
     """Host numpy copy of a tensor; bfloat16, which numpy lacks, is widened
     to float32."""
@@ -141,35 +196,99 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
+        # fault-injection hook (site "run"): before the reader pop, so an
+        # injected fault does not consume a batch
+        fault_check("run")
         program = program if program is not None else default_main_program()
+        if not feed:
+            # a started py_reader attached to the program supplies the
+            # batch; it raises core.EOFException at the end of its epoch
+            readers = getattr(program, "_py_readers", ())
+            for reader in readers:
+                batch = reader._next_feed()
+                if batch is not None:
+                    feed = dict(batch)
+                    break
+            else:
+                self._check_unstarted_readers(program, readers)
         scope = scope if scope is not None else global_scope()
         feed = feed or {}
         fetch_names = [_as_name(f) for f in (fetch_list or [])]
-        feeds = self._prepare_feeds(program, feed)
-        state = self._gather_state(program, scope)
-        step = build_step_fn(program, list(feeds), fetch_names, self.device)
-        fetches, new_state = step(state, feeds, self._next_generator(program))
-        for k, v in new_state.items():
-            scope.update(k, v)
-        if return_numpy:
-            return [to_numpy(v) for v in fetches]
-        return list(fetches)
+        with obs.span("executor.run"):
+            with obs.span("executor.feed_convert"):
+                feeds = self._prepare_feeds(program, feed)
+                state = self._gather_state(program, scope)
+            step = build_step_fn(program, list(feeds), fetch_names,
+                                 self.device)
+            fetches, new_state = step(state, feeds,
+                                      self._next_generator(program))
+            for k, v in new_state.items():
+                scope.update(k, v)
+            if return_numpy:
+                return [to_numpy(v) for v in fetches]
+            return list(fetches)
 
-    def _prepare_feeds(self, program, feed):
+    def run_pipelined(self, program=None, feeds=None, fetch_list=None,
+                      scope=None, return_numpy=True, depth=None,
+                      window=None):
+        """Pipelined step loop: returns an iterable of per-step fetch
+        lists where the feeds of batch N+1 are prepared and their copy
+        to the card issued on a stager thread while batch N runs, and
+        fetches materialize behind a bounded in-flight window. ``feeds``
+        is an iterable of feed dicts, or None to pull from the program's
+        started py_reader until EOF. Step results are bit-identical to
+        calling :meth:`run` in a loop: the same feed preparation, the same
+        generator sequence, the same dispatch order. See
+        :mod:`paddle_tpu_torch.fluid.async_pipeline`."""
+        from .async_pipeline import PipelinedRunner
+
+        return PipelinedRunner(
+            self, program, feeds, fetch_list, scope,
+            return_numpy=return_numpy, depth=depth, window=window)
+
+    def _prepare_feeds(self, program, feed, non_blocking=False):
         """Feed values as tensors on the device, coerced to the dtype the
-        program declares for each feed. A feed of a ``lod_level`` > 0 var
-        given as a plain (B, T, ...) array gets full lengths, (B,) int32
-        of T, for its ``@SEQ_LEN`` companion unless that is fed too."""
+        program declares for each feed; a tensor already there stays
+        there. A feed of a ``lod_level`` > 0 var given as a plain (B, T,
+        ...) array gets full lengths, (B,) int32 of T, for its
+        ``@SEQ_LEN`` companion unless that is fed too. With
+        `non_blocking`, host arrays are copied to the card without waiting
+        (:func:`stage_tensor`)."""
         block = program.global_block()
         feed = dict(feed)
         for name in list(feed):
             seq_name = name + "@SEQ_LEN"
             if block.has_var(seq_name) and seq_name not in feed:
-                shape = np.shape(feed[name])
+                shape = np.shape(feed[name])     # a tensor's own shape
                 feed[seq_name] = np.full((shape[0],), shape[1], "int32")
         want = feed_dtypes(program, list(feed))
-        return {name: to_tensor(v, self.device, want[name])
+        put = stage_tensor if non_blocking else to_tensor
+        return {name: put(v, self.device, want[name])
                 for name, v in feed.items()}
+
+    @staticmethod
+    def _check_unstarted_readers(program, readers):
+        """No feed given and no attached reader produced a batch: if a
+        decorated but unstarted reader feeds vars the program's ops
+        read, fail here with the fix, instead of deep in lowering with a
+        missing-value error."""
+        idle = [r for r in readers
+                if r._paddle_reader is not None and not r._started]
+        if not idle:
+            return
+        consumed = set()
+        for op in program.global_block().ops:
+            consumed.update(op.input_arg_names)
+        for r in idle:
+            needed = [v.name for v in r._feed_list if v.name in consumed]
+            if needed:
+                raise core.ReaderNotStartedError(
+                    "Executor.run got no feed and py_reader %r (feeding "
+                    "%s) is not started — call reader.start() before "
+                    "run(); after core.EOFException call reader.reset() "
+                    "then reader.start() for the next epoch"
+                    % (r._name, ", ".join(needed))
+                )
 
     def _gather_state(self, program, scope):
         """The program's persistable values on the device; host values are

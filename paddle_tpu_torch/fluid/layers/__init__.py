@@ -19,6 +19,9 @@ from .ops import *  # noqa: F401,F403
 from .rnn import gather_tree  # noqa: F401
 from . import rnn_cells
 from .rnn_cells import *  # noqa: F401,F403  (binds `rnn` to the rnn() layer, like the reference)
+from . import math_op_patch
+
+math_op_patch.monkey_patch_variable()
 
 __all__ = []
 __all__ += nn.__all__

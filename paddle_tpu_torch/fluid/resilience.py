@@ -24,13 +24,15 @@ Fault spec grammar (clauses joined by ``;`` or ``,``), the JAX package's::
                 "corrupt=" MODE ("bitflip" | "truncate" | "torn", sites
                 "save" | "load" | "wire" | "mailbox" only)
 
-The sites the port fires today: ``heartbeat`` in the beacon writer
-(``parallel/elastic.py``), ``dispatch`` in the serving router's
-per-attempt dispatch and in the decode engine's step, ``replica`` in a
-local replica's admission (``serving/router.py``), ``wire`` in the KV
-handoff encoder (``serving/disagg/kv_wire.py``) and ``mailbox`` in the
-FileStore writer. The training sites (``run``/``feed``/``save``/
-``fetch``) parse but fire nowhere yet.
+The sites the port fires today: ``run`` at the top of ``Executor.run``
+(before a reader pop, so an injected fault consumes no batch), ``feed``
+in a started py_reader's pop (``fluid/layers/io.py``), ``heartbeat`` in
+the beacon writer (``parallel/elastic.py``), ``dispatch`` in the serving
+router's per-attempt dispatch and in the decode engine's step,
+``replica`` in a local replica's admission (``serving/router.py``),
+``wire`` in the KV handoff encoder (``serving/disagg/kv_wire.py``) and
+``mailbox`` in the FileStore writer. ``save`` and ``fetch`` parse but
+fire nowhere yet (they come with guarded training, item 11).
 
 With the env var unset and no injector installed, the hooks are inert
 (one dict lookup per site check).

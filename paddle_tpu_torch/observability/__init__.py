@@ -56,6 +56,22 @@ Well-known HTTP and registry events (``serving.http`` /
 ``model_load``, ``model_load_failed``, ``model_publish`` and
 ``model_unload`` (source ``serving``).
 
+Well-known feed and dispatch metrics (``fluid.executor``,
+``fluid.async_pipeline``, ``fluid.layers.io``, ``fluid.profiler``):
+
+- ``span.executor.run.seconds`` / ``span.executor.feed_convert.seconds``
+  histograms — every ``Executor.run`` and its feed conversion;
+  ``span.executor.stage_feed.seconds`` / ``span.reader.stage_feed.seconds``
+  time the staging threads of ``run_pipelined`` and of a py_reader's
+  ``prefetch_to_device``.
+- ``executor.overlap_ratio`` gauge — the share of staging seconds that
+  ran while a step was in flight; ``staging_discard`` event (source
+  ``executor``) when ``close()`` drops staged batches.
+- ``reader.queue_depth`` gauge and ``reader.pop_wait_seconds``
+  histogram — a py_reader's queue before each pop, and the pop's wait.
+- ``profiler.trace_start`` / ``trace_stop`` / ``trace_error`` events and
+  the ``profiler.trace_seconds`` histogram.
+
 Well-known distributed-tracing metrics (``observability.distributed``):
 
 - ``trace.spans_exported`` / ``trace.export_errors`` counters — JSONL

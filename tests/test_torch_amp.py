@@ -646,8 +646,41 @@ def test_decorator_surface():
                       use_dynamic_loss_scaling=False, init_loss_scaling=4.0)
     assert opt.get_loss_scaling() == 4.0 and opt.get_finite_flag() is None
     assert opt.type == "adam"            # forwarded to the inner optimizer
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        opt.publish_step_telemetry()
+    _check_step_telemetry(use_dynamic_loss_scaling=False,
+                          init_loss_scaling=4.0)
+    _check_step_telemetry(use_dynamic_loss_scaling=True,
+                          init_loss_scaling=2.0 ** 15)
+
+
+def _check_step_telemetry(**kw):
+    """publish_step_telemetry of a decorated Adam on a small fc program,
+    the startup run, in both packages: the same ``amp.loss_scale`` gauge
+    and ``amp.skipped_steps`` counter in each package's hub, and the same
+    returned scale, over a skipped and a kept step."""
+    from paddle_tpu import observability as jobs
+    from paddle_tpu_torch import observability as pobs
+
+    got = {}
+    for name, pkg, mp_mod, hub in (("jax", jfluid, jmp, jobs),
+                                   ("port", fluid, mp, pobs)):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            x = pkg.data("x", [None, 4], dtype="float32")
+            loss = pkg.layers.reduce_mean(pkg.layers.fc(x, size=2))
+            opt = mp_mod.decorate(pkg.optimizer.Adam(1e-3), use_bf16=False,
+                                  **kw)
+            opt.minimize(loss)
+        scope = pkg.Scope()
+        pkg.Executor(pkg.CPUPlace()).run(startup, scope=scope)
+        hub.reset()
+        vals = [opt.publish_step_telemetry(scope=scope, skipped=True),
+                opt.publish_step_telemetry(scope=scope, skipped=False)]
+        got[name] = (vals, hub.gauge("amp.loss_scale"),
+                     hub.counter("amp.skipped_steps"))
+        hub.reset()
+    assert got["port"] == got["jax"]
+    assert got["port"] == ([kw["init_loss_scaling"]] * 2,
+                           kw["init_loss_scaling"], 1)
 
 
 # ---------------------------------------------------------------------------
