@@ -77,7 +77,10 @@ Phases, each of which exits non-zero on failure:
    use_bf16=True)``: losses within 1e-2, all gradients together no
    farther from the CPU's than twice AMP's own distance from f32, and the
    gradients of the 54 weights read only through casts bfloat16 values on
-   the card and the CPU, not in f32; (c) 7a's card-trained program saved
+   the card and the CPU, not in f32; then the backward of each distinct
+   conv2d, batch_norm and max pool shape of (d) at batch 16, the card's
+   bf16 lowering against the CPU's f32 one within one bfloat16 ulp +
+   1e-3·max; (c) 7a's card-trained program saved
    pruned to the logits, served by ``Predictor.from_model`` on the card
    and the CPU (8 single requests and a batch of 8, 1e-3·max|logit|, its
    53 batch norms is_test); (d) bench.py's ResNet-50 measurement (batch
@@ -98,8 +101,8 @@ Phases, each of which exits non-zero on failure:
    1e-3·max of the CPU's, the card's token equal to the CPU's wherever the
    CPU's top-2 gap exceeds that bound (near-ties counted); (b) the main
    path: ``DecodeEngine(slots=8, cache_len=1024)`` with the default
-   buckets serves 8 closed-loop client threads x 3 requests (prompts of
-   5 / 40 / 200 / 700 tokens in turn, 64 new tokens each) with every
+   buckets serves 8 closed-loop client threads x 2 requests (prompts of
+   5 / 40 / 200 / 700 tokens in turn, 32 new tokens each) with every
    counter set to 0 just before and read just after: exactly 24 LayerNorm
    forward launches per prefill and per step, no attention kernel; every
    stream bit-identical to its prompt served alone through the same
@@ -123,10 +126,10 @@ Phases, each of which exits non-zero on failure:
    before it and, for rows equal to the end, the final ids and scores
    within 1e-4·max|score|; 584 LayerNorm forward launches (8 + 12 x 48)
    and no attention launch; (b) the main path, bench.py's
-   _measure_nmt_decode: batch 32, one warm and 8 timed translations
+   _measure_nmt_decode: batch 32, one warm and 4 timed translations
    fetching ids and scores, every counter zeroed just before: 584
    LayerNorm forward launches each, tokens/s, ms per batch, peak device
-   memory; the same at batch 128 (6 runs), and, with the other
+   memory; the same at batch 128 (3 runs), and, with the other
    profiles, one profiled b32 translation (busy, idle share, top
    kernels, the sort behind top_k, the copies, cudaLaunchKernel);
    (c) NMT training (batch 32, src and tgt 32, dropout 0, Adam 1e-4), 3
@@ -175,7 +178,7 @@ Phases, each of which exits non-zero on failure:
    within 1e-3·max|logit| of the card; (b) the main path of
    ``:predict``: phase 4's BERT-base (seed 1234, seq 128, f32) saved
    pruned to ``encoder_out``, ``ModelRegistry.load`` with buckets (1, 2,
-   4, 8) behind ``ServingServer``, 4 closed-loop urllib clients x 16
+   4, 8) behind ``ServingServer``, 4 closed-loop urllib clients x 8
    requests of 1-4 rows with every counter at 0 just before: 12 attention
    and 25 LayerNorm forward launches per dispatch, each reply within
    1e-3·max|x| of the same rows through a solo card ``Predictor``; req/s,
@@ -195,7 +198,7 @@ Phases, each of which exits non-zero on failure:
    paddle_tpu_torch.serving.http --model bert=DIR --port 0`` as a child:
    its ``serving bert on`` line, one ``:predict`` equal to (b)'s reply
    within (b)'s bound, ``/healthz`` and ``/metrics``, exit 0 on SIGINT;
-   (e) (b)'s load and a phase-8c-sized decode load with
+   (e) the first 8 of (b)'s requests and a phase-8c-sized decode load with
    ``PADDLE_TPU_TELEMETRY=off`` and ``on`` in alternation (the cost is
    printed, not gated);
 12. the serving fleet, after phase 11 and before the profiles: (a) the
@@ -203,7 +206,7 @@ Phases, each of which exits non-zero on failure:
    seed 1234) behind ``local_fleet(n_replicas=4, per_device=True)`` with
    buckets (1, 2, 4, 8, 16), max batch 16, max wait 1 ms, queue 256 (on
    one card every replica shares cuda:0, each with its own parameters),
-   and bench.py:953's load, 8 closed-loop clients x 30 requests of 1-4
+   and bench.py:953's load cut to 8 closed-loop clients x 15 requests of 1-4
    rows, driven on one replica alone and round-robin on the raw engines,
    then through the router with every counter at 0 just before (the
    main path's launches): 12 attention and 25 LayerNorm forward launches
@@ -229,8 +232,9 @@ Phases, each of which exits non-zero on failure:
    4 more requests answered by the survivor within the bound; (d) the
    main path of disaggregated serving at ``GPTConfig()`` (phase 8's
    weights, cache_len 1024, the default buckets) under bench.py:1232's
-   mixed-tenant load (6 latency clients x 3 requests of 3/5/6 prompt
-   tokens and 16 new; 2 bulk clients x 3 of 700 and 6 new), every counter
+   mixed-tenant load cut to 2 requests a client (6 latency clients x 2
+   of 3/5/6 prompt tokens and 16 new; 2 bulk clients x 2 of 700 and 6
+   new), every counter
    at 0 just before each leg: (i) a colocated ``DecodeEngine(slots=4)``,
    (ii) the main path, ``disagg_fleet(2 prefill + 2 decode, slots=2,
    fp32-resident, int8 wire, tenants latency (interactive, 250 ms
@@ -253,16 +257,16 @@ Phases, each of which exits non-zero on failure:
    families and a ``fleet_slo_burn`` gauge for each tenant.
 13. KV reuse and speculative decoding, after phase 12 and before the
    profiles, on phase 8's weights (``GPTConfig()``, cache_len 1024, the
-   default buckets) under bench.py:1472's traffic (12 clients, a shared
-   24-token system prompt plus unique 4-8 token tails, 12 new tokens, 2
-   slots, k = 4): (a) a plain ``DecodeEngine`` against the main path, the
-   same engine with ``PrefixPool(prefix_lens=(24,))`` and a self-draft
-   ``DraftModel(GPTConfig(), phase 8's scope, k=4)``, run twice (cold and
-   delta prefills, then full hits) with every counter at 0 just before:
-   24 LayerNorm forward launches in each cold prefill, delta prefill,
-   verify dispatch and step, and in each draft step and draft slot
-   prefill; prefill rows saved above 50%, the acceptance rate, spec
-   rounds and fallback steps, tokens/s both ways, the pool's insert,
+   default buckets) under bench.py:1472's traffic cut to 8 clients (a
+   shared 24-token system prompt plus unique 4-8 token tails, 12 new
+   tokens, 2 slots, k = 4): (a) a plain ``DecodeEngine`` against the
+   main path, the same engine with ``PrefixPool(prefix_lens=(24,))`` and
+   a self-draft ``DraftModel(GPTConfig(), phase 8's scope, k=4)``, run
+   twice (cold and delta prefills, then full hits) with every counter
+   at 0 just before: 24 LayerNorm forward launches in each cold prefill,
+   delta prefill, verify dispatch and step, and in each draft step and
+   draft slot prefill; prefill rows saved above 50%, the acceptance
+   rate, spec rounds and fallback steps, tokens/s both ways, the pool's insert,
    delta and full-hit times; then the two distances on the same inputs
    (verify column 0's logits against the step's, a delta prefill's k/v
    rows against a cold prefill's) and one delta prefill's, verify
@@ -288,7 +292,7 @@ Phases, each of which exits non-zero on failure:
    relative, step-1 gradients within 1e-3·max|grad|, the learning rate
    equal to the CPU's and to the schedule's closed form; (b) the ten
    update ops (dgc_momentum after its rampup at sparsity 0.999, dpsgd at
-   sigma 0) 3 updates each at word_emb's (30522, 768) and a (768,) f32
+   sigma 0) 2 updates each at word_emb's (30522, 768) and a (768,) f32
    parameter, card against CPU within 1e-5·max|param|, and ModelAverage,
    EMA and Lookahead over 5 steps of an fc model, card against CPU,
    each apply/restore round trip bit-identical; (c) full BERT-base
@@ -318,6 +322,35 @@ Phases, each of which exits non-zero on failure:
    built with Variable's operators (``* + - / **`` with scalars and
    Variables, reflected, unary minus) on the card within 1e-6 relative
    of the port on the CPU.
+16. the recurrent and sequence slice, after phase 15: (a) the Paddle
+   book's 06.understand_sentiment ``stacked_lstm_net`` at its
+   train_stacked_lstm.py settings (EMB 128, HID 512, 3 LSTM layers, the
+   middle one reversed, max pools, batch 128, ``Adagrad(0.002)``) over
+   ``dataset.imdb``'s 5,147-word vocabulary, ragged batches fed through
+   ``DataFeeder`` (padded per batch, lengths as ``words@SEQ_LEN``): 5
+   steps on the card and on the CPU from the same startup values (losses
+   within 1e-3 relative; step-1 gradients within 1e-3·max|grad| of each
+   parameter, or, below the max pools once a maximum sits at another
+   time step, within 5e-2 and, median and all together, within 3x what
+   the CPU moves itself under a one-ulp nudge of the embedding + 1e-3),
+   then the epoch's other 11 batches timed with every kernel counter at
+   0 just before (the main path, none of the five kernels: step median
+   and p90, real tokens/s, peak memory; one profiled step with the other
+   profiles: device busy, idle share, ``cudaLaunchKernel`` calls); (b)
+   its prediction saved and served by ``Predictor.from_model`` on the
+   card, 128 test reviews fed as ``create_lod_tensor(flat ids, [lens])``
+   and through ``DataFeeder``, bit-identical, within 1e-4 of the CPU
+   predictor; (c) ``rnn(LSTMCell)`` and ``rnn(GRUCell)`` with lengths
+   and ``is_reverse``, ``contrib.layers.basic_lstm`` (2 layers,
+   bidirectional), ``layers.lstm`` (``cudnn_lstm``, 2 layers,
+   bidirectional), ``dynamic_gru`` and ``dynamic_lstmp`` at B 128, T 63,
+   hidden 512, outputs and parameter gradients card vs CPU within
+   1e-3·max; (d) tests/test_book.py's ``rnn_encoder_decoder``
+   (``DynamicRNN``) and contrib-decoder chapters at hidden 512,
+   embedding 512, vocabulary 30,000, batch 16, T 24: 3 training steps'
+   losses within 1e-3 of the CPU's, and ``BeamSearchDecoder``'s per-step
+   tokens and parents equal to the CPU's up to the first near-tie (as
+   9a).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -333,6 +366,7 @@ their losses are the same in every process.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import os
@@ -362,6 +396,15 @@ RTOL_FA_BWD_F32 = 1e-4          # max|d| <= 1e-4 * max|grad|
 ATOL_LN_BWD_F32 = 1e-3
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+T_START = time.monotonic()
+
+
+def mark(what):
+    """The seconds since the script started and what comes next, on
+    standard error: a run stopped at its time limit shows there how far
+    it got."""
+    print("chip_smoke at %.1f s: %s" % (time.monotonic() - T_START, what),
+          file=sys.stderr, flush=True)
 
 
 def fail(msg):
@@ -1097,8 +1140,10 @@ def profile_train_step(step, tag="train step", extra=None):
     """Device busy vs host wall of one training step, the device time by
     kernel, the GEMMs' device time by input dtype, the dtype conversions'
     (``aten::_to_copy``) launches and time, and the host time of the
-    lowering's three ranges; ``extra(prof, numbers)`` reads more of the
-    same profile. Returns those numbers."""
+    lowering's three ranges; ``extra(prof, numbers, averages)`` reads more
+    of the same profile (``averages``: its ``key_averages()``, grouped once
+    here: each call walks every event again, tens of seconds for a
+    translation's). Returns those numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1110,7 +1155,8 @@ def profile_train_step(step, tag="train step", extra=None):
         prof_wall = (time.monotonic() - t0) * 1e3
     # device-side events only (kernels and copies), without the lowering's
     # profiler ranges, which the profiler also reports on the device
-    events = [e for e in prof.key_averages()
+    avgs = prof.key_averages()
+    events = [e for e in avgs
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
               and not e.key.startswith("paddle_tpu_torch::")]
@@ -1163,7 +1209,7 @@ def profile_train_step(step, tag="train step", extra=None):
             print("  GEMM %-4s %8.3f ms/step %s" % (dt, us / 1e3, name),
                   flush=True)
     # host side: the lowering's three profiler ranges, and kernel launches
-    host = {e.key: e for e in prof.key_averages()
+    host = {e.key: e for e in avgs
             if e.device_type == DeviceType.CPU
             and (e.key.startswith("paddle_tpu_torch::")
                  or e.key == "cudaLaunchKernel")}
@@ -1179,7 +1225,7 @@ def profile_train_step(step, tag="train step", extra=None):
     stats["launch_calls"] = (host["cudaLaunchKernel"].count
                              if "cudaLaunchKernel" in host else 0)
     if extra is not None:
-        extra(prof, stats)
+        extra(prof, stats, avgs)
     return stats
 
 
@@ -1479,6 +1525,10 @@ def sdpa_kernel_names():
 CHECK_IMAGE, CHECK_BATCH, CHECK_STEPS = 64, 4, 3
 # 7d: bench.py's ResNet-50 measurement (bench.py:682-718)
 BENCH_IMAGE, BENCH_BATCH, BENCH_SEED = 224, 128, 7
+# 7b op by op: 7d's distinct backward shapes at a batch cut to 16, so that
+# the CPU's f32 side takes seconds (at 128 it took two minutes); every
+# channel and spatial width stays 7d's
+OP_CHECK_BATCH = 16
 BENCH_FLOPS_PER_IMAGE = 3 * 3.86e9           # bench.py:733
 CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
 LAYOUT_KERNELS = re.compile(r"nchwToNhwc|nhwcToNchw|nchw2nhwc|nhwc2nchw",
@@ -1742,7 +1792,8 @@ def bf16_ulp_ratio(got, want):
 def amp_backward_shapes(fluid, resnet):
     """The distinct (op type, input shapes, attrs) of the conv2d,
     batch_norm and max pool2d ops of bench.py's decorated ResNet-50 at
-    batch BENCH_BATCH, 224x224: what 7d's backward runs."""
+    224x224, batch cut to OP_CHECK_BATCH: what 7d's backward runs, on
+    fewer images."""
     main, _, _ = resnet_program(fluid, resnet, BENCH_IMAGE, 0.1, amp=True)
     block, seen = main.global_block(), {}
     for op in block.ops:
@@ -1750,7 +1801,8 @@ def amp_backward_shapes(fluid, resnet):
                 op.type == "pool2d" and op.attr("pooling_type") != "max"):
             continue
         slot = {"conv2d": "Input"}.get(op.type, "X")
-        x = (BENCH_BATCH,) + tuple(block.var(op.input(slot)[0]).shape[1:])
+        x = (OP_CHECK_BATCH,) + tuple(
+            block.var(op.input(slot)[0]).shape[1:])
         w = (tuple(block.var(op.input("Filter")[0]).shape)
              if op.type == "conv2d" else ())
         attrs = {k: v for k, v in sorted(op.attrs.items())
@@ -1762,13 +1814,14 @@ def amp_backward_shapes(fluid, resnet):
 def amp_backward_vs_cpu(fluid, resnet, lowering):
     """Phase 7b, op by op: the backward of each distinct conv2d (dInput
     and dFilter), batch_norm (dX with bfloat16 X and f32 statistics,
-    dScale, dBias) and max pool of 7d's bf16 program, at its shapes and
-    batch, through the port's lowering on the card (as a run enters it,
-    in f32_precision) against the port's CPU lowering in f32 on the same
-    bfloat16 values, rounded once to bfloat16. Bounds: bfloat16 gradients
-    within one bfloat16 ulp + 1e-3·max (the f32 sums of card and CPU are
-    taken in other orders, so a value on a rounding boundary may land on
-    its neighbour); f32 gradients (dScale, dBias) within 1e-3·max|grad|.
+    dScale, dBias) and max pool of 7d's bf16 program, at its shapes
+    (batch OP_CHECK_BATCH), through the port's lowering on the card (as a
+    run enters it, in f32_precision) against the port's CPU lowering in
+    f32 on the same bfloat16 values, rounded once to bfloat16. Bounds:
+    bfloat16 gradients within one bfloat16 ulp + 1e-3·max (the f32 sums of
+    card and CPU are taken in other orders, so a value on a rounding
+    boundary may land on its neighbour); f32 gradients (dScale, dBias)
+    within 1e-3·max|grad|.
     Control: the dFilter of the convolution with the longest reduction,
     summed image by image in bfloat16 (a split-K with bfloat16 partials,
     the fault a reduced-precision weight gradient would have), must fail
@@ -1833,7 +1886,7 @@ def amp_backward_vs_cpu(fluid, resnet, lowering):
     shape, ins, attrs, cot, want = longest
     acc = None
     with lowering.f32_precision():
-        for i in range(BENCH_BATCH):
+        for i in range(OP_CHECK_BATCH):
             one = {"Input": [ins["Input"][0][i:i + 1]],
                    "Filter": ins["Filter"]}
             g, = run("conv2d", one, attrs, ("Filter",), "Output",
@@ -1847,7 +1900,7 @@ def amp_backward_vs_cpu(fluid, resnet, lowering):
           "(bfloat16: one ulp + 1e-3·max; f32: 1e-3·max|grad|; pass <= 1): "
           "%s; control (dFilter of %s summed image by image in bfloat16, "
           "must fail): %.2f" % (
-              torch.cuda.get_device_name(0), BENCH_BATCH, BENCH_IMAGE,
+              torch.cuda.get_device_name(0), OP_CHECK_BATCH, BENCH_IMAGE,
               BENCH_IMAGE, len(shapes),
               time.monotonic() - t0,
               "; ".join("%s %.3f (%s)" % (n, r, where)
@@ -1999,7 +2052,7 @@ def resnet_profile(step, stats, card):
     reduction kernels)."""
     from torch.autograd import DeviceType
 
-    def extra(prof, st):
+    def extra(prof, st, avgs):
         dtypes = _input_dtypes(prof)
         conv, layout, casts, optim = {}, [0, 0.0], [0, 0.0], [0, 0.0]
         for e in prof.events():
@@ -2055,13 +2108,15 @@ def resnet_profile(step, stats, card):
 # 9, initialised once on the CPU. 8a: one 50-token prompt in a bucket of 64
 # (cache_len 128), then 16 steps teacher-forced with the card's tokens, on
 # the card and on the CPU. 8b/8c: 8 slots, cache_len 1024, the default
-# buckets, 8 closed-loop clients x 3 requests, prompts of 5 / 40 / 200 /
-# 700 tokens in turn, 64 new tokens each.
+# buckets, 8 closed-loop clients x 2 requests, prompts of 5 / 40 / 200 /
+# 700 tokens in turn, 32 new tokens each (cut from 3 requests a client and
+# 64 new tokens to keep the whole script short: each stream is also served
+# alone).
 GPT_SEED = 9
 GPT_CHECK_CACHE, GPT_CHECK_BUCKET = 128, 64
 GPT_CHECK_PROMPT, GPT_CHECK_STEPS = 50, 16
 GPT_SLOTS, GPT_CACHE = 8, 1024
-GPT_CLIENTS, GPT_PER_CLIENT, GPT_MAX_NEW = 8, 3, 64
+GPT_CLIENTS, GPT_PER_CLIENT, GPT_MAX_NEW = 8, 2, 32
 GPT_PROMPT_LENS = (5, 40, 200, 700)
 GPT_TOL = 1e-3
 GPT_WAIT = 600.0                 # s: the bound of every wait for a stream
@@ -2185,8 +2240,8 @@ def gpt_vs_cpu(fluid, serving, cfg, scope, cache_len=GPT_CHECK_CACHE,
 
 
 def gpt_prompts(vocab, seed=GPT_SEED):
-    """One prompt per request, client c sending requests 3c .. 3c+2 with
-    lengths cycling through GPT_PROMPT_LENS."""
+    """One prompt per request, client c sending requests 2c and 2c + 1,
+    with lengths cycling through GPT_PROMPT_LENS."""
     rng = np.random.default_rng(seed)
     n = GPT_CLIENTS * GPT_PER_CLIENT
     return [rng.integers(0, vocab, GPT_PROMPT_LENS[i % len(GPT_PROMPT_LENS)])
@@ -2418,11 +2473,11 @@ def gpt_profile(step, stats, card):
     each decode_cache_write (with the clone of its layer), the stack of
     the 12 layers (CatArrayBatchedCopy), and the other copies (the heads'
     reshapes of K and V)."""
-    def extra(prof, st):
+    def extra(prof, st, avgs):
         from torch.autograd import DeviceType
 
         split = {}
-        for e in prof.key_averages():
+        for e in avgs:
             if e.device_type != DeviceType.CUDA \
                     or e.self_device_time_total <= 0 \
                     or not CACHE_COPY_KERNELS.search(e.key):
@@ -2454,7 +2509,7 @@ def gpt_profile(step, stats, card):
 NMT_SEED = 7
 NMT_BATCH, NMT_SRC, NMT_TGT, NMT_MAX_OUT, NMT_BEAM = 32, 32, 32, 48, 4
 NMT_CHECK_BATCH = 4
-NMT_ITERS, NMT_B128_ITERS = 8, 6
+NMT_ITERS, NMT_B128_ITERS = 4, 3    # timed translations
 NMT_TOL = 1e-4          # 9a: encoder output and beam scores (of max)
 # 9a: a step's selection is a near-tie where two of its beam + 1 best
 # candidates are closer than this share of their magnitude
@@ -2763,12 +2818,13 @@ def nmt_repair_ab(fluid, nmt, lowering, card, cfg=None):
 def nmt_copy_launches(translate, card):
     """With the other profiles: the copy kernels of one b32 translation
     with the full op list, classified as nmt_profile classifies them (the
-    live-op translation's are nmt_profile's)."""
+    live-op translation's are nmt_profile's). The device's activity only:
+    the host's ops are not read here, and their events make a profile of
+    ~15,000 eager ops slow to read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         translate()
         torch.cuda.synchronize()
     n, us, busy = 0, 0.0, 0.0
@@ -2783,6 +2839,9 @@ def nmt_copy_launches(translate, card):
                 or "index" in e.key.lower()):
             n += e.count
             us += e.self_device_time_total
+    if busy <= 0 or n < 1:
+        fail("9b repair: the device-only profile saw %d copies in %.3f ms "
+             "busy" % (n, busy / 1e3))
     print("9b repair [%s] nmt b%d translation with the full op list: copy "
           "%d launches %.3f ms of %.3f ms busy" % (
               card, NMT_BATCH, n, us / 1e3, busy / 1e3), flush=True)
@@ -2796,11 +2855,11 @@ def nmt_profile(translate, stats, card):
     kernels by device time and cudaLaunchKernel (profile_train_step), and
     the sort behind top_k over (B, beam·V) each step and the copies (the
     stacked step outputs, the caches' gathers and writes)."""
-    def extra(prof, st):
+    def extra(prof, st, avgs):
         from torch.autograd import DeviceType
 
         split = {}
-        for e in prof.key_averages():
+        for e in avgs:
             if e.device_type != DeviceType.CUDA \
                     or e.self_device_time_total <= 0:
                 continue
@@ -3334,7 +3393,7 @@ def ctr_profile(epoch, stats, card):
     gradient (the index, sort and scatter kernels, by name: autograd runs
     the backward on its own device thread, outside the backward range),
     Adam (the optimizer range's kernels) and the host-to-device copies."""
-    def extra(prof, st):
+    def extra(prof, st, avgs):
         from torch.autograd import DeviceType
 
         split = {"embedding gather and gradient": [0, 0.0],
@@ -3345,7 +3404,7 @@ def ctr_profile(epoch, stats, card):
                 ks = _subtree_kernels(e)
                 split["adam"][0] += len(ks)
                 split["adam"][1] += sum(d for _, d in ks)
-        for e in prof.key_averages():
+        for e in avgs:
             if e.device_type != DeviceType.CUDA \
                     or e.self_device_time_total <= 0:
                 continue
@@ -3379,15 +3438,18 @@ def ctr_profile(epoch, stats, card):
 # ---------------------------------------------------------------------------
 # 11a: AnalysisConfig / create_paddle_predictor on phase 4's model. 11b:
 # BERT-base (phase 4's seed and width) pruned to encoder_out (B, 128, 768),
-# behind ModelRegistry + ServingServer: 4 closed-loop urllib clients x 16
-# :predict requests of 1-4 rows. 11c: phase 8's engine configuration
-# published behind the same server, phase 8c's chat traffic streamed over
-# chunked :generate. 11d: the standalone entry point in a child process.
-# 11e: 11b's load and a phase-8c-sized load with telemetry off and on.
-HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_MAX_ROWS = 4, 16, 4
+# behind ModelRegistry + ServingServer: 4 closed-loop urllib clients x 8
+# :predict requests of 1-4 rows (cut from 16 to keep the whole script
+# short: each request held its client about 1.4 s). 11c: phase
+# 8's engine configuration published behind the same server, phase 8c's
+# chat traffic streamed over chunked :generate. 11d: the standalone
+# entry point in a child process. 11e: a quarter of 11b's load and a
+# phase-8c-sized load with telemetry off and on.
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_MAX_ROWS = 4, 8, 4
 HTTP_TOL = 1e-3                  # x max|x|, as phase 4 holds card vs CPU
 HTTP_WAIT = 300.0                # s: the bound of every wait in phase 11
 HTTP_CANCEL_AFTER = 3            # tokens a client reads before hanging up
+HTTP_TELEMETRY_REQUESTS = 8      # 11e: the first of 11b's requests
 
 
 def http_post(url, doc, timeout=HTTP_WAIT):
@@ -3519,7 +3581,7 @@ def json_round_trip_ms(reply):
 def http_predict_phase(fluid, serving, ca, cl, bert, dirname, card,
                        cfg=None, seq=SEQ):
     """11b: BERT-base pruned to encoder_out behind ModelRegistry.load and
-    ServingServer; 4 closed-loop clients x 16 :predict requests of 1-4 rows
+    ServingServer; 4 closed-loop clients x 8 :predict requests of 1-4 rows
     with every counter at 0 just before (12 attention and 25 LayerNorm
     forward launches per dispatch); each reply within 1e-3 x max|x| of the
     same rows through a solo card Predictor. Returns the registry, the
@@ -3915,11 +3977,13 @@ def http_cli_phase(dirname, request, reply):
 
 def telemetry_cost(url, requests, eng, prompts, solo, card,
                    max_new=GPT_MAX_NEW):
-    """11e: 11b's :predict load and a phase-8c-sized decode load (direct to
-    the engine, as 8c times it), each run twice with PADDLE_TPU_TELEMETRY
+    """11e: the first HTTP_TELEMETRY_REQUESTS of 11b's :predict requests
+    from 11b's clients and a phase-8c-sized decode load (direct to the
+    engine, as 8c times it), each run twice with PADDLE_TPU_TELEMETRY
     off and on in alternation. The cost is a finding, not a gate; the
     decode load's tokens must still be the solo ones."""
     out = {}
+    requests = requests[:HTTP_TELEMETRY_REQUESTS]
     for mode in ("off", "on"):
         os.environ["PADDLE_TPU_TELEMETRY"] = mode
         try:
@@ -3950,21 +4014,22 @@ def telemetry_cost(url, requests, eng, prompts, solo, card,
 # ---------------------------------------------------------------------------
 # 12a: 11b's BERT-base (encoder_out, seq 128, f32, seed 1234) behind
 # local_fleet(n_replicas=4, per_device=True) with bench.py:953's buckets
-# and queue, and its load: 8 closed-loop clients x 30 requests of 1-4
-# rows, once round-robin on the raw engines, once through the router.
+# and queue, and its load cut from 8 closed-loop clients x 30 requests of
+# 1-4 rows to 8 x 15 (to keep the whole script short), once round-robin
+# on the raw engines, once through the router.
 # 12b: failover drills on that fleet. 12c: two worker processes over a
 # FileStore, one SIGKILLed. 12d: GPT-2 small (phase 8's scope) served
 # colocated and disaggregated under bench.py:1232's mixed-tenant load,
 # then a decode-replica kill under an 80-token canary. 12e: the lossless
 # fleet token for token against a colocated engine; the int8-resident
 # cache. 12f: the lossless fleet behind the HTTP server.
-FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 30
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 15
 FLEET_ROWS, FLEET_BATCHES = (1, 2, 3, 4), (1, 2, 4, 8, 16)
 FLEET_TOL = 1e-3                 # x max|x|: replies against a solo bucket
 FLEET_WAIT = 300.0               # s: the bound of every wait in phase 12
 DIS_LAT_CLIENTS, DIS_LAT_LENS, DIS_LAT_NEW = 6, (3, 5, 6), 16
 DIS_BULK_CLIENTS, DIS_BULK_LEN, DIS_BULK_NEW = 2, 700, 6
-DIS_PER_CLIENT, DIS_CANARY_NEW = 3, 80
+DIS_PER_CLIENT, DIS_CANARY_NEW = 2, 80     # bench.py sends 3 a client
 DIS_SLO_MS = 250.0               # the latency tenant's per-token SLO
 
 
@@ -4084,7 +4149,9 @@ class BeaconWatch:
     replica at each tick and the replicas the monitor names dead. Also
     the longest pause of each garbage collection generation
     (``gc.callbacks``): a collection holds the GIL, and so stops every
-    beater of an in-process fleet at once."""
+    beater of an in-process fleet at once. While :meth:`hold` is active
+    the tick still records what it sees but hands the router no dead
+    replica."""
 
     def __init__(self, router):
         import gc
@@ -4093,6 +4160,7 @@ class BeaconWatch:
         self.orig = router.monitor.dead_peers
         self.worst, self.would = 0.0, set()
         self.gc_worst, self._gc0 = {}, None
+        self.held = False
         router.monitor.dead_peers = self._dead_peers
         gc.callbacks.append(self._gc)
 
@@ -4116,7 +4184,23 @@ class BeaconWatch:
         self.worst = max([self.worst] + list(ages.values()))
         dead = self.orig(members=members, now=now)
         self.would |= set(dead)
-        return dead
+        return set() if self.held else dead
+
+    @contextlib.contextmanager
+    def hold(self, router, ids):
+        """Hold the health tick around work that bypasses the router and
+        starves the replicas' beaters (12a's contention measurement);
+        on leaving, wait until every replica has beaten again within half
+        the silence bound, so the next tick judges fresh beacons."""
+        self.held = True
+        try:
+            yield
+        finally:
+            bound = router.config.dead_after / 2
+            wait_until(lambda: max(self.silences(set(ids)).values(),
+                                   default=0.0) < bound,
+                       "the replicas to beat again after the hold")
+            self.held = False
 
     def report(self, tag, router, ids):
         """Print the fleet's live set, its replica_dead count, the
@@ -4143,7 +4227,7 @@ class BeaconWatch:
             gc.callbacks.remove(self._gc)
 
 
-def fleet_contention(preds, feeds, card, forwards=20):
+def fleet_contention(preds, feeds, card, forwards=10):
     """Where four in-process replicas' time goes, without their engines:
     1, 2 and 4 threads each running `forwards` forwards of its own
     predictor on `feeds`, then 4 with a 0.5 ms GIL switch interval and 4
@@ -4310,9 +4394,10 @@ def fleet_phase(fluid, serving, ca, cl, bert, enc_dir, tmp, card,
         fail("12a: the router did not spread over every replica: %s"
              % spread)
     watch.report("12a after the loads", router, ids)
-    stats["contention"] = fleet_contention(
-        [e.predictor for e in engines], feeds[3], card)
-    watch.report("12a contention", router, ids)
+    with watch.hold(router, ids):
+        stats["contention"] = fleet_contention(
+            [e.predictor for e in engines], feeds[3], card)
+    watch.report("12a contention (health tick held)", router, ids)
 
     # -- 12b: failover drills. kill() and the drain on a router of the
     # same model and engine options: replicas 1 and 2 serve; 0 and the
@@ -4558,14 +4643,15 @@ def dis_tenants(disagg, model, capped=False):
 
 
 def dis_requests(vocab):
-    """bench.py:1232's mixed-tenant load: per client, (tenant, prompt,
-    new tokens) x 3; 6 latency clients cycle 3/5/6-token prompts, 2 bulk
-    clients send 700-token prompts."""
+    """bench.py:1232's mixed-tenant load, cut to DIS_PER_CLIENT requests a
+    client: per client, (tenant, prompt, new tokens); 6 latency clients
+    cycle 3/5/6-token prompts, each from its own offset, 2 bulk clients
+    send 700-token prompts."""
     rng = np.random.default_rng(GPT_SEED + 12)
     clients = []
     for c in range(DIS_LAT_CLIENTS):
         clients.append([("latency", rng.integers(0, vocab, DIS_LAT_LENS[
-            k % len(DIS_LAT_LENS)]).astype(np.int64), DIS_LAT_NEW)
+            (c + k) % len(DIS_LAT_LENS)]).astype(np.int64), DIS_LAT_NEW)
             for k in range(DIS_PER_CLIENT)])
     for c in range(DIS_BULK_CLIENTS):
         clients.append([("bulk", rng.integers(0, vocab, DIS_BULK_LEN)
@@ -4907,12 +4993,12 @@ def disagg_phase(fluid, serving, ca, cl, cfg, scope, card, tmp):
 # phase 13: KV reuse and speculative decoding
 # ---------------------------------------------------------------------------
 # bench.py:1472 _measure_spec_serving's traffic on phase 8's GPTConfig()
-# weights: 12 clients, one shared 24-token system prompt plus a unique tail
-# of 4-8 tokens each (rng seed 0, drawn in the lane's order), 12 new tokens,
-# 2 slots, cache_len 1024, the default buckets, drafts of k = 4; 6 two-turn
-# conversations on 2 slots (turn 1 the first 6-8 prompt tokens, turn 2 four
-# new ones, 6 new tokens each turn).
-SPEC_CLIENTS, SPEC_SHARED, SPEC_MAX_NEW = 12, 24, 12
+# weights, cut from 12 clients to 8: one shared 24-token system prompt plus
+# a unique tail of 4-8 tokens each (rng seed 0, drawn in the lane's order),
+# 12 new tokens, 2 slots, cache_len 1024, the default buckets, drafts of
+# k = 4; 6 two-turn conversations on 2 slots (turn 1 the first 6-8 prompt
+# tokens, turn 2 four new ones, 6 new tokens each turn).
+SPEC_CLIENTS, SPEC_SHARED, SPEC_MAX_NEW = 8, 24, 12
 SPEC_SLOTS, SPEC_K, SPEC_SESSIONS, SPEC_TURN_NEW = 2, 4, 6, 6
 # host bytes of the pool and the tier: an fp32 entry or handoff of one
 # GPTConfig() slot at cache_len 1024 is 75.5 MB, and the JAX package's
@@ -5417,7 +5503,7 @@ def spec_phase(fluid, serving, gpt, ca, cl, cfg, scope, card):
 # each encoder layer's output as a checkpoint. 14a: BERT-base width at
 # depth 2 (batch 2, dropout 0), 3 steps on the card and on the CPU. 14b:
 # the ten update ops at word_emb's (30522, 768) and a (768,) f32
-# parameter, 3 updates each on the card and on the CPU; ModelAverage, EMA
+# parameter, 2 updates each on the card and on the CPU; ModelAverage, EMA
 # and Lookahead over 5 steps of a small fc model. 14c: full BERT-base
 # (dropout 0.1, batch 8, seq 128), TRAIN_WARMUP + TRAIN_STEPS steps without
 # and with RecomputeOptimizer from the same parameters.
@@ -5426,6 +5512,7 @@ SURFACE_TOL = 1e-3      # 14a: losses (relative), step-1 gradients (of max)
 UPDATE_TOL = 1e-5       # 14b: x max|param|
 LR_TOL = 1e-6           # the fetched learning rate against its closed form
 UPDATE_SHAPES = ((30522, 768), (768,))
+UPDATE_STEPS = 2        # 14b: updates of each op (the CPU's are the cost)
 
 
 def no_decay(param):
@@ -5551,7 +5638,8 @@ def update_cases(shape, rng):
     BERT's scale (params N(0, 0.02), gradients N(0, 1e-3)), accumulators
     that are nonnegative where the update takes a root of them."""
     def normal(scale):
-        return (rng.standard_normal(shape) * scale).astype(np.float32)
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
 
     def pos(scale):
         return np.abs(normal(scale))
@@ -5627,8 +5715,8 @@ def update_cases(shape, rng):
 
 
 def run_updates(lower, device, ins, attrs, carry, grads):
-    """3 updates of one op on `device`: each takes the next gradient of
-    `grads` and the state the last one left; returns the final outputs."""
+    """One update of one op on `device` for each gradient of `grads`, each
+    from the state the last one left; returns the final outputs."""
     from paddle_tpu_torch.ops.registry import LowerContext
 
     gen = torch.Generator(device=device)
@@ -5652,8 +5740,8 @@ def update_ops_vs_cpu():
         rng = np.random.default_rng(SEED)
         for op, (ins, attrs, carry) in update_cases(shape, rng).items():
             grads = [ins["Grad"]] + [
-                (rng.standard_normal(shape) * 1e-3).astype(np.float32)
-                for _ in range(2)]
+                rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(1e-3) for _ in range(UPDATE_STEPS - 1)]
             lower = get_lowering(op)
             got = run_updates(lower, "cuda", ins, attrs, carry, grads)
             want = run_updates(lower, "cpu", ins, attrs, carry, grads)
@@ -5670,9 +5758,10 @@ def update_ops_vs_cpu():
                          op, shape, err, UPDATE_TOL, scale, moved))
             worst[(op, shape)] = err / scale
             del got, want
-    print("14b update ops, card vs CPU, 3 updates at %s (max|d| of "
+    print("14b update ops, card vs CPU, %d updates at %s (max|d| of "
           "max|param|; bound %.0e): %s" % (
-              " and ".join(str(s) for s in UPDATE_SHAPES), UPDATE_TOL,
+              UPDATE_STEPS, " and ".join(str(s) for s in UPDATE_SHAPES),
+              UPDATE_TOL,
               ", ".join("%s %.2e/%.2e" % (op, worst[(op, UPDATE_SHAPES[0])],
                                           worst[(op, UPDATE_SHAPES[1])])
                         for op in sorted({k[0] for k in worst}))),
@@ -6100,11 +6189,599 @@ def operator_vs_cpu(fluid):
         fail("15d: the operator program on the card differs from the CPU")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the recurrent and sequence slice
+# ---------------------------------------------------------------------------
+# 16a the Paddle book's 06.understand_sentiment stacked_lstm_net at the
+# settings of its train_stacked_lstm.py (EMB_DIM 128, HID_DIM 512,
+# STACKED_NUM 3, CLASS_DIM 2, BATCH_SIZE 128, Adagrad(0.002)) over
+# dataset.imdb's vocabulary, fed ragged batches through DataFeeder: 5 steps
+# card vs CPU, then the timed steps (the main path); 16b the prediction
+# saved and served by Predictor.from_model; 16c the cells and multi-layer
+# recurrent ops at B 128, T 63, hidden 512, card vs CPU; 16d the recurrent
+# seq2seq chapters (DynamicRNN, TrainingDecoder, BeamSearchDecoder) at
+# hidden 512, embedding 512, vocabulary 30,000, batch 16.
+RNN_EMB, RNN_HID, RNN_STACKED, RNN_CLASSES = 128, 512, 3, 2
+RNN_BATCH, RNN_LR, RNN_SEED = 128, 0.002, 1606
+RNN_CHECK_STEPS = 5
+RNN_TOL = 1e-3          # 16a, 16c, 16d: losses (relative), values (of max)
+RNN_PRED_TOL = 1e-4     # 16b: the card's probabilities against the CPU's
+RNN_FLIP_TOL = 5e-2     # 16a: a gradient below the max pools once one moves
+CELL_B, CELL_T, CELL_H = 128, 63, 512
+MT_HID, MT_EMB, MT_VOCAB, MT_BATCH, MT_T, MT_BEAM = 512, 512, 30000, 16, 24, 4
+MT_STEPS = 3
+MT_NEAR_TIE = 2e-6
+
+
+def stacked_lstm_net(fluid, dict_dim, emb_dim=RNN_EMB, hid_dim=RNN_HID,
+                     stacked_num=RNN_STACKED, class_dim=RNN_CLASSES):
+    """The book's stacked_lstm_net, built with fluid.layers as the chapter
+    builds it; its per-token fcs take num_flatten_dims=2, as the padded
+    (B, T, D) input needs. Returns words, label, prediction, loss."""
+    words = fluid.data(name="words", shape=[None, None], dtype="int64",
+                       lod_level=1)
+    label = fluid.data(name="label", shape=[None, 1], dtype="int64")
+    emb = fluid.layers.embedding(input=words, size=[dict_dim, emb_dim],
+                                 is_sparse=True)
+    fc1 = fluid.layers.fc(input=emb, size=hid_dim, num_flatten_dims=2)
+    lstm1, _ = fluid.layers.dynamic_lstm(input=fc1, size=hid_dim)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = fluid.layers.fc(input=inputs, size=hid_dim, num_flatten_dims=2)
+        lstm, _ = fluid.layers.dynamic_lstm(input=fc, size=hid_dim,
+                                            is_reverse=(i % 2) == 0)
+        inputs = [fc, lstm]
+    fc_last = fluid.layers.sequence_pool(input=inputs[0], pool_type="max")
+    lstm_last = fluid.layers.sequence_pool(input=inputs[1], pool_type="max")
+    prediction = fluid.layers.fc(input=[fc_last, lstm_last], size=class_dim,
+                                 act="softmax")
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(input=prediction,
+                                                        label=label))
+    return words, label, prediction, loss
+
+
+def cpu_init(fluid, startup):
+    """The startup run on the CPU; returns (CPU scope, a copy for the card
+    run, which its first run moves to the card)."""
+    cpu_scope, scope = fluid.Scope(), fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    for n, t in cpu_scope.items():
+        scope.set(n, t.clone())
+    return cpu_scope, scope
+
+
+def check_values(tag, names, got, want, tol=RNN_TOL):
+    """Each of `got` within tol·max|want| of `want` (finite, same shape);
+    returns the worst share and its name."""
+    worst = (-1.0, None)
+    for n, a, w in zip(names, got, want):
+        if np.shape(a) != np.shape(w) or not np.isfinite(a).all():
+            fail("%s: %s is %s on the card, %s on the CPU, or not finite"
+                 % (tag, n, np.shape(a), np.shape(w)))
+        rel = rel_err(a, w)
+        if rel > worst[0]:
+            worst = (rel, n)
+    if worst[0] > tol:
+        fail("%s: %s is %.3e of its max off the CPU's (bound %g)" % (
+            tag, worst[1], worst[0], tol))
+    return worst
+
+
+def pool_flips(got, want):
+    """(row, feature) pairs of max-pool inputs (B, T, D) whose set of time
+    steps holding the maximum differs between the two runs."""
+    return sum(int(((a == a.max(1, keepdims=True))
+                    != (w == w.max(1, keepdims=True))).any(1).sum())
+               for a, w in zip(got, want))
+
+
+def sentiment_phase(fluid, paddle, ca, cl):
+    """16a. The stacked LSTM net trained RNN_CHECK_STEPS steps on the card
+    and on the CPU from the same startup values, losses within RNN_TOL
+    relative; then the card run timed over the rest of the epoch's
+    batches with every kernel counter at 0 just before (the main path).
+
+    The step-1 gradients: each parameter within RNN_TOL·max|grad|, held
+    as such for the final fc's, which read the pools' maxima. The two max pools read (B, 63, D) inputs whose padded
+    steps converge to a fixed point: their maxima tie or nearly tie, and
+    a maximum that moves to another step (pool_flips) moves every
+    gradient below the pools by far more than rounding: the CPU moves its
+    own lstm_2.w_0 gradient by 1.7e-2 of its max when the embedding moves
+    by one f32 ulp (printed each run, "own"). Where the card's maxima sit
+    at other steps than the CPU's, those parameters are each held within
+    RNN_FLIP_TOL, and their median and all of them together within
+    min(RNN_FLIP_TOL, 3·own + RNN_TOL), as 7a holds ResNet's.
+    Returns its launches, the pieces 16b and the profile need, and the
+    numbers."""
+    word_dict = paddle.dataset.imdb.word_dict()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = RNN_SEED
+    with fluid.program_guard(main, startup):
+        words, label, prediction, loss = stacked_lstm_net(
+            fluid, len(word_dict))
+        fluid.optimizer.Adagrad(learning_rate=RNN_LR).minimize(loss)
+    ops = main.global_block().ops
+    pools = [i for i, op in enumerate(ops) if op.type == "sequence_pool"]
+    pool_in = [ops[i].input("X")[0] for i in pools]
+    end = next(i for i, op in enumerate(ops) if op.type == "backward")
+    params = sorted(p.name for p in main.all_parameters())
+    below = set(params) - {n for op in ops[pools[-1] + 1:end]
+                           for n in op.input_arg_names}
+    emb, = [op.input("W")[0] for op in ops if op.type == "lookup_table_v2"]
+    cpu_scope, scope = cpu_init(fluid, startup)
+    nudged = fluid.Scope()
+    for n, t in cpu_scope.items():
+        nudged.set(n, t.clone())
+    w = nudged[emb]
+    nudged.set(emb, torch.nextafter(w, torch.full_like(w, float("inf"))))
+    batches = list(paddle.batch(paddle.dataset.imdb.train(word_dict),
+                                RNN_BATCH)())
+    feeder = fluid.DataFeeder(feed_list=[words, label],
+                              place=fluid.CUDAPlace(0))
+    cpu_feeder = fluid.DataFeeder(feed_list=[words, label],
+                                  place=fluid.CPUPlace())
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    grads = [p + "@GRAD" for p in params]
+    losses, worst_loss = [], 0.0
+    for step in range(RNN_CHECK_STEPS):
+        fetch = [loss] + (grads + pool_in if step == 0 else [])
+        card = exe.run(main, feed=feeder.feed(batches[step]),
+                       fetch_list=fetch, scope=scope)
+        cpu = cpu_exe.run(main, feed=cpu_feeder.feed(batches[step]),
+                          fetch_list=fetch, scope=cpu_scope)
+        rel = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+        worst_loss = max(worst_loss, rel)
+        losses.append((float(card[0]), float(cpu[0])))
+        if not np.isfinite(float(card[0])) or rel > RNN_TOL:
+            fail("16a step %d: loss %.7f on the card, %.7f on the CPU" % (
+                step, float(card[0]), float(cpu[0])))
+        if step == 0:
+            n = len(grads)
+            card_g, cpu_g = card[1:1 + n], cpu[1:1 + n]
+            flips = pool_flips(card[1 + n:], cpu[1 + n:])
+            own = cpu_exe.run(main, feed=cpu_feeder.feed(batches[0]),
+                              fetch_list=grads + pool_in, scope=nudged)
+            own_flips = pool_flips(own[n:], cpu[1 + n:])
+            own = own[:n]
+    del cpu_scope, nudged
+    rels = {p: rel_err(a, w) for p, a, w in zip(params, card_g, cpu_g)}
+    owns = {p: rel_err(a, w) for p, a, w in zip(params, own, cpu_g)}
+    if not all(np.isfinite(a).all() for a in card_g):
+        fail("16a: a step-1 gradient is not finite on the card")
+    print("16a step-1 gradients, max|d|/max|grad| per parameter, card vs "
+          "CPU (the CPU against itself with %s one f32 ulp up):" % emb)
+    rows = ["%s %.2e (%.2e)" % (p, rels[p], owns[p]) for p in params]
+    for i in range(0, len(rows), 4):
+        print("  " + ", ".join(rows[i:i + 4]))
+    lower = sorted(below)
+    median = float(np.median([rels[p] for p in lower]))
+    dist = grad_dist([card_g[params.index(p)] for p in lower],
+                     [cpu_g[params.index(p)] for p in lower])
+    own_median = float(np.median([owns[p] for p in lower]))
+    own_dist = grad_dist([own[params.index(p)] for p in lower],
+                         [cpu_g[params.index(p)] for p in lower])
+    bound = min(RNN_FLIP_TOL, 3 * max(own_median, own_dist) + RNN_TOL)
+    over = sorted(((r, p) for p, r in rels.items() if r > RNN_TOL),
+                  reverse=True)
+    lens = [[len(w) for w, _ in b] for b in batches]
+    print("16a stacked_lstm_net (EMB %d, HID %d, %d layers, batch %d, "
+          "Adagrad(%g), vocabulary %d, reviews of %d-%d tokens) card vs "
+          "CPU from the same startup (seed %d), %d steps through "
+          "DataFeeder: losses %s, worst %.3e relative (bound %g); "
+          "max-pool (row, feature) pairs whose maxima sit at other steps: "
+          "card vs CPU %d, the nudged CPU vs CPU %d; the %d parameters "
+          "below the pools: median %.3e, all together %.3e (the nudged "
+          "CPU: %.3e, %.3e; bound %.3e); over %g: %s" % (
+              RNN_EMB, RNN_HID, RNN_STACKED, RNN_BATCH, RNN_LR,
+              len(word_dict), min(min(x) for x in lens),
+              max(max(x) for x in lens), RNN_SEED, RNN_CHECK_STEPS,
+              " ".join("%.6f/%.6f" % lc for lc in losses), worst_loss,
+              RNN_TOL, flips, own_flips, len(lower), median, dist,
+              own_median, own_dist, bound, RNN_TOL,
+              ", ".join("%s %.2e" % (p, r) for r, p in over) or "none"),
+          flush=True)
+    if any(p not in below for _, p in over):
+        fail("16a: a gradient above the max pools is off the CPU's by more "
+             "than %g of its max" % RNN_TOL)
+    if over and (not flips or over[0][0] > RNN_FLIP_TOL
+                 or median > bound or dist > bound):
+        fail("16a: step-1 gradients off the CPU's beyond their bounds "
+             "(%d pool flips)" % flips)
+
+    # the main path: the rest of the epoch, DataFeeder + Executor.run
+    timed = batches[RNN_CHECK_STEPS:]
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated is not the step's
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    walls, last = [], []
+    for b in timed:
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feeder.feed(b), fetch_list=[loss],
+                       scope=scope)
+        walls.append(time.monotonic() - t0)     # the fetch waits
+        last.append(float(out))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - resident
+    launches = check_launches("16a stacked LSTM training (main path)", fns,
+                              {})
+    if not all(np.isfinite(last)):
+        fail("16a: a timed step's loss is not finite")
+    tokens = [sum(n) for n in lens[RNN_CHECK_STEPS:]]
+    stats = step_stats(walls)
+    stats.update(tokens_per_s=sum(tokens) / sum(walls), peak_gib=peak,
+                 resident_gib=resident, steps=len(walls), tokens_per_step=statistics.mean(tokens),
+                 padded_per_step=statistics.mean(
+                     RNN_BATCH * max(n) for n in lens[RNN_CHECK_STEPS:]))
+    print("16a main path: %d timed steps (the epoch's batches %d-%d, %.0f "
+          "real tokens and %.0f padded positions a step on average): "
+          "median %.3f ms, p90 %.3f ms, %.1f tokens/s (real lengths), peak "
+          "%.3f GiB above the %.3f GiB resident before the steps; losses "
+          "%.6f .. %.6f" % (
+              len(walls), RNN_CHECK_STEPS, len(batches) - 1,
+              stats["tokens_per_step"], stats["padded_per_step"],
+              stats["median_ms"], stats["p90_ms"], stats["tokens_per_s"],
+              peak, resident, last[0], last[-1]), flush=True)
+
+    def step():
+        exe.run(main, feed=feeder.feed(timed[0]), fetch_list=[loss],
+                scope=scope)
+
+    return launches, step, stats, (main, words, prediction, scope,
+                                   word_dict)
+
+
+def sentiment_inference(fluid, paddle, net, tmp):
+    """16b. The trained prediction saved with save_inference_model and
+    served by Predictor.from_model on the card: 128 test reviews fed once
+    as fluid.create_lod_tensor(flat ids, [lens]) and once through
+    DataFeeder, bit-identical, and within RNN_PRED_TOL of the CPU
+    predictor's probabilities."""
+    main, words, prediction, scope, word_dict = net
+    dirname = os.path.join(tmp, "sentiment16")
+    fluid.io.save_inference_model(dirname, ["words"], [prediction],
+                                  fluid.Executor(), main_program=main,
+                                  scope=scope)
+    pred = fluid.Predictor.from_model(dirname)
+    cpu = fluid.Predictor.from_model(dirname, place=fluid.CPUPlace())
+    batch = next(paddle.batch(paddle.dataset.imdb.test(word_dict),
+                              RNN_BATCH)())
+    seqs = [np.asarray(w, "int64") for w, _ in batch]
+    lens = [len(s) for s in seqs]
+    flat = np.concatenate(seqs)
+    by_lod, = pred.run({"words": fluid.create_lod_tensor(
+        flat, [lens], fluid.CUDAPlace(0))})
+    feeder = fluid.DataFeeder([words], fluid.CUDAPlace(0), program=main)
+    by_feeder, = pred.run(feeder.feed([(s,) for s in seqs]))
+    want, = cpu.run({"words": fluid.create_lod_tensor(
+        flat, [lens], fluid.CPUPlace())})
+    same = by_lod.tobytes() == by_feeder.tobytes()
+    err = float(np.abs(by_lod - want).max())
+    labels = np.array([y for _, y in batch])
+    acc = float(np.mean(by_lod.argmax(-1) == labels))
+    print("16b Predictor.from_model on the card, %d test reviews (%d-%d "
+          "tokens): create_lod_tensor and DataFeeder feeds bit-identical: "
+          "%s; probabilities vs the CPU predictor max|d| %.3e (bound %g); "
+          "accuracy %.3f" % (
+              len(seqs), min(lens), max(lens), same, err, RNN_PRED_TOL,
+              acc), flush=True)
+    if not same or err > RNN_PRED_TOL or not np.isfinite(by_lod).all():
+        fail("16b: the served sentiment net disagrees")
+
+
+def cells_program(fluid):
+    """16c: rnn(LSTMCell) and rnn(GRUCell) with sequence_length and
+    is_reverse, basic_lstm (2 layers, bidirectional, lengths),
+    layers.lstm (cudnn_lstm, 2 layers, bidirectional), dynamic_gru and
+    dynamic_lstmp (on lod_level=1 inputs, so with lengths), at B CELL_B,
+    T CELL_T, hidden CELL_H; the loss sums each output against a fed
+    random cotangent."""
+    L = fluid.layers
+    x = fluid.data("x", [None, CELL_T, CELL_H], "float32")
+    sl = fluid.data("sl", [None], "int64")
+    xl = fluid.data("xl", [None, CELL_T, CELL_H], "float32", lod_level=1)
+    xg = fluid.data("xg", [None, CELL_T, 3 * CELL_H], "float32", lod_level=1)
+    xp = fluid.data("xp", [None, CELL_T, 4 * CELL_H], "float32", lod_level=1)
+    outs = {}
+    outs["rnn(LSTMCell)"], _ = L.rnn(L.LSTMCell(CELL_H, name="c16_lstm"), x,
+                                     sequence_length=sl, is_reverse=True)
+    outs["rnn(GRUCell)"], _ = L.rnn(L.GRUCell(CELL_H, name="c16_gru"), x,
+                                    sequence_length=sl, is_reverse=True)
+    outs["basic_lstm"], _, _ = fluid.contrib.layers.basic_lstm(
+        x, None, None, CELL_H, num_layers=2, sequence_length=sl,
+        bidirectional=True, name="c16_bl")
+    init = L.fill_constant_batch_size_like(xl, [4, -1, CELL_H], "float32",
+                                           0.0, output_dim_idx=1)
+    outs["layers.lstm"], _, _ = L.lstm(xl, init, init, CELL_T, CELL_H, 2,
+                                       is_bidirec=True)
+    outs["dynamic_gru"] = L.dynamic_gru(xg, size=CELL_H)
+    outs["dynamic_lstmp"], _ = L.dynamic_lstmp(xp, size=4 * CELL_H,
+                                               proj_size=CELL_H // 2)
+    terms, cots = [], {}
+    for i, (name, o) in enumerate(outs.items()):
+        c = fluid.data("cot%d" % i, list(o.shape), "float32")
+        cots[c.name] = tuple(o.shape[1:])
+        terms.append(L.reduce_sum(L.elementwise_mul(o, c)))
+    loss = L.sums(terms)
+    fluid.backward.append_backward(loss)
+    return outs, cots, loss
+
+
+def cells_vs_cpu(fluid):
+    """16c: every output and every parameter's gradient on the card within
+    RNN_TOL·max of the CPU's, from the same startup values."""
+    t0 = time.monotonic()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = RNN_SEED
+    with fluid.program_guard(main, startup):
+        outs, cots, loss = cells_program(fluid)
+    cpu_scope, scope = cpu_init(fluid, startup)
+    rng = np.random.default_rng(RNN_SEED)
+    lens = rng.integers(1, CELL_T + 1, CELL_B)
+    lens[0] = CELL_T
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    feed = {"x": normal(CELL_B, CELL_T, CELL_H), "sl": lens.astype("int64"),
+            "xl": normal(CELL_B, CELL_T, CELL_H),
+            "xg": normal(CELL_B, CELL_T, 3 * CELL_H),
+            "xp": normal(CELL_B, CELL_T, 4 * CELL_H)}
+    for n in ("xl", "xg", "xp"):
+        feed[n + "@SEQ_LEN"] = lens.astype("int32")
+    for n, shape in cots.items():
+        feed[n] = normal(CELL_B, *shape)
+    params = sorted(p.name for p in main.all_parameters())
+    fetch = [loss] + list(outs.values()) + [p + "@GRAD" for p in params]
+    names = ["loss"] + list(outs) + [p + "@GRAD" for p in params]
+    t1 = time.monotonic()
+    card = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                scope=scope)
+    torch.cuda.synchronize()
+    t_card = time.monotonic() - t1
+    cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                               fetch_list=fetch,
+                                               scope=cpu_scope)
+    worst_out = check_values("16c outputs", names[:len(outs) + 1],
+                             card[:len(outs) + 1], cpu[:len(outs) + 1])
+    worst_grad = check_values("16c gradients", names[len(outs) + 1:],
+                              card[len(outs) + 1:], cpu[len(outs) + 1:])
+    print("16c %s at B %d, T %d (lengths 1-%d), hidden %d, forward and "
+          "gradient card vs CPU: worst output %.3e of max (%s), worst of "
+          "%d parameter gradients %.3e of max (%s); bound %g; the card's "
+          "run %.1f s, the whole check %.1f s" % (
+              ", ".join(outs), CELL_B, CELL_T, CELL_T, CELL_H, worst_out[0],
+              worst_out[1], len(params), worst_grad[0], worst_grad[1],
+              RNN_TOL, t_card, time.monotonic() - t0), flush=True)
+
+
+def lstm_step(fluid, x_t, hidden_t_prev, cell_t_prev, size):
+    """tests/test_book.py's rnn_encoder_decoder decoder step."""
+    def linear(inputs):
+        return fluid.layers.fc(input=inputs, size=size, bias_attr=True)
+
+    L = fluid.layers
+    forget_gate = L.sigmoid(x=linear([hidden_t_prev, x_t]))
+    input_gate = L.sigmoid(x=linear([hidden_t_prev, x_t]))
+    output_gate = L.sigmoid(x=linear([hidden_t_prev, x_t]))
+    cell_tilde = L.tanh(x=linear([hidden_t_prev, x_t]))
+    cell_t = L.sums(input=[L.elementwise_mul(x=forget_gate, y=cell_t_prev),
+                           L.elementwise_mul(x=input_gate, y=cell_tilde)])
+    return L.elementwise_mul(x=output_gate, y=L.tanh(x=cell_t)), cell_t
+
+
+def rnn_encoder_decoder(fluid):
+    """tests/test_book.py's rnn_encoder_decoder at MT_EMB / MT_HID /
+    MT_VOCAB: forward and reverse dynamic_lstm encoders pooled by
+    sequence_last_step / sequence_first_step, a DynamicRNN decoder."""
+    L = fluid.layers
+    src = fluid.data("re_src", shape=[None, MT_T], dtype="int64",
+                     lod_level=1)
+    trg = fluid.data("re_trg", shape=[None, MT_T], dtype="int64",
+                     lod_level=1)
+    lbl = fluid.data("re_lbl", shape=[None, MT_T, 1], dtype="int64",
+                     lod_level=1)
+    src_emb = L.embedding(input=src, size=[MT_VOCAB, MT_EMB])
+    fwd_proj = L.fc(input=src_emb, size=MT_HID * 4, num_flatten_dims=2)
+    forward, _ = L.dynamic_lstm(input=fwd_proj, size=MT_HID * 4,
+                                use_peepholes=False)
+    bwd_proj = L.fc(input=src_emb, size=MT_HID * 4, num_flatten_dims=2)
+    backward, _ = L.dynamic_lstm(input=bwd_proj, size=MT_HID * 4,
+                                 is_reverse=True, use_peepholes=False)
+    encoded = L.concat(input=[L.sequence_last_step(input=forward),
+                              L.sequence_first_step(input=backward)], axis=1)
+    decoder_boot = L.fc(input=L.sequence_first_step(input=backward),
+                        size=MT_HID, bias_attr=False, act="tanh")
+    trg_emb = L.embedding(input=trg, size=[MT_VOCAB, MT_EMB])
+    rnn = L.DynamicRNN()
+    cell_init = L.fill_constant_batch_size_like(
+        input=decoder_boot, value=0.0, shape=[-1, MT_HID], dtype="float32")
+    cell_init.stop_gradient = False
+    with rnn.block():
+        current_word = rnn.step_input(trg_emb)
+        context = rnn.static_input(encoded)
+        hidden_mem = rnn.memory(init=decoder_boot, need_reorder=True)
+        cell_mem = rnn.memory(init=cell_init)
+        h, c = lstm_step(fluid, L.concat(input=[context, current_word],
+                                         axis=1), hidden_mem, cell_mem,
+                         MT_HID)
+        rnn.update_memory(hidden_mem, h)
+        rnn.update_memory(cell_mem, c)
+        rnn.output(L.fc(input=h, size=MT_VOCAB, act="softmax"))
+    loss = L.mean(x=L.cross_entropy(input=rnn(), label=lbl))
+    fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return loss
+
+
+def mt_updater(fluid):
+    def updater(sc):
+        xt = sc.get_input("x")
+        sc.set_state("h", fluid.layers.fc(
+            fluid.layers.concat([xt, sc.get_state("h")], axis=-1), MT_HID,
+            act="tanh", num_flatten_dims=len(xt.shape) - 1,
+            param_attr=fluid.ParamAttr("mtc_step.w"),
+            bias_attr=fluid.ParamAttr("mtc_step.b")))
+
+    return updater
+
+
+def contrib_train(fluid):
+    """tests/test_book.py's machine_translation_contrib_decoder, training
+    side, at MT_EMB / MT_HID / MT_VOCAB: StateCell + TrainingDecoder."""
+    from paddle_tpu_torch.fluid.contrib import decoder as dec
+
+    L = fluid.layers
+    src = fluid.data("mtc_src", shape=[None, MT_T], dtype="int64")
+    trg = fluid.data("mtc_trg", shape=[None, MT_T], dtype="int64")
+    lab = fluid.data("mtc_lab", shape=[None, MT_T], dtype="int64")
+    enc = L.fc(L.reduce_mean(L.embedding(
+        src, size=[MT_VOCAB, MT_EMB], param_attr=fluid.ParamAttr(
+            "mtc_semb")), dim=[1]), MT_HID, act="tanh")
+    trg_emb = L.embedding(trg, size=[MT_VOCAB, MT_EMB],
+                          param_attr=fluid.ParamAttr("mtc_temb"))
+    cell = dec.StateCell(inputs={"x": None},
+                         states={"h": dec.InitState(init=enc)},
+                         out_state="h")
+    cell.state_updater(mt_updater(fluid))
+    decoder = dec.TrainingDecoder(cell)
+    with decoder.block():
+        cur = decoder.step_input(trg_emb)
+        cell.compute_state(inputs={"x": cur})
+        out = L.fc(cell.get_state("h"), MT_VOCAB,
+                   param_attr=fluid.ParamAttr("mtc_out.w"), bias_attr=False)
+        cell.update_states()
+        decoder.output(out)
+    loss = L.mean(L.softmax_with_cross_entropy(decoder(),
+                                               L.unsqueeze(lab, [2])))
+    fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return loss
+
+
+def contrib_beam(fluid):
+    """The chapter's inference side: BeamSearchDecoder (beam MT_BEAM,
+    max_len MT_T) over the same updater, seeded from fed init ids and
+    scores."""
+    from paddle_tpu_torch.fluid.contrib import decoder as dec
+
+    L = fluid.layers
+    src = fluid.data("mtc_src", shape=[None, MT_T], dtype="int64")
+    init_ids = fluid.data("mtc_iid", shape=[None, 1], dtype="int64")
+    init_scores = fluid.data("mtc_isc", shape=[None, 1], dtype="float32")
+    enc = L.fc(L.reduce_mean(L.embedding(
+        src, size=[MT_VOCAB, MT_EMB], param_attr=fluid.ParamAttr(
+            "mtc_semb")), dim=[1]), MT_HID, act="tanh")
+    cell = dec.StateCell(inputs={"x": None},
+                         states={"h": dec.InitState(init=enc)},
+                         out_state="h")
+    cell.state_updater(mt_updater(fluid))
+    bsd = dec.BeamSearchDecoder(
+        cell, init_ids=init_ids, init_scores=init_scores,
+        target_dict_dim=MT_VOCAB, word_dim=MT_EMB, beam_size=MT_BEAM,
+        max_len=MT_T, end_id=1)
+    bsd.decode()
+    return bsd()
+
+
+def seq2seq_train_vs_cpu(fluid, tag, build, feed, steps=MT_STEPS):
+    """`steps` steps of build(fluid)'s program on the card and on the CPU
+    from the same startup values; losses within RNN_TOL relative."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = RNN_SEED
+    with fluid.program_guard(main, startup):
+        loss = build(fluid)
+    cpu_scope, scope = cpu_init(fluid, startup)
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    pairs, walls = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        card, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.monotonic() - t0)
+        cpu, = cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=cpu_scope)
+        pairs.append((float(card), float(cpu)))
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    print("16d %s (emb %d, hidden %d, vocabulary %d, batch %d, T %d, "
+          "Adam(1e-3)) %d steps card vs CPU: losses %s, worst %.3e relative "
+          "(bound %g); card step walls %s ms" % (
+              tag, MT_EMB, MT_HID, MT_VOCAB, MT_BATCH, MT_T, steps,
+              " ".join("%.6f/%.6f" % p for p in pairs), worst, RNN_TOL,
+              " ".join("%.1f" % (1e3 * w) for w in walls)), flush=True)
+    if worst > RNN_TOL or not all(np.isfinite(a) for a, _ in pairs):
+        fail("16d %s: losses off the CPU's" % tag)
+
+
+def beam_vs_cpu(fluid, src):
+    """16d: the contrib BeamSearchDecoder on the card and the CPU from the
+    same startup values: each row's per-step tokens and parents (the
+    gather_tree op's inputs) equal up to the first step where the CPU's
+    top-k selection was a near-tie (near_ties, as 9a), the final ids equal
+    for rows that never left the CPU's beams."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = RNN_SEED
+    with fluid.program_guard(main, startup):
+        ids, scores = contrib_beam(fluid)
+    gt, = [op for op in main.global_block().ops if op.type == "gather_tree"]
+    fetch = [ids, scores, gt.input("Ids")[0], gt.input("Parents")[0]]
+    cpu_scope, scope = cpu_init(fluid, startup)
+    b = src.shape[0]
+    feed = {"mtc_src": src, "mtc_iid": np.zeros((b, 1), "int64"),
+            "mtc_isc": np.zeros((b, 1), "float32")}
+    with record_tops("top_k"):
+        card = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                    scope=scope)
+    with record_tops("top_k") as cpu_rec:
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    ties = near_ties(cpu_rec.tops(), MT_NEAR_TIE)          # (T, B)
+    whole, diverged = 0, []
+    for r in range(b):
+        first = first_true((card[2][:, r] != cpu[2][:, r]).any(-1)
+                           | (card[3][:, r] != cpu[3][:, r]).any(-1))
+        tie = first_true(ties[:, r])
+        if first < len(ties) and tie > first:
+            fail("16d beam row %d: the card leaves the CPU's beams at step "
+                 "%d with no near-tie at or before it" % (r, first))
+        if first < len(ties):
+            diverged.append((r, first, tie))
+            continue
+        whole += 1
+        if not np.array_equal(card[0][r], cpu[0][r]):
+            fail("16d beam row %d: per-step beams equal, ids differ" % r)
+    print("16d contrib BeamSearchDecoder (beam %d, max_len %d, vocabulary "
+          "%d, batch %d) card vs CPU: %d/%d rows equal to the end; %d "
+          "near-ties (CPU margin within %g of the candidates' max); rows "
+          "that left the CPU's beams after a near-tie (row, step, first "
+          "near-tie): %s; ids %s int64" % (
+              MT_BEAM, MT_T, MT_VOCAB, b, whole, b, int(ties.sum()),
+              MT_NEAR_TIE, diverged or "none", card[0].shape), flush=True)
+    if not np.isfinite(card[1]).all():
+        fail("16d: non-finite beam scores on the card")
+
+
+def seq2seq_vs_cpu(fluid):
+    """16d: tests/test_book.py's two recurrent seq2seq chapters at width."""
+    rng = np.random.default_rng(RNN_SEED)
+    src = rng.integers(2, MT_VOCAB, (MT_BATCH, MT_T)).astype("int64")
+    trg = np.roll(src, 1, axis=1)
+    lens = rng.integers(MT_T // 2, MT_T + 1, MT_BATCH).astype("int32")
+    re_feed = {"re_src": src, "re_trg": trg,
+               "re_lbl": np.roll(trg, -1, axis=1)[:, :, None]}
+    for n in list(re_feed):
+        re_feed[n + "@SEQ_LEN"] = lens
+    seq2seq_train_vs_cpu(fluid, "rnn_encoder_decoder (DynamicRNN)",
+                         rnn_encoder_decoder, re_feed)
+    seq2seq_train_vs_cpu(fluid, "contrib TrainingDecoder", contrib_train, {
+        "mtc_src": src, "mtc_trg": trg, "mtc_lab": (trg * 3 + 1) % MT_VOCAB})
+    beam_vs_cpu(fluid, src)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as paddle
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.fluid import lowering
@@ -6124,6 +6801,7 @@ def main():
     print(sh([cuda_build.nvcc_path(), "--version"]).splitlines()[-1])
     print("card: %s (%s)" % (card, torch.cuda.get_device_name(0)), flush=True)
 
+    mark("build")
     secs = cuda_build.build_all()
     print("built %s from %s in %.1f s" % (
         ", ".join(cuda_build.KERNELS), cuda_build.CSRC_DIR, secs))
@@ -6137,9 +6815,11 @@ def main():
                 fail("layer_norm_fwd %s spills: %s" % (fn, info))
     occupancy = attention_occupancy(cuda_build)
 
+    mark("phase 3, the kernels against their plain versions")
     errs = check_kernels(ca, cl)
     errs.update(check_bwd_kernels(ca, cl))
 
+    mark("phase 4, serving BERT-base")
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 30522, size=(1, SEQ), dtype=np.int64)
                 for _ in range(16)]
@@ -6199,9 +6879,11 @@ def main():
         bengine.stop()
         del bpred
 
+        mark("phase 5, training BERT-base")
         train_vs_cpu(fluid, bert)
         train_launches, train_step, f32_stats = train_phase(
             fluid, bert, ca, cl)
+        mark("phase 5b, bf16 AMP")
         amp_vs_cpu(fluid, bert)
         dynamic_scaling_checks(fluid, bert)
         amp_launches, amp_step, amp_stats = train_phase(
@@ -6211,22 +6893,29 @@ def main():
         # here: the port's own runs must turn it off for their f32 convs
         torch.backends.cudnn.allow_tf32 = True
         t7 = time.monotonic()
+        mark("7a")
         main7, io7, scope7, start7, f32_grads, feed7 = resnet_vs_cpu(
             fluid, resnet, lowering)
+        mark("7b")
         amp_resnet_vs_cpu(fluid, resnet, start7, f32_grads, feed7)
+        mark("7b op by op")
         amp_backward_vs_cpu(fluid, resnet, lowering)
+        mark("7c")
         resnet_inference(fluid, main7, io7, scope7)
         del main7, scope7, start7, f32_grads
+        mark("7d")
         bench_step, bench_stats = resnet_bench(fluid, resnet, ca, cl, card)
         secs7 = time.monotonic() - t7
         # phase 8: GPT decode serving at full width (8a, 8b, 8c's timed
         # loads and step times; its profile comes with the others)
         t8 = time.monotonic()
+        mark("8a")
         gcfg = gpt.GPTConfig()
         gscope = gpt_scope(fluid, gpt, gcfg)
         print("8 gpt GPTConfig() initialised on the CPU (startup seed %d) in "
               "%.1f s" % (GPT_SEED, time.monotonic() - t8), flush=True)
         gpt_vs_cpu(fluid, serving, gcfg, gscope)
+        mark("8b-8c")
         gpt_launches, gpt_stats, gpt_step = gpt_serving(
             fluid, serving, ca, cl, gcfg, gscope, card)
         secs8 = time.monotonic() - t8
@@ -6234,34 +6923,46 @@ def main():
         # solo generator on phase 8's weights (9d); 9b's profile comes
         # with the others
         t9 = time.monotonic()
+        mark("9a")
         nmt_vs_cpu(fluid, nmt, ca, cl)
+        mark("9b")
         nmt_launches, nmt_translate, nmt_stats = nmt_bench(
             fluid, nmt, ca, cl, card)
         nmt_bench(fluid, nmt, ca, cl, card, batch=128, iters=NMT_B128_ITERS)
+        mark("9b before/after")
         repair_runs, repair_translate = nmt_repair_ab(fluid, nmt,
                                                       lowering, card)
+        mark("9c")
         nmt_train_launches, _ = nmt_train(fluid, nmt, ca, cl)
+        mark("9d")
         gen_launches = gpt_generate_vs_cpu(fluid, gpt, ca, cl, gcfg, gscope)
         secs9 = time.monotonic() - t9
         # phase 10: Wide&Deep CTR through train_from_dataset (10a-10c; the
         # profile comes with the others)
         t10 = time.monotonic()
+        mark("10a")
         ctr_vs_cpu(fluid, wd, tmp)
+        mark("10b-10c")
         ctr_launches, ctr_epoch, ctr_stats = ctr_bench(fluid, wd, ca, cl,
                                                        card, tmp)
         secs10 = time.monotonic() - t10
         # phase 11: the serving front door (11a-11e) on phase 4's model and
         # phase 8's weights; its loads are timed, so before the profiles
         t11 = time.monotonic()
+        mark("11a")
         analysis_config_phase(fluid, tmp, requests)
         enc_dir = os.path.join(tmp, "bert_encoder_out")
+        mark("11b")
         reg11, srv11, http_reqs, http_replies, predict_launches, \
             predict_stats = http_predict_phase(fluid, serving, ca, cl, bert,
                                                enc_dir, card)
+        mark("11c")
         gpt_eng11, generate_launches, generate_stats = http_generate_phase(
             fluid, serving, ca, cl, gcfg, gscope, gpt_stats["solo"], reg11,
             srv11, card)
+        mark("11d")
         http_cli_phase(enc_dir, http_reqs[0], http_replies[0])
+        mark("11e")
         telemetry_cost(srv11.url + "/v1/models/bert:predict", http_reqs,
                        gpt_eng11, gpt_prompts(gcfg.vocab), gpt_stats["solo"],
                        card)
@@ -6275,9 +6976,11 @@ def main():
         # phase 12: the serving fleet (12a-12c on 11b's model, 12d-12f on
         # phase 8's weights); its loads are timed, so before the profiles
         t12 = time.monotonic()
+        mark("12a-12c")
         fleet_launches, _ = fleet_phase(fluid, serving, ca, cl, bert,
                                         enc_dir, tmp, card)
         t12d = time.monotonic()
+        mark("12d-12f")
         disagg_launches, _ = disagg_phase(fluid, serving, ca, cl, gcfg,
                                           gscope, card, tmp)
         print("phase 12 (serving fleet: 12a-12c %.1f s, 12d-12f %.1f s) "
@@ -6286,6 +6989,7 @@ def main():
         # phase 13: KV reuse and speculative decoding on phase 8's
         # weights; its loads are timed, so before the profiles
         t13 = time.monotonic()
+        mark("13a-13d")
         spec_launches, _ = spec_phase(fluid, serving, gpt, ca, cl, gcfg,
                                       gscope, card)
         del gscope
@@ -6294,10 +6998,13 @@ def main():
         # phase 14: the training surface; its runs are timed, so before
         # the profiles
         t14 = time.monotonic()
+        mark("14a")
         surface_vs_cpu(fluid, bert, lowering)
+        mark("14b")
         update_ops_vs_cpu()
         wrappers_vs_cpu(fluid)
         t14c = time.monotonic()
+        mark("14c")
         lamb_launches, recompute_launches, _, _ = surface_phase(
             fluid, bert, ca, cl, lowering)
         print("phase 14 (the training surface: 14a-14b %.1f s, 14c %.1f s) "
@@ -6306,16 +7013,58 @@ def main():
         # phase 15: the feed and dispatch surface; 15a's runs are timed,
         # so before the profiles (15c profiles, with them)
         t15 = time.monotonic()
+        mark("15a-15b")
         pipe_launches, step15, _ = feed_phase(fluid, bert, ca, cl)
+        mark("15d")
         operator_vs_cpu(fluid)
         secs15 = time.monotonic() - t15
+        # phase 16: the recurrent and sequence slice; 16a's steps are
+        # timed, so before the profiles (its profiled step comes with them)
+        t16 = time.monotonic()
+        mark("16a")
+        rnn_launches, step16, rnn_stats, net16 = sentiment_phase(
+            fluid, paddle, ca, cl)
+        mark("16b")
+        sentiment_inference(fluid, paddle, net16, tmp)
+        del net16
+        t16c = time.monotonic()
+        mark("16c")
+        cells_vs_cpu(fluid)
+        t16d = time.monotonic()
+        mark("16d")
+        seq2seq_vs_cpu(fluid)
+        secs16 = time.monotonic() - t16
+        print("phase 16 before its profile: 16a-16b %.1f s, 16c %.1f s, 16d "
+              "%.1f s" % (t16c - t16, t16d - t16c, time.monotonic() - t16d),
+              flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
+        mark("15c, the profiles")
         feed_profile(fluid, step15, tmp)
         del step15
         print("phase 15 (the feed and dispatch surface: 15a-15d) took %.1f "
               "s" % (secs15 + time.monotonic() - t15), flush=True)
+        t16 = time.monotonic()
+        mark("16a's profile")
+        rnn_stats.update(profile_train_step(step16,
+                                            "train step, stacked LSTM"))
+        del step16
+        print("16a stacked LSTM step: median %.3f ms, p90 %.3f ms, %.1f "
+              "tokens/s, peak %.3f GiB above resident, %d kernel launches "
+              "(the profiled step's cudaLaunchKernel calls); profiled: "
+              "device busy %.3f "
+              "ms, idle %.1f%% of the profiled wall, %.1f%% of the median "
+              "step" % (
+                  rnn_stats["median_ms"], rnn_stats["p90_ms"],
+                  rnn_stats["tokens_per_s"], rnn_stats["peak_gib"],
+                  rnn_stats["launch_calls"], rnn_stats["busy_ms"],
+                  100 * rnn_stats["idle"], 100 * max(
+                      0.0, 1 - rnn_stats["busy_ms"] / rnn_stats["median_ms"])),
+              flush=True)
+        print("phase 16 (the recurrent and sequence slice: 16a-16d) took "
+              "%.1f s" % (secs16 + time.monotonic() - t16), flush=True)
+        mark("phase 4's and 5's profiles")
         forward_breakdown(pred, requests)
         f32_stats.update(profile_train_step(train_step, "train step, f32"))
         amp_stats.update(profile_train_step(amp_step,
@@ -6338,16 +7087,19 @@ def main():
                   flush=True)
         del pred, train_step, amp_step
         t7 = time.monotonic()
+        mark("7e")
         resnet_profile(bench_step, bench_stats, card)
         del bench_step
         print("phase 7 (ResNet-50: 7a-7e) took %.1f s" % (
             secs7 + time.monotonic() - t7), flush=True)
         t8 = time.monotonic()
+        mark("8c's profile")
         gpt_profile(gpt_step, gpt_stats, card)
         del gpt_step
         print("phase 8 (GPT decode serving: 8a-8c) took %.1f s" % (
             secs8 + time.monotonic() - t8), flush=True)
         t9 = time.monotonic()
+        mark("9b's profiles")
         nmt_profile(nmt_translate, nmt_stats, card)
         del nmt_translate
         nmt_copy_launches(repair_translate, card)
@@ -6355,11 +7107,13 @@ def main():
         print("phase 9 (Transformer NMT and GPT generate: 9a-9d) took %.1f "
               "s" % (secs9 + time.monotonic() - t9), flush=True)
         t10 = time.monotonic()
+        mark("10's profile")
         ctr_profile(ctr_epoch, ctr_stats, card)
         del ctr_epoch
         print("phase 10 (Wide&Deep CTR: 10a-10c) took %.1f s" % (
             secs10 + time.monotonic() - t10), flush=True)
 
+    mark("phase 6, the kernels' times")
     times, ln_buckets, floor_ms = kernel_times(ca, cl)
     times.update(bwd_kernel_times(ca, cl))
     nmt_ln = nmt_ln_times(cl)
@@ -6400,8 +7154,9 @@ def main():
     # and 11c's :generate loads, launches_fleet in 12a's routed load,
     # launches_disagg in 12d's disaggregated load, leg (ii),
     # launches_spec in 13a's reuse engine (prefix pool + self-draft), and
-    # launches_lamb and launches_recompute in 14c's two runs, and
-    # launches_pipelined in 15a's run_pipelined
+    # launches_lamb and launches_recompute in 14c's two runs,
+    # launches_pipelined in 15a's run_pipelined, and launches_rnn in 16a's
+    # timed stacked-LSTM steps
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -6421,6 +7176,7 @@ def main():
                      launches_lamb=lamb_launches[name],
                      launches_recompute=recompute_launches[name],
                      launches_pipelined=pipe_launches[name],
+                     launches_rnn=rnn_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])
@@ -6443,6 +7199,7 @@ def main():
             entry["occupancy"] = occupancy[(name, torch.float32)]
             entry["bf16"]["occupancy"] = occupancy[(name, torch.bfloat16)]
         record.append(entry)
+    mark("done")
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,13 @@ from . import clip
 from . import regularizer
 from . import optimizer
 from . import contrib
+from . import lod
+from .lod import (  # noqa: F401
+    LoDTensor,
+    create_lod_tensor,
+    create_random_int_lodtensor,
+)
+from . import lod_tensor
 from . import data_feeder
 from .data_feeder import DataFeeder  # noqa: F401
 from . import data_feed_desc

@@ -1,8 +1,9 @@
 """DataFeeder (ref: python/paddle/fluid/data_feeder.py): converts python /
 numpy minibatch rows into the feed dict of dense arrays. Port of
-paddle_tpu/fluid/data_feeder.py, which is jax-free; feeds of a
-``lod_level`` > 0 var wait for the sequence slice (ROADMAP.md Queue 1,
-item 6.5)."""
+paddle_tpu/fluid/data_feeder.py, which is jax-free. A ``lod_level`` > 0
+slot becomes a ``LoDTensor`` padded to the batch's longest sequence
+(fluid/lod.py), whose lengths the executor feeds as the var's
+``@SEQ_LEN`` companion."""
 import numpy as np
 
 from . import core
@@ -62,10 +63,10 @@ class DataToLoDTensorConverter:
                  for d in self.data]
             )
             return arr
-        raise NotImplementedError(
-            "feeding a lod_level > 0 var (ragged LoD sequences) is not "
-            "ported yet: it comes with the sequence slice of "
-            "paddle_tpu_torch (ROADMAP.md Queue 1, item 6.5)")
+        # LoD case: pad to max length, companion lengths array
+        from .lod import LoDTensor
+
+        return LoDTensor.from_sequences(self.data)
 
 
 class DataFeeder:

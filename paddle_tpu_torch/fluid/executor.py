@@ -27,6 +27,7 @@ import torch
 from . import core
 from .. import observability as obs
 from .framework import Variable, default_main_program
+from .lod import LoDTensor
 from .lowering import build_step_fn
 from .resilience import fault_check
 
@@ -174,6 +175,28 @@ def to_numpy(t):
     return t.cpu().numpy()
 
 
+def expand_lod_feeds(block, feed):
+    """`feed` with each ``LoDTensor`` (fluid/lod.py) replaced by its padded
+    (B, T, ...) array and, where `block` declares the var's ``@SEQ_LEN``
+    companion and the caller does not feed it, the companion added: the
+    tensor's own lengths, or full ones, (B,) int32 of T, for a plain
+    array or a LoDTensor without lengths."""
+    feed = dict(feed)
+    for name in list(feed):
+        value = feed[name]
+        lens = None
+        if isinstance(value, LoDTensor):
+            lens = value.seq_lens
+            value = feed[name] = value._ndarray
+        seq_name = name + "@SEQ_LEN"
+        if block.has_var(seq_name) and seq_name not in feed:
+            if lens is None:
+                shape = np.shape(value)      # a tensor's own shape
+                lens = np.full((shape[0],), shape[1], "int32")
+            feed[seq_name] = np.asarray(lens, "int32")
+    return feed
+
+
 def feed_dtypes(program, feed_names):
     """name -> torch dtype the program declares for each feed (None when
     the program does not say)."""
@@ -249,18 +272,10 @@ class Executor:
     def _prepare_feeds(self, program, feed, non_blocking=False):
         """Feed values as tensors on the device, coerced to the dtype the
         program declares for each feed; a tensor already there stays
-        there. A feed of a ``lod_level`` > 0 var given as a plain (B, T,
-        ...) array gets full lengths, (B,) int32 of T, for its
-        ``@SEQ_LEN`` companion unless that is fed too. With
-        `non_blocking`, host arrays are copied to the card without waiting
-        (:func:`stage_tensor`)."""
-        block = program.global_block()
-        feed = dict(feed)
-        for name in list(feed):
-            seq_name = name + "@SEQ_LEN"
-            if block.has_var(seq_name) and seq_name not in feed:
-                shape = np.shape(feed[name])     # a tensor's own shape
-                feed[seq_name] = np.full((shape[0],), shape[1], "int32")
+        there. Sequence feeds expand as :func:`expand_lod_feeds` says.
+        With `non_blocking`, host arrays are copied to the card without
+        waiting (:func:`stage_tensor`)."""
+        feed = expand_lod_feeds(program.global_block(), feed)
         want = feed_dtypes(program, list(feed))
         put = stage_tensor if non_blocking else to_tensor
         return {name: put(v, self.device, want[name])

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from . import core
-from .executor import (Executor, Scope, feed_dtypes, global_scope,
-                       to_numpy, to_tensor)
+from .executor import (Executor, Scope, expand_lod_feeds, feed_dtypes,
+                       global_scope, to_numpy, to_tensor)
 from .lowering import build_step_fn
 
 __all__ = ["AnalysisConfig", "Predictor", "create_paddle_predictor"]
@@ -88,13 +88,18 @@ class Predictor:
 
     def _prepare(self, feeds):
         """Normalize one request: dict (or feed_names-aligned list) ->
-        {name: array}. Host feeds become numpy arrays
+        {name: array}; a ``LoDTensor`` feed gives its padded array and its
+        lengths as the ``@SEQ_LEN`` companion the program declares
+        (:func:`expand_lod_feeds`). Host feeds become numpy arrays
         of the program's declared feed dtype (bfloat16 feeds stay float32
         on the host); tensors pass through, cast to it."""
         if not isinstance(feeds, dict):
             feeds = dict(zip(self.feed_names, feeds))
+        feeds = expand_lod_feeds(self.program.global_block(), feeds)
         prepared = {}
-        for n in self.feed_names:
+        companions = [n + "@SEQ_LEN" for n in self.feed_names]
+        for n in self.feed_names + [c for c in companions if c in feeds
+                                    and c not in self.feed_names]:
             v = feeds[n]
             want = self._want_dtypes.get(n)
             if isinstance(v, torch.Tensor):

@@ -16,9 +16,13 @@ from . import control_flow
 from .control_flow import *  # noqa: F401,F403
 from . import ops
 from .ops import *  # noqa: F401,F403
-from .rnn import gather_tree  # noqa: F401
-from . import rnn_cells
-from .rnn_cells import *  # noqa: F401,F403  (binds `rnn` to the rnn() layer, like the reference)
+from . import sequence_lod
+from .sequence_lod import *  # noqa: F401,F403
+from . import rnn
+from . import rnn_cells  # noqa: F401
+_rnn_module = rnn
+# rebinds `rnn` to the rnn() layer, like the reference
+from .rnn import *  # noqa: F401,F403
 from . import math_op_patch
 
 math_op_patch.monkey_patch_variable()
@@ -32,5 +36,5 @@ __all__ += metric_op.__all__
 __all__ += learning_rate_scheduler.__all__
 __all__ += control_flow.__all__
 __all__ += ops.__all__
-__all__ += ["gather_tree"]
-__all__ += rnn_cells.__all__
+__all__ += sequence_lod.__all__
+__all__ += _rnn_module.__all__

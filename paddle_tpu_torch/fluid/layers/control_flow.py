@@ -1,12 +1,13 @@
 """Control-flow layers (ref: python/paddle/fluid/layers/control_flow.py);
 port of paddle_tpu/fluid/layers/control_flow.py.
 
-While, cond (and IfElse, case, switch_case) and StaticRNN append ops that
-run a sub-block (ops/control_ops.py): the JAX package traces them into
-lax.while_loop, lax.cond and lax.scan; the port runs them eagerly.
-LoDTensorArray works with build-time (python) indices only, as in the
-reference. DynamicRNN and reorder_lod_tensor_by_rank wait for the
-sequence slice, ``Print`` for the op library.
+While, cond (and IfElse, case, switch_case), StaticRNN and DynamicRNN
+append ops that run a sub-block (ops/control_ops.py): the JAX package
+traces them into lax.while_loop, lax.cond and lax.scan; the port runs
+them eagerly. LoDTensorArray works with build-time (python) indices only,
+as in the reference. reorder_lod_tensor_by_rank raises, as the JAX
+package's does (dense-padded batches have no rank table); ``Print`` waits
+for the op library.
 """
 import contextlib
 
@@ -527,20 +528,178 @@ class StaticRNN:
 
 
 class DynamicRNN:
-    """Variable-length RNN (ref control_flow.py DynamicRNN). Its
-    ``dynamic_rnn`` op needs LoD lengths end to end: it comes with the
-    sequence slice of paddle_tpu_torch."""
+    """Variable-length RNN (ref control_flow.py:2435 DynamicRNN), dense
+    form, as in the JAX package. The reference sorts sequences by length
+    and shrinks the batch each step; here sequences travel padded (B, T,
+    ...) with a `@SEQ_LEN` companion (see fluid/lod.py) and every step
+    runs the FULL batch under a mask — finished sequences freeze their
+    memory and emit zeros, which is mathematically identical and keeps
+    every step's shapes the same. Same user surface:
+
+        drnn = layers.DynamicRNN()
+        with drnn.block():
+            w = drnn.step_input(sentence)        # (B, D) at step t
+            enc = drnn.static_input(encoder)     # closure, unchanged
+            h = drnn.memory(init=boot)           # or shape=[D], value=0.
+            h2 = some_layers(w, h, enc)
+            drnn.update_memory(h, h2)
+            drnn.output(h2)
+        out = drnn()                             # (B, T, D) padded
+    """
 
     def __init__(self, name=None):
-        raise _sequence_slice("DynamicRNN")
+        self.helper = LayerHelper("dynamic_rnn", name=name)
+        self._block = None
+        self._parent_block = None
+        self._mem_init = []
+        self._mem_in = []
+        self._mem_updated = []
+        self._x_outer = []
+        self._x_in = []
+        self._static = []
+        self._step_outputs = []
+        self._outs = None
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        self._parent_block = program.current_block()
+        with program._block_guard() as blk:
+            self._block = blk
+            yield
+        self._finalize()
+
+    def step_input(self, x, level=0):
+        if x.shape is None or len(x.shape) < 2:
+            raise ValueError(
+                "DynamicRNN.step_input needs a (batch, time, ...) padded "
+                "sequence var (declare with lod_level=1)"
+            )
+        xt = self._block.create_var(
+            name=x.name + "@STEP",
+            dtype=x.dtype,
+            shape=(x.shape[0],) + tuple(x.shape[2:]),
+        )
+        self._x_outer.append(x)
+        self._x_in.append(xt)
+        return xt
+
+    def static_input(self, x):
+        # non-sequence input: the step block closes over it unchanged (the
+        # reference reorders it by sequence rank; we never reorder)
+        self._static.append(x)
+        return x
+
+    def memory(self, init=None, shape=None, value=0.0, need_reorder=False,
+               dtype="float32"):
+        if init is None:
+            if shape is None:
+                raise ValueError("DynamicRNN.memory needs init or shape")
+            if not self._x_outer:
+                raise ValueError(
+                    "call step_input before a shape-only memory so the "
+                    "batch size is known"
+                )
+            ref = self._x_outer[0]
+            # the init must live in the PARENT block (it is an outer input
+            # of the scan), while memory() is called inside block();
+            # batch dim is taken from the step input AT LOWERING TIME so
+            # dynamic-batch (-1) data vars work
+            parent = self._parent_block
+            from .. import unique_name as _un
+
+            full_shape = [ref.shape[0] if ref.shape else -1] + list(shape)
+            init = parent.create_var(
+                name=_un.generate("drnn_mem_init"),
+                dtype=dtype,
+                shape=tuple(full_shape),
+            )
+            parent.append_op(
+                type="fill_constant_batch_size_like",
+                inputs={"Input": [ref]},
+                outputs={"Out": [init]},
+                attrs={
+                    "shape": [-1] + list(shape),
+                    "dtype": core.convert_dtype(dtype),
+                    "value": float(value),
+                    "input_dim_idx": 0,
+                    "output_dim_idx": 0,
+                },
+            )
+        # need_reorder is a no-op: sequences are never rank-sorted here
+        m = self._block.create_var(
+            name="%s@MEM_%d" % (init.name, len(self._mem_in)),
+            dtype=init.dtype,
+            shape=init.shape,
+        )
+        self._mem_init.append(init)
+        self._mem_in.append(m)
+        self._mem_updated.append(None)
+        return m
+
+    def update_memory(self, ex_mem, new_mem):
+        idx = self._mem_in.index(ex_mem)
+        self._mem_updated[idx] = new_mem
+
+    def output(self, *outputs):
+        self._step_outputs.extend(outputs)
+
+    def _seq_len_var(self):
+        from .sequence_lod import _seq_len_var
+
+        for x in self._x_outer:
+            sl = _seq_len_var(x)
+            if sl is not None:
+                return sl
+        return None
+
+    def _finalize(self):
+        if not self._x_outer:
+            raise ValueError("DynamicRNN needs at least one step_input")
+        if any(u is None for u in self._mem_updated):
+            raise ValueError("every DynamicRNN memory needs update_memory()")
+        parent = self._parent_block
+        b, t = self._x_outer[0].shape[0], self._x_outer[0].shape[1]
+        outs = []
+        for o in self._step_outputs:
+            ov = parent.create_var(
+                name=o.name + "@DRNN_OUT",
+                dtype=o.dtype,
+                shape=(b, t) + tuple(o.shape[1:] if o.shape else ()),
+            )
+            outs.append(ov)
+        ins = {"Mem": self._mem_init, "X": self._x_outer}
+        sl = self._seq_len_var()
+        if sl is not None:
+            ins["SeqLen"] = [sl]
+        parent.append_op(
+            type="dynamic_rnn",
+            inputs=ins,
+            outputs={"Out": outs},
+            attrs={
+                "sub_block": self._block.idx,
+                "mem_names": [m.name for m in self._mem_in],
+                "mem_updated": [u.name for u in self._mem_updated],
+                "x_names": [x.name for x in self._x_in],
+                "out_names": [o.name for o in self._step_outputs],
+            },
+        )
+        # outputs keep the input's sequence structure
+        if sl is not None:
+            from .sequence_lod import _alias_seq_len
+
+            for ov in outs:
+                _alias_seq_len(self.helper, self._x_outer[0], ov)
+        self._outs = outs
+
+    def __call__(self):
+        if not self._outs:
+            raise ValueError("DynamicRNN has no outputs")
+        return self._outs[0] if len(self._outs) == 1 else self._outs
 
 
 def reorder_lod_tensor_by_rank(x, rank_table):
-    raise _sequence_slice("reorder_lod_tensor_by_rank")
-
-
-def _sequence_slice(what):
-    return NotImplementedError(
-        "%s is not ported yet: it needs LoD lengths end to end and comes "
-        "with the sequence slice of paddle_tpu_torch (ROADMAP.md Queue 1, "
-        "item 6.5)" % what)
+    raise NotImplementedError(
+        "rank-table reordering is a LoD-runtime detail; dense-padded "
+        "batches don't need it (sort host-side if required)"
+    )

@@ -3,8 +3,8 @@ paddle_tpu/fluid/layers/io.py.
 
 ``data`` declares a feed. A ``lod_level`` > 0 feed is a dense padded
 array with a ``name@SEQ_LEN`` int32 companion of per-row lengths, as in
-the JAX package; the Executor fills full lengths for a plain array.
-Ragged LoDTensor feeds wait for the sequence slice.
+the JAX package: a ``LoDTensor`` feed gives its own lengths, and the
+Executor fills full lengths for a plain array.
 
 ``py_reader`` / ``create_py_reader_by_data`` rebuild the reference's
 C++ reader-op pipeline (ref io.py:537, :815, operators/reader/) on the

@@ -1,7 +1,8 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
 Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet,
-the MNIST models, Transformer NMT and Wide&Deep call, with
+the MNIST models, Transformer NMT, Wide&Deep and the recurrent book
+chapters (``cross_entropy``) call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
@@ -23,6 +24,7 @@ __all__ = [
     "logical_and", "logical_or", "logical_xor", "logical_not",
     "sampling_id", "fused_multihead_attention", "clip", "clip_by_norm",
     "log_loss", "sign", "pow", "autoincreased_step_counter",
+    "cross_entropy",
 ]
 
 
@@ -904,3 +906,17 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
             outputs={"Out": [counter]}, attrs={"step": float(step)})
         counter.stop_gradient = True
     return counter
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = tuple(list(input.shape[:-1]) + [1])
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out

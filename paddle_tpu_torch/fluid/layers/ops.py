@@ -1,12 +1,13 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
 of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs,
 Wide&Deep and the learning-rate schedules call, and ``abs``/``round``,
-which the int8-resident decode step calls. The other activation layers
-wait for the op library (ROADMAP.md Queue 1, item 6)."""
+which the int8-resident decode step calls, and ``tanh``, which the
+recurrent cells and the recurrent book chapters call. The other
+activation layers wait for the op library (ROADMAP.md Queue 1, item 6)."""
 from .nn import _layer
 
-__all__ = ["sigmoid", "exp", "sqrt", "abs", "ceil", "floor", "cos", "round",
-           "square", "cumsum"]
+__all__ = ["sigmoid", "tanh", "exp", "sqrt", "abs", "ceil", "floor", "cos",
+           "round", "square", "cumsum"]
 
 
 def _make_unary(op_type):
@@ -18,6 +19,7 @@ def _make_unary(op_type):
 
 
 sigmoid = _make_unary("sigmoid")
+tanh = _make_unary("tanh")
 exp = _make_unary("exp")
 sqrt = _make_unary("sqrt")
 abs = _make_unary("abs")

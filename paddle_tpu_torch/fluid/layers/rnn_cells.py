@@ -1,25 +1,30 @@
-"""Cell-based decoding API (ref: python/paddle/fluid/layers/rnn.py:48-1700);
-port of paddle_tpu/fluid/layers/rnn_cells.py: ``Decoder``,
-``BeamSearchDecoder`` and ``dynamic_decode``.
+"""Cell-based RNN API (ref: python/paddle/fluid/layers/rnn.py:48-1700 —
+RNNCell/GRUCell/LSTMCell, rnn(), Decoder/BeamSearchDecoder,
+dynamic_decode, dynamic_lstmp); port of
+paddle_tpu/fluid/layers/rnn_cells.py, which builds Programs without jax.
 
-``dynamic_decode`` runs ``max_step_num + 1`` decoder steps as one
-StaticRNN (the static_rnn op), finished beams frozen by the decoder
-itself, as the JAX package does with a fixed-length masked lax.scan: the
-outputs match the reference's early-exit loop wherever it would have
-stopped. When ``max_step_num`` is None the bound comes from
-PADDLE_TPU_MAX_DECODE_LEN (default 256).
-
-``RNNCell``, ``GRUCell``, ``LSTMCell``, ``rnn()`` and ``dynamic_lstmp``
-need ``contrib.layers.rnn_impl`` and the ``lstmp`` op: they come with the
-RNN slice of paddle_tpu_torch and raise until then.
+- ``rnn()`` builds on StaticRNN: the cell's ops form one step block, which
+  the ``static_rnn`` op runs once per time step (ops/control_ops.py), as
+  the JAX package's lax.scan does. With ``sequence_length`` a finished
+  row's states are held by arithmetic, new·m + old·(1 − m)
+  (:func:`_mask_state`), as in the JAX package.
+- ``dynamic_decode`` runs ``max_step_num + 1`` decoder steps as one
+  StaticRNN, finished beams frozen by the decoder itself, as the JAX
+  package does with a fixed-length masked lax.scan: the outputs match the
+  reference's early-exit loop wherever it would have stopped. When
+  ``max_step_num`` is None the bound comes from PADDLE_TPU_MAX_DECODE_LEN
+  (default 256).
+- ``dynamic_lstmp`` lowers to the ``lstmp`` op (ops/rnn_ops.py), the
+  projected LSTM of Sak et al. 2014 (ref rnn.py:1512).
 """
 import collections
 import os
 
 import numpy as np
 
+from ..layer_helper import LayerHelper
 from . import utils
-from .utils import flatten, map_structure
+from .utils import assert_same_structure, flatten, map_structure
 
 __all__ = [
     "RNNCell", "GRUCell", "LSTMCell", "rnn", "Decoder",
@@ -35,33 +40,131 @@ def _lay():
     return layers
 
 
-def _rnn_slice(what):
-    return NotImplementedError(
-        "%s is not ported yet: it needs contrib.layers.rnn_impl and the "
-        "rnn ops, and comes with the RNN slice of paddle_tpu_torch "
-        "(ROADMAP.md Queue 1, item 6.4)" % what)
-
-
 class RNNCell:
     """Base class mapping (inputs, states) -> (outputs, new_states)
-    (ref rnn.py:48): waits for the RNN slice with its cells."""
+    (ref rnn.py:48)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _rnn_slice("RNNCell")
+    def call(self, inputs, states, **kwargs):
+        raise NotImplementedError("RNNCell must implement the call function.")
+
+    def __call__(self, inputs, states, **kwargs):
+        return self.call(inputs, states, **kwargs)
+
+    def get_initial_states(self, batch_ref, shape=None, dtype=None,
+                           init_value=0, batch_dim_idx=0):
+        """Zero (or constant) states batched like dim `batch_dim_idx` of
+        `batch_ref` (ref rnn.py:80). `shape` leaves are lists/tuples of
+        ints; a leading -1 batch dim is inserted when absent."""
+        T = _lay()
+        batch_ref = flatten(batch_ref)[0]
+        states_shapes = self.state_shape if shape is None else shape
+
+        def _is_shape_leaf(s):
+            return (isinstance(s, (list, tuple))
+                    and all(isinstance(x, int) for x in s))
+
+        def _map_shapes(fn, s):
+            if _is_shape_leaf(s):
+                return fn(s)
+            if isinstance(s, dict):
+                return {k: _map_shapes(fn, v) for k, v in s.items()}
+            return type(s)(_map_shapes(fn, x) for x in s)
+
+        try:
+            states_dtypes = self.state_dtype if dtype is None else dtype
+        except NotImplementedError:
+            states_dtypes = "float32"
+        if not utils.is_sequence(states_dtypes) and not isinstance(
+                states_dtypes, dict):
+            one_dtype = states_dtypes
+
+            def _make(s):
+                full = list(s) if s and s[0] == -1 else [-1] + list(s)
+                return T.fill_constant_batch_size_like(
+                    input=batch_ref, shape=full, dtype=one_dtype,
+                    value=init_value, input_dim_idx=batch_dim_idx)
+
+            return _map_shapes(_make, states_shapes)
+        # per-leaf dtypes: walk shapes and dtypes in lockstep
+        flat_dtypes = flatten(states_dtypes)
+        counter = [0]
+
+        def _emit(s):
+            dt = flat_dtypes[counter[0]]
+            counter[0] += 1
+            full = list(s) if s and s[0] == -1 else [-1] + list(s)
+            return T.fill_constant_batch_size_like(
+                input=batch_ref, shape=full, dtype=dt, value=init_value,
+                input_dim_idx=batch_dim_idx)
+
+        return _map_shapes(_emit, states_shapes)
+
+    @property
+    def state_shape(self):
+        raise NotImplementedError
+
+    @property
+    def state_dtype(self):
+        raise NotImplementedError
 
 
 class GRUCell(RNNCell):
-    """GRU cell (ref rnn.py:178): waits for the RNN slice."""
+    """GRU cell over contrib.layers.rnn_impl.BasicGRUUnit
+    (ref rnn.py:178)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _rnn_slice("GRUCell")
+    def __init__(self, hidden_size, param_attr=None, bias_attr=None,
+                 gate_activation=None, activation=None, dtype="float32",
+                 name="GRUCell"):
+        self.hidden_size = hidden_size
+        from ..contrib.layers.rnn_impl import BasicGRUUnit
+
+        self.gru_unit = BasicGRUUnit(
+            name, hidden_size, param_attr, bias_attr, gate_activation,
+            activation, dtype)
+
+    def call(self, inputs, states):
+        new_hidden = self.gru_unit(inputs, states)
+        return new_hidden, new_hidden
+
+    @property
+    def state_shape(self):
+        return [self.hidden_size]
 
 
 class LSTMCell(RNNCell):
-    """LSTM cell (ref rnn.py:267): waits for the RNN slice."""
+    """LSTM cell over contrib.layers.rnn_impl.BasicLSTMUnit
+    (ref rnn.py:267). States are [h, c]."""
 
-    def __init__(self, *args, **kwargs):
-        raise _rnn_slice("LSTMCell")
+    def __init__(self, hidden_size, param_attr=None, bias_attr=None,
+                 gate_activation=None, activation=None, forget_bias=1.0,
+                 dtype="float32", name="LSTMCell"):
+        self.hidden_size = hidden_size
+        from ..contrib.layers.rnn_impl import BasicLSTMUnit
+
+        self.lstm_unit = BasicLSTMUnit(
+            name, hidden_size, param_attr, bias_attr, gate_activation,
+            activation, forget_bias, dtype)
+
+    def call(self, inputs, states):
+        pre_hidden, pre_cell = states
+        new_hidden, new_cell = self.lstm_unit(inputs, pre_hidden, pre_cell)
+        return new_hidden, [new_hidden, new_cell]
+
+    @property
+    def state_shape(self):
+        return [[self.hidden_size], [self.hidden_size]]
+
+
+def _mask_state(state, new_state, step_mask):
+    """new where mask==1 else old; mask is (B,), state (B, ...)."""
+    L = _lay()
+    m = step_mask
+    for _ in range(max(len(state.shape or ()) - 1, 0)):
+        m = L.unsqueeze(m, [len(m.shape)])
+    one = _lay().fill_constant([1], m.dtype, 1.0)
+    return L.elementwise_add(
+        L.elementwise_mul(new_state, m),
+        L.elementwise_mul(state, L.elementwise_sub(one, m)))
 
 
 def _transpose_batch_time(x):
@@ -71,9 +174,72 @@ def _transpose_batch_time(x):
 
 def rnn(cell, inputs, initial_states=None, sequence_length=None,
         time_major=False, is_reverse=False, **kwargs):
-    """Unroll `cell` over time (ref rnn.py:363): waits for the RNN
-    slice."""
-    raise _rnn_slice("rnn()")
+    """Unroll `cell` over the time axis of `inputs` (ref rnn.py:363).
+    Builds a StaticRNN whose step block calls `cell.call`. Returns
+    (outputs, final_states), batch-major unless time_major."""
+    from . import control_flow
+    from . import sequence_lod
+
+    L = T = _lay()
+
+    if initial_states is None:
+        # inputs are still in the user's layout here: the batch dim is 1
+        # when time-major (ref rnn.py passes batch_ref pre-transpose too)
+        initial_states = cell.get_initial_states(
+            batch_ref=inputs, batch_dim_idx=1 if time_major else 0)
+
+    if not time_major:
+        inputs = map_structure(_transpose_batch_time, inputs)
+
+    max_seq_len = flatten(inputs)[0].shape[0]
+    mask = None
+    if sequence_length is not None:
+        mask = sequence_lod.sequence_mask(
+            sequence_length, maxlen=max_seq_len,
+            dtype=flatten(initial_states)[0].dtype)
+        mask = L.transpose(mask, [1, 0])            # (T, B)
+    if is_reverse:
+        inputs = map_structure(
+            lambda x: T.reverse(x, axis=[0]), inputs)
+        if mask is not None:
+            mask = T.reverse(mask, axis=[0])
+
+    srnn = control_flow.StaticRNN()
+    with srnn.step():
+        step_in = map_structure(srnn.step_input, inputs)
+        states = map_structure(srnn.memory, initial_states)
+        outputs, new_states = cell.call(step_in, states, **kwargs)
+        assert_same_structure(states, new_states, check_types=False)
+        if mask is not None:
+            step_mask = srnn.step_input(mask)
+            new_states = map_structure(
+                lambda s, ns: _mask_state(s, ns, step_mask),
+                states, new_states)
+        map_structure(srnn.update_memory, states, new_states)
+        flat_outputs = flatten(outputs)
+        map_structure(srnn.step_output, outputs)
+        map_structure(srnn.step_output, new_states)
+
+    rnn_out = srnn()
+    if not isinstance(rnn_out, (list, tuple)):
+        rnn_out = [rnn_out]
+    n_out = len(flat_outputs)
+    final_outputs = utils.pack_sequence_as(outputs, rnn_out[:n_out])
+
+    def _last_step(x):
+        last = L.slice(x, axes=[0], starts=[max_seq_len - 1],
+                       ends=[max_seq_len])
+        return L.squeeze(last, [0])
+
+    final_states = map_structure(_last_step, rnn_out[n_out:])
+    final_states = utils.pack_sequence_as(new_states, flatten(final_states))
+
+    if is_reverse:
+        final_outputs = map_structure(
+            lambda x: T.reverse(x, axis=[0]), final_outputs)
+    if not time_major:
+        final_outputs = map_structure(_transpose_batch_time, final_outputs)
+    return final_outputs, final_states
 
 
 class Decoder:
@@ -349,6 +515,55 @@ def dynamic_decode(decoder, inits=None, max_step_num=None,
     return final_outputs, final_states
 
 
-def dynamic_lstmp(input, size, proj_size, *args, **kwargs):
-    """Projected LSTM (ref rnn.py:1512): waits for the RNN slice."""
-    raise _rnn_slice("dynamic_lstmp")
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None, h_0=None, c_0=None,
+                  cell_clip=None, proj_clip=None):
+    """Projected LSTM over a padded batch (ref rnn.py:1512). `input` is
+    the pre-projected (B, T, 4D) tensor; returns (projection (B, T, P),
+    cell (B, T, D))."""
+    from .sequence_lod import _alias_seq_len, _seq_inputs
+
+    helper = LayerHelper("lstmp", **locals())
+    d = size // 4
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[proj_size, 4 * d], dtype=dtype)
+    w_proj = helper.create_parameter(
+        attr=helper.param_attr, shape=[d, proj_size], dtype=dtype)
+    bias_size = 4 * d if not use_peepholes else 7 * d
+    b = helper.create_parameter(
+        attr=helper.bias_attr, shape=[1, bias_size], dtype=dtype,
+        is_bias=True)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    if input.shape is not None:
+        proj.shape = tuple(input.shape[:-1]) + (proj_size,)
+        cell.shape = tuple(input.shape[:-1]) + (d,)
+    ins = _seq_inputs(input)
+    ins["Input"] = ins.pop("X")
+    ins["Weight"] = [w]
+    ins["ProjWeight"] = [w_proj]
+    ins["Bias"] = [b]
+    if h_0 is not None:
+        ins["H0"] = [h_0]
+    if c_0 is not None:
+        ins["C0"] = [c_0]
+    helper.append_op(
+        type="lstmp",
+        inputs=ins,
+        outputs={"Projection": [proj], "Cell": [cell]},
+        attrs={
+            "use_peepholes": use_peepholes,
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "cell_activation": cell_activation,
+            "candidate_activation": candidate_activation,
+            "proj_activation": proj_activation,
+            "cell_clip": cell_clip,
+            "proj_clip": proj_clip,
+        },
+    )
+    _alias_seq_len(helper, input, proj)
+    return proj, cell

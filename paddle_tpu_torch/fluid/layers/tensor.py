@@ -1,6 +1,7 @@
 """Tensor creation layers (ref: python/paddle/fluid/layers/tensor.py);
 port of paddle_tpu/fluid/layers/tensor.py, the part BERT, GPT, the
-mixed-precision decorator and the decoders of the NMT slice call."""
+mixed-precision decorator, the decoders of the NMT slice and ``rnn()``
+(``reverse``) call."""
 import numpy as np
 
 from .. import core
@@ -12,7 +13,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
            "sums", "assign", "fill_constant",
-           "fill_constant_batch_size_like", "argmax", "range", "zeros_like"]
+           "fill_constant_batch_size_like", "argmax", "range", "zeros_like",
+           "reverse"]
 
 
 def create_parameter(
@@ -223,5 +225,20 @@ def zeros_like(x, out=None):
     out.shape = x.shape
     helper.append_op(
         type="fill_zeros_like", inputs={"X": [x]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def reverse(x, axis):
+    if isinstance(axis, int):
+        axis = [axis]
+    helper = LayerHelper("reverse", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="reverse",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
     )
     return out

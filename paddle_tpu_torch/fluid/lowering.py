@@ -10,20 +10,22 @@ records that region once with torch.autograd (``_run_training``), for
 every backward op of the block, and calls ``torch.autograd.grad`` at each
 op; recompute segments run under torch.utils.checkpoint. Control-flow
 sub-blocks run eagerly under the same tape, so autograd reaches through
-``cond``, ``conditional_block`` and ``static_rnn``; a ``while`` on the tape
-raises, as jax.vjp refuses ``lax.while_loop``.
+``cond``, ``conditional_block``, ``static_rnn`` and ``dynamic_rnn``; a
+``while`` on the tape raises, as jax.vjp refuses ``lax.while_loop``.
 
-Control flow: a while, cond or static_rnn op runs its sub-block through
-``run_ops`` on a copy of the env at the op (ops/control_ops.py), as the
-JAX package traces it into lax.while_loop / cond / scan.
+Control flow: a while, cond, static_rnn or dynamic_rnn op runs its
+sub-block through ``run_ops`` on a copy of the env at the op
+(ops/control_ops.py), as the JAX package traces it into lax.while_loop /
+cond / scan.
 
 Liveness: XLA drops what the reference's compiled step computes and never
 reads. The port runs eagerly, so :class:`LivePlan` marks, once per
 (program, version, fetch names), the ops the fetches need, going backward
 from the fetch list through the sub-blocks; every other op is skipped,
-and ``static_rnn`` stacks only its live step outputs. An op that writes
-a persistable, draws from the run's generator (:data:`DRAWS`), has no
-outputs, or is a ``backward`` op always runs, with what it reads.
+and ``static_rnn`` and ``dynamic_rnn`` stack only their live step
+outputs. An op that writes a persistable, draws from the run's generator
+(:data:`DRAWS`), has no outputs, or is a ``backward`` op always runs,
+with what it reads.
 """
 import contextlib
 import threading
@@ -440,11 +442,11 @@ class LivePlan:
     """The ops a run that fetches `fetch_names` executes, block by block.
 
     ``ops[idx]`` lists block idx's live ops in program order; ``rnn[id(op)]``
-    holds a live ``static_rnn``'s live output positions and carried memory
-    positions. An op is live when a later live op, a fetch or its block's
-    outputs read what it writes, or when it has an effect
-    (:meth:`has_effect`). A control-flow op reads its inputs and what its
-    sub-blocks' live ops read from the outer env."""
+    holds a live ``static_rnn``'s or ``dynamic_rnn``'s live output positions
+    and carried memory positions. An op is live when a later live op, a
+    fetch or its block's outputs read what it writes, or when it has an
+    effect (:meth:`has_effect`). A control-flow op reads its inputs and
+    what its sub-blocks' live ops read from the outer env."""
 
     def __init__(self, program, fetch_names):
         self._persist = set(v.name for v in program.list_vars()
@@ -489,7 +491,7 @@ class LivePlan:
         if op.type == "backward":
             reads.update(op.attrs.get("targets", ()))
         a = op.attrs
-        if op.type == "static_rnn":
+        if op.type in ("static_rnn", "dynamic_rnn"):
             sub = op.block.program.block(a["sub_block"])
             outs = {i for i, n in enumerate(op.output("Out")) if n in needed}
             mems = set()

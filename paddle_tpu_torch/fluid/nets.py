@@ -1,9 +1,10 @@
 """Composite network helpers (ref: python/paddle/fluid/nets.py); port of
 paddle_tpu/fluid/nets.py's ``simple_img_conv_pool``, which the MNIST conv
-net uses. The other helpers wait for later slices."""
+net uses, and ``sequence_conv_pool``, the text convolution of the
+sentiment chapter. The other helpers wait for later slices."""
 from . import layers
 
-__all__ = ["simple_img_conv_pool"]
+__all__ = ["simple_img_conv_pool", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(
@@ -44,3 +45,18 @@ def simple_img_conv_pool(
         pool_padding=pool_padding,
         global_pooling=global_pooling,
     )
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", bias_attr=None):
+    from .layers import sequence_lod
+
+    conv_out = sequence_lod.sequence_conv(
+        input=input,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        param_attr=param_attr,
+        bias_attr=bias_attr,
+        act=act,
+    )
+    return sequence_lod.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -1,6 +1,6 @@
 """Op lowerings (importing this package registers them). Port of
-paddle_tpu/ops for the ops of the BERT, ResNet, MNIST, GPT and
-Transformer NMT slices."""
+paddle_tpu/ops for the ops of the slices ported so far (ROADMAP.md
+Queue 1)."""
 from . import registry
 from . import math_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
@@ -11,4 +11,6 @@ from . import loss_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import control_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401
 from .registry import LOWERINGS, get_lowering, register_op  # noqa: F401

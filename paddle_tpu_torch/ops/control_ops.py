@@ -1,5 +1,5 @@
 """Control-flow op lowerings: while, conditional_block, cond, static_rnn,
-gather_tree, is_empty, select_input, select_output (port of
+dynamic_rnn, gather_tree, is_empty, select_input, select_output (port of
 paddle_tpu/ops/control_ops.py).
 
 The JAX package traces a sub-block into lax.while_loop, lax.cond or
@@ -21,15 +21,22 @@ its live ops only (``ctx.live_ops``).
 
 In a training run the sub-blocks run under the forward region's
 autograd tape, so a ``backward`` op differentiates through ``cond``,
-``conditional_block`` and ``static_rnn``; a ``while`` whose carried values
-hold a gradient raises, as the JAX package's jax.vjp refuses
-``lax.while_loop`` in reverse mode. ``dynamic_rnn`` needs LoD lengths end
-to end and waits for the sequence slice.
+``conditional_block``, ``static_rnn`` and ``dynamic_rnn``; a ``while``
+whose carried values hold a gradient raises, as the JAX package's jax.vjp
+refuses ``lax.while_loop`` in reverse mode.
+
+``dynamic_rnn`` (DynamicRNN) walks the time axis of batch-major (B, T, ...)
+step inputs, every step over the whole batch: past a row's ``SeqLen`` its
+memories hold and its step outputs are zero, as the JAX package's masked
+lax.scan gives them (the reference shrinks the batch instead). Its step
+outputs are collected in a list and stacked once, so autograd reaches
+through every step.
 """
 import torch
 
 from .promotion import promote
 from .registry import register_op, single
+from .sequence_ops import _lens
 from .tensor_ops import _jax_index
 
 
@@ -128,10 +135,40 @@ def _static_rnn(ctx, ins, attrs):
 
 @register_op("dynamic_rnn")
 def _dynamic_rnn(ctx, ins, attrs):
-    raise NotImplementedError(
-        "op 'dynamic_rnn' (DynamicRNN) is not ported yet: it needs LoD "
-        "lengths end to end and comes with the sequence slice of "
-        "paddle_tpu_torch (ROADMAP.md Queue 1, item 6.5)")
+    """DynamicRNN: the step sub-block once per step of the (B, T, ...)
+    step inputs, the live memories carried. A row whose step t is at or
+    past its length keeps its memories (a select) and gives zeros (a
+    product with the 0/1 mask, so a non-finite value there stays
+    non-finite, as in the JAX package). The live step outputs come out
+    stacked to (B, T, ...), None in a dead output's place."""
+    mem_names = attrs["mem_names"]
+    mem_updated = attrs["mem_updated"]
+    x_names = attrs["x_names"]
+    out_names = attrs["out_names"]
+    live_out, live_mem = ctx.rnn_live(len(out_names), len(mem_names))
+    outer = dict(ctx.current_env)
+    mems = list(ins["Mem"])
+    xs = ins["X"]
+    batch, steps = xs[0].shape[0], xs[0].shape[1]
+    lens = _lens(ins, xs[0])
+    seqs = [[] for _ in out_names]
+    for t in range(steps):
+        env = dict(outer)
+        env.update(zip(mem_names, mems))
+        env.update((n, x[:, t]) for n, x in zip(x_names, xs))
+        env = _run_block(ctx, attrs["sub_block"], env)
+        alive = t < lens
+
+        def mask(v):
+            return alive.to(v.dtype).reshape((batch,) + (1,) * (v.dim() - 1))
+
+        mems = [torch.where(mask(env[n]) > 0, env[n], m) if j in live_mem
+                else m for j, (n, m) in enumerate(zip(mem_updated, mems))]
+        for i in live_out:
+            o = env[out_names[i]]
+            seqs[i].append(o * mask(o))
+    return {"Out": [torch.stack(seqs[i], dim=1) if i in live_out else None
+                    for i in range(len(out_names))]}
 
 
 @register_op("gather_tree")

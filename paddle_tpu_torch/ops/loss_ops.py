@@ -1,5 +1,6 @@
 """Loss op lowerings: softmax_with_cross_entropy (ref: paddle/fluid/
-operators/softmax_with_cross_entropy_op.cc) and log_loss (log_loss_op.cc).
+operators/softmax_with_cross_entropy_op.cc), cross_entropy
+(cross_entropy_op.cc) and log_loss (log_loss_op.cc).
 Port of the paddle_tpu/ops/loss_ops.py lowerings. softmax_with_cross_entropy
 is the one BERT's pretraining head runs: log-softmax over
 ``axis``, soft labels over any axis, hard labels with ``ignore_index``
@@ -36,6 +37,24 @@ def _squeeze_label(label):
     if label.dim() >= 2 and label.shape[-1] == 1:
         return label[..., 0]
     return label
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """-log of the probability X gives the label, X read no lower than
+    1e-12: hard labels over the last axis (``ignore_index`` rows give 0),
+    soft labels summed. Y keeps a trailing axis of 1. The floor is
+    ``torch.maximum``, whose gradient splits at a tie as jax's does."""
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = x.new_tensor(1e-12)
+    if attrs.get("soft_label", False):
+        return {"Y": [-(label * torch.log(torch.maximum(x, eps))).sum(
+            dim=-1, keepdim=True)]}
+    lab = _squeeze_label(label).long()
+    picked = x.gather(-1, lab.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+    out = -torch.log(torch.maximum(picked, eps))
+    ignore = attrs.get("ignore_index", -100)
+    return {"Y": [torch.where(lab == ignore, 0.0, out)[..., None]]}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -1,5 +1,5 @@
 """NN op lowerings: relu, sigmoid, log, exp, sqrt, square, floor, ceil,
-cos, round, softmax, gelu, lookup_table_v2, conv2d, depthwise_conv2d,
+cos, tanh, round, softmax, gelu, lookup_table_v2, conv2d, depthwise_conv2d,
 pool2d, batch_norm, layer_norm, dropout.
 
 Port of the paddle_tpu/ops/nn_ops.py lowerings the port runs.
@@ -55,6 +55,7 @@ register_op("square")(_unary(lambda x: x * x))
 register_op("floor")(_unary(torch.floor))
 register_op("ceil")(_unary(torch.ceil))
 register_op("cos")(_unary(torch.cos))
+register_op("tanh")(_unary(torch.tanh))
 
 
 @register_op("round")

@@ -56,7 +56,8 @@ class LowerContext:
     reads the outer block's values, the parameters among them, by name.
     ``plan``, the run's ``fluid/lowering.py`` ``LivePlan`` (None: every
     op is live), says which ops of a block run (:meth:`live_ops`) and
-    which outputs and memories a ``static_rnn`` keeps (:meth:`rnn_live`).
+    which outputs and memories a ``static_rnn`` or ``dynamic_rnn`` keeps
+    (:meth:`rnn_live`).
     ``keep_names``, the run's fetches and persistables, stay live across
     a recompute segment's end.
     """
@@ -83,7 +84,7 @@ class LowerContext:
 
     def rnn_live(self, n_out, n_mem):
         """(live output positions, live memory positions) of the
-        ``static_rnn`` op being lowered."""
+        ``static_rnn`` or ``dynamic_rnn`` op being lowered."""
         got = None if self.plan is None else self.plan.rnn.get(
             id(self.current_op))
         return got or (set(range(n_out)), set(range(n_mem)))

@@ -1,7 +1,7 @@
 """Tensor manipulation op lowerings: cast, concat, reshape2, transpose2,
 squeeze2, unsqueeze2, flatten2, slice, top_k, arg_max, fill_constant,
 fill_constant_batch_size_like, fill_zeros_like, assign, assign_value,
-increment, where, gather, gather_nd, expand, expand_as, stack, range,
+increment, where, gather, gather_nd, expand, expand_as, reverse, stack, range,
 decode_cache_write. Port of the
 paddle_tpu/ops/tensor_ops.py lowerings the port runs;
 reshape/transpose/slice/squeeze return views where torch can.
@@ -245,6 +245,11 @@ def _expand(ctx, ins, attrs):
 def _expand_as(ctx, ins, attrs):
     x, tgt = ins["X"][0], ins["target_tensor"][0]
     return single(_tile(x, [t // s for t, s in zip(tgt.shape, x.shape)]))
+
+
+@register_op("reverse")
+def _reverse(ctx, ins, attrs):
+    return single(torch.flip(ins["X"][0], dims=list(attrs["axis"])))
 
 
 @register_op("stack")

@@ -19,8 +19,8 @@
   ones (the same f32 ops; a StaticRNN's fc sums in another order).
 - A ``backward`` whose region carries a gradient through a ``while``
   raises in both packages (jax.vjp refuses lax.while_loop in reverse
-  mode). DynamicRNN and the ``dynamic_rnn`` op (the sequence slice) and
-  the RNN cells and ``rnn()`` (the RNN slice) raise, naming their slice.
+  mode). DynamicRNN and the ``dynamic_rnn`` op, the RNN cells and
+  ``rnn()`` (the sequence and RNN slices) run.
 - A ``lod_level`` = 1 feed gets its ``@SEQ_LEN`` companion filled with
   full lengths, as in the JAX package, unless the caller feeds it.
 - Liveness (``fluid/lowering.py`` ``LivePlan``): a ``static_rnn`` stacks
@@ -553,15 +553,25 @@ def test_backward_through_control_flow_raises():
 
 
 def test_dynamic_rnn_waits_for_the_sequence_slice():
-    with pytest.raises(NotImplementedError, match="sequence slice"):
-        fluid.layers.DynamicRNN()
-    with pytest.raises(NotImplementedError, match="sequence slice"):
-        pt_lowering("dynamic_rnn")(LowerContext(torch.device("cpu")), {}, {})
-    for name in ("RNNCell", "GRUCell", "LSTMCell"):
-        with pytest.raises(NotImplementedError, match="RNN slice"):
-            getattr(fluid.layers, name)(4)
-    with pytest.raises(NotImplementedError, match="RNN slice"):
-        fluid.layers.rnn(None, None)
+    """The sequence slice has come: DynamicRNN and the ``dynamic_rnn`` op
+    run, as do the RNN cells and ``rnn()`` (tests/test_torch_rnn.py holds
+    them against the JAX package); here a masked running sum."""
+    x = fluid.data("x", shape=[None, 3, 2], dtype="float32", lod_level=1)
+    drnn = fluid.layers.DynamicRNN()
+    with drnn.block():
+        xt = drnn.step_input(x)
+        mem = drnn.memory(shape=[2], value=0.0)
+        acc = fluid.layers.elementwise_add(mem, xt)
+        drnn.update_memory(mem, acc)
+        drnn.output(acc)
+    out = drnn()
+    got, = fluid.Executor(fluid.CPUPlace()).run(
+        feed={"x": np.ones((2, 3, 2), np.float32),
+              "x@SEQ_LEN": np.array([3, 1], np.int32)}, fetch_list=[out])
+    np.testing.assert_array_equal(got[:, :, 0], [[1, 2, 3], [1, 0, 0]])
+    for name in ("GRUCell", "LSTMCell"):
+        assert getattr(fluid.layers, name)(4).hidden_size == 4
+    assert isinstance(fluid.layers.GRUCell(4), fluid.layers.RNNCell)
 
 
 def _seq_len_prog(fl):

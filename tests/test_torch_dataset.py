@@ -215,11 +215,16 @@ def test_dataset_factory_and_desc():
 
 
 def test_lod_feed_waits_for_the_sequence_slice():
+    """The sequence slice has come: a lod_level=1 slot is fed as a
+    LoDTensor padded to the batch's longest sequence, with its lengths
+    (tests/test_torch_lod_feed.py holds it against the JAX package)."""
     main = fluid.Program()
     with fluid.program_guard(main, fluid.Program()):
         ids = fluid.data("ids", [-1, 1], dtype="int64", lod_level=1)
-    with pytest.raises(NotImplementedError, match="item 6.5"):
-        DataFeeder([ids], fluid.CPUPlace()).feed([([1, 2],), ([3],)])
+    got = DataFeeder([ids], fluid.CPUPlace()).feed([([1, 2],), ([3],)])
+    assert isinstance(got["ids"], fluid.LoDTensor)
+    np.testing.assert_array_equal(np.asarray(got["ids"]), [[1, 2], [3, 0]])
+    np.testing.assert_array_equal(got["ids"].seq_lens, [2, 1])
 
 
 class _Gen(MultiSlotDataGenerator):
