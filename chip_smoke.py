@@ -351,6 +351,39 @@ Phases, each of which exits non-zero on failure:
    losses within 1e-3 of the CPU's, and ``BeamSearchDecoder``'s per-step
    tokens and parents equal to the CPU's up to the first near-tie (as
    9a).
+17. detection, R-CNN and CRF (item 6.6), none of the five kernels on
+   either path: (a) ``models/ssd.py`` trained as examples/train_ssd.py
+   trains it (``build_ssd_train(num_classes=4, image_size=64,
+   max_gt=8)``, ``Adam(2e-3)``, startup seed 3, ``synthetic_batch``
+   scenes from ``default_rng(0)``), 10 steps on the card and on the CPU
+   from the same startup values, every kernel counter at 0 before them
+   (the main path): losses within 1e-3 relative, step-1 gradients
+   within 1e-3·max|grad| of each parameter unless hard-negative mining
+   picked other priors on the card, and then within 3x the CPU's own
+   spread under a one-ulp nudge of the image + 1e-3 (the mined
+   negatives that moved are printed); then 20 more timed steps (median,
+   p90, peak memory); (b) ``build_ssd_infer(keep_top_k=10)`` in a fresh
+   program on 17a's trained parameters, through ``Executor.run`` and,
+   saved, through ``Predictor.from_model`` on the card: the two
+   bit-identical, and against the CPU's run labels and order equal up to
+   the first near-tie of scores (a gap < 1e-5), scores and boxes within
+   1e-5; 30 timed forwards; (c) the Paddle book's SRL chapter
+   (07.label_semantic_roles' ``db_lstm``: word_dim 32, mark_dim 5,
+   hidden 512, depth 8, the frozen ``emb`` from
+   ``dataset.conll05.get_embedding()``, the CRF cost under SGD with
+   ``exponential_decay(0.01, 100000, 0.5, staircase=True)``) on
+   ``conll05.test()`` batches of 10 through ``DataFeeder``, 10 steps
+   card vs CPU with the counters at 0 (the main path): losses within
+   1e-4 relative, step-1 gradients within 1e-3·max each (or as 16a
+   holds them if a relu or sigmoid boundary moved); then a held-out
+   batch decoded by ``crf_decoding`` on the card's weights on both
+   sides, paths equal except where two paths' scores tie, and
+   ``chunk_eval``'s counts equal; (d) each of the 35 new op types once
+   on the card against the CPU at the CPU tests' sizes, gradients
+   included, integers equal, values within 1e-5·max, gradients 1e-4·max.
+   The profiled SSD step, SSD forward and SRL step come with the other
+   profiles; the kernels line gains ``launches_ssd`` (17a + 17b) and
+   ``launches_srl`` (17c).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -6776,6 +6809,769 @@ def seq2seq_vs_cpu(fluid):
     beam_vs_cpu(fluid, src)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: detection, R-CNN and CRF
+# ---------------------------------------------------------------------------
+# 17a models/ssd.py trained as examples/train_ssd.py trains it (its only
+# configuration: 4 classes, 64x64 images, 8 padded gts, Adam(2e-3), startup
+# seed 3, synthetic_batch scenes from default_rng(0)): 10 steps card vs CPU
+# from the same startup values (the main path), then SSD_TIMED more timed;
+# 17b build_ssd_infer (keep_top_k 10) on 17a's parameters, through
+# Executor.run and a saved model served by Predictor.from_model, against
+# the CPU; 17c the Paddle book's SRL chapter (07.label_semantic_roles'
+# db_lstm under linear_chain_crf) at its published width over
+# dataset.conll05, 10 steps card vs CPU, then crf_decoding and chunk_eval
+# of one held-out batch on the same weights; 17d each of the 35 new op
+# types on the card against the CPU, untimed.
+SSD_CLASSES, SSD_IMAGE, SSD_MAX_GT, SSD_LR, SSD_SEED = 4, 64, 8, 2e-3, 3
+SSD_STEPS, SSD_TIMED, SSD_KEEP, SSD_FORWARDS = 10, 20, 10, 30
+SSD_TOL = 1e-3          # 17a: losses (relative) and step-1 gradients (of max)
+DET_TOL = 1e-5          # 17b: scores and boxes; a score gap below it is a tie
+SRL_WORD, SRL_MARK, SRL_HID, SRL_DEPTH, SRL_BATCH = 32, 5, 512, 8, 10
+SRL_STEPS, SRL_SEED, SRL_MIX_LR = 10, 7, 1e-3
+SRL_LOSS_TOL, SRL_GRAD_TOL, SRL_FLIP_TOL = 1e-4, 1e-3, 5e-2
+SRL_FEATS = ["word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data"]
+OPS17_TOL, OPS17_GRAD_TOL = 1e-5, 1e-4     # 17d: of the largest value
+
+
+@contextlib.contextmanager
+def fresh_names():
+    """A fresh unique-name generator while building: the program's names
+    are then those of a process that built nothing before (how
+    examples/train_ssd.py builds its training and inference programs,
+    which share parameter names)."""
+    from paddle_tpu_torch.fluid import unique_name
+
+    old = unique_name.switch()
+    try:
+        yield
+    finally:
+        unique_name.switch(old)
+
+
+def clone_scope(fluid, scope, device=None):
+    out = fluid.Scope()
+    for n, t in scope.items():
+        t = t if device is None else t.to(device)
+        out.set(n, t.clone())
+    return out
+
+
+def consumer(ops, name, op_type):
+    """The first op of `op_type` that reads `name`."""
+    return next(op for op in ops
+                if op.type == op_type and name in op.input_arg_names)
+
+
+def mined_negatives(main):
+    """The name of ssd_loss's mined-negative mask (one value a prior): its
+    second argsort's ranks, cast, compared with the negative count, cast,
+    times the candidates (paddle_tpu_torch/fluid/layers/detection.py)."""
+    ops = main.global_block().ops
+    name = [op for op in ops if op.type == "argsort"][1].output("Indices")[0]
+    for op_type in ("cast", "less_than", "cast", "elementwise_mul"):
+        name = consumer(ops, name, op_type).output("Out")[0]
+    return name
+
+
+def ssd_train_phase(fluid, ssd, ca, cl):
+    """17a. SSD_STEPS steps on the card and on the CPU from the same
+    startup values, every kernel counter at 0 before the first (the main
+    path, with SSD_TIMED card steps after them): losses within SSD_TOL
+    relative; step-1 gradients within SSD_TOL·max|grad| of each
+    parameter. Hard-negative mining ranks each prior's cross-entropy, so
+    a rounding difference can move a prior into or out of the mined set
+    and move the gradients by more than rounding: the CPU's own spread
+    under a one-ulp nudge of the image, and how many mined negatives move
+    on the card and under the nudge, are printed each run, and only when
+    the card's mined set differs from the CPU's may a gradient be off by
+    more than SSD_TOL, and then by no more than 3x the CPU's own spread
+    for that parameter + SSD_TOL. Returns its launches, a step for the
+    profile, the numbers, and the card's trained scope and the image 17b
+    detects on."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SSD_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = ssd.build_ssd_train(num_classes=SSD_CLASSES,
+                                 image_size=SSD_IMAGE, max_gt=SSD_MAX_GT)
+        fluid.optimizer.Adam(learning_rate=SSD_LR).minimize(vs["loss"])
+    cpu_scope, scope = cpu_init(fluid, startup)
+    nudged = clone_scope(fluid, cpu_scope)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(SSD_STEPS + 1 + SSD_TIMED):
+        img, boxes, labels = ssd.synthetic_batch(
+            rng, image_size=SSD_IMAGE, max_gt=SSD_MAX_GT,
+            num_classes=SSD_CLASSES)
+        batches.append({"image": img, "gt_box": boxes, "gt_label": labels})
+    params = sorted(p.name for p in main.all_parameters())
+    grads = [p + "@GRAD" for p in params]
+    mined = mined_negatives(main)
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    losses, worst_loss = [], 0.0
+    for step in range(SSD_STEPS):
+        feed = batches[step]
+        fetch = [vs["loss"]] + ([mined] + grads if step == 0 else [])
+        card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch,
+                          scope=cpu_scope)
+        lc, lw = float(card[0]), float(cpu[0])
+        rel = abs(lc - lw) / abs(lw)
+        worst_loss = max(worst_loss, rel)
+        losses.append((lc, lw))
+        if not np.isfinite(lc) or rel > SSD_TOL:
+            fail("17a step %d: loss %.7f on the card, %.7f on the CPU" % (
+                step, lc, lw))
+        if step == 0:
+            card_m, card_g = card[1], card[2:]
+            cpu_m, cpu_g = cpu[1], cpu[2:]
+            nfeed = dict(feed, image=np.nextafter(
+                feed["image"], np.float32(np.inf)))
+            own = cpu_exe.run(main, feed=nfeed, fetch_list=[mined] + grads,
+                              scope=nudged)
+            own_m, own = own[0], own[1:]
+    del nudged
+    walls = []
+    for feed in batches[SSD_STEPS + 1:]:
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feed, fetch_list=[vs["loss"]], scope=scope)
+        walls.append(time.monotonic() - t0)     # the fetch waits
+        if not np.isfinite(float(out)):
+            fail("17a: a timed step's loss is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - resident
+    launches = check_launches("17a SSD training (main path)", fns, {})
+    if not all(np.isfinite(a).all() for a in card_g):
+        fail("17a: a step-1 gradient is not finite on the card")
+    rels = {p: rel_err(a, w) for p, a, w in zip(params, card_g, cpu_g)}
+    owns = {p: rel_err(a, w) for p, a, w in zip(params, own, cpu_g)}
+    flips = int((card_m != cpu_m).sum())
+    own_flips = int((own_m != cpu_m).sum())
+    print("17a step-1 gradients, max|d|/max|grad| per parameter, card vs "
+          "CPU (the CPU against itself with the image one f32 ulp up):")
+    rows = ["%s %.2e (%.2e)" % (p, rels[p], owns[p]) for p in params]
+    for i in range(0, len(rows), 4):
+        print("  " + ", ".join(rows[i:i + 4]))
+    over = sorted(((r, p) for p, r in rels.items() if r > SSD_TOL),
+                  reverse=True)
+    stats = step_stats(walls)
+    stats.update(peak_gib=peak, resident_gib=resident, steps=len(walls))
+    print("17a SSD (models/ssd.py: %d classes, %dx%d images, %d gts, "
+          "Adam(%g), startup seed %d) card vs CPU, %d steps from the same "
+          "startup: losses %s, worst %.3e relative (bound %g); mined "
+          "negatives (of %d priors, %d mined on the CPU at step 1) that "
+          "differ: card vs CPU %d, the nudged CPU vs CPU %d; gradients "
+          "over %g: %s" % (
+              SSD_CLASSES, SSD_IMAGE, SSD_IMAGE, SSD_MAX_GT, SSD_LR,
+              SSD_SEED, SSD_STEPS,
+              " ".join("%.6f/%.6f" % lc for lc in losses), worst_loss,
+              SSD_TOL, cpu_m.size, int(cpu_m.sum()), flips, own_flips,
+              SSD_TOL, ", ".join("%s %.2e" % (p, r) for r, p in over)
+              or "none"), flush=True)
+    if over and (not flips or any(r > 3 * owns[p] + SSD_TOL
+                                  for r, p in over)):
+        fail("17a: step-1 gradients off the CPU's beyond their bounds (%d "
+             "mined negatives moved)" % flips)
+    print("17a main path: %d timed steps after the %d compared: median "
+          "%.3f ms, p90 %.3f ms, peak %.3f GiB above the %.3f GiB resident "
+          "before the steps" % (
+              len(walls), SSD_STEPS, stats["median_ms"], stats["p90_ms"],
+              peak, resident), flush=True)
+
+    def step():
+        exe.run(main, feed=batches[-1], fetch_list=[vs["loss"]], scope=scope)
+
+    return launches, step, stats, (scope, batches[SSD_STEPS]["image"])
+
+
+def first_near_tie(scores, gap=DET_TOL):
+    """Index of the first of two rows whose scores are within `gap`
+    (len(scores) when none are)."""
+    hits = np.nonzero(np.abs(np.diff(scores)) < gap)[0]
+    return int(hits[0]) if len(hits) else len(scores)
+
+
+def compare_detections(tag, got, want):
+    """NMS rows (N, K, 6): labels and order equal to `want`'s up to its
+    first near-tie of scores, scores and boxes within DET_TOL there.
+    Returns (rows compared, rows kept, max|d|)."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail("%s: detections %s, want %s, or not finite" % (
+            tag, got.shape, want.shape))
+    compared = kept = 0
+    err = 0.0
+    for g, w in zip(got, want):
+        rows = w[w[:, 0] >= 0]
+        k = first_near_tie(rows[:, 1])
+        if not np.array_equal(g[:k, 0], w[:k, 0]):
+            fail("%s: labels %s, want %s" % (tag, g[:k, 0], w[:k, 0]))
+        err = max(err, float(np.abs(g[:k, 1:] - w[:k, 1:]).max(initial=0)))
+        compared += k
+        kept += len(rows)
+    if err > DET_TOL:
+        fail("%s: scores or boxes %.3e off (bound %g)" % (tag, err, DET_TOL))
+    return compared, kept, err
+
+
+def ssd_infer_phase(fluid, ssd, ca, cl, trained, tmp):
+    """17b. build_ssd_infer in a fresh program with 17a's trained
+    parameters copied in by name, run through Executor.run and, saved with
+    save_inference_model, through Predictor.from_model on the card: the
+    two bit-identical, each against the CPU's run of the same program on
+    the same parameters (compare_detections); then SSD_FORWARDS timed
+    forwards of the predictor with the counters at 0 before them."""
+    scope, image = trained
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = ssd.build_ssd_infer(num_classes=SSD_CLASSES,
+                                 image_size=SSD_IMAGE, keep_top_k=SSD_KEEP)
+    iscope, cscope = fluid.Scope(), fluid.Scope()
+    for p in main.all_parameters():
+        iscope.set(p.name, scope[p.name].clone())
+        cscope.set(p.name, scope[p.name].cpu().clone())
+    exe = fluid.Executor()
+    feed = {"image": image}
+    by_exe, = exe.run(main, feed=feed, fetch_list=[vs["detections"]],
+                      scope=iscope)
+    dirname = os.path.join(tmp, "ssd17")
+    fluid.io.save_inference_model(dirname, ["image"], [vs["detections"]],
+                                  exe, main_program=main, scope=iscope)
+    pred = fluid.Predictor.from_model(dirname)
+    by_pred, = pred.run(feed)
+    want, = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=[vs["detections"]], scope=cscope)
+    same = by_exe.tobytes() == by_pred.tobytes()
+    compared, kept, err = compare_detections("17b", by_pred, want)
+    fns = zero_counters(ca, cl)
+    walls = []
+    for _ in range(SSD_FORWARDS):
+        t0 = time.monotonic()
+        pred.run(feed)
+        walls.append(time.monotonic() - t0)
+    launches = check_launches("17b SSD inference (main path)", fns, {})
+    stats = step_stats(walls)
+    print("17b build_ssd_infer (keep_top_k %d) on 17a's weights: "
+          "Executor.run and Predictor.from_model bit-identical: %s; against "
+          "the CPU: %d kept rows, %d compared before the first near-tie "
+          "(gap < %g), max|d| of scores and boxes %.3e (bound %g); labels "
+          "%s; %d timed forwards: median %.3f ms, p90 %.3f ms" % (
+              SSD_KEEP, same, kept, compared, DET_TOL, err, DET_TOL,
+              by_pred[0, :, 0].astype(int).tolist(), SSD_FORWARDS,
+              stats["median_ms"], stats["p90_ms"]), flush=True)
+    if not same or kept == 0:
+        fail("17b: the served detections differ from Executor.run's, or "
+             "none was kept")
+
+    def forward():
+        pred.run(feed)
+
+    return launches, forward, stats
+
+
+def srl_net(fluid, word_dict_len, pred_dict_len, label_dict_len,
+            word_dim=SRL_WORD, mark_dim=SRL_MARK, hidden_dim=SRL_HID,
+            depth=SRL_DEPTH, mark_dict_len=2):
+    """The book's db_lstm (07.label_semantic_roles), its CRF cost under
+    SGD with the chapter's exponential_decay, crf_decoding and an IOB
+    chunk_eval, built with fluid.layers as the chapter builds them (the
+    fcs take num_flatten_dims=2, as the padded (B, T, D) input needs).
+    Returns (feed vars in the reader's slot order, loss, decoded path,
+    chunk counts, the emission)."""
+    L = fluid.layers
+    ins = {n: fluid.data(name=n, shape=[None, None], dtype="int64",
+                         lod_level=1) for n in SRL_FEATS}
+    target = fluid.data(name="target", shape=[None, None], dtype="int64",
+                        lod_level=1)
+    pred_emb = L.embedding(input=ins["verb_data"],
+                           size=[pred_dict_len, word_dim], dtype="float32",
+                           param_attr="vemb")
+    mark_emb = L.embedding(input=ins["mark_data"],
+                           size=[mark_dict_len, mark_dim], dtype="float32")
+    emb_layers = [L.embedding(input=ins[n], size=[word_dict_len, word_dim],
+                              param_attr=fluid.ParamAttr(name="emb",
+                                                         trainable=False))
+                  for n in SRL_FEATS[:6]]
+    emb_layers += [pred_emb, mark_emb]
+    hidden_0 = L.sums(input=[L.fc(input=e, size=hidden_dim, act="tanh",
+                                  num_flatten_dims=2) for e in emb_layers])
+    lstm_0, _ = L.dynamic_lstm(input=hidden_0, size=hidden_dim,
+                               candidate_activation="relu",
+                               gate_activation="sigmoid",
+                               cell_activation="sigmoid")
+    input_tmp = [hidden_0, lstm_0]
+    for i in range(1, depth):
+        mix_hidden = L.sums(input=[
+            L.fc(input=input_tmp[0], size=hidden_dim, act="tanh",
+                 num_flatten_dims=2),
+            L.fc(input=input_tmp[1], size=hidden_dim, act="tanh",
+                 num_flatten_dims=2)])
+        lstm, _ = L.dynamic_lstm(input=mix_hidden, size=hidden_dim,
+                                 candidate_activation="relu",
+                                 gate_activation="sigmoid",
+                                 cell_activation="sigmoid",
+                                 is_reverse=((i % 2) == 1))
+        input_tmp = [mix_hidden, lstm]
+    feature_out = L.sums(input=[
+        L.fc(input=input_tmp[0], size=label_dict_len, act="tanh",
+             num_flatten_dims=2),
+        L.fc(input=input_tmp[1], size=label_dict_len, act="tanh",
+             num_flatten_dims=2)])
+    crf_cost = L.linear_chain_crf(
+        input=feature_out, label=target,
+        param_attr=fluid.ParamAttr(name="crfw", learning_rate=SRL_MIX_LR))
+    loss = L.mean(crf_cost)
+    fluid.optimizer.SGD(learning_rate=L.exponential_decay(
+        learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+        staircase=True)).minimize(loss)
+    decoded = L.crf_decoding(input=feature_out,
+                             param_attr=fluid.ParamAttr(name="crfw"))
+    counts = L.chunk_eval(input=decoded, label=target, chunk_scheme="IOB",
+                          num_chunk_types=int(np.ceil(
+                              (label_dict_len - 1) / 2.0)))[3:]
+    return ([ins[n] for n in SRL_FEATS] + [target], loss, decoded,
+            list(counts), feature_out)
+
+
+def path_score(x, w, path):
+    """A tag path's CRF score in float64: emissions x (T, D), transition w
+    (D + 2, D), over the whole row (the net passes no lengths)."""
+    x, w = x.astype(np.float64), w.astype(np.float64)
+    s = w[0, path[0]] + w[1, path[-1]] + x[np.arange(len(path)), path].sum()
+    return s + w[2:][path[:-1], path[1:]].sum()
+
+
+def srl_phase(fluid, paddle, ca, cl):
+    """17c. The SRL net trained SRL_STEPS steps on the card and on the CPU
+    from the same startup values (``emb`` set to conll05's embedding in
+    both), the counters at 0 before the first (the main path): losses
+    within SRL_LOSS_TOL relative, step-1 gradients within
+    SRL_GRAD_TOL·max|grad| each, or, where that fails, as 16a holds them
+    (relu candidates and sigmoid gates can flip): each within
+    SRL_FLIP_TOL, median and all together within 3x the CPU's own spread
+    under a one-ulp nudge of ``emb`` + SRL_GRAD_TOL. Then one held-out
+    batch decoded on the card and on the CPU with the card's weights:
+    paths equal except where the two paths' scores (float64, on the CPU's
+    emissions) tie within 1e-6 relative (counted); chunk_eval's counts
+    equal to the CPU's on the same paths."""
+    word_dict, verb_dict, label_dict = paddle.dataset.conll05.get_dict()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SRL_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        feeds, loss, decoded, counts, emission = srl_net(
+            fluid, len(word_dict), len(verb_dict), len(label_dict))
+    cpu_scope, scope = cpu_init(fluid, startup)
+    emb = torch.from_numpy(paddle.dataset.conll05.get_embedding())
+    cpu_scope.set("emb", emb.clone())
+    scope.set("emb", emb.clone())
+    nudged = clone_scope(fluid, cpu_scope)
+    nudged.set("emb", torch.nextafter(emb, torch.full_like(emb, np.inf)))
+    batches = list(paddle.batch(paddle.dataset.conll05.test(),
+                                SRL_BATCH)())
+    feeder = fluid.DataFeeder(feed_list=feeds, place=fluid.CUDAPlace(0))
+    cpu_feeder = fluid.DataFeeder(feed_list=feeds, place=fluid.CPUPlace())
+    params = sorted(p.name for p in main.all_parameters()
+                    if p.trainable)
+    grads = [p + "@GRAD" for p in params]
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    losses, walls, worst_loss = [], [], 0.0
+    for step in range(SRL_STEPS):
+        fetch = [loss] + (grads if step == 0 else [])
+        t0 = time.monotonic()
+        card = exe.run(main, feed=feeder.feed(batches[step]),
+                       fetch_list=fetch, scope=scope)
+        walls.append(time.monotonic() - t0)     # the fetch waits
+        cpu = cpu_exe.run(main, feed=cpu_feeder.feed(batches[step]),
+                          fetch_list=fetch, scope=cpu_scope)
+        lc, lw = float(card[0]), float(cpu[0])
+        rel = abs(lc - lw) / abs(lw)
+        worst_loss = max(worst_loss, rel)
+        losses.append((lc, lw))
+        if not np.isfinite(lc) or rel > SRL_LOSS_TOL:
+            fail("17c step %d: loss %.7f on the card, %.7f on the CPU" % (
+                step, lc, lw))
+        if step == 0:
+            card_g, cpu_g = card[1:], cpu[1:]
+            own = cpu_exe.run(main, feed=cpu_feeder.feed(batches[0]),
+                              fetch_list=grads, scope=nudged)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - resident
+    launches = check_launches("17c SRL training (main path)", fns, {})
+    del nudged
+    rels = {p: rel_err(a, w) for p, a, w in zip(params, card_g, cpu_g)}
+    owns = {p: rel_err(a, w) for p, a, w in zip(params, own, cpu_g)}
+    if not all(np.isfinite(a).all() for a in card_g):
+        fail("17c: a step-1 gradient is not finite on the card")
+    print("17c step-1 gradients, max|d|/max|grad| per parameter, card vs "
+          "CPU (the CPU against itself with emb one f32 ulp up):")
+    rows = ["%s %.2e (%.2e)" % (p, rels[p], owns[p]) for p in params]
+    for i in range(0, len(rows), 4):
+        print("  " + ", ".join(rows[i:i + 4]))
+    median = float(np.median(list(rels.values())))
+    dist = grad_dist(card_g, cpu_g)
+    own_median = float(np.median(list(owns.values())))
+    own_dist = grad_dist(own, cpu_g)
+    bound = min(SRL_FLIP_TOL, 3 * max(own_median, own_dist) + SRL_GRAD_TOL)
+    over = sorted(((r, p) for p, r in rels.items() if r > SRL_GRAD_TOL),
+                  reverse=True)
+    lens = [[len(s[0]) for s in b] for b in batches[:SRL_STEPS]]
+    stats = step_stats(walls)
+    tokens = sum(sum(n) for n in lens)
+    stats.update(tokens_per_s=tokens / sum(walls), peak_gib=peak,
+                 resident_gib=resident, steps=len(walls),
+                 tokens_per_step=tokens / len(walls))
+    print("17c SRL db_lstm (word %d, mark %d, hidden %d, depth %d, batch "
+          "%d, dictionaries %d/%d/%d, SGD with exponential_decay) card vs "
+          "CPU, %d steps through DataFeeder: losses %s, worst %.3e "
+          "relative (bound %g); gradients: median %.3e, all together "
+          "%.3e (the nudged CPU: %.3e, %.3e; bound once one is over %g: "
+          "%.3e); over %g: %s" % (
+              SRL_WORD, SRL_MARK, SRL_HID, SRL_DEPTH, SRL_BATCH,
+              len(word_dict), len(verb_dict), len(label_dict), SRL_STEPS,
+              " ".join("%.5f/%.5f" % lc for lc in losses), worst_loss,
+              SRL_LOSS_TOL, median, dist, own_median, own_dist,
+              SRL_GRAD_TOL, bound, SRL_GRAD_TOL,
+              ", ".join("%s %.2e" % (p, r) for r, p in over) or "none"),
+          flush=True)
+    if over and (over[0][0] > SRL_FLIP_TOL or median > bound
+                 or dist > bound):
+        fail("17c: step-1 gradients off the CPU's beyond their bounds")
+    print("17c main path: %d steps (sentences of %d-%d tokens, %.1f real "
+          "tokens a step): median %.3f ms, p90 %.3f ms, %.1f real tokens/s, "
+          "peak %.3f GiB above the %.3f GiB resident" % (
+              len(walls), min(min(n) for n in lens),
+              max(max(n) for n in lens), stats["tokens_per_step"],
+              stats["median_ms"], stats["p90_ms"], stats["tokens_per_s"],
+              peak, resident), flush=True)
+
+    # decode a held-out batch with the card's weights on both sides
+    batch = batches[SRL_STEPS]
+    dscope = clone_scope(fluid, scope, device="cpu")
+    fetch = [decoded, emission] + counts
+    card = exe.run(main, feed=feeder.feed(batch), fetch_list=fetch,
+                   scope=scope)
+    cpu = cpu_exe.run(main, feed=cpu_feeder.feed(batch), fetch_list=fetch,
+                      scope=dscope)
+    w = dscope["crfw"].numpy()
+    differ = [i for i in range(len(batch))
+              if not np.array_equal(card[0][i], cpu[0][i])]
+    for i in differ:
+        a = path_score(cpu[1][i], w, card[0][i])
+        b = path_score(cpu[1][i], w, cpu[0][i])
+        if abs(a - b) > 1e-6 * max(1.0, abs(b)):
+            fail("17c: row %d decodes to another path on the card (score "
+                 "%.9g against the CPU's %.9g)" % (i, a, b))
+    if differ:
+        from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+        op = consumer(main.global_block().ops, decoded.name, "chunk_eval")
+        tgt = torch.from_numpy(np.asarray(cpu_feeder.feed(batch)["target"]))
+        want = get_lowering("chunk_eval")(
+            LowerContext(torch.device("cpu")),
+            {"Inference": [torch.from_numpy(card[0])], "Label": [tgt]},
+            dict(op.attrs))
+        want = [want[k][0].numpy() for k in (
+            "NumInferChunks", "NumLabelChunks", "NumCorrectChunks")]
+    else:
+        want = cpu[2:]
+    got = [int(np.asarray(v).reshape(-1)[0]) for v in card[2:]]
+    want = [int(np.asarray(v).reshape(-1)[0]) for v in want]
+    print("17c crf_decoding of a held-out batch (%d sentences) on the "
+          "card's weights: rows whose path differs from the CPU's %d (all "
+          "ties of the path score); chunk_eval (IOB, %d chunk types) "
+          "infer/label/correct chunks %s on the card, %s on the CPU" % (
+              len(batch), len(differ),
+              int(np.ceil((len(label_dict) - 1) / 2.0)), got, want),
+          flush=True)
+    if got != want or got[1] == 0:
+        fail("17c: chunk_eval's counts differ from the CPU's, or no label "
+             "chunk")
+
+    def step():
+        exe.run(main, feed=feeder.feed(batches[0]), fetch_list=[loss],
+                scope=scope)
+
+    return launches, step, stats
+
+
+def op_cases():
+    """17d: one case (name, op, numpy inputs, attrs, differentiable input
+    slots, output slot) of each op type the phase brings, at the sizes of
+    tests/test_torch_detection.py, test_torch_rcnn.py and test_torch_crf.py,
+    tied scores included."""
+    rng = np.random.default_rng(17)
+
+    def rand(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    def unif(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, size=shape).astype(np.float32)
+
+    def boxes(n, hi=1.0):
+        wh = rng.uniform(0.05, 0.4, size=(n, 2)) * hi
+        xy = rng.uniform(0, 1, size=(n, 2)) * (hi - wh)
+        return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+    def ints(*shape, lo=0, hi=5, dtype=np.int64):
+        return rng.integers(lo, hi, size=shape).astype(dtype)
+
+    x = rand(2, 3, 12, 12)
+    rois = np.array([[1.0, 2.0, 9.5, 8.0], [0.0, 0.0, 23.0, 23.0],
+                     [5.2, 4.4, 6.1, 5.0], [10.0, 3.0, 20.5, 21.7]],
+                    np.float32)
+    ridx = np.array([0, 1, 1, 0], np.int32)
+    pix = boxes(5, 100.0)
+    var4 = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+    feat = {"Input": [np.zeros((1, 8, 5, 6), np.float32)],
+            "Image": [np.zeros((1, 3, 300, 280), np.float32)]}
+    nms = {"BBoxes": [np.stack([boxes(20), boxes(20)])],
+           "Scores": [np.round(unif(2, 4, 20) * 4) / 4]}
+    gt = np.array([[[5, 5, 40, 35], [50, 30, 95, 80], [0, 0, 0, 0]],
+                   [[20, 10, 60, 60], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                  np.float32)
+    info = np.array([[100, 110, 1.0], [90, 100, 1.0]], np.float32)
+    anc = boxes(30, 100.0)
+    yolo_gt = np.zeros((2, 3, 4), np.float32)
+    yolo_gt[0, :2] = [[0.3, 0.4, 0.2, 0.3], [0.8, 0.2, 0.5, 0.1]]
+    yolo_gt[1, 0] = [0.55, 0.6, 0.05, 0.08]
+    segms = np.zeros((1, 2, 6, 2), np.float32)
+    segms[0, 0, :4] = [[10, 10], [40, 12], [38, 44], [12, 40]]
+    segms[0, 1, :3] = [[50, 50], [90, 55], [60, 90]]
+    det = np.full((2, 5, 6), -1.0, np.float32)
+    det[0, :3] = [[1, 0.9, 0.1, 0.1, 0.4, 0.4], [1, 0.8, 0.5, 0.5, 0.9, 0.9],
+                  [2, 0.7, 0.1, 0.5, 0.3, 0.8]]
+    det[1, :2] = [[2, 0.95, 0.2, 0.2, 0.6, 0.6], [1, 0.6, 0.0, 0.0, 0.2, 0.2]]
+    lab6 = np.full((2, 3, 6), -1.0, np.float32)
+    lab6[0, :2] = [[1, 0.1, 0.1, 0.4, 0.4, 0], [2, 0.1, 0.5, 0.3, 0.8, 0]]
+    lab6[1, :1] = [[2, 0.2, 0.2, 0.6, 0.6, 0]]
+    lbl = ints(3, 12, hi=9)
+    return [
+        ("one_hot", {"X": [np.array([[0], [4], [-1], [7]], np.int64)]},
+         {"depth": 5}, [], "Out"),
+        ("argsort", {"X": [np.array([[0.0, -0.0, 1.5, 1.5, -2.0, 0.0]],
+                                    np.float32)]},
+         {"descending": True}, ["X"], "Out"),
+        ("huber_loss", {"X": [np.array([0.5, -1.0, 2.0, 3.0], np.float32)],
+                        "Y": [np.array([1.5, 0.0, 0.5, -1.0], np.float32)]},
+         {"delta": 1.0}, ["X", "Y"], "Out"),
+        ("roi_pool", {"X": [x], "ROIs": [rois], "RoisBatchIdx": [ridx]},
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+         ["X"], "Out"),
+        ("roi_align", {"X": [x], "ROIs": [rois], "RoisBatchIdx": [ridx]},
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+         ["X", "ROIs"], "Out"),
+        ("psroi_pool", {"X": [rand(2, 12, 10, 10)], "ROIs": [rois],
+                        "RoisBatchIdx": [ridx]},
+         {"output_channels": 2, "pooled_height": 2, "pooled_width": 3,
+          "spatial_scale": 0.4}, ["X"], "Out"),
+        ("prroi_pool", {"X": [x], "ROIs": [rois], "RoisBatchIdx": [ridx]},
+         {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 0.5},
+         ["X", "ROIs"], "Out"),
+        ("deformable_conv", {"Input": [rand(2, 4, 7, 7)],
+                             "Offset": [0.7 * rand(2, 36, 7, 7)],
+                             "Filter": [rand(6, 2, 3, 3)],
+                             "Mask": [unif(2, 18, 7, 7)]},
+         {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 2, "deformable_groups": 2},
+         ["Input", "Offset", "Filter", "Mask"], "Output"),
+        ("box_coder", {"PriorBox": [boxes(6)],
+                       "PriorBoxVar": [np.tile(var4, (6, 1))],
+                       "TargetBox": [rand(3, 6, 4)]},
+         {"code_type": "decode_center_size"}, ["TargetBox"], "OutputBox"),
+        ("iou_similarity", {"X": [boxes(5)], "Y": [boxes(7)]}, {},
+         ["X", "Y"], "Out"),
+        ("prior_box", feat,
+         {"min_sizes": [30.0, 60.0], "max_sizes": [60.0, 111.0],
+          "aspect_ratios": [1.0, 2.0], "flip": True}, [], "Boxes"),
+        ("density_prior_box", feat,
+         {"densities": [2, 1], "fixed_sizes": [30.0, 60.0],
+          "fixed_ratios": [1.0, 2.0], "clip": True}, [], "Boxes"),
+        ("yolo_box", {"X": [rand(2, 16, 4, 5)],
+                      "ImgSize": [np.array([[64, 80], [48, 60]], np.int32)]},
+         {"anchors": [10, 13, 16, 30], "class_num": 3, "conf_thresh": 0.4,
+          "downsample_ratio": 8}, ["X"], "Boxes"),
+        ("box_clip", {"Input": [np.stack([pix, pix + 20])],
+                      "ImInfo": [info]}, {}, ["Input"], "Output"),
+        ("multiclass_nms", nms,
+         {"score_threshold": 0.1, "nms_top_k": 8, "keep_top_k": 10,
+          "nms_threshold": 0.3, "background_label": 0}, [], "Out"),
+        ("bipartite_match", {"DistMat": [np.round(unif(4, 7) * 3) / 3]},
+         {}, [], "ColToRowMatchIndices"),
+        ("yolov3_loss", {"X": [rand(2, 16, 4, 4)], "GTBox": [yolo_gt],
+                         "GTLabel": [np.array([[1, 2, 0], [0, 0, 0]],
+                                              np.int32)]},
+         {"anchors": [10, 13, 16, 30, 33, 23], "anchor_mask": [0, 1],
+          "class_num": 3, "ignore_thresh": 0.5, "downsample_ratio": 8},
+         ["X"], "Loss"),
+        ("anchor_generator", {"Input": [np.zeros((1, 8, 3, 4), np.float32)]},
+         {"anchor_sizes": [32.0, 64.0], "aspect_ratios": [0.5, 1.0, 2.0],
+          "stride": [16.0, 16.0]}, [], "Anchors"),
+        ("sigmoid_focal_loss", {"X": [rand(6, 3)],
+                                "Label": [np.array([[1], [0], [3], [-1],
+                                                    [2], [1]], np.int32)],
+                                "FgNum": [np.array([2], np.int32)]},
+         {"gamma": 2.0, "alpha": 0.25}, ["X"], "Out"),
+        ("polygon_box_transform", {"Input": [rand(2, 8, 3, 4)]}, {},
+         ["Input"], "Output"),
+        ("box_decoder_and_assign", {"PriorBox": [pix], "PriorBoxVar": [var4],
+                                    "TargetBox": [rand(5, 12)],
+                                    "BoxScore": [unif(5, 3)]},
+         {"box_clip": 4.135}, ["TargetBox"], "OutputAssignBox"),
+        ("target_assign", {"X": [rand(2, 3, 4)],
+                           "MatchIndices": [np.array([[1, -1, 0, 2, -1],
+                                                      [2, 2, -1, 0, 1]],
+                                                     np.int32)]},
+         {"mismatch_value": 7.0}, ["X"], "Out"),
+        ("rpn_target_assign", {"Anchor": [anc], "GtBoxes": [gt],
+                               "IsCrowd": [np.zeros((2, 3), np.int32)],
+                               "ImInfo": [info]},
+         {"rpn_batch_size_per_im": 12, "rpn_positive_overlap": 0.5,
+          "rpn_negative_overlap": 0.2}, [], "ScoreTarget"),
+        ("retinanet_target_assign", {"Anchor": [anc], "GtBoxes": [gt],
+                                     "GtLabels": [np.array([[1, 3, 0],
+                                                            [2, 0, 0]],
+                                                           np.int32)],
+                                     "IsCrowd": [np.zeros((2, 3), np.int32)],
+                                     "ImInfo": [info]},
+         {"positive_overlap": 0.4, "negative_overlap": 0.3}, [],
+         "ScoreTarget"),
+        ("generate_proposals", {"Scores": [unif(2, 3, 4, 5)],
+                                "BboxDeltas": [0.3 * rand(2, 12, 4, 5)],
+                                "ImInfo": [np.array([[64, 80, 1.0],
+                                                     [60, 70, 2.0]],
+                                                    np.float32)],
+                                "Anchors": [boxes(60, 64.0).reshape(
+                                    4, 5, 3, 4)],
+                                "Variances": [np.tile(var4, (4, 5, 3, 1))]},
+         {"pre_nms_topN": 30, "post_nms_topN": 12, "nms_thresh": 0.5,
+          "min_size": 2.0}, [], "RpnRois"),
+        ("retinanet_detection_output",
+         {"BBoxes": [0.2 * rand(2, 12, 4), 0.2 * rand(2, 6, 4)],
+          "Scores": [unif(2, 12, 3), unif(2, 6, 3)],
+          "Anchors": [boxes(12, 90.0), boxes(6, 90.0)], "ImInfo": [info]},
+         {"score_threshold": 0.2, "nms_top_k": 10, "keep_top_k": 8,
+          "nms_threshold": 0.4}, [], "Out"),
+        ("locality_aware_nms", {"BBoxes": [np.stack([boxes(8), boxes(8)])],
+                                "Scores": [unif(2, 2, 8)]},
+         {"score_threshold": 0.2, "nms_top_k": -1, "keep_top_k": 6,
+          "nms_threshold": 0.3, "background_label": -1}, [], "Out"),
+        ("generate_proposal_labels",
+         {"RpnRois": [np.stack([boxes(10, 100.0), boxes(10, 100.0)])],
+          "GtClasses": [np.array([[1, 2, 0], [3, 0, 0]], np.int32)],
+          "IsCrowd": [np.zeros((2, 3), np.int32)], "GtBoxes": [gt],
+          "ImInfo": [info]},
+         {"batch_size_per_im": 8, "fg_fraction": 0.5, "fg_thresh": 0.3,
+          "bg_thresh_hi": 0.3}, [], "LabelsInt32"),
+        ("generate_mask_labels",
+         {"GtClasses": [np.array([[1, 2]], np.int32)],
+          "IsCrowd": [np.zeros((1, 2), np.int32)], "GtSegms": [segms],
+          "GtSegmLens": [np.array([[4, 3]], np.int32)],
+          "Rois": [np.array([[[8, 8, 42, 46], [48, 48, 92, 92],
+                              [0, 0, 20, 20], [30, 30, 70, 70]]],
+                            np.float32)],
+          "LabelsInt32": [np.array([[1, 2, 0, 1]], np.int32)]},
+         {"num_classes": 3, "resolution": 7}, [], "MaskInt32"),
+        ("roi_perspective_transform",
+         {"X": [rand(2, 3, 10, 12)],
+          "ROIs": [np.array([[1, 1, 8, 1, 8, 6, 1, 6],
+                             [2, 1, 9, 2, 10, 8, 0.5, 7]], np.float32)],
+          "RoisBatchIdx": [np.array([0, 1], np.int32)]},
+         {"transformed_height": 4, "transformed_width": 5}, ["X", "ROIs"],
+         "Out"),
+        ("detection_map", {"DetectRes": [det], "Label": [lab6]},
+         {"class_num": 3, "overlap_threshold": 0.5}, [], "MAP"),
+        ("linear_chain_crf", {"Emission": [rand(4, 7, 5)],
+                              "Transition": [0.5 * rand(7, 5)],
+                              "Label": [ints(4, 7)],
+                              "Length": [np.array([[7], [3], [0], [5]],
+                                                  np.int64)]},
+         {}, ["Emission", "Transition"], "LogLikelihood"),
+        ("crf_decoding", {"Emission": [rand(4, 7, 5)],
+                          "Transition": [0.5 * rand(7, 5)],
+                          "Length": [np.array([[7], [3], [0], [5]],
+                                              np.int64)]},
+         {}, [], "ViterbiPath"),
+        ("chunk_eval", {"Inference": [np.where(ints(3, 12, hi=3) == 0,
+                                               ints(3, 12, hi=9), lbl)],
+                        "Label": [lbl],
+                        "SeqLength": [np.array([12, 8, 5], np.int64)]},
+         {"chunk_scheme": "IOB", "num_chunk_types": 4}, [], "F1-Score"),
+        ("ctc_greedy_decoder", {"Input": [rand(3, 9, 4)],
+                                "InputLength": [np.array([[9], [4], [0]],
+                                                         np.int32)]},
+         {"blank": 0, "padding_value": -1}, [], "Out"),
+    ]
+
+
+def detection_ops_vs_cpu(device="cuda"):
+    """17d. Each case of op_cases on the card against the port's lowering
+    on the CPU, on the same inputs: integer and bool outputs equal, float
+    outputs within OPS17_TOL of the largest value, gradients (autograd
+    under one random cotangent) within OPS17_GRAD_TOL of the largest (the
+    card's scatter-add backwards sum in another order). Prints the
+    largest error of each op type."""
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+    rows, seen = [], set()
+    for op, ins, attrs, wrt, out in op_cases():
+        seen.add(op)
+        res = {}
+        for dev in (torch.device(device), torch.device("cpu")):
+            t = {k: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in v] for k, v in ins.items()}
+            for s in wrt:
+                t[s] = [v.requires_grad_() for v in t[s]]
+            ctx = LowerContext(dev, generator=torch.Generator(dev))
+            outs = get_lowering(op)(ctx, t, dict(attrs))
+            g = []
+            if wrt:
+                y = outs[out][0]
+                cot = torch.from_numpy(np.random.default_rng(5).normal(
+                    size=tuple(y.shape)).astype(np.float32)).to(dev)
+                g = torch.autograd.grad(y, [v for s in wrt for v in t[s]],
+                                        cot)
+            res[len(res)] = ({k: [v.detach().cpu().numpy() for v in vs]
+                              for k, vs in outs.items()},
+                             [v.cpu().numpy() for v in g])
+        (got, ggot), (want, gwant) = res[0], res[1]
+        err = gerr = 0.0
+        for slot in want:
+            for a, w in zip(got[slot], want[slot]):
+                if a.shape != w.shape or a.dtype != w.dtype:
+                    fail("17d %s.%s: %s %s on the card, %s %s on the CPU" % (
+                        op, slot, a.shape, a.dtype, w.shape, w.dtype))
+                if np.issubdtype(w.dtype, np.floating):
+                    fin = np.isfinite(w)
+                    if not np.array_equal(fin, np.isfinite(a)):
+                        fail("17d %s.%s: non-finite values differ" % (
+                            op, slot))
+                    if fin.any():
+                        err = max(err, rel_err(a[fin], w[fin]))
+                elif not np.array_equal(a, w):
+                    fail("17d %s.%s: integer outputs differ" % (op, slot))
+        for a, w in zip(ggot, gwant):
+            gerr = max(gerr, rel_err(a, w))
+        rows.append((op, err, gerr if wrt else None))
+        if err > OPS17_TOL or (wrt and gerr > OPS17_GRAD_TOL):
+            fail("17d %s: outputs %.3e, gradients %.3e of their max off the "
+                 "CPU's (bounds %g, %g)" % (op, err, gerr, OPS17_TOL,
+                                              OPS17_GRAD_TOL))
+    print("17d the %d new op types on the card vs the CPU, max|d|/max "
+          "(outputs; gradients): %s" % (
+              len(seen), ", ".join(
+                  "%s %.1e%s" % (op, e, "" if g is None else "; %.1e" % g)
+                  for op, e, g in rows)), flush=True)
+    if len(seen) != 35:
+        fail("17d covers %d op types, want 35" % len(seen))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -7037,6 +7833,31 @@ def main():
         print("phase 16 before its profile: 16a-16b %.1f s, 16c %.1f s, 16d "
               "%.1f s" % (t16c - t16, t16d - t16c, time.monotonic() - t16d),
               flush=True)
+        # phase 17: detection, R-CNN and CRF; 17a-17c are timed, so before
+        # the profiles (their profiled steps come with them)
+        t17 = time.monotonic()
+        mark("17a")
+        from paddle_tpu_torch.models import ssd
+        ssd_launches, step17a, ssd_stats, trained17 = ssd_train_phase(
+            fluid, ssd, ca, cl)
+        mark("17b")
+        infer_launches, forward17b, infer_stats = ssd_infer_phase(
+            fluid, ssd, ca, cl, trained17, tmp)
+        del trained17
+        t17c = time.monotonic()
+        mark("17c")
+        srl_launches, step17c, srl_stats = srl_phase(fluid, paddle, ca, cl)
+        t17d = time.monotonic()
+        mark("17d")
+        detection_ops_vs_cpu()
+        secs17 = time.monotonic() - t17
+        print("phase 17 before its profiles: 17a-17b %.1f s, 17c %.1f s, 17d "
+              "%.1f s" % (t17c - t17, t17d - t17c, time.monotonic() - t17d),
+              flush=True)
+        # launches_ssd: every kernel's count in 17a's steps and 17b's
+        # forwards; launches_srl in 17c's steps
+        ssd_launches = {n: ssd_launches[n] + infer_launches[n]
+                        for n in ssd_launches}
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -7064,6 +7885,23 @@ def main():
               flush=True)
         print("phase 16 (the recurrent and sequence slice: 16a-16d) took "
               "%.1f s" % (secs16 + time.monotonic() - t16), flush=True)
+        t17 = time.monotonic()
+        mark("17's profiles")
+        for tag, fn, st in (("SSD train step", step17a, ssd_stats),
+                            ("SSD forward", forward17b, infer_stats),
+                            ("SRL train step", step17c, srl_stats)):
+            st.update(profile_train_step(fn, tag))
+            print("17 %s: median %.3f ms, p90 %.3f ms, %d kernel launches "
+                  "(the profiled call's cudaLaunchKernel calls); profiled: "
+                  "device busy %.3f ms, idle %.1f%% of the profiled wall, "
+                  "%.1f%% of the median" % (
+                      tag, st["median_ms"], st["p90_ms"], st["launch_calls"],
+                      st["busy_ms"], 100 * st["idle"], 100 * max(
+                          0.0, 1 - st["busy_ms"] / st["median_ms"])),
+                  flush=True)
+        del step17a, forward17b, step17c
+        print("phase 17 (detection, R-CNN and CRF: 17a-17d) took %.1f s" % (
+            secs17 + time.monotonic() - t17), flush=True)
         mark("phase 4's and 5's profiles")
         forward_breakdown(pred, requests)
         f32_stats.update(profile_train_step(train_step, "train step, f32"))
@@ -7155,8 +7993,9 @@ def main():
     # launches_disagg in 12d's disaggregated load, leg (ii),
     # launches_spec in 13a's reuse engine (prefix pool + self-draft), and
     # launches_lamb and launches_recompute in 14c's two runs,
-    # launches_pipelined in 15a's run_pipelined, and launches_rnn in 16a's
-    # timed stacked-LSTM steps
+    # launches_pipelined in 15a's run_pipelined, launches_rnn in 16a's
+    # timed stacked-LSTM steps, launches_ssd in 17a's SSD steps and 17b's
+    # forwards, and launches_srl in 17c's SRL steps
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -7177,6 +8016,8 @@ def main():
                      launches_recompute=recompute_launches[name],
                      launches_pipelined=pipe_launches[name],
                      launches_rnn=rnn_launches[name],
+                     launches_ssd=ssd_launches[name],
+                     launches_srl=srl_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])
@@ -7200,6 +8041,7 @@ def main():
             entry["bf16"]["occupancy"] = occupancy[(name, torch.bfloat16)]
         record.append(entry)
     mark("done")
+    print("chip_smoke took %.1f s" % (time.monotonic() - T_START))
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

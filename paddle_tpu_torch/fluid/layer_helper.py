@@ -143,6 +143,15 @@ class LayerHelper:
             **{k: v for k, v in attr._to_kwargs().items() if k != "name"}
         )
 
+    def get_parameter(self, name):
+        """An existing parameter by name (ref layer_helper_base
+        get_parameter): crf_decoding reads linear_chain_crf's transition
+        matrix."""
+        block = self.main_program.global_block()
+        if not block.has_var(name):
+            raise ValueError("parameter %r not found" % name)
+        return block.var(name)
+
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.main_program.current_block().create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),

@@ -23,6 +23,8 @@ from . import rnn_cells  # noqa: F401
 _rnn_module = rnn
 # rebinds `rnn` to the rnn() layer, like the reference
 from .rnn import *  # noqa: F401,F403
+from . import detection
+from .detection import *  # noqa: F401,F403
 from . import math_op_patch
 
 math_op_patch.monkey_patch_variable()
@@ -38,3 +40,4 @@ __all__ += control_flow.__all__
 __all__ += ops.__all__
 __all__ += sequence_lod.__all__
 __all__ += _rnn_module.__all__
+__all__ += detection.__all__

@@ -1,9 +1,9 @@
 """Loss layers (ref: python/paddle/fluid/layers/loss.py); port of the
-paddle_tpu/fluid/layers/loss.py function BERT's pretraining head calls.
-Its op is lowered by the training slice."""
+paddle_tpu/fluid/layers/loss.py functions BERT's pretraining head and
+SSD's loss call."""
 from ..layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy"]
+__all__ = ["softmax_with_cross_entropy", "huber_loss"]
 
 
 def softmax_with_cross_entropy(
@@ -37,3 +37,17 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    out.shape = input.shape
+    helper.append_op(
+        type="huber_loss",
+        inputs={"X": [input], "Y": [label]},
+        outputs={"Out": [out], "Residual": [residual]},
+        attrs={"delta": delta},
+    )
+    return out

@@ -1,8 +1,10 @@
 """Neural-network layers (ref: python/paddle/fluid/layers/nn.py).
 
 Port of the paddle_tpu/fluid/layers/nn.py functions that BERT, GPT, ResNet,
-the MNIST models, Transformer NMT, Wide&Deep and the recurrent book
-chapters (``cross_entropy``) call, with
+the MNIST models, Transformer NMT, Wide&Deep, the recurrent book
+chapters (``cross_entropy``), SSD (``one_hot``), the R-CNN family (the
+ROI layers, ``deformable_conv``) and the SRL chapter (the CRF layers)
+call, with
 the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
@@ -24,7 +26,9 @@ __all__ = [
     "logical_and", "logical_or", "logical_xor", "logical_not",
     "sampling_id", "fused_multihead_attention", "clip", "clip_by_norm",
     "log_loss", "sign", "pow", "autoincreased_step_counter",
-    "cross_entropy",
+    "cross_entropy", "one_hot", "one_hot_v2", "psroi_pool", "prroi_pool",
+    "deformable_conv", "roi_pool", "roi_align", "linear_chain_crf",
+    "crf_decoding", "chunk_eval", "ctc_greedy_decoder",
 ]
 
 
@@ -920,3 +924,306 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
         attrs={"soft_label": soft_label, "ignore_index": ignore_index},
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# ids, ROI pooling, deformable convolution, CRF and CTC decoding
+# ---------------------------------------------------------------------------
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    s = input.shape or (-1, 1)
+    if s[-1] == 1:
+        out.shape = tuple(s[:-1]) + (depth,)
+    else:
+        out.shape = tuple(s) + (depth,)
+    helper.append_op(
+        type="one_hot",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"depth": depth, "allow_out_of_range": allow_out_of_range},
+    )
+    return out
+
+
+def one_hot_v2(input, depth, allow_out_of_range=False):
+    return one_hot(input, depth, allow_out_of_range)
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, name=None):
+    """Position-sensitive ROI pooling for R-FCN (ref nn.py:12409)."""
+    helper = LayerHelper("psroi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if rois.shape is not None:
+        out.shape = (rois.shape[0], output_channels, pooled_height,
+                     pooled_width)
+    helper.append_op(
+        type="psroi_pool",
+        inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={
+            "output_channels": output_channels,
+            "spatial_scale": spatial_scale,
+            "pooled_height": pooled_height,
+            "pooled_width": pooled_width,
+        },
+    )
+    return out
+
+
+def prroi_pool(input, rois, spatial_scale=1.0,
+               pooled_height=1, pooled_width=1, name=None,
+               output_channels=None):
+    """Precise ROI pooling (ref nn.py:12475): integral of the bilinear
+    surface over each bin, differentiable in the roi coordinates."""
+    helper = LayerHelper("prroi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if rois.shape is not None and input.shape is not None:
+        out.shape = (rois.shape[0], input.shape[1], pooled_height,
+                     pooled_width)
+    helper.append_op(
+        type="prroi_pool",
+        inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={
+            "spatial_scale": spatial_scale,
+            "pooled_height": pooled_height,
+            "pooled_width": pooled_width,
+        },
+    )
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None, modulated=True,
+                    name=None):
+    """Deformable convolution v2 (modulated=True) / v1 (ref nn.py:12868):
+    samples at offset-shifted tap positions, optionally mask-modulated."""
+    helper = LayerHelper("deformable_conv", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    deformable_groups = deformable_groups or 1
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, num_channels // groups] + filter_size,
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+
+    def _o(i, k, p, s, d):
+        if i in (None, -1):
+            return -1
+        return (i + 2 * p - d * (k - 1) - 1) // s + 1
+
+    if input.shape is not None:
+        out.shape = (
+            input.shape[0], num_filters,
+            _o(input.shape[2], filter_size[0], padding[0], stride[0],
+               dilation[0]),
+            _o(input.shape[3], filter_size[1], padding[1], stride[1],
+               dilation[1]),
+        )
+    ins = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    if modulated:
+        if mask is None:
+            raise ValueError("deformable_conv(modulated=True) needs a mask")
+        ins["Mask"] = [mask]
+    helper.append_op(
+        type="deformable_conv",
+        inputs=ins,
+        outputs={"Output": [out]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "deformable_groups": deformable_groups,
+        },
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0):
+    helper = LayerHelper("roi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    argmax_ = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(
+        type="roi_pool",
+        inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out], "Argmax": [argmax_]},
+        attrs={
+            "pooled_height": pooled_height,
+            "pooled_width": pooled_width,
+            "spatial_scale": spatial_scale,
+        },
+    )
+    return out
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None):
+    helper = LayerHelper("roi_align", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="roi_align",
+        inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooled_height": pooled_height,
+            "pooled_width": pooled_width,
+            "spatial_scale": spatial_scale,
+            "sampling_ratio": sampling_ratio,
+        },
+    )
+    return out
+
+def _length_or_companion(helper, var, length):
+    """Explicit length var, else the LoD @SEQ_LEN companion, else None."""
+    if length is not None:
+        return length
+    from .sequence_lod import _seq_len_var
+
+    return _seq_len_var(var)
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """Linear-chain CRF negative log likelihood (ref nn.py:534).
+
+    input: (B, T, D) padded emissions (or a LoD var with an @SEQ_LEN
+    companion); label: (B, T) or (B, T, 1) int; length: (B,) or (B, 1)
+    int lengths (optional when input carries LoD lengths). Creates the
+    (D+2, D) transition parameter (row 0 start, row 1 end, rows 2+
+    tag->tag) and returns the per-sequence cost (B, 1).
+    """
+    helper = LayerHelper("linear_chain_crf", **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size],
+        dtype=helper.input_dtype(),
+    )
+    alpha = helper.create_variable_for_type_inference(helper.input_dtype())
+    emission_exps = helper.create_variable_for_type_inference(
+        helper.input_dtype()
+    )
+    transition_exps = helper.create_variable_for_type_inference(
+        helper.input_dtype()
+    )
+    log_likelihood = helper.create_variable_for_type_inference(
+        helper.input_dtype()
+    )
+    log_likelihood.shape = (input.shape[0], 1)
+    ins = {"Emission": [input], "Transition": [transition],
+           "Label": [label]}
+    length = _length_or_companion(helper, input, length)
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs=ins,
+        outputs={
+            "Alpha": [alpha],
+            "EmissionExps": [emission_exps],
+            "TransitionExps": [transition_exps],
+            "LogLikelihood": [log_likelihood],
+        },
+    )
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decode with the linear_chain_crf transition parameter
+    (ref nn.py:654). Returns (B, T) int64 best tags (or, when `label` is
+    given, a per-token correctness indicator)."""
+    helper = LayerHelper("crf_decoding", **locals())
+    transition = helper.get_parameter(param_attr.name)
+    viterbi_path = helper.create_variable_for_type_inference("int64")
+    if input.shape is not None and len(input.shape) >= 2:
+        viterbi_path.shape = tuple(input.shape[:-1])
+    ins = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        ins["Label"] = [label]
+    length = _length_or_companion(helper, input, length)
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op(
+        type="crf_decoding",
+        inputs=ins,
+        outputs={"ViterbiPath": [viterbi_path]},
+    )
+    return viterbi_path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk-level precision/recall/F1 for sequence labeling
+    (ref nn.py:1380; op: chunk_eval_op.h). Returns (precision, recall,
+    f1, num_infer_chunks, num_label_chunks, num_correct_chunks)."""
+    helper = LayerHelper("chunk_eval", **locals())
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1_score = helper.create_variable_for_type_inference("float32")
+    num_infer_chunks = helper.create_variable_for_type_inference("int64")
+    num_label_chunks = helper.create_variable_for_type_inference("int64")
+    num_correct_chunks = helper.create_variable_for_type_inference("int64")
+    for v in (precision, recall, f1_score):
+        v.shape = (1,)
+    for v in (num_infer_chunks, num_label_chunks, num_correct_chunks):
+        v.shape = (1,)
+    ins = {"Inference": [input], "Label": [label]}
+    seq_length = _length_or_companion(helper, input, seq_length)
+    if seq_length is not None:
+        ins["SeqLength"] = [seq_length]
+    helper.append_op(
+        type="chunk_eval",
+        inputs=ins,
+        outputs={
+            "Precision": [precision],
+            "Recall": [recall],
+            "F1-Score": [f1_score],
+            "NumInferChunks": [num_infer_chunks],
+            "NumLabelChunks": [num_label_chunks],
+            "NumCorrectChunks": [num_correct_chunks],
+        },
+        attrs={
+            "num_chunk_types": num_chunk_types,
+            "chunk_scheme": chunk_scheme,
+            "excluded_chunk_types": list(excluded_chunk_types or []),
+        },
+    )
+    return (precision, recall, f1_score, num_infer_chunks,
+            num_label_chunks, num_correct_chunks)
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
+                       name=None):
+    """Greedy CTC decoding (ref nn.py:4652): per-frame argmax, merge
+    repeats, drop blanks. input: (B, T, C) probs/logits. Returns
+    (decoded (B, T) int64 padded with padding_value, out_length (B, 1))
+    — always padded-mode outputs (the LoD representation is
+    dense-padded)."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    out = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int32")
+    if input.shape is not None and len(input.shape) >= 2:
+        out.shape = tuple(input.shape[:-1])
+        out_len.shape = (input.shape[0], 1)
+    ins = {"Input": [input]}
+    input_length = _length_or_companion(helper, input, input_length)
+    if input_length is not None:
+        ins["InputLength"] = [input_length]
+    helper.append_op(
+        type="ctc_greedy_decoder",
+        inputs=ins,
+        outputs={"Out": [out], "OutLength": [out_len]},
+        attrs={"blank": blank, "padding_value": padding_value},
+    )
+    return out, out_len

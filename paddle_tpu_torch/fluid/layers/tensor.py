@@ -13,8 +13,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
            "sums", "assign", "fill_constant",
-           "fill_constant_batch_size_like", "argmax", "range", "zeros_like",
-           "reverse"]
+           "fill_constant_batch_size_like", "argmax", "argsort", "range",
+           "zeros_like", "reverse"]
 
 
 def create_parameter(
@@ -195,6 +195,21 @@ def argmax(x, axis=0):
         attrs={"axis": axis},
     )
     return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference("int64")
+    out.shape = input.shape
+    ids.shape = input.shape
+    helper.append_op(
+        type="argsort",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "Indices": [ids]},
+        attrs={"axis": axis, "descending": descending},
+    )
+    return out, ids
 
 
 def range(start, end, step, dtype):

@@ -13,4 +13,7 @@ from . import optimizer_ops  # noqa: F401
 from . import control_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
+from . import detection_ops  # noqa: F401
+from . import rcnn_ops  # noqa: F401
+from . import crf_ops  # noqa: F401
 from .registry import LOWERINGS, get_lowering, register_op  # noqa: F401

@@ -1,6 +1,7 @@
 """Loss op lowerings: softmax_with_cross_entropy (ref: paddle/fluid/
 operators/softmax_with_cross_entropy_op.cc), cross_entropy
-(cross_entropy_op.cc) and log_loss (log_loss_op.cc).
+(cross_entropy_op.cc), huber_loss (huber_loss_op.cc) and log_loss
+(log_loss_op.cc).
 Port of the paddle_tpu/ops/loss_ops.py lowerings. softmax_with_cross_entropy
 is the one BERT's pretraining head runs: log-softmax over
 ``axis``, soft labels over any axis, hard labels with ``ignore_index``
@@ -84,6 +85,19 @@ def _softmax_with_ce(ctx, ins, attrs):
             -1, lab.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
         loss = (-picked).masked_fill(lab == ignore, 0.0)[..., None]
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx, ins, attrs):
+    """Residual r = Y - X; Out = r²/2 where |r| <= delta (the quadratic
+    branch at |r| == delta, and the gradient with it), else delta·(|r| -
+    delta/2)."""
+    x, y = promote(ins["X"][0], ins["Y"][0])
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    out = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": [out], "Residual": [r]}
 
 
 @register_op("log_loss")

@@ -1,8 +1,8 @@
 """Tensor manipulation op lowerings: cast, concat, reshape2, transpose2,
 squeeze2, unsqueeze2, flatten2, slice, top_k, arg_max, fill_constant,
 fill_constant_batch_size_like, fill_zeros_like, assign, assign_value,
-increment, where, gather, gather_nd, expand, expand_as, reverse, stack, range,
-decode_cache_write. Port of the
+increment, where, one_hot, argsort, gather, gather_nd, expand, expand_as,
+reverse, stack, range, decode_cache_write. Port of the
 paddle_tpu/ops/tensor_ops.py lowerings the port runs;
 reshape/transpose/slice/squeeze return views where torch can.
 
@@ -10,9 +10,9 @@ Indices follow the reference's jax semantics, not torch's: ``gather_nd``
 and ``decode_cache_write`` (its start, as ``lax.dynamic_update_slice``)
 wrap a negative index once and clamp the rest into range; ``gather``
 (``jnp.take``) wraps once and fills the rest. Integer results the
-reference gives as int32 (jax without x64: ``arg_max``, an int64
-``range``, ``fill_constant_batch_size_like`` or ``assign_value``) are
-int64 here (ROADMAP.md Queue 3).
+reference gives as int32 (jax without x64: ``arg_max``, ``argsort``'s
+Indices, an int64 ``range``, ``fill_constant_batch_size_like`` or
+``assign_value``) are int64 here (ROADMAP.md Queue 3).
 """
 import numpy as np
 import torch
@@ -186,6 +186,41 @@ def _arg_max(ctx, ins, attrs):
     NaN counting as the largest, as ``jnp.argmax``. int64 (the reference:
     int32, jax without x64)."""
     return single(torch.argmax(ins["X"][0], dim=attrs.get("axis", -1)))
+
+
+@register_op("one_hot")
+def _one_hot(ctx, ins, attrs):
+    """float32 rows with a 1 at each id, ``jax.nn.one_hot``: an id outside
+    [0, depth) gives a row of zeros (``F.one_hot`` raises there). The v1
+    rule drops a trailing (n, 1) id dim unless ``_squeeze`` is False."""
+    x = ins["X"][0]
+    if x.dim() >= 2 and x.shape[-1] == 1 and attrs.get("_squeeze", True):
+        x = x[..., 0]
+    depth = int(attrs["depth"])
+    hot = x[..., None] == torch.arange(depth, device=x.device).to(x.dtype)
+    return single(hot.to(torch.float32))
+
+
+def stable_argsort(x, dim=-1, descending=False):
+    """``jnp.argsort(-x if descending else x)``: a stable sort, so equal
+    keys keep their index order; descending sorts the negation, as the
+    reference does. -0.0 is made +0.0 first: jax's sort comparator sees
+    them equal, cub's radix sort on the card orders -0.0 first."""
+    key = -x if descending else x
+    if key.dtype.is_floating_point:
+        key = torch.where(key == 0, torch.zeros_like(key), key)
+    return torch.argsort(key, dim=dim, stable=True)
+
+
+@register_op("argsort")
+def _argsort(ctx, ins, attrs):
+    """Out = X sorted along ``axis`` and Indices (int64; the reference:
+    int32, jax without x64), descending as a stable sort of -X, so ties
+    come out in ascending index order either way."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    idx = stable_argsort(x, axis, attrs.get("descending", False))
+    return {"Out": [x.gather(axis, idx)], "Indices": [idx]}
 
 
 def _jax_index(idx, dim):
