@@ -101,7 +101,7 @@ Phases, each of which exits non-zero on failure:
    1e-3·max of the CPU's, the card's token equal to the CPU's wherever the
    CPU's top-2 gap exceeds that bound (near-ties counted); (b) the main
    path: ``DecodeEngine(slots=8, cache_len=1024)`` with the default
-   buckets serves 8 closed-loop client threads x 2 requests (prompts of
+   buckets serves 8 closed-loop client threads x 1 request (prompts of
    5 / 40 / 200 / 700 tokens in turn, 32 new tokens each) with every
    counter set to 0 just before and read just after: exactly 24 LayerNorm
    forward launches per prefill and per step, no attention kernel; every
@@ -126,10 +126,10 @@ Phases, each of which exits non-zero on failure:
    before it and, for rows equal to the end, the final ids and scores
    within 1e-4·max|score|; 584 LayerNorm forward launches (8 + 12 x 48)
    and no attention launch; (b) the main path, bench.py's
-   _measure_nmt_decode: batch 32, one warm and 4 timed translations
+   _measure_nmt_decode: batch 32, one warm and 2 timed translations
    fetching ids and scores, every counter zeroed just before: 584
    LayerNorm forward launches each, tokens/s, ms per batch, peak device
-   memory; the same at batch 128 (3 runs), and, with the other
+   memory; the same at batch 128 (2 runs), and, with the other
    profiles, one profiled b32 translation (busy, idle share, top
    kernels, the sort behind top_k, the copies, cudaLaunchKernel);
    (c) NMT training (batch 32, src and tgt 32, dropout 0, Adam 1e-4), 3
@@ -206,7 +206,7 @@ Phases, each of which exits non-zero on failure:
    seed 1234) behind ``local_fleet(n_replicas=4, per_device=True)`` with
    buckets (1, 2, 4, 8, 16), max batch 16, max wait 1 ms, queue 256 (on
    one card every replica shares cuda:0, each with its own parameters),
-   and bench.py:953's load cut to 8 closed-loop clients x 15 requests of 1-4
+   and bench.py:953's load cut to 8 closed-loop clients x 10 requests of 1-4
    rows, driven on one replica alone and round-robin on the raw engines,
    then through the router with every counter at 0 just before (the
    main path's launches): 12 attention and 25 LayerNorm forward launches
@@ -232,9 +232,9 @@ Phases, each of which exits non-zero on failure:
    4 more requests answered by the survivor within the bound; (d) the
    main path of disaggregated serving at ``GPTConfig()`` (phase 8's
    weights, cache_len 1024, the default buckets) under bench.py:1232's
-   mixed-tenant load cut to 2 requests a client (6 latency clients x 2
-   of 3/5/6 prompt tokens and 16 new; 2 bulk clients x 2 of 700 and 6
-   new), every counter
+   mixed-tenant load cut to 1 request a client (6 latency clients of
+   3/5/6 prompt tokens and 16 new; 2 bulk clients of 700 and 6 new),
+   every counter
    at 0 just before each leg: (i) a colocated ``DecodeEngine(slots=4)``,
    (ii) the main path, ``disagg_fleet(2 prefill + 2 decode, slots=2,
    fp32-resident, int8 wire, tenants latency (interactive, 250 ms
@@ -384,6 +384,54 @@ Phases, each of which exits non-zero on failure:
    The profiled SSD step, SSD forward and SRL step come with the other
    profiles; the kernels line gains ``launches_ssd`` (17a + 17b) and
    ``launches_srl`` (17c).
+18. the loss, math and metric op families, the activations and the
+   book's vision and recommender chapters (item 6.7, first part), none
+   of the five kernels on any path: (a) VGG-16-BN-drop as the book's
+   test_image_classification.py builds it (``img_conv_group`` blocks of
+   64x2, 128x2, 256x3, 512x3, 512x3 with dropouts [0.3, 0], [0.4, 0],
+   [0.4, 0.4, 0]; dropout 0.5, fc 4096, batch norm + relu, dropout 0.5,
+   fc 4096, softmax over 10; ``Adam(0.001)``) on
+   ``dataset.cifar.train10()``'s 3x32x32 images: the same-width program
+   with every ``dropout_prob`` at 0 (the masks cannot match across
+   devices), 3 steps on the CPU at batch 16 from the startup values and
+   on the card each step from the CPU's state before it (as 7a: Adam's
+   first step blows the logits up and two trajectories part): losses
+   within 1e-3 relative, step-1 gradients within 1e-3·max each (the 14
+   biases under a batch norm, whose exact gradient is 0, below 1e-3 of
+   the largest gradient on both sides); where relu units at the boundary
+   flip (printed), the gradients held by 7a's rule, the spread the larger
+   of the CPU's under a one-ulp nudge of the images and with oneDNN off
+   (another f32 summation order);
+   then the published program at batch 128, 3 warm-up steps (the last
+   one's dropout masks keep 1 - p within 5 sigma) and 20 timed steps with
+   the counters at 0 (the main path: falling loss, step median and p90,
+   images/s, peak memory); its ``clone(for_test=True)`` program on 8
+   held-out batches of 16, card vs CPU on the card's weights,
+   predictions within 1e-3·max and ``fluid.metrics.Accuracy`` fed from
+   ``layers.accuracy`` equal on both sides unless a near-tie moved a
+   row; (b) the book's recommender (test_recommender_system.py at its
+   widths: embeddings 32/16/16/16 under fcs, fc 200 tanh; movie id 32,
+   categories summed, the title's ``sequence_conv_pool(32, 3, tanh,
+   sum)``, fc 200 tanh; ``cos_sim``, ``scale(5)``,
+   ``square_error_cost``, ``SGD(0.2)``) on ``dataset.movielens`` batches
+   of 256 through ``DataFeeder``: 5 steps card vs CPU (losses within
+   1e-4 relative, step-1 gradients 1e-3·max), 20 timed steps with the
+   counters at 0 (the main path), and the inference program served by
+   ``Predictor.from_model`` on the card within 1e-5·max of the CPU
+   predictor; (c) word2vec (N 5, embedding 32, hidden 256, the
+   ``imikolov.build_dict()`` dictionary, SGD(0.001), batch 32) and
+   fit_a_line (SGD(0.001), batch 20), 10 steps each card vs CPU, losses
+   within 1e-4 relative; (d) each of the 61 new op types once on the card
+   against the CPU at the CPU tests' sizes (kinks, ties, labels out of
+   range), gradients included: integers and bools equal, values within
+   1e-5·max, gradients 1e-4·max; ``nce`` and
+   ``sampled_softmax_with_cross_entropy`` get the same samples on both
+   sides, ``npair_loss_helper`` raises on both. With the other profiles:
+   one profiled VGG step (device busy, idle share, cudaLaunchKernel
+   calls, the convolutions' device ms) beside the conv2d and batch_norm
+   lowerings' device time alone at the step's shapes, and one profiled
+   recommender step. The kernels line gains ``launches_book`` (18a's and
+   18b's timed steps). Phase 18's time and the script's are printed.
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -2141,15 +2189,15 @@ def resnet_profile(step, stats, card):
 # 9, initialised once on the CPU. 8a: one 50-token prompt in a bucket of 64
 # (cache_len 128), then 16 steps teacher-forced with the card's tokens, on
 # the card and on the CPU. 8b/8c: 8 slots, cache_len 1024, the default
-# buckets, 8 closed-loop clients x 2 requests, prompts of 5 / 40 / 200 /
+# buckets, 8 closed-loop clients x 1 request, prompts of 5 / 40 / 200 /
 # 700 tokens in turn, 32 new tokens each (cut from 3 requests a client and
-# 64 new tokens to keep the whole script short: each stream is also served
-# alone).
+# 64 new tokens, then to 1 request a client to pay for phase 18, to keep
+# the whole script short: each stream is also served alone).
 GPT_SEED = 9
 GPT_CHECK_CACHE, GPT_CHECK_BUCKET = 128, 64
 GPT_CHECK_PROMPT, GPT_CHECK_STEPS = 50, 16
 GPT_SLOTS, GPT_CACHE = 8, 1024
-GPT_CLIENTS, GPT_PER_CLIENT, GPT_MAX_NEW = 8, 2, 32
+GPT_CLIENTS, GPT_PER_CLIENT, GPT_MAX_NEW = 8, 1, 32
 GPT_PROMPT_LENS = (5, 40, 200, 700)
 GPT_TOL = 1e-3
 GPT_WAIT = 600.0                 # s: the bound of every wait for a stream
@@ -2273,8 +2321,9 @@ def gpt_vs_cpu(fluid, serving, cfg, scope, cache_len=GPT_CHECK_CACHE,
 
 
 def gpt_prompts(vocab, seed=GPT_SEED):
-    """One prompt per request, client c sending requests 2c and 2c + 1,
-    with lengths cycling through GPT_PROMPT_LENS."""
+    """One prompt per request, GPT_PER_CLIENT a client (client c sends
+    requests c·GPT_PER_CLIENT onwards), with lengths cycling through
+    GPT_PROMPT_LENS."""
     rng = np.random.default_rng(seed)
     n = GPT_CLIENTS * GPT_PER_CLIENT
     return [rng.integers(0, vocab, GPT_PROMPT_LENS[i % len(GPT_PROMPT_LENS)])
@@ -2542,7 +2591,7 @@ def gpt_profile(step, stats, card):
 NMT_SEED = 7
 NMT_BATCH, NMT_SRC, NMT_TGT, NMT_MAX_OUT, NMT_BEAM = 32, 32, 32, 48, 4
 NMT_CHECK_BATCH = 4
-NMT_ITERS, NMT_B128_ITERS = 4, 3    # timed translations
+NMT_ITERS, NMT_B128_ITERS = 2, 2    # timed translations
 NMT_TOL = 1e-4          # 9a: encoder output and beam scores (of max)
 # 9a: a step's selection is a near-tie where two of its beam + 1 best
 # candidates are closer than this share of their magnitude
@@ -4056,13 +4105,13 @@ def telemetry_cost(url, requests, eng, prompts, solo, card,
 # then a decode-replica kill under an 80-token canary. 12e: the lossless
 # fleet token for token against a colocated engine; the int8-resident
 # cache. 12f: the lossless fleet behind the HTTP server.
-FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 15
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 10
 FLEET_ROWS, FLEET_BATCHES = (1, 2, 3, 4), (1, 2, 4, 8, 16)
 FLEET_TOL = 1e-3                 # x max|x|: replies against a solo bucket
 FLEET_WAIT = 300.0               # s: the bound of every wait in phase 12
 DIS_LAT_CLIENTS, DIS_LAT_LENS, DIS_LAT_NEW = 6, (3, 5, 6), 16
 DIS_BULK_CLIENTS, DIS_BULK_LEN, DIS_BULK_NEW = 2, 700, 6
-DIS_PER_CLIENT, DIS_CANARY_NEW = 2, 80     # bench.py sends 3 a client
+DIS_PER_CLIENT, DIS_CANARY_NEW = 1, 80     # bench.py sends 3 a client
 DIS_SLO_MS = 250.0               # the latency tenant's per-token SLO
 
 
@@ -4846,7 +4895,7 @@ def disagg_phase(fluid, serving, ca, cl, cfg, scope, card, tmp):
     st_before = fleet.stats()
     fns = zero_counters(ca, cl)
     n0 = fleet_counts(fleet_engines)
-    canary_prompt = clients[0][1][1]
+    canary_prompt = clients[1][0][1]        # a 5-token latency prompt
     t0 = time.monotonic()
     canary = fleet.submit(canary_prompt, max_new=DIS_CANARY_NEW,
                           tenant="latency")
@@ -7512,64 +7561,884 @@ def op_cases():
 
 def detection_ops_vs_cpu(device="cuda"):
     """17d. Each case of op_cases on the card against the port's lowering
-    on the CPU, on the same inputs: integer and bool outputs equal, float
-    outputs within OPS17_TOL of the largest value, gradients (autograd
-    under one random cotangent) within OPS17_GRAD_TOL of the largest (the
-    card's scatter-add backwards sum in another order). Prints the
-    largest error of each op type."""
+    on the CPU (ops_vs_cpu): outputs within OPS17_TOL of the largest
+    value, gradients within OPS17_GRAD_TOL (the card's scatter-add
+    backwards sum in another order)."""
+    ops_vs_cpu("17d", [(c[0],) + tuple(c) for c in op_cases()], 35,
+               OPS17_TOL, OPS17_GRAD_TOL, device)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the loss, math and metric op families, the activations and the
+# book's vision and recommender chapters
+# ---------------------------------------------------------------------------
+# 18a the book's VGG-16-BN-drop (test_image_classification.py: img_conv_group
+# blocks of 64x2, 128x2, 256x3, 512x3, 512x3 with dropouts [0.3, 0], [0.4,
+# 0], [0.4, 0.4, 0] x3, dropout 0.5, fc 4096, batch norm + relu, dropout
+# 0.5, fc 4096, softmax over 10; Adam(0.001)) on dataset.cifar.train10()'s
+# 3x32x32 images: the same-width program with every dropout_prob at 0, 3
+# steps on the card and on the CPU at check batch 16 (the CPU side's cost);
+# then the published program at batch 128, 3 warm-up and 20 timed steps
+# (the main path); its test program on 8 held-out batches of 16, card
+# against CPU on the card's weights. 18b the book's recommender
+# (test_recommender_system.py at its widths, SGD(0.2), batch 256,
+# dataset.movielens through DataFeeder): 5 steps card vs CPU, 20 timed
+# steps (the main path), the inference program served by
+# Predictor.from_model. 18c word2vec (N 5, embedding 32, hidden 256, SGD(
+# 0.001), batch 32) and fit_a_line (SGD(0.001), batch 20), 10 steps each
+# card vs CPU. 18d each of the 61 new op types on the card against the CPU.
+VGG_BLOCKS = ((64, 2, (0.3, 0.0)), (128, 2, (0.4, 0.0)),
+              (256, 3, (0.4, 0.4, 0.0)), (512, 3, (0.4, 0.4, 0.0)),
+              (512, 3, (0.4, 0.4, 0.0)))
+VGG_FC, VGG_LR, VGG_SEED = 4096, 1e-3, 11
+VGG_BATCH, VGG_CHECK_BATCH, VGG_CHECK_STEPS = 128, 16, 3
+VGG_WARM, VGG_TIMED, VGG_EVAL_BATCHES = 3, 20, 8
+VGG_TOL = 1e-3          # 18a: losses (relative), gradients and logits (of max)
+REC_BATCH, REC_CHECK_STEPS, REC_TIMED, REC_LR, REC_SEED = 256, 5, 20, 0.2, 5
+REC_LOSS_TOL, REC_GRAD_TOL, REC_SERVE_TOL = 1e-4, 1e-3, 1e-5
+W2V_N, W2V_EMB, W2V_HID, W2V_BATCH, W2V_LR = 5, 32, 256, 32, 1e-3
+FIT_BATCH, FIT_LR, BOOK_STEPS, BOOK_LOSS_TOL = 20, 1e-3, 10, 1e-4
+OPS18_TOL, OPS18_GRAD_TOL = 1e-5, 1e-4     # 18d: of the largest value
+
+
+def vgg_net(fluid, drop=1.0):
+    """The book's vgg16_bn_drop classifier and Adam(VGG_LR), every dropout
+    rate times `drop`; returns its loss, prediction, accuracy, feeds and
+    the test program cloned before the optimizer."""
+    L = fluid.layers
+
+    def conv_block(ipt, num_filter, groups, dropouts):
+        return fluid.nets.img_conv_group(
+            input=ipt, pool_size=2, pool_stride=2,
+            conv_num_filter=[num_filter] * groups, conv_filter_size=3,
+            conv_act="relu", conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=[r * drop for r in dropouts],
+            pool_type="max")
+
+    images = fluid.data(name="pixel", shape=[None, 3, 32, 32],
+                        dtype="float32")
+    label = fluid.data(name="label", shape=[None, 1], dtype="int64")
+    net = images
+    for num_filter, groups, dropouts in VGG_BLOCKS:
+        net = conv_block(net, num_filter, groups, dropouts)
+    net = L.dropout(x=net, dropout_prob=0.5 * drop)
+    fc1 = L.fc(input=net, size=VGG_FC, act=None)
+    bn = L.batch_norm(input=fc1, act="relu")
+    net = L.dropout(x=bn, dropout_prob=0.5 * drop)
+    fc2 = L.fc(input=net, size=VGG_FC, act=None)
+    predict = L.fc(input=fc2, size=10, act="softmax")
+    loss = L.mean(L.cross_entropy(input=predict, label=label))
+    acc = L.accuracy(input=predict, label=label)
+    test_program = fluid.default_main_program().clone(for_test=True)
+    fluid.optimizer.Adam(learning_rate=VGG_LR).minimize(loss)
+    return dict(loss=loss, predict=predict, acc=acc, test=test_program)
+
+
+def vgg_program(fluid, drop=1.0):
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = VGG_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = vgg_net(fluid, drop)
+    return main, startup, vs
+
+
+def cifar_batches(paddle, reader, batch, n):
+    """n feeds of `batch` images (3x32x32) and labels from `reader`, over
+    as many passes as that takes (a pass's short last batch left out)."""
+    out = []
+    while len(out) < n:
+        for b in paddle.batch(reader, batch)():
+            if len(b) < batch:
+                break
+            out.append({"pixel": np.stack([s[0] for s in b]).reshape(
+                            -1, 3, 32, 32).astype(np.float32),
+                        "label": np.array([[s[1]] for s in b], np.int64)})
+            if len(out) == n:
+                break
+    return out
+
+
+def biases_under_batch_norm(main):
+    """The bias parameters whose sum goes straight into a batch norm: the
+    norm subtracts the batch mean, so their exact gradient is 0 and each
+    run's is rounding noise."""
+    ops = main.global_block().ops
+    normed = {op.input("X")[0] for op in ops if op.type == "batch_norm"}
+    params = {p.name for p in main.all_parameters()}
+    return {op.input("Y")[0] for op in ops if op.type == "elementwise_add"
+            and op.input("Y")[0] in params and op.output("Out")[0] in normed}
+
+
+def vgg_vs_cpu(fluid, paddle):
+    """18a, the check. The dropout-0 program (VGG's masks cannot match
+    across devices), VGG_CHECK_STEPS steps on the CPU from the startup
+    values at VGG_CHECK_BATCH, and on the card each step from the CPU's
+    state before it, as 7a runs ResNet: Adam's first step moves every
+    weight by about the learning rate, the fc 4096 logits blow up (the
+    second step's loss near 21 in both runs) and two trajectories do not
+    stay within rounding of each other. Losses within VGG_TOL relative;
+    step-1 gradients within VGG_TOL·max|grad| of each parameter. The 14
+    biases under a batch norm have an exact gradient of 0: both runs'
+    must be below VGG_TOL of the largest gradient of any parameter.
+
+    VGG has 14 batch norms followed by relu, and a rounding difference
+    moves a relu boundary: the card's forward reaches the fc batch norm
+    within ~3e-5 of the CPU's, a few of its 65,536 units sit that close
+    to 0 and flip (every layer's flips are printed), and each flip moves
+    every gradient below it. So where a parameter is over its bound, the
+    gradients are held as 7a holds ResNet's: their median and all of
+    them together within 3x the CPU's own spread + VGG_TOL, capped at
+    5e-2. The spread is the larger of the CPU against itself with the
+    images one f32 ulp up (7a's, too small here to flip a unit) and with
+    another convolution algorithm (oneDNN off: another f32 summation
+    order, as cuDNN's is, with the flips that come with it)."""
+    main, startup, vs = vgg_program(fluid, drop=0.0)
+    cpu_scope, _ = cpu_init(fluid, startup)
+    start = clone_scope(fluid, cpu_scope)
+    feeds = cifar_batches(paddle, paddle.dataset.cifar.train10(),
+                          VGG_CHECK_BATCH, VGG_CHECK_STEPS)
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    grads = [p + "@GRAD" for p in params]
+    relus = [op.output("Out")[0] for op in main.global_block().ops
+             if op.type == "relu"]
+    ng = len(grads)
+    zero = biases_under_batch_norm(main)
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    losses, worst = [], 0.0
+    for step, feed in enumerate(feeds):
+        fetch = [vs["loss"]] + (grads + relus if step == 0 else [])
+        card = exe.run(main, feed=feed, fetch_list=fetch,
+                       scope=clone_scope(fluid, cpu_scope))
+        cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        lc, lw = float(card[0]), float(cpu[0])
+        worst = max(worst, abs(lc - lw) / abs(lw))
+        losses.append((lc, lw))
+        if not np.isfinite(lc) or abs(lc - lw) > VGG_TOL * abs(lw):
+            fail("18a step %d: loss %.7f on the card, %.7f on the CPU" % (
+                step, lc, lw))
+        if step == 0:
+            card_g, cpu_g = card[1:1 + ng], cpu[1:1 + ng]
+            flips = relu_flips(relus, card[1 + ng:], cpu[1 + ng:])
+            cpu_relus = cpu[1 + ng:]
+    if not all(np.isfinite(a).all() for a in card_g):
+        fail("18a: a step-1 gradient is not finite on the card")
+    nudged = dict(feeds[0], pixel=np.nextafter(feeds[0]["pixel"],
+                                               np.float32(np.inf)))
+    own = cpu_exe.run(main, feed=nudged, fetch_list=grads,
+                      scope=clone_scope(fluid, start))
+    with torch.backends.mkldnn.flags(enabled=False):
+        alt = cpu_exe.run(main, feed=feeds[0], fetch_list=grads + relus,
+                          scope=start)
+    alt_flips = relu_flips(relus, alt[ng:], cpu_relus)
+    del start, cpu_relus
+    largest = max(float(np.abs(w).max()) for w in cpu_g)
+    noise = max(max(float(np.abs(a).max()), float(np.abs(w).max()))
+                for p, a, w in zip(params, card_g, cpu_g) if p in zero)
+    keep = [i for i, p in enumerate(params) if p not in zero]
+    rels = {params[i]: rel_err(card_g[i], cpu_g[i]) for i in keep}
+    owns = {params[i]: rel_err(own[i], cpu_g[i]) for i in keep}
+    alts = {params[i]: rel_err(alt[i], cpu_g[i]) for i in keep}
+    print("18a step-1 gradients, max|d|/max|grad| per parameter, card vs "
+          "CPU (the CPU against itself with the images one f32 ulp up; "
+          "with oneDNN off):")
+    rows = ["%s %.2e (%.2e; %.2e)" % (p, rels[p], owns[p], alts[p])
+            for p in sorted(rels)]
+    for i in range(0, len(rows), 3):
+        print("  " + ", ".join(rows[i:i + 3]))
+    over = sorted(((r, p) for p, r in rels.items() if r > VGG_TOL),
+                  reverse=True)
+
+    def spread(got):
+        return (float(np.median([rel_err(got[i], cpu_g[i]) for i in keep])),
+                grad_dist([got[i] for i in keep], [cpu_g[i] for i in keep]))
+
+    med, dist = spread(card_g)
+    spreads = spread(own) + spread(alt)
+    bound = min(5e-2, 3 * max(spreads) + VGG_TOL)
+    print("18a VGG-16-BN-drop (dropout 0, batch %d) card vs CPU, %d steps, "
+          "each card step from the CPU's state: losses %s, worst %.3e "
+          "relative (bound %g); step-1 gradients of %d parameters: median "
+          "%.3e, all together %.3e (the CPU nudged one ulp: %.3e, %.3e; "
+          "with oneDNN off: %.3e, %.3e; 7a's bound once one is over %g: "
+          "%.3e); over %g: %s; relu units 0 in one run only (var, units, "
+          "largest |output| there over the var's max): card vs CPU %s, "
+          "oneDNN off vs on %s; the %d biases under a batch norm (exact "
+          "gradient 0): largest %.3e, bound %.3e" % (
+              VGG_CHECK_BATCH, VGG_CHECK_STEPS,
+              " ".join("%.6f/%.6f" % lc for lc in losses), worst, VGG_TOL,
+              len(rels), med, dist, spreads[0], spreads[1], spreads[2],
+              spreads[3], VGG_TOL, bound, VGG_TOL,
+              ", ".join("%s %.2e" % (p, r) for r, p in over) or "none",
+              flips or "none", alt_flips or "none", len(zero), noise,
+              VGG_TOL * largest), flush=True)
+    if over and (med > bound or dist > bound):
+        fail("18a: step-1 gradients off the CPU's beyond 7a's bounds")
+    if noise > VGG_TOL * largest:
+        fail("18a: a bias under a batch norm has a gradient beyond noise")
+
+
+def vgg_bench(fluid, paddle, ca, cl, card):
+    """18a, the main path: the published program (dropout at its rates)
+    at VGG_BATCH, initialised on the card, VGG_WARM warm-up steps (the
+    last one fetching every dropout mask: each keeps 1 - p of its
+    elements within 5 sigma), then VGG_TIMED timed steps with every
+    kernel counter at 0 before them; the loss must fall (mean of the last
+    5 below the first 5's). Step median and p90 (host wall around a run
+    that fetches the loss, so waits for the device), images/s, peak
+    memory above the resident. Returns the launches, a step for the
+    profile, the numbers and the trained scope."""
+    main, startup, vs = vgg_program(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feeds = cifar_batches(paddle, paddle.dataset.cifar.train10(),
+                          VGG_BATCH, VGG_WARM + VGG_TIMED)
+    drops = [op for op in main.global_block().ops if op.type == "dropout"]
+    losses = []
+    for i in range(VGG_WARM):
+        last = i == VGG_WARM - 1
+        out = exe.run(main, feed=feeds[i], scope=scope, fetch_list=[
+            vs["loss"]] + ([op.output("Mask")[0] for op in drops]
+                           if last else []))
+        losses.append(float(out[0]))
+    keeps = []
+    for op, m in zip(drops, out[1:]):
+        p = float(op.attrs["dropout_prob"])
+        keep = float(np.asarray(m).mean())
+        sigma = np.sqrt(p * (1 - p) / np.asarray(m).size)
+        keeps.append((p, keep))
+        if abs(keep - (1 - p)) > 5 * sigma:
+            fail("18a: dropout %g kept %.4f of its elements" % (p, keep))
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    walls = []
+    for feed in feeds[VGG_WARM:]:
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feed, scope=scope, fetch_list=[vs["loss"]])
+        walls.append(time.monotonic() - t0)
+        losses.append(float(out))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - resident
+    launches = check_launches("18a VGG-16 training (main path)", fns, {})
+    stats = step_stats(walls)
+    stats.update(images_per_s=VGG_BATCH / (stats["median_ms"] / 1e3),
+                 peak_gib=peak, resident_gib=resident, steps=len(walls))
+    print("18a VGG-16-BN-drop [%s] (published: dropout at its rates, batch "
+          "%d, 3x32x32, Adam(%g)): %d timed steps after %d warm-up: median "
+          "%.3f ms, p90 %.3f ms, %.1f images/s, peak %.3f GiB above the "
+          "%.3f GiB resident; keep rates %s; losses %s" % (
+              card, VGG_BATCH, VGG_LR, len(walls), VGG_WARM,
+              stats["median_ms"], stats["p90_ms"], stats["images_per_s"],
+              peak, resident, ", ".join("p %g kept %.4f" % k for k in keeps),
+              " ".join("%.4f" % v for v in losses)), flush=True)
+    if not all(np.isfinite(losses)) or \
+            np.mean(losses[-5:]) >= np.mean(losses[:5]):
+        fail("18a: the VGG loss did not fall")
+
+    def step():
+        exe.run(main, feed=feeds[-1], scope=scope, fetch_list=[vs["loss"]])
+
+    return launches, step, stats, (main, vs, scope)
+
+
+def vgg_eval(fluid, paddle, trained):
+    """18a, the evaluation: the test program (cloned before the optimizer:
+    dropout in test mode, batch norm on its moving statistics) on
+    VGG_EVAL_BATCHES held-out batches of VGG_CHECK_BATCH, on the card and
+    on the CPU with the card's trained weights: predictions within
+    VGG_TOL·max; fluid.metrics.Accuracy fed from layers.accuracy on each
+    side, the two pass accuracies equal unless rows whose CPU top-2 gap
+    is within that bound (near-ties, counted) move."""
+    main, vs, scope = trained
+    cpu_scope = clone_scope(fluid, scope, device="cpu")
+    feeds = cifar_batches(paddle, paddle.dataset.cifar.test10(),
+                          VGG_CHECK_BATCH, VGG_EVAL_BATCHES)
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    acc_card, acc_cpu = fluid.metrics.Accuracy(), fluid.metrics.Accuracy()
+    worst, moved, ties = 0.0, 0, 0
+    for feed in feeds:
+        got = exe.run(vs["test"], feed=feed, scope=scope,
+                      fetch_list=[vs["predict"], vs["acc"]])
+        want = cpu_exe.run(vs["test"], feed=feed, scope=cpu_scope,
+                           fetch_list=[vs["predict"], vs["acc"]])
+        err = rel_err(got[0], want[0])
+        worst = max(worst, err)
+        if err > VGG_TOL or not np.isfinite(got[0]).all():
+            fail("18a eval: predictions %.3e of max off the CPU's" % err)
+        acc_card.update(value=got[1], weight=len(feed["label"]))
+        acc_cpu.update(value=want[1], weight=len(feed["label"]))
+        top2 = np.sort(want[0], axis=-1)[:, -2:]
+        near = (top2[:, 1] - top2[:, 0]) <= VGG_TOL * float(
+            np.abs(want[0]).max())
+        differ = got[0].argmax(-1) != want[0].argmax(-1)
+        ties += int(near.sum())
+        moved += int(differ.sum())
+        if (differ & ~near).any():
+            fail("18a eval: a row's class moved without a near-tie")
+    a, b = acc_card.eval(), acc_cpu.eval()
+    print("18a eval: the test program on %d held-out batches of %d, card vs "
+          "CPU on the card's weights: predictions worst %.3e of max (bound "
+          "%g); fluid.metrics.Accuracy %.6f on the card, %.6f on the CPU "
+          "(rows whose class moved %d, CPU near-ties %d)" % (
+              len(feeds), VGG_CHECK_BATCH, worst, VGG_TOL, a, b, moved, ties),
+          flush=True)
+    if moved == 0 and a != b:
+        fail("18a eval: the accuracies differ")
+
+
+def vgg_op_times(main):
+    """Device ms of the conv2d and batch_norm lowerings, forward and
+    backward (autograd), at every conv2d and batch norm of the timed
+    program (batch VGG_BATCH), under a run's precision switches: the
+    kernels' device time in one profiler session per op type over 10
+    passes, after 2 warm-up passes. CUDA events would count the host's
+    launch gaps of batch norm's ~20 small kernels as well."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.fluid.lowering import f32_precision
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+    block = main.global_block()
+    ctx = LowerContext(torch.device("cuda"),
+                       generator=torch.Generator("cuda"))
+    runs = {"conv2d": [], "batch_norm": []}
+    for op in block.ops:
+        if op.type not in runs:
+            continue
+        ins = {}
+        for slot, names in op.inputs.items():
+            ins[slot] = []
+            for n in names:
+                shape = [VGG_BATCH if s in (None, -1) else s
+                         for s in block.var(n).shape]
+                t = torch.rand(shape, device="cuda") + 0.5
+                if slot in ("Input", "X", "Filter", "Scale", "Bias"):
+                    t.requires_grad_()
+                ins[slot].append(t)
+        runs[op.type].append((get_lowering(op.type), ins, dict(op.attrs),
+                              "Output" if op.type == "conv2d" else "Y"))
+    out = {}
+    for op_type, calls in runs.items():
+        def run():
+            # the run's switches: f32 convolutions without TF32
+            with f32_precision():
+                for fn, ins, attrs, slot in calls:
+                    y = fn(ctx, ins, attrs)[slot][0]
+                    torch.autograd.grad(y, [t for ts in ins.values()
+                                            for t in ts if t.requires_grad],
+                                        torch.ones_like(y))
+
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        out[op_type] = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA) / 1e4
+    return out
+
+
+def vgg_profile(step, stats, main, card):
+    """18a's profiled step: device busy, idle share, cudaLaunchKernel
+    calls, the convolutions' device ms (kernels under aten::convolution
+    and aten::convolution_backward) against the rest; then the conv2d and
+    batch_norm lowerings alone at the program's shapes (vgg_op_times)."""
+    def convs(prof, numbers, averages):
+        ms = sum(d for e in prof.events()
+                 if e.name in ("aten::convolution",
+                               "aten::convolution_backward")
+                 for _, d in _subtree_kernels(e)) / 1e3
+        numbers["conv_ms"] = ms
+
+    stats.update(profile_train_step(step, "VGG-16 train step", extra=convs))
+    stats.update(vgg_op_times(main))
+    print("18a VGG-16 train step [%s]: median %.3f ms, p90 %.3f ms, %.1f "
+          "images/s, %d kernel launches (the profiled step's "
+          "cudaLaunchKernel calls); profiled: device busy %.3f ms, idle "
+          "%.1f%% of the profiled wall, %.1f%% of the median step; "
+          "convolutions %.3f ms of the busy time; the lowerings alone at "
+          "the step's shapes (forward + backward, device time): the 13 "
+          "conv2d %.3f ms, the 14 batch_norm %.3f ms" % (
+              card, stats["median_ms"], stats["p90_ms"],
+              stats["images_per_s"], stats["launch_calls"],
+              stats["busy_ms"], 100 * stats["idle"],
+              100 * max(0.0, 1 - stats["busy_ms"] / stats["median_ms"]),
+              stats["conv_ms"], stats["conv2d"], stats["batch_norm"]),
+          flush=True)
+
+
+def recommender_net(fluid, paddle):
+    """The book's recommender (test_recommender_system.py) and SGD(REC_LR);
+    the LoD slots as padded (batch, length) ids, as the port feeds them.
+    Returns the feeds in the reader's slot order, the scaled cosine and
+    the loss."""
+    L, ml = fluid.layers, paddle.dataset.movielens
+
+    def tower(name, table, vocab, width):
+        ids = L.data(name=name, shape=[1], dtype="int64")
+        emb = L.embedding(input=ids, size=[vocab, width], dtype="float32",
+                          param_attr=table)
+        return ids, L.fc(input=emb, size=width)
+
+    uid, usr = tower("user_id", "user_table", ml.max_user_id() + 1, 32)
+    gender, gen = tower("gender_id", "gender_table", 2, 16)
+    age, ag = tower("age_id", "age_table", len(ml.age_table), 16)
+    job, jb = tower("job_id", "job_table", ml.max_job_id() + 1, 16)
+    user = L.fc(input=L.concat(input=[usr, gen, ag, jb], axis=1), size=200,
+                act="tanh")
+    mov_id, mov = tower("movie_id", "movie_table", ml.max_movie_id() + 1, 32)
+    category = fluid.data(name="category_id", shape=[None, None],
+                          dtype="int64", lod_level=1)
+    cats = L.sequence_pool(input=L.embedding(
+        input=category, size=[len(ml.movie_categories()), 32]),
+        pool_type="sum")
+    title = fluid.data(name="movie_title", shape=[None, None], dtype="int64",
+                       lod_level=1)
+    titles = fluid.nets.sequence_conv_pool(
+        input=L.embedding(input=title,
+                          size=[len(ml.get_movie_title_dict()), 32]),
+        num_filters=32, filter_size=3, act="tanh", pool_type="sum")
+    movie = L.fc(input=L.concat(input=[mov, cats, titles], axis=1),
+                 size=200, act="tanh")
+    infer = L.scale(x=L.cos_sim(X=user, Y=movie), scale=5.0)
+    score = L.data(name="score", shape=[1], dtype="float32")
+    loss = L.mean(L.square_error_cost(input=infer, label=score))
+    fluid.optimizer.SGD(learning_rate=REC_LR).minimize(loss)
+    return [uid, gender, age, job, mov_id, category, title, score], infer, \
+        loss
+
+
+def recommender_phase(fluid, paddle, ca, cl, card, tmp):
+    """18b. REC_CHECK_STEPS steps card vs CPU from the same startup values
+    through DataFeeder (batch REC_BATCH): losses within REC_LOSS_TOL
+    relative, step-1 gradients within REC_GRAD_TOL·max; then REC_TIMED
+    timed card steps with every counter at 0 before them (the main path):
+    median, p90, examples/s; then the inference program saved and served
+    by Predictor.from_model on the card, its scores within
+    REC_SERVE_TOL·max of the CPU predictor's on the same batch. Returns
+    the launches, a step for the profile and the numbers."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = REC_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        feeds, infer, loss = recommender_net(fluid, paddle)
+    cpu_scope, scope = cpu_init(fluid, startup)
+    batches = [b for b in paddle.batch(paddle.dataset.movielens.train(),
+                                       REC_BATCH)() if len(b) == REC_BATCH]
+    feeder = fluid.DataFeeder(feed_list=feeds, place=fluid.CUDAPlace(0))
+    cpu_feeder = fluid.DataFeeder(feed_list=feeds, place=fluid.CPUPlace())
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    grads = [p + "@GRAD" for p in params]
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    losses, worst = [], 0.0
+    for step in range(REC_CHECK_STEPS):
+        fetch = [loss] + (grads if step == 0 else [])
+        got = exe.run(main, feed=feeder.feed(batches[step]), scope=scope,
+                      fetch_list=fetch)
+        want = cpu_exe.run(main, feed=cpu_feeder.feed(batches[step]),
+                           scope=cpu_scope, fetch_list=fetch)
+        lc, lw = float(got[0]), float(want[0])
+        worst = max(worst, abs(lc - lw) / abs(lw))
+        losses.append((lc, lw))
+        if not np.isfinite(lc) or abs(lc - lw) > REC_LOSS_TOL * abs(lw):
+            fail("18b step %d: loss %.7f on the card, %.7f on the CPU" % (
+                step, lc, lw))
+        if step == 0:
+            gworst = check_values("18b step-1 gradients", grads, got[1:],
+                                  want[1:], tol=REC_GRAD_TOL)
+    print("18b recommender (published widths, SGD(%g), batch %d) card vs "
+          "CPU through DataFeeder, %d steps: losses %s, worst %.3e relative "
+          "(bound %g); step-1 gradients worst %.3e of max (%s; bound %g)" % (
+              REC_LR, REC_BATCH, REC_CHECK_STEPS,
+              " ".join("%.6f/%.6f" % lc for lc in losses), worst,
+              REC_LOSS_TOL, gworst[0], gworst[1], REC_GRAD_TOL), flush=True)
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(REC_TIMED):
+        feed = feeder.feed(batches[(REC_CHECK_STEPS + i) % len(batches)])
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feed, scope=scope, fetch_list=[loss])
+        walls.append(time.monotonic() - t0)
+        if not np.isfinite(float(out)):
+            fail("18b: a timed step's loss is not finite")
+    launches = check_launches("18b recommender training (main path)", fns,
+                              {})
+    stats = step_stats(walls)
+    stats.update(examples_per_s=REC_BATCH / (stats["median_ms"] / 1e3),
+                 steps=len(walls))
+    print("18b recommender [%s]: %d timed steps (DataFeeder's feed outside "
+          "the timing): median %.3f ms, p90 %.3f ms, %.1f examples/s" % (
+              card, len(walls), stats["median_ms"], stats["p90_ms"],
+              stats["examples_per_s"]), flush=True)
+
+    dirname = os.path.join(tmp, "recommender18")
+    names = [v.name for v in feeds[:-1]]
+    fluid.io.save_inference_model(dirname, names, [infer], exe,
+                                  main_program=main, scope=scope)
+    pred = fluid.Predictor.from_model(dirname)
+    cpu = fluid.Predictor.from_model(dirname, place=fluid.CPUPlace())
+    rows = [r[:-1] for r in batches[-1]]
+    got, = pred.run(fluid.DataFeeder(feeds[:-1], fluid.CUDAPlace(0),
+                                     program=main).feed(rows))
+    want, = cpu.run(fluid.DataFeeder(feeds[:-1], fluid.CPUPlace(),
+                                     program=main).feed(rows))
+    err = rel_err(got, want)
+    print("18b Predictor.from_model on the card, %d rows: scores in [%.3f, "
+          "%.3f], max|d| vs the CPU predictor %.3e of max (bound %g)" % (
+              len(rows), float(got.min()), float(got.max()), err,
+              REC_SERVE_TOL), flush=True)
+    if got.shape != (len(rows), 1) or not np.isfinite(got).all() \
+            or err > REC_SERVE_TOL:
+        fail("18b: the served recommender disagrees with the CPU")
+
+    def step():
+        exe.run(main, feed=feeder.feed(batches[0]), scope=scope,
+                fetch_list=[loss])
+
+    return launches, step, stats
+
+
+def word2vec_net(fluid, dict_size):
+    L = fluid.layers
+    words = [L.data(name=n, shape=[1], dtype="int64")
+             for n in ("firstw", "secondw", "thirdw", "forthw", "nextw")]
+    embeds = [L.embedding(input=w, size=[dict_size, W2V_EMB],
+                          param_attr=fluid.ParamAttr(name="shared_w"))
+              for w in words[:W2V_N - 1]]
+    concat = L.reshape(L.concat(input=embeds, axis=-1),
+                       [-1, (W2V_N - 1) * W2V_EMB])
+    hidden = L.fc(input=concat, size=W2V_HID, act="sigmoid")
+    predict = L.fc(input=hidden, size=dict_size, act="softmax")
+    loss = L.mean(L.cross_entropy(input=predict, label=words[-1]))
+    fluid.optimizer.SGD(learning_rate=W2V_LR).minimize(loss)
+    return loss
+
+
+def fit_a_line_net(fluid):
+    L = fluid.layers
+    x = L.data(name="x", shape=[13], dtype="float32")
+    y = L.data(name="y", shape=[1], dtype="float32")
+    loss = L.mean(L.square_error_cost(input=L.fc(input=x, size=1), label=y))
+    fluid.optimizer.SGD(learning_rate=FIT_LR).minimize(loss)
+    return loss
+
+
+def book_steps_vs_cpu(fluid, tag, build, feeds):
+    """BOOK_STEPS steps of build(fluid)'s program on the card and on the
+    CPU from the same startup values: losses within BOOK_LOSS_TOL."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fresh_names(), fluid.program_guard(main, startup):
+        loss = build(fluid)
+    cpu_scope, scope = cpu_init(fluid, startup)
+    exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    losses = []
+    for feed in feeds:
+        lc = float(exe.run(main, feed=feed, scope=scope,
+                           fetch_list=[loss])[0])
+        lw = float(cpu_exe.run(main, feed=feed, scope=cpu_scope,
+                               fetch_list=[loss])[0])
+        losses.append((lc, lw))
+        if not np.isfinite(lc) or abs(lc - lw) > BOOK_LOSS_TOL * abs(lw):
+            fail("18c %s: loss %.7f on the card, %.7f on the CPU" % (
+                tag, lc, lw))
+    print("18c %s card vs CPU, %d steps: losses %s (bound %g relative)" % (
+        tag, len(losses), " ".join("%.5f/%.5f" % v for v in losses),
+        BOOK_LOSS_TOL), flush=True)
+
+
+def small_chapters_vs_cpu(fluid, paddle):
+    """18c. word2vec and fit_a_line as the book builds them."""
+    word_dict = paddle.dataset.imikolov.build_dict()
+    grams = np.array(list(paddle.dataset.imikolov.train(word_dict, W2V_N)()),
+                     np.int64)
+    names = ("firstw", "secondw", "thirdw", "forthw", "nextw")
+    feeds = [{n: grams[i * W2V_BATCH:(i + 1) * W2V_BATCH, k:k + 1]
+              for k, n in enumerate(names)} for i in range(BOOK_STEPS)]
+    book_steps_vs_cpu(fluid, "word2vec (N %d, embedding %d, hidden %d, "
+                      "dictionary %d, SGD(%g), batch %d)" % (
+                          W2V_N, W2V_EMB, W2V_HID, len(word_dict), W2V_LR,
+                          W2V_BATCH),
+                      lambda fl: word2vec_net(fl, len(word_dict)), feeds)
+    data = list(paddle.dataset.uci_housing.train()())
+    feeds = [{"x": np.array([r[0] for r in data[i * FIT_BATCH:
+                                                 (i + 1) * FIT_BATCH]],
+                            np.float32),
+              "y": np.array([r[1] for r in data[i * FIT_BATCH:
+                                                 (i + 1) * FIT_BATCH]],
+                            np.float32).reshape(-1, 1)}
+             for i in range(BOOK_STEPS)]
+    book_steps_vs_cpu(fluid, "fit_a_line (SGD(%g), batch %d)" % (
+        FIT_LR, FIT_BATCH), fit_a_line_net, feeds)
+
+
+def book_op_cases():
+    """18d: one case (name, op, numpy inputs, attrs, differentiable input
+    slots, output slot) or more of each of the 61 op types the phase
+    brings, at the sizes of tests/test_torch_activations.py and
+    test_torch_losses.py, kinks, ties and labels out of range included
+    (no zero rows: their NaN gradients are held on the CPU)."""
+    rng = np.random.default_rng(18)
+
+    def rand(*shape, scale=1.0):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    def unif(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, size=shape).astype(np.float32)
+
+    def ints(*shape, hi=5):
+        return rng.integers(0, hi, size=shape).astype(np.int64)
+
+    def kinks(values, scale=2.0):
+        x = rand(4, 6, scale=scale).reshape(-1)
+        x[:len(values)] = values
+        return x.reshape(4, 6)
+
+    def probs(n, c):
+        e = np.exp(rand(n, c))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    zero = [0.0, -0.0, 1e-3, -1e-3]
+    bad = np.array([[1], [4], [-1], [7], [0], [-6]], np.int64)
+    x46 = {"X": [kinks(zero)]}
+    acts = [("rsqrt", {"X": [unif(4, 6, lo=0.05, hi=4.0)]}, {}),
+            ("reciprocal", {"X": [kinks([0.5, -0.5])]}, {}),
+            ("sin", x46, {}), ("tan", {"X": [unif(4, 6, lo=-1.4, hi=1.4)]},
+                               {}),
+            ("asin", {"X": [unif(4, 6, lo=-0.95, hi=0.95)]}, {}),
+            ("acos", {"X": [unif(4, 6, lo=-0.95, hi=0.95)]}, {}),
+            ("atan", x46, {}), ("sinh", x46, {}), ("cosh", x46, {}),
+            ("erf", x46, {}), ("logsigmoid", x46, {}), ("softplus", x46, {}),
+            ("softsign", x46, {}), ("tanh_shrink", x46, {}),
+            ("selu", x46, {}), ("swish", x46, {"beta": 1.5}),
+            ("stanh", x46, {}),
+            ("soft_relu", {"X": [kinks([2.0, -2.0, 0.0])]},
+             {"threshold": 2.0}),
+            ("elu", x46, {"alpha": 1.3}),
+            ("softshrink", {"X": [kinks([0.5, -0.5, 0.0])]},
+             {"lambda": 0.5}),
+            ("hard_shrink", {"X": [kinks([0.5, -0.5, 0.0])]},
+             {"threshold": 0.5}),
+            ("hard_sigmoid", {"X": [kinks([-2.0, 2.0, 0.0])]},
+             {"slope": 0.25, "offset": 0.5}),
+            ("hard_swish", {"X": [kinks([-3.0, 3.0, 0.0])]}, {}),
+            ("relu6", {"X": [kinks([0.0, 6.0, 3.0], scale=4.0)]},
+             {"threshold": 6.0}),
+            ("brelu", {"X": [kinks([1.0, 4.0])]},
+             {"t_min": 1.0, "t_max": 4.0}),
+            ("leaky_relu", x46, {"alpha": 0.1}),
+            ("thresholded_relu", {"X": [kinks([1.0, -1.0])]},
+             {"threshold": 1.0}),
+            ("log_softmax", {"X": [rand(2, 5, 3)]}, {"axis": 1})]
+    cases = [(op, op, ins, attrs, ["X"], "Out") for op, ins, attrs in acts]
+    mx = rand(2, 6, 3, 3)
+    mx[0, 3, 0] = mx[0, 0, 0]
+    px = kinks(zero).reshape(2, 3, 2, 2)
+    cases += [
+        ("maxout", "maxout", {"X": [mx]}, {"groups": 2}, ["X"], "Out"),
+        ("prelu", "prelu", {"X": [px], "Alpha": [rand(3, 2, 2)]},
+         {"mode": "element"}, ["X", "Alpha"], "Out"),
+        ("prelu_channel", "prelu", {"X": [px], "Alpha": [unif(1, 3, 1, 1)]},
+         {"mode": "channel"}, ["X", "Alpha"], "Out")]
+    tied = rand(3, 4, 5)
+    tied[0, 1] = tied[0, 0]
+    zp = unif(3, 5, lo=0.5, hi=1.5)
+    zp[0, 2] = zp[1, 1] = zp[1, 3] = 0.0
+    xy = {"X": [rand(5, 7)], "Y": [rand(5, 7)]}
+    cases += [
+        ("reduce_min", "reduce_min", {"X": [tied]}, {"dim": [1]}, ["X"],
+         "Out"),
+        ("reduce_prod", "reduce_prod", {"X": [zp]}, {"dim": [1]}, ["X"],
+         "Out"),
+        ("reduce_all", "reduce_all", {"X": [np.array([[1.0, 0.0], [2.0,
+                                                                    3.0]],
+                                                      np.float32)]},
+         {"dim": [1]}, [], "Out"),
+        ("reduce_any", "reduce_any", {"X": [np.array([[0.0, 0.0], [2.0,
+                                                                    0.0]],
+                                                      np.float32)]},
+         {"dim": None, "reduce_all": True}, [], "Out"),
+        ("l2_normalize", "l2_normalize", {"X": [rand(4, 6)]}, {"axis": 1},
+         ["X"], "Out"),
+        ("cos_sim", "cos_sim", xy, {}, ["X", "Y"], "Out"),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         {"X": [rand(4, 3)], "Y": [rand(4, 5)], "Weight": [rand(6, 3, 5)],
+          "Bias": [rand(1, 6)]}, {}, ["X", "Y", "Weight", "Bias"], "Out"),
+        ("frobenius_norm", "frobenius_norm", {"X": [rand(3, 4, 2)]}, {},
+         ["X"], "Out"),
+        ("kron", "kron", {"X": [rand(2, 3)], "Y": [rand(3, 2)]}, {},
+         ["X", "Y"], "Out"),
+        ("dot", "dot", xy, {}, ["X", "Y"], "Out"),
+        ("cross_entropy2", "cross_entropy2",
+         {"X": [probs(6, 5)], "Label": [np.array([[1], [4], [-100], [0],
+                                                  [2], [3]], np.int64)]},
+         {}, ["X"], "Y"),
+        ("sigmoid_cross_entropy_with_logits",
+         "sigmoid_cross_entropy_with_logits",
+         {"X": [kinks(zero)], "Label": [np.where(unif(4, 6) < 0.2, -100.0,
+                                                 unif(4, 6)).astype(
+                                                     np.float32)]},
+         {"normalize": True}, ["X"], "Out"),
+        ("square_error_cost", "square_error_cost", xy, {}, ["X", "Y"],
+         "Out"),
+        ("squared_l2_distance", "squared_l2_distance",
+         {"X": [rand(5, 4)], "Y": [rand(1, 4)]}, {}, ["X", "Y"], "Out"),
+        ("smooth_l1_loss", "smooth_l1_loss",
+         {"X": [rand(4, 3, 2)], "Y": [rand(4, 3, 2)],
+          "InsideWeight": [unif(4, 3, 2)], "OutsideWeight": [unif(4, 3, 2)]},
+         {"sigma": 2.0}, ["X", "Y"], "Out"),
+        ("hinge_loss", "hinge_loss",
+         {"Logits": [np.array([[1.0], [-1.0], [0.3], [2.0]], np.float32)],
+          "Labels": [np.array([[1.0], [0.0], [1.0], [0.0]], np.float32)]},
+         {}, ["Logits"], "Loss"),
+        ("margin_rank_loss", "margin_rank_loss",
+         {"Label": [np.array([[1.0], [-1.0], [1.0]], np.float32)],
+          "X1": [np.array([[0.1], [0.5], [0.7]], np.float32)],
+          "X2": [np.array([[0.2], [0.4], [0.1]], np.float32)]},
+         {"margin": 0.1}, ["X1", "X2"], "Out"),
+        ("rank_loss", "rank_loss", {"Label": [unif(5, 1)],
+                                    "Left": [rand(5, 1)],
+                                    "Right": [rand(5, 1)]}, {},
+         ["Left", "Right"], "Out"),
+        ("bpr_loss", "bpr_loss", {"X": [rand(6, 5)], "Label": [bad]}, {},
+         [], "Y"),
+        ("kldiv_loss", "kldiv_loss",
+         {"X": [rand(4, 5)], "Target": [np.where(unif(4, 5) < 0.3, 0.0,
+                                                 unif(4, 5)).astype(
+                                                     np.float32)]},
+         {"reduction": "batchmean"}, ["X", "Target"], "Loss"),
+        ("dice_loss", "dice_loss", {"X": [probs(6, 5)], "Label": [bad]},
+         {}, ["X"], "Out"),
+        ("center_loss", "center_loss",
+         {"X": [rand(6, 3)], "Label": [bad], "Centers": [rand(5, 3)],
+          "CenterUpdateRate": [np.array([0.3], np.float32)]}, {},
+         ["X"], "Loss"),
+        ("center_loss_centers", "center_loss",
+         {"X": [rand(6, 3)], "Label": [bad], "Centers": [rand(5, 3)],
+          "CenterUpdateRate": [np.array([0.3], np.float32)]}, {}, [],
+         "CentersOut"),
+        ("mse_loss", "mse_loss", xy, {}, ["X", "Y"], "Out"),
+        ("teacher_student_sigmoid_loss", "teacher_student_sigmoid_loss",
+         {"X": [np.array([[15.0], [-15.0], [0.0], [20.0]], np.float32)],
+          "Label": [unif(4, 1)]}, {}, ["X"], "Y"),
+        ("sampled_softmax_with_cross_entropy",
+         "sampled_softmax_with_cross_entropy",
+         {"Logits": [rand(6, 10)], "Label": [ints(6, 2, hi=10)]},
+         {"num_samples": 8, "_samples": True}, ["Logits"], "Loss"),
+        ("nce", "nce", {"Input": [rand(5, 4)], "Label": [ints(5, 1, hi=12)],
+                        "Weight": [rand(12, 4)], "Bias": [rand(12, 1)]},
+         {"num_total_classes": 12, "num_neg_samples": 6, "_samples": True},
+         ["Input", "Weight", "Bias"], "Cost"),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid",
+         {"X": [rand(6, 4)], "Label": [ints(6, 1, hi=6)], "W": [rand(5, 4)],
+          "Bias": [rand(5, 1)]}, {"num_classes": 6}, ["X", "W", "Bias"],
+         "Out"),
+        ("mean_iou", "mean_iou",
+         {"Predictions": [np.array([2, 0, 1, 2, 2, 1, 0], np.int64)],
+          "Labels": [np.array([-1, 3, 1, 2, -4, 5, 0], np.int64)]},
+         {"num_classes": 3}, [], "OutMeanIou"),
+        ("precision_recall", "precision_recall",
+         {"Indices": [ints(8, 1, hi=4)], "Labels": [ints(8, 1, hi=5)]},
+         {"class_number": 4}, [], "BatchMetrics"),
+        ("split", "split", {"X": [rand(2, 6, 5)]},
+         {"sections": [2, 1, 2], "axis": -1}, ["X"], "Out"),
+        ("npair_loss_helper", "npair_loss_helper", {}, {}, [], None)]
+    return cases
+
+
+def ops_vs_cpu(tag, cases, want_types, tol, grad_tol, device="cuda"):
+    """Each case on the card against the port's lowering on the CPU, on
+    the same inputs: integer and bool outputs equal, float outputs within
+    tol of the largest value, gradients (autograd under one random
+    cotangent) within grad_tol of the largest. A case whose attrs name
+    ``_samples`` (a draw) runs with the same uniform class ids handed to
+    both devices; an op whose lowering raises must raise on both. Prints
+    the largest error of each case."""
+    from paddle_tpu_torch.ops import loss_ops, misc_ops
     from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
 
     rows, seen = [], set()
-    for op, ins, attrs, wrt, out in op_cases():
-        seen.add(op)
-        res = {}
-        for dev in (torch.device(device), torch.device("cpu")):
-            t = {k: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in v] for k, v in ins.items()}
-            for s in wrt:
-                t[s] = [v.requires_grad_() for v in t[s]]
-            ctx = LowerContext(dev, generator=torch.Generator(dev))
-            outs = get_lowering(op)(ctx, t, dict(attrs))
-            g = []
-            if wrt:
-                y = outs[out][0]
-                cot = torch.from_numpy(np.random.default_rng(5).normal(
-                    size=tuple(y.shape)).astype(np.float32)).to(dev)
-                g = torch.autograd.grad(y, [v for s in wrt for v in t[s]],
-                                        cot)
-            res[len(res)] = ({k: [v.detach().cpu().numpy() for v in vs]
-                              for k, vs in outs.items()},
-                             [v.cpu().numpy() for v in g])
-        (got, ggot), (want, gwant) = res[0], res[1]
-        err = gerr = 0.0
-        for slot in want:
-            for a, w in zip(got[slot], want[slot]):
-                if a.shape != w.shape or a.dtype != w.dtype:
-                    fail("17d %s.%s: %s %s on the card, %s %s on the CPU" % (
-                        op, slot, a.shape, a.dtype, w.shape, w.dtype))
-                if np.issubdtype(w.dtype, np.floating):
-                    fin = np.isfinite(w)
-                    if not np.array_equal(fin, np.isfinite(a)):
-                        fail("17d %s.%s: non-finite values differ" % (
-                            op, slot))
-                    if fin.any():
-                        err = max(err, rel_err(a[fin], w[fin]))
-                elif not np.array_equal(a, w):
-                    fail("17d %s.%s: integer outputs differ" % (op, slot))
-        for a, w in zip(ggot, gwant):
-            gerr = max(gerr, rel_err(a, w))
-        rows.append((op, err, gerr if wrt else None))
-        if err > OPS17_TOL or (wrt and gerr > OPS17_GRAD_TOL):
-            fail("17d %s: outputs %.3e, gradients %.3e of their max off the "
-                 "CPU's (bounds %g, %g)" % (op, err, gerr, OPS17_TOL,
-                                              OPS17_GRAD_TOL))
-    print("17d the %d new op types on the card vs the CPU, max|d|/max "
+    draw = loss_ops.uniform_samples
+    try:
+        for name, op, ins, attrs, wrt, out in cases:
+            seen.add(op)
+            attrs = dict(attrs)
+            if attrs.pop("_samples", False):
+                loss_ops.uniform_samples = misc_ops.uniform_samples = (
+                    lambda ctx, k, high, dev: torch.as_tensor(
+                        np.random.default_rng(7).integers(0, high, k),
+                        device=dev))
+            res = []
+            for dev in (torch.device(device), torch.device("cpu")):
+                t = {k: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in v] for k, v in ins.items()}
+                for s in wrt:
+                    t[s] = [v.requires_grad_() for v in t[s]]
+                ctx = LowerContext(dev, generator=torch.Generator(dev))
+                try:
+                    outs = get_lowering(op)(ctx, t, dict(attrs))
+                except NotImplementedError:
+                    res.append(None)
+                    continue
+                g = []
+                if wrt:
+                    y = outs[out][0]
+                    cot = torch.from_numpy(np.random.default_rng(5).normal(
+                        size=tuple(y.shape)).astype(np.float32)).to(dev)
+                    g = torch.autograd.grad(
+                        y, [v for s in wrt for v in t[s]], cot)
+                res.append(({k: [v.detach().cpu().numpy() for v in vs]
+                             for k, vs in outs.items()},
+                            [v.cpu().numpy() for v in g]))
+            loss_ops.uniform_samples = misc_ops.uniform_samples = draw
+            if res == [None, None]:
+                rows.append((name, None, None))
+                continue
+            if None in res:
+                fail("%s %s raises on one device only" % (tag, name))
+            (got, ggot), (want, gwant) = res
+            err = gerr = 0.0
+            for slot in want:
+                for a, w in zip(got[slot], want[slot]):
+                    if a.shape != w.shape or a.dtype != w.dtype:
+                        fail("%s %s.%s: %s %s on the card, %s %s on the CPU"
+                             % (tag, name, slot, a.shape, a.dtype, w.shape,
+                                w.dtype))
+                    if np.issubdtype(w.dtype, np.floating):
+                        fin = np.isfinite(w)
+                        if not np.array_equal(fin, np.isfinite(a)):
+                            fail("%s %s.%s: non-finite values differ" % (
+                                tag, name, slot))
+                        if fin.any():
+                            err = max(err, rel_err(a[fin], w[fin]))
+                    elif not np.array_equal(a, w):
+                        fail("%s %s.%s: integer outputs differ" % (
+                            tag, name, slot))
+            for a, w in zip(ggot, gwant):
+                if not np.array_equal(np.isfinite(a), np.isfinite(w)):
+                    fail("%s %s: non-finite gradients differ" % (tag, name))
+                gerr = max(gerr, rel_err(a[np.isfinite(w)],
+                                         w[np.isfinite(w)]))
+            rows.append((name, err, gerr if wrt else None))
+            if err > tol or (wrt and gerr > grad_tol):
+                fail("%s %s: outputs %.3e, gradients %.3e of their max off "
+                     "the CPU's (bounds %g, %g)" % (tag, name, err, gerr,
+                                                     tol, grad_tol))
+    finally:
+        loss_ops.uniform_samples = misc_ops.uniform_samples = draw
+    print("%s the %d new op types on the card vs the CPU, max|d|/max "
           "(outputs; gradients): %s" % (
-              len(seen), ", ".join(
-                  "%s %.1e%s" % (op, e, "" if g is None else "; %.1e" % g)
-                  for op, e, g in rows)), flush=True)
-    if len(seen) != 35:
-        fail("17d covers %d op types, want 35" % len(seen))
+              tag, len(seen), ", ".join(
+                  "%s %s" % (n, "raises on both" if e is None else
+                             "%.1e%s" % (e, "" if g is None
+                                         else "; %.1e" % g))
+                  for n, e, g in rows)), flush=True)
+    if len(seen) != want_types:
+        fail("%s covers %d op types, want %d" % (tag, len(seen), want_types))
 
 
 def main():
@@ -7858,6 +8727,35 @@ def main():
         # forwards; launches_srl in 17c's steps
         ssd_launches = {n: ssd_launches[n] + infer_launches[n]
                         for n in ssd_launches}
+        # phase 18: the book's VGG-16 and recommender chapters at their
+        # published widths, word2vec and fit_a_line, and the 61 op types;
+        # 18a's and 18b's steps are timed, so before the profiles (their
+        # profiled steps come with them)
+        t18 = time.monotonic()
+        mark("18a")
+        vgg_vs_cpu(fluid, paddle)
+        vgg_launches, step18a, vgg_stats, trained18 = vgg_bench(
+            fluid, paddle, ca, cl, card)
+        vgg_eval(fluid, paddle, trained18)
+        vgg_main18 = trained18[0]
+        del trained18
+        t18b = time.monotonic()
+        mark("18b")
+        rec_launches, step18b, rec_stats = recommender_phase(
+            fluid, paddle, ca, cl, card, tmp)
+        t18c = time.monotonic()
+        mark("18c")
+        small_chapters_vs_cpu(fluid, paddle)
+        t18d = time.monotonic()
+        mark("18d")
+        ops_vs_cpu("18d", book_op_cases(), 61, OPS18_TOL, OPS18_GRAD_TOL)
+        secs18 = time.monotonic() - t18
+        print("phase 18 before its profiles: 18a %.1f s, 18b %.1f s, 18c "
+              "%.1f s, 18d %.1f s" % (t18b - t18, t18c - t18b, t18d - t18c,
+                                      time.monotonic() - t18d), flush=True)
+        # launches_book: every kernel's count in 18a's and 18b's timed steps
+        book_launches = {n: vgg_launches[n] + rec_launches[n]
+                         for n in vgg_launches}
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -7902,6 +8800,24 @@ def main():
         del step17a, forward17b, step17c
         print("phase 17 (detection, R-CNN and CRF: 17a-17d) took %.1f s" % (
             secs17 + time.monotonic() - t17), flush=True)
+        t18 = time.monotonic()
+        mark("18's profiles")
+        vgg_profile(step18a, vgg_stats, vgg_main18, card)
+        rec_stats.update(profile_train_step(step18b,
+                                            "recommender train step"))
+        print("18b recommender train step [%s]: median %.3f ms, p90 %.3f "
+              "ms, %.1f examples/s, %d kernel launches (the profiled step's "
+              "cudaLaunchKernel calls); profiled: device busy %.3f ms, idle "
+              "%.1f%% of the profiled wall, %.1f%% of the median step" % (
+                  card, rec_stats["median_ms"], rec_stats["p90_ms"],
+                  rec_stats["examples_per_s"], rec_stats["launch_calls"],
+                  rec_stats["busy_ms"], 100 * rec_stats["idle"],
+                  100 * max(0.0, 1 - rec_stats["busy_ms"]
+                            / rec_stats["median_ms"])), flush=True)
+        del step18a, step18b, vgg_main18
+        print("phase 18 (the book's VGG-16 and recommender chapters and the "
+              "op families: 18a-18d) took %.1f s" % (
+                  secs18 + time.monotonic() - t18), flush=True)
         mark("phase 4's and 5's profiles")
         forward_breakdown(pred, requests)
         f32_stats.update(profile_train_step(train_step, "train step, f32"))
@@ -7986,7 +8902,7 @@ def main():
     # launches_bf16 the bfloat16 one's), the backward kernels' the training
     # run's; launches_train is every kernel's count in the training run,
     # launches_train_amp in the bf16 AMP training run, launches_decode in
-    # phase 8b's GPT decode load, launches_nmt in 9b's 8 translations,
+    # phase 8b's GPT decode load, launches_nmt in 9b's timed b32 translations,
     # launches_nmt_train in 9c's 3 card steps, launches_generate in 9d,
     # launches_ctr in 10b's timed epochs, launches_http in 11b's :predict
     # and 11c's :generate loads, launches_fleet in 12a's routed load,
@@ -7995,7 +8911,8 @@ def main():
     # launches_lamb and launches_recompute in 14c's two runs,
     # launches_pipelined in 15a's run_pipelined, launches_rnn in 16a's
     # timed stacked-LSTM steps, launches_ssd in 17a's SSD steps and 17b's
-    # forwards, and launches_srl in 17c's SRL steps
+    # forwards, launches_srl in 17c's SRL steps, and launches_book in
+    # 18a's timed VGG-16 steps and 18b's timed recommender steps
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -8018,6 +8935,7 @@ def main():
                      launches_rnn=rnn_launches[name],
                      launches_ssd=ssd_launches[name],
                      launches_srl=srl_launches[name],
+                     launches_book=book_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

@@ -20,6 +20,10 @@ from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import initializer
 from . import layers
 from . import nets
+from . import metrics
+from . import evaluator
+from . import input
+from .input import one_hot, embedding  # noqa: F401
 from .data import data  # noqa: F401
 from . import unique_name
 from . import param_attr

@@ -29,6 +29,12 @@ __all__ = [
     "cross_entropy", "one_hot", "one_hot_v2", "psroi_pool", "prroi_pool",
     "deformable_conv", "roi_pool", "roi_align", "linear_chain_crf",
     "crf_decoding", "chunk_eval", "ctc_greedy_decoder",
+    "relu", "selu", "relu6", "hard_sigmoid", "hard_swish", "swish", "brelu",
+    "leaky_relu", "soft_relu", "elu", "stanh", "maxout", "prelu",
+    "reduce_min", "reduce_prod", "reduce_all", "reduce_any", "split",
+    "l2_normalize", "mul", "sum", "cos_sim", "bilinear_tensor_product",
+    "mean_iou", "square_error_cost", "smooth_l1", "dice_loss", "kldiv_loss",
+    "npair_loss", "mse_loss",
 ]
 
 
@@ -807,11 +813,12 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None,
+            dtype=None):
     helper = LayerHelper(op_type, input=input)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
-    out = helper.create_variable_for_type_inference(input.dtype)
+    out = helper.create_variable_for_type_inference(dtype or input.dtype)
     if input.shape is not None:
         if dim is None:
             out.shape = () if not keep_dim else (1,) * len(input.shape)
@@ -1227,3 +1234,334 @@ def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
         attrs={"blank": blank, "padding_value": padding_value},
     )
     return out, out_len
+
+
+# ---------------------------------------------------------------------------
+# activations with extra args (ref nn.py:209-300)
+# ---------------------------------------------------------------------------
+def _unary(op_type, x, attrs=None, name=None):
+    return _layer(op_type, {"X": x}, attrs or {})
+
+
+def relu(x, name=None):
+    return _unary("relu", x)
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _unary("selu", x, attrs)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary("relu6", x, {"threshold": threshold})
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _unary("hard_sigmoid", x, {"slope": slope, "offset": offset})
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    """x * relu6(x + offset) / scale (ref nn.py hard_swish)."""
+    return _unary(
+        "hard_swish", x,
+        {"threshold": threshold, "scale": scale, "offset": offset},
+    )
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary("swish", x, {"beta": beta})
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _unary("brelu", x, {"t_min": t_min, "t_max": t_max})
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary("leaky_relu", x, {"alpha": alpha})
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _unary("soft_relu", x, {"threshold": threshold})
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary("elu", x, {"alpha": alpha})
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _unary("stanh", x, {"scale_a": scale_a, "scale_b": scale_b})
+
+
+def maxout(x, groups, name=None, axis=1):
+    # the reference makes a helper it does not use; its name is taken all
+    # the same, and the op's output is named after the next one
+    LayerHelper("maxout", **locals())
+    out_shape = None
+    if x.shape is not None:
+        s = list(x.shape)
+        s[axis] = s[axis] // groups
+        out_shape = s
+    return _layer("maxout", {"X": x}, {"groups": groups, "axis": axis},
+                  out_shape=out_shape)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", **locals())
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1] if len(x.shape) == 4 \
+            else [x.shape[1]]
+    elif mode == "element":
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=alpha_shape,
+        dtype="float32",
+        is_bias=False,
+        default_initializer=Constant(0.25),
+    )
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="prelu",
+        inputs={"X": [x], "Alpha": [alpha]},
+        outputs={"Out": [out]},
+        attrs={"mode": mode},
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reductions, split, l2_normalize, mul, sum (ref nn.py:1149-1199,
+# 1629-1648)
+# ---------------------------------------------------------------------------
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name, dtype="bool")
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name, dtype="bool")
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", **locals())
+    in_shape = input.shape
+    ax = dim if dim >= 0 else dim + len(in_shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+        sizes = [in_shape[ax] // n if in_shape[ax] not in (None, -1)
+                 else -1] * n
+    else:
+        sizes = list(num_or_sections)
+        attrs = {"num": 0, "sections": sizes, "axis": dim}
+    outs = []
+    for sz in sizes:
+        o = helper.create_variable_for_type_inference(input.dtype)
+        s = list(in_shape)
+        s[ax] = sz
+        o.shape = tuple(s)
+        outs.append(o)
+    helper.append_op(
+        type="split", inputs={"X": [input]}, outputs={"Out": outs},
+        attrs=attrs
+    )
+    return outs
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, True)
+    out.shape = x.shape
+    helper.append_op(
+        type="l2_normalize",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Norm": [norm]},
+        attrs={"axis": axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None and y.shape is not None:
+        out.shape = tuple(
+            list(x.shape[:x_num_col_dims]) + list(y.shape[y_num_col_dims:])
+        )
+    helper.append_op(
+        type="mul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={
+            "x_num_col_dims": x_num_col_dims,
+            "y_num_col_dims": y_num_col_dims,
+        },
+    )
+    return out
+
+
+def sum(x):
+    helper = LayerHelper("sum", x=x)
+    if not isinstance(x, (list, tuple)):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    out.shape = x[0].shape
+    helper.append_op(type="sum", inputs={"X": list(x)},
+                     outputs={"Out": [out]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cos_sim, bilinear_tensor_product, mean_iou (ref nn.py:2026, 2324, 2355)
+# ---------------------------------------------------------------------------
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim", X=X, Y=Y)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype, True)
+    ynorm = helper.create_variable_for_type_inference(X.dtype, True)
+    if X.shape is not None:
+        out.shape = tuple(list(X.shape[:-1]) + [1])
+    helper.append_op(
+        type="cos_sim",
+        inputs={"X": [X], "Y": [Y]},
+        outputs={"Out": [out], "XNorm": [xnorm], "YNorm": [ynorm]},
+    )
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None, param_attr=None,
+                            bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", **locals())
+    dtype = helper.input_dtype("x")
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[size, x.shape[1], y.shape[1]],
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (x.shape[0], size)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        bias = helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=dtype, is_bias=True
+        )
+        if bias is not None:
+            inputs["Bias"] = [bias]
+    helper.append_op(
+        type="bilinear_tensor_product",
+        inputs=inputs,
+        outputs={"Out": [out]},
+    )
+    return helper.append_activation(out)
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou", **locals())
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int32")
+    correct = helper.create_variable_for_type_inference("int32")
+    miou.shape = ()
+    helper.append_op(
+        type="mean_iou",
+        inputs={"Predictions": [input], "Labels": [label]},
+        outputs={
+            "OutMeanIou": [miou],
+            "OutWrong": [wrong],
+            "OutCorrect": [correct],
+        },
+        attrs={"num_classes": num_classes},
+    )
+    return miou, wrong, correct
+
+
+# ---------------------------------------------------------------------------
+# losses (ref nn.py:2563-2650)
+# ---------------------------------------------------------------------------
+def square_error_cost(input, label):
+    return _layer(
+        "square_error_cost", {"X": input, "Y": label}, out_shape=input.shape
+    )
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss", **locals())
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = (x.shape[0], 1)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(
+        type="smooth_l1_loss",
+        inputs=inputs,
+        outputs={"Out": [out], "Diff": [diff]},
+        attrs={"sigma": sigma if sigma is not None else 1.0},
+    )
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    return _layer(
+        "dice_loss", {"X": input, "Label": label}, {"epsilon": epsilon},
+        out_shape=(),
+    )
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = () if reduction != "none" else x.shape
+    helper.append_op(
+        type="kldiv_loss",
+        inputs={"X": [x], "Target": [target]},
+        outputs={"Loss": [out]},
+        attrs={"reduction": reduction},
+    )
+    return out
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """N-pair loss composed from other ops, as the reference's layer
+    composes it (its npair_loss_helper op has no lowering)."""
+    batch = anchor.shape[0]
+    labels_ = reshape(labels, [-1, 1])
+    eq = _layer("equal", {"X": labels_, "Y": transpose(labels_, [1, 0])},
+                out_dtype="bool", out_shape=(batch, batch))
+    eqf = _layer("cast", {"X": eq}, {"out_dtype": "float32"},
+                 out_dtype="float32", out_shape=(batch, batch))
+    denom = reduce_sum(eqf, dim=[1], keep_dim=True)
+    target = elementwise_div(eqf, denom)
+    sim = matmul(anchor, positive, transpose_y=True)
+    from .loss import softmax_with_cross_entropy
+
+    ce = softmax_with_cross_entropy(sim, target, soft_label=True)
+    celoss = reduce_mean(ce)
+    l2 = scale(
+        elementwise_add(
+            reduce_mean(reduce_sum(elementwise_mul(anchor, anchor), dim=[1])),
+            reduce_mean(reduce_sum(elementwise_mul(positive, positive),
+                                   dim=[1]))),
+        scale=l2_reg * 0.25,
+    )
+    return elementwise_add(celoss, l2)
+
+
+def mse_loss(input, label):
+    return _layer("mse_loss", {"X": input, "Y": label}, out_shape=())

@@ -1,13 +1,16 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
-of the part of paddle_tpu/fluid/layers/ops.py that the GPT programs,
-Wide&Deep and the learning-rate schedules call, and ``abs``/``round``,
-which the int8-resident decode step calls, and ``tanh``, which the
-recurrent cells and the recurrent book chapters call. The other
-activation layers wait for the op library (ROADMAP.md Queue 1, item 6)."""
+of paddle_tpu/fluid/layers/ops.py's unary math and activation layers and
+``cumsum``. ``uniform_random`` and the ``gelu`` re-export wait for the
+random ops (ROADMAP.md Queue 1, item 6.7)."""
 from .nn import _layer
 
-__all__ = ["sigmoid", "tanh", "exp", "sqrt", "abs", "ceil", "floor", "cos",
-           "round", "square", "cumsum"]
+__all__ = [
+    "sigmoid", "logsigmoid", "exp", "tanh", "atan", "sqrt", "rsqrt", "abs",
+    "ceil", "floor", "cos", "acos", "asin", "sin", "sinh", "cosh", "round",
+    "reciprocal", "square", "softplus", "softsign", "softshrink",
+    "hard_shrink", "tanh_shrink", "cumsum", "thresholded_relu", "erf",
+    "tan",
+]
 
 
 def _make_unary(op_type):
@@ -19,15 +22,37 @@ def _make_unary(op_type):
 
 
 sigmoid = _make_unary("sigmoid")
-tanh = _make_unary("tanh")
+logsigmoid = _make_unary("logsigmoid")
 exp = _make_unary("exp")
+tanh = _make_unary("tanh")
+atan = _make_unary("atan")
 sqrt = _make_unary("sqrt")
+rsqrt = _make_unary("rsqrt")
 abs = _make_unary("abs")
 ceil = _make_unary("ceil")
 floor = _make_unary("floor")
 cos = _make_unary("cos")
+acos = _make_unary("acos")
+asin = _make_unary("asin")
+sin = _make_unary("sin")
+sinh = _make_unary("sinh")
+cosh = _make_unary("cosh")
 round = _make_unary("round")
+reciprocal = _make_unary("reciprocal")
 square = _make_unary("square")
+softplus = _make_unary("softplus")
+softsign = _make_unary("softsign")
+erf = _make_unary("erf")
+tan = _make_unary("tan")
+tanh_shrink = _make_unary("tanh_shrink")
+
+
+def softshrink(x, alpha=0.5):
+    return _layer("softshrink", {"X": x}, {"lambda": alpha})
+
+
+def hard_shrink(x, threshold=0.5):
+    return _layer("hard_shrink", {"X": x}, {"threshold": threshold})
 
 
 def cumsum(x, axis=-1, exclusive=False, reverse=False):
@@ -36,3 +61,7 @@ def cumsum(x, axis=-1, exclusive=False, reverse=False):
         {"X": x},
         {"axis": axis, "exclusive": exclusive, "reverse": reverse},
     )
+
+
+def thresholded_relu(x, threshold=1.0):
+    return _layer("thresholded_relu", {"X": x}, {"threshold": threshold})

@@ -430,7 +430,8 @@ def f32_precision():
 # ``next_seed``): they run whether or not anything reads them, so that a
 # later draw is the one the unpruned run makes
 DRAWS = frozenset({"dropout", "uniform_random", "gaussian_random",
-                   "sampling_id", "fused_multihead_attention", "dpsgd"})
+                   "sampling_id", "fused_multihead_attention", "dpsgd",
+                   "nce", "sampled_softmax_with_cross_entropy"})
 
 
 def _sub_blocks(op):

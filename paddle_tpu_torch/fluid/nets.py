@@ -1,10 +1,18 @@
 """Composite network helpers (ref: python/paddle/fluid/nets.py); port of
-paddle_tpu/fluid/nets.py's ``simple_img_conv_pool``, which the MNIST conv
-net uses, and ``sequence_conv_pool``, the text convolution of the
-sentiment chapter. The other helpers wait for later slices."""
+paddle_tpu/fluid/nets.py: ``simple_img_conv_pool`` (the MNIST conv net),
+``img_conv_group`` (the book's VGG-16), ``sequence_conv_pool`` (the
+sentiment and recommender chapters' text convolution), ``glu`` and
+``scaled_dot_product_attention``. Each appends the same ops as the
+reference's, so both packages build the same Program."""
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "sequence_conv_pool"]
+__all__ = [
+    "simple_img_conv_pool",
+    "sequence_conv_pool",
+    "glu",
+    "scaled_dot_product_attention",
+    "img_conv_group",
+]
 
 
 def simple_img_conv_pool(
@@ -47,6 +55,59 @@ def simple_img_conv_pool(
     )
 
 
+def img_conv_group(
+    input,
+    conv_num_filter,
+    pool_size,
+    conv_padding=1,
+    conv_filter_size=3,
+    conv_act=None,
+    param_attr=None,
+    conv_with_batchnorm=False,
+    conv_batchnorm_drop_rate=0.0,
+    pool_stride=1,
+    pool_type="max",
+    use_cudnn=True,
+):
+    tmp = input
+    assert isinstance(conv_num_filter, (list, tuple))
+
+    def __extend_list__(obj):
+        if not hasattr(obj, "__len__"):
+            return [obj] * len(conv_num_filter)
+        return list(obj)
+
+    conv_padding = __extend_list__(conv_padding)
+    conv_filter_size = __extend_list__(conv_filter_size)
+    param_attr = __extend_list__(param_attr)
+    conv_with_batchnorm = __extend_list__(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = __extend_list__(conv_batchnorm_drop_rate)
+
+    for i in range(len(conv_num_filter)):
+        local_conv_act = conv_act
+        if conv_with_batchnorm[i]:
+            local_conv_act = None
+        tmp = layers.conv2d(
+            input=tmp,
+            num_filters=conv_num_filter[i],
+            filter_size=conv_filter_size[i],
+            padding=conv_padding[i],
+            param_attr=param_attr[i],
+            act=local_conv_act,
+        )
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(
+        input=tmp,
+        pool_size=pool_size,
+        pool_type=pool_type,
+        pool_stride=pool_stride,
+    )
+
+
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max", bias_attr=None):
     from .layers import sequence_lod
@@ -60,3 +121,52 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
         act=act,
     )
     return sequence_lod.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled-dot-product attention (ref nets.py), built from
+    ``matmul``, ``softmax`` and ``dropout`` layers as the reference builds
+    it, not the fused attention op."""
+    if queries.shape[-1] != keys.shape[-1]:
+        raise ValueError("queries and keys hidden size mismatch")
+    if keys.shape[-2] != values.shape[-2] and None not in (
+        keys.shape[-2], values.shape[-2]
+    ):
+        pass
+
+    def __split_heads(x, n):
+        if n == 1:
+            return x
+        hidden = x.shape[-1]
+        reshaped = layers.reshape(
+            x, shape=[0, 0, n, hidden // n]
+        )
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def __combine_heads(x):
+        if len(x.shape) == 3:
+            return x
+        t = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            t, shape=[0, 0, t.shape[2] * t.shape[3]]
+        )
+
+    q = __split_heads(queries, num_heads)
+    k = __split_heads(keys, num_heads)
+    v = __split_heads(values, num_heads)
+    key_dim = float(queries.shape[-1] // num_heads)
+    scaled_q = layers.scale(q, scale=key_dim ** -0.5)
+    product = layers.matmul(scaled_q, k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(
+            weights, dropout_prob=dropout_rate, is_test=False
+        )
+    ctx = layers.matmul(weights, v)
+    return __combine_heads(ctx)

@@ -16,4 +16,5 @@ from . import rnn_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import rcnn_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
+from . import misc_ops  # noqa: F401
 from .registry import LOWERINGS, get_lowering, register_op  # noqa: F401

@@ -1,8 +1,10 @@
 """Math op lowerings: elementwise_add/sub/mul/div/max/min/mod/floordiv/pow,
-mul, matmul, mean, scale, reduce_sum, reduce_mean, reduce_max, sum, abs,
-sign, pow, squared_l2_norm, clip_by_norm, the comparisons equal,
-not_equal, less_than, less_equal, greater_than and greater_equal,
-logical_and/or/xor/not, isfinite, cumsum, clip.
+mul, matmul, mean, scale, reduce_sum, reduce_mean, reduce_max, reduce_min,
+reduce_prod, reduce_all, reduce_any, sum, abs, sign, pow, squared_l2_norm,
+clip_by_norm, the comparisons equal, not_equal, less_than, less_equal,
+greater_than and greater_equal, logical_and/or/xor/not, isfinite, cumsum,
+clip, l2_normalize, cos_sim, bilinear_tensor_product, frobenius_norm, kron,
+dot.
 
 Port of the paddle_tpu/ops/math_ops.py lowerings the port runs. Every
 binary lowering promotes its operands by jax's rules first
@@ -13,6 +15,7 @@ the card (fluid/lowering.py ``f32_precision``).
 """
 import torch
 
+from .detection_ops import jmax
 from .promotion import promote
 from .registry import register_op, single
 
@@ -174,27 +177,125 @@ def _reduce_mean(ctx, ins, attrs):
     return single(out)
 
 
-@register_op("reduce_max")
-def _reduce_max(ctx, ins, attrs):
-    """jnp.max over ``dim`` (all axes with ``reduce_all`` or no dim), in
-    x's dtype. A NaN anywhere in the reduced slice gives NaN, as in jax."""
+def _reduce(fn):
+    """A reduction lowering over ``dim`` (all axes with ``reduce_all`` or
+    no dim; none with an empty dim, as jnp reads axis=()), `fn(x, axes,
+    keep_dim)` given the sorted non-negative axes."""
+    def lower(ctx, ins, attrs):
+        x = ins["X"][0]
+        dim = attrs.get("dim", None)
+        keep_dim = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False) or dim is None:
+            axes = tuple(range(x.dim()))
+        else:
+            axes = tuple(sorted(d if d >= 0 else d + x.dim() for d in dim))
+        return single(fn(x, axes, keep_dim) if axes else fn(x, (), False))
+
+    return lower
+
+
+def _prod_over(x, axes, keep_dim):
+    """jnp.prod over `axes`: the reduced axes moved last and flattened, one
+    ``prod`` over them (its gradient right with zeros in the row, as
+    jax's). An int keeps its dtype, bool multiplies to int64 (jax:
+    int32)."""
+    if not axes:
+        return x.to(torch.int64) if x.dtype == torch.bool else x
+    kept = [d for d in range(x.dim()) if d not in axes]
+    y = x.permute(kept + list(axes)).reshape(
+        [x.shape[d] for d in kept] + [-1])
+    out = y.prod(dim=-1, dtype=torch.int64 if x.dtype == torch.bool
+                 else None)
+    if keep_dim:
+        out = out.reshape([1 if d in axes else x.shape[d]
+                           for d in range(x.dim())])
+    return out
+
+
+# amax and amin, in x's dtype: a NaN in the reduced slice gives NaN, and a
+# tied extremum's gradient splits among the ties, as jnp.max's and jnp.min's
+register_op("reduce_max")(_reduce(
+    lambda x, axes, keep: x.amax(dim=axes, keepdim=keep) if axes else x))
+register_op("reduce_min")(_reduce(
+    lambda x, axes, keep: x.amin(dim=axes, keepdim=keep) if axes else x))
+register_op("reduce_prod")(_reduce(_prod_over))
+# any dtype read as nonzero; the result bool
+register_op("reduce_all")(_reduce(
+    lambda x, axes, keep: torch.all(x.bool(), dim=axes, keepdim=keep)
+    if axes else x.bool()))
+register_op("reduce_any")(_reduce(
+    lambda x, axes, keep: torch.any(x.bool(), dim=axes, keepdim=keep)
+    if axes else x.bool()))
+
+
+def _norm(x, axis):
+    """sqrt(sum(x·x)) over `axis`, kept: its gradient at a zero row is
+    sqrt's at 0, NaN after a zero cotangent in both packages."""
+    return torch.sqrt((x * x).sum(dim=axis, keepdim=True))
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    """x / max(‖x‖, epsilon) over ``axis``; Norm is ‖x‖ (kept dims)."""
     x = ins["X"][0]
-    dim = attrs.get("dim", None)
-    keep_dim = attrs.get("keep_dim", False)
-    if attrs.get("reduce_all", False) or dim is None:
-        out = x.amax()
-        if keep_dim:
-            out = out.reshape((1,) * x.dim())
-    else:
-        axes = tuple(d if d >= 0 else d + x.dim() for d in dim)
-        # torch reads dim=() as every axis, jnp.max as none
-        out = x.amax(dim=axes, keepdim=keep_dim) if axes else x
+    norm = _norm(x, attrs.get("axis", -1))
+    return {"Out": [x / jmax(norm, attrs.get("epsilon", 1e-12))],
+            "Norm": [norm]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    """sum(x·y) / max(‖x‖·‖y‖, 1e-12) over the last axis (Y may be one
+    row, broadcast), with XNorm and YNorm; a zero row gives 0 and, through
+    sqrt(0), a NaN gradient, as jax.vjp gives."""
+    x, y = promote(ins["X"][0], ins["Y"][0])
+    xn, yn = _norm(x, -1), _norm(y, -1)
+    return {"Out": [(x * y).sum(dim=-1, keepdim=True) / jmax(xn * yn,
+                                                               1e-12)],
+            "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear(ctx, ins, attrs):
+    """out[b, o] = x[b]ᵀ·W[o]·y[b] (+ Bias), W of shape (size, dx, dy)."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if ins.get("Bias"):
+        out = torch.add(*promote(out, ins["Bias"][0]))
     return single(out)
+
+
+@register_op("frobenius_norm")
+def _frobenius_norm(ctx, ins, attrs):
+    """sqrt(sum(x·x)) over every element, 0-dim (the reference's lowering
+    reads no ``dim``)."""
+    x = ins["X"][0]
+    return single(torch.sqrt((x * x).sum()))
+
+
+@register_op("kron")
+def _kron(ctx, ins, attrs):
+    return single(torch.kron(*promote(ins["X"][0], ins["Y"][0])))
+
+
+@register_op("dot")
+def _dot(ctx, ins, attrs):
+    """sum(x·y) over the last axis, kept for a batch of rows."""
+    x, y = promote(ins["X"][0], ins["Y"][0])
+    return single((x * y).sum(dim=-1, keepdim=x.dim() > 1))
+
+
+def jax_abs(x):
+    """|x| with jax's derivative: 1 at x = ±0 (select(x >= 0, g, -g)),
+    where ``torch.abs``'s is 0; an int or bool x goes to torch.abs."""
+    if not x.is_floating_point():
+        return torch.abs(x)
+    return torch.where(x >= 0, x, -x)
 
 
 @register_op("abs")
 def _abs(ctx, ins, attrs):
-    return single(torch.abs(ins["X"][0]))
+    return single(jax_abs(ins["X"][0]))
 
 
 @register_op("sign")

@@ -1,8 +1,10 @@
-"""Metric op lowerings: accuracy and auc (ref: paddle/fluid/operators/
-metrics/accuracy_op.cc, auc_op.cc). Port of the paddle_tpu/ops/
+"""Metric op lowerings: accuracy, auc, mean_iou and precision_recall (ref:
+paddle/fluid/operators/metrics/accuracy_op.cc, auc_op.cc,
+mean_iou_op.cc, precision_recall_op.cc). Port of the paddle_tpu/ops/
 metric_ops.py lowerings."""
 import torch
 
+from .loss_ops import scatter_add
 from .registry import register_op
 
 
@@ -52,3 +54,51 @@ def _auc(ctx, ins, attrs):
     auc = 0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1])).sum()
     return {"AUC": [auc], "StatPosOut": [stat_pos],
             "StatNegOut": [stat_neg]}
+
+
+@register_op("mean_iou")
+def _mean_iou(ctx, ins, attrs):
+    """Mean intersection over union of ``num_classes`` classes from the
+    confusion matrix cm[label, pred], counted by a scatter-add at label·n
+    + pred with jax's rule (a negative index counts from the end once, one
+    still out of range is dropped). The mean is over classes with a
+    nonzero union. OutWrong and OutCorrect are int32, as the reference
+    declares them."""
+    n = attrs["num_classes"]
+    pred = ins["Predictions"][0].reshape(-1).long()
+    label = ins["Labels"][0].reshape(-1).long()
+    cm = scatter_add(n * n, label * n + pred, 1.0).reshape(n, n)
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / torch.clamp(union, min=1.0),
+                      torch.zeros_like(inter))
+    miou = iou.sum() / torch.clamp(valid.sum(), min=1)
+    return {"OutMeanIou": [miou],
+            "OutWrong": [(cm.sum(1) - inter).to(torch.int32)],
+            "OutCorrect": [inter.to(torch.int32)]}
+
+
+@register_op("precision_recall")
+def _precision_recall(ctx, ins, attrs):
+    """Per-class precision, recall and F1 of one batch (the top-1 Indices
+    against Labels), their macro means as BatchMetrics and AccumMetrics
+    (the reference keeps no state across batches), and AccumStatesInfo
+    [TP, FP, FN] a class; counts by scatter-adds with jax's index rule."""
+    idx = ins["Indices"][0][:, 0].long()
+    label = ins["Labels"][0]
+    if label.dim() == 2:
+        label = label[:, 0]
+    label = label.long()
+    n = attrs["class_number"]
+    tp = scatter_add(n, label, (idx == label).to(torch.float32))
+    pred_cnt = scatter_add(n, idx, 1.0)
+    lab_cnt = scatter_add(n, label, 1.0)
+    precision = tp / torch.clamp(pred_cnt, min=1.0)
+    recall = tp / torch.clamp(lab_cnt, min=1.0)
+    f1 = 2 * precision * recall / torch.clamp(precision + recall, min=1e-6)
+    means = torch.stack([precision.mean(), recall.mean(), f1.mean()])
+    metrics = torch.cat([means, means])
+    return {"BatchMetrics": [metrics], "AccumMetrics": [metrics],
+            "AccumStatesInfo": [torch.stack(
+                [tp, pred_cnt - tp, lab_cnt - tp], dim=1)]}

@@ -1,6 +1,8 @@
 """NN op lowerings: relu, sigmoid, log, exp, sqrt, square, floor, ceil,
-cos, tanh, round, softmax, gelu, lookup_table_v2, conv2d, depthwise_conv2d,
-pool2d, batch_norm, layer_norm, dropout.
+cos, tanh, round, softmax, gelu, the 30 activations of
+paddle_tpu/ops/nn_ops.py:37-166 (unary math, smooth, piecewise and
+parametric activations, log_softmax), lookup_table_v2, conv2d,
+depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout.
 
 Port of the paddle_tpu/ops/nn_ops.py lowerings the port runs.
 ``layer_norm`` always goes through ``LayerNorm`` (ops/cuda_layernorm.py),
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_layernorm import LayerNorm
+from .detection_ops import jclip, jmin, scalar
 from .registry import register_op, single
 
 
@@ -64,6 +67,111 @@ def _round(ctx, ins, attrs):
     rule too), in x's dtype. The int8-resident decode step rounds its
     cache rows with it."""
     return single(torch.round(ins["X"][0]))
+
+
+# ---------------------------------------------------------------------------
+# the activation op types of activation_op.cc that paddle_tpu/ops/nn_ops.py
+# lowers with jnp: each as the JAX lambda computes it, the piecewise ones
+# with torch.where / maximum / minimum in the lambda's orientation, so the
+# gradient at a kink is jax.vjp's: where() gives the whole cotangent to the
+# branch it selects (x >= 0 selects x at 0), and jnp.clip is maximum then
+# minimum, which split a tie's cotangent in halves (0.5 at a bound, not
+# the 1 or 0 of F.relu6, F.hardtanh or torch.clamp): detection_ops' jclip,
+# jmax and jmin, with their bounds made by fills (``scalar``)
+# ---------------------------------------------------------------------------
+def _act(fn):
+    def lower(ctx, ins, attrs):
+        return single(fn(ins["X"][0], attrs))
+
+    return lower
+
+
+def jax_softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0), no threshold (F.softplus returns
+    x above 20)."""
+    return torch.logaddexp(x, scalar(0.0, x))
+
+
+def _elu_neg(x, alpha):
+    """alpha·(exp(min(x, 0)) - 1), elu's and selu's negative branch."""
+    return alpha * (torch.exp(jmin(x, 0.0)) - 1)
+
+
+register_op("rsqrt")(_act(lambda x, a: torch.rsqrt(x)))
+register_op("reciprocal")(_act(lambda x, a: 1.0 / x))
+register_op("sin")(_act(lambda x, a: torch.sin(x)))
+register_op("tan")(_act(lambda x, a: torch.tan(x)))
+register_op("asin")(_act(lambda x, a: torch.asin(x)))
+register_op("acos")(_act(lambda x, a: torch.acos(x)))
+register_op("atan")(_act(lambda x, a: torch.atan(x)))
+register_op("sinh")(_act(lambda x, a: torch.sinh(x)))
+register_op("cosh")(_act(lambda x, a: torch.cosh(x)))
+register_op("erf")(_act(lambda x, a: torch.erf(x)))
+# jax.nn.log_sigmoid is -softplus(-x)
+register_op("logsigmoid")(_act(lambda x, a: -jax_softplus(-x)))
+register_op("softplus")(_act(lambda x, a: jax_softplus(x)))
+register_op("softsign")(_act(lambda x, a: x / (torch.abs(x) + 1)))
+register_op("tanh_shrink")(_act(lambda x, a: x - torch.tanh(x)))
+register_op("softshrink")(_act(lambda x, a: torch.where(
+    x > a.get("lambda", 0.5), x - a.get("lambda", 0.5),
+    torch.where(x < -a.get("lambda", 0.5), x + a.get("lambda", 0.5),
+                scalar(0.0, x)))))
+register_op("hard_shrink")(_act(lambda x, a: torch.where(
+    torch.abs(x) > a.get("threshold", 0.5), x, scalar(0.0, x))))
+register_op("hard_sigmoid")(_act(lambda x, a: jclip(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0)))
+register_op("hard_swish")(_act(lambda x, a: x * jclip(
+    x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+    / a.get("scale", 6.0)))
+register_op("relu6")(_act(lambda x, a: jclip(x, 0.0,
+                                             a.get("threshold", 6.0))))
+register_op("brelu")(_act(lambda x, a: jclip(x, a.get("t_min", 0.0),
+                                             a.get("t_max", 24.0))))
+register_op("leaky_relu")(_act(lambda x, a: torch.where(
+    x >= 0, x, a.get("alpha", 0.02) * x)))
+register_op("elu")(_act(lambda x, a: torch.where(
+    x >= 0, x, _elu_neg(x, a.get("alpha", 1.0)))))
+# jax's constants, as the JAX lowering writes them
+register_op("selu")(_act(lambda x, a: a.get("scale", 1.0507009873554805)
+                         * torch.where(x >= 0, x, _elu_neg(
+                             x, a.get("alpha", 1.6732632423543772)))))
+register_op("swish")(_act(lambda x, a: x * torch.sigmoid(
+    a.get("beta", 1.0) * x)))
+register_op("stanh")(_act(lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+    a.get("scale_a", 0.67) * x)))
+register_op("soft_relu")(_act(lambda x, a: torch.log(1 + torch.exp(jclip(
+    x, -a.get("threshold", 40.0), a.get("threshold", 40.0))))))
+register_op("thresholded_relu")(_act(lambda x, a: torch.where(
+    x > a.get("threshold", 1.0), x, scalar(0.0, x))))
+
+
+@register_op("maxout")
+def _maxout(ctx, ins, attrs):
+    """The max over each group of C / groups consecutive channels of axis
+    1: ``amax``, whose gradient splits among tied maxima as jnp.max's does
+    (``max(dim)`` would send it to one index)."""
+    x, groups = ins["X"][0], attrs["groups"]
+    shape = (x.shape[0], groups, x.shape[1] // groups) + tuple(x.shape[2:])
+    return single(x.reshape(shape).amax(dim=1))
+
+
+@register_op("prelu")
+def _prelu(ctx, ins, attrs):
+    """where(x >= 0, x, alpha·x), Alpha one value (``all``), one a channel
+    of axis 1 (``channel``) or one an element of x's trailing shape
+    (``element``)."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "all":
+        alpha = alpha.reshape(())
+    return single(torch.where(x >= 0, x, alpha * x))
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    return single(torch.log_softmax(ins["X"][0], dim=attrs.get("axis", -1)))
 
 
 @register_op("softmax")

@@ -1,4 +1,4 @@
-"""Tensor manipulation op lowerings: cast, concat, reshape2, transpose2,
+"""Tensor manipulation op lowerings: cast, concat, split, reshape2, transpose2,
 squeeze2, unsqueeze2, flatten2, slice, top_k, arg_max, fill_constant,
 fill_constant_batch_size_like, fill_zeros_like, assign, assign_value,
 increment, where, one_hot, argsort, gather, gather_nd, expand, expand_as,
@@ -40,6 +40,26 @@ def _concat(ctx, ins, attrs):
     axis = (int(ins["AxisTensor"][0]) if ins.get("AxisTensor")
             else attrs.get("axis", 0))
     return single(torch.cat(promote(*ins["X"]), dim=axis))
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """x cut along ``axis`` at the running sums of ``sections`` (all but
+    the last), or into ``num`` equal parts (a length ``num`` does not
+    divide raises, as jnp.split does)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    sections = attrs.get("sections", [])
+    if sections:
+        cuts = np.cumsum(sections[:-1]).tolist()
+    else:
+        num = attrs.get("num", 0)
+        size = x.shape[axis]
+        if num <= 0 or size % num:
+            raise ValueError("split: axis of length %d cannot be split into "
+                             "%d equal parts" % (size, num))
+        cuts = [size // num * i for i in range(1, num)]
+    return {"Out": list(torch.tensor_split(x, cuts, dim=axis))}
 
 
 @register_op("reshape2")
