@@ -398,10 +398,11 @@ Phases, each of which exits non-zero on failure:
    first step blows the logits up and two trajectories part): losses
    within 1e-3 relative, step-1 gradients within 1e-3·max each (the 14
    biases under a batch norm, whose exact gradient is 0, below 1e-3 of
-   the largest gradient on both sides); where relu units at the boundary
-   flip (printed), the gradients held by 7a's rule, the spread the larger
-   of the CPU's under a one-ulp nudge of the images and with oneDNN off
-   (another f32 summation order);
+   the largest gradient on both sides); a gradient over 1e-3·max passes
+   only below a relu unit or max-pool window that fell the other way
+   (printed), within 0.2, with the gradients held by 7a's rule, the
+   spread the larger of the CPU's under a one-ulp nudge of the images and
+   with oneDNN off (another f32 summation order);
    then the published program at batch 128, 3 warm-up steps (the last
    one's dropout masks keep 1 - p within 5 sigma) and 20 timed steps with
    the counters at 0 (the main path: falling loss, step median and p90,
@@ -432,6 +433,33 @@ Phases, each of which exits non-zero on failure:
    lowerings' device time alone at the step's shapes, and one profiled
    recommender step. The kernels line gains ``launches_book`` (18a's and
    18b's timed steps). Phase 18's time and the script's are printed.
+19. the nn, tensor, misc and random op families (item 6.7, the rest),
+   none of the five kernels on any path: (a) ``models/crnn_ctc.py``, the
+   CRNN-CTC text recogniser of PaddleCV/ocr_recognition at its published
+   width ((1, 48, 512) images, four conv + batch-norm groups,
+   ``im2sequence`` to 64 steps of 768, two fc 600, a forward and a
+   reverse ``dynamic_gru`` of 200 with relu candidates, fc 96,
+   ``warpctc`` with the blank 95, ``Momentum(1e-3, 0.9)``,
+   ``L2Decay(0.0004)``) on synthetic batches of the published schema
+   (labels of 4-24 ids padded with the blank): 3 steps on the CPU at
+   batch 8 from the startup values and on the card each step from the
+   CPU's state before it (losses within 1e-4 relative, step-1 gradients
+   within 1e-3·max each, the 8 conv biases under a batch norm as noise;
+   over it only below a relu unit, max-pool window or relu GRU candidate
+   that fell the other way, within 1e-2, and by 7a's rule); then batch
+   32, 2 warm-up and 10 timed steps with the counters at 0 (the main
+   path: step median and p90, images/s, peak memory; one profiled step
+   with the other profiles: device busy, idle share,
+   ``cudaLaunchKernel`` calls); (b) ``ctc_infer`` saved and served by
+   ``Predictor.from_model`` on the card and the CPU, on seeded fan-in
+   weights with calibrated batch norms (19a's trained weights decode
+   every frame to the blank): logits within 1e-5·max, greedy paths equal
+   up to the first near-tie, edit distances equal, some path not empty;
+   (c) each of the 68 new op types on the card: 61 against the CPU
+   (integers equal, values within 1e-5·max, gradients 1e-4·max;
+   ``py_func`` with its host round trip and custom backward), the 7 draw
+   ops by support, seeding and moments. The kernels line gains
+   ``launches_ocr`` (19a's timed steps). Phase 19's time is printed.
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -7594,6 +7622,7 @@ VGG_FC, VGG_LR, VGG_SEED = 4096, 1e-3, 11
 VGG_BATCH, VGG_CHECK_BATCH, VGG_CHECK_STEPS = 128, 16, 3
 VGG_WARM, VGG_TIMED, VGG_EVAL_BATCHES = 3, 20, 8
 VGG_TOL = 1e-3          # 18a: losses (relative), gradients and logits (of max)
+VGG_FLIP_TOL = 0.2      # 18a: a gradient below a flipped boundary (of max)
 REC_BATCH, REC_CHECK_STEPS, REC_TIMED, REC_LR, REC_SEED = 256, 5, 20, 0.2, 5
 REC_LOSS_TOL, REC_GRAD_TOL, REC_SERVE_TOL = 1e-4, 1e-3, 1e-5
 W2V_N, W2V_EMB, W2V_HID, W2V_BATCH, W2V_LR = 5, 32, 256, 32, 1e-3
@@ -7669,112 +7698,248 @@ def biases_under_batch_norm(main):
             and op.input("Y")[0] in params and op.output("Out")[0] in normed}
 
 
-def vgg_vs_cpu(fluid, paddle):
-    """18a, the check. The dropout-0 program (VGG's masks cannot match
-    across devices), VGG_CHECK_STEPS steps on the CPU from the startup
-    values at VGG_CHECK_BATCH, and on the card each step from the CPU's
-    state before it, as 7a runs ResNet: Adam's first step moves every
-    weight by about the learning rate, the fc 4096 logits blow up (the
-    second step's loss near 21 in both runs) and two trajectories do not
-    stay within rounding of each other. Losses within VGG_TOL relative;
-    step-1 gradients within VGG_TOL·max|grad| of each parameter. The 14
-    biases under a batch norm have an exact gradient of 0: both runs'
-    must be below VGG_TOL of the largest gradient of any parameter.
+def forward_deps(main):
+    """Each variable of the forward pass -> the parameters it depends on."""
+    params = {p.name for p in main.all_parameters()}
+    deps = {}
+    for op in main.global_block().ops:
+        if op.type == "backward":
+            break
+        got = set()
+        for n in op.input_arg_names:
+            got |= deps.get(n, set()) | ({n} & params)
+        for n in op.output_arg_names:
+            deps[n] = deps.get(n, set()) | got
+    return deps
 
-    VGG has 14 batch norms followed by relu, and a rounding difference
-    moves a relu boundary: the card's forward reaches the fc batch norm
-    within ~3e-5 of the CPU's, a few of its 65,536 units sit that close
-    to 0 and flip (every layer's flips are printed), and each flip moves
-    every gradient below it. So where a parameter is over its bound, the
-    gradients are held as 7a holds ResNet's: their median and all of
-    them together within 3x the CPU's own spread + VGG_TOL, capped at
-    5e-2. The spread is the larger of the CPU against itself with the
-    images one f32 ulp up (7a's, too small here to flip a unit) and with
-    another convolution algorithm (oneDNN off: another f32 summation
-    order, as cuDNN's is, with the flips that come with it)."""
-    main, startup, vs = vgg_program(fluid, drop=0.0)
+
+def forward_ops(main):
+    ops = main.global_block().ops
+    return ops[:next((i for i, op in enumerate(ops) if op.type == "backward"),
+                     len(ops))]
+
+
+def boundary_probes(main):
+    """The forward variables that show where a boundary fell: relu outputs,
+    max-pool inputs, and the input and hidden states of each GRU with relu
+    candidates."""
+    names = []
+    for op in forward_ops(main):
+        if op.type == "relu":
+            names.append(op.output("Out")[0])
+        elif op.type == "pool2d" and op.attrs.get("pooling_type") == "max":
+            names.append(op.input("X")[0])
+        elif op.type == "gru" and op.attrs.get("activation") == "relu":
+            names += [op.input("Input")[0], op.output("Hidden")[0]]
+    return list(dict.fromkeys(names))
+
+
+def pool_windows(x, op):
+    """x's max-pool windows as (..., kh·kw), -inf past the edge (ceil
+    mode); windows that tile the input only (stride = size, no padding)."""
+    k = [int(v) for v in np.broadcast_to(op.attrs["ksize"], 2)]
+    if [int(v) for v in np.broadcast_to(op.attrs.get("strides", 1), 2)] \
+            != k or any(np.broadcast_to(op.attrs.get("paddings", 0), 2)):
+        raise ValueError("pool_windows: %s is not a tiling pool" % op.type)
+    b, c, h, w = x.shape
+    hp, wp = -(-h // k[0]) * k[0], -(-w // k[1]) * k[1]
+    x = np.pad(x, ((0, 0), (0, 0), (0, hp - h), (0, wp - w)),
+               constant_values=-np.inf)
+    x = x.reshape(b, c, hp // k[0], k[0], wp // k[1], k[1])
+    return x.transpose(0, 1, 2, 4, 3, 5).reshape(
+        b, c, hp // k[0], wp // k[1], k[0] * k[1])
+
+
+def gru_candidates(op, scope, vals):
+    """A relu-candidate GRU's candidate pre-activations x_c + (r·h) W_c,
+    recomputed in float64 from one run's input and hidden states (`vals`)
+    and the weights in `scope`, from a zero initial state."""
+    if op.attrs.get("gate_activation", "sigmoid") != "sigmoid" or \
+            op.input("H0"):
+        raise ValueError("gru_candidates: sigmoid gates, no H0")
+    x = np.asarray(vals[op.input("Input")[0]], np.float64)
+    h = np.asarray(vals[op.output("Hidden")[0]], np.float64)
+    w = scope[op.input("Weight")[0]].double().numpy()
+    d = w.shape[0]
+    if op.input("Bias"):
+        x = x + scope[op.input("Bias")[0]].double().numpy().reshape(1, 1, -1)
+    prev = np.zeros_like(h)
+    if op.attrs.get("is_reverse", False):
+        prev[:, :-1] = h[:, 1:]
+    else:
+        prev[:, 1:] = h[:, :-1]
+    r = 1.0 / (1.0 + np.exp(-(x[..., d:2 * d] + prev @ w[:, d:2 * d])))
+    return x[..., 2 * d:] + (r * prev) @ w[:, 2 * d:]
+
+
+def boundary_flips(main, scope, got, want):
+    """Each boundary that fell one way in one run and the other way in the
+    other, as [(variable, units, closeness)]: relu units 0 in one run only
+    (the relu's output; the largest |output| there over the variable's
+    max); max-pool windows whose maximum sits at another place, or ties
+    with another (the pool's output; the largest top-two gap there over
+    the input's max); relu GRU candidates whose pre-activation has another
+    sign (the GRU's hidden states; the largest |pre-activation| there over
+    its max). `got` and `want` map boundary_probes' names to each run's
+    values; `scope` holds the weights both runs used."""
+    flips = []
+
+    def add(var, moved, close):
+        if moved.any():
+            flips.append((var, int(moved.sum()), float(close[moved].max())))
+
+    for op in forward_ops(main):
+        if op.type == "relu":
+            n = op.output("Out")[0]
+            a, w = got[n], want[n]
+            add(n, (a > 0) != (w > 0),
+                np.maximum(np.abs(a), np.abs(w)) / float(np.abs(w).max()))
+        elif op.type == "pool2d" and op.attrs.get("pooling_type") == "max":
+            n = op.input("X")[0]
+            wa, ww = pool_windows(got[n], op), pool_windows(want[n], op)
+            ta, tw = np.sort(wa, -1), np.sort(ww, -1)
+            tie = ((ta[..., -1] == ta[..., -2]) & (ta[..., -1] > 0)) | (
+                (tw[..., -1] == tw[..., -2]) & (tw[..., -1] > 0))
+            add(op.output("Out")[0], (wa.argmax(-1) != ww.argmax(-1)) | tie,
+                (tw[..., -1] - tw[..., -2]) / float(np.abs(want[n]).max()))
+        elif op.type == "gru" and op.attrs.get("activation") == "relu":
+            ca = gru_candidates(op, scope, got)
+            cw = gru_candidates(op, scope, want)
+            add(op.output("Hidden")[0], (ca > 0) != (cw > 0),
+                np.maximum(np.abs(ca), np.abs(cw)) / float(np.abs(cw).max()))
+    return flips
+
+
+def steps_vs_cpu(fluid, tag, what, main, startup, loss, feeds, loss_tol, tol,
+                 flip_tol, n_zero, alt=False):
+    """18a's and 19a's check of a training program. Startup on the CPU;
+    len(feeds) steps on the CPU and on the card, each card step from the
+    CPU's state before it, as 7a runs ResNet (two trajectories of a
+    freshly initialised net do not stay within rounding of each other).
+    Losses within `loss_tol` relative; step-1 gradients within
+    tol·max|grad| of each parameter. The `n_zero` conv biases under a
+    batch norm have an exact gradient of 0: both runs' below `tol` of the
+    largest gradient of any parameter.
+
+    A relu unit, a max-pool window or a relu GRU candidate on its boundary
+    can fall either way in either run (boundary_flips, printed), and each
+    flip moves every gradient below it by far more than rounding. So a
+    parameter over `tol` passes only where a boundary that depends on it
+    flipped (forward_deps), within `flip_tol`; and then the gradients'
+    median and all of them together within 7a's bound: 3x the CPU's own
+    spread + tol, capped at 5e-2. The CPU's own spread is the CPU against
+    itself with the images one f32 ulp up, and with `alt` the larger of
+    that and the CPU with oneDNN off (another f32 summation order, as
+    cuDNN's is, with the flips that come with it)."""
     cpu_scope, _ = cpu_init(fluid, startup)
     start = clone_scope(fluid, cpu_scope)
-    feeds = cifar_batches(paddle, paddle.dataset.cifar.train10(),
-                          VGG_CHECK_BATCH, VGG_CHECK_STEPS)
     params = sorted(p.name for p in main.all_parameters() if p.trainable)
     grads = [p + "@GRAD" for p in params]
-    relus = [op.output("Out")[0] for op in main.global_block().ops
-             if op.type == "relu"]
+    probes = boundary_probes(main)
     ng = len(grads)
     zero = biases_under_batch_norm(main)
+    if len(zero) != n_zero:
+        fail("%s: %d conv biases under a batch norm, want %d" % (
+            tag, len(zero), n_zero))
     exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
     losses, worst = [], 0.0
     for step, feed in enumerate(feeds):
-        fetch = [vs["loss"]] + (grads + relus if step == 0 else [])
+        fetch = [loss] + (grads + probes if step == 0 else [])
         card = exe.run(main, feed=feed, fetch_list=fetch,
                        scope=clone_scope(fluid, cpu_scope))
         cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
         lc, lw = float(card[0]), float(cpu[0])
         worst = max(worst, abs(lc - lw) / abs(lw))
         losses.append((lc, lw))
-        if not np.isfinite(lc) or abs(lc - lw) > VGG_TOL * abs(lw):
-            fail("18a step %d: loss %.7f on the card, %.7f on the CPU" % (
-                step, lc, lw))
+        if not np.isfinite(lc) or abs(lc - lw) > loss_tol * abs(lw):
+            fail("%s step %d: loss %.7f on the card, %.7f on the CPU" % (
+                tag, step, lc, lw))
         if step == 0:
             card_g, cpu_g = card[1:1 + ng], cpu[1:1 + ng]
-            flips = relu_flips(relus, card[1 + ng:], cpu[1 + ng:])
-            cpu_relus = cpu[1 + ng:]
+            cpu_probes = dict(zip(probes, cpu[1 + ng:]))
+            flips = boundary_flips(main, start,
+                                   dict(zip(probes, card[1 + ng:])),
+                                   cpu_probes)
+            del card, cpu
     if not all(np.isfinite(a).all() for a in card_g):
-        fail("18a: a step-1 gradient is not finite on the card")
+        fail("%s: a step-1 gradient is not finite on the card" % tag)
     nudged = dict(feeds[0], pixel=np.nextafter(feeds[0]["pixel"],
                                                np.float32(np.inf)))
-    own = cpu_exe.run(main, feed=nudged, fetch_list=grads,
-                      scope=clone_scope(fluid, start))
-    with torch.backends.mkldnn.flags(enabled=False):
-        alt = cpu_exe.run(main, feed=feeds[0], fetch_list=grads + relus,
-                          scope=start)
-    alt_flips = relu_flips(relus, alt[ng:], cpu_relus)
-    del start, cpu_relus
+    owns = [cpu_exe.run(main, feed=nudged, fetch_list=grads,
+                        scope=clone_scope(fluid, start))]
+    alt_flips = None
+    if alt:
+        with torch.backends.mkldnn.flags(enabled=False):
+            got = cpu_exe.run(main, feed=feeds[0], fetch_list=grads + probes,
+                              scope=clone_scope(fluid, start))
+        alt_flips = boundary_flips(main, start, dict(zip(probes, got[ng:])),
+                                   cpu_probes)
+        owns.append(got[:ng])
+    del start, cpu_probes
     largest = max(float(np.abs(w).max()) for w in cpu_g)
     noise = max(max(float(np.abs(a).max()), float(np.abs(w).max()))
                 for p, a, w in zip(params, card_g, cpu_g) if p in zero)
     keep = [i for i, p in enumerate(params) if p not in zero]
     rels = {params[i]: rel_err(card_g[i], cpu_g[i]) for i in keep}
-    owns = {params[i]: rel_err(own[i], cpu_g[i]) for i in keep}
-    alts = {params[i]: rel_err(alt[i], cpu_g[i]) for i in keep}
-    print("18a step-1 gradients, max|d|/max|grad| per parameter, card vs "
-          "CPU (the CPU against itself with the images one f32 ulp up; "
-          "with oneDNN off):")
-    rows = ["%s %.2e (%.2e; %.2e)" % (p, rels[p], owns[p], alts[p])
-            for p in sorted(rels)]
+    print("%s step-1 gradients, max|d|/max|grad| per parameter, card vs CPU "
+          "(the CPU against itself with the images one f32 ulp up%s):" % (
+              tag, "; with oneDNN off" if alt else ""))
+    rows = ["%s %.2e (%s)" % (params[i], rels[params[i]], "; ".join(
+        "%.2e" % rel_err(o[i], cpu_g[i]) for o in owns)) for i in keep]
     for i in range(0, len(rows), 3):
         print("  " + ", ".join(rows[i:i + 3]))
-    over = sorted(((r, p) for p, r in rels.items() if r > VGG_TOL),
-                  reverse=True)
 
     def spread(got):
         return (float(np.median([rel_err(got[i], cpu_g[i]) for i in keep])),
                 grad_dist([got[i] for i in keep], [cpu_g[i] for i in keep]))
 
     med, dist = spread(card_g)
-    spreads = spread(own) + spread(alt)
-    bound = min(5e-2, 3 * max(spreads) + VGG_TOL)
-    print("18a VGG-16-BN-drop (dropout 0, batch %d) card vs CPU, %d steps, "
-          "each card step from the CPU's state: losses %s, worst %.3e "
-          "relative (bound %g); step-1 gradients of %d parameters: median "
-          "%.3e, all together %.3e (the CPU nudged one ulp: %.3e, %.3e; "
-          "with oneDNN off: %.3e, %.3e; 7a's bound once one is over %g: "
-          "%.3e); over %g: %s; relu units 0 in one run only (var, units, "
-          "largest |output| there over the var's max): card vs CPU %s, "
-          "oneDNN off vs on %s; the %d biases under a batch norm (exact "
+    spreads = [x for o in owns for x in spread(o)]
+    bound = min(5e-2, 3 * max(spreads) + tol)
+    over = sorted(((r, p) for p, r in rels.items() if r > tol), reverse=True)
+    deps = forward_deps(main)
+    unexplained = [p for _, p in over
+                   if not any(p in deps.get(v, ()) for v, _, _ in flips)]
+    print("%s %s card vs CPU, %d steps, each card step from the CPU's state: "
+          "losses %s, worst %.3e relative (bound %g); step-1 gradients of %d "
+          "parameters: median %.3e, all together %.3e (the CPU's own: %s; "
+          "7a's bound once one is over %g: %.3e); over %g (each within %g, "
+          "and below a boundary that flipped): %s; boundaries that fell "
+          "either way (var, units, closeness to the boundary over the var's "
+          "max): card vs CPU %s%s; the %d biases under a batch norm (exact "
           "gradient 0): largest %.3e, bound %.3e" % (
-              VGG_CHECK_BATCH, VGG_CHECK_STEPS,
-              " ".join("%.6f/%.6f" % lc for lc in losses), worst, VGG_TOL,
-              len(rels), med, dist, spreads[0], spreads[1], spreads[2],
-              spreads[3], VGG_TOL, bound, VGG_TOL,
+              tag, what, len(feeds),
+              " ".join("%.6f/%.6f" % lc for lc in losses), worst, loss_tol,
+              len(rels), med, dist, ", ".join("%.3e" % x for x in spreads),
+              tol, bound, tol, flip_tol,
               ", ".join("%s %.2e" % (p, r) for r, p in over) or "none",
-              flips or "none", alt_flips or "none", len(zero), noise,
-              VGG_TOL * largest), flush=True)
-    if over and (med > bound or dist > bound):
-        fail("18a: step-1 gradients off the CPU's beyond 7a's bounds")
-    if noise > VGG_TOL * largest:
-        fail("18a: a bias under a batch norm has a gradient beyond noise")
+              flips or "none", "" if alt_flips is None else
+              ", oneDNN off vs on %s" % (alt_flips or "none"), len(zero),
+              noise, tol * largest), flush=True)
+    if unexplained:
+        fail("%s: step-1 gradients over %g with no flipped boundary that "
+             "depends on them: %s" % (tag, tol, unexplained))
+    if over and (over[0][0] > flip_tol or med > bound or dist > bound):
+        fail("%s: step-1 gradients off the CPU's beyond their bounds" % tag)
+    if noise > tol * largest:
+        fail("%s: a bias under a batch norm has a gradient beyond noise" % tag)
+
+
+def vgg_vs_cpu(fluid, paddle):
+    """18a, the check: steps_vs_cpu on the dropout-0 program (VGG's masks
+    cannot match across devices), VGG_CHECK_STEPS steps at
+    VGG_CHECK_BATCH with Adam, whose first step moves every weight by
+    about the learning rate and blows up the fc 4096 logits (the second
+    step's loss near 21 in both runs). VGG's 14 batch norms feed relus,
+    and a few of the fc batch norm's 65,536 units sit within ~3e-5 of 0;
+    the CPU's own spread includes oneDNN off, whose flips moved fc_0.w_0's
+    gradient by 1.76e-1 of its max (so VGG_FLIP_TOL)."""
+    main, startup, vs = vgg_program(fluid, drop=0.0)
+    feeds = cifar_batches(paddle, paddle.dataset.cifar.train10(),
+                          VGG_CHECK_BATCH, VGG_CHECK_STEPS)
+    steps_vs_cpu(fluid, "18a", "VGG-16-BN-drop (dropout 0, batch %d)" %
+                 VGG_CHECK_BATCH, main, startup, vs["loss"], feeds, VGG_TOL,
+                 VGG_TOL, VGG_FLIP_TOL, 14, alt=True)
 
 
 def vgg_bench(fluid, paddle, ca, cl, card):
@@ -8441,6 +8606,510 @@ def ops_vs_cpu(tag, cases, want_types, tol, grad_tol, device="cuda"):
         fail("%s covers %d op types, want %d" % (tag, len(seen), want_types))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the nn, tensor, misc and random op families (item 6.7, the rest)
+# and the CRNN-CTC text recogniser
+# ---------------------------------------------------------------------------
+# 19a models/crnn_ctc.py's ctc_train_net at the published width
+# (PaddleCV/ocr_recognition: (1, 48, 512) images, 95 classes + the blank,
+# GRU hidden 200, Momentum(1e-3, 0.9), L2Decay(0.0004), batch 32) on
+# synthetic batches of the published schema: 3 steps on the CPU at check
+# batch 8 (the CPU side's cost) and on the card each step from the CPU's
+# state before it; then batch 32, 2 warm-up and 10 timed steps (the main
+# path). 19b ctc_infer saved and served by Predictor.from_model, card vs
+# CPU, on seeded fan-in weights with calibrated batch norms (19a's leave
+# every path empty). 19c each of the 68 new op types on the card against
+# the CPU.
+OCR_SEED, OCR_CHECK_BATCH, OCR_CHECK_STEPS = 19, 8, 3
+OCR_WARM, OCR_TIMED = 2, 10
+OCR_LOSS_TOL, OCR_GRAD_TOL = 1e-4, 1e-3   # relative; of each max|grad|
+OCR_FLIP_TOL = 1e-2     # 19a: a gradient below a flipped boundary (of max)
+OCR_TIE = 1e-4          # 19b: a top-2 logit gap below it (of max) is a tie
+OCR_LOGIT_TOL = 1e-5    # 19b: served logits, card vs CPU (of max)
+OPS19_TOL, OPS19_GRAD_TOL = 1e-5, 1e-4    # 19c: of the largest value
+DRAW19_N = 200000       # 19c: draws whose moments are held
+
+
+def ocr_program(fluid, crnn, cfg, fn="ctc_train_net"):
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = OCR_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = getattr(crnn, fn)(cfg)
+    return main, startup, vs
+
+
+def ocr_feeds(crnn, cfg, batch, n, seed):
+    rng = np.random.default_rng(seed)
+    return [crnn.synthetic_batch(cfg, batch, rng) for _ in range(n)]
+
+
+def ocr_vs_cpu(fluid, crnn):
+    """19a, the check: steps_vs_cpu on the published-width training
+    program, OCR_CHECK_STEPS steps at OCR_CHECK_BATCH. The convolutions
+    feed batch norms with relu, the pools take maxima and the GRUs'
+    candidates are relu: one relu unit of batch_norm_4 at 2.4e-8 of its
+    max flipped in my chip runs and moved the gradients of the ten
+    parameters below it by up to 4.65e-3 of their max (OCR_FLIP_TOL is
+    about twice that; the CPU's one-ulp nudge flips nothing here)."""
+    cfg = crnn.CRNNConfig()
+    main, startup, vs = ocr_program(fluid, crnn, cfg)
+    feeds = ocr_feeds(crnn, cfg, OCR_CHECK_BATCH, OCR_CHECK_STEPS, OCR_SEED)
+    steps_vs_cpu(fluid, "19a", "CRNN-CTC (published width, batch %d)" %
+                 OCR_CHECK_BATCH, main, startup, vs["loss"], feeds,
+                 OCR_LOSS_TOL, OCR_GRAD_TOL, OCR_FLIP_TOL, 8)
+
+
+def ocr_bench(fluid, crnn, ca, cl, card):
+    """19a, the main path: the published program at its batch,
+    initialised on the card, OCR_WARM warm-up steps, then OCR_TIMED timed
+    steps with every kernel counter at 0 before them (none of the five
+    kernels runs: launches_ocr). Step median and p90 (host wall around a
+    run that fetches the loss), images/s, peak memory above the resident;
+    every loss finite. Returns the launches, a step for the profile, the
+    numbers and the trained (main, scope)."""
+    cfg = crnn.CRNNConfig()
+    main, startup, vs = ocr_program(fluid, crnn, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feeds = ocr_feeds(crnn, cfg, cfg.batch, OCR_WARM + OCR_TIMED,
+                      OCR_SEED + 1)
+    losses = []
+    for feed in feeds[:OCR_WARM]:
+        out, = exe.run(main, feed=feed, scope=scope, fetch_list=[vs["loss"]])
+        losses.append(float(out))
+    fns = zero_counters(ca, cl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    walls = []
+    for feed in feeds[OCR_WARM:]:
+        t0 = time.monotonic()
+        out, = exe.run(main, feed=feed, scope=scope, fetch_list=[vs["loss"]])
+        walls.append(time.monotonic() - t0)
+        losses.append(float(out))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - resident
+    launches = check_launches("19a CRNN-CTC training (main path)", fns, {})
+    stats = step_stats(walls)
+    stats.update(images_per_s=cfg.batch / (stats["median_ms"] / 1e3),
+                 peak_gib=peak, resident_gib=resident, steps=len(walls))
+    print("19a CRNN-CTC [%s] (published: 1x48x512, 95 classes + blank, GRU "
+          "200, Momentum(%g, %g), batch %d, synthetic data): %d timed steps "
+          "after %d warm-up: median %.3f ms, p90 %.3f ms, %.1f images/s, "
+          "peak %.3f GiB above the %.3f GiB resident; losses %s" % (
+              card, crnn.LEARNING_RATE, crnn.MOMENTUM, cfg.batch, len(walls),
+              OCR_WARM, stats["median_ms"], stats["p90_ms"],
+              stats["images_per_s"], peak, resident,
+              " ".join("%.3f" % v for v in losses)), flush=True)
+    if not all(np.isfinite(losses)):
+        fail("19a: a CRNN-CTC loss is not finite")
+
+    def step():
+        exe.run(main, feed=feeds[-1], scope=scope, fetch_list=[vs["loss"]])
+
+    return launches, step, stats, (main, scope)
+
+
+def ocr_served_scope(fluid, trained, feed):
+    """19b's weights. After 19a's 12 steps every frame's best class is the
+    blank, and the published initialisation (batch-norm scales
+    Normal(0, 0.01)) gives every frame of a row the same class: neither
+    leaves the decoder a path to merge. So, in a copy of 19a's scope, each
+    trainable parameter is drawn from OCR_SEED + 3 at a fan-in scale (He
+    for the convolutions, LeCun for the fc and GRU weights; batch-norm
+    scales 1, biases 0), and each batch norm's moving mean and variance
+    are the batch statistics of a training-mode forward on `feed`."""
+    main, scope = trained
+    scope = clone_scope(fluid, scope)
+    ops = main.global_block().ops
+    bns = [op for op in ops if op.type == "batch_norm"]
+    scales = {op.input("Scale")[0] for op in bns}
+    rng = np.random.default_rng(OCR_SEED + 3)
+
+    def put(name, v):
+        scope.set(name, torch.from_numpy(np.asarray(v, np.float32)).to(
+            scope[name].device))
+
+    for p in main.all_parameters():
+        shape = tuple(scope[p.name].shape)
+        if not p.trainable:
+            continue
+        if p.name in scales:
+            put(p.name, np.ones(shape))
+        elif len(shape) == 1 or shape[0] == 1:
+            put(p.name, np.zeros(shape))
+        else:
+            conv = len(shape) == 4
+            fan_in = int(np.prod(shape[1:])) if conv else shape[0]
+            put(p.name, rng.normal(0.0, np.sqrt((2.0 if conv else 1.0) /
+                                                fan_in), shape))
+    stats = fluid.Executor().run(
+        main, feed=feed, scope=clone_scope(fluid, scope), fetch_list=[
+            v for op in bns
+            for v in (op.output("SavedMean")[0],
+                      op.output("SavedVariance")[0])])
+    for op, mean, rstd in zip(bns, stats[::2], stats[1::2]):
+        put(op.input("Mean")[0], mean)
+        put(op.input("Variance")[0], 1.0 / np.asarray(rstd, np.float64) ** 2
+            - op.attrs.get("epsilon", 1e-5))
+    return scope
+
+
+def ocr_infer_phase(fluid, crnn, trained, tmp):
+    """19b. ctc_infer (the test-mode encoder, the greedy decoder and the
+    edit distance to the labels) built afresh, saved by
+    save_inference_model with ocr_served_scope's weights and served by
+    Predictor.from_model on the card and on the CPU, a batch of synthetic
+    images: logits within OCR_LOGIT_TOL·max; each row's per-frame best
+    class equal up to the first near-tie of its logits (a top-2 gap below
+    OCR_TIE·max), and a row with none has equal decoded paths, lengths
+    and edit distances. Fails unless some row without a near-tie decodes
+    a path that is not empty."""
+    main, _ = trained
+    cfg = crnn.CRNNConfig()
+    infer, _, ivs = ocr_program(fluid, crnn, cfg, "ctc_infer")
+    train_params = {p.name for p in main.all_parameters()}
+    if not {p.name for p in infer.all_parameters()} <= train_params:
+        fail("19b: ctc_infer's parameters are not 19a's")
+    calib, feed = ocr_feeds(crnn, cfg, cfg.batch, 2, OCR_SEED + 2)
+    scope = ocr_served_scope(fluid, trained, calib)
+    dirname = os.path.join(tmp, "crnn19")
+    names = ("decoded", "out_len", "distance", "fc_out")
+    fluid.io.save_inference_model(
+        dirname, ["pixel", "label", "label_length"],
+        [ivs[k] for k in names], fluid.Executor(), main_program=infer,
+        scope=scope)
+    del scope
+    pred = fluid.Predictor.from_model(dirname)
+    cpu = fluid.Predictor.from_model(dirname, place=fluid.CPUPlace())
+    got, want = pred.run(feed), cpu.run(feed)
+    dec, olen, dist, logits = got
+    wdec, wolen, wdist, wlogits = want
+    lerr = rel_err(logits, wlogits)
+    if logits.shape != (cfg.batch, cfg.steps, cfg.num_classes + 1) or \
+            not np.isfinite(logits).all() or lerr > OCR_LOGIT_TOL:
+        fail("19b: logits %s, %.3e of max off the CPU's" % (logits.shape,
+                                                             lerr))
+    top2 = np.sort(wlogits, axis=-1)[..., -2:]
+    tie = (top2[..., 1] - top2[..., 0]) <= OCR_TIE * np.abs(wlogits).max()
+    best, wbest = logits.argmax(-1), wlogits.argmax(-1)
+    lens = np.asarray(wolen).reshape(-1)
+    tied_rows, full_lens = 0, []
+    for r in range(cfg.batch):
+        t_tie = int(np.argmax(tie[r])) if tie[r].any() else cfg.steps
+        if not np.array_equal(best[r, :t_tie], wbest[r, :t_tie]):
+            fail("19b row %d: the best class differs before the first "
+                 "near-tie (frame %d)" % (r, t_tie))
+        if t_tie < cfg.steps:
+            tied_rows += 1
+            continue
+        if not (np.array_equal(dec[r], wdec[r]) and
+                np.array_equal(olen[r], wolen[r]) and
+                np.array_equal(dist[r], wdist[r])):
+            fail("19b row %d: decoded path or edit distance differs" % r)
+        full_lens.append(int(lens[r]))
+    blanks = int((wbest == cfg.num_classes).sum())
+    merged = int(((wbest[:, 1:] == wbest[:, :-1]) &
+                  (wbest[:, 1:] != cfg.num_classes)).sum())
+    print("19b ctc_infer served by Predictor.from_model, %d images: logits "
+          "%.3e of max off the CPU predictor's (bound %g); %d rows with no "
+          "near-tie (gap < %g of max): paths, lengths and edit distances "
+          "equal; %d rows with one: best classes equal before it; of the "
+          "%d frames, %d best on the blank and %d repeats merged; decoded "
+          "lengths %d-%d (first 8: %s), edit distances mean %.4f" % (
+              cfg.batch, lerr, OCR_LOGIT_TOL, len(full_lens), OCR_TIE,
+              tied_rows, wbest.size, blanks, merged, lens.min(), lens.max(),
+              lens[:8].tolist(), float(np.mean(wdist))), flush=True)
+    if not full_lens or max(full_lens) == 0:
+        fail("19b: no row without a near-tie decodes a path that is not "
+             "empty")
+
+
+def ocr_op_cases():
+    """19c: one case (name, op, numpy inputs, attrs, differentiable input
+    slots, output slot) or more of each of the 61 op types of the phase
+    that draw nothing, at the CPU tests' sizes. ``py_func`` runs a host
+    tanh with its custom backward (registered here)."""
+    from paddle_tpu_torch.fluid.layers import nn as layers_nn
+
+    rng = np.random.default_rng(19)
+
+    def rand(*shape, scale=1.0):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    def unif(*shape, lo=0.5, hi=2.0):
+        return rng.uniform(lo, hi, size=shape).astype(np.float32)
+
+    fid = len(layers_nn._PY_FUNC_REGISTRY)
+    layers_nn._PY_FUNC_REGISTRY[fid] = (
+        lambda a: np.tanh(a), lambda a, out, dout: dout * (1.0 - out * out),
+        set())
+    img, x5 = rand(2, 3, 6, 7), rand(2, 3, 5, 6, 4)
+    rois = np.array([[1.0, 0.5, 5.0, 4.5], [0.0, 0.0, 6.9, 5.9],
+                     [3.2, 2.1, 9.0, 8.0]], np.float32)
+    grid = rng.uniform(-1.3, 1.3, size=(2, 4, 5, 2)).astype(np.float32)
+    grid[0, 0, 0], grid[0, 0, 1] = [-1.0, -1.0], [1.0, 1.0]
+    edges = np.array([[[1, 2], [1, 3], [2, 4], [2, 5], [3, 6], [0, 0]],
+                      [[1, 2], [2, 3], [2, 4], [1, 5], [0, 0], [0, 0]]],
+                     np.int32)
+    ctc_label = np.array([[1, 2, 3, 0], [4, 4, 0, 0], [5, 1, 5, 2]], np.int32)
+    ties = rand(4, 6)
+    ties[2, :] = 0.5
+    return [
+        ("conv3d", "conv3d", {"Input": [x5], "Filter": [rand(4, 3, 3, 2, 3)]},
+         {"strides": [1, 2, 1], "paddings": [1, 0, 1],
+          "dilations": [1, 1, 2]}, ["Input", "Filter"], "Output"),
+        ("conv2d_transpose", "conv2d_transpose",
+         {"Input": [rand(2, 3, 5, 6)], "Filter": [rand(3, 4, 3, 3)]},
+         {"strides": [2, 2], "paddings": [1, 1], "output_padding": [1, 1]},
+         ["Input", "Filter"], "Output"),
+        ("conv3d_transpose", "conv3d_transpose",
+         {"Input": [rand(2, 3, 3, 4, 3)], "Filter": [rand(3, 2, 3, 2, 3)]},
+         {"strides": [2, 1, 2], "paddings": [1, 0, 1]},
+         ["Input", "Filter"], "Output"),
+        ("pool3d", "pool3d", {"X": [x5]},
+         {"pooling_type": "avg", "ksize": [3, 3, 2], "strides": [2, 2, 1],
+          "paddings": [1, 1, 0], "ceil_mode": True}, ["X"], "Out"),
+        ("group_norm", "group_norm", {"X": [rand(2, 6, 4, 5)],
+                                      "Scale": [rand(6)], "Bias": [rand(6)]},
+         {"groups": 3}, ["X", "Scale", "Bias"], "Y"),
+        ("instance_norm", "instance_norm", {"X": [img], "Scale": [rand(3)],
+                                            "Bias": [rand(3)]}, {},
+         ["X", "Scale", "Bias"], "Y"),
+        ("data_norm", "data_norm", {
+            "X": [rand(5, 4)], "BatchSize": [unif(4, lo=50, hi=90)],
+            "BatchSum": [rand(4, scale=10.0)],
+            "BatchSquareSum": [unif(4, lo=100, hi=200)]}, {},
+         ["X", "BatchSum"], "Y"),
+        ("norm", "norm", {"X": [img]}, {"axis": 1}, ["X"], "Out"),
+        ("norm_except_dim", "norm_except_dim", {"V": [rand(4, 3, 2)]},
+         {"dim": 0}, ["V"], "Out"),
+        ("weight_norm_reparam", "weight_norm_reparam",
+         {"V": [rand(4, 3)], "G": [rand(3)]}, {"dim": 1}, ["V", "G"], "Out"),
+        ("lrn", "lrn", {"X": [rand(2, 7, 3, 4)]},
+         {"n": 3, "k": 1.0, "alpha": 0.5, "beta": 0.6}, ["X"], "Out"),
+        ("spectral_norm", "spectral_norm", {"Weight": [rand(4, 3, 2)],
+                                            "U": [rand(4)], "V": [rand(6)]},
+         {"dim": 0, "power_iters": 2}, ["Weight", "U"], "Out"),
+        ("bilinear_interp up-down", "bilinear_interp",
+         {"X": [rand(1, 2, 5, 9)]},
+         {"out_h": 8, "out_w": 4}, ["X"], "Out"),
+        ("nearest_interp", "nearest_interp", {"X": [rand(2, 3, 4, 5)]},
+         {"out_h": 7, "out_w": 3}, ["X"], "Out"),
+        ("trilinear_interp", "trilinear_interp", {"X": [rand(1, 2, 3, 6, 4)]},
+         {"out_d": 5, "out_h": 4, "out_w": 4}, ["X"], "Out"),
+        ("grid_sampler", "grid_sampler", {"X": [img], "Grid": [grid]}, {},
+         ["X", "Grid"], "Output"),
+        ("affine_grid", "affine_grid", {"Theta": [rand(2, 2, 3)]},
+         {"output_shape": [2, 3, 4, 5]}, ["Theta"], "Output"),
+        ("pixel_shuffle", "pixel_shuffle", {"X": [rand(2, 8, 3, 4)]},
+         {"upscale_factor": 2}, ["X"], "Out"),
+        ("temporal_shift", "temporal_shift", {"X": [rand(6, 8, 2, 3)]},
+         {"seg_num": 3}, ["X"], "Out"),
+        ("add_position_encoding", "add_position_encoding",
+         {"X": [rand(2, 7, 8)]}, {"alpha": 0.7, "beta": 1.3}, ["X"], "Out"),
+        ("strided_slice", "strided_slice", {"Input": [rand(4, 5, 6)]},
+         {"axes": [1, 2], "starts": [-1, 5], "ends": [-10, 0],
+          "strides": [-2, -3]}, ["Input"], "Out"),
+        ("shape", "shape", {"Input": [img]}, {}, [], "Out"),
+        ("size", "size", {"Input": [img]}, {}, [], "Out"),
+        ("scatter", "scatter", {"X": [rand(6, 3)],
+                                "Ids": [np.array([4, -1, 0, 9], np.int32)],
+                                "Updates": [rand(4, 3)]}, {},
+         ["X", "Updates"], "Out"),
+        ("scatter_nd_add", "scatter_nd_add", {
+            "X": [rand(4, 5, 3)],
+            "Index": [np.array([[1, 2], [1, 2], [-1, 0], [3, 7]], np.int32)],
+            "Updates": [rand(4, 3)]}, {}, ["X", "Updates"], "Out"),
+        ("unstack", "unstack", {"X": [rand(4, 5, 6)]}, {"axis": 1}, ["X"],
+         "Y"),
+        ("tile", "tile", {"X": [rand(2, 3)]}, {"repeat_times": [2, 1, 3]},
+         ["X"], "Out"),
+        ("pad", "pad", {"X": [rand(4, 5, 6)]},
+         {"paddings": [1, 0, 0, 2, 3, 1], "pad_value": 0.5}, ["X"], "Out"),
+        ("pad2d reflect", "pad2d", {"X": [img]},
+         {"paddings": [2, 1, 3, 1], "mode": "reflect"}, ["X"], "Out"),
+        ("pad_constant_like", "pad_constant_like",
+         {"X": [rand(4, 5, 6)], "Y": [rand(2, 5, 3)]}, {"pad_value": 2.0},
+         ["Y"], "Out"),
+        ("arg_min", "arg_min", {"X": [ties]}, {"axis": 1}, [], "Out"),
+        ("where_index", "where_index", {"Condition": [rand(3, 4) > 0.3]}, {},
+         [], "Out"),
+        ("multiplex", "multiplex", {
+            "X": [rand(4, 3), rand(4, 3), rand(4, 3)],
+            "Ids": [np.array([[2], [0], [1], [2]], np.int32)]}, {}, ["X"],
+         "Out"),
+        ("linspace", "linspace", {}, {"start": -1.5, "stop": 2.25, "num": 7},
+         [], "Out"),
+        ("eye", "eye", {}, {"num_rows": 3, "num_columns": 5}, [], "Out"),
+        ("diag", "diag", {"Diagonal": [rand(5)]}, {}, ["Diagonal"], "Out"),
+        ("roll", "roll", {"X": [rand(4, 5, 6)]},
+         {"shifts": [2, -1], "axis": [0, 2]}, ["X"], "Out"),
+        ("flip", "flip", {"X": [rand(4, 5, 6)]}, {"axis": [0, 2]}, ["X"],
+         "Out"),
+        ("crop", "crop", {"X": [rand(4, 5, 6)]},
+         {"shape": [2, 3, 4], "offsets": [1, 2, 0]}, ["X"], "Out"),
+        ("label_smooth", "label_smooth",
+         {"X": [np.eye(5, dtype=np.float32)[[0, 3, 1]]]}, {"epsilon": 0.2},
+         ["X"], "Out"),
+        ("share_data", "share_data", {"X": [img]}, {}, ["X"], "Out"),
+        ("print", "print", {"In": [rand(2, 3)]}, {"message": "19c print: "},
+         ["In"], "Out"),
+        ("py_func", "py_func", {"X": [rand(3, 4)]},
+         {"func_id": fid, "out_shapes": [[3, 4]], "out_dtypes": ["float32"],
+          "x_names": ["x"], "out_names": ["out"]}, ["X"], "Out"),
+        ("similarity_focus", "similarity_focus", {"X": [rand(2, 3, 4, 5)]},
+         {"axis": 1, "indexes": [0, 2]}, [], "Out"),
+        ("merge_selected_rows", "merge_selected_rows", {"X": [img]}, {},
+         ["X"], "Out"),
+        ("get_tensor_from_selected_rows", "get_tensor_from_selected_rows",
+         {"X": [img]}, {}, ["X"], "Out"),
+        ("deformable_psroi_pooling", "deformable_psroi_pooling", {
+            "Input": [rand(2, 12, 6, 7)], "ROIs": [rois],
+            "Trans": [rand(3, 2, 2, 3, scale=0.5)],
+            "RoisBatchIdx": [np.array([0, 1, 1], np.int32)]},
+         {"spatial_scale": 1.0, "pooled_height": 2, "pooled_width": 3,
+          "sample_per_part": 2, "output_dim": 2, "group_size": [2, 3],
+          "part_size": [2, 3], "position_sensitive": True},
+         ["Input", "Trans"], "Output"),
+        ("tree_conv", "tree_conv", {"NodesVector": [rand(2, 6, 4)],
+                                    "EdgeSet": [edges],
+                                    "Filter": [rand(4, 3, 5, 2)]},
+         {"max_depth": 3}, ["NodesVector", "Filter"], "Out"),
+        ("isinf_any", "isinf_any", {"X": [np.array([1.0, np.inf], np.float32)]},
+         {}, [], "Out"),
+        ("isnan_any", "isnan_any", {"X": [img]}, {}, [], "Out"),
+        ("shard_index", "shard_index", {"X": [np.array(
+            [[0], [7], [13], [19], [-3]], np.int64)]},
+         {"index_num": 20, "nshards": 3, "shard_id": 1}, [], "Out"),
+        ("hash", "hash", {"X": [np.array([[0, 1], [123456789, -7],
+                                          [2 ** 31 - 1, 42]], np.int64)]},
+         {"mod_by": 10007}, [], "Out"),
+        ("row_conv", "row_conv", {"X": [rand(2, 6, 4)], "Filter": [rand(3, 4)]},
+         {}, ["X", "Filter"], "Out"),
+        ("unfold", "unfold", {"X": [img]},
+         {"kernel_sizes": [2, 2], "strides": [2, 1],
+          "paddings": [1, 0, 2, 1], "dilations": [2, 1]}, ["X"], "Y"),
+        ("im2sequence", "im2sequence", {"X": [img]},
+         {"kernels": [3, 2], "strides": [1, 2]}, ["X"], "Out"),
+        ("cvm", "cvm", {"X": [rand(4, 6)], "CVM": [rand(4, 2)]},
+         {"use_cvm": False}, ["X"], "Y"),
+        ("fsp", "fsp", {"X": [img], "Y": [rand(2, 4, 6, 7)]}, {},
+         ["X", "Y"], "Out"),
+        ("warpctc", "warpctc", {
+            "Logits": [rand(3, 8, 6, scale=2.0)], "Label": [ctc_label],
+            "LogitsLength": [np.array([8, 6, 7], np.int64)],
+            "LabelLength": [np.array([3, 2, 4], np.int64)]}, {"blank": 0},
+         ["Logits"], "Loss"),
+        ("warpctc infeasible", "warpctc", {
+            "Logits": [rand(3, 3, 5, scale=2.0)],
+            "Label": [np.array([[1, 2, 3, 4], [2, 2, 0, 0], [1, 3, 0, 0]],
+                               np.int32)],
+            "LogitsLength": [np.array([3, 2, 3], np.int64)],
+            "LabelLength": [np.array([4, 2, 2], np.int64)]}, {"blank": 0},
+         ["Logits"], "Loss"),
+        ("space_to_depth", "space_to_depth", {"X": [rand(2, 3, 4, 6)]},
+         {"blocksize": 2}, ["X"], "Out"),
+        ("affine_channel", "affine_channel",
+         {"X": [img], "Scale": [rand(3)], "Bias": [rand(3)]}, {},
+         ["X", "Scale", "Bias"], "Out"),
+        ("shuffle_channel", "shuffle_channel", {"X": [rand(2, 6, 3, 4)]},
+         {"group": 3}, ["X"], "Out"),
+    ]
+
+
+def draw_ops_on_card(device="cuda"):
+    """19c, the 7 draw ops on the card: each draw's shape, dtype and
+    support; the same generator seed draws the same values, another seed
+    others; the mean and variance of DRAW19_N draws within 5 standard
+    errors of the distribution's (multinomial: each category's frequency,
+    randperm and random_crop: support only)."""
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+    dev = torch.device(device)
+    n = DRAW19_N
+    ref = np.zeros((n // 100, 3), np.float32)
+    probs = np.array([[0.1, 0.0, 0.6, 0.3], [0.25, 0.25, 0.25, 0.25]],
+                     np.float32)
+    crop_x = np.arange(2 * 3 * 7 * 9, dtype=np.float32).reshape(2, 3, 7, 9)
+    mass, phi = 0.9544997361036416, 0.05399096651318806
+    cases = [
+        ("uniform_random_batch_size_like", {"Input": [ref]},
+         {"shape": [-1, 100], "min": -2.0, "max": 3.0}, (0.5, 25.0 / 12),
+         lambda v: (v >= -2.0).all() and (v < 3.0).all()),
+        ("gaussian_random_batch_size_like", {"Input": [ref]},
+         {"shape": [-1, 100], "mean": 1.5, "std": 2.0}, (1.5, 4.0),
+         lambda v: np.isfinite(v).all()),
+        ("truncated_gaussian_random", {}, {"shape": [n], "mean": -1.0,
+                                           "std": 0.5},
+         (-1.0, 0.25 * (1.0 - 4 * phi / mass)),
+         lambda v: (v >= -2.0).all() and (v <= 0.0).all()),
+        ("randint", {}, {"shape": [n], "low": -3, "high": 5},
+         (0.5, 63.0 / 12), lambda v: set(np.unique(v)) == set(range(-3, 5))),
+        ("randperm", {}, {"n": 1000}, None,
+         lambda v: sorted(v.tolist()) == list(range(1000))),
+        ("multinomial", {"X": [probs]}, {"num_samples": n // 2}, None,
+         lambda v: v.shape == (2, n // 2) and (v[0] != 1).all()),
+        ("random_crop", {"X": [crop_x]}, {"shape": [4, 5]}, None,
+         lambda v: any(np.array_equal(v, crop_x[:, :, i:i + 4, j:j + 5])
+                       for i in range(4) for j in range(5))),
+    ]
+    rows = []
+    for op, ins, attrs, moments, support in cases:
+        vals = []
+        for seed in (3, 3, 4):
+            gen = torch.Generator(dev)
+            gen.manual_seed(seed)
+            t = {k: [torch.from_numpy(a).to(dev) for a in v]
+                 for k, v in ins.items()}
+            out = get_lowering(op)(LowerContext(dev, generator=gen), t,
+                                   dict(attrs))["Out"][0]
+            if out.device.type != dev.type:
+                fail("19c %s drew on %s" % (op, out.device))
+            vals.append(out.cpu().numpy())
+        a, b, c = vals
+        if not np.array_equal(a, b) or np.array_equal(a, c):
+            fail("19c %s: the same seed drew other values, or another seed "
+                 "the same" % op)
+        if not support(a):
+            fail("19c %s: a draw outside its support" % op)
+        note = "support, seeding"
+        if moments is not None:
+            mean, var = moments
+            v = a.astype(np.float64).reshape(-1)
+            dm, dv = abs(v.mean() - mean), abs(v.var() - var)
+            if dm > 5 * np.sqrt(var / v.size) or \
+                    dv > 5 * np.sqrt(2 * var * var / v.size):
+                fail("19c %s: mean %.5f, var %.5f, want %.5f, %.5f" % (
+                    op, v.mean(), v.var(), mean, var))
+            note += ", mean %.4f (%.4f) var %.4f (%.4f)" % (
+                v.mean(), mean, v.var(), var)
+        if op == "multinomial":
+            for row, p in zip(a, probs):
+                freq = np.bincount(row, minlength=4) / row.size
+                if (np.abs(freq - p) > 5 * np.sqrt(p * (1 - p) / row.size)
+                        + 1e-12).any():
+                    fail("19c multinomial frequencies %s, want %s" % (freq, p))
+            note += ", frequencies"
+        rows.append("%s %s %s: %s" % (op, a.dtype, a.shape, note))
+    print("19c the 7 draw ops on the card: " + "; ".join(rows), flush=True)
+    return len(cases)
+
+
+def ocr_ops_vs_cpu(lowering, device="cuda"):
+    """19c. Each case of ocr_op_cases on the card against the port's
+    lowering on the CPU (ops_vs_cpu, f32 products and convolutions
+    without TF32, as a run on the card computes them): integers equal,
+    values within OPS19_TOL of the largest, gradients OPS19_GRAD_TOL; then
+    the draw ops (draw_ops_on_card): 61 + 7 = the 68 new op types."""
+    with lowering.f32_precision():
+        ops_vs_cpu("19c", ocr_op_cases(), 61, OPS19_TOL, OPS19_GRAD_TOL,
+                   device)
+    draws = draw_ops_on_card(device)
+    if 61 + draws != 68:
+        fail("19c covers %d op types, want 68" % (61 + draws))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -8756,6 +9425,26 @@ def main():
         # launches_book: every kernel's count in 18a's and 18b's timed steps
         book_launches = {n: vgg_launches[n] + rec_launches[n]
                          for n in vgg_launches}
+        # phase 19: the CRNN-CTC text recogniser at its published width and
+        # the 68 op types of item 6.7's rest; 19a's steps are timed, so
+        # before the profiles (its profiled step comes with them)
+        t19 = time.monotonic()
+        mark("19a")
+        from paddle_tpu_torch.models import crnn_ctc
+        ocr_vs_cpu(fluid, crnn_ctc)
+        ocr_launches, step19a, ocr_stats, trained19 = ocr_bench(
+            fluid, crnn_ctc, ca, cl, card)
+        t19b = time.monotonic()
+        mark("19b")
+        ocr_infer_phase(fluid, crnn_ctc, trained19, tmp)
+        del trained19
+        t19c = time.monotonic()
+        mark("19c")
+        ocr_ops_vs_cpu(lowering)
+        secs19 = time.monotonic() - t19
+        print("phase 19 before its profile: 19a %.1f s, 19b %.1f s, 19c "
+              "%.1f s" % (t19b - t19, t19c - t19b, time.monotonic() - t19c),
+              flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -8818,6 +9507,24 @@ def main():
         print("phase 18 (the book's VGG-16 and recommender chapters and the "
               "op families: 18a-18d) took %.1f s" % (
                   secs18 + time.monotonic() - t18), flush=True)
+        t19 = time.monotonic()
+        mark("19a's profile")
+        ocr_stats.update(profile_train_step(step19a, "CRNN-CTC train step"))
+        print("19a CRNN-CTC train step [%s]: median %.3f ms, p90 %.3f ms, "
+              "%.1f images/s, peak %.3f GiB above resident, %d kernel "
+              "launches (the profiled step's cudaLaunchKernel calls); "
+              "profiled: device busy %.3f ms, idle %.1f%% of the profiled "
+              "wall, %.1f%% of the median step" % (
+                  card, ocr_stats["median_ms"], ocr_stats["p90_ms"],
+                  ocr_stats["images_per_s"], ocr_stats["peak_gib"],
+                  ocr_stats["launch_calls"], ocr_stats["busy_ms"],
+                  100 * ocr_stats["idle"], 100 * max(
+                      0.0, 1 - ocr_stats["busy_ms"] / ocr_stats["median_ms"])),
+              flush=True)
+        del step19a
+        print("phase 19 (the CRNN-CTC text recogniser and the nn, tensor, "
+              "misc and random op families: 19a-19c) took %.1f s" % (
+                  secs19 + time.monotonic() - t19), flush=True)
         mark("phase 4's and 5's profiles")
         forward_breakdown(pred, requests)
         f32_stats.update(profile_train_step(train_step, "train step, f32"))
@@ -8911,8 +9618,9 @@ def main():
     # launches_lamb and launches_recompute in 14c's two runs,
     # launches_pipelined in 15a's run_pipelined, launches_rnn in 16a's
     # timed stacked-LSTM steps, launches_ssd in 17a's SSD steps and 17b's
-    # forwards, launches_srl in 17c's SRL steps, and launches_book in
-    # 18a's timed VGG-16 steps and 18b's timed recommender steps
+    # forwards, launches_srl in 17c's SRL steps, launches_book in 18a's
+    # timed VGG-16 steps and 18b's timed recommender steps, and
+    # launches_ocr in 19a's timed CRNN-CTC steps
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -8936,6 +9644,7 @@ def main():
                      launches_ssd=ssd_launches[name],
                      launches_srl=srl_launches[name],
                      launches_book=book_launches[name],
+                     launches_ocr=ocr_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

@@ -27,7 +27,7 @@ from .input import one_hot, embedding  # noqa: F401
 from .data import data  # noqa: F401
 from . import unique_name
 from . import param_attr
-from .param_attr import ParamAttr  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import layer_helper
 from .layer_helper import LayerHelper  # noqa: F401
 from . import io

@@ -2,16 +2,17 @@
 (ref: python/paddle/fluid/layer_helper.py, layer_helper_base.py).
 
 Port of paddle_tpu/fluid/layer_helper.py, static-graph part: creates
-parameters in both startup (initializer op) and main programs, appends
-ops, and applies activation/bias epilogues. Dygraph and weight
-normalisation wait for their own slices.
+parameters in both startup (initializer op) and main programs (a
+``WeightNormParamAttr`` one as g and v, with the weight computed each step
+as g·v/||v||), appends ops, and applies activation/bias epilogues.
+Dygraph waits for its own slice.
 """
 import copy
 
 from . import core
 from . import unique_name
 from .framework import Variable, default_main_program, default_startup_program
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 
 __all__ = ["LayerHelper"]
 
@@ -120,6 +121,9 @@ class LayerHelper:
         dtype = core.convert_dtype(dtype or "float32")
         shape = [int(s) for s in shape]
 
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normed_parameter(attr, shape, dtype)
+
         startup_block = self.startup_program.global_block()
         if not startup_block.has_var(attr.name):
             sp = startup_block.create_parameter(
@@ -142,6 +146,63 @@ class LayerHelper:
             dtype=dtype,
             **{k: v for k, v in attr._to_kwargs().items() if k != "name"}
         )
+
+    def _create_weight_normed_parameter(self, attr, shape, dtype):
+        """Weight normalisation (ref layer_helper_base.py:88): the layer's
+        weight is not a free parameter — it is computed each step as
+        w = g * v / ||v|| from direction v (the initialised tensor) and
+        magnitude g (seeded to ||v|| so w == v at step 0). Gradients flow
+        to g and v; the optimizer updates those."""
+        dim = attr.dim
+        if dim is not None and dim < 0:
+            dim += len(shape)
+        attr_dim = -1 if dim is None else int(dim)
+        g_shape = [1] if dim is None else [int(shape[dim])]
+
+        v_attr = ParamAttr(
+            name=attr.name + ".w_v", initializer=attr.initializer,
+            learning_rate=attr.learning_rate, regularizer=attr.regularizer,
+            trainable=attr.trainable, gradient_clip=attr.gradient_clip,
+            do_model_average=attr.do_model_average,
+        )
+        v = self.create_parameter(v_attr, shape, dtype)
+
+        # g parameter: created raw, then seeded in startup from ||v|| so
+        # the startup value of w equals the plain initialised weight
+        g_name = attr.name + ".w_g"
+        startup_block = self.startup_program.global_block()
+        if not startup_block.has_var(g_name):
+            g_sp = startup_block.create_parameter(
+                name=g_name, shape=g_shape, dtype=dtype,
+                **{k: val for k, val in attr._to_kwargs().items()
+                   if k != "name"}
+            )
+            startup_block.append_op(
+                type="norm_except_dim",
+                inputs={"V": [startup_block.var(v_attr.name)]},
+                outputs={"Out": [g_sp]},
+                attrs={"dim": attr_dim},
+            )
+        main_block = self.main_program.global_block()
+        if main_block.has_var(g_name):
+            g = main_block.var(g_name)
+        else:
+            g = main_block.create_parameter(
+                name=g_name, shape=g_shape, dtype=dtype,
+                **{k: val for k, val in attr._to_kwargs().items()
+                   if k != "name"}
+            )
+
+        w = self.create_variable_for_type_inference(dtype)
+        w.shape = tuple(int(s) for s in shape)
+        self.append_op(
+            type="weight_norm_reparam",
+            inputs={"V": [v], "G": [g]},
+            outputs={"Out": [w]},
+            attrs={"dim": attr_dim},
+        )
+        type(attr).params_with_weight_norm.append(w.name)
+        return w
 
     def get_parameter(self, name):
         """An existing parameter by name (ref layer_helper_base

@@ -1,5 +1,4 @@
-"""fluid.layers namespace (ref: python/paddle/fluid/layers/__init__.py):
-the layers the port covers so far."""
+"""fluid.layers namespace (ref: python/paddle/fluid/layers/__init__.py)."""
 from . import nn
 from .nn import *  # noqa: F401,F403
 from . import io
@@ -25,6 +24,10 @@ _rnn_module = rnn
 from .rnn import *  # noqa: F401,F403
 from . import detection
 from .detection import *  # noqa: F401,F403
+from . import distributions
+from .distributions import *  # noqa: F401,F403
+from . import device  # noqa: F401
+from . import layer_function_generator  # noqa: F401
 from . import math_op_patch
 
 math_op_patch.monkey_patch_variable()
@@ -41,3 +44,4 @@ __all__ += ops.__all__
 __all__ += sequence_lod.__all__
 __all__ += _rnn_module.__all__
 __all__ += detection.__all__
+__all__ += distributions.__all__

@@ -6,8 +6,8 @@ append ops that run a sub-block (ops/control_ops.py): the JAX package
 traces them into lax.while_loop, lax.cond and lax.scan; the port runs
 them eagerly. LoDTensorArray works with build-time (python) indices only,
 as in the reference. reorder_lod_tensor_by_rank raises, as the JAX
-package's does (dense-padded batches have no rank table); ``Print`` waits
-for the op library.
+package's does (dense-padded batches have no rank table). ``Print``'s op
+prints from the host when its tensor is ready.
 """
 import contextlib
 
@@ -22,7 +22,7 @@ __all__ = [
     "While", "Switch", "increment", "array_write", "create_array",
     "less_than", "less_equal", "greater_than", "greater_equal", "equal",
     "not_equal", "array_read", "array_length", "cond", "IfElse",
-    "StaticRNN", "DynamicRNN", "reorder_lod_tensor_by_rank",
+    "StaticRNN", "DynamicRNN", "reorder_lod_tensor_by_rank", "Print",
     "is_empty", "case", "switch_case", "while_loop",
 ]
 
@@ -703,3 +703,19 @@ def reorder_lod_tensor_by_rank(x, rank_table):
         "rank-table reordering is a LoD-runtime detail; dense-padded "
         "batches don't need it (sort host-side if required)"
     )
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    helper = LayerHelper("print", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="print",
+        inputs={"In": [input]},
+        outputs={"Out": [out]},
+        attrs={"message": message or ""},
+    )
+    return out

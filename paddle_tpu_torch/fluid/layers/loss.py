@@ -1,6 +1,5 @@
 """Loss layers (ref: python/paddle/fluid/layers/loss.py); port of
-paddle_tpu/fluid/layers/loss.py but ``warpctc``, which waits for its op
-(ROADMAP.md Queue 1, item 6.7). ``square_error_cost``, ``kldiv_loss``,
+paddle_tpu/fluid/layers/loss.py. ``square_error_cost``, ``kldiv_loss``,
 ``npair_loss``, ``mse_loss`` and ``cross_entropy`` live in nn.py and are
 re-exported here, as in the reference."""
 from ..layer_helper import LayerHelper
@@ -12,7 +11,7 @@ __all__ = [
     "sampled_softmax_with_cross_entropy", "softmax_with_cross_entropy",
     "rank_loss", "margin_rank_loss", "sigmoid_cross_entropy_with_logits",
     "teacher_student_sigmoid_loss", "huber_loss", "kldiv_loss", "npair_loss",
-    "mse_loss",
+    "mse_loss", "warpctc",
 ]
 
 from .nn import cross_entropy, kldiv_loss, mse_loss, npair_loss, square_error_cost  # noqa: F401,E402
@@ -321,3 +320,25 @@ def edit_distance(input, label, normalized=True, ignored_tokens=None,
         attrs={"normalized": normalized},
     )
     return out, seq_num
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss (ref loss.py warpctc → warp-ctc kernel): the dense
+    log-domain forward algorithm of the warpctc lowering. Logits and
+    labels travel padded: input (B, T, C), label (B, L) padded with
+    `blank`; ``norm_by_times`` is recorded and not read."""
+    helper = LayerHelper("warpctc", **locals())
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length]
+    helper.append_op(
+        type="warpctc",
+        inputs=inputs,
+        outputs={"Loss": [loss]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+    )
+    return loss

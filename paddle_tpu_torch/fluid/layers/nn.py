@@ -9,6 +9,7 @@ the same signatures, the same shape inference and the same ops and attrs,
 so both packages build the same Program. Each function appends symbolic
 ops; paddle_tpu_torch/ops lowers them to torch.
 """
+from .. import core
 from ..layer_helper import LayerHelper
 from ..framework import Variable
 from ..initializer import Constant, Normal
@@ -35,6 +36,22 @@ __all__ = [
     "l2_normalize", "mul", "sum", "cos_sim", "bilinear_tensor_product",
     "mean_iou", "square_error_cost", "smooth_l1", "dice_loss", "kldiv_loss",
     "npair_loss", "mse_loss",
+    "conv3d", "pool3d", "adaptive_pool2d", "adaptive_pool3d",
+    "instance_norm", "group_norm", "spectral_norm", "conv2d_transpose",
+    "conv3d_transpose", "unstack", "uniform_random_batch_size_like",
+    "gaussian_random", "gaussian_random_batch_size_like", "strided_slice",
+    "shape", "rank", "size", "scatter", "scatter_nd_add", "scatter_nd",
+    "random_crop", "crop", "crop_tensor", "pad", "pad_constant_like",
+    "label_smooth", "image_resize", "resize_bilinear", "resize_nearest",
+    "resize_trilinear", "pad2d", "where", "space_to_depth",
+    "affine_channel", "grid_sampler", "affine_grid", "pixel_shuffle",
+    "temporal_shift", "multiplex", "unique", "unique_with_counts",
+    "flatten_contiguous", "im2sequence", "row_conv", "py_func", "tree_conv",
+    "image_resize_short", "similarity_focus", "merge_selected_rows",
+    "get_tensor_from_selected_rows", "deformable_roi_pooling",
+    "shard_index", "hash", "mish", "unfold", "lrn", "shuffle_channel",
+    "add_position_encoding", "continuous_value_model", "fsp_matrix",
+    "data_norm", "filter_by_instag",
 ]
 
 
@@ -1565,3 +1582,1324 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
 
 def mse_loss(input, label):
     return _layer("mse_loss", {"X": input, "Y": label}, out_shape=())
+
+
+# ---------------------------------------------------------------------------
+# the rest of paddle_tpu/fluid/layers/nn.py (ref nn.py): 3-D and transposed
+# convolutions, pool3d and the adaptive pools, the norms, shape and index
+# layers, pads and crops, resizes and samplers, the misc and random layers
+# ---------------------------------------------------------------------------
+def mish(x, threshold=20.0, name=None):
+    helper = LayerHelper("mish", **locals())
+    sp = _unary("softplus", x)
+    th = _unary("tanh", sp)
+    return elementwise_mul(x, th)
+
+
+def conv3d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCDHW",
+):
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size, 3)
+    stride = _pair(stride, 3)
+    padding = _pair(padding, 3)
+    dilation = _pair(dilation, 3)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    n = input.shape[0]
+    spatial = [
+        _conv_out_size(i, k, p, s, d)
+        for i, k, p, s, d in zip(
+            input.shape[2:], filter_size, padding, stride, dilation
+        )
+    ]
+    out.shape = tuple([n, num_filters] + spatial)
+    helper.append_op(
+        type="conv3d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+        },
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(
+    input,
+    num_filters,
+    output_size=None,
+    filter_size=None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _pair(output_size)
+        filter_size = [
+            output_size[i]
+            - (input.shape[i + 2] - 1) * stride[i]
+            + 2 * padding[i]
+            - 1 + 1
+            for i in range(2)
+        ]
+        filter_size = [
+            (output_size[i] + 2 * padding[i] - (input.shape[i + 2] - 1) * stride[i] - 1) // dilation[i] + 1
+            for i in range(2)
+        ]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_channels, num_filters // groups] + filter_size,
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    def _o(i, k, p, s, d):
+        if i in (None, -1):
+            return -1
+        return (i - 1) * s - 2 * p + d * (k - 1) + 1
+    out_padding = _resolve_output_padding(
+        output_size, filter_size, input.shape[2:4], padding, stride,
+        dilation, 2, _pair, _o,
+    )
+    out.shape = (
+        input.shape[0],
+        num_filters,
+        _o(input.shape[2], filter_size[0], padding[0], stride[0],
+           dilation[0]) + out_padding[0],
+        _o(input.shape[3], filter_size[1], padding[1], stride[1],
+           dilation[1]) + out_padding[1],
+    )
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "output_padding": out_padding,
+        },
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def _resolve_output_padding(output_size, filter_size, in_spatial, padding,
+                            stride, dilation, ndim, pair, out_fn):
+    """When output_size is given, the stride>1 ambiguity is resolved by
+    extending the bottom/right edge (ref conv_transpose_op.cc): returns
+    the per-dim extra rows, validated to lie in [0, stride)."""
+    if output_size is None:
+        return [0] * ndim
+    output_size = pair(output_size, ndim)
+    extra = []
+    for i in range(ndim):
+        base = out_fn(in_spatial[i], filter_size[i], padding[i], stride[i],
+                      dilation[i])
+        e = output_size[i] - base
+        if base != -1 and not 0 <= e < stride[i]:
+            raise ValueError(
+                "conv_transpose output_size[%d]=%d unreachable: valid "
+                "range is [%d, %d)" % (i, output_size[i], base,
+                                       base + stride[i])
+            )
+        extra.append(max(e, 0) if base != -1 else 0)
+    return extra
+
+
+def conv3d_transpose(
+    input,
+    num_filters,
+    output_size=None,
+    filter_size=None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCDHW",
+):
+    """3-D transposed convolution (ref nn.py conv3d_transpose)."""
+    helper = LayerHelper("conv3d_transpose", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    stride = _pair(stride, 3)
+    padding = _pair(padding, 3)
+    dilation = _pair(dilation, 3)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _pair(output_size, 3)
+        filter_size = [
+            (output_size[i] + 2 * padding[i]
+             - (input.shape[i + 2] - 1) * stride[i] - 1) // dilation[i] + 1
+            for i in range(3)
+        ]
+    else:
+        filter_size = _pair(filter_size, 3)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_channels, num_filters // groups] + filter_size,
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+
+    def _o(i, k, p, s, d):
+        if i in (None, -1):
+            return -1
+        return (i - 1) * s - 2 * p + d * (k - 1) + 1
+
+    out_padding = _resolve_output_padding(
+        output_size, filter_size, input.shape[2:5], padding, stride,
+        dilation, 3, _pair, _o,
+    )
+    out.shape = tuple(
+        [input.shape[0], num_filters]
+        + [
+            _o(input.shape[i + 2], filter_size[i], padding[i], stride[i],
+               dilation[i]) + out_padding[i]
+            for i in range(3)
+        ]
+    )
+    helper.append_op(
+        type="conv3d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "output_padding": out_padding,
+        },
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    name=None,
+    exclusive=True,
+    data_format="NCDHW",
+):
+    helper = LayerHelper("pool3d", **locals())
+    pool_size = _pair(pool_size, 3)
+    pool_stride = _pair(pool_stride, 3)
+    pool_padding = _pair(pool_padding, 3)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    n, c = input.shape[:2]
+    if global_pooling:
+        out.shape = (n, c, 1, 1, 1)
+    else:
+        sp = [
+            (i + 2 * p - k) // s + 1 if i not in (None, -1) else -1
+            for i, k, p, s in zip(
+                input.shape[2:], pool_size, pool_padding, pool_stride
+            )
+        ]
+        out.shape = tuple([n, c] + sp)
+    helper.append_op(
+        type="pool3d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": pool_size,
+            "strides": pool_stride,
+            "paddings": pool_padding,
+            "global_pooling": global_pooling,
+            "ceil_mode": ceil_mode,
+            "exclusive": exclusive,
+        },
+    )
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """Adaptive 3-D pooling to a fixed (D, H, W) output (ref nn.py
+    adaptive_pool3d) — pool3d op with adaptive windows."""
+    if require_index:
+        raise NotImplementedError(
+            "adaptive_pool3d(require_index=True): the max-index mask is "
+            "not emitted by the pool lowering — compute argmax windows "
+            "explicitly if needed"
+        )
+    helper = LayerHelper("adaptive_pool3d", **locals())
+    pool_size = _pair(pool_size, 3)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(
+        [input.shape[0], input.shape[1]] + list(pool_size)
+    )
+    helper.append_op(
+        type="pool3d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": list(pool_size),
+            "strides": [1, 1, 1],
+            "paddings": [0, 0, 0],
+            "adaptive": True,
+            "global_pooling": False,
+            "ceil_mode": False,
+            "exclusive": True,
+        },
+    )
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    if require_index:
+        raise NotImplementedError(
+            "adaptive_pool2d(require_index=True): the max-index mask is "
+            "not emitted by the pool lowering — compute argmax windows "
+            "explicitly if needed"
+        )
+    helper = LayerHelper("adaptive_pool2d", **locals())
+    pool_size = _pair(pool_size)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0], input.shape[1], pool_size[0], pool_size[1])
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": pool_size,
+            "strides": [1, 1],
+            "paddings": [0, 0],
+            "adaptive": True,
+            "global_pooling": False,
+            "ceil_mode": False,
+            "exclusive": True,
+        },
+    )
+    return out
+
+
+def instance_norm(input, epsilon=1e-05, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1]
+    scale = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[channels],
+        dtype=dtype,
+        default_initializer=Constant(1.0),
+    )
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=[channels], dtype=dtype, is_bias=True
+    )
+    saved_mean = helper.create_variable_for_type_inference(dtype, True)
+    saved_var = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="instance_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias]},
+        outputs={
+            "Y": [out],
+            "SavedMean": [saved_mean],
+            "SavedVariance": [saved_var],
+        },
+        attrs={"epsilon": epsilon},
+    )
+    return out
+
+
+def group_norm(
+    input,
+    groups,
+    epsilon=1e-05,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    data_layout="NCHW",
+    name=None,
+):
+    helper = LayerHelper("group_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        s = helper.create_parameter(
+            attr=helper.param_attr,
+            shape=[channels],
+            dtype=dtype,
+            default_initializer=Constant(1.0),
+        )
+        inputs["Scale"] = [s]
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            attr=helper.bias_attr, shape=[channels], dtype=dtype, is_bias=True
+        )
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype, True)
+    var_out = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="group_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"epsilon": epsilon, "groups": groups},
+    )
+    return helper.append_activation(out)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    helper = LayerHelper("spectral_norm", **locals())
+    dtype = weight.dtype
+    h = weight.shape[dim]
+    w = _prod(weight.shape) // h
+    u = helper.create_parameter(
+        attr=ParamAttr(initializer=Normal(0.0, 1.0), trainable=False),
+        shape=[h],
+        dtype=dtype,
+    )
+    u.stop_gradient = True
+    v = helper.create_parameter(
+        attr=ParamAttr(initializer=Normal(0.0, 1.0), trainable=False),
+        shape=[w],
+        dtype=dtype,
+    )
+    v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = weight.shape
+    helper.append_op(
+        type="spectral_norm",
+        inputs={"Weight": [weight], "U": [u], "V": [v]},
+        outputs={"Out": [out]},
+        attrs={"dim": dim, "power_iters": power_iters, "eps": eps},
+    )
+    return out
+
+
+def data_norm(
+    input,
+    act=None,
+    epsilon=1e-05,
+    param_attr=None,
+    data_layout="NCHW",
+    in_place=False,
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=True,
+    slot_dim=-1,
+    sync_stats=False,
+    summary_decay_rate=0.9999999,
+):
+    # slot_dim / sync_stats / summary_decay_rate (ref nn.py data_norm) are
+    # CTR-pserver knobs the dense path does not read
+    helper = LayerHelper("data_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1]
+    _stat_avg = do_model_average_for_mean_and_var
+    batch_size = helper.create_parameter(
+        attr=ParamAttr(initializer=Constant(1e4),
+                       do_model_average=_stat_avg), shape=[c], dtype=dtype
+    )
+    batch_sum = helper.create_parameter(
+        attr=ParamAttr(initializer=Constant(0.0),
+                       do_model_average=_stat_avg), shape=[c], dtype=dtype
+    )
+    batch_square = helper.create_parameter(
+        attr=ParamAttr(initializer=Constant(1e4),
+                       do_model_average=_stat_avg), shape=[c], dtype=dtype
+    )
+    means = helper.create_variable_for_type_inference(dtype, True)
+    scales = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="data_norm",
+        inputs={
+            "X": [input],
+            "BatchSize": [batch_size],
+            "BatchSum": [batch_sum],
+            "BatchSquareSum": [batch_square],
+        },
+        outputs={"Y": [out], "Means": [means], "Scales": [scales]},
+        attrs={"epsilon": epsilon},
+    )
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None,
+        data_format="NCHW"):
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    out.shape = input.shape
+    helper.append_op(
+        type="lrn",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "MidOut": [mid]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
+def flatten_contiguous(x, start_axis=0, stop_axis=-1):
+    """Collapse dims [start_axis, stop_axis] into one (reshape, not the
+    2-D flatten op)."""
+    ndim = len(x.shape)
+    lo = start_axis + ndim if start_axis < 0 else start_axis
+    hi = stop_axis + ndim if stop_axis < 0 else stop_axis
+    if not (0 <= lo <= hi < ndim):
+        raise ValueError(
+            "flatten_contiguous: invalid axes (%d, %d) for rank %d"
+            % (start_axis, stop_axis, ndim)
+        )
+    mid = 1
+    for s in x.shape[lo:hi + 1]:
+        mid = -1 if (s in (None, -1) or mid == -1) else mid * int(s)
+    new_shape = list(x.shape[:lo]) + [mid] + list(x.shape[hi + 1:])
+    return reshape(x, new_shape)
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack", **locals())
+    if num is None:
+        num = x.shape[axis]
+    outs = []
+    s = list(x.shape)
+    s.pop(axis if axis >= 0 else axis + len(s))
+    for _ in range(num):
+        o = helper.create_variable_for_type_inference(x.dtype)
+        o.shape = tuple(s)
+        outs.append(o)
+    helper.append_op(
+        type="unstack",
+        inputs={"X": [x]},
+        outputs={"Y": outs},
+        attrs={"axis": axis, "num": num},
+    )
+    return outs
+
+
+def strided_slice(input, axes, starts, ends, strides):
+    helper = LayerHelper("strided_slice", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="strided_slice",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "axes": list(axes),
+            "starts": list(starts),
+            "ends": list(ends),
+            "strides": list(strides),
+        },
+    )
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape", **locals())
+    out = helper.create_variable_for_type_inference("int32", True)
+    out.shape = (len(input.shape),) if input.shape is not None else (-1,)
+    helper.append_op(
+        type="shape", inputs={"Input": [input]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def rank(input):
+    return tensor_fill_int(len(input.shape), "int32")
+
+
+def tensor_fill_int(value, dtype):
+    from . import tensor as t
+
+    return t.fill_constant(shape=[1], dtype=dtype, value=value)
+
+
+def size(input):
+    helper = LayerHelper("size", **locals())
+    out = helper.create_variable_for_type_inference("int64", True)
+    out.shape = ()
+    helper.append_op(
+        type="size", inputs={"Input": [input]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]},
+        attrs={"overwrite": overwrite},
+    )
+    return out
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    helper = LayerHelper("scatter_nd_add", **locals())
+    out = helper.create_variable_for_type_inference(ref.dtype)
+    out.shape = ref.shape
+    helper.append_op(
+        type="scatter_nd_add",
+        inputs={"X": [ref], "Index": [index], "Updates": [updates]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def scatter_nd(index, updates, shape, name=None):
+    from . import tensor as t
+
+    zeros_ = t.fill_constant(shape, updates.dtype, 0.0)
+    return scatter_nd_add(zeros_, index, updates, name)
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(list(x.shape[: len(x.shape) - len(shape)]) + list(shape))
+    helper.append_op(
+        type="random_crop",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "seed": seed or 0},
+    )
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out_shape = None
+    if x.shape is not None:
+        out_shape = [
+            s + paddings[2 * i] + paddings[2 * i + 1] if s not in (None, -1) else -1
+            for i, s in enumerate(x.shape)
+        ]
+    return _layer(
+        "pad",
+        {"X": x},
+        {"paddings": list(paddings), "pad_value": float(pad_value)},
+        out_shape=out_shape,
+    )
+
+
+def pad2d(
+    input,
+    paddings=[0, 0, 0, 0],
+    mode="constant",
+    pad_value=0.0,
+    data_format="NCHW",
+    name=None,
+):
+    helper = LayerHelper("pad2d", **locals())
+    out_shape = None
+    if input.shape is not None:
+        n, c, h, w = input.shape
+        out_shape = [
+            n,
+            c,
+            h + paddings[0] + paddings[1] if h not in (None, -1) else -1,
+            w + paddings[2] + paddings[3] if w not in (None, -1) else -1,
+        ]
+    return _layer(
+        "pad2d",
+        {"X": input},
+        {
+            "paddings": list(paddings),
+            "mode": mode,
+            "pad_value": float(pad_value),
+            "data_format": data_format,
+        },
+        out_shape=out_shape,
+    )
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _layer(
+        "pad_constant_like",
+        {"X": x, "Y": y},
+        {"pad_value": float(pad_value)},
+        out_shape=x.shape,
+    )
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", **locals())
+    if isinstance(shape, Variable):
+        inputs = {"X": x, "Y": shape}
+        attrs = {"offsets": list(offsets or [])}
+        out_shape = shape.shape
+    else:
+        inputs = {"X": x}
+        attrs = {"shape": list(shape), "offsets": list(offsets or [0] * len(shape))}
+        out_shape = shape
+    return _layer("crop", inputs, attrs, out_shape=out_shape)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    return crop(x, shape, offsets, name)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    inputs = {"X": label}
+    if prior_dist is not None:
+        inputs["PriorDist"] = prior_dist
+    out = _layer("label_smooth", inputs, {"epsilon": float(epsilon)},
+                 out_shape=label.shape)
+    if dtype not in (None, out.dtype):
+        from . import tensor as _tensor
+        out = _tensor.cast(out, dtype)
+    return out
+
+
+def image_resize(
+    input,
+    out_shape=None,
+    scale=None,
+    name=None,
+    resample="BILINEAR",
+    actual_shape=None,
+    align_corners=True,
+    align_mode=1,
+    data_format="NCHW",
+):
+    op_type = {
+        "BILINEAR": "bilinear_interp",
+        "NEAREST": "nearest_interp",
+        "TRILINEAR": "trilinear_interp",
+    }[resample.upper()]
+    helper = LayerHelper(op_type, **locals())
+    attrs = {
+        "align_corners": align_corners,
+        "align_mode": align_mode,
+    }
+    channel_last = data_format in ("NHWC", "NDHWC")
+    if not channel_last and data_format not in ("NCHW", "NCDHW"):
+        raise ValueError(
+            "image_resize: data_format must be NCHW/NHWC (or NCDHW/NDHWC "
+            "for trilinear), got %r" % (data_format,)
+        )
+    if channel_last:
+        # the interp lowerings are channel-first; wrap with transposes
+        nd = len(input.shape)
+        to_cf = [0, nd - 1] + list(range(1, nd - 1))
+        to_cl = [0] + list(range(2, nd)) + [1]
+        input = transpose(input, to_cf)
+    oshape = None
+    if out_shape is not None:
+        if op_type == "trilinear_interp":
+            attrs["out_d"], attrs["out_h"], attrs["out_w"] = out_shape
+            oshape = tuple(list(input.shape[:2]) + list(out_shape))
+        else:
+            attrs["out_h"], attrs["out_w"] = out_shape
+            oshape = tuple(list(input.shape[:2]) + list(out_shape))
+    elif scale is not None:
+        attrs["scale"] = float(scale)
+        if input.shape is not None:
+            oshape = tuple(
+                list(input.shape[:2])
+                + [int(s * scale) if s not in (None, -1) else -1 for s in input.shape[2:]]
+            )
+    out = _layer(op_type, {"X": input}, attrs, out_shape=oshape)
+    if channel_last:
+        out = transpose(out, to_cl)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1,
+                    data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode, data_format)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True, data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners,
+                        data_format=data_format)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1,
+                     data_format="NCDHW"):
+    return image_resize(input, out_shape, scale, name, "TRILINEAR",
+                        actual_shape, align_corners, align_mode,
+                        data_format=data_format)
+
+
+def where(condition, x=None, y=None):
+    if x is None and y is None:
+        helper = LayerHelper("where_index", condition=condition)
+        out = helper.create_variable_for_type_inference("int64", True)
+        helper.append_op(
+            type="where_index",
+            inputs={"Condition": [condition]},
+            outputs={"Out": [out]},
+        )
+        return out
+    return _layer(
+        "where", {"Condition": condition, "X": x, "Y": y}, out_shape=x.shape
+    )
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth", **locals())
+    out_shape = None
+    if x.shape is not None:
+        n, c, h, w = x.shape
+        out_shape = [n, c * blocksize * blocksize, h // blocksize, w // blocksize]
+    return _layer(
+        "space_to_depth", {"X": x}, {"blocksize": blocksize},
+        out_shape=out_shape,
+    )
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None,
+                   act=None):
+    helper = LayerHelper("affine_channel", **locals())
+    out = _layer(
+        "affine_channel",
+        {"X": x, "Scale": scale, "Bias": bias},
+        {"data_layout": data_layout},
+        out_shape=x.shape,
+        helper=helper,
+    )
+    return helper.append_activation(out)
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None and grid.shape is not None:
+        out.shape = (x.shape[0], x.shape[1], grid.shape[1], grid.shape[2])
+    helper.append_op(
+        type="grid_sampler",
+        inputs={"X": [x], "Grid": [grid]},
+        outputs={"Output": [out]},
+    )
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", **locals())
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    inputs = {"Theta": [theta]}
+    attrs = {}
+    if isinstance(out_shape, Variable):
+        inputs["OutputShape"] = [out_shape]
+    else:
+        attrs["output_shape"] = list(out_shape)
+        out.shape = (out_shape[0], out_shape[2], out_shape[3], 2)
+    helper.append_op(
+        type="affine_grid",
+        inputs=inputs,
+        outputs={"Output": [out]},
+        attrs=attrs,
+    )
+    return out
+
+
+def pixel_shuffle(x, upscale_factor):
+    helper = LayerHelper("pixel_shuffle", **locals())
+    out_shape = None
+    if x.shape is not None:
+        n, c, h, w = x.shape
+        r = upscale_factor
+        out_shape = [n, c // (r * r), h * r, w * r]
+    return _layer(
+        "pixel_shuffle", {"X": x}, {"upscale_factor": upscale_factor},
+        out_shape=out_shape,
+    )
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _layer(
+        "temporal_shift",
+        {"X": x},
+        {"seg_num": seg_num, "shift_ratio": shift_ratio},
+        out_shape=x.shape,
+    )
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex", inputs=inputs, index=index)
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    out.shape = inputs[0].shape
+    helper.append_op(
+        type="multiplex",
+        inputs={"X": list(inputs), "Ids": [index]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def unique(x, dtype="int32"):
+    raise NotImplementedError(
+        "unique has data-dependent output shape; not representable in a "
+        "static-shape program. Use it host-side via numpy."
+    )
+
+
+def unique_with_counts(x, dtype="int32"):
+    raise NotImplementedError(
+        "unique_with_counts has data-dependent output shape; use host-side "
+        "numpy instead."
+    )
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, input_image_size=None,
+                out_stride=1, name=None):
+    helper = LayerHelper("im2sequence", **locals())
+    fs = _pair(filter_size)
+    st = _pair(stride)
+    pd = [padding] * 4 if isinstance(padding, int) else list(padding)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="im2sequence",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"kernels": fs, "strides": st, "paddings": pd},
+    )
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the SHORTER spatial edge equals out_short_len, keeping
+    aspect ratio (ref nn.py image_resize_short). Needs static H/W."""
+    h, w = input.shape[2], input.shape[3]
+    if h in (None, -1) or w in (None, -1):
+        raise ValueError(
+            "image_resize_short needs static spatial dims (shapes are "
+            "fixed when the program is built)"
+        )
+    if h < w:
+        out_shape = [out_short_len, int(round(w * out_short_len / h))]
+    else:
+        out_shape = [int(round(h * out_short_len / w)), out_short_len]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """Similarity focus mask (ref nn.py similarity_focus): greedy
+    distinct-row/col maxima of the selected channel slices, broadcast
+    over the focus axis."""
+    helper = LayerHelper("similarity_focus", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="similarity_focus",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis, "indexes": list(indexes)},
+    )
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    """SelectedRows row merge (ref nn.py merge_selected_rows). Gradients
+    here are dense tensors (the embedding backward sums duplicate rows
+    already), so this is an identity kept for script compatibility."""
+    helper = LayerHelper("merge_selected_rows", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="merge_selected_rows", inputs={"X": [x]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """SelectedRows -> dense (ref nn.py): dense already; identity."""
+    helper = LayerHelper("get_tensor_from_selected_rows", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="get_tensor_from_selected_rows", inputs={"X": [x]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=[1, 1],
+                           pooled_height=1, pooled_width=1,
+                           part_size=None, sample_per_part=1,
+                           trans_std=0.1, position_sensitive=False,
+                           name=None):
+    """Deformable (PS-)ROI pooling (ref nn.py deformable_roi_pooling):
+    bins sample at learned normalized offsets; position_sensitive selects
+    the psroi channel layout."""
+    helper = LayerHelper("deformable_roi_pooling", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    part_size = part_size or [pooled_height, pooled_width]
+    if position_sensitive:
+        gh = group_size[0] if isinstance(group_size, (list, tuple)) \
+            else group_size
+        gw = group_size[1] if isinstance(group_size, (list, tuple)) \
+            else group_size
+        out_dim = input.shape[1] // (gh * gw)
+    else:
+        out_dim = input.shape[1]
+    if rois.shape is not None:
+        out.shape = (rois.shape[0], out_dim, pooled_height, pooled_width)
+    ins = {"Input": [input], "ROIs": [rois]}
+    if not no_trans and trans is not None:
+        ins["Trans"] = [trans]
+    helper.append_op(
+        type="deformable_psroi_pooling",
+        inputs=ins,
+        outputs={"Output": [out]},
+        attrs={
+            "no_trans": no_trans,
+            "spatial_scale": spatial_scale,
+            "output_dim": out_dim,
+            "group_size": list(group_size)
+            if isinstance(group_size, (list, tuple)) else [group_size] * 2,
+            "pooled_height": pooled_height,
+            "pooled_width": pooled_width,
+            "part_size": list(part_size),
+            "sample_per_part": sample_per_part,
+            "trans_std": trans_std,
+            "position_sensitive": position_sensitive,
+        },
+    )
+    return out
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """Tree-based convolution (TBCNN; ref operators/tree_conv_op.h, used
+    by dygraph TreeConv ref dygraph/nn.py:2970). nodes_vector (B, N, F),
+    edge_set (B, E, 2) int32 1-indexed (parent, child); returns
+    (B, N, output_size, num_filters)."""
+    helper = LayerHelper("tree_conv", **locals())
+    dtype = helper.input_dtype("nodes_vector")
+    f = nodes_vector.shape[-1]
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[f, 3, output_size, num_filters],
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    if nodes_vector.shape is not None:
+        out.shape = (nodes_vector.shape[0], nodes_vector.shape[1],
+                     output_size, num_filters)
+    helper.append_op(
+        type="tree_conv",
+        inputs={"NodesVector": [nodes_vector], "EdgeSet": [edge_set],
+                "Filter": [w]},
+        outputs={"Out": [out]},
+        attrs={"max_depth": max_depth},
+    )
+    pre_act = helper.append_bias_op(out, dim_start=3, dim_end=4)
+    return helper.append_activation(pre_act)
+
+
+_PY_FUNC_REGISTRY = {}
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """Custom python op (ref nn.py:12191 py_func): the step copies the
+    inputs to host numpy, calls `func` and copies the returned arrays back
+    (static shapes from the pre-declared `out` vars; -1 dims resolve to
+    the first input's batch dim). backward_func(x..., out..., dout...)
+    supplies the gradient; functions live in a process-local registry, so
+    programs using py_func serialize structurally but need the functions
+    re-registered after deserialization."""
+    helper = LayerHelper("py_func", **locals())
+    xs = [x] if isinstance(x, Variable) else list(x)
+    outs = [out] if isinstance(out, Variable) else list(out)
+    for o in outs:
+        if o.shape is None:
+            raise ValueError(
+                "py_func out var '%s' needs a declared shape (the "
+                "callback's result buffer is pre-allocated)" % o.name
+            )
+    skip = set()
+    for v in (skip_vars_in_backward_input or []):
+        skip.add(v.name if isinstance(v, Variable) else str(v))
+    func_id = len(_PY_FUNC_REGISTRY)
+    _PY_FUNC_REGISTRY[func_id] = (func, backward_func, skip)
+    helper.append_op(
+        type="py_func",
+        inputs={"X": xs},
+        outputs={"Out": outs},
+        attrs={
+            "func_id": func_id,
+            "out_shapes": [list(o.shape) for o in outs],
+            "out_dtypes": [str(o.dtype) for o in outs],
+            "x_names": [v.name for v in xs],
+            "out_names": [o.name for o in outs],
+        },
+    )
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", **locals())
+    dtype = helper.input_dtype()
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[future_context_size + 1, input.shape[-1]],
+        dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="row_conv",
+        inputs={"X": [input], "Filter": [w]},
+        outputs={"Out": [out]},
+    )
+    return helper.append_activation(out)
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    helper = LayerHelper("shard_index", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="shard_index",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "index_num": index_num,
+            "nshards": nshards,
+            "shard_id": shard_id,
+            "ignore_value": ignore_value,
+        },
+    )
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    helper = LayerHelper("hash", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="hash",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"mod_by": hash_size, "num_hash": num_hash},
+    )
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    helper = LayerHelper("unfold", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="unfold",
+        inputs={"X": [x]},
+        outputs={"Y": [out]},
+        attrs={
+            "kernel_sizes": _pair(kernel_sizes),
+            "strides": _pair(strides),
+            "paddings": _pair(paddings),
+            "dilations": _pair(dilations),
+        },
+    )
+    return out
+
+
+def shuffle_channel(x, group, name=None):
+    return _layer("shuffle_channel", {"X": x}, {"group": group},
+                  out_shape=x.shape)
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    return _layer(
+        "add_position_encoding",
+        {"X": input},
+        {"alpha": alpha, "beta": beta},
+        out_shape=input.shape,
+    )
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    helper = LayerHelper("cvm", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cvm",
+        inputs={"X": [input], "CVM": [cvm]},
+        outputs={"Y": [out]},
+        attrs={"use_cvm": use_cvm},
+    )
+    return out
+
+
+def fsp_matrix(x, y):
+    helper = LayerHelper("fsp_matrix", x=x, y=y)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (x.shape[0], x.shape[1], y.shape[1])
+    helper.append_op(
+        type="fsp", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod):
+    raise NotImplementedError(
+        "filter_by_instag produces data-dependent shapes; filter host-side"
+    )
+
+
+def uniform_random_batch_size_like(
+    input,
+    shape,
+    dtype="float32",
+    input_dim_idx=0,
+    output_dim_idx=0,
+    min=-1.0,
+    max=1.0,
+    seed=0,
+):
+    helper = LayerHelper("uniform_random_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="uniform_random_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+            "min": min,
+            "max": max,
+            "seed": seed,
+            "dtype": core.convert_dtype(dtype),
+        },
+    )
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(shape)
+    helper.append_op(
+        type="gaussian_random",
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "mean": mean,
+            "std": std,
+            "seed": seed,
+            "dtype": core.convert_dtype(dtype),
+        },
+    )
+    return out
+
+
+def gaussian_random_batch_size_like(
+    input,
+    shape,
+    input_dim_idx=0,
+    output_dim_idx=0,
+    mean=0.0,
+    std=1.0,
+    seed=0,
+    dtype="float32",
+):
+    helper = LayerHelper("gaussian_random_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="gaussian_random_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+            "mean": mean,
+            "std": std,
+            "seed": seed,
+            "dtype": core.convert_dtype(dtype),
+        },
+    )
+    return out
+
+
+# The reference's nn.py __all__ also exports these; here they are defined in
+# sibling modules (sequence_lod/rnn/ops) and re-exported for parity
+# (ref nn.py:84,85,184,185).
+from .sequence_lod import lod_reset, lod_append  # noqa: E402
+from .rnn import gather_tree  # noqa: E402
+
+__all__ += ["lod_reset", "lod_append", "gather_tree", "uniform_random"]
+
+
+def __getattr__(name):
+    # uniform_random lives in ops.py, which itself imports from this
+    # module at its top — resolve lazily so neither import order works
+    # only by accident (PEP 562)
+    if name == "uniform_random":
+        from .ops import uniform_random
+
+        return uniform_random
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -1,15 +1,16 @@
 """Generated-style layers (ref: python/paddle/fluid/layers/ops.py); port
-of paddle_tpu/fluid/layers/ops.py's unary math and activation layers and
-``cumsum``. ``uniform_random`` and the ``gelu`` re-export wait for the
-random ops (ROADMAP.md Queue 1, item 6.7)."""
+of paddle_tpu/fluid/layers/ops.py: the unary math and activation layers,
+``cumsum``, ``uniform_random`` and the ``gelu`` re-export."""
+from .. import core
+from ..layer_helper import LayerHelper
 from .nn import _layer
 
 __all__ = [
     "sigmoid", "logsigmoid", "exp", "tanh", "atan", "sqrt", "rsqrt", "abs",
     "ceil", "floor", "cos", "acos", "asin", "sin", "sinh", "cosh", "round",
     "reciprocal", "square", "softplus", "softsign", "softshrink",
-    "hard_shrink", "tanh_shrink", "cumsum", "thresholded_relu", "erf",
-    "tan",
+    "hard_shrink", "tanh_shrink", "cumsum", "thresholded_relu",
+    "uniform_random", "erf", "tan",
 ]
 
 
@@ -65,3 +66,35 @@ def cumsum(x, axis=-1, exclusive=False, reverse=False):
 
 def thresholded_relu(x, threshold=1.0):
     return _layer("thresholded_relu", {"X": x}, {"threshold": threshold})
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random", shape=shape)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(shape)
+    helper.append_op(
+        type="uniform_random",
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "min": min,
+            "max": max,
+            "seed": seed,
+            "dtype": core.convert_dtype(dtype),
+        },
+    )
+    return out
+
+
+# ref ops.py:243 re-exports gelu through the generated-layer path; the
+# implementation lives in nn.py here — resolved lazily (PEP 562) to keep
+# the nn<->ops import acyclic at module-exec time
+__all__ += ["gelu"]
+
+
+def __getattr__(name):
+    if name == "gelu":
+        from .nn import gelu
+
+        return gelu
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -1,7 +1,5 @@
 """Tensor creation layers (ref: python/paddle/fluid/layers/tensor.py);
-port of paddle_tpu/fluid/layers/tensor.py, the part BERT, GPT, the
-mixed-precision decorator, the decoders of the NMT slice and ``rnn()``
-(``reverse``) call."""
+port of paddle_tpu/fluid/layers/tensor.py."""
 import numpy as np
 
 from .. import core
@@ -14,7 +12,9 @@ from ..param_attr import ParamAttr
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
            "sums", "assign", "fill_constant",
            "fill_constant_batch_size_like", "argmax", "argsort", "range",
-           "zeros_like", "reverse"]
+           "zeros_like", "reverse", "create_tensor",
+           "tensor_array_to_tensor", "argmin", "ones", "zeros", "has_inf",
+           "has_nan", "isfinite", "linspace", "ones_like", "diag", "eye"]
 
 
 def create_parameter(
@@ -256,4 +256,162 @@ def reverse(x, axis):
         outputs={"Out": [out]},
         attrs={"axis": axis},
     )
+    return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(
+        name=helper.name, dtype=dtype, persistable=persistable
+    )
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """Concat/stack a LoDTensorArray into one tensor (ref tensor.py
+    tensor_array_to_tensor). Arrays here are build-time entry lists (see
+    control_flow.create_array), so this composes concat/stack directly;
+    also returns the per-entry sizes along axis like the reference."""
+    import numpy as np
+
+    from .nn import stack as _stack
+
+    entries = [v for v in getattr(input, "vars", input) if v is not None]
+    if not entries:
+        raise ValueError("tensor_array_to_tensor: the array is empty")
+    if use_stack:
+        out = _stack(entries, axis=axis)
+        sizes = [1] * len(entries)
+    else:
+        out = concat(entries, axis=axis)
+        sizes = [
+            (v.shape[axis] if v.shape is not None else -1) for v in entries
+        ]
+    out_index = assign(np.asarray(sizes, dtype="int32"))
+    return out, out_index
+
+
+def _arg_min_max(op_type, x, axis=0):
+    helper = LayerHelper(op_type, x=x, axis=axis)
+    out = helper.create_variable_for_type_inference("int64")
+    if x.shape is not None:
+        s = list(x.shape)
+        ax = axis if axis >= 0 else axis + len(s)
+        s.pop(ax)
+        out.shape = tuple(s)
+    helper.append_op(
+        type=op_type,
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def argmin(x, axis=0):
+    return _arg_min_max("arg_min", x, axis)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def _unary_bool(op_type, x, reduce_to_scalar=True):
+    helper = LayerHelper(op_type, x=x)
+    out = helper.create_variable_for_type_inference("bool")
+    out.shape = ()
+    helper.append_op(
+        type=op_type, inputs={"X": [x]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def has_inf(x):
+    helper = LayerHelper("isinf", x=x)
+    out = helper.create_variable_for_type_inference("bool")
+    out.shape = ()
+    helper.append_op(type="isinf_any", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_nan(x):
+    helper = LayerHelper("isnan", x=x)
+    out = helper.create_variable_for_type_inference("bool")
+    out.shape = ()
+    helper.append_op(type="isnan_any", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def isfinite(x):
+    return _unary_bool("isfinite", x)
+
+
+def linspace(start, stop, num, dtype="float32"):
+    helper = LayerHelper("linspace", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (int(num),) if not isinstance(num, Variable) else (-1,)
+    inputs = {}
+    attrs = {"dtype": core.convert_dtype(dtype)}
+    for key, val in (("Start", start), ("Stop", stop), ("Num", num)):
+        if isinstance(val, Variable):
+            inputs[key] = [val]
+        else:
+            attrs[key.lower()] = val
+    helper.append_op(
+        type="linspace", inputs=inputs, outputs={"Out": [out]}, attrs=attrs
+    )
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [x]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(x.shape if x.shape else (1,)),
+            "dtype": x.dtype,
+            "value": 1.0,
+        },
+    )
+    return out
+
+
+def diag(diagonal):
+    helper = LayerHelper("diag", **locals())
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    if diagonal.shape:
+        out.shape = (diagonal.shape[0], diagonal.shape[0])
+    helper.append_op(
+        type="diag", inputs={"Diagonal": [diagonal]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype="float32"):
+    helper = LayerHelper("eye", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    nc = num_columns or num_rows
+    out.shape = (num_rows, nc)
+    helper.append_op(
+        type="eye",
+        outputs={"Out": [out]},
+        attrs={
+            "num_rows": num_rows,
+            "num_columns": nc,
+            "dtype": core.convert_dtype(dtype),
+        },
+    )
+    if batch_shape:
+        from . import nn
+
+        for b in reversed(batch_shape):
+            out = nn.expand(nn.unsqueeze(out, [0]), [b] + [1] * (len(out.shape)))
     return out

@@ -24,7 +24,8 @@ reads. The port runs eagerly, so :class:`LivePlan` marks, once per
 from the fetch list through the sub-blocks; every other op is skipped,
 and ``static_rnn`` and ``dynamic_rnn`` stack only their live step
 outputs. An op that writes a persistable, draws from the run's generator
-(:data:`DRAWS`), has no outputs, or is a ``backward`` op always runs,
+(:data:`DRAWS`), acts on the host (:data:`HOST_EFFECTS`), has no
+outputs, or is a ``backward`` op always runs,
 with what it reads.
 """
 import contextlib
@@ -431,7 +432,14 @@ def f32_precision():
 # later draw is the one the unpruned run makes
 DRAWS = frozenset({"dropout", "uniform_random", "gaussian_random",
                    "sampling_id", "fused_multihead_attention", "dpsgd",
-                   "nce", "sampled_softmax_with_cross_entropy"})
+                   "nce", "sampled_softmax_with_cross_entropy",
+                   "uniform_random_batch_size_like",
+                   "gaussian_random_batch_size_like",
+                   "truncated_gaussian_random", "randint", "randperm",
+                   "multinomial", "random_crop"})
+# op types that act on the host (print a tensor, call a Python function):
+# they run whether or not anything reads them, as their effect is the point
+HOST_EFFECTS = frozenset({"print", "py_func"})
 
 
 def _sub_blocks(op):
@@ -465,7 +473,8 @@ class LivePlan:
         if hit is None:
             outs = op.output_arg_names
             hit = self._effect[id(op)] = bool(
-                op.type == "backward" or op.type in DRAWS or not outs
+                op.type == "backward" or op.type in DRAWS
+                or op.type in HOST_EFFECTS or not outs
                 or any(n in self._persist for n in outs)
                 or any(self.has_effect(s) for b in _sub_blocks(op)
                        for s in b.ops))

@@ -1,9 +1,8 @@
-"""ParamAttr (ref: python/paddle/fluid/param_attr.py); a copy of
-paddle_tpu/fluid/param_attr.py less WeightNormParamAttr, which waits for
-the slice that ports weight normalisation."""
+"""ParamAttr / WeightNormParamAttr (ref: python/paddle/fluid/
+param_attr.py); a copy of paddle_tpu/fluid/param_attr.py."""
 from .initializer import Constant, Xavier
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
@@ -67,3 +66,13 @@ class ParamAttr:
         if with_initializer:
             kwargs["initializer"] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight-normalised parameter: w = g * v / ||v|| (ref param_attr.py)."""
+
+    params_with_weight_norm = []
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

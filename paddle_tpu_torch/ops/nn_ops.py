@@ -20,12 +20,14 @@ here as a plain matrix product is ``torch.matmul``. ``pool2d`` and
 and window rule; Paddle's running-statistics convention), which is not
 torch's: see each lowering.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .cuda_layernorm import LayerNorm
-from .detection_ops import jclip, jmin, scalar
+from .detection_ops import jclip, jmax, jmin, scalar, table
 from .registry import register_op, single
+from .tensor_ops import linspace_f32
 
 
 @register_op("relu")
@@ -324,19 +326,20 @@ def _depthwise_conv2d(ctx, ins, attrs):
 
 
 def _pool_window(x, ksize, strides, pads, ceil_mode, global_pool, adaptive):
-    """(window, strides, ((top, bottom), (left, right))) by the reference's
-    rule (paddle_tpu/ops/nn_ops.py ``_pool``): a global pool spans the
+    """(window, strides, ((low, high) per spatial dim)) by the reference's
+    rule (paddle_tpu/ops/nn_ops.py ``_pool``), 2-D or 3-D: a global pool
+    spans the
     input; an adaptive one takes stride in // out and window
     in - (out - 1)·stride (not torch's adaptive windows); ``ceil_mode``
     extends the high side far enough for ceil division."""
     in_hw = tuple(x.shape[2:])
     if global_pool:
-        ksize, strides, pads = in_hw, in_hw, (0, 0)
+        ksize, strides, pads = in_hw, in_hw, (0,) * len(in_hw)
     if adaptive:
         strides = tuple(i // o for i, o in zip(in_hw, ksize))
         ksize = tuple(i - (o - 1) * s
                       for i, o, s in zip(in_hw, ksize, strides))
-        pads = (0, 0)
+        pads = (0,) * len(in_hw)
     sides = []
     for dim, k, s, p in zip(in_hw, ksize, strides, pads):
         hi = p
@@ -434,3 +437,387 @@ def _batch_norm(ctx, ins, attrs):
         "SavedMean": [saved_mean],
         "SavedVariance": [saved_var],
     }
+
+
+# ---------------------------------------------------------------------------
+# 3-D convolution, transposed convolutions, pool3d (ref: conv_op.cc,
+# conv_transpose_op.cc, pool_op.cc)
+# ---------------------------------------------------------------------------
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    """NCDHW data, OIDHW filters, each side padded by ``paddings``."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return {"Output": [F.conv3d(
+        x, w, stride=_pair(attrs.get("strides", [1, 1, 1]), 3),
+        padding=_pair(attrs.get("paddings", [0, 0, 0]), 3),
+        dilation=_pair(attrs.get("dilations", [1, 1, 1]), 3),
+        groups=attrs.get("groups", 1) or 1)]}
+
+
+def _conv_transpose(ins, attrs, nd):
+    """``lax.conv_transpose(..., transpose_kernel=True)`` with explicit
+    padding (p, p - output_padding) per dim, as the reference lowers it:
+    that padding applies to the stride-dilated input seen by the flipped
+    kernel, so the output is ``F.conv_transpose`` with no padding (the
+    full result, padded by k_eff - 1 on each side) cropped by
+    k_eff - 1 - p low and k_eff - 1 - p + o high (a negative crop pads
+    with zeros). That is torch's padding p only where p = (k_eff - 1) / 2
+    and o = 0; elsewhere it is not the size the layer infers, as in the
+    reference. Filters are (C_in, C_out, k...), torch's layout."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    if (attrs.get("groups", 1) or 1) != 1:
+        raise NotImplementedError(
+            "conv%dd_transpose groups>1: the reference lowering has no "
+            "grouped mode — split channels and concat results, or use "
+            "groups=1" % nd)
+    strides = _pair(attrs.get("strides", [1] * nd), nd)
+    pads = _pair(attrs.get("paddings", [0] * nd), nd)
+    dilations = _pair(attrs.get("dilations", [1] * nd), nd)
+    opad = _pair(attrs.get("output_padding", [0] * nd), nd)
+    full = _CONV_T[nd](x, w, stride=strides, dilation=dilations)
+    crop = []
+    for i in reversed(range(nd)):          # F.pad lists the last dim first
+        edge = dilations[i] * (w.shape[2 + i] - 1)
+        crop += [pads[i] - edge, pads[i] - opad[i] - edge]
+    return {"Output": [F.pad(full, crop)]}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    return _conv_transpose(ins, attrs, 2)
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs):
+    return _conv_transpose(ins, attrs, 3)
+
+
+@register_op("pool3d")
+def _pool3d(ctx, ins, attrs):
+    """pool2d's rule over (D, H, W): max pads with -inf, average sums and
+    divides by the window's count of input elements (``exclusive``) or
+    by prod(ksize)."""
+    x = ins["X"][0]
+    ksize, strides, sides = _pool_window(
+        x, _pair(attrs.get("ksize", [2, 2, 2]), 3),
+        _pair(attrs.get("strides", [1, 1, 1]), 3),
+        _pair(attrs.get("paddings", [0, 0, 0]), 3),
+        attrs.get("ceil_mode", False), attrs.get("global_pooling", False),
+        attrs.get("adaptive", False))
+    pad6 = [p for side in reversed(sides) for p in side]
+    if attrs.get("pooling_type", "max") == "max":
+        low = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        return single(F.max_pool3d(F.pad(x, pad6, value=low), ksize,
+                                   strides))
+    summed = F.avg_pool3d(F.pad(x, pad6), ksize, strides, divisor_override=1)
+    if not attrs.get("exclusive", True):
+        return single(summed / float(ksize[0] * ksize[1] * ksize[2]))
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    counts = F.avg_pool3d(F.pad(ones, pad6), ksize, strides,
+                          divisor_override=1)
+    return single(summed / counts)
+
+
+# ---------------------------------------------------------------------------
+# normalization (ref: group_norm_op.cc, instance_norm_op.cc, data_norm_op.cc,
+# norm_op.cc, lrn_op.cc, spectral_norm_op.cc; the weight-norm pair of
+# layer_helper_base.py)
+# ---------------------------------------------------------------------------
+def _moments(x, dims):
+    """(mean, var) over `dims`, kept: jnp.mean and jnp.var (the biased
+    variance, differentiated through its mean too)."""
+    mean = x.mean(dim=dims, keepdim=True)
+    centered = x - mean
+    return mean, (centered * centered).mean(dim=dims, keepdim=True)
+
+
+def _affine(out, ins, c):
+    bshape = (1, c) + (1,) * (out.dim() - 2)
+    if ins.get("Scale"):
+        out = out * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(bshape)
+    return out
+
+
+@register_op("group_norm")
+def _group_norm(ctx, ins, attrs):
+    """Each of ``groups`` channel groups normalized over its channels and
+    spatial dims, then Scale and Bias per channel. Mean and Variance are
+    (N, groups)."""
+    x = ins["X"][0]
+    g = attrs["groups"]
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    dims = tuple(range(2, xg.dim()))
+    mean, var = _moments(xg, dims)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return {"Y": [_affine(out, ins, c)], "Mean": [mean.squeeze()],
+            "Variance": [var.squeeze()]}
+
+
+@register_op("instance_norm")
+def _instance_norm(ctx, ins, attrs):
+    """Each (sample, channel) normalized over its spatial dims."""
+    x = ins["X"][0]
+    mean, var = _moments(x, tuple(range(2, x.dim())))
+    out = (x - mean) * torch.rsqrt(var + attrs.get("epsilon", 1e-5))
+    return {"Y": [_affine(out, ins, x.shape[1])],
+            "SavedMean": [mean.squeeze()], "SavedVariance": [var.squeeze()]}
+
+
+@register_op("data_norm")
+def _data_norm(ctx, ins, attrs):
+    """(x - sum/size)·rsqrt(square_sum/size - mean² + 1e-4): the reference
+    lowering's fixed 1e-4, not the ``epsilon`` attr."""
+    x = ins["X"][0]
+    size = ins["BatchSize"][0]
+    mean = ins["BatchSum"][0] / size
+    scale = torch.rsqrt(ins["BatchSquareSum"][0] / size - mean * mean + 1e-4)
+    return {"Y": [(x - mean) * scale], "Means": [mean], "Scales": [scale]}
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    """x / sqrt(sum(x², axis) + eps), and that norm."""
+    x = ins["X"][0]
+    norm = torch.sqrt((x * x).sum(dim=attrs.get("axis", -1), keepdim=True)
+                      + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+def _wn_norm(v, dim):
+    """||v|| over every axis but `dim` (dim < 0: over all, shape (1,))."""
+    if dim is None or dim < 0:
+        return torch.sqrt((v * v).sum()).reshape(1)
+    dims = tuple(a for a in range(v.dim()) if a != dim)
+    return torch.sqrt((v * v).sum(dim=dims))
+
+
+@register_op("norm_except_dim")
+def _norm_except_dim(ctx, ins, attrs):
+    """The weight-norm magnitude g seeded in startup as ||v||, so the
+    first effective weight equals the initialised v."""
+    return single(_wn_norm(ins["V"][0], attrs.get("dim", -1)))
+
+
+@register_op("weight_norm_reparam")
+def _weight_norm_reparam(ctx, ins, attrs):
+    """w = g·v / ||v||, differentiable in g and v."""
+    v, g = ins["V"][0], ins["G"][0]
+    dim = attrs.get("dim", -1)
+    norm = _wn_norm(v, dim)
+    if dim is None or dim < 0:
+        return single(v * (g[0] / norm[0]))
+    bshape = [1] * v.dim()
+    bshape[dim] = v.shape[dim]
+    return single(v * (g / norm).reshape(bshape))
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    """x / (k + alpha·Σ x²)^beta, the sum over n channels centred on each
+    (zeros past the ends): alpha is not divided by n, unlike
+    ``F.local_response_norm``."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    half = n // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    win = sq[:, 0:c]
+    for i in range(1, n):
+        win = win + sq[:, i:i + c]
+    mid = torch.pow(attrs.get("k", 2.0) + attrs.get("alpha", 1e-4) * win,
+                    attrs.get("beta", 0.75))
+    return {"Out": [x / mid], "MidOut": [mid]}
+
+
+@register_op("spectral_norm")
+def _spectral_norm(ctx, ins, attrs):
+    """Weight / sigma, sigma from ``power_iters`` power iterations that
+    start at U and V (read, not updated), differentiated through the
+    iterations as jax.vjp does."""
+    w, u, v = ins["Weight"][0], ins["U"][0], ins["V"][0]
+    dim = attrs.get("dim", 0)
+    eps = attrs.get("eps", 1e-12)
+    w2 = torch.movedim(w, dim, 0).reshape(w.shape[dim], -1)
+    for _ in range(attrs.get("power_iters", 1)):
+        v = w2.T @ u
+        v = v / jmax(torch.linalg.vector_norm(v), eps)
+        u = w2 @ v
+        u = u / jmax(torch.linalg.vector_norm(u), eps)
+    return single(w / (u @ (w2 @ v)))
+
+
+# ---------------------------------------------------------------------------
+# resampling (ref: interpolate_op.cc, grid_sampler_op.cc, affine_grid_op.cc,
+# pixel_shuffle_op.cc, temporal_shift_op.cc)
+# ---------------------------------------------------------------------------
+def _nearest_index(m, n):
+    """jax.image.resize's nearest source row of each of n outputs from m
+    inputs: floor((i + 0.5)·m / n) in float32 (half-pixel centres, torch's
+    ``nearest-exact``)."""
+    return np.floor((np.arange(n, dtype=np.float32) + np.float32(0.5))
+                    * np.float32(m) / np.float32(n)).astype(np.int64)
+
+
+def _linear_weights(m, n):
+    """jax.image.scale_and_translate's (m, n) triangle-kernel weights for
+    resizing m samples to n, in float32 as it computes them: the kernel
+    widened by m / n when shrinking (antialiasing), each column divided
+    by its sum, and columns whose sample lies outside the input zeroed."""
+    f32 = np.float32
+    inv = f32(1.0 / (n / m))
+    kernel_scale = max(inv, f32(1.0))
+    sample = (np.arange(n, dtype=f32) + f32(0.5)) * inv - f32(0.0) \
+        - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(dist))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(m - 0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _resize(x, out_sizes, method):
+    """``jax.image.resize`` of x's trailing len(out_sizes) dims: nearest by
+    gathering rows, linear by contracting each resized dim with its
+    weight matrix (dims whose size does not change are left alone)."""
+    lead = x.dim() - len(out_sizes)
+    for i, n in enumerate(out_sizes):
+        d = lead + i
+        m = x.shape[d]
+        if m == n:
+            continue
+        if method == "nearest":
+            idx = table(_nearest_index(m, n), x.device, torch.long)
+            x = x.index_select(d, idx)
+        else:
+            w = table(_linear_weights(m, n), x.device, x.dtype)
+            x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
+    return x
+
+
+def _interp(ins, attrs, method):
+    """(N, C, H, W) to (out_h, out_w): from OutSize (read on the host),
+    else ``scale`` (int(H·scale)), else the attrs. ``align_corners`` and
+    ``align_mode`` are not read, as in the reference."""
+    x = ins["X"][0]
+    out_h, out_w = attrs.get("out_h", -1), attrs.get("out_w", -1)
+    scale = attrs.get("scale", 0.0)
+    if ins.get("OutSize"):
+        out_h, out_w = (int(v) for v in ins["OutSize"][0].tolist()[:2])
+    elif scale and scale > 0:
+        out_h, out_w = int(x.shape[2] * scale), int(x.shape[3] * scale)
+    return single(_resize(x, (out_h, out_w), method))
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx, ins, attrs):
+    return _interp(ins, attrs, "linear")
+
+
+@register_op("nearest_interp")
+def _nearest_interp(ctx, ins, attrs):
+    return _interp(ins, attrs, "nearest")
+
+
+@register_op("trilinear_interp")
+def _trilinear_interp(ctx, ins, attrs):
+    """(N, C, D, H, W) to the attrs' (out_d, out_h, out_w)."""
+    return single(_resize(ins["X"][0], (attrs.get("out_d", -1),
+                                        attrs.get("out_h", -1),
+                                        attrs.get("out_w", -1)), "linear"))
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ctx, ins, attrs):
+    """Bilinear samples of X at Grid's (x, y) in [-1, 1], mapped as
+    (g + 1)·(size - 1)/2 (torch's ``align_corners=True``); the four
+    neighbours' indices are clamped into the image while the weights keep
+    the unclamped position, as the reference computes them."""
+    x, grid = ins["X"][0], ins["Grid"][0]
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0f, y0f = torch.floor(gx), torch.floor(gy)
+    wx = (gx - x0f)[..., None]
+    wy = (gy - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    bidx = torch.arange(n, device=x.device)[:, None, None]
+
+    def sample(xi, yi):            # (N, oh, ow, C)
+        return x[bidx, :, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+
+    out = (sample(x0, y0) * (1 - wx) * (1 - wy)
+           + sample(x0 + 1, y0) * wx * (1 - wy)
+           + sample(x0, y0 + 1) * (1 - wx) * wy
+           + sample(x0 + 1, y0 + 1) * wx * wy)
+    return {"Output": [torch.movedim(out, -1, 1)]}
+
+
+@register_op("affine_grid")
+def _affine_grid(ctx, ins, attrs):
+    """(N, H, W, 2) sampling grid: Theta (N, 2, 3) applied to (x, y, 1)
+    over ``linspace(-1, 1)`` of W and H. An OutputShape tensor is read on
+    the host."""
+    theta = ins["Theta"][0]
+    if ins.get("OutputShape"):
+        oshape = [int(v) for v in ins["OutputShape"][0].tolist()]
+    else:
+        oshape = attrs["output_shape"]
+    h, w = int(oshape[2]), int(oshape[3])
+    ys = table(linspace_f32(-1.0, 1.0, h), theta.device, theta.dtype)
+    xs = table(linspace_f32(-1.0, 1.0, w), theta.device, theta.dtype)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)   # (h, w, 3)
+    return {"Output": [torch.einsum("hwk,njk->nhwj", base, theta)]}
+
+
+@register_op("pixel_shuffle")
+def _pixel_shuffle(ctx, ins, attrs):
+    x = ins["X"][0]
+    r = attrs["upscale_factor"]
+    n, c, h, w = x.shape
+    x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return single(x.reshape(n, c // (r * r), h * r, w * r))
+
+
+@register_op("temporal_shift")
+def _temporal_shift(ctx, ins, attrs):
+    """Within each of the N/seg_num clips, the first C·ratio channels
+    move one step back in time, the next C·ratio one step forward (zeros
+    at the ends), the rest stay."""
+    x = ins["X"][0]
+    seg = attrs["seg_num"]
+    nt, c, h, w = x.shape
+    x = x.reshape(nt // seg, seg, c, h, w)
+    c1 = int(c * attrs.get("shift_ratio", 0.25))
+    fwd = F.pad(x[:, 1:, :c1], (0, 0, 0, 0, 0, 0, 0, 1))
+    back = F.pad(x[:, :-1, c1:2 * c1], (0, 0, 0, 0, 0, 0, 1, 0))
+    out = torch.cat([fwd, back, x[:, :, 2 * c1:]], dim=2)
+    return single(out.reshape(nt, c, h, w))
+
+
+@register_op("add_position_encoding")
+def _add_position_encoding(ctx, ins, attrs):
+    """alpha·x + beta·[sin | cos](t / 10000^(2i/d)) over (B, T, d), the
+    table in float32 as the reference computes it."""
+    x = ins["X"][0]
+    _, t, d = x.shape
+    f32 = np.float32
+    pos = np.arange(t)[:, None].astype(f32)
+    expo = (2 * np.arange(d // 2)[None, :]).astype(f32) / f32(d)
+    angle = pos / np.power(f32(10000.0), expo)
+    pe = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(f32)
+    return single(attrs.get("alpha", 1.0) * x
+                  + attrs.get("beta", 1.0) * table(pe, x.device, x.dtype)[None])

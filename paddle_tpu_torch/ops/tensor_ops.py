@@ -16,6 +16,7 @@ Indices, an int64 ``range``, ``fill_constant_batch_size_like`` or
 """
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..fluid import core
 from .promotion import promote
@@ -354,3 +355,271 @@ def _decode_cache_write(ctx, ins, attrs):
     rows = start[:, None] + torch.arange(p, device=start.device)  # (B, P)
     index = rows[:, :, None].expand(b, p, cache.shape[2])
     return single(cache.scatter(1, index, val.to(cache.dtype)))
+
+
+# ---------------------------------------------------------------------------
+# the rest of paddle_tpu/ops/tensor_ops.py: strided slices, shapes,
+# scatters, pads, index ops, constant tables, flips, crop, label_smooth,
+# share_data, print
+# ---------------------------------------------------------------------------
+@register_op("strided_slice")
+def _strided_slice(ctx, ins, attrs):
+    """x[start:end:stride] on each listed axis, Python's slice rule (a
+    negative stride walks backwards)."""
+    x = ins["Input"][0]
+    out = x
+    for ax, st, en, sd in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                              attrs["strides"]):
+        if sd > 0:
+            idx = [slice(None)] * x.dim()
+            idx[ax] = slice(st, en, sd)
+            out = out[tuple(idx)]
+        else:
+            rows = list(range(*slice(st, en, sd).indices(x.shape[ax])))
+            out = out.index_select(ax, torch.as_tensor(
+                rows, dtype=torch.long).to(x.device, non_blocking=True))
+    return single(out)
+
+
+@register_op("shape")
+def _shape(ctx, ins, attrs):
+    """The input's shape, int32."""
+    return single(torch.tensor(list(ins["Input"][0].shape),
+                               dtype=torch.int32).to(ctx.device))
+
+
+@register_op("size")
+def _size(ctx, ins, attrs):
+    """The input's element count, an int64 scalar."""
+    return single(torch.full((), ins["Input"][0].numel(), dtype=torch.int64,
+                             device=ctx.device))
+
+
+def _dumped(idx, n):
+    """jax's scatter index rule along a dim of size n: a negative index
+    wraps once, and one still outside [0, n) is dropped, here by sending
+    it to a dump row n."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+
+
+def _with_dump(x):
+    return torch.cat([x, torch.zeros_like(x[:1])])
+
+
+@register_op("scatter")
+def _scatter(ctx, ins, attrs):
+    """Rows Ids of X replaced by Updates (``overwrite``), or zeroed and
+    then summed with every update they receive: ``x.at[ids].set`` /
+    ``.add``, jax's index rule (:func:`_dumped`)."""
+    x, idx, upd = ins["X"][0], ins["Ids"][0].long(), ins["Updates"][0]
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx[:, 0]
+    n = x.shape[0]
+    idx = _dumped(idx, n)
+    out = _with_dump(x)
+    if attrs.get("overwrite", True):
+        return single(out.index_put((idx,), upd.to(x.dtype))[:n])
+    out = out.index_put((idx,), torch.zeros_like(upd, dtype=x.dtype))
+    return single(out.index_add(0, idx, upd.to(x.dtype))[:n])
+
+
+@register_op("scatter_nd_add")
+def _scatter_nd_add(ctx, ins, attrs):
+    """X plus each Updates slice at X[Index[..., :]], summed over repeated
+    indices: ``x.at[tuple(moveaxis(idx, -1, 0))].add``, jax's index rule
+    on each of the first k dims."""
+    x, idx, upd = ins["X"][0], ins["Index"][0].long(), ins["Updates"][0]
+    k = idx.shape[-1]
+    lead = x.shape[:k]
+    rest = tuple(x.shape[k:])
+    total = 1
+    for s in lead:
+        total *= int(s)
+    flat = torch.zeros(idx.shape[:-1], dtype=torch.long, device=x.device)
+    bad = torch.zeros(idx.shape[:-1], dtype=torch.bool, device=x.device)
+    for j in range(k):
+        col = idx[..., j]
+        col = torch.where(col < 0, col + lead[j], col)
+        bad = bad | (col < 0) | (col >= lead[j])
+        flat = flat * int(lead[j]) + col
+    flat = torch.where(bad, torch.full_like(flat, total), flat).reshape(-1)
+    out = _with_dump(x.reshape((total,) + rest))
+    out = out.index_add(0, flat, upd.reshape((-1,) + rest).to(x.dtype))
+    return single(out[:total].reshape(x.shape))
+
+
+@register_op("unstack")
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
+@register_op("tile")
+def _tile_op(ctx, ins, attrs):
+    return single(_tile(ins["X"][0], attrs["repeat_times"]))
+
+
+def _pad_pairs(pairs):
+    """[(lo, hi) per dim] in F.pad's order (last dim first)."""
+    out = []
+    for lo, hi in reversed(pairs):
+        out += [int(lo), int(hi)]
+    return out
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    """``paddings`` = [lo0, hi0, lo1, hi1, ...] filled with ``pad_value``."""
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    return single(F.pad(x, _pad_pairs([(p[2 * i], p[2 * i + 1])
+                                       for i in range(x.dim())]),
+                        value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("pad2d")
+def _pad2d(ctx, ins, attrs):
+    """H and W padded by ``paddings`` = [top, bottom, left, right]: a
+    constant, ``reflect`` (the edge row not repeated) or ``edge`` (it is),
+    NCHW or NHWC."""
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    nhwc = attrs.get("data_format", "NCHW") != "NCHW"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    pads = [int(p[2]), int(p[3]), int(p[0]), int(p[1])]
+    if mode == "constant":
+        out = F.pad(x, pads, value=attrs.get("pad_value", 0.0))
+    else:
+        out = F.pad(x, pads, mode={"reflect": "reflect",
+                                   "edge": "replicate"}[mode])
+    return single(out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+@register_op("pad_constant_like")
+def _pad_constant_like(ctx, ins, attrs):
+    """Y padded at the high end of each dim to X's shape."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return single(F.pad(y, _pad_pairs([(0, xs - ys) for xs, ys in zip(
+        x.shape, y.shape)]), value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("arg_min")
+def _arg_min(ctx, ins, attrs):
+    """Index of the least value along ``axis``, the first one on ties.
+    int64 (the reference: int32, jax without x64)."""
+    return single(torch.argmin(ins["X"][0], dim=attrs.get("axis", -1)))
+
+
+@register_op("where_index")
+def _where_index(ctx, ins, attrs):
+    """(count, rank) int64 coordinates of Condition's nonzero entries in
+    row-major order; the count is data-dependent, so it waits for the
+    device, as the reference's host-side lowering does."""
+    return single(torch.nonzero(ins["Condition"][0]))
+
+
+@register_op("multiplex")
+def _multiplex(ctx, ins, attrs):
+    """Row b of the output is row b of X[Ids[b]]."""
+    xs = torch.stack(promote(*ins["X"]), dim=0)
+    idx = ins["Ids"][0].reshape(-1).long()
+    return single(xs[idx, torch.arange(idx.shape[0], device=idx.device)])
+
+
+def linspace_f32(start, stop, num):
+    """``jnp.linspace(start, stop, num)`` in float32, as jax computes it:
+    start·(1 - i/(num - 1)) + stop·(i/(num - 1)), then ``stop`` itself."""
+    f32 = np.float32
+    start, stop = f32(start), f32(stop)
+    if num <= 1:
+        return np.full((max(num, 0),), start, dtype=f32)
+    div = num - 1
+    step = np.arange(div, dtype=f32) / f32(div)
+    out = start * (f32(1) - step) + stop * step
+    return np.concatenate([out, [stop]]).astype(f32)
+
+
+@register_op("linspace")
+def _linspace(ctx, ins, attrs):
+    """``num`` float32 values from ``start`` to ``stop`` (tensor inputs
+    read on the host); float32 whatever ``dtype`` says, as in the
+    reference."""
+    start = _scalar(ins, "Start", attrs, "start")
+    stop = _scalar(ins, "Stop", attrs, "stop")
+    num = int(ins["Num"][0]) if ins.get("Num") else int(attrs["num"])
+    return single(torch.from_numpy(linspace_f32(start, stop, num)).to(
+        ctx.device, non_blocking=True))
+
+
+@register_op("eye")
+def _eye(ctx, ins, attrs):
+    rows = attrs["num_rows"]
+    return single(torch.eye(rows, attrs.get("num_columns") or rows,
+                            dtype=core.torch_dtype(attrs.get("dtype",
+                                                             "float32")),
+                            device=ctx.device))
+
+
+@register_op("diag")
+def _diag(ctx, ins, attrs):
+    """A vector's diagonal matrix (a matrix's diagonal), ``jnp.diag``."""
+    return single(torch.diag(ins["Diagonal"][0]))
+
+
+@register_op("roll")
+def _roll(ctx, ins, attrs):
+    """``jnp.roll``: along ``axis``, or over the flattened x when none is
+    given."""
+    x = ins["X"][0]
+    shifts = attrs["shifts"]
+    axis = tuple(attrs.get("axis", ()))
+    if not axis:
+        shifts = shifts[0] if isinstance(shifts, (list, tuple)) else shifts
+        return single(torch.roll(x, int(shifts)))
+    if not isinstance(shifts, (list, tuple)):
+        shifts = [shifts] * len(axis)
+    return single(torch.roll(x, [int(s) for s in shifts], list(axis)))
+
+
+@register_op("flip")
+def _flip(ctx, ins, attrs):
+    return single(torch.flip(ins["X"][0], dims=list(attrs["axis"])))
+
+
+@register_op("crop")
+def _crop(ctx, ins, attrs):
+    """x[o:o + s] per leading dim, s from Y's shape when Y is given, else
+    from ``shape``; dims past the offsets' length are kept whole (with Y
+    and no offsets, all of x)."""
+    x = ins["X"][0]
+    shape = tuple(ins["Y"][0].shape) if ins.get("Y") else attrs.get("shape")
+    offsets = attrs.get("offsets")
+    return single(x[tuple(slice(o, o + s) for o, s in zip(offsets, shape))])
+
+
+@register_op("label_smooth")
+def _label_smooth(ctx, ins, attrs):
+    """(1 - eps)·X + eps·PriorDist, or + eps / classes."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.1)
+    if ins.get("PriorDist"):
+        return single((1 - eps) * x + eps * ins["PriorDist"][0])
+    return single((1 - eps) * x + eps / x.shape[-1])
+
+
+@register_op("share_data")
+def _share_data(ctx, ins, attrs):
+    return single(ins["X"][0])
+
+
+@register_op("print")
+def _print(ctx, ins, attrs):
+    """Prints ``message`` followed by the tensor, as the reference's
+    ``jax.debug.print(message + "{x}")`` formats it (numpy's str of the
+    array), from the host after the tensor is ready; Out is In."""
+    x = ins["In"][0]
+    print((attrs.get("message", "") + "{x}").format(
+        x=x.detach().cpu().numpy()), flush=True)
+    return single(x)

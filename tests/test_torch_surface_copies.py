@@ -5,7 +5,7 @@ originals, on the CPU.
   ``fluid.default_scope_funcs`` (over the port's ``Scope``),
   ``sysconfig`` and ``check_import_scipy`` give what the JAX package's
   give.
-- ``fluid.op``: ``get_all_op_protos`` lists the port's 108 registered
+- ``fluid.op``: ``get_all_op_protos`` lists the port's 300 registered
   types, each one the JAX package registers too; the constructors raise
   as the reference's do.
 - The first samples of every ``dataset/`` reader, and the ``utils``
@@ -99,7 +99,26 @@ SMALL = {
     "annotations": lambda p: _deprecated(p),
     "wrapped_decorator": lambda p: _wrapped(p),
     "log_helper": lambda p: _logger(p),
+    "layer_function_generator": lambda p: _generator_docs(p),
+    "device_get_places": lambda p: [
+        type(pl).__name__ for pl in
+        p.fluid.layers.device.get_places(2, "CPU")],
 }
+
+
+def _generator_docs(p):
+    g = _mod(p.fluid.layers, "layer_function_generator")
+
+    @g.templatedoc("relu")
+    def f(x):
+        """${comment}; x: ${x_comment} (${x_type})."""
+
+    @g.autodoc("Autodoc. ")
+    def h():
+        """Body."""
+
+    g.add_sample_code(h, " Example.")
+    return [f.__doc__, h.__doc__, sorted(g.__all__)]
 
 
 def _average(p):
@@ -175,7 +194,7 @@ def test_op_protos_over_the_port_registry():
     from paddle_tpu_torch.ops.registry import LOWERINGS
 
     types = [o.type for o in pop.get_all_op_protos()]
-    assert len(types) == len(LOWERINGS) == 232 and types == sorted(types)
+    assert len(types) == len(LOWERINGS) == 300 and types == sorted(types)
     assert set(types) <= {o.type for o in jop.get_all_op_protos()}
     assert pop.Operator.types() == types
     assert pop.Operator.get_op_info("mul").type == "mul"
@@ -376,6 +395,9 @@ NEW_MODULES = [
     "paddle_tpu_torch.fluid.log_helper",
     "paddle_tpu_torch.fluid.layer_helper_base",
     "paddle_tpu_torch.fluid.layers.math_op_patch",
+    "paddle_tpu_torch.fluid.layers.distributions",
+    "paddle_tpu_torch.fluid.layers.device",
+    "paddle_tpu_torch.fluid.layers.layer_function_generator",
 ] + ["paddle_tpu_torch.dataset." + m for m in (
     "common", "mnist", "uci_housing", "imdb", "cifar", "imikolov",
     "movielens", "wmt16", "wmt14", "voc2012", "mq2007", "image",
