@@ -460,6 +460,53 @@ Phases, each of which exits non-zero on failure:
    ``py_func`` with its host round trip and custom backward), the 7 draw
    ops by support, seeding and moments. The kernels line gains
    ``launches_ocr`` (19a's timed steps). Phase 19's time is printed.
+20. checkpoint and resume (item 15): (a) bench.py:518's step at full
+   width (BERT-base, batch 8, seq 128, dropout 0.1, bf16 AMP through
+   ``decorate(use_bf16=True)``, ``Adam(1e-4)``) from one set of startup
+   values on 6 distinct batches: run A uninterrupted; run B 3 steps,
+   ``save_persistables``, a fresh ``Scope`` under ``scope_guard``,
+   ``load_persistables`` and 3 more steps on its one ``Executor`` (the
+   main path, counters zeroed just before: 12/12/12/25/25 launches a
+   step). Run B's losses and every persistable (parameters, Adam moments,
+   beta powers, the learning rate) must equal run A's bit for bit: an
+   Executor's run count seeds each step's dropout draws, so the resumed
+   steps draw as A's second half does. Then ``fluid.save`` and
+   ``fluid.load`` of A's state, and B's ``__persistables__.npz`` read by
+   the port on the CPU, each to equal values; the file size and the save
+   and load seconds are printed. (b) The loss-scaling state, which
+   ``use_bf16=True`` does not keep: BERT-base width at depth 2 under
+   ``decorate(use_bf16=False, init_loss_scaling=2^15)``, A against B bit
+   for bit, the scale and its step counters printed. The kernels line
+   gains ``launches_ckpt`` (run B).
+21. post-training int8 (item 6.8, first part), none of the five kernels:
+   ResNet-50 as bench.py:682 builds it (1000 classes, 224x224, the test
+   program), seeded startup on the card, saved by
+   ``save_inference_model``. (a) ``PostTrainingQuantization(algo="KL")``
+   over 4 batches of 8 of bench.py's synthetic images, on the card and
+   on the CPU from that directory: 53 ``quantized_conv2d``, 1
+   ``quantized_mul`` and 54 int8 weights; both give the same program
+   (the act_scale attrs aside) and the same int8 weights, and each
+   act_scale within one KL step (8/128 of the threshold) of the CPU's;
+   ``quantize()``'s seconds split into the calibration runs, the host
+   sampling (the activations copied out and subsampled), the KL search
+   and the rewrite. (b) The int32 sums of each distinct conv and mul
+   signature of that program at batch 32, a batch-1 mul and a
+   ``quant_bits=16`` product (an int32 activation): the card's route
+   (``torch._int_mm`` on padded shapes; float64 for 16 bits) against the
+   CPU's, no sum may differ; the conv lowering on one f32 input, card
+   against CPU. (c) The card's int8 model saved by
+   ``save_quantized_model``, loaded by ``load_inference_model`` and
+   served a batch of 32 other images on the card (the main path: 54
+   ``torch._int_mm`` calls, int8 weights in the scope, 5 timed batches);
+   each quantized op run by the port on the CPU on the card's own input
+   activations of the first 8 rows gives the card's output bit for bit;
+   and the model run on the CPU on those rows: the logits within 3x the
+   CPU's own spread (one rounding of the image forced the other way)
+   for each spread's worth of roundings that fell the other way between
+   card and CPU, + 1e-5·max; top-1 against the card's fp32 model
+   printed. The
+   kernels line gains ``launches_quant`` (21c, all 0). The two phases'
+   times are printed.
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -9110,6 +9157,609 @@ def ocr_ops_vs_cpu(lowering, device="cuda"):
         fail("19c covers %d op types, want 68" % (61 + draws))
 
 
+# ---------------------------------------------------------------------------
+# phase 20: checkpoint and resume (Queue 1 item 15)
+# ---------------------------------------------------------------------------
+# 20a: bench.py:518's step (BERT-base, batch 8, seq 128, dropout 0.1, bf16
+# AMP through decorate(use_bf16=True), Adam(1e-4), seed 1234) on 2 x
+# CKPT_STEPS distinct batches from one set of startup values: run A
+# uninterrupted; run B CKPT_STEPS steps, save_persistables, a fresh Scope,
+# load_persistables and CKPT_STEPS more on its one Executor (the main
+# path: an Executor's run count seeds each step's dropout draws, so B's
+# resumed steps draw as A's second half does). Then fluid.save and
+# fluid.load, and B's file read by the port on the CPU. 20b: the
+# loss-scaling state, which decorate(use_bf16=True) does not keep: BERT-base
+# width at depth 2 under decorate(use_bf16=False, init_loss_scaling=2^15).
+CKPT_STEPS = 3
+
+
+def as_host(v):
+    """A scope value as a host array of its own dtype (bfloat16 widened
+    to float32, exactly)."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    v = v.detach()
+    return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+
+
+def differing(names, got, want):
+    """The names whose values in `got` and `want` differ in any bit."""
+    out = []
+    for n in names:
+        a, w = as_host(got[n]), as_host(want[n])
+        if a.dtype != w.dtype or a.shape != w.shape or \
+                a.tobytes() != w.tobytes():
+            out.append(n)
+    return out
+
+
+def state_kinds(names):
+    """How many of `names` are parameters, Adam moments, beta powers,
+    loss-scaling state and others."""
+    kinds = {"moments": 0, "beta powers": 0, "loss scaling": 0,
+             "others": 0}
+    for n in names:
+        if "_moment" in n:
+            kinds["moments"] += 1
+        elif "_pow_acc" in n:
+            kinds["beta powers"] += 1
+        elif n.startswith("amp_"):
+            kinds["loss scaling"] += 1
+        else:
+            kinds["others"] += 1
+    return kinds
+
+
+def resume_runs(fluid, main, loss, init, feeds, ckpt_dir, fns=None):
+    """Run A: every feed on one Executor. Run B: the first half, then
+    save_persistables, a fresh Scope, load_persistables and the second
+    half, on one Executor. Both from the values in `init`; with `fns` the
+    kernels' counters are zeroed just before run B. Returns A's losses
+    and scope, B's losses, the scope B saved from and the one it resumed
+    in, and the save and load seconds."""
+    k = len(feeds) // 2
+
+    def fresh():
+        scope = fluid.Scope()
+        for n, t in init.items():
+            scope.set(n, t.clone())
+        return scope
+
+    exe_a, scope_a = fluid.Executor(), fresh()
+    losses_a = [exe_a.run(main, feed=f, fetch_list=[loss], scope=scope_a)[0]
+                for f in feeds]
+    exe_b, scope_b = fluid.Executor(), fresh()
+    if fns is not None:
+        for fn in fns.values():
+            fn.launches = 0
+    losses_b = [exe_b.run(main, feed=f, fetch_list=[loss], scope=scope_b)[0]
+                for f in feeds[:k]]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with fluid.scope_guard(scope_b):
+        fluid.io.save_persistables(exe_b, ckpt_dir, main)
+    save_s = time.monotonic() - t0
+    resumed = fluid.Scope()
+    with fluid.scope_guard(resumed):
+        t0 = time.monotonic()
+        fluid.io.load_persistables(exe_b, ckpt_dir, main)
+        load_s = time.monotonic() - t0
+        losses_b += [exe_b.run(main, feed=f, fetch_list=[loss])[0]
+                     for f in feeds[k:]]
+    return losses_a, scope_a, losses_b, scope_b, resumed, save_s, load_s
+
+
+def check_resume(tag, main, losses_a, scope_a, losses_b, resumed):
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    same = sum(a.tobytes() == b.tobytes() for a, b in zip(losses_a,
+                                                          losses_b))
+    bad = differing(names, resumed, scope_a)
+    print("%s: losses A %s; B %s; %d of %d bit-identical; %d persistables "
+          "(%s): %d differ%s" % (
+              tag, " ".join("%.6f" % float(x) for x in losses_a),
+              " ".join("%.6f" % float(x) for x in losses_b), same,
+              len(losses_a), len(names), ", ".join(
+                  "%s %d" % kv for kv in state_kinds(names).items()),
+              len(bad), (": " + ", ".join(bad[:6])) if bad else ""),
+          flush=True)
+    if same != len(losses_a) or bad:
+        fail("%s: the resumed run is not bit for bit the uninterrupted "
+             "one" % tag)
+    if not all(np.isfinite(float(x)) for x in losses_a):
+        fail("%s: a loss is not finite" % tag)
+    return names
+
+
+def checkpoint_phase(fluid, bert, ca, cl, card, tmp):
+    """20a and 20b. Returns run B's launches of the five kernels (20a)."""
+    cfg = bert.bert_base()
+    main, startup, loss = train_program(fluid, bert, cfg,
+                                        dict(use_bf16=True))
+    feeds = []
+    for i in range(2 * CKPT_STEPS):
+        ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED + 20 + i)
+        feeds.append({"input_ids": ids, "mlm_labels": labels})
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    ckpt_dir = os.path.join(tmp, "ckpt20")
+    fns = counters(ca, cl)
+    losses_a, scope_a, losses_b, scope_b, resumed, save_s, load_s = \
+        resume_runs(fluid, main, loss, init, feeds, ckpt_dir, fns)
+    want = {n: PER_STEP[n] * 2 * CKPT_STEPS for n in PER_STEP}
+    launches = check_launches("20a run B", fns, want)
+    del init
+    names = check_resume("20a bert_base bf16 AMP, %d + save + load + %d "
+                         "steps" % (CKPT_STEPS, CKPT_STEPS), main, losses_a,
+                         scope_a, losses_b, resumed)
+    size = os.path.getsize(os.path.join(ckpt_dir, "__persistables__.npz"))
+    del resumed
+
+    # B's file, read by the port on the CPU
+    cpu_scope = fluid.Scope()
+    with fluid.scope_guard(cpu_scope):
+        t0 = time.monotonic()
+        fluid.io.load_persistables(fluid.Executor(fluid.CPUPlace()),
+                                   ckpt_dir, main)
+        cpu_s = time.monotonic() - t0
+    bad_cpu = differing(names, cpu_scope, scope_b)
+    del cpu_scope, scope_b
+    os.remove(os.path.join(ckpt_dir, "__persistables__.npz"))
+
+    # fluid.save and fluid.load of run A's state
+    path = os.path.join(tmp, "save20", "bert_base")
+    torch.cuda.synchronize()
+    with fluid.scope_guard(scope_a):
+        t0 = time.monotonic()
+        fluid.save(main, path)
+        fsave_s = time.monotonic() - t0
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        t0 = time.monotonic()
+        fluid.load(main, path)
+        fload_s = time.monotonic() - t0
+    bad_save = differing(names, loaded, scope_a)
+    with open(path + ".pdmodel.json") as f:
+        same_json = json.loads(f.read()) == json.loads(main.to_json())
+    del loaded, scope_a
+    for ext in (".pdparams.npz", ".pdmodel.json"):
+        os.remove(path + ext)
+    print("20a [%s]: __persistables__.npz %.1f MB, save_persistables %.3f "
+          "s, load_persistables %.3f s (host read; the first resumed step "
+          "moves it to the card); read on the CPU in %.3f s: %d of %d "
+          "values differ from the card's; fluid.save %.3f s, fluid.load "
+          "%.3f s: %d differ, .pdmodel.json is the program: %s" % (
+              card, size / 1e6, save_s, load_s, cpu_s, len(bad_cpu),
+              len(names), fsave_s, fload_s, len(bad_save), same_json),
+          flush=True)
+    if bad_cpu or bad_save or not same_json:
+        fail("20a: a saved file does not give back the card's values")
+
+    # 20b: the loss-scaling state
+    cfg2 = bert.BertConfig(num_layers=2)
+    main2, startup2, loss2 = train_program(
+        fluid, bert, cfg2, dict(use_bf16=False, init_loss_scaling=2.0 ** 15))
+    init2 = fluid.Scope()
+    fluid.Executor().run(startup2, scope=init2)
+    la, sa, lb, _, res, save2, load2 = resume_runs(
+        fluid, main2, loss2, init2, feeds, os.path.join(tmp, "ckpt20b"))
+    names2 = check_resume("20b BERT-base width, depth 2, dynamic loss "
+                          "scaling from 2^15", main2, la, sa, lb, res)
+    scaling = {n: float(as_host(res[n]).reshape(-1)[0]) for n in names2
+               if n.startswith("amp_")}
+    print("20b loss-scaling state after %d steps: %s; save %.3f s, load "
+          "%.3f s" % (2 * CKPT_STEPS, scaling, save2, load2), flush=True)
+    if len(scaling) != 3:
+        fail("20b: want 3 loss-scaling persistables, got %s" % scaling)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: post-training int8 (Queue 1 item 6.8, first part)
+# ---------------------------------------------------------------------------
+# ResNet-50 as bench.py:682 builds it (build_resnet_train(depth=50,
+# class_num=1000, image_size=224), the test program cloned), startup seed
+# INT8_SEED on the card, saved by save_inference_model; calibrated by
+# PostTrainingQuantization(algo="KL") over INT8_CALIB_BATCHES batches of
+# INT8_CALIB_BATCH of bench.py's synthetic images (cut from the
+# reference's default of 10 x 10: depth, not width), on the card and on
+# the CPU (21a); 21b: each distinct quantized_conv2d and quantized_mul
+# shape of that program at the serving batch, and a batch-1 and a
+# quant_bits=16 product, on the card against the CPU route: int32 sums
+# equal, no tolerance; 21c: the card's model saved by
+# save_quantized_model, loaded by load_inference_model and served a batch
+# of INT8_SERVE_BATCH other images on the card (the main path) and on the
+# CPU.
+INT8_SEED = 21
+INT8_IMAGE, INT8_CLASSES = 224, 1000
+INT8_CALIB_BATCH, INT8_CALIB_BATCHES = 8, 4
+INT8_SERVE_BATCH = 32
+INT8_TIMED = 5
+INT8_CPU_ROWS = 8           # 21c: the served rows the CPU runs too
+# 21a: a calibrated scale on the card against the CPU's: the KL search
+# picks among thresholds 8 histogram bins apart (of 2048 over the
+# activation's largest magnitude, from bin 128 on), and two runs whose
+# activations round apart can pick neighbours: one step is at most
+# 8 / 128 of the threshold
+INT8_SCALE_RTOL = 8 / 128
+
+
+def resnet50_int8_programs(fluid, resnet):
+    """ResNet-50's test program and its logits var, built as bench.py:682
+    builds the training program."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = INT8_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = resnet.build_resnet_train(depth=50, class_num=INT8_CLASSES,
+                                       image_size=INT8_IMAGE)
+    return main.clone(for_test=True), startup, vs["logits"]
+
+
+def quantized_inputs(prog):
+    """(op, the activation it quantizes) for each quantized op of `prog`."""
+    return [(op, (op.input("X") or op.input("Input"))[0])
+            for op in prog.global_block().ops
+            if op.type in ("quantized_mul", "quantized_conv2d")]
+
+
+def count_flips(prog, acts_a, acts_b):
+    """Activation roundings that fell the other way: elements of each
+    quantized op's input whose grid value differs between two runs, and
+    all the elements quantized."""
+    flips = total = 0
+    for op, name in quantized_inputs(prog):
+        qmax = 127.0 if op.attrs.get("quant_bits", 8) == 8 else 32767.0
+        s = np.float32(op.attrs["act_scale"])
+        qa = np.clip(np.round(acts_a[name] / s * qmax), -qmax, qmax)
+        qb = np.clip(np.round(acts_b[name] / s * qmax), -qmax, qmax)
+        flips += int((qa != qb).sum())
+        total += qa.size
+    return flips, total
+
+
+def flip_one(x, act_scale, qmax=127.0):
+    """`x` with the element nearest a rounding boundary of its grid
+    mirrored across it, so that it alone rounds the other way."""
+    s = np.float32(act_scale)
+    g = x.astype(np.float64).reshape(-1) / s * qmax
+    i = int(np.argmin(np.abs(g - np.floor(g) - 0.5)))
+    out = x.copy().reshape(-1)
+    out[i] = np.float32((2 * np.floor(g[i]) + 1 - g[i]) * s / qmax)
+    return out.reshape(x.shape)
+
+
+def int8_shapes(prog, batch):
+    """The distinct quantized_conv2d signatures of `prog` at `batch`, and
+    the quantized_mul ones, from the program's static shapes."""
+    block = prog.global_block()
+    convs, muls = {}, {}
+    for op, name in quantized_inputs(prog):
+        x = (batch,) + tuple(block.var(name).shape[1:])
+        if op.type == "quantized_conv2d":
+            w = tuple(block.var(op.input("Filter")[0]).shape)
+            key = (x, w, tuple(op.attrs.get("strides", [1, 1])),
+                   tuple(op.attrs.get("paddings", [0, 0])),
+                   tuple(op.attrs.get("dilations", [1, 1])),
+                   int(op.attrs.get("groups", 1) or 1))
+            convs[key] = convs.get(key, 0) + 1
+        else:
+            w = tuple(block.var(op.input("Y")[0]).shape)
+            muls[(x, w)] = muls.get((x, w), 0) + 1
+    return convs, muls
+
+
+def int8_ops_vs_cpu(convs, muls, device="cuda"):
+    """21b: int_conv2d and int_matmul (the two ops' int32 sums) on the
+    card against the CPU route on the same int8 inputs, at every
+    signature in `convs` and `muls`, a batch-1 product and a
+    quant_bits=16 one (an int32 activation): equal, no tolerance; and
+    the whole quantized_conv2d lowering at each conv signature, card
+    against CPU on the same f32 input."""
+    from paddle_tpu_torch.fluid.contrib.slim.quantization import \
+        quantization_pass as qp
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+    rng = np.random.default_rng(INT8_SEED)
+    rows, mismatches, lowering_bits = [], 0, 0
+    cases = [("conv", k) for k in sorted(convs)] + \
+        [("mul", k) for k in sorted(muls)]
+    fc_x, fc_w = sorted(muls)[0]
+    cases += [("mul", ((1,) + fc_x[1:], fc_w)),
+              ("mul16", ((fc_x[0], 512), (512, 64)))]
+    t0 = time.monotonic()
+    for kind, key in cases:
+        if kind == "conv":
+            xs, ws, strides, pads, dil, groups = key
+        else:
+            xs, ws = key
+        x8 = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8))
+        w8 = torch.from_numpy(rng.integers(-127, 128, ws, dtype=np.int8))
+        if kind == "mul16":
+            x8 = torch.from_numpy(rng.integers(-32767, 32768, xs,
+                                               dtype=np.int32))
+        if kind == "conv":
+            got = qp.int_conv2d(x8.to(device), w8.to(device), strides, pads,
+                                dil, groups)
+            want = qp.int_conv2d(x8, w8, strides, pads, dil, groups)
+        else:
+            got = qp.int_matmul(x8.to(device), w8.to(device))
+            want = qp.int_matmul(x8, w8)
+        got = got.cpu()
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        mismatches += abs(bad)
+        note = ""
+        if kind == "conv":
+            # the whole lowering on one f32 input, scales as PTQ sets them
+            xf = torch.from_numpy(rng.standard_normal(xs, dtype=np.float32))
+            attrs = {"act_scale": 3.0, "strides": list(strides),
+                     "paddings": list(pads), "dilations": list(dil),
+                     "groups": groups, "quant_bits": 8, "weight_scale": [
+                         float(v) for v in rng.uniform(0.05, 1.0, ws[0])]}
+            outs = []
+            for dev in (device, "cpu"):
+                outs.append(get_lowering("quantized_conv2d")(
+                    LowerContext(torch.device(dev)),
+                    {"Input": [xf.to(dev)], "Filter": [w8.to(dev)]},
+                    attrs)["Output"][0].cpu())
+            same = torch.equal(outs[0], outs[1])
+            lowering_bits += int(same)
+            note = ", lowering output %s (max|d| %.3e)" % (
+                "bit-identical" if same else "differs",
+                float((outs[0] - outs[1]).abs().max()))
+        rows.append("%s x%s w%s%s: %d of %d sums differ, max|sum| %d%s" % (
+            kind, list(xs), list(ws),
+            " s%s p%s d%s g%d" % (list(strides), list(pads), list(dil),
+                                  groups) if kind == "conv" else "",
+            bad, want.numel(), int(want.abs().max()), note))
+        del got, want
+    print("21b the int32 sums on the card against the CPU route (%d conv "
+          "and %d mul signatures of the int8 ResNet-50 at batch %d, a "
+          "batch-1 and a 16-bit product; %.1f s): %s" % (
+              len(convs), len(muls), INT8_SERVE_BATCH,
+              time.monotonic() - t0, "; ".join(rows)), flush=True)
+    if mismatches:
+        fail("21b: %d int32 sums differ between the card and the CPU"
+             % mismatches)
+    if lowering_bits != len(convs):
+        print("21b note: %d of %d conv lowerings not bit-identical (f32 "
+              "rescale)" % (len(convs) - lowering_bits, len(convs)),
+              flush=True)
+
+
+QUANT_SLOTS = {"quantized_conv2d": ("Input", "Filter", "Output"),
+               "quantized_mul": ("X", "Y", "Out")}
+
+
+def run_int8(fluid, exe, qdir, feed):
+    """The saved int8 model at `qdir` loaded into a fresh scope and run on
+    `exe`'s place: (logits, {quantized input: its values}, {quantized
+    output: its values}, program, fetch vars, scope)."""
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        prog, _, fetches = fluid.io.load_inference_model(qdir, exe)
+        ops = quantized_inputs(prog)
+        names = [n for _, n in ops]
+        outs = [op.output(QUANT_SLOTS[op.type][2])[0] for op, _ in ops]
+        block = prog.global_block()
+        vals = exe.run(prog, feed={"image": feed},
+                       fetch_list=fetches + [block.var(n)
+                                             for n in names + outs])
+    k = len(names)
+    return (vals[0], dict(zip(names, vals[1:1 + k])),
+            dict(zip(outs, vals[1 + k:])), prog, fetches, scope)
+
+
+def int8_ops_on_the_card_s_inputs(prog, params, acts, outs, rows):
+    """Each quantized op of the served program run by the port on the CPU
+    on the card's own input activations (the first `rows` rows) and the
+    saved int8 weights: the names of those whose output differs in any
+    bit from the card's."""
+    from paddle_tpu_torch.ops.registry import LowerContext, get_lowering
+
+    bad = []
+    for op, name in quantized_inputs(prog):
+        x_slot, w_slot, o_slot = QUANT_SLOTS[op.type]
+        out = get_lowering(op.type)(
+            LowerContext(torch.device("cpu")),
+            {x_slot: [torch.from_numpy(acts[name][:rows])],
+             w_slot: [torch.from_numpy(params[op.input(w_slot)[0]])]},
+            dict(op.attrs))[o_slot][0].numpy()
+        if not np.array_equal(out, outs[op.output(o_slot)[0]][:rows]):
+            bad.append(op.output(o_slot)[0])
+    return bad
+
+
+def int8_phase(fluid, resnet, ca, cl, card, tmp):
+    """21a-21c. Returns the five kernels' launches in 21c's served
+    batches."""
+    from paddle_tpu_torch.fluid.contrib.slim.quantization import (
+        PostTrainingQuantization, quantization_pass as qp)
+
+    test, startup, logits = resnet50_int8_programs(fluid, resnet)
+    fp32_dir = os.path.join(tmp, "resnet50_fp32")
+    exe = fluid.Executor()
+    t0 = time.monotonic()
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(fp32_dir, ["image"], [logits], exe,
+                                      test)
+    print("21 ResNet-50 (%d classes, %dx%d) initialised on the card (seed "
+          "%d) and saved in %.1f s" % (INT8_CLASSES, INT8_IMAGE, INT8_IMAGE,
+                                       INT8_SEED, time.monotonic() - t0),
+          flush=True)
+    rng = np.random.default_rng(0)
+    n_cal = INT8_CALIB_BATCH * INT8_CALIB_BATCHES
+    imgs = rng.standard_normal((n_cal + INT8_SERVE_BATCH, 3, INT8_IMAGE,
+                                INT8_IMAGE), dtype=np.float32)
+    serve = imgs[n_cal:]
+
+    # 21a: PTQ on the card and on the CPU, from the same saved model
+    qprogs, qdirs = {}, {}
+    for where, place in (("card", None), ("CPU", fluid.CPUPlace())):
+        e = fluid.Executor(place)
+        with fluid.scope_guard(fluid.Scope()):
+            t0 = time.monotonic()
+            ptq = PostTrainingQuantization(
+                executor=e, sample_generator=lambda: (
+                    (imgs[i],) for i in range(n_cal)),
+                model_dir=fp32_dir, batch_size=INT8_CALIB_BATCH,
+                batch_nums=INT8_CALIB_BATCHES, algo="KL")
+            qprog = ptq.quantize()
+            q_s = time.monotonic() - t0
+            qdirs[where] = os.path.join(tmp, "resnet50_int8_" + where)
+            t0 = time.monotonic()
+            ptq.save_quantized_model(qdirs[where])
+            save_s = time.monotonic() - t0
+        qprogs[where] = qprog
+        print("21a PTQ(KL) on the %s: quantize() %.2f s (%s), "
+              "save_quantized_model %.2f s" % (
+                  where, q_s, ", ".join("%s %s" % (k, ("%.3f" % v)
+                                                   if isinstance(v, float)
+                                                   else v)
+                                        for k, v in ptq.timings.items()),
+                  save_s), flush=True)
+    card_prog = qprogs["card"]
+    types = [op.type for op in card_prog.global_block().ops]
+    n_conv, n_mul = types.count("quantized_conv2d"), types.count(
+        "quantized_mul")
+
+    def stripped(prog):
+        doc = json.loads(prog.to_json())
+        for block in doc["blocks"]:
+            for op in block["ops"]:
+                op.get("attrs", {}).pop("act_scale", None)
+        return doc
+
+    same_prog = stripped(card_prog) == stripped(qprogs["CPU"])
+    pc = np.load(os.path.join(qdirs["card"], "__params__.npz"))
+    pu = np.load(os.path.join(qdirs["CPU"], "__params__.npz"))
+    int8_names = [n for n in pc.files if pc[n].dtype == np.int8]
+    w_same = sorted(pc.files) == sorted(pu.files) and all(
+        pc[n].dtype == pu[n].dtype and np.array_equal(pc[n], pu[n])
+        for n in pc.files)
+    sc, su = ({n: op.attrs["act_scale"] for op, n in quantized_inputs(prog)}
+              for prog in (card_prog, qprogs["CPU"]))
+    rel = {n: abs(sc[n] - su[n]) / su[n] for n in su}
+    worst = max(rel, key=rel.get)
+    print("21a the quantized program: %d quantized_conv2d, %d "
+          "quantized_mul, %d int8 weights; card and CPU give the same "
+          "program (act_scale aside): %s, the same int8 weights: %s; "
+          "%d act_scales: %d equal, %d within 1e-5 relative, the largest "
+          "%.3e relative (%s, %.6g vs %.6g), bound %.4f (one KL step)" % (
+              n_conv, n_mul, len(int8_names), same_prog, w_same, len(rel),
+              sum(v == 0 for v in rel.values()),
+              sum(v <= 1e-5 for v in rel.values()), rel[worst], worst,
+              sc[worst], su[worst], INT8_SCALE_RTOL), flush=True)
+    if (n_conv, n_mul) != (53, 1) or len(int8_names) != 54:
+        fail("21a: want 53 quantized_conv2d, 1 quantized_mul and 54 int8 "
+             "weights")
+    if not same_prog or not w_same or rel[worst] > INT8_SCALE_RTOL:
+        fail("21a: the card's calibration disagrees with the CPU's")
+
+    # 21b: the ops at the model's shapes
+    convs, muls = int8_shapes(card_prog, INT8_SERVE_BATCH)
+    int8_ops_vs_cpu(convs, muls)
+
+    # 21c: the card's int8 model served on the card (the main path)
+    qdir = qdirs["card"]
+    fns = zero_counters(ca, cl)
+    qp.int_matmul.launches = 0
+    t0 = time.monotonic()
+    got, gacts, gouts, prog, fetches, scope = run_int8(fluid, exe, qdir,
+                                                      serve)
+    first_s = time.monotonic() - t0
+    int_mm = qp.int_matmul.launches
+    w8 = [n for n in int8_names if as_host(scope[n]).dtype == np.int8]
+    walls = []
+    with fluid.scope_guard(scope):
+        for _ in range(INT8_TIMED):
+            t0 = time.monotonic()
+            exe.run(prog, feed={"image": serve}, fetch_list=fetches)
+            walls.append(time.monotonic() - t0)   # the fetch waits
+    launches = check_launches("21c int8 ResNet-50 served", fns, {})
+    st = step_stats(walls)
+    print("21c [%s] int8 ResNet-50 via load_inference_model, batch %d: "
+          "first run (the %d quantized ops' inputs and outputs fetched "
+          "too) %.3f s, then "
+          "median %.3f ms, p90 %.3f ms a batch, %.1f images/s; %d "
+          "torch._int_mm calls in the first run; %d of %d int8 weights "
+          "int8 in the scope" % (
+              card, INT8_SERVE_BATCH, len(gouts), first_s,
+              st["median_ms"], st["p90_ms"],
+              INT8_SERVE_BATCH / st["median_ms"] * 1e3, int_mm, len(w8),
+              len(int8_names)), flush=True)
+    if int_mm != n_conv + n_mul or len(w8) != len(int8_names):
+        fail("21c: the served model did not run on int8 weights through "
+             "torch._int_mm")
+    if not np.isfinite(got).all() or got.shape != (INT8_SERVE_BATCH,
+                                                   INT8_CLASSES):
+        fail("21c: int8 logits not finite or of the wrong shape")
+    del scope
+    card_logits = got
+
+    # the port on the CPU, the same saved model, on the first
+    # INT8_CPU_ROWS rows: as they are, and with one rounding of the image
+    # forced the other way (the CPU's own spread)
+    rows = INT8_CPU_ROWS
+    t0 = time.monotonic()
+    bad_ops = int8_ops_on_the_card_s_inputs(prog, pc, gacts, gouts, rows)
+    print("21c each of the %d quantized ops on the CPU, on the card's own "
+          "inputs (the first %d rows) and the saved int8 weights: %d "
+          "outputs differ from the card's in any bit%s (%.1f s)" % (
+              len(quantized_inputs(prog)), rows, len(bad_ops),
+              (": " + ", ".join(bad_ops[:6])) if bad_ops else "",
+              time.monotonic() - t0), flush=True)
+    if bad_ops:
+        fail("21c: a quantized op's output on the card differs from the "
+             "CPU's on the same input")
+    del gouts
+    got = got[:rows]
+    gacts = {n: v[:rows] for n, v in gacts.items()}
+    cpu = fluid.Executor(fluid.CPUPlace())
+    t0 = time.monotonic()
+    want, wacts, _, _, _, _ = run_int8(fluid, cpu, qdir, serve[:rows])
+    cpu_s = time.monotonic() - t0
+    first_op = quantized_inputs(prog)[0]
+    if first_op[1] != "image":
+        fail("21c: the first quantized op does not read the image")
+    forced, facts, _, _, _, _ = run_int8(
+        fluid, cpu, qdir, flip_one(serve[:rows],
+                                   first_op[0].attrs["act_scale"]))
+    flips, total = count_flips(prog, gacts, wacts)
+    spread_flips, _ = count_flips(prog, wacts, facts)
+    spread = float(np.abs(forced - want).max())
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    # a flipped rounding moves one int8 input by a step and sets off
+    # flips downstream, so the logits' distance grows with the flips;
+    # the CPU's own cascade from one forced flip gives its size
+    bound = 3.0 * spread * max(1.0, flips / max(spread_flips, 1)) \
+        + 1e-5 * scale
+    top1 = float((got.argmax(1) == want.argmax(1)).mean())
+    del gacts, wacts, facts
+
+    # the card's fp32 model on the same images
+    with fluid.scope_guard(fluid.Scope()):
+        fprog, _, ffetch = fluid.io.load_inference_model(fp32_dir, exe)
+        fp32 = exe.run(fprog, feed={"image": serve}, fetch_list=ffetch)[0]
+    print("21c int8 logits, card vs the port on the CPU (the same saved "
+          "model, the first %d rows; CPU %.1f s): max|d| %.4e of "
+          "max|logit| %.4e, "
+          "bound %.4e; roundings that fell the other way %d of %d (%.4f%%); "
+          "the CPU's own spread from one forced flip: %d flips, max|d| "
+          "%.4e; top-1 equal %.3f. int8 vs the card's fp32 logits: top-1 "
+          "agreement %.3f, max|d| %.4e of max|fp32| %.4e" % (
+              rows, cpu_s, err, scale, bound, flips, total,
+              100.0 * flips / total, spread_flips, spread, top1,
+              float((card_logits.argmax(1) == fp32.argmax(1)).mean()),
+              float(np.abs(card_logits - fp32).max()),
+              float(np.abs(fp32).max())),
+          flush=True)
+    if err > bound:
+        fail("21c: the card's int8 logits are farther from the CPU's than "
+             "their flipped roundings explain")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -9445,6 +10095,20 @@ def main():
         print("phase 19 before its profile: 19a %.1f s, 19b %.1f s, 19c "
               "%.1f s" % (t19b - t19, t19c - t19b, time.monotonic() - t19c),
               flush=True)
+        # phase 20: checkpoint and resume; its saves and loads are timed,
+        # so before the profiles
+        t20 = time.monotonic()
+        mark("20a-20b")
+        ckpt_launches = checkpoint_phase(fluid, bert, ca, cl, card, tmp)
+        print("phase 20 (checkpoint and resume: 20a-20b) took %.1f s" % (
+            time.monotonic() - t20), flush=True)
+        # phase 21: post-training int8 ResNet-50; its serving is timed, so
+        # before the profiles
+        t21 = time.monotonic()
+        mark("21a-21c")
+        quant_launches = int8_phase(fluid, resnet, ca, cl, card, tmp)
+        print("phase 21 (post-training int8: 21a-21c) took %.1f s" % (
+            time.monotonic() - t21), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -9619,8 +10283,10 @@ def main():
     # launches_pipelined in 15a's run_pipelined, launches_rnn in 16a's
     # timed stacked-LSTM steps, launches_ssd in 17a's SSD steps and 17b's
     # forwards, launches_srl in 17c's SRL steps, launches_book in 18a's
-    # timed VGG-16 steps and 18b's timed recommender steps, and
-    # launches_ocr in 19a's timed CRNN-CTC steps
+    # timed VGG-16 steps and 18b's timed recommender steps, launches_ocr
+    # in 19a's timed CRNN-CTC steps, launches_ckpt in 20a's run B (its
+    # steps before the save and after the load) and launches_quant in
+    # 21c's served int8 batches
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -9645,6 +10311,8 @@ def main():
                      launches_srl=srl_launches[name],
                      launches_book=book_launches[name],
                      launches_ocr=ocr_launches[name],
+                     launches_ckpt=ckpt_launches[name],
+                     launches_quant=quant_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

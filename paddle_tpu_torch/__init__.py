@@ -29,3 +29,7 @@ import os as _os
 check_import_scipy(_os.name)
 
 __version__ = "0.1.0"
+
+
+def version():
+    return __version__

@@ -11,10 +11,15 @@ from .framework import (  # noqa: F401
     default_startup_program,
     program_guard,
     name_scope,
+    in_dygraph_mode,
     cpu_places,
     cuda_places,
+    cuda_pinned_places,
+    is_compiled_with_cuda,
+    require_version,
+    load_op_library,
 )
-from .core import CPUPlace, CUDAPlace  # noqa: F401
+from .core import CPUPlace, CUDAPlace, CUDAPinnedPlace  # noqa: F401
 from . import executor
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import initializer
@@ -36,6 +41,12 @@ from .inference import Predictor  # noqa: F401
 from . import backward
 from .backward import append_backward, gradients  # noqa: F401
 from . import clip
+from . import dygraph_grad_clip
+from .dygraph_grad_clip import (  # noqa: F401
+    GradClipByValue,
+    GradClipByNorm,
+    GradClipByGlobalNorm,
+)
 from . import regularizer
 from . import optimizer
 from . import contrib
@@ -72,3 +83,15 @@ from . import wrapped_decorator
 from . import default_scope_funcs
 from . import log_helper
 from . import op
+from . import layer_helper_base
+from .io import save, load  # noqa: F401
+from .layers import learning_rate_scheduler as learning_rate_decay  # noqa: F401
+
+import numpy as _np
+
+Tensor = _np.ndarray  # what Executor.run returns by default, as in paddle_tpu
+
+
+class LoDTensorArray(list):
+    """ref core.LoDTensorArray: a plain list of tensors on the host (the
+    in-graph array type is layers.create_array's build-time list)."""

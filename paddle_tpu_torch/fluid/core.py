@@ -7,6 +7,8 @@ is the card: with no CUDA device it raises rather than carry on on the
 CPU, so running on the CPU is always the caller's explicit choice
 (``CPUPlace()``).
 """
+import os
+
 import numpy as np
 import torch
 
@@ -44,6 +46,19 @@ class CUDAPlace(Place):
     """One NVIDIA card, ``torch.device("cuda", device_id)``."""
 
     _device_type = "cuda"
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory: a host place, as in the JAX package."""
+
+
+def is_compiled_with_cuda():
+    """Whether this torch build has CUDA."""
+    return torch.backends.cuda.is_built()
+
+
+def globals_flags():
+    return dict(os.environ)
 
 
 def default_place():

@@ -59,6 +59,7 @@ class Scope:
     def __init__(self, parent=None):
         self._vars = {}
         self._parent = parent
+        self._kids = []
 
     def set(self, name, value):
         self._vars[name] = value
@@ -77,6 +78,9 @@ class Scope:
 
     def items(self):
         return self._vars.items()
+
+    def pop(self, name, default=None):
+        return self._vars.pop(name, default)
 
     def find_var(self, name):
         """Look up a var here or in any ancestor scope (ref
@@ -112,7 +116,12 @@ class Scope:
         self._vars[name] = value
 
     def new_scope(self):
-        return Scope(parent=self)
+        kid = Scope(parent=self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids = []
 
 
 _scope_stack = [Scope()]
@@ -216,9 +225,18 @@ class Executor:
         self.place = place if place is not None else core.default_place()
         self.device = self.place.torch_device()
         self._run_counter = 0
+        self._closed = False
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True, use_prune=False):
+        """Run `program` once (ref executor.py run, the same parameters in
+        the same order). `feed_var_name`, `fetch_var_name` and
+        `use_prune` are accepted and not read, as in the JAX package;
+        `use_program_cache` is not read either: the port runs eagerly and
+        keeps no compile cache for it to skip."""
+        if self._closed:
+            raise RuntimeError("Executor is closed")
         # fault-injection hook (site "run"): before the reader pop, so an
         # injected fault does not consume a batch
         fault_check("run")
@@ -471,6 +489,13 @@ class Executor:
             block.ops = kept
             pruned._bump_version()
         return pruned
+
+    def close(self):
+        """Mark the executor closed (ref executor.py close): a later
+        ``run`` raises. Idempotent. The port holds no compiled
+        executables and writes no asynchronous checkpoints, so there is
+        nothing else to release."""
+        self._closed = True
 
     def _next_generator(self, program):
         """A fresh generator per run: seeded from ``program.random_seed``

@@ -13,6 +13,7 @@ import contextlib
 import copy
 import itertools
 import json
+import re
 import traceback
 
 import numpy as np
@@ -34,7 +35,12 @@ __all__ = [
     "grad_var_name",
     "cpu_places",
     "cuda_places",
+    "cuda_pinned_places",
+    "in_dygraph_mode",
     "convert_np_dtype_to_dtype_",
+    "is_compiled_with_cuda",
+    "require_version",
+    "load_op_library",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -57,6 +63,16 @@ def cuda_places(device_ids=None):
     if device_ids is None:
         device_ids = range(torch.cuda.device_count())
     return [core.CUDAPlace(i) for i in device_ids]
+
+
+def cuda_pinned_places(device_count=None):
+    return [core.CUDAPinnedPlace(i) for i in range(device_count or 1)]
+
+
+def in_dygraph_mode():
+    """False: the port has no dygraph mode yet (ROADMAP.md Queue 1, item
+    9)."""
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +180,12 @@ class Variable:
         for s in self.shape or ():
             n *= s
         return n
+
+    def astype(self, dtype):
+        """A ``cast`` of this var to `dtype` (ref framework.py:247)."""
+        from .layers import tensor as _tensor_layers
+
+        return _tensor_layers.cast(self, dtype)
 
 
 class Parameter(Variable):
@@ -344,6 +366,13 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type=None, inputs=None, outputs=None,
+                   attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
     def to_string(self, throw_on_error=True, with_details=False):
         lines = ["  block %d (parent %d):" % (self.idx, self.parent_idx)]
         for v in self.vars.values():
@@ -376,6 +405,10 @@ class Program:
 
     def _bump_version(self):
         self._version += 1
+
+    def desc_version(self):
+        """How many times the program has changed (ref framework.py:511)."""
+        return self._version
 
     def global_block(self):
         return self.blocks[0]
@@ -701,3 +734,70 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+def is_compiled_with_cuda():
+    """Whether this torch build has CUDA (ref framework.py:265): True on
+    the card's machine, False with a CPU-only torch."""
+    return core.is_compiled_with_cuda()
+
+
+_VERSION_PAT = re.compile(r"^\d+(\.\d+){0,3}([.-].*)?$")
+
+
+def require_version(min_version, max_version=None):
+    """Check the installed framework version lies in
+    [min_version, max_version] (ref framework.py:66). Raises on syntax or
+    range violations, returns None when satisfied."""
+    for name, arg in (("min_version", min_version),
+                      ("max_version", max_version)):
+        if arg is None:
+            continue
+        if not isinstance(arg, str):
+            raise TypeError(
+                "%s must be str, but received %s." % (name, type(arg)))
+        if not _VERSION_PAT.match(arg):
+            raise ValueError(
+                "%s (%s) should have format like '1.5.2.0'." % (name, arg))
+
+    from .. import __version__
+
+    def _key(v):
+        # '0.2.0-rc1': numeric base, then the pre-release suffix; a
+        # suffixed build orders BEFORE its clean release, suffixes order
+        # lexically among themselves (rc1 < rc2)
+        base, sep, suffix = v.partition("-")
+        nums = [int(p) if p.isdigit() else 0 for p in base.split(".")[:4]]
+        while len(nums) < 4:
+            nums.append(0)
+        nums.append(0 if sep else 1)
+        nums.append(suffix)
+        return nums
+
+    if max_version is not None and _key(min_version) > _key(max_version):
+        raise ValueError(
+            "please make sure min_version (%s) <= max_version (%s)."
+            % (min_version, max_version))
+
+    installed = _key(__version__)
+    if installed < _key(min_version):
+        raise Exception(
+            "PaddleTPU version %s is installed, but version >= %s is "
+            "required." % (__version__, min_version))
+    if max_version is not None and installed > _key(max_version):
+        raise Exception(
+            "PaddleTPU version %s is installed, but version <= %s is "
+            "required." % (__version__, max_version))
+
+
+def load_op_library(lib_filename):
+    """Load a shared library of custom ops (ref framework.py:4938). The
+    port's ops are torch lowerings registered from Python
+    (``paddle_tpu_torch.ops.registry.register_op``); a library of Paddle
+    C++ op kernels cannot carry one, so this raises instead of accepting
+    a library that would do nothing."""
+    raise NotImplementedError(
+        "load_op_library loads Paddle C++ op kernels; in paddle_tpu_torch "
+        "register a torch lowering instead: "
+        "paddle_tpu_torch.ops.registry.register_op('<op type>')(fn). The "
+        "library %s was not loaded." % lib_filename)

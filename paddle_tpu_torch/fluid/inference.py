@@ -18,6 +18,8 @@ API, ``AnalysisConfig`` and ``create_paddle_predictor`` (also on
 until ``enable_use_gpu()``, a fresh config here uses the card: the CPU is
 an explicit ``disable_gpu()``.
 """
+import time
+
 import numpy as np
 import torch
 
@@ -69,6 +71,7 @@ class Predictor:
             is_test=True)
         # feed dtype coercion targets (mirrors Executor._prepare_feeds)
         self._want_dtypes = feed_dtypes(program, self.feed_names)
+        self.compile_seconds = {}
 
     @classmethod
     def from_model(cls, dirname, model_filename=None, params_filename=None,
@@ -121,14 +124,33 @@ class Predictor:
     def run(self, feeds, return_numpy=True):
         """feeds: dict name -> array (or list aligned with feed_names)."""
         prepared = self._prepare(feeds)
+        sig = tuple((n, tuple(v.shape), core.convert_dtype(v.dtype))
+                    for n, v in prepared.items())
+        first = sig not in self.compile_seconds
+        t0 = time.perf_counter() if first else None
         tensors = {n: to_tensor(v, self.device, self._want_dtypes.get(n))
                    for n, v in prepared.items()}
         fetches, _ = self._step(self._state, tensors)
-        if return_numpy:
-            return [to_numpy(o) for o in fetches]
-        return list(fetches)
+        out = [to_numpy(o) for o in fetches] if return_numpy \
+            else list(fetches)
+        if first:
+            self.compile_seconds[sig] = time.perf_counter() - t0
+        return out
 
     __call__ = run
+
+    def profile(self):
+        """The JAX package's keys (ref inference.py:262). The port
+        compiles nothing: ``n_engines`` counts the feed-shape signatures
+        this predictor has run (one compiled executable each in the JAX
+        package), and ``compile_seconds`` maps each to the host seconds
+        of its first run, which carries the one-off costs (kernel builds
+        at first launch, library handles, allocator growth)."""
+        return {
+            "n_engines": len(self.compile_seconds),
+            "compile_seconds": dict(self.compile_seconds),
+            "n_params": len(self._state),
+        }
 
 
 class AnalysisConfig:

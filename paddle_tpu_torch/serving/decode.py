@@ -289,8 +289,10 @@ class _Slot:
 
 
 class DecodeEngine:
-    """Continuous-batching decode engine over the GPT prefill and
-    decode-step programs.
+    """Continuous-batching decode engine over a prefill/step program
+    pair: GPT's by default; any pair of builders with the same feed and
+    fetch contract plugs in through ``build_prefill(cfg, bucket,
+    cache_len)`` and ``build_step(cfg, cache_len)``.
 
     ::
 
@@ -315,6 +317,7 @@ class DecodeEngine:
                  default_max_new=32, default_deadline_ms=None,
                  request_timeout_s=60.0, name="default",
                  barrier=False, auto_start=True,
+                 build_prefill=None, build_step=None,
                  kv_dtype="fp32", role="colocated",
                  draft=None, prefix_pool=None, session_tier=None,
                  place=None):
@@ -371,8 +374,10 @@ class DecodeEngine:
 
         # -- build the program pair (never touching the caller's
         # default_main_program) and share ONE device param set ---------
-        build_step = (build_gpt_decode_step_q if self.kv_dtype == "int8"
-                      else build_gpt_decode_step)
+        build_prefill = build_prefill or build_gpt_prefill
+        build_step = build_step or (
+            build_gpt_decode_step_q if self.kv_dtype == "int8"
+            else build_gpt_decode_step)
         with fluid.program_guard(fluid.Program(), fluid.Program()):
             step_vars = build_step(cfg, self.cache_len)
             step_prog = fluid.default_main_program()
@@ -380,7 +385,7 @@ class DecodeEngine:
         if self.role != "decode":  # a pure decode replica never prefills
             for b in self.prompt_buckets:
                 with fluid.program_guard(fluid.Program(), fluid.Program()):
-                    pv = build_gpt_prefill(cfg, b, self.cache_len)
+                    pv = build_prefill(cfg, b, self.cache_len)
                     prefill[b] = (fluid.default_main_program(), pv)
         # delta-prefill ladder (prefix-pool hits + session resumes):
         # same bucket widths as cold prefill, suffix-sized at use

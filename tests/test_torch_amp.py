@@ -624,7 +624,8 @@ def test_amp_program_parity(kw):
 
 
 def test_decorator_surface():
-    assert fluid.contrib.__all__ == ["layers", "mixed_precision"]
+    assert fluid.contrib.__all__ == ["layers", "mixed_precision", "quant",
+                                     "slim"]
     lists = mp.AutoMixedPrecisionLists(custom_white_list=["conv2d_transpose"],
                                        custom_black_list=["gelu"])
     assert "conv2d_transpose" in lists.white_list and "mul" in lists.white_list

@@ -5,7 +5,7 @@ originals, on the CPU.
   ``fluid.default_scope_funcs`` (over the port's ``Scope``),
   ``sysconfig`` and ``check_import_scipy`` give what the JAX package's
   give.
-- ``fluid.op``: ``get_all_op_protos`` lists the port's 300 registered
+- ``fluid.op``: ``get_all_op_protos`` lists the port's 305 registered
   types, each one the JAX package registers too; the constructors raise
   as the reference's do.
 - The first samples of every ``dataset/`` reader, and the ``utils``
@@ -194,7 +194,7 @@ def test_op_protos_over_the_port_registry():
     from paddle_tpu_torch.ops.registry import LOWERINGS
 
     types = [o.type for o in pop.get_all_op_protos()]
-    assert len(types) == len(LOWERINGS) == 300 and types == sorted(types)
+    assert len(types) == len(LOWERINGS) == 305 and types == sorted(types)
     assert set(types) <= {o.type for o in jop.get_all_op_protos()}
     assert pop.Operator.types() == types
     assert pop.Operator.get_op_info("mul").type == "mul"
