@@ -507,6 +507,34 @@ Phases, each of which exits non-zero on failure:
    printed. The
    kernels line gains ``launches_quant`` (21c, all 0). The two phases'
    times are printed.
+22. the rest of fluid.contrib (item 6.8). (a) ResNet-50 as bench.py:682
+   builds it (1000 classes, 224x224, f32, seeded) through
+   ``slim.Compressor`` with ``Momentum(0.1, 0.9)``, its gradients clipped
+   to a global norm of 5 (QAT from a random init explodes without:
+   ROADMAP.md Queue 3): a yaml config (``Compressor._add_strategy`` where
+   PyYAML does not import) of ``UniformPruneStrategy`` (ratio 0.3 on the
+   48 bottleneck convs, epochs 0-2) and ``QuantizationStrategy`` (epochs
+   1-2, an int8 export), 3 epochs of 3 training and 1 eval batches of 32,
+   a checkpoint each epoch. The card's masks equal the port's CPU
+   pruner's choice from the card's pre-prune values, and the zero
+   filters in the scope and in the export; 53 + 1 quantized ops, the
+   export served at batch 32 against the CPU within 21c's bound; the last
+   checkpoint read on the CPU to equal arrays; the host ms of a batch and
+   of the masks' re-assert, whose profile (with the others) must show no
+   copy. (b) The Trainer (conv_net, batch 64, Adam) on the card from
+   CPU-initialised parameters: events, 2 checkpoints kept, ``stop()``;
+   its program card vs CPU by ``steps_vs_cpu``; the Inferencer bit for
+   bit a ``Predictor`` of the Trainer's inference model; a distillation
+   Compressor (conv_net teacher, mlp student): the teacher bit for bit,
+   the student moved. (c) LightNAS over ResNet-18/34/50 at 224x224, a
+   FLOPs budget between 34 and 50, the initial depth 50, 3 epochs, the
+   server on 127.0.0.1 from a temporary directory, joined. (d) BERT-base
+   under ``extend_with_decoupled_weight_decay(Adam)``: one step bit for
+   bit Adam minus 0.01·p, depth 2 against the CPU, then 13 full steps
+   (12/12/12/25/25 launches a step). (e) The nine contrib layers card vs
+   CPU (1e-5·max), ``ctr_metric_bundle``'s accumulators equal. The
+   kernels line gains ``launches_adamw`` (22d) and ``launches_contrib``
+   (22a-22c and 22e, all 0).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -958,11 +986,12 @@ def train_program(fluid, bert, cfg, amp=None):
     return main, startup, io["loss"]
 
 
-def train_vs_cpu(fluid, bert):
-    """BERT-base width at depth 2, batch 2, dropout 0: 3 Adam steps on the
-    card and on the CPU from the same parameters."""
+def train_vs_cpu(fluid, bert, build=train_program, tag="train[depth 2]"):
+    """BERT-base width at depth 2, batch 2, dropout 0: 3 steps of the
+    program `build` makes (Adam by default) on the card and on the CPU from
+    the same parameters."""
     cfg = bert.BertConfig(num_layers=2, dropout=0.0)
-    main, startup, loss = train_program(fluid, bert, cfg)
+    main, startup, loss = build(fluid, bert, cfg)
     scope, cpu_scope = fluid.Scope(), fluid.Scope()
     exe, cpu_exe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
     exe.run(startup, scope=scope)
@@ -977,23 +1006,23 @@ def train_vs_cpu(fluid, bert):
         got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
         rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
-        print("train[depth 2] step %d: loss card %.6f cpu %.6f (rel %.2e)"
-              % (step, float(got[0]), float(want[0]), rel), flush=True)
+        print("%s step %d: loss card %.6f cpu %.6f (rel %.2e)"
+              % (tag, step, float(got[0]), float(want[0]), rel), flush=True)
         worst_loss = max(worst_loss, rel)
         for name, a, w in zip(grads if step == 0 else [], got[1:], want[1:]):
             r = float(np.abs(a - w).max()) / max(float(np.abs(w).max()),
                                                    1e-30)
             if not np.isfinite(a).all() or r > 1e-3:
-                fail("train[depth 2]: %s on the card differs from the CPU "
-                     "by %.3e of max|grad| (bound 1e-3)" % (name, r))
+                fail("%s: %s on the card differs from the CPU "
+                     "by %.3e of max|grad| (bound 1e-3)" % (tag, name, r))
             worst_grad = max(worst_grad, (name, r), key=lambda x: x[1])
-    print("train[depth 2] vs the port on the CPU: losses within rel %.2e "
+    print("%s vs the port on the CPU: losses within rel %.2e "
           "(bound 1e-3); step-1 gradients of %d parameters within %.2e of "
           "max|grad| (worst %s; bound 1e-3)" % (
-              worst_loss, len(grads), worst_grad[1], worst_grad[0]),
+              tag, worst_loss, len(grads), worst_grad[1], worst_grad[0]),
           flush=True)
     if worst_loss > 1e-3:
-        fail("train[depth 2]: card losses differ from the CPU run")
+        fail("%s: card losses differ from the CPU run" % tag)
 
 
 def off_by_more_than_an_ulp(got, want):
@@ -1217,14 +1246,20 @@ def counters(ca, cl):
             "layer_norm_bwd": cl.layer_norm_bwd}
 
 
-def train_phase(fluid, bert, ca, cl, amp=None):
+def train_phase(fluid, bert, ca, cl, amp=None, build=None,
+                steps=TRAIN_STEPS):
     """Full BERT-base, batch 8, seq 128, dropout 0.1, Adam 1e-4 (decorated
-    by ``decorate(**amp)`` when `amp` is given): TRAIN_WARMUP + TRAIN_STEPS
-    counted steps through Executor.run; returns the launch counts of that
-    run, a function that runs one more step, and the step's numbers."""
+    by ``decorate(**amp)`` when `amp` is given; the program `build` makes
+    when that is given): TRAIN_WARMUP + `steps` counted steps through
+    Executor.run; returns the launch counts of that run, a function that
+    runs one more step, and the step's numbers."""
     tag = "bert_base" if amp is None else "bert_base, bf16 AMP"
     cfg = bert.bert_base()
-    main, startup, loss = train_program(fluid, bert, cfg, amp)
+    if build is not None:
+        tag = "bert_base, " + build.__name__
+        main, startup, loss = build(fluid, bert, cfg)
+    else:
+        main, startup, loss = train_program(fluid, bert, cfg, amp)
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
@@ -1236,7 +1271,7 @@ def train_phase(fluid, bert, ca, cl, amp=None):
     for fn in fns.values():
         fn.launches = 0
     losses, walls = [], []
-    steps = TRAIN_WARMUP + TRAIN_STEPS
+    steps = TRAIN_WARMUP + steps
     for _ in range(steps):
         t0 = time.monotonic()
         out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
@@ -7858,7 +7893,7 @@ def boundary_flips(main, scope, got, want):
 
 
 def steps_vs_cpu(fluid, tag, what, main, startup, loss, feeds, loss_tol, tol,
-                 flip_tol, n_zero, alt=False):
+                 flip_tol, n_zero, alt=False, image="pixel"):
     """18a's and 19a's check of a training program. Startup on the CPU;
     len(feeds) steps on the CPU and on the card, each card step from the
     CPU's state before it, as 7a runs ResNet (two trajectories of a
@@ -7875,7 +7910,8 @@ def steps_vs_cpu(fluid, tag, what, main, startup, loss, feeds, loss_tol, tol,
     flipped (forward_deps), within `flip_tol`; and then the gradients'
     median and all of them together within 7a's bound: 3x the CPU's own
     spread + tol, capped at 5e-2. The CPU's own spread is the CPU against
-    itself with the images one f32 ulp up, and with `alt` the larger of
+    itself with the images (the feed `image`) one f32 ulp up, and with
+    `alt` the larger of
     that and the CPU with oneDNN off (another f32 summation order, as
     cuDNN's is, with the flips that come with it)."""
     cpu_scope, _ = cpu_init(fluid, startup)
@@ -7910,8 +7946,8 @@ def steps_vs_cpu(fluid, tag, what, main, startup, loss, feeds, loss_tol, tol,
             del card, cpu
     if not all(np.isfinite(a).all() for a in card_g):
         fail("%s: a step-1 gradient is not finite on the card" % tag)
-    nudged = dict(feeds[0], pixel=np.nextafter(feeds[0]["pixel"],
-                                               np.float32(np.inf)))
+    nudged = dict(feeds[0])
+    nudged[image] = np.nextafter(feeds[0][image], np.float32(np.inf))
     owns = [cpu_exe.run(main, feed=nudged, fetch_list=grads,
                         scope=clone_scope(fluid, start))]
     alt_flips = None
@@ -7924,8 +7960,9 @@ def steps_vs_cpu(fluid, tag, what, main, startup, loss, feeds, loss_tol, tol,
         owns.append(got[:ng])
     del start, cpu_probes
     largest = max(float(np.abs(w).max()) for w in cpu_g)
-    noise = max(max(float(np.abs(a).max()), float(np.abs(w).max()))
-                for p, a, w in zip(params, card_g, cpu_g) if p in zero)
+    noise = max((max(float(np.abs(a).max()), float(np.abs(w).max()))
+                 for p, a, w in zip(params, card_g, cpu_g) if p in zero),
+                default=0.0)
     keep = [i for i, p in enumerate(params) if p not in zero]
     rels = {params[i]: rel_err(card_g[i], cpu_g[i]) for i in keep}
     print("%s step-1 gradients, max|d|/max|grad| per parameter, card vs CPU "
@@ -9760,6 +9797,904 @@ def int8_phase(fluid, resnet, ca, cl, card, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of fluid.contrib (item 6.8): slim's Compressor with
+# pruning, quantization, distillation and LightNAS, the Trainer/Inferencer
+# API, AdamW and contrib.layers
+# ---------------------------------------------------------------------------
+SLIM_SEED = 22
+SLIM_IMAGE, SLIM_CLASSES = 224, 1000
+SLIM_BATCH = 32
+SLIM_TRAIN_BATCHES, SLIM_EVAL_BATCHES = 3, 1
+SLIM_RATIO = 0.3
+SLIM_PATTERN = "s?.b*.c?.conv.w"     # the 48 bottleneck convs of ResNet-50
+# 22a's global-norm gradient clip: QAT from a random init explodes in both
+# packages without one (the activation scale states start at 1e-3, so the
+# first steps clip activations to a tenth of their range, and the straight-
+# through gradient meets batch norms of near-constant inputs): ResNet-18's
+# gradients reach ~1e8 in the first QAT step, and losses are NaN within 3
+# batches at any learning rate (ROADMAP.md Queue 3)
+SLIM_CLIP = 5.0
+DIGITS_BATCH, DIGITS_STEPS = 64, 5    # 22b: a batch, the steps of an epoch
+DIGITS_TOL, DIGITS_FLIP_TOL = 1e-3, 0.2   # 22b: steps_vs_cpu, as 18a
+NAS_DEPTHS = (18, 34, 50)
+NAS_BATCH = 16
+ADAMW_COEFF = 0.01
+ADAMW_STEPS = 10                      # 22d's timed steps after the warm-up
+CONTRIB_TOL = 1e-5                    # 22e: card vs CPU, of max
+SOCKET_FILE = "slim_LightNASStrategy_controller_server.socket"
+
+SLIM_YAML = """
+version: 1.0
+pruners:
+  pruner_1:
+    class: StructurePruner
+    pruning_axis:
+      '*': 0
+    criterions:
+      '*': l1_norm
+strategies:
+  prune_strategy:
+    class: UniformPruneStrategy
+    pruner: pruner_1
+    start_epoch: 0
+    end_epoch: 2
+    target_ratio: %s
+    pruned_params: '%s'
+  quant_strategy:
+    class: QuantizationStrategy
+    start_epoch: 1
+    end_epoch: 2
+    int8_model_save_path: %s
+    save_in_nodes: ['image']
+    save_out_nodes: ['%s']
+compressor:
+  epoch: 3
+  eval_epoch: 1
+  checkpoint_path: %s
+  strategies:
+    - prune_strategy
+    - quant_strategy
+"""
+
+
+@contextlib.contextmanager
+def run_log(fluid, loss_names, extra=None):
+    """While active, (loss, extra, host seconds) for every Executor.run
+    whose first fetch is one of `loss_names`: the loss as the run returned
+    it (its fetch waits for the card) and, where extra(program) names a
+    var, that var fetched beside it (a read added to the run, which
+    changes nothing it computes)."""
+    log, orig = [], fluid.Executor.run
+
+    def run(self, program=None, feed=None, fetch_list=None, *a, **k):
+        fetch = list(fetch_list or [])
+        first = [getattr(f, "name", f) for f in fetch[:1]]
+        if not (first and first[0] in loss_names):
+            return orig(self, program, feed, fetch_list, *a, **k)
+        add = extra(program) if extra else None
+        t0 = time.monotonic()
+        out = orig(self, program, feed, fetch + ([add] if add else []), *a,
+                   **k)
+        log.append((float(np.mean(out[0])),
+                    float(np.mean(out[-1])) if add else None,
+                    time.monotonic() - t0))
+        return out[:len(fetch)]
+
+    fluid.Executor.run = run
+    try:
+        yield log
+    finally:
+        fluid.Executor.run = orig
+
+
+def image_batches(n_batches, batch, image, classes, seed, channels=3):
+    """A reader of `n_batches` seeded (image, label) batches."""
+    rng = np.random.default_rng(seed)
+    n = n_batches * batch
+    imgs = rng.standard_normal((n, channels, image, image), dtype=np.float32)
+    labels = rng.integers(0, classes, (n, 1)).astype(np.int64)
+
+    def reader():
+        for b in range(n_batches):
+            s = slice(b * batch, (b + 1) * batch)
+            yield list(zip(imgs[s], labels[s]))
+    return reader, imgs, labels
+
+
+def slim_strategies(fluid, comp, tmp, logits, int8_dir, ckpt_dir):
+    """22a's strategies on `comp`: from the yaml file when PyYAML imports
+    on this host, else the same strategies through
+    ``Compressor._add_strategy``. Returns the route taken."""
+    slim = fluid.contrib.slim
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        path = os.path.join(tmp, "compress.yaml")
+        with open(path, "w") as f:
+            f.write(SLIM_YAML % (SLIM_RATIO, SLIM_PATTERN, int8_dir,
+                                 logits, ckpt_dir))
+        comp.config(path)
+        return "yaml (ConfigFactory)"
+    comp._add_strategy(slim.prune.UniformPruneStrategy(
+        pruner=slim.prune.StructurePruner({"*": 0}, {"*": "l1_norm"}),
+        start_epoch=0, end_epoch=2, target_ratio=SLIM_RATIO,
+        pruned_params=SLIM_PATTERN))
+    comp._add_strategy(slim.quantization.QuantizationStrategy(
+        start_epoch=1, end_epoch=2, int8_model_save_path=int8_dir,
+        save_in_nodes=["image"], save_out_nodes=[logits]))
+    comp.epoch, comp.eval_epoch, comp.checkpoint_path = 3, 1, ckpt_dir
+    return "Compressor._add_strategy (PyYAML does not import on this host)"
+
+
+def zero_filters(value):
+    """The indices of the all-zero filters (axis 0) of a scope value."""
+    from paddle_tpu_torch.fluid.contrib.slim.prune.pruner import as_host
+
+    arr = as_host(value)
+    return np.flatnonzero(np.abs(arr.astype(np.float64)).reshape(
+        arr.shape[0], -1).sum(axis=1) == 0)
+
+
+def compressor_phase(fluid, resnet, ca, cl, card, tmp):
+    """22a. Returns the five kernels' launches in the Compressor's run, and
+    what reassert_profile needs."""
+    import fnmatch
+
+    from paddle_tpu_torch.fluid.contrib import slim
+    from paddle_tpu_torch.fluid.contrib.slim.prune.pruner import (
+        StructurePruner, as_host)
+
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SLIM_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = resnet.build_resnet_train(depth=50, class_num=SLIM_CLASSES,
+                                       image_size=SLIM_IMAGE)
+    test = main.clone(for_test=True)
+    fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(
+        SLIM_CLIP), program=main)
+    names = sorted(p.name for p in main.all_parameters()
+                   if fnmatch.fnmatch(p.name, SLIM_PATTERN))
+    if len(names) != 48:
+        fail("22a: %d parameters match %r, want the 48 bottleneck convs" % (
+            len(names), SLIM_PATTERN))
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    train_reader, _, _ = image_batches(SLIM_TRAIN_BATCHES, SLIM_BATCH,
+                                       SLIM_IMAGE, SLIM_CLASSES, SLIM_SEED)
+    eval_reader, _, _ = image_batches(SLIM_EVAL_BATCHES, SLIM_BATCH,
+                                      SLIM_IMAGE, SLIM_CLASSES,
+                                      SLIM_SEED + 1)
+    feeds = [("image", "image"), ("label", "label")]
+    comp = slim.Compressor(
+        place=exe.place, scope=scope, train_program=main,
+        train_reader=train_reader, train_feed_list=feeds,
+        train_fetch_list=[("loss", vs["loss"].name)], eval_program=test,
+        eval_reader=eval_reader, eval_feed_list=feeds,
+        eval_fetch_list=[("acc", vs["acc"].name),
+                         ("loss", vs["loss"].name)],
+        train_optimizer=fluid.optimizer.Momentum(0.1, 0.9), log_period=1)
+    int8_dir = os.path.join(tmp, "slim_int8")
+    ckpt_dir = os.path.join(tmp, "slim_ckpt")
+    route = slim_strategies(fluid, comp, tmp, vs["logits"].name, int8_dir,
+                            ckpt_dir)
+    prune = comp.strategies[0]
+
+    class PrePrune(slim.Strategy):
+        """The pruned parameters as the card holds them just before the
+        prune event, read back once."""
+
+        def on_epoch_begin(self, context):
+            self.values = {n: as_host(context.scope[n]) for n in names}
+
+    pre = PrePrune(0, 0)
+    comp.strategies.insert(0, pre)
+    # the re-assert's host time, alone and with its device work
+    reassert, orig_reassert = [], prune._reassert_masks
+
+    def timed_reassert(context):
+        t0 = time.monotonic()
+        orig_reassert(context)
+        t1 = time.monotonic()
+        torch.cuda.synchronize()
+        reassert.append((t1 - t0, time.monotonic() - t0))
+
+    prune._reassert_masks = timed_reassert
+    fns = zero_counters(ca, cl)
+    t0 = time.monotonic()
+    with fluid.scope_guard(scope), run_log(fluid, {vs["loss"].name}) as log:
+        try:
+            ctx = comp.run()
+        finally:
+            prune._reassert_masks = orig_reassert
+    run_s = time.monotonic() - t0
+    launches = check_launches("22a Compressor on ResNet-50", fns, {})
+    losses = [x for x, _, _ in log]
+    print("22a [%s] ResNet-50 (%d classes, %dx%d, batch %d) through "
+          "slim.Compressor, strategies by %s: UniformPruneStrategy "
+          "(StructurePruner axis 0, l1_norm, ratio %g on %r, epochs 0-2) + "
+          "QuantizationStrategy (epochs 1-2), Momentum(0.1, 0.9) with the "
+          "gradients clipped to a global norm of %g, 3 epochs "
+          "of %d training and %d eval batches in %.1f s; losses %s; eval "
+          "%s" % (card, SLIM_CLASSES, SLIM_IMAGE, SLIM_IMAGE, SLIM_BATCH,
+                  route, SLIM_RATIO, SLIM_PATTERN, SLIM_CLIP,
+                  SLIM_TRAIN_BATCHES,
+                  SLIM_EVAL_BATCHES, run_s,
+                  " ".join("%.4f" % x for x in losses),
+                  {k: ["%.4f" % x for x in v]
+                   for k, v in ctx.eval_results.items()}), flush=True)
+    if len(losses) != 3 * SLIM_TRAIN_BATCHES or not np.isfinite(
+            losses).all():
+        fail("22a: want %d finite training losses" % (3 * SLIM_TRAIN_BATCHES))
+    if any(len(ctx.eval_results.get(k, ())) != 3 or not np.isfinite(
+            ctx.eval_results[k]).all() for k in ("acc", "loss")):
+        fail("22a: want three finite eval results of each metric")
+
+    # the groups: the card's choice (its masks) against the port's pruner
+    # on the CPU, from the card's own values before the prune event
+    cpu_pruner = StructurePruner({"*": 0}, {"*": "l1_norm"})
+    bad, counts = [], set()
+    for n in names:
+        want = np.sort(cpu_pruner.cal_pruned_idx(
+            n, torch.from_numpy(pre.values[n]), SLIM_RATIO))
+        got = np.flatnonzero(prune._masks[n][0])
+        counts.add(len(got))
+        now = zero_filters(scope[n])
+        k = int(round(pre.values[n].shape[0] * SLIM_RATIO))
+        if not (np.array_equal(got, want) and np.array_equal(now, want)
+                and len(want) == k):
+            bad.append(n)
+    # the int8 export
+    types = None
+    with fluid.scope_guard(fluid.Scope()):
+        prog, feed_names, fetches = fluid.io.load_inference_model(
+            int8_dir, exe)
+        types = [op.type for op in prog.global_block().ops]
+        params = np.load(os.path.join(int8_dir, "__params__.npz"))
+    int8_zero = [n for n in names if not np.array_equal(
+        zero_filters(params[n]), np.flatnonzero(prune._masks[n][0]))]
+    n_conv, n_mul = types.count("quantized_conv2d"), types.count(
+        "quantized_mul")
+    print("22a pruned groups: %d convs, %s filters each (round(C_out x %g)); "
+          "the card's masks equal the port's CPU choice from the card's "
+          "pre-prune values and the zero filters in the card's scope after "
+          "the run: %s; the same filters zero in the int8 export: %s; the "
+          "export: %d quantized_conv2d, %d quantized_mul, feeds %s" % (
+              len(names), sorted(counts), SLIM_RATIO,
+              "all" if not bad else "NOT " + ", ".join(bad[:4]),
+              "all" if not int8_zero else "NOT " + ", ".join(int8_zero[:4]),
+              n_conv, n_mul, feed_names), flush=True)
+    if bad or int8_zero:
+        fail("22a: the pruned filters disagree")
+    if (n_conv, n_mul) != (53, 1) or feed_names != ["image"]:
+        fail("22a: want an int8 export of 53 quantized_conv2d and 1 "
+             "quantized_mul fed the image")
+
+    # the export served on the card, and on the CPU on its first rows
+    rng = np.random.default_rng(SLIM_SEED + 2)
+    serve = rng.standard_normal((SLIM_BATCH, 3, SLIM_IMAGE, SLIM_IMAGE),
+                                dtype=np.float32)
+    got, gacts, gouts, qprog, _, qscope = run_int8(fluid, exe, int8_dir,
+                                                   serve)
+    del gouts, qscope
+    if not np.isfinite(got).all() or got.shape != (SLIM_BATCH, SLIM_CLASSES):
+        fail("22a: int8 logits not finite or of the wrong shape")
+    int8_logits_vs_cpu(fluid, "22a", qprog, int8_dir, serve, got, gacts)
+
+    # the last epoch's checkpoint read by the port on the CPU
+    last = os.path.join(ckpt_dir, str(max(int(d) for d in os.listdir(
+        ckpt_dir) if d.isdigit())))
+    cpu_scope = fluid.Scope()
+    fluid.io.load_persistables(fluid.Executor(fluid.CPUPlace()), last,
+                               ctx.optimize_graph.program, scope=cpu_scope)
+    differ = [n for n, v in cpu_scope.items()
+              if not np.array_equal(as_host(v), as_host(scope[n]))]
+    print("22a checkpoint %s: %d persistables read by the port on the CPU, "
+          "%d differ from the card's scope after the run" % (
+              os.path.relpath(last, tmp), len(cpu_scope.keys()),
+              len(differ)), flush=True)
+    if differ or len(cpu_scope.keys()) < len(names):
+        fail("22a: the checkpoint does not hold the card's state")
+
+    # the host ms per batch: the training run (the loss fetch waits for
+    # the card), and the re-assert of the 48 masks after it
+    batch_ms = [1e3 * w for _, _, w in log]
+    re_host = [1e3 * h for h, _ in reassert]
+    re_sync = [1e3 * s for _, s in reassert]
+    print("22a [%s] host ms per batch, epochs 1-2 (epoch 0's first batch "
+          "%.1f ms): the training step's Executor.run (feed, step, loss "
+          "fetch) median %.3f ms; the 48 masks' re-assert after it: host "
+          "median %.3f ms (max %.3f), with its device work median %.3f ms; "
+          "so a batch %.3f ms without the re-assert, %.3f ms with it" % (
+              card, batch_ms[0],
+              statistics.median(batch_ms[SLIM_TRAIN_BATCHES:]),
+              statistics.median(re_host[SLIM_TRAIN_BATCHES:]), max(re_host),
+              statistics.median(re_sync[SLIM_TRAIN_BATCHES:]),
+              statistics.median(batch_ms[SLIM_TRAIN_BATCHES:]),
+              statistics.median([b + s for b, s in zip(
+                  batch_ms, re_sync)][SLIM_TRAIN_BATCHES:])), flush=True)
+    if len(reassert) != 3 * SLIM_TRAIN_BATCHES:
+        fail("22a: the masks were re-asserted %d times, want one a batch" %
+             len(reassert))
+    return launches, (prune, {n: pre.values[n] for n in names})
+
+
+def int8_logits_vs_cpu(fluid, tag, prog, qdir, serve, got, gacts):
+    """The int8 model at `qdir` run by the port on the CPU on the first
+    INT8_CPU_ROWS rows of `serve`: the card's logits `got` within 21c's
+    bound (3x the CPU's own spread from one forced rounding, for each
+    spread's worth of roundings that fell the other way, + 1e-5·max)."""
+    rows = INT8_CPU_ROWS
+    cpu = fluid.Executor(fluid.CPUPlace())
+    want, wacts, _, _, _, _ = run_int8(fluid, cpu, qdir, serve[:rows])
+    first = quantized_inputs(prog)[0]
+    if first[1] != "image":
+        fail("%s: the first quantized op does not read the image" % tag)
+    forced, facts, _, _, _, _ = run_int8(
+        fluid, cpu, qdir, flip_one(serve[:rows], first[0].attrs["act_scale"]))
+    flips, total = count_flips(prog, {n: v[:rows] for n, v in gacts.items()},
+                               wacts)
+    spread_flips, _ = count_flips(prog, wacts, facts)
+    spread = float(np.abs(forced - want).max())
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got[:rows] - want).max())
+    bound = 3.0 * spread * max(1.0, flips / max(spread_flips, 1)) \
+        + 1e-5 * scale
+    print("%s int8 logits, card vs the port on the CPU (the first %d rows): "
+          "max|d| %.4e of max|logit| %.4e, bound %.4e; roundings that fell "
+          "the other way %d of %d; the CPU's own spread from one forced "
+          "flip: %d flips, max|d| %.4e; top-1 equal %.3f" % (
+              tag, rows, err, scale, bound, flips, total, spread_flips,
+              spread, float((got[:rows].argmax(1) == want.argmax(1)).mean())),
+          flush=True)
+    if err > bound:
+        fail("%s: the card's int8 logits are farther from the CPU's than "
+             "their flipped roundings explain" % tag)
+
+
+def reassert_profile(prune, values):
+    """One re-assert of 22a's 48 masks, on card copies of the pruned
+    parameters, under the profiler: it must copy nothing between the host
+    and the card (its group indices stay on the card from the first)."""
+    class Context:
+        pass
+
+    ctx = Context()
+    ctx.scope = {n: torch.from_numpy(v).cuda() for n, v in values.items()}
+    prune._reassert_masks(ctx)            # the indices are made on the card
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prune._reassert_masks(ctx)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("paddle_tpu_torch::")]
+    copies = [e.key for e in events if "memcpy" in e.key.lower()]
+    kernels = [e for e in events if "memcpy" not in e.key.lower()
+               and "memset" not in e.key.lower()]
+    print("22a the re-assert's profile: %d device kernel launches (%s), %d "
+          "host/card copies %s, %.3f ms of device time" % (
+              sum(e.count for e in kernels),
+              ", ".join(sorted({e.key[:48] for e in kernels})),
+              len(copies), copies[:3],
+              sum(e.self_device_time_total for e in kernels) / 1e3),
+          flush=True)
+    if copies or sum(e.count for e in kernels) < len(values):
+        fail("22a: the masks' re-assert copies between host and card")
+    for n, t in ctx.scope.items():
+        if not np.array_equal(zero_filters(t), np.flatnonzero(
+                prune._masks[n][0])):
+            fail("22a: the re-assert left %s's pruned filters nonzero" % n)
+
+
+def digits_train_func(fluid, mnist):
+    def train_func():
+        img = fluid.data("img", [None, 1, 28, 28], "float32")
+        label = fluid.data("label", [None, 1], "int64")
+        loss, acc, logits = mnist.conv_net(img, label)
+        return [loss, acc, logits]
+    return train_func
+
+
+def digits_infer_func(fluid):
+    """conv_net's layers up to its logits (the same parameter names)."""
+    from paddle_tpu_torch.fluid import layers, nets
+
+    def infer_func():
+        img = fluid.data("img", [None, 1, 28, 28], "float32")
+        c1 = nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=20, pool_size=2,
+            pool_stride=2, act="relu")
+        c1 = layers.batch_norm(c1)
+        c2 = nets.simple_img_conv_pool(
+            input=c1, filter_size=5, num_filters=50, pool_size=2,
+            pool_stride=2, act="relu")
+        return layers.fc(input=layers.flatten(c2), size=10)
+    return infer_func
+
+
+def digits_phase(fluid, ca, cl, card, tmp):
+    """22b: the Trainer, the Inferencer and distillation on the book's
+    recognize_digits nets. Returns the five kernels' launches."""
+    from paddle_tpu_torch.fluid import contrib
+    from paddle_tpu_torch.fluid.inference import Predictor
+    from paddle_tpu_torch.models import mnist
+
+    def optimizer_func():
+        return fluid.optimizer.Adam(0.001)
+
+    reader, imgs, _ = image_batches(DIGITS_STEPS, DIGITS_BATCH, 28, 10,
+                                    SLIM_SEED + 3, channels=1)
+    init_dir = os.path.join(tmp, "digits_init")
+    contrib.Trainer(digits_train_func(fluid, mnist), optimizer_func,
+                    place=fluid.CPUPlace()).save_params(init_dir)
+    fns = zero_counters(ca, cl)
+
+    class Events:
+        def __init__(self, trainer=None, stop_after=None):
+            self.counts, self.losses = {}, []
+            self.trainer, self.stop_after = trainer, stop_after
+
+        def __call__(self, event):
+            kind = type(event).__name__
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            if kind == "EndStepEvent":
+                if not all(isinstance(m, np.ndarray) for m in event.metrics):
+                    fail("22b: EndStepEvent.metrics are not host arrays")
+                self.losses.append(float(event.metrics[0]))
+                if self.stop_after and len(self.losses) == self.stop_after:
+                    self.trainer.stop()
+
+    runs = {}
+    for where, place in (("card", None), ("CPU", fluid.CPUPlace())):
+        ckpt = os.path.join(tmp, "digits_ckpt_" + where)
+        trainer = contrib.Trainer(
+            digits_train_func(fluid, mnist), optimizer_func,
+            param_path=init_dir, place=place,
+            checkpoint_config=contrib.CheckpointConfig(
+                checkpoint_dir=ckpt, max_num_checkpoints=2,
+                step_interval=DIGITS_STEPS))
+        events = Events()
+        t0 = time.monotonic()
+        trainer.train(2, events, reader=reader, feed_order=["img", "label"])
+        secs = time.monotonic() - t0
+        stopper = Events(trainer, stop_after=3)
+        trainer.train(2, stopper, reader=reader, feed_order=["img", "label"])
+        runs[where] = (trainer, events, stopper, sorted(os.listdir(ckpt)),
+                       secs)
+    trainer, events, stopper, kept, secs = runs["card"]
+    print("22b [%s] Trainer(conv_net, Adam(0.001)) on the card from the "
+          "CPU-initialised parameters: 2 epochs of %d steps at batch %d in "
+          "%.2f s, events %s, losses %s (the port's CPU Trainer from the "
+          "same parameters: %s); a second train() stopped after %d steps "
+          "(events %s); checkpoints kept %s" % (
+              card, DIGITS_STEPS, DIGITS_BATCH, secs, events.counts,
+              " ".join("%.4f" % x for x in events.losses),
+              " ".join("%.4f" % x for x in runs["CPU"][1].losses),
+              len(stopper.losses), stopper.counts, kept), flush=True)
+    want = {"BeginEpochEvent": 2, "EndEpochEvent": 2,
+            "BeginStepEvent": 2 * DIGITS_STEPS,
+            "EndStepEvent": 2 * DIGITS_STEPS}
+    if events.counts != want or len(stopper.losses) != 3:
+        fail("22b: the Trainer's events are not the reference's")
+    if len(kept) != 2 or kept != runs["CPU"][3]:
+        fail("22b: want exactly 2 checkpoints kept, as on the CPU")
+    if not np.isfinite(events.losses).all():
+        fail("22b: a Trainer loss is not finite")
+    feeds = []
+    feeder = fluid.DataFeeder(["img", "label"], fluid.CPUPlace(),
+                              program=trainer.train_program)
+    for batch in list(reader())[:3]:
+        feeds.append(feeder.feed(batch))
+    steps_vs_cpu(fluid, "22b", "the Trainer's conv_net program (batch %d, "
+                 "Adam)" % DIGITS_BATCH, trainer.train_program,
+                 trainer.startup_program, trainer.loss, feeds, DIGITS_TOL,
+                 DIGITS_TOL, DIGITS_FLIP_TOL, 0, image="img")
+
+    # the Inferencer against a Predictor of save_inference_model's model
+    params_dir = os.path.join(tmp, "digits_params")
+    model_dir = os.path.join(tmp, "digits_model")
+    trainer.save_params(params_dir)
+    trainer.save_inference_model(model_dir, ["img"], [2])
+    inferencer = contrib.Inferencer(digits_infer_func(fluid), params_dir)
+    (a,) = inferencer.infer({"img": imgs})
+    (b,) = Predictor.from_model(model_dir).run({"img": imgs})
+    print("22b Inferencer vs Predictor.from_model of the Trainer's "
+          "inference model, %d rows on the card: bit for bit %s" % (
+              len(imgs), np.array_equal(a, b)), flush=True)
+    if not np.array_equal(a, b) or not np.isfinite(a).all():
+        fail("22b: the Inferencer's logits differ from the Predictor's")
+
+    # distillation: the conv_net teacher and the mlp student in one program
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SLIM_SEED
+    with fresh_names(), fluid.program_guard(main, startup):
+        img = fluid.data("img", [None, 1, 28, 28], "float32")
+        label = fluid.data("label", [None, 1], "int64")
+        _, _, t_logits = mnist.conv_net(img, label)
+        s_loss, _, s_logits = mnist.mlp(img, label, hidden=200)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    teacher = [p.name for p in main.all_parameters() if p.trainable
+               and p.name.startswith(("conv2d_", "batch_norm_", "fc_0."))]
+    stats = [p.name for p in main.all_parameters() if not p.trainable
+             and p.name.startswith("batch_norm_")]
+    student = [p.name for p in main.all_parameters()
+               if p.trainable and p.name not in teacher]
+    before = {n: host(scope[n]) for n in teacher + stats + student}
+    d = contrib.slim.distillation
+    strat = d.DistillationStrategy(
+        distillers=[d.SoftLabelDistiller(s_logits.name, t_logits.name),
+                    d.L2Distiller(s_logits.name, t_logits.name)],
+        start_epoch=0, end_epoch=0)
+    comp = contrib.slim.Compressor(
+        place=exe.place, scope=scope, train_program=main,
+        train_reader=reader,
+        train_feed_list=[("img", "img"), ("label", "label")],
+        train_fetch_list=[("loss", s_loss.name)],
+        train_optimizer=fluid.optimizer.Adam(0.001),
+        distiller_optimizer=fluid.optimizer.Adam(0.001), log_period=1)
+    comp._add_strategy(strat)
+    comp.epoch = 2
+
+    def distill_loss(program):
+        g = strat._distill_graph
+        return g.out_nodes["distill_loss"] if g is not None and \
+            program is g.program else None
+
+    with fluid.scope_guard(scope), run_log(fluid, {s_loss.name},
+                                           distill_loss) as log:
+        comp.run()
+    moved = [n for n in teacher if not np.array_equal(host(scope[n]),
+                                                      before[n])]
+    still = [n for n in stats + student if np.array_equal(host(scope[n]),
+                                                          before[n])]
+    dl = [x for _, x, _ in log if x is not None]
+    print("22b distillation (conv_net teacher, mlp student, hidden 200) "
+          "through a Compressor: epoch 0 SoftLabel + L2 on the logits, "
+          "epoch 1 the student's loss, Adam(0.001): student loss %s; "
+          "distill loss per batch %s; the %d teacher parameters unchanged "
+          "bit for bit: %s (a zero gradient, as the CPU tests find in both "
+          "packages); the teacher's batch-norm statistics and the student's "
+          "%d parameters moved: %s" % (
+              " ".join("%.4f" % x for x, _, _ in log),
+              " ".join("%.4f" % x for x in dl), len(teacher),
+              not moved, len(student), not still), flush=True)
+    if moved or still or len(dl) != DIGITS_STEPS or not np.isfinite(
+            dl).all():
+        fail("22b: distillation: teacher moved %s, unmoved %s, distill "
+             "losses %s" % (moved, still, dl))
+    return check_launches("22b", fns, {})
+
+
+def nas_phase(fluid, resnet, ca, cl, card, tmp):
+    """22c: LightNAS over ResNet-18/34/50 at 224x224. Returns the five
+    kernels' launches."""
+    import random
+
+    from paddle_tpu_torch.fluid.contrib import slim
+
+    reader, _, _ = image_batches(1, NAS_BATCH, SLIM_IMAGE, SLIM_CLASSES,
+                                 SLIM_SEED + 4)
+
+    def build(depth):
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = SLIM_SEED
+        with fresh_names(), fluid.program_guard(main, startup):
+            vs = resnet.build_resnet_train(depth=depth,
+                                           class_num=SLIM_CLASSES,
+                                           image_size=SLIM_IMAGE)
+            test = main.clone(for_test=True)
+            fluid.optimizer.Momentum(0.1, 0.9).minimize(vs["loss"])
+        return startup, main, test, vs
+
+    flops = {d: slim.GraphWrapper(build(d)[2]).flops() for d in NAS_DEPTHS}
+    target = (flops[34] + flops[50]) // 2
+
+    class DepthSpace(slim.nas.SearchSpace):
+        def __init__(self):
+            self.created = []
+
+        def init_tokens(self):
+            return [NAS_DEPTHS.index(50)]
+
+        def range_table(self):
+            return [len(NAS_DEPTHS)]
+
+        def create_net(self, tokens=None):
+            self.created.append(list(tokens))
+            startup, main, test, vs = build(NAS_DEPTHS[tokens[0]])
+            return (startup, main, test, [("loss", vs["loss"].name)],
+                    [("acc_top1", vs["acc"].name),
+                     ("loss", vs["loss"].name)], reader, reader)
+
+    class Adopted(slim.Strategy):
+        def __init__(self):
+            super().__init__(0, 3)
+            self.seen = []
+
+        def on_epoch_begin(self, context):
+            self.seen.append(context.eval_graph.flops())
+
+    space, adopted = DepthSpace(), Adopted()
+    strategy = slim.nas.LightNASStrategy(
+        controller=slim.searcher.SAController(reduce_rate=0.9,
+                                              init_temperature=1024),
+        end_epoch=3, target_flops=target, retrain_epoch=1,
+        metric_name="acc_top1", server_ip="127.0.0.1", key="chip-smoke")
+    feeds = [("image", "image"), ("label", "label")]
+    comp = slim.Compressor(
+        place=fluid.CUDAPlace(0), scope=fluid.Scope(),
+        train_program=fluid.Program(), train_feed_list=feeds,
+        train_fetch_list=[("loss", "unused")], eval_program=fluid.Program(),
+        eval_feed_list=feeds, eval_fetch_list=[("acc_top1", "unused")],
+        search_space=space, log_period=1)
+    comp._add_strategy(strategy)
+    comp._add_strategy(adopted)
+    comp.epoch = 3
+    workdir = tempfile.mkdtemp(prefix="nas_", dir=tmp)
+    old = os.getcwd()
+    fns = zero_counters(ca, cl)
+    random.seed(SLIM_SEED)
+    t0 = time.monotonic()
+    os.chdir(workdir)
+    try:
+        ctx = comp.run()
+    finally:
+        os.chdir(old)
+    secs = time.monotonic() - t0
+    ctrl = strategy._controller
+    joined = not strategy._server._thread.is_alive()
+    removed = not os.path.exists(os.path.join(workdir, SOCKET_FILE))
+    print("22c [%s] LightNAS over ResNet-%s at %dx%d (%d classes), per-image "
+          "FLOPs (GraphWrapper.flops) %s, target %d (midway between 34 and "
+          "50); random.seed(%d): tokens proposed in order %s (depths %s), "
+          "the adopted candidates' FLOPs %s; %d controller updates, best %s "
+          "reward %.4f; eval %s; %.1f s; server thread joined %s, socket "
+          "file removed %s" % (
+              card, "/".join(map(str, NAS_DEPTHS)), SLIM_IMAGE, SLIM_IMAGE,
+              SLIM_CLASSES, flops, target, SLIM_SEED, space.created,
+              [NAS_DEPTHS[t[0]] for t in space.created], adopted.seen,
+              ctrl._iter, ctrl.best_tokens, ctrl.max_reward,
+              {k: ["%.4f" % x for x in v]
+               for k, v in ctx.eval_results.items()}, secs, joined, removed),
+          flush=True)
+    if not (flops[18] < flops[34] < target < flops[50]):
+        fail("22c: the FLOPs do not order the depths")
+    if len(adopted.seen) != 3 or max(adopted.seen) > target:
+        fail("22c: a candidate over the budget was trained")
+    if space.created[0] != [NAS_DEPTHS.index(50)] or ctrl._iter != 3:
+        fail("22c: want the initial depth 50 tried and 3 rewards")
+    if not (joined and removed):
+        fail("22c: the controller server was not closed")
+    return check_launches("22c", fns, {})
+
+
+def adamw_program(fluid, bert, cfg, amp=None, adamw=True):
+    """train_program with Adam(1e-4) extended by
+    ``extend_with_decoupled_weight_decay`` (coeff 0.01), or plain."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        io = bert.build_bert_pretrain(cfg, SEQ)
+        if adamw:
+            opt = fluid.contrib.extend_with_decoupled_weight_decay(
+                fluid.optimizer.Adam)(learning_rate=1e-4, coeff=ADAMW_COEFF)
+        else:
+            opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        opt.minimize(io["loss"])
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, io["loss"]
+
+
+def adamw_step_check(fluid, bert):
+    """22d gate 1: full BERT-base at dropout 0, from one state and one
+    batch: each parameter after one AdamW step equals, bit for bit, the
+    parameter after one Adam step minus coeff · its value before (the
+    lowerings' scale and elementwise_sub)."""
+    cfg = bert.BertConfig(dropout=0.0)
+    wmain, wstart, wloss = adamw_program(fluid, bert, cfg)
+    amain, _, aloss = adamw_program(fluid, bert, cfg, adamw=False)
+    wscope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(wstart, scope=wscope)
+    ascope = clone_scope(fluid, wscope)
+    params = sorted(p.name for p in wmain.all_parameters())
+    before = {n: wscope[n].clone() for n in params}
+    ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    lw = exe.run(wmain, feed=feed, fetch_list=[wloss], scope=wscope)[0]
+    la = exe.run(amain, feed=feed, fetch_list=[aloss], scope=ascope)[0]
+    bad = []
+    for n in params:
+        want = torch.sub(ascope[n], torch.add(torch.mul(before[n],
+                                                        ADAMW_COEFF), 0.0))
+        if not torch.equal(wscope[n], want):
+            bad.append(n)
+    decay = max(float((before[n] - wscope[n]).abs().max()) for n in params)
+    print("22d one step of full BERT-base (dropout 0) from one state: loss "
+          "AdamW %.6f, Adam %.6f; %d parameters, AdamW = Adam - %g * "
+          "p_before bit for bit in %d (largest |p_before - p_after| %.3e)" % (
+              float(lw), float(la), len(params), ADAMW_COEFF,
+              len(params) - len(bad), decay), flush=True)
+    if bad or float(lw) != float(la):
+        fail("22d: AdamW differs from Adam minus the decay in %s" % bad[:5])
+
+
+def contrib_layer_cases(fluid):
+    """22e: (name, build, feed, has_params) for the nine contrib.layers
+    functions at tests/test_contrib_layers_nn.py's shapes (tree_conv at
+    tests/test_torch_contrib_layers.py's)."""
+    c = fluid.contrib
+    r = np.random.default_rng(SLIM_SEED)
+
+    def data(name, shape, dtype="float32", lod=0):
+        return fluid.data(name, shape, dtype, lod_level=lod)
+
+    xs = {"fx": r.standard_normal((3, 4)).astype(np.float32),
+          "fy": r.standard_normal((3, 4)).astype(np.float32)}
+    boxes = np.array([[[0, 0, 1, 1], [0, 0, 1.05, 1], [5, 5, 6, 6],
+                       [9, 9, 10, 10]]], np.float32)
+    scores = np.zeros((1, 2, 4), np.float32)
+    scores[0, 0] = [0.9, 0.8, 0.7, 0.05]
+    edges = np.array([[[1, 2], [1, 3], [2, 4], [2, 5], [3, 6]]] * 3, np.int32)
+    cases = [
+        ("fused_elemwise_activation", lambda: [
+            c.fused_elemwise_activation(data("fx", [None, 4]),
+                                        data("fy", [None, 4]), f, scale=2.0)
+            for f in (["elementwise_add", "relu"], ["relu",
+                                                    "elementwise_add"],
+                      ["scale", "elementwise_add"])], xs, False),
+        ("var_conv_2d", lambda: [c.var_conv_2d(
+            data("vx", [None, 3, 6, 8]), data("row", [None, 6], lod=1),
+            data("col", [None, 8], lod=1), 3, 4, [3, 3])],
+         {"vx": r.standard_normal((2, 3, 6, 8)).astype(np.float32),
+          "row": np.zeros((2, 6), np.float32),
+          "row@SEQ_LEN": np.array([6, 4], np.int32),
+          "col": np.zeros((2, 8), np.float32),
+          "col@SEQ_LEN": np.array([8, 5], np.int32)}, True),
+        ("match_matrix_tensor", lambda: list(c.match_matrix_tensor(
+            data("mx", [None, 3, 5], lod=1), data("my", [None, 4, 5], lod=1),
+            2)), {"mx": r.standard_normal((2, 3, 5)).astype(np.float32),
+                  "my": r.standard_normal((2, 4, 5)).astype(np.float32)},
+         True),
+        ("sequence_topk_avg_pooling", lambda: [c.sequence_topk_avg_pooling(
+            data("tk", [None, 2, 2, 5]), None, None, [1, 3], 2)],
+         {"tk": r.standard_normal((1, 2, 2, 5)).astype(np.float32)}, False),
+        ("tree_conv", lambda: [c.tree_conv(
+            data("nodes", [None, 6, 4]), data("edges", [None, 5, 2],
+                                              "int32"), 5, 2)],
+         {"nodes": r.standard_normal((3, 6, 4)).astype(np.float32),
+          "edges": edges}, True),
+        ("fused_embedding_seq_pool", lambda: [c.fused_embedding_seq_pool(
+            data("fids", [None, 4], "int64", lod=1), [11, 6],
+            padding_idx=0)],
+         {"fids": r.integers(0, 11, (3, 4)).astype(np.int64)}, True),
+        ("multiclass_nms2", lambda: list(c.multiclass_nms2(
+            data("nb", [None, 4, 4]), data("ns", [None, 2, 4]), 0.1, 4, 3,
+            background_label=-1, return_index=True)),
+         {"nb": boxes, "ns": scores}, False),
+        ("search_pyramid_hash", lambda: [c.search_pyramid_hash(
+            data("pids", [None, 6], "int64"), num_emb=8, space_len=64,
+            pyramid_layer=3, rand_len=4, drop_out_percent=0.0,
+            is_training=True, use_filter=False, white_list_len=0,
+            black_list_len=0, seed=1, lr=0.1)],
+         {"pids": r.integers(0, 1000, (4, 6)).astype(np.int64)}, True),
+    ]
+    return cases
+
+
+def contrib_layers_vs_cpu(fluid, ca, cl):
+    """22e. Each function's outputs (and its parameters' gradients) on the
+    card against the port on the CPU from the same parameters, within
+    CONTRIB_TOL of the largest (integers equal); ctr_metric_bundle's four
+    accumulators after 3 batches equal. Returns the five kernels'
+    launches."""
+    fns = zero_counters(ca, cl)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    worst = {}
+    for name, build, feed, has_params in contrib_layer_cases(fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = SLIM_SEED
+        with fresh_names(), fluid.program_guard(main, startup):
+            outs = build()
+            params = sorted(p.name for p in main.all_parameters())
+            if has_params:
+                loss = fluid.layers.mean(fluid.layers.square(outs[0]))
+                fluid.optimizer.SGD(0.0).minimize(loss)
+        cpu_scope, scope = cpu_init(fluid, startup)
+        fetch = [o.name for o in outs] + [p + "@GRAD" for p in params
+                                          if has_params]
+        got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                   scope=scope)
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        rel = 0.0
+        for n, a, w in zip(fetch, got, want):
+            if np.issubdtype(w.dtype, np.integer):
+                if not np.array_equal(a, w):
+                    fail("22e %s: %s differs on the card" % (name, n))
+                continue
+            r = rel_err(a, w)
+            rel = max(rel, r)
+            if not np.isfinite(a).all() or r > CONTRIB_TOL:
+                fail("22e %s: %s on the card %.3e of max off the CPU's" % (
+                    name, n, r))
+        worst[name] = rel
+    # ctr_metric_bundle: 3 batches that fetch another var
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        p = fluid.data("cp", [None, 1], "float32")
+        y = fluid.data("cy", [None, 1], "int64")
+        other = fluid.layers.scale(p, 2.0)
+        states = fluid.contrib.ctr_metric_bundle(p, y)
+    r = np.random.default_rng(SLIM_SEED + 5)
+    batches = [{"cp": r.uniform(0.05, 0.95, (2, 1)).astype(np.float32),
+                "cy": r.integers(0, 2, (2, 1)).astype(np.int64)}
+               for _ in range(3)]
+    cpu_scope, scope = cpu_init(fluid, startup)
+    for feed in batches:
+        fluid.Executor().run(main, feed=feed, fetch_list=[other],
+                             scope=scope)
+        cpu.run(main, feed=feed, fetch_list=[other], scope=cpu_scope)
+    acc = [(host(scope[s.name]), host(cpu_scope[s.name])) for s in states]
+    same = all(np.array_equal(a, w) for a, w in acc)
+    print("22e contrib.layers card vs the port on the CPU, outputs and "
+          "gradients, max|d|/max per function: %s (bound %g); "
+          "ctr_metric_bundle's accumulators after 3 batches that fetch "
+          "another var: card %s, CPU %s, equal %s" % (
+              ", ".join("%s %.2e" % kv for kv in worst.items()), CONTRIB_TOL,
+              [float(a[0]) for a, _ in acc], [float(w[0]) for _, w in acc],
+              same), flush=True)
+    if not same or not all(float(a[0]) > 0 for a, _ in acc):
+        fail("22e: ctr_metric_bundle's accumulators differ card vs CPU")
+    return check_launches("22e", fns, {})
+
+
+def contrib_phase(fluid, resnet, bert, ca, cl, card, tmp):
+    """Phase 22: 22a-22e. Returns the five kernels' launches in 22d's
+    AdamW run (the phase's one path that runs them), their launches in
+    22a-22c and 22e together, and what 22a's profile needs."""
+    times = {}
+    t = time.monotonic()
+    mark("22a")
+    slim_launches, prof_args = compressor_phase(fluid, resnet, ca, cl, card,
+                                                tmp)
+    times["22a"] = time.monotonic() - t
+    t = time.monotonic()
+    mark("22b")
+    digits_launches = digits_phase(fluid, ca, cl, card, tmp)
+    times["22b"] = time.monotonic() - t
+    t = time.monotonic()
+    mark("22c")
+    nas_launches = nas_phase(fluid, resnet, ca, cl, card, tmp)
+    times["22c"] = time.monotonic() - t
+    t = time.monotonic()
+    mark("22d")
+    adamw_step_check(fluid, bert)
+    train_vs_cpu(fluid, bert, build=adamw_program, tag="22d AdamW[depth 2]")
+    adamw_launches = train_phase(fluid, bert, ca, cl, build=adamw_program,
+                                 steps=ADAMW_STEPS)[0]
+    times["22d"] = time.monotonic() - t
+    t = time.monotonic()
+    mark("22e")
+    layer_launches = contrib_layers_vs_cpu(fluid, ca, cl)
+    times["22e"] = time.monotonic() - t
+    zero = {"22a": slim_launches, "22b": digits_launches,
+            "22c": nas_launches, "22e": layer_launches}
+    contrib = {n: sum(z[n] for z in zero.values()) for n in PER_STEP}
+    print("phase 22 (the rest of fluid.contrib: 22a-22e) took %.1f s: %s; "
+          "the five kernels' launches: 22d %s a run of %d steps (%s a "
+          "step), 22a-22c and 22e %s" % (
+              sum(times.values()), ", ".join("%s %.1f s" % kv
+                                             for kv in times.items()),
+              adamw_launches, TRAIN_WARMUP + ADAMW_STEPS, PER_STEP,
+              {k: sum(v.values()) for k, v in zero.items()}), flush=True)
+    return adamw_launches, contrib, prof_args
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -10109,10 +11044,16 @@ def main():
         quant_launches = int8_phase(fluid, resnet, ca, cl, card, tmp)
         print("phase 21 (post-training int8: 21a-21c) took %.1f s" % (
             time.monotonic() - t21), flush=True)
+        # phase 22: the rest of fluid.contrib; 22d's steps are timed, so
+        # before the profiles (22a's re-assert profile comes with them)
+        adamw_launches, contrib_launches, prof22 = contrib_phase(
+            fluid, resnet, bert, ca, cl, card, tmp)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
         mark("15c, the profiles")
+        reassert_profile(*prof22)
+        del prof22
         feed_profile(fluid, step15, tmp)
         del step15
         print("phase 15 (the feed and dispatch surface: 15a-15d) took %.1f "
@@ -10285,8 +11226,9 @@ def main():
     # forwards, launches_srl in 17c's SRL steps, launches_book in 18a's
     # timed VGG-16 steps and 18b's timed recommender steps, launches_ocr
     # in 19a's timed CRNN-CTC steps, launches_ckpt in 20a's run B (its
-    # steps before the save and after the load) and launches_quant in
-    # 21c's served int8 batches
+    # steps before the save and after the load), launches_quant in 21c's
+    # served int8 batches, launches_adamw in 22d's AdamW BERT-base steps
+    # and launches_contrib in 22a-22c and 22e together (all 0)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -10313,6 +11255,8 @@ def main():
                      launches_ocr=ocr_launches[name],
                      launches_ckpt=ckpt_launches[name],
                      launches_quant=quant_launches[name],
+                     launches_adamw=adamw_launches[name],
+                     launches_contrib=contrib_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

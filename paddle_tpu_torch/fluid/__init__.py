@@ -75,6 +75,7 @@ from .trainer_desc import (  # noqa: F401
 )
 from . import trainer_factory
 from .trainer_factory import FetchHandler  # noqa: F401
+from . import inferencer
 from . import incubate
 from . import average
 from . import profiler

@@ -1,31 +1,27 @@
 """fluid.contrib.slim — model compression (ref: contrib/slim).
 
-Port of paddle_tpu/fluid/contrib/slim: ``core.strategy`` and
-``quantization`` (QAT fake-quant with straight-through gradients, the
-freeze into a real int8 program, PostTrainingQuantization). The
-Compressor, its config, GraphWrapper, prune, distillation, searcher and
-nas come with the rest of item 6.8 (ROADMAP.md Queue 1); asking for one
-of them raises, naming that item.
+Port of paddle_tpu/fluid/contrib/slim:
+- prune: masked (lazy) structure pruning of scope params — real sparsity,
+  the same shapes; strategies re-assert the masks after every batch, on
+  the card, in place.
+- distillation: teacher and student in ONE program (the teacher's output
+  stop-gradient), so the distill step is one run of one program.
+- quantization: QAT fake-quant with straight-through gradients; freeze
+  produces a REAL int8 program (int8 products summed in int32);
+  PostTrainingQuantization calibrates without retraining (abs-max / KL).
+- core: yaml-configured Compressor scheduling strategies per epoch.
+- graph: GraphWrapper views over the symbolic Program.
+- searcher: SAController (simulated annealing).
+- nas: the LightNAS search subsystem — socket ControllerServer +
+  SearchAgent protocol and LightNASStrategy driving the SAController
+  through the Compressor epoch loop.
 """
-_UNPORTED = ("Compressor", "ConfigFactory", "Context", "GraphWrapper",
-             "graph", "prune", "distillation", "searcher", "nas")
-
-
-def _unported(module, names):
-    """A module ``__getattr__`` that raises for `names`, naming item 6.8."""
-    def __getattr__(name):
-        if name in names:
-            raise NotImplementedError(
-                "%s.%s is not ported yet: it comes with the rest of "
-                "fluid.contrib.slim (ROADMAP.md Queue 1, item 6.8)"
-                % (module, name))
-        raise AttributeError("module %r has no attribute %r"
-                             % (module, name))
-    return __getattr__
-
-
-from . import core  # noqa: E402,F401
-from .core import Strategy  # noqa: E402,F401
-from . import quantization  # noqa: E402,F401
-
-__getattr__ = _unported(__name__, _UNPORTED)
+from . import core  # noqa: F401
+from .core import Compressor, ConfigFactory, Context, Strategy  # noqa: F401
+from . import graph  # noqa: F401
+from .graph import GraphWrapper  # noqa: F401
+from . import prune  # noqa: F401
+from . import distillation  # noqa: F401
+from . import quantization  # noqa: F401
+from . import searcher  # noqa: F401
+from . import nas  # noqa: F401

@@ -1,12 +1,10 @@
-"""slim.core (ref: contrib/slim/core). The port has ``strategy``;
-``compressor`` and ``config`` (Compressor, Context, ConfigFactory) come
-with the rest of slim (ROADMAP.md Queue 1, item 6.8)."""
+"""slim.core (ref: contrib/slim/core). Port of
+paddle_tpu/fluid/contrib/slim/core."""
 from . import strategy  # noqa: F401
 from .strategy import Strategy  # noqa: F401
-from .. import _unported
+from . import compressor  # noqa: F401
+from .compressor import Compressor, Context, cached_reader  # noqa: F401
+from . import config  # noqa: F401
+from .config import ConfigFactory  # noqa: F401
 
-__all__ = ["Strategy"]
-
-__getattr__ = _unported(__name__, ("compressor", "Compressor", "Context",
-                                   "cached_reader", "config",
-                                   "ConfigFactory"))
+__all__ = ["Strategy", "Compressor", "Context", "ConfigFactory"]

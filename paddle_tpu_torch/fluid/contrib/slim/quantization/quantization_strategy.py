@@ -6,8 +6,8 @@ quantization_strategy.py. At start_epoch the fake-quant transform is
 applied to the optimize and eval graphs (the next run executes the
 changed program). At end_epoch the trained scales freeze the eval graph
 into the real-int8 inference program, optionally saved both as float
-(QAT simulation) and int8 models. The Compressor that calls these hooks
-comes with the rest of slim (ROADMAP.md Queue 1, item 6.8).
+(QAT simulation) and int8 models. slim.core's Compressor calls these
+hooks.
 """
 import numpy as np
 

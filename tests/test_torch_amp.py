@@ -624,8 +624,11 @@ def test_amp_program_parity(kw):
 
 
 def test_decorator_surface():
-    assert fluid.contrib.__all__ == ["layers", "mixed_precision", "quant",
-                                     "slim"]
+    import paddle_tpu.fluid.contrib as jcontrib
+
+    assert fluid.contrib.__all__ == jcontrib.__all__
+    assert fluid.contrib.__all__[:4] == ["layers", "mixed_precision",
+                                         "quant", "slim"]
     lists = mp.AutoMixedPrecisionLists(custom_white_list=["conv2d_transpose"],
                                        custom_black_list=["gelu"])
     assert "conv2d_transpose" in lists.white_list and "mul" in lists.white_list

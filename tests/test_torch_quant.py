@@ -32,7 +32,7 @@ package, on the CPU.
   port: each module is loaded afresh with its ``fluid`` bound to the
   port's, and the modules its tests import in their bodies are the
   port's for the call.
-- slim's names that are not ported raise, naming item 6.8.
+- slim exports every name the JAX package's slim exports.
 """
 import importlib.util
 import json
@@ -714,16 +714,23 @@ def test_ptq_of_a_resnet18_matches_the_jax_package(tmp_path):
     assert spread_flips > 0 and flips < 0.02 * total
 
 
-def test_unported_slim_names_raise_naming_item_6_8():
+def test_slim_exports_every_name_of_the_jax_package_s():
+    """Every name each slim module of the JAX package exports is in the
+    port's module; an unknown name raises AttributeError; the mkldnn and
+    mobile shims raise, naming what they stand for."""
     slim = fluid.contrib.slim
+    for mod in ("", ".core", ".graph", ".prune", ".distillation",
+                ".searcher", ".nas", ".quantization"):
+        jmod = importlib.import_module("paddle_tpu.fluid.contrib.slim" + mod)
+        pmod = importlib.import_module(
+            "paddle_tpu_torch.fluid.contrib.slim" + mod)
+        for name in getattr(jmod, "__all__", [n for n in dir(jmod)
+                                              if not n.startswith("_")]):
+            assert getattr(pmod, name) is not None, (mod, name)
     for name in ("Compressor", "ConfigFactory", "Context", "GraphWrapper",
-                 "prune", "distillation", "searcher", "nas"):
-        with pytest.raises(NotImplementedError, match="item 6.8"):
-            getattr(slim, name)
-    with pytest.raises(NotImplementedError, match="item 6.8"):
-        from paddle_tpu_torch.fluid.contrib.slim import prune  # noqa: F401
-    with pytest.raises(NotImplementedError, match="item 6.8"):
-        slim.core.Compressor
+                 "prune", "distillation", "searcher", "nas", "quantization"):
+        assert getattr(slim, name) is not None, name
+    assert slim.core.Compressor is slim.Compressor
     with pytest.raises(AttributeError):
         slim.no_such_name
     from paddle_tpu_torch.fluid.contrib.slim.quantization import (
