@@ -343,7 +343,7 @@ Phases, each of which exits non-zero on failure:
    predictor; (c) ``rnn(LSTMCell)`` and ``rnn(GRUCell)`` with lengths
    and ``is_reverse``, ``contrib.layers.basic_lstm`` (2 layers,
    bidirectional), ``layers.lstm`` (``cudnn_lstm``, 2 layers,
-   bidirectional), ``dynamic_gru`` and ``dynamic_lstmp`` at B 128, T 63,
+   bidirectional), ``dynamic_gru`` and ``dynamic_lstmp`` at B 32, T 63,
    hidden 512, outputs and parameter gradients card vs CPU within
    1e-3·max; (d) tests/test_book.py's ``rnn_encoder_decoder``
    (``DynamicRNN``) and contrib-decoder chapters at hidden 512,
@@ -535,6 +535,26 @@ Phases, each of which exits non-zero on failure:
    CPU (1e-5·max), ``ctr_metric_bundle``'s accumulators equal. The
    kernels line gains ``launches_adamw`` (22d) and ``launches_contrib``
    (22a-22c and 22e, all 0).
+23. data parallel (items 8.1 and 8.2) on bench.py:518's BERT-base step
+   (vocab 30522, hidden 768, 12 layers, seq 128, global batch 8,
+   ``Adam(1e-4)``, f32, dropout 0), the kernels built by the parent
+   before any rank starts. (a) NCCL at world size 1 (the group one card
+   allows): 3 steps through ``fleet.distributed_optimizer(...).minimize``
+   and ``exe.run(fleet.main_program)`` and 3 through
+   ``CompiledProgram(...).with_data_parallel``, losses and every
+   parameter after every step bit for bit the plain ``Executor.run``'s,
+   12/12/12/25/25 launches a step. (b) Two gloo ranks on the one card
+   (spawned worker processes, batch 4 each, 3 steps): the ranks'
+   parameters bit for bit alike after every step, losses and parameters
+   within 1e-3 (of max|param|) of a one-rank run on the batch of 8, each
+   rank's 12/12/12/25/25 launches a step; then 5 more steps timed: the
+   step's median and p90 and the gradient sync's share of the median. (c) ``grad_sync_mode="comms"`` in 4 MB
+   buckets: fp32 within 1e-3 of (b), int8 with error feedback within
+   5e-3 of fp32's last loss (the JAX package's
+   ``test_comms_quantized_ef_converges_to_fp32`` gap), the printed
+   ``compression_ratio`` and bytes equal to ``allreduce_wire_bytes``
+   over the buckets of BERT-base's gradients. The kernels line gains
+   ``launches_dp`` (23a's fleet run).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -551,8 +571,10 @@ The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import datetime
 import gc
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -6391,7 +6413,8 @@ def operator_vs_cpu(fluid):
 # dataset.imdb's vocabulary, fed ragged batches through DataFeeder: 5 steps
 # card vs CPU, then the timed steps (the main path); 16b the prediction
 # saved and served by Predictor.from_model; 16c the cells and multi-layer
-# recurrent ops at B 128, T 63, hidden 512, card vs CPU; 16d the recurrent
+# recurrent ops at B 32, T 63, hidden 512, card vs CPU (the batch cut from
+# 128 to pay for phase 23: the CPU side took 19-54 s); 16d the recurrent
 # seq2seq chapters (DynamicRNN, TrainingDecoder, BeamSearchDecoder) at
 # hidden 512, embedding 512, vocabulary 30,000, batch 16.
 RNN_EMB, RNN_HID, RNN_STACKED, RNN_CLASSES = 128, 512, 3, 2
@@ -6400,7 +6423,7 @@ RNN_CHECK_STEPS = 5
 RNN_TOL = 1e-3          # 16a, 16c, 16d: losses (relative), values (of max)
 RNN_PRED_TOL = 1e-4     # 16b: the card's probabilities against the CPU's
 RNN_FLIP_TOL = 5e-2     # 16a: a gradient below the max pools once one moves
-CELL_B, CELL_T, CELL_H = 128, 63, 512
+CELL_B, CELL_T, CELL_H = 32, 63, 512
 MT_HID, MT_EMB, MT_VOCAB, MT_BATCH, MT_T, MT_BEAM = 512, 512, 30000, 16, 24, 4
 MT_STEPS = 3
 MT_NEAR_TIE = 2e-6
@@ -10695,6 +10718,352 @@ def contrib_phase(fluid, resnet, bert, ca, cl, card, tmp):
     return adamw_launches, contrib, prof_args
 
 
+# ---------------------------------------------------------------------------
+# phase 23: data parallel (Queue 1 items 8.1 and 8.2): fleet,
+# CompiledProgram.with_data_parallel and the comms gradient sync on
+# bench.py:518's BERT-base step
+# ---------------------------------------------------------------------------
+DP_STEPS = 3                  # checked steps
+DP_TIMED = 5                  # 23b-23c: timed steps after them
+DP_BATCH = 8                  # the global batch; 23b-23c give 4 to a rank
+DP_RANKS = 2
+DP_TOL = 1e-3                 # 23b-23c: of max|param|, and loss relative
+DP_EF_GAP = 5e-3              # test_comms_quantized_ef_converges_to_fp32
+DP_BUCKET_BYTES = 4 << 20
+DP_WAIT = 240                 # s: a rank's collectives, and the ranks' join
+
+
+def dp_program(fluid, bert, minimize=None):
+    """bench.py:518's BERT-base step at dropout 0 (vocab 30522, hidden
+    768, 12 layers, seq 128, Adam(1e-4), f32), minimized through
+    `minimize(optimizer, loss)` (a fleet distributed optimizer) when
+    given; returns (cfg, main, startup, loss var)."""
+    cfg = bert.BertConfig(dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        io = bert.build_bert_pretrain(cfg, SEQ)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if minimize is None:
+            opt.minimize(io["loss"])
+        else:
+            minimize(opt, io["loss"])
+    main.random_seed = startup.random_seed = SEED
+    return cfg, main, startup, io["loss"]
+
+
+def dp_feed(bert, cfg):
+    ids, labels = bert.synthetic_batch(cfg, DP_BATCH, SEQ, seed=SEED)
+    return {"input_ids": ids, "mlm_labels": labels}
+
+
+def fleet_minimize(fl, strategy):
+    """minimize(opt, loss) through `fl`'s distributed optimizer."""
+    def minimize(opt, loss):
+        fl.distributed_optimizer(opt, strategy).minimize(loss)
+    return minimize
+
+
+def dp_steps(exe, prog, feed, loss, scope, params, steps=DP_STEPS):
+    """`steps` runs of `prog`; returns (losses, step walls in s, the
+    parameters after each step as clones on the card)."""
+    losses, walls, after = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.monotonic() - t0)   # the fetch waits for the card
+        losses.append(float(out[0]))
+        after.append({n: scope[n].clone() for n in params})
+    return losses, walls, after
+
+
+def dp_phase(fluid, bert, ca, cl, card, tmp):
+    """Phase 23. Returns the five kernels' launches in 23a's fleet run."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import fleet, mesh
+
+    t23 = time.monotonic()
+    mark("23a")
+    mesh.init_group(rank=0, world_size=1, backend="nccl", device="cuda:0",
+                    store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1))
+    try:
+        cfg, main, startup, loss = dp_program(fluid, bert)
+        feed = dp_feed(bert, cfg)
+        params = sorted(p.name for p in main.all_parameters())
+        init = fluid.Scope()
+        fluid.Executor().run(startup, scope=init)
+        plain = dp_steps(fluid.Executor(), main, feed, loss,
+                         clone_scope(fluid, init), params)
+        fl = fleet.Fleet().init(fleet.UserDefinedRoleMaker(0, worker_num=1))
+        _, _, _, floss = dp_program(fluid, bert, fleet_minimize(
+            fl, fleet.DistributedStrategy()))
+        fns = counters(ca, cl)
+        zero_counters(ca, cl)
+        runs = {"fleet": dp_steps(fluid.Executor(), fl.main_program, feed,
+                                  floss, clone_scope(fluid, init), params)}
+        launches = {n: fn.launches for n, fn in fns.items()}
+        runs["CompiledProgram"] = dp_steps(
+            fluid.Executor(), fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name), feed, loss, clone_scope(fluid, init),
+            params)
+        for tag, (losses, walls, after) in runs.items():
+            same = sum(torch.equal(a[n], b[n]) for a, b in zip(
+                after, plain[2]) for n in params)
+            print("23a %s over nccl (world size 1) [%s]: losses %s (plain "
+                  "Executor.run %s), step walls %s ms (plain %s); %d of %d "
+                  "parameter values after the %d steps bit for bit the "
+                  "plain run's" % (
+                      tag, card, losses, plain[0],
+                      " ".join("%.1f" % (1e3 * w) for w in walls),
+                      " ".join("%.1f" % (1e3 * w) for w in plain[1]), same,
+                      len(params) * DP_STEPS, DP_STEPS), flush=True)
+            if losses != plain[0] or same != len(params) * DP_STEPS:
+                fail("23a: %s at world size 1 is not the plain run" % tag)
+        print("23a launches in the fleet run %s (want %s a step x %d)" % (
+            launches, PER_STEP, DP_STEPS), flush=True)
+        if any(launches[n] != PER_STEP[n] * DP_STEPS for n in PER_STEP):
+            fail("23a: launches %s, want %s a step" % (launches, PER_STEP))
+        del plain, runs, init
+    finally:
+        dist.destroy_process_group()
+        mesh.set_default_mesh(None)
+    t23b = time.monotonic()
+    mark("23b-23c")
+    store = os.path.join(tmp, "dp_store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(rank, DP_RANKS, store, tmp))
+             for rank in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_WAIT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    for rank in range(DP_RANKS):
+        with open(os.path.join(tmp, "dp_rank%d.log" % rank)) as f:
+            sys.stdout.write(f.read())
+    if hung or any(p.exitcode for p in procs):
+        fail("23b-23c: ranks %s hung, exit codes %s" % (
+            hung, [p.exitcode for p in procs]))
+    print("phase 23 (data parallel: 23a %.1f s, 23b-23c %.1f s) took %.1f s"
+          % (t23b - t23, time.monotonic() - t23b, time.monotonic() - t23),
+          flush=True)
+    return launches
+
+
+def dp_rank(rank, world, store, tmp):
+    """23b-23c on one of `world` ranks over gloo on the one card; writes
+    what it prints to dp_rank<rank>.log under `tmp` and exits non-zero
+    on a failed gate."""
+    log = open(os.path.join(tmp, "dp_rank%d.log" % rank), "w")
+    sys.stdout = log
+    try:
+        _dp_rank(rank, world, store)
+    except SystemExit:
+        raise
+    except BaseException:
+        import traceback
+
+        print("FAIL: 23b-23c rank %d:\n%s" % (rank, traceback.format_exc()))
+        raise SystemExit(1)
+    finally:
+        log.flush()
+
+
+def _dp_rank(rank, world, store):
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_build
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.parallel import fleet, mesh
+    from paddle_tpu_torch.parallel.comms import allreduce_wire_bytes
+    from paddle_tpu_torch.parallel.comms import bucket_padded_len
+
+    # the parent built every kernel: a rank only loads _build/
+    missing = [n for n in cuda_build.KERNELS
+               if not os.path.exists(cuda_build.library_path(n))]
+    if missing:
+        fail("23b rank %d: kernels %s not built by the parent" % (
+            rank, missing))
+    group = mesh.init_group(rank=rank, world_size=world, backend="gloo",
+                            device="cuda:0",
+                            store=dist.FileStore(store, world),
+                            timeout=datetime.timedelta(seconds=DP_WAIT))
+    try:
+        _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
+                      allreduce_wire_bytes, bucket_padded_len)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
+                  allreduce_wire_bytes, bucket_padded_len):
+    tag = "23b rank %d" % rank
+    cfg, main, startup, loss = dp_program(fluid, bert)
+    feed = dp_feed(bert, cfg)
+    params = sorted(p.name for p in main.all_parameters())
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    ref = None
+    if rank == 0:       # the one-rank run on the global batch of 8
+        ref = dp_steps(fluid.Executor(), main, feed, loss,
+                       clone_scope(fluid, init), params)
+        del main
+    numel = sum(init[n].numel() for n in params)
+
+    def alike(after, what):
+        """Rank 1's parameters sent to rank 0, compared bit for bit."""
+        flat = torch.cat([after[n].reshape(-1) for n in params])
+        other = group.broadcast(flat, root=1)
+        if rank == 0 and not torch.equal(flat, other):
+            bad = [n for n, a, b in zip(params, flat.split(
+                [after[n].numel() for n in params]), other.split(
+                [after[n].numel() for n in params])) if not torch.equal(a, b)]
+            fail("%s: the ranks' parameters differ after %s: %s" % (
+                tag, what, bad[:5]))
+
+    def far(a, b):
+        """max over parameters of max|a - b| / max|b|."""
+        return max(float((a[n] - b[n]).abs().max())
+                   / max(float(b[n].abs().max()), 1e-30) for n in params)
+
+    runs = {}
+    for mode, strategy in (("gspmd", {}),
+                           ("comms fp32", {"grad_sync_mode": "comms",
+                                           "grad_bucket_bytes":
+                                               DP_BUCKET_BYTES}),
+                           ("comms int8", {"grad_sync_mode": "comms",
+                                           "grad_bucket_bytes":
+                                               DP_BUCKET_BYTES,
+                                           "grad_quantize": True})):
+        obs.reset()
+        fl = fleet.Fleet().init(fleet.UserDefinedRoleMaker(rank,
+                                                           worker_num=world))
+        s = fleet.DistributedStrategy()
+        for k, v in strategy.items():
+            setattr(s, k, v)
+        _, _, _, floss = dp_program(fluid, bert,
+                                    fleet_minimize(fl, s))
+        prog = fl.main_program
+        comm = []
+        hook_of = prog._grad_comm
+
+        def timed_hook(hook_of=hook_of, comm=comm):
+            hook = hook_of()
+
+            def run(grads):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = hook(grads)
+                torch.cuda.synchronize()
+                comm.append(time.monotonic() - t0)
+                return out
+            return run
+
+        prog._grad_comm = timed_hook
+        scope = clone_scope(fluid, init)
+        fns = counters(ca, cl)
+        zero_counters(ca, cl)
+        losses, walls, after = [], [], []
+        for step in range(DP_STEPS):
+            lw, ww, aw = dp_steps(fluid.Executor(), prog, feed, floss, scope,
+                                  params, steps=1)
+            losses += lw
+            walls += ww
+            after += aw
+            if mode == "gspmd" or step == DP_STEPS - 1:
+                alike(aw[0], "%s step %d" % (mode, step))
+        launches = {n: fn.launches for n, fn in fns.items()}
+        if any(launches[n] != PER_STEP[n] * DP_STEPS for n in PER_STEP):
+            fail("%s %s: launches %s, want %s a step" % (tag, mode, launches,
+                                                         PER_STEP))
+        runs[mode] = (losses, after[-1])
+        if mode.startswith("comms"):
+            plans = prog._plans
+            sent = fp32 = 0.0
+            for plan in plans:
+                for b in plan.buckets:
+                    padded = bucket_padded_len(
+                        b, world, s.grad_quantize_block if s.grad_quantize
+                        else 1)
+                    sent += world * allreduce_wire_bytes(
+                        padded, world, quantized=s.grad_quantize,
+                        block_size=s.grad_quantize_block)
+                    fp32 += world * allreduce_wire_bytes(padded, world)
+            ratio = obs.gauge("comm.compression_ratio")
+            got_sent = obs.counter("comm.bytes_sent")
+            print("%s %s: %d buckets of <= %d bytes over %d gradients of "
+                  "%d elements; compression_ratio %.6f, bytes_sent %d a "
+                  "step x %d steps, bytes_saved %d (allreduce_wire_bytes: "
+                  "%.1f sent, %.1f fp32 a step; ratio %.6f); overlap_ratio "
+                  "%.4f" % (
+                      tag, mode, sum(len(p.buckets) for p in plans),
+                      DP_BUCKET_BYTES, len(params), numel, ratio, got_sent //
+                      DP_STEPS, DP_STEPS, obs.counter("comm.bytes_saved"),
+                      sent, fp32, fp32 / sent,
+                      obs.gauge("comm.overlap_ratio")), flush=True)
+            if (got_sent != DP_STEPS * int(sent)
+                    or abs(ratio - fp32 / sent) > 1e-9 * ratio):
+                fail("%s %s: the wire accounting is not "
+                     "allreduce_wire_bytes'" % (tag, mode))
+        # the checked steps' first holds the state broadcast and warm-up:
+        # the step and the sync are timed over DP_TIMED steps after them
+        _, timed, _ = dp_steps(fluid.Executor(), prog, feed, floss, scope,
+                               (), steps=DP_TIMED)
+        med = statistics.median(timed)
+        sync = statistics.median(comm[-DP_TIMED:])
+        print("%s %s [%s]: batch %d of %d, losses %s, the checked steps' "
+              "walls %s ms, launches %s; %d more steps: median %.1f ms, "
+              "p90 %.1f ms, the gradient sync's median %.1f ms (%.1f%% of "
+              "the median step)" % (
+                  tag, mode, card_line(), DP_BATCH // world, DP_BATCH,
+                  losses, " ".join("%.1f" % (1e3 * w) for w in walls),
+                  launches, DP_TIMED, 1e3 * med,
+                  1e3 * sorted(timed)[int(0.9 * (DP_TIMED - 1))],
+                  1e3 * sync, 100 * sync / med), flush=True)
+        del prog, fl, scope, after
+    if rank != 0:
+        return
+    losses1, _, after1 = ref
+    g_losses, g_after = runs["gspmd"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g_losses, losses1))
+    dist_p = far(g_after, after1[-1])
+    print("23b 2 ranks (gloo, one card) vs 1 rank on the batch of 8: "
+          "losses %s vs %s (rel %.2e), parameters after %d Adam steps "
+          "within %.2e of max|param| (bound %g)" % (
+              g_losses, losses1, rel, DP_STEPS, dist_p, DP_TOL), flush=True)
+    if rel > DP_TOL or dist_p > DP_TOL:
+        fail("23b: 2 ranks disagree with the one-rank run")
+    c_losses, c_after = runs["comms fp32"]
+    q_losses, _ = runs["comms int8"]
+    dist_c = far(c_after, g_after)
+    print("23c comms fp32 vs 23b: losses %s vs %s, parameters within %.2e "
+          "of max|param| (bound %g); comms int8 (error feedback) losses %s, "
+          "the last %.3e from fp32's (bound %g)" % (
+              c_losses, g_losses, dist_c, DP_TOL, q_losses,
+              abs(q_losses[-1] - c_losses[-1]), DP_EF_GAP), flush=True)
+    if dist_c > DP_TOL or max(abs(a - b) / abs(b) for a, b in zip(
+            c_losses, g_losses)) > DP_TOL:
+        fail("23c: comms fp32 disagrees with 23b")
+    if not all(np.isfinite(q_losses)) or abs(
+            q_losses[-1] - c_losses[-1]) > DP_EF_GAP:
+        fail("23c: comms int8 strays from fp32")
+
+
+def card_line():
+    return sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -11048,6 +11417,10 @@ def main():
         # before the profiles (22a's re-assert profile comes with them)
         adamw_launches, contrib_launches, prof22 = contrib_phase(
             fluid, resnet, bert, ca, cl, card, tmp)
+        # phase 23: data parallel (23a at world size 1 over nccl, 23b-23c
+        # two gloo ranks on the card); its steps are timed, so before the
+        # profiles
+        dp_launches = dp_phase(fluid, bert, ca, cl, card, tmp)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -11227,8 +11600,9 @@ def main():
     # timed VGG-16 steps and 18b's timed recommender steps, launches_ocr
     # in 19a's timed CRNN-CTC steps, launches_ckpt in 20a's run B (its
     # steps before the save and after the load), launches_quant in 21c's
-    # served int8 batches, launches_adamw in 22d's AdamW BERT-base steps
-    # and launches_contrib in 22a-22c and 22e together (all 0)
+    # served int8 batches, launches_adamw in 22d's AdamW BERT-base steps,
+    # launches_contrib in 22a-22c and 22e together (all 0) and launches_dp
+    # in 23a's fleet run (3 steps at world size 1 over nccl)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -11257,6 +11631,7 @@ def main():
                      launches_quant=quant_launches[name],
                      launches_adamw=adamw_launches[name],
                      launches_contrib=contrib_launches[name],
+                     launches_dp=dp_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

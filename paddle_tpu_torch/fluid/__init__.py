@@ -75,6 +75,10 @@ from .trainer_desc import (  # noqa: F401
 )
 from . import trainer_factory
 from .trainer_factory import FetchHandler  # noqa: F401
+from . import compiler
+from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy  # noqa: F401
+from . import parallel_executor
+from .parallel_executor import ParallelExecutor  # noqa: F401
 from . import inferencer
 from . import incubate
 from . import average

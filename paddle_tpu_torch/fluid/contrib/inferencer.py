@@ -2,8 +2,8 @@
 inferencer.py:31). Port of paddle_tpu/fluid/contrib/inferencer.py: loads
 params saved by Trainer.save_params / io.save_persistables and runs the
 inference graph on the card unless given ``place=CPUPlace()``.
-``parallel=True`` builds a CompiledProgram, which the port brings with
-ROADMAP.md Queue 1 item 8, and raises until then."""
+``parallel=True`` runs it through ``CompiledProgram.with_data_parallel``
+over the ranks of the world (fluid/compiler.py)."""
 import numpy as np
 
 from .. import framework, io, unique_name
@@ -14,11 +14,6 @@ __all__ = ["Inferencer"]
 
 class Inferencer:
     def __init__(self, infer_func, param_path, place=None, parallel=False):
-        if parallel:
-            raise NotImplementedError(
-                "Inferencer(parallel=True) builds a CompiledProgram "
-                "(fluid/compiler.py), which the port brings with "
-                "ROADMAP.md Queue 1 item 8")
         self.param_path = param_path
         self.scope = Scope()
         self.place = place
@@ -37,6 +32,11 @@ class Inferencer:
                 self.exe, param_path, self.inference_program)
         self.inference_program = self.inference_program.clone(
             for_test=True)
+        if parallel:
+            from ..compiler import CompiledProgram
+
+            self.inference_program = CompiledProgram(
+                self.inference_program).with_data_parallel()
 
     def infer(self, inputs, return_numpy=True):
         if not isinstance(inputs, dict):

@@ -260,15 +260,14 @@ class GraphWrapper:
 
     def compile(self, for_parallel=True, for_test=False, mem_opt=False):
         """Return the executable form: the program itself (cloned for test
-        when asked). ``for_parallel=True`` (the default) wraps it in a
-        ``CompiledProgram``, which the port brings with ROADMAP.md Queue 1
-        item 8.1: until then it raises."""
+        when asked), wrapped in a ``CompiledProgram`` when ``for_parallel``
+        (the default), as the JAX package does."""
+        prog = self.program.clone(for_test) if for_test else self.program
         if for_parallel:
-            raise NotImplementedError(
-                "GraphWrapper.compile(for_parallel=True) builds a "
-                "CompiledProgram (fluid/compiler.py), which the port brings "
-                "with ROADMAP.md Queue 1 item 8.1; pass for_parallel=False")
-        return self.program.clone(for_test) if for_test else self.program
+            from ....compiler import CompiledProgram
+
+            return CompiledProgram(prog)
+        return prog
 
     def merge(self, graph):
         """Append another graph's ops/vars into this one (ref merge —

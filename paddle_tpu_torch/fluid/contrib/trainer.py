@@ -1,9 +1,9 @@
 """High-level Trainer API (ref: python/paddle/fluid/contrib/trainer.py).
 
 Port of paddle_tpu/fluid/contrib/trainer.py. The Trainer runs on the
-card unless given ``place=CPUPlace()``; ``parallel=True`` builds a
-CompiledProgram, which the port brings with ROADMAP.md Queue 1 item 8,
-and raises until then. Checkpointing goes through
+card unless given ``place=CPUPlace()``; ``parallel=True`` runs the
+training program through ``CompiledProgram.with_data_parallel`` over
+the ranks of the world (fluid/compiler.py). Checkpointing goes through
 io.save/load_persistables per CheckpointConfig. The event-loop contract
 (Begin/EndEpochEvent, Begin/EndStepEvent with metrics as host arrays,
 event_handler, trainer.stop()) is the reference's; with
@@ -63,11 +63,6 @@ class Trainer:
 
     def __init__(self, train_func, optimizer_func, param_path=None,
                  place=None, parallel=False, checkpoint_config=None):
-        if parallel:
-            raise NotImplementedError(
-                "Trainer(parallel=True) builds a CompiledProgram "
-                "(fluid/compiler.py), which the port brings with "
-                "ROADMAP.md Queue 1 item 8")
         self.__stop = False
         self.parallel = parallel
         self.checkpoint_cfg = checkpoint_config
@@ -98,6 +93,12 @@ class Trainer:
                     self.exe, param_path, self.train_program)
 
         self._run_program = self.train_program
+        if parallel:
+            from ..compiler import CompiledProgram
+
+            self._run_program = CompiledProgram(
+                self.train_program).with_data_parallel(
+                    loss_name=self.loss.name)
 
     def stop(self):
         """Stop training after the current step (ref trainer.py:373)."""

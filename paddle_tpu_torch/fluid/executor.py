@@ -20,6 +20,9 @@ batches.
 the program (``layers.py_reader``), raising ``core.EOFException`` at the
 end of its epoch; ``run_pipelined`` (fluid/async_pipeline.py) prepares
 the next batch's feeds on a stager thread while the current step runs.
+A program that runs itself — a ``CompiledProgram``, a data-parallel
+``DistributedProgram`` or ``GradSyncProgram`` — is handed the run
+(``_executor_run``), as in the JAX package.
 """
 import numpy as np
 import torch
@@ -243,15 +246,21 @@ class Executor:
         program = program if program is not None else default_main_program()
         if not feed:
             # a started py_reader attached to the program supplies the
-            # batch; it raises core.EOFException at the end of its epoch
-            readers = getattr(program, "_py_readers", ())
+            # batch; it raises core.EOFException at the end of its epoch.
+            # A CompiledProgram wraps the Program that holds the readers.
+            src = getattr(program, "_program", program)
+            readers = getattr(src, "_py_readers", ())
             for reader in readers:
                 batch = reader._next_feed()
                 if batch is not None:
                     feed = dict(batch)
                     break
             else:
-                self._check_unstarted_readers(program, readers)
+                self._check_unstarted_readers(src, readers)
+        # a CompiledProgram or a data-parallel program runs itself
+        if hasattr(program, "_executor_run"):
+            return program._executor_run(self, feed, fetch_list, scope,
+                                         return_numpy)
         scope = scope if scope is not None else global_scope()
         feed = feed or {}
         fetch_names = [_as_name(f) for f in (fetch_list or [])]
@@ -500,9 +509,25 @@ class Executor:
     def _next_generator(self, program):
         """A fresh generator per run: seeded from ``program.random_seed``
         (0 means one seed per program) and the run count."""
+        return self._seeded(self._next_seed(program))
+
+    def _next_seed(self, program, base=None):
+        """The seed of the next run's generator: `base` (by default
+        ``program.random_seed``, or one per program when that is 0)
+        plus a step per run of this executor."""
         self._run_counter += 1
-        seed = program.random_seed or (hash(("paddle_tpu_torch",
-                                             program._uid)) % (2 ** 31))
+        if base is None:
+            base = program_seed(program)
+        return base + 1000003 * self._run_counter
+
+    def _seeded(self, seed):
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed + 1000003 * self._run_counter)
+        gen.manual_seed(seed)
         return gen
+
+
+def program_seed(program):
+    """``program.random_seed``, or when that is 0 one seed per program
+    (salted per process: str hashing is)."""
+    return program.random_seed or (hash(("paddle_tpu_torch", program._uid))
+                                   % (2 ** 31))

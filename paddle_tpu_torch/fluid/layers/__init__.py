@@ -27,6 +27,7 @@ from .detection import *  # noqa: F401,F403
 from . import distributions
 from .distributions import *  # noqa: F401,F403
 from . import device  # noqa: F401
+from . import collective  # noqa: F401
 from . import layer_function_generator  # noqa: F401
 from . import math_op_patch
 

@@ -27,6 +27,12 @@ outputs. An op that writes a persistable, draws from the run's generator
 (:data:`DRAWS`), acts on the host (:data:`HOST_EFFECTS`), has no
 outputs, or is a ``backward`` op always runs,
 with what it reads.
+
+Data parallel: a program run over a rank group (parallel/sharding.py)
+hands ``build_step_fn`` a ``grad_comm`` hook, which ``_run_training``
+calls with the global block's raw gradients right after its backward op
+and before the optimizer ops read them, as the JAX package's hook sits
+between jax.vjp and the update.
 """
 import contextlib
 import threading
@@ -213,7 +219,13 @@ def _run_training(op_list, env, ctx):
                 grads = _grads(loss, [leaves.get(n, env[n]) for n in
                                       bw_op.attrs["targets"]],
                                seed, retain=idx != at[-1])
-            for n, g in zip(bw_op.output("Grads"), grads):
+            grad_names = bw_op.output("Grads")
+            # the data-parallel gradient hook (module docstring)
+            gc = getattr(ctx, "grad_comm", None)
+            if gc is not None and bw_op.block.idx == 0:
+                synced = gc(dict(zip(grad_names, grads)))
+                grads = [synced.get(n, g) for n, g in zip(grad_names, grads)]
+            for n, g in zip(grad_names, grads):
                 env[n] = g.requires_grad_() if n in later_targets else g
     with torch.no_grad(), record_function("paddle_tpu_torch::optimizer"):
         for op in op_list[at[-1] + 1:]:
@@ -549,8 +561,10 @@ def live_plan(program, fetch_names):
 
 
 def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
-                  grad_comm=None):
-    """Return step(state, feeds, generator) -> (fetches, new_state).
+                  grad_comm=None, mesh_axes=None, mesh=None,
+                  batch_stats_group=None):
+    """Return step(state, feeds, generator, shared_generator) ->
+    (fetches, new_state).
 
     ``state`` / ``feeds`` are dicts name -> tensor on `device` (the
     device random and constant ops create their tensors on);
@@ -560,13 +574,15 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     autograd on for the region it differentiates (:func:`run_ops`). On
     the card they run under :func:`f32_precision`.
     Only the ops of :func:`live_plan` run.
-    ``grad_comm``, the JAX package's gradient-communication hook, waits for
-    the port's parallel slice."""
-    if grad_comm is not None:
-        raise NotImplementedError(
-            "the gradient-communication hook (grad_comm) is not ported yet: "
-            "it comes with the parallel slice of paddle_tpu_torch "
-            "(ROADMAP.md, Queue 1)")
+
+    Data parallel (paddle_tpu_torch/parallel): ``grad_comm`` is a callable
+    ``{grad_name: tensor} -> {grad_name: tensor}`` that the global block's
+    backward op hands its raw gradients to before the optimizer ops read
+    them (:func:`_run_training`); ``mesh_axes`` and ``mesh`` bind the
+    collective ops' rings to the rank group; ``batch_stats_group`` is the
+    group ``batch_norm`` takes its training statistics over; and
+    ``shared_generator`` draws what every rank draws alike
+    (:class:`~paddle_tpu_torch.ops.registry.LowerContext`)."""
     block = program.global_block()
     plan = live_plan(program, fetch_names)      # None: every op runs
     op_list = list(block.ops) if plan is None else plan.ops[0]
@@ -574,10 +590,14 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     keep = persist | set(fetch_names)
     device = torch.device(device)
 
-    def step(state, feeds, generator=None):
+    def step(state, feeds, generator=None, shared_generator=None):
         ctx = LowerContext(device, generator=generator, is_test=is_test,
-                           program=program, run_ops=run_ops, plan=plan)
+                           program=program, run_ops=run_ops, plan=plan,
+                           mesh_axes=mesh_axes, mesh=mesh,
+                           shared_generator=shared_generator)
         ctx.keep_names = keep
+        ctx.grad_comm = grad_comm
+        ctx.batch_stats_group = batch_stats_group
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()

@@ -30,9 +30,18 @@ in a started py_reader's pop (``fluid/layers/io.py``), ``heartbeat`` in
 the beacon writer (``parallel/elastic.py``), ``dispatch`` in the serving
 router's per-attempt dispatch and in the decode engine's step,
 ``replica`` in a local replica's admission (``serving/router.py``),
-``wire`` in the KV handoff encoder (``serving/disagg/kv_wire.py``) and
-``mailbox`` in the FileStore writer. ``save`` and ``fetch`` parse but
-fire nowhere yet (they come with guarded training, item 11).
+``wire`` in the KV handoff encoder (``serving/disagg/kv_wire.py``),
+``mailbox`` in the FileStore writer, ``collective`` in the collective
+op lowerings (``ops/collective_ops.py``) and each gradient sync's
+dispatch (``parallel/comms/grad_sync.py``), and ``barrier`` in the
+``barrier`` op and ``Fleet.barrier_worker``. ``save`` and ``fetch``
+parse but fire nowhere yet (they come with guarded training, item 11).
+
+Collective deadlines, as the JAX package has them:
+``collective_deadline(seconds)`` arms a wall-clock deadline on this
+thread, and :func:`collective_check` — one call per collective entry
+point — raises :class:`CollectiveTimeoutError` once it has expired, so
+no new collective is issued after a peer is presumed lost.
 
 With the env var unset and no injector installed, the hooks are inert
 (one dict lookup per site check).
@@ -40,12 +49,12 @@ With the env var unset and no injector installed, the hooks are inert
 Not ported yet, each raising ``NotImplementedError`` that names ROADMAP.md
 Queue 1 item 11: ``GuardedExecutor``, ``TrainGuard`` and ``run_guarded``
 (guarded training: retry, watchdog, non-finite skip, auto-checkpoint).
-The collective deadlines and the typed step errors come with them and
-with the parallel slice (item 8).
+The typed step errors come with them.
 """
 import collections
 import os
 import re
+import threading
 import time
 
 import numpy as np
@@ -56,6 +65,8 @@ __all__ = [
     "FaultInjector", "FaultSpecError", "GuardedExecutor", "TrainGuard",
     "EventLog", "fault_check", "run_guarded", "fault_corrupt",
     "fault_corrupt_mode", "corrupt_bytes", "corrupt_array",
+    "CollectiveTimeoutError", "collective_deadline", "collective_check",
+    "deadline_remaining",
 ]
 
 FAULT_SPEC_ENV = "PADDLE_TPU_FAULT_SPEC"
@@ -63,6 +74,74 @@ FAULT_SPEC_ENV = "PADDLE_TPU_FAULT_SPEC"
 
 class FaultSpecError(ValueError):
     """Malformed PADDLE_TPU_FAULT_SPEC."""
+
+
+class CollectiveTimeoutError(RuntimeError):
+    """A collective/barrier path exceeded its deadline. Never retried
+    blindly: the peer that missed the rendezvous may be dead, and
+    re-entering the same collective would hang again — the caller must
+    first re-establish fleet membership."""
+
+
+# ---------------------------------------------------------------------------
+# collective deadlines
+# ---------------------------------------------------------------------------
+#
+# A hung peer turns every collective into an infinite wait. The deadline
+# is carried in a thread-local so each worker thread or rank process
+# scopes its own budget; it is checked before each collective is issued
+# (ops/collective_ops.py, the gradient sync, Fleet.barrier_worker). Once
+# a collective is in flight only the backend's own timeout can end it,
+# so the guarantee is "no new collective is issued after expiry".
+
+_deadline_tls = threading.local()
+
+
+class collective_deadline:
+    """Context manager arming a wall-clock deadline (seconds) for every
+    collective/barrier check on this thread. Nesting keeps the TIGHTER
+    (earlier) deadline. ``seconds=None`` is a no-op context."""
+
+    def __init__(self, seconds):
+        self._seconds = seconds
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_deadline_tls, "at", None)
+        if self._seconds is not None:
+            at = time.monotonic() + float(self._seconds)
+            if self._prev is not None:
+                at = min(at, self._prev)
+            _deadline_tls.at = at
+        return self
+
+    def __exit__(self, *exc):
+        _deadline_tls.at = self._prev
+        return False
+
+
+def deadline_remaining():
+    """Seconds left on this thread's collective deadline, or None when
+    no deadline is armed. Never negative (expired == 0.0)."""
+    at = getattr(_deadline_tls, "at", None)
+    if at is None:
+        return None
+    return max(0.0, at - time.monotonic())
+
+
+def collective_check(what, site="collective"):
+    """One guard call per collective entry point: counts a fault-spec
+    check at `site` (raising any injected fault) and raises
+    :class:`CollectiveTimeoutError` when this thread's armed deadline
+    has expired. `what` names the op/path for the error message."""
+    fault_check(site)
+    remaining = deadline_remaining()
+    if remaining is not None and remaining <= 0.0:
+        raise CollectiveTimeoutError(
+            "collective deadline expired before %s could be issued "
+            "(a peer is presumed hung/dead; re-establish fleet "
+            "membership before retrying)" % (what,)
+        )
 
 
 # ---------------------------------------------------------------------------

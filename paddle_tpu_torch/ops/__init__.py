@@ -17,4 +17,7 @@ from . import detection_ops  # noqa: F401
 from . import rcnn_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
-from .registry import LOWERINGS, get_lowering, register_op  # noqa: F401
+from . import collective_ops  # noqa: F401
+from .registry import (  # noqa: F401
+    LOWERINGS, get_lowering, has_lowering, register_op,
+)

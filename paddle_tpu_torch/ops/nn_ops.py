@@ -400,7 +400,13 @@ def _batch_norm(ctx, ins, attrs):
     conv outputs under AMP, with f32 Scale, Bias and statistics).
     SavedVariance is rsqrt(var + eps). With ``is_test`` or
     ``use_global_stats`` the running statistics normalize, pass through
-    unchanged, and SavedMean / SavedVariance are zeros / ones."""
+    unchanged, and SavedMean / SavedVariance are zeros / ones.
+
+    In a data-parallel run (``ctx.batch_stats_group``, set by
+    ``DistributedProgram``) the training moments are the global batch's,
+    as GSPMD gives them in the JAX package: each rank's sums over its
+    slice are summed over the group (differentiably, so the backward
+    reaches every rank's slice) and divided by the global count."""
     x = ins["X"][0]
     scale, bias = ins["Scale"][0], ins["Bias"][0]
     mean, var = ins["Mean"][0], ins["Variance"][0]
@@ -420,9 +426,19 @@ def _batch_norm(ctx, ins, attrs):
         # one f32 copy of x, centered, serves the variance and Y (and is
         # all autograd keeps of x for the backward)
         xf = x.float()
-        use_mean = xf.mean(dim=axes)
-        centered = xf - use_mean.reshape(bshape)
-        use_var = (centered * centered).mean(dim=axes)
+        group = ctx.batch_stats_group
+        if group is not None and group.size > 1:
+            from ..parallel.mesh import all_reduce_sum
+
+            count = group.size * (xf.numel() // xf.shape[ch])
+            use_mean = all_reduce_sum(xf.sum(dim=axes), group) / count
+            centered = xf - use_mean.reshape(bshape)
+            use_var = all_reduce_sum((centered * centered).sum(dim=axes),
+                                     group) / count
+        else:
+            use_mean = xf.mean(dim=axes)
+            centered = xf - use_mean.reshape(bshape)
+            use_var = (centered * centered).mean(dim=axes)
         bm, bv = use_mean.detach(), use_var.detach()
         new_mean = momentum * mean + (1 - momentum) * bm
         new_var = momentum * var + (1 - momentum) * bv

@@ -274,6 +274,7 @@ def _dpsgd(ctx, ins, attrs):
     batch_size = attrs.get("batch_size", 16.0)
     sigma = attrs.get("sigma", 1.0)
     g = g * torch.clamp(clip / torch.clamp(_sq_norm(g), min=1e-12), max=1.0)
-    noise = sigma * clip * torch.randn(g.shape, generator=ctx.next_rng(),
-                                       device=g.device)
+    # the update of a replicated parameter: alike on every rank
+    noise = sigma * clip * torch.randn(
+        g.shape, generator=ctx.next_rng(replicated=True), device=g.device)
     return {"ParamOut": [p - lr * (g + noise / batch_size)]}

@@ -3,7 +3,10 @@ uniform_random, gaussian_random, sampling_id, their batch-size-like forms,
 truncated_gaussian_random, randint, randperm, multinomial, random_crop,
 and shuffle_channel (no draw). Each draw comes from the run's
 ``torch.Generator`` on the run's device; the values differ from jax's for
-the same seed, their distributions do not."""
+the same seed, their distributions do not. In a data-parallel run the ops
+of a static shape draw alike on every rank (``next_rng(replicated=True)``:
+the JAX package draws them once, replicated), and those over a rank's
+slice of the batch draw its own (ROADMAP.md Queue 3)."""
 import torch
 
 from ..fluid import core
@@ -21,7 +24,7 @@ def _uniform_random(ctx, ins, attrs):
     shape = _shape(ins, attrs)
     lo = attrs.get("min", -1.0)
     hi = attrs.get("max", 1.0)
-    u = torch.rand(shape, generator=ctx.next_rng(), device=ctx.device,
+    u = torch.rand(shape, generator=ctx.next_rng(replicated=True), device=ctx.device,
                    dtype=torch.float32)
     return single((u * (hi - lo) + lo).to(
         core.torch_dtype(attrs.get("dtype", "float32"))))
@@ -31,7 +34,7 @@ def _uniform_random(ctx, ins, attrs):
 def _gaussian_random(ctx, ins, attrs):
     """mean + std * N(0, 1), drawn in f32 and cast to ``dtype`` (the conv
     weights' initializer, ``Normal(0, std)``)."""
-    z = torch.randn(_shape(ins, attrs), generator=ctx.next_rng(),
+    z = torch.randn(_shape(ins, attrs), generator=ctx.next_rng(replicated=True),
                     device=ctx.device, dtype=torch.float32)
     out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return single(out.to(core.torch_dtype(attrs.get("dtype", "float32"))))
@@ -89,7 +92,7 @@ def _truncated_gaussian_random(ctx, ins, attrs):
     """mean + std·z, z standard normal truncated to [-2, 2] as
     ``jax.random.truncated_normal`` draws it: √2·erfinv(u), u uniform
     between erf(-√2) and erf(√2), clipped to the bounds."""
-    u = torch.rand(_shape(ins, attrs), generator=ctx.next_rng(),
+    u = torch.rand(_shape(ins, attrs), generator=ctx.next_rng(replicated=True),
                    device=ctx.device, dtype=torch.float32)
     u = (2.0 * u - 1.0) * _ERF_HI
     z = (torch.special.erfinv(u) * (2.0 ** 0.5)).clamp(-2.0, 2.0)
@@ -103,13 +106,13 @@ def _randint(ctx, ins, attrs):
     reference: int32, jax without x64)."""
     return single(torch.randint(
         attrs.get("low", 0), attrs.get("high", 100), _shape(ins, attrs),
-        generator=ctx.next_rng(), device=ctx.device,
+        generator=ctx.next_rng(replicated=True), device=ctx.device,
         dtype=_dtype(attrs, "int64")))
 
 
 @register_op("randperm")
 def _randperm(ctx, ins, attrs):
-    return single(torch.randperm(attrs["n"], generator=ctx.next_rng(),
+    return single(torch.randperm(attrs["n"], generator=ctx.next_rng(replicated=True),
                                  device=ctx.device,
                                  dtype=_dtype(attrs, "int64")))
 

@@ -60,13 +60,29 @@ class LowerContext:
     (:meth:`rnn_live`).
     ``keep_names``, the run's fetches and persistables, stay live across
     a recompute segment's end.
+
+    Data parallel (paddle_tpu_torch/parallel): ``mesh_axes`` maps a
+    collective op's ``ring_id`` (or ``"collective"``) to a mesh axis, as
+    the JAX package's lowering context does, and ``mesh`` is the rank
+    group whose axis that is; a collective with no axis bound is the
+    identity. ``batch_stats_group``, when set, is the group over which
+    ``batch_norm`` takes its batch statistics (the global batch's, as
+    GSPMD gives them in the JAX package). ``shared_generator`` draws what
+    every rank must draw alike (:meth:`next_rng` with ``replicated``);
+    ``generator`` is offset by rank, for draws over a rank's own slice
+    of the batch.
     """
 
     def __init__(self, device, generator=None, is_test=False, program=None,
-                 run_ops=None, plan=None):
+                 run_ops=None, plan=None, mesh_axes=None, mesh=None,
+                 shared_generator=None):
         self.device = device
         self._generator = generator
+        self._shared_generator = shared_generator
         self._seed_generator = None
+        self.mesh_axes = mesh_axes or {}
+        self.mesh = mesh
+        self.batch_stats_group = None
         self.is_test = is_test
         self.program = program
         self.run_ops = run_ops
@@ -97,13 +113,18 @@ class LowerContext:
             hit = self._constants[id(key)] = (key, make())
         return hit[1]
 
-    def next_rng(self):
+    def next_rng(self, replicated=False):
         """The generator random draws come from; raises if the run has
-        none (a random op in a program run without one)."""
+        none (a random op in a program run without one). `replicated`:
+        a draw every rank of a data-parallel run makes alike (a tensor
+        of a static shape, an update of replicated state), from the
+        generator shared by the ranks; otherwise the rank's own."""
         if self._generator is None:
             raise RuntimeError(
                 "op requires randomness but the run has no torch.Generator"
             )
+        if replicated and self._shared_generator is not None:
+            return self._shared_generator
         return self._generator
 
     def next_seed(self):
@@ -122,18 +143,25 @@ class LowerContext:
         (None for one not made yet), for :meth:`set_rng_states`: a
         recomputed segment draws again what its first pass drew."""
         return tuple(None if g is None else g.get_state()
-                     for g in (self._generator, self._seed_generator))
+                     for g in (self._generator, self._seed_generator,
+                               self._shared_generator))
 
     def set_rng_states(self, states):
-        gen, seed = states
+        gen, seed, shared = states
         if gen is not None:
             self._generator.set_state(gen)
+        if shared is not None:
+            self._shared_generator.set_state(shared)
         if seed is None:        # made anew, from the same seed, when drawn
             self._seed_generator = None
         else:
             if self._seed_generator is None:
                 self._seed_generator = torch.Generator()
             self._seed_generator.set_state(seed)
+
+
+def has_lowering(op_type):
+    return op_type in LOWERINGS
 
 
 def single(val):

@@ -17,8 +17,8 @@ tensors on the input's device (the CPU for numpy input).
 
 :mod:`paddle_tpu_torch.serving.disagg.kv_wire` rides this encoding for
 the prefill->decode KV handoff (one block per (layer, row) of the
-cache). Error feedback and the quantized allreduce wait for ROADMAP.md
-Queue 1 item 8.2.
+cache), and the quantized gradient allreduce (:mod:`.allreduce`) with
+its error feedback for the data-parallel gradient sync.
 """
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ import torch
 __all__ = [
     "DEFAULT_BLOCK", "WIRE_DTYPES", "wire_info", "round_up", "pad_flat",
     "quantize_blocks", "dequantize_blocks", "wire_bytes",
-    "compression_ratio",
+    "compression_ratio", "error_feedback_apply", "error_feedback_update",
 ]
 
 DEFAULT_BLOCK = 256
@@ -101,6 +101,18 @@ def dequantize_blocks(payload, scales, block_size=DEFAULT_BLOCK):
     payload = _tensor(payload)
     blocks = payload.to(torch.float32).reshape(-1, block_size)
     return (blocks * _tensor(scales)[:, None]).reshape(payload.shape)
+
+
+def error_feedback_apply(flat, residual):
+    """Compensated send value: this step's gradient plus the carried
+    compression error of previous steps."""
+    return flat + residual
+
+
+def error_feedback_update(compensated, decoded):
+    """Next step's residual: what the wire format could not represent
+    of the compensated value this step."""
+    return compensated - decoded
 
 
 # -- deterministic wire-byte accounting (host side) -------------------------

@@ -202,7 +202,7 @@ def test_every_new_op_has_a_port_lowering():
 
     for op in DETECTION_OPS + RCNN_OPS + SUPPORT_OPS:
         pt_lowering(op)
-    assert len(LOWERINGS) == 305
+    assert len(LOWERINGS) == 324
 
 
 def _feat(seed=0):

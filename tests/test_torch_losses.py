@@ -390,7 +390,7 @@ def test_the_port_registers_232_op_types():
 
     for op in LOSS_OPS + MATH_OPS + OTHER_OPS:
         pt_lowering(op)
-    assert len(LOWERINGS) == 305
+    assert len(LOWERINGS) == 324
 
 
 def _run(op, ins, attrs):

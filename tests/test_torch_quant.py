@@ -752,7 +752,8 @@ def test_the_port_registers_305_op_types():
            "fake_quantize_dequantize_moving_average_abs_max",
            "quantized_mul", "quantized_conv2d"}
     assert new <= set(LOWERINGS) and new <= set(jreg.LOWERINGS)
-    assert len(LOWERINGS) == 305
+    # 305 with this slice; the 19 collectives of the parallel slice make 324
+    assert len(LOWERINGS) == 324
 
 
 # ---------------------------------------------------------------------------

@@ -274,8 +274,10 @@ def test_graph_wrapper_unported_paths_raise_naming_their_items():
     g = fluid.contrib.slim.GraphWrapper(main, ins, outs)
     with pytest.raises(NotImplementedError, match="item 11"):
         g.infer_shape()
-    with pytest.raises(NotImplementedError, match="item 8.1"):
-        g.compile()
+    # compile() wraps the program in a CompiledProgram (item 8.1 brought
+    # it), as the JAX package's does
+    assert isinstance(g.compile(), fluid.CompiledProgram)
+    assert g.compile()._program is main
     assert g.compile(for_parallel=False) is main
     assert pjson(g.compile(for_parallel=False, for_test=True)) == pjson(
         main.clone(for_test=True))

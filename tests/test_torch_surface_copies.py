@@ -194,7 +194,7 @@ def test_op_protos_over_the_port_registry():
     from paddle_tpu_torch.ops.registry import LOWERINGS
 
     types = [o.type for o in pop.get_all_op_protos()]
-    assert len(types) == len(LOWERINGS) == 305 and types == sorted(types)
+    assert len(types) == len(LOWERINGS) == 324 and types == sorted(types)
     assert set(types) <= {o.type for o in jop.get_all_op_protos()}
     assert pop.Operator.types() == types
     assert pop.Operator.get_op_info("mul").type == "mul"

@@ -411,11 +411,34 @@ def test_clip_and_regularizer_ops_name_the_gap(kind):
 
 
 def test_grad_comm_hook_waits_for_the_parallel_slice():
+    """The gradient-communication hook raised until the parallel slice
+    (item 8.2) brought it: now the global block's backward op hands it
+    the raw gradients, and the optimizer ops read what it returns (here
+    each gradient doubled: SGD moves the weight twice as far)."""
     from paddle_tpu_torch.fluid.lowering import build_step_fn
 
-    with pytest.raises(NotImplementedError, match="grad_comm"):
-        build_step_fn(fluid.Program(), [], [], "cpu",
-                      grad_comm=lambda grads: grads)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 3], dtype="float32")
+        y = fluid.layers.fc(x, 1, bias_attr=False, param_attr=fluid.ParamAttr(
+            name="gw", initializer=fluid.initializer.Constant(0.5)))
+        loss = fluid.layers.reduce_mean(y)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    seen = []
+
+    def double(grads):
+        seen.append(sorted(grads))
+        return {n: 2 * g for n, g in grads.items()}
+
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    step = build_step_fn(main, ["x"], [loss.name], "cpu", grad_comm=double)
+    _, new = step({n: scope[n] for n in scope.keys()},
+                  {"x": torch.ones(4, 3)}, torch.Generator())
+    assert seen == [["gw@GRAD"]]
+    # d mean(x @ w) / d w = the mean row of x = 1; SGD: 0.5 - 0.1 * 2 * 1
+    np.testing.assert_allclose(new["gw"].numpy(), np.full((3, 1), 0.3),
+                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

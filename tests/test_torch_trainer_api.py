@@ -7,7 +7,7 @@ fluid.contrib in the port, against the JAX package, on the CPU.
   the same checkpoints kept (``CheckpointConfig``), ``test()`` and the
   Inferencer's predictions within 1e-5; ``stop()``; ``fetch_metrics =
   False`` fetches nothing; a resume from a checkpoint; ``parallel=True``
-  raises, naming item 8.
+  runs through ``CompiledProgram.with_data_parallel`` (item 8.1).
 - The JAX package's own tests/test_trainer_api.py on the port, an entry
   point without a place on the CPU.
 - ``extend_with_decoupled_weight_decay`` (AdamW): the same Program JSON,
@@ -183,13 +183,27 @@ def test_trainer_resumes_from_a_checkpoint_and_fetches_nothing_when_told(
 
 
 def test_parallel_raises_naming_item_8(tmp_path):
+    """``parallel=True`` raised until item 8.1 brought CompiledProgram: now
+    the Trainer trains and the Inferencer infers through
+    ``CompiledProgram.with_data_parallel``, on a world of one rank the
+    plain runs' values."""
     train_func, infer_func, optimizer_func = _funcs(fluid)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fluid.contrib.Trainer(train_func, optimizer_func,
-                              place=fluid.CPUPlace(), parallel=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fluid.contrib.Inferencer(infer_func, str(tmp_path),
-                                 place=fluid.CPUPlace(), parallel=True)
+    trainer = fluid.contrib.Trainer(train_func, optimizer_func,
+                                    place=fluid.CPUPlace(), parallel=True)
+    assert isinstance(trainer._run_program, fluid.CompiledProgram)
+    events = _Events(fluid)
+    reader, imgs = _digits(n_batches=2)
+    trainer.train(num_epochs=1, event_handler=events, reader=reader,
+                  feed_order=["img", "label"])
+    assert len(events.losses) == 2 and np.isfinite(events.losses).all()
+    trainer.save_params(str(tmp_path))
+    plain = fluid.contrib.Inferencer(infer_func, str(tmp_path),
+                                     place=fluid.CPUPlace())
+    par = fluid.contrib.Inferencer(infer_func, str(tmp_path),
+                                   place=fluid.CPUPlace(), parallel=True)
+    assert isinstance(par.inference_program, fluid.CompiledProgram)
+    np.testing.assert_array_equal(par.infer({"img": imgs[:8]})[0],
+                                  plain.infer({"img": imgs[:8]})[0])
 
 
 @pytest.mark.parametrize("test", [
