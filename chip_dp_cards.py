@@ -1,4 +1,5 @@
-"""Data-parallel BERT-base over NCCL across every card of one host.
+"""Data, tensor and sequence parallel training over NCCL across every
+card of one host.
 
     python3 chip_dp_cards.py
 
@@ -22,6 +23,28 @@ launches a step on every rank. Prints the card stamp, each run's
 median and p90 step over the timed steps (host clock, the fetch waits
 for the card) and the gradient sync's median and share of the median
 step, and exits non-zero on a failed gate. Needs two cards or more.
+
+Then, on four cards, the layouts of tensor and sequence parallelism
+(paddle_tpu_torch/parallel/tensor_parallel.py) in the same ranks, each
+run against rank 0's one-card run of the same program (:func:`layouts`):
+
+- BERT-base at tp = 4 with ``bert.tp_rules()`` (dropout 0.1, batch 8):
+  ``word_emb`` stays whole, because 30522 % 4 != 0, as the reference's
+  ``_spec_fits`` decides; losses within 1e-4 relative and parameters
+  within 1e-4 of max|param| (max|a - b| over all of them, against the
+  largest |value| of any);
+- dp2 x tp2 with ``sharding_degree=2`` (dropout 0, 8 rows a dp rank):
+  the dp gate above (1e-3);
+- GPT-2-small (``GPTConfig()``) at tp = 4, seq 256, batch 8, Adam(1e-4),
+  the vocab-parallel cross-entropy: 1e-4 as BERT's;
+- the fused attention's ring at sp = 4 (B 1, H 12, T 8192, D 64, causal,
+  f32): the output and the q/k/v gradients within 1e-4 of max of the
+  one-card kernels.
+
+Each prints its step median and p90 (the ring: forward and backward of
+the program), the share of one more step spent in the collectives (each
+synchronized before and after, so a rank's wait for the others counts),
+and the peak memory a rank against one card's.
 """
 import datetime
 import json
@@ -230,6 +253,9 @@ def rank_main(rank, world, port, out_dir, cfg_kw, seq, backend):
                 report["failures"].append(
                     "comms int8's last loss %.3e from gspmd's (bound %g)"
                     % (gap, EF_GAP))
+        if backend == "nccl" and world == 4:
+            del runs, ref, init
+            layouts(rank, world, fl, fleet, fluid, device, report)
     except Exception as e:  # noqa: BLE001 — reported by the parent
         import traceback
 
@@ -241,6 +267,267 @@ def rank_main(rank, world, port, out_dir, cfg_kw, seq, backend):
         if dist.is_initialized():
             dist.destroy_process_group()
     sys.exit(1 if report["failures"] else 0)
+
+
+TP_TOL = 1e-4
+GPT_SEQ = 256
+RING = (1, 12, 8192, 64)
+
+
+def collective_share(run_step, device):
+    """(the step's wall in s, the wall spent in collectives) over one step
+    whose every collective of the rank group, and every pass of the
+    ring, is synchronized before and after: the time a rank waits in
+    them, the other ranks' lateness included."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel.mesh import RankGroup
+
+    spent = [0.0]
+    depth = [0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            if depth[0]:        # inside a timed collective already
+                return fn(*a, **kw)
+            depth[0] += 1
+            sync(device)
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync(device)
+                spent[0] += time.monotonic() - t0
+                depth[0] -= 1
+        return run
+
+    # all_gather and ppermute go through stack
+    names = ("all_reduce", "stack", "broadcast", "reduce_scatter",
+             "all_to_all")
+    saved = {n: getattr(RankGroup, n) for n in names}
+    saved_pass = ra.ring_pass
+    for n in names:
+        setattr(RankGroup, n, timed(saved[n]))
+    ra.ring_pass = timed(saved_pass)
+    try:
+        sync(device)
+        t0 = time.monotonic()
+        run_step()
+        sync(device)
+        wall = time.monotonic() - t0
+    finally:
+        for n in names:
+            setattr(RankGroup, n, saved[n])
+        ra.ring_pass = saved_pass
+    return wall, spent[0]
+
+
+def far(after, ref, params):
+    """(max over `params` of max|a - b| over the largest |value| of any of
+    them, i.e. "within x of max|param|"; the worst parameter by parameter
+    of max|a - b| / max|b|, and where)."""
+    diff = top = 0.0
+    worst = (-1.0, "")
+    for n in params:
+        d = float((after[n].float() - ref[n].float()).abs().max())
+        m = float(ref[n].float().abs().max())
+        diff, top = max(diff, d), max(top, m)
+        worst = max(worst, (d / max(m, 1e-30), n))
+    return diff / top, worst
+
+
+def layouts(rank, world, fl, fleet, fluid, device, report):
+    """The four-card layout runs (module docstring) in this rank."""
+    from paddle_tpu_torch.models import bert, gpt
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel import tensor_parallel as tpl
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+    from paddle_tpu_torch.parallel.sharding import DistributedProgram
+
+    place = fluid.CUDAPlace(device.index)
+
+    def bert_prog(dropout, minimize=None):
+        cfg = bert.BertConfig(dropout=dropout)
+        main, startup, loss = program(fluid, cfg, SEQ, minimize)
+        return main, startup, loss
+
+    def gpt_prog(minimize=None):
+        from paddle_tpu_torch.fluid import unique_name
+
+        main, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            vs = gpt.build_gpt_lm(gpt.GPTConfig(), GPT_SEQ)
+            opt = fluid.optimizer.Adam(learning_rate=1e-4)
+            if minimize is None:
+                opt.minimize(vs["loss"])
+            else:
+                minimize(opt, vs["loss"])
+        main.random_seed = startup.random_seed = SEED
+        return main, startup, vs["loss"]
+
+    def measure(tag, prog, startup, loss, feed, params):
+        """STEPS checked steps then TIMED timed ones, a profiled one;
+        returns (losses, parameters after the checked steps (global),
+        the record)."""
+        scope = fluid.Scope()
+        fluid.Executor(place).run(startup, scope=scope)
+        torch.cuda.reset_peak_memory_stats(device)
+        tpl.reset_counts()
+        fns = counters()
+        for fn in fns.values():
+            fn.launches = 0
+        exe = fluid.Executor(place)
+        losses, walls = [], []
+        for i in range(STEPS + TIMED):
+            sync(device)
+            t0 = time.monotonic()
+            out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            if i >= STEPS:
+                walls.append(time.monotonic() - t0)
+                continue
+            losses.append(float(out[0]))
+            if i == STEPS - 1:      # the parameters after the checked steps
+                snap = (prog.consolidated_scope(scope)
+                        if hasattr(prog, "consolidated_scope") else scope)
+                after = {n: snap[n].clone() for n in params}
+                del snap
+        wall, coll = collective_share(lambda: exe.run(
+            prog, feed=feed, fetch_list=[loss], scope=scope), device)
+        rec = {"losses": losses,
+               "median_ms": 1e3 * statistics.median(walls),
+               "p90_ms": 1e3 * sorted(walls)[int(0.9 * (len(walls) - 1))],
+               "synced_step_ms": 1e3 * wall, "collectives_ms": 1e3 * coll,
+               "collective_share": coll / wall,
+               "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+               "launches": {n: fn.launches for n, fn in fns.items()},
+               "fallbacks": {"%s/%s" % k: v
+                             for k, v in sorted(tpl.RESHARDS.items())},
+               "word_emb_rows": tuple(scope["word_emb"].shape)[0]
+               if "word_emb" in scope.keys() else None}
+        return losses, after, rec
+
+    def fleet_run(tag, build, feed, strategy):
+        s = fleet.DistributedStrategy()
+        for k, v in strategy.items():
+            setattr(s, k, v)
+        main, startup, loss = build(lambda o, lo: (
+            fl.distributed_optimizer(o, s).minimize(lo)))
+        params = sorted(p.name for p in main.all_parameters())
+        return measure(tag, fl.main_program, startup, loss, feed, params)
+
+    def one_card(build, feed):
+        if rank != 0:
+            return None
+        main, startup, loss = build()
+        params = sorted(p.name for p in main.all_parameters())
+        return measure("one card", main, startup, loss, feed, params)
+
+    def gate(tag, got, ref, tol):
+        rec = got[2]
+        report[tag] = rec
+        if rank != 0:
+            return
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+        dist_p, (own, at) = far(got[1], ref[1], sorted(ref[1]))
+        rec.update(one_card=ref[2], loss_rel=rel, param_dist=dist_p,
+                   param_own_worst=own, param_own_worst_at=at,
+                   peak_vs_one_card=rec["peak_gib"] / ref[2]["peak_gib"])
+        if rel > tol or dist_p > tol:
+            report["failures"].append(
+                "%s vs one card: losses rel %.3e, parameters %.3e of "
+                "max|param| (bound %g)" % (tag, rel, dist_p, tol))
+
+    brules = list(bert.tp_rules())
+    cfg = bert.BertConfig()
+    ids, labels = bert.synthetic_batch(cfg, ROWS, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    ref = one_card(lambda m=None: bert_prog(0.1, m), feed)
+    got = fleet_run("bert tp=4", lambda m: bert_prog(0.1, m), feed,
+                    {"tensor_parallel_degree": world,
+                     "tensor_parallel_rules": brules})
+    gate("bert tp=4", got, ref, TP_TOL)
+    if got[2]["word_emb_rows"] != cfg.vocab_size:
+        report["failures"].append("bert tp=4: word_emb split")
+
+    ids, labels = bert.synthetic_batch(cfg, ROWS * 2, SEQ, seed=SEED)
+    feed = {"input_ids": ids, "mlm_labels": labels}
+    ref = one_card(lambda m=None: bert_prog(0.0, m), feed)
+    got = fleet_run("bert dp2 x tp2 + ZeRO-1", lambda m: bert_prog(0.0, m),
+                    feed, {"tensor_parallel_degree": 2,
+                           "tensor_parallel_rules": brules,
+                           "sharding_degree": 2})
+    gate("bert dp2 x tp2 + ZeRO-1", got, ref, TOL)
+
+    gcfg = gpt.GPTConfig()
+    ids, labels = gpt.synthetic_lm_batch(gcfg, ROWS, GPT_SEQ, seed=SEED)
+    feed = {"gpt_ids": ids, "gpt_labels": labels}
+    ref = one_card(gpt_prog, feed)
+    got = fleet_run("gpt-2-small tp=4", gpt_prog, feed,
+                    {"tensor_parallel_degree": world,
+                     "tensor_parallel_rules": list(gpt.tp_rules())})
+    gate("gpt-2-small tp=4", got, ref, TP_TOL)
+
+    # the ring: q/k/v parameters, loss sum(out * dout)
+    from paddle_tpu_torch.fluid import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        q, k, v = (fluid.layers.create_parameter(list(RING), "float32",
+                                                 name=n)
+                   for n in ("rq", "rk", "rv"))
+        dout = fluid.data("rdout", list(RING), dtype="float32")
+        out = fluid.layers.fused_multihead_attention(q, k, v, causal=True)
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out,
+                                                                    dout))
+        grads = [g for _, g in fluid.backward.append_backward(loss)]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    vals = {n: torch.randn(RING, device=device, generator=gen)
+            for n in ("rq", "rk", "rv", "rdout")}
+
+    def ring_run(prog):
+        scope = fluid.Scope()
+        for n in ("rq", "rk", "rv"):
+            scope.set(n, vals[n].clone())
+        exe = fluid.Executor(place)
+        torch.cuda.reset_peak_memory_stats(device)
+        walls, got = [], None
+        for i in range(STEPS + TIMED):
+            sync(device)
+            t0 = time.monotonic()
+            got = exe.run(prog, feed={"rdout": vals["rdout"]},
+                          fetch_list=[out] + grads, scope=scope,
+                          return_numpy=False)
+            sync(device)
+            if i >= STEPS:
+                walls.append(time.monotonic() - t0)
+        wall, coll = collective_share(lambda: exe.run(
+            prog, feed={"rdout": vals["rdout"]}, fetch_list=[out] + grads,
+            scope=scope, return_numpy=False), device)
+        return got, {"median_ms": 1e3 * statistics.median(walls),
+                     "p90_ms": 1e3 * sorted(walls)[
+                         int(0.9 * (len(walls) - 1))],
+                     "synced_step_ms": 1e3 * wall,
+                     "collectives_ms": 1e3 * coll,
+                     "collective_share": coll / wall,
+                     "peak_gib": torch.cuda.max_memory_allocated(device)
+                     / 2 ** 30}
+
+    want = ring_run(main) if rank == 0 else None
+    before = ra.RingFlash.launches
+    got, rec = ring_run(DistributedProgram(main, build_mesh({"sp": world})))
+    rec["ring_runs"] = ra.RingFlash.launches - before
+    report["ring sp=4"] = rec
+    if rec["ring_runs"] != STEPS + TIMED + 1:
+        report["failures"].append("ring sp=4: the ring ran %d times"
+                                  % rec["ring_runs"])
+    if rank == 0:
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want[0])]
+        rec.update(one_card=want[1], errs=errs,
+                   peak_vs_one_card=rec["peak_gib"] / want[1]["peak_gib"])
+        if max(errs) > TP_TOL:
+            report["failures"].append(
+                "ring sp=4: out and grads %s of max (bound %g)"
+                % (errs, TP_TOL))
 
 
 def free_port():

@@ -555,6 +555,29 @@ Phases, each of which exits non-zero on failure:
    ``compression_ratio`` and bytes equal to ``allreduce_wire_bytes``
    over the buckets of BERT-base's gradients. The kernels line gains
    ``launches_dp`` (23a's fleet run).
+24. tensor and sequence parallelism with ZeRO-1 (items 8.3 and 8.4), two
+   gloo ranks spawned on the one card as 23b's, after the parent checks
+   the three attention kernels with a head offset (heads 6..11 of 12,
+   dropout 0.1: against the plain version with the offset, 1e-4 of max,
+   and bit for bit the whole launch's heads and mask). (a) bench.py:518's
+   BERT-base step at dropout 0.1 through ``fleet`` with
+   ``tensor_parallel_degree=2`` and ``bert.tp_rules()``: 3 steps, losses
+   within 1e-4 relative and parameters within 1e-4·max|param| (max|a - b|
+   over all of them against the largest |value|; the worst parameter by
+   parameter printed beside it) of rank 0's one-card run, which draws the
+   same masks; each rank's 12/12/12/25/25 launches a step on its 6 heads,
+   the fallbacks and the collectives printed. (b) The same step at dp = 2,
+   dropout 0: ``sharding_degree=2`` against the plain dp run, parameters
+   within 1e-6·max|param|, each rank's Adam moment bytes half the plain
+   run's. (c) The fused attention program (q/k/v parameters, B 2, H 12,
+   T 2048, D 64, f32 and bf16, causal and not) under dp1 x sp2: the ring
+   runs once (``RingFlash``), the output and q/k/v's gradients within 1e-4
+   (f32) or 2e-2 (bf16) of max of the one-card kernels; then BERT-base
+   (dropout 0) under ``sequence_parallel_degree=2`` against one card as
+   (a). (d) GPT-2-small (``GPTConfig()``) LM at seq 256, batch 8, Adam,
+   tp = 2 with ``gpt.tp_rules()``: no ``softmax_with_cross_entropy``
+   fallback (the logits are never gathered), gated as (a). The kernels
+   line gains ``launches_tp`` (24a's run on rank 0).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -11059,6 +11082,373 @@ def _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
         fail("23c: comms int8 strays from fp32")
 
 
+# phase 24: tensor and sequence parallelism with ZeRO-1 (Queue 1 items 8.3
+# and 8.4) on bench.py:518's BERT-base step and GPT-2-small, two gloo ranks
+# on the one card
+# ---------------------------------------------------------------------------
+TP_RANKS = 2
+TP_STEPS = 3
+TP_TOL = 1e-4              # 24a, 24c, 24d: losses relative, parameters of
+#                            their max|param|
+ZERO_TOL = 1e-6            # 24b: parameters of max|param| against plain dp
+TP_WAIT = 420              # s: a rank's collectives, and the ranks' join
+RING_SHAPE = (2, 12, 2048, 64)     # 24c: (B, H, T, D), BERT-base's heads
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max|ref|
+GPT_TP_SEQ, GPT_TP_BATCH = 256, 8
+
+
+def tp_bert_program(fluid, bert, dropout, minimize=None):
+    """dp_program's BERT-base step with `dropout`."""
+    cfg = bert.BertConfig(dropout=dropout)
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        io = bert.build_bert_pretrain(cfg, SEQ)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if minimize is None:
+            opt.minimize(io["loss"])
+        else:
+            minimize(opt, io["loss"])
+    main.random_seed = startup.random_seed = SEED
+    return cfg, main, startup, io["loss"]
+
+
+def tp_gpt_program(fluid, gpt, minimize=None):
+    """GPT-2-small (``GPTConfig()``: vocab 32000, hidden 768, 12 layers, 12
+    heads) LM training at seq 256, ``Adam(1e-4)``."""
+    cfg = gpt.GPTConfig()
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        vs = gpt.build_gpt_lm(cfg, GPT_TP_SEQ)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if minimize is None:
+            opt.minimize(vs["loss"])
+        else:
+            minimize(opt, vs["loss"])
+    main.random_seed = startup.random_seed = SEED
+    return cfg, main, startup, vs["loss"]
+
+
+def head_offset_check(ca):
+    """The three attention kernels with a head offset: the launch on heads
+    6..11 of 12 with dropout 0.1 against the plain version with the same
+    offset, and its output, lse and gradients against heads 6..11 of the
+    whole launch (the same masks). Returns the kernels' max errors."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, h, t, d = 8, 12, 128, 64
+    q, k, v, do = (torch.randn(b, h, t, d, device="cuda", generator=g)
+                   for _ in range(4))
+    kw = dict(seed=777, causal=False, dropout_p=0.1)
+    out, lse = ca.flash_attention(q, k, v, None, **kw)
+    delta = (do * out).sum(-1)
+    dq = ca.flash_attention_dq(q, k, v, None, 777, do, lse, delta,
+                               dropout_p=0.1)
+    dk, dv, _ = ca.flash_attention_dkdv(q, k, v, None, 777, do, lse, delta,
+                                        dropout_p=0.1)
+    half = [x[:, 6:].contiguous() for x in (q, k, v, do)]
+    hq, hk, hv, hdo = half
+    ho, hl = ca.flash_attention(hq, hk, hv, None, heads=(6, 12), **kw)
+    hdelta = (hdo * ho).sum(-1)
+    args = (hq, hk, hv, None, 777, hdo, hl, hdelta)
+    hdq = ca.flash_attention_dq(*args, dropout_p=0.1, heads=(6, 12))
+    hdk, hdv, _ = ca.flash_attention_dkdv(*args, dropout_p=0.1,
+                                          heads=(6, 12))
+    po, pl = ca.flash_attention_plain(hq, hk, hv, None, heads=(6, 12), **kw)
+    pdq, pdk, pdv, _ = ca.flash_attention_bwd_plain(
+        *args, dropout_p=0.1, heads=(6, 12))
+    errs = {"fwd vs plain": max_abs(ho, po) / float(po.abs().max()),
+            "dq vs plain": max_abs(hdq, pdq) / float(pdq.abs().max()),
+            "dkdv vs plain": max(max_abs(hdk, pdk) / float(pdk.abs().max()),
+                                 max_abs(hdv, pdv) / float(pdv.abs().max()))}
+    same = (torch.equal(ho, out[:, 6:]) and torch.equal(hl, lse[:, 6:])
+            and torch.equal(hdq, dq[:, 6:]) and torch.equal(hdk, dk[:, 6:])
+            and torch.equal(hdv, dv[:, 6:]))
+    keep = ca.dropout_keep_mask(777, b, 6, t, t, 0.1, "cuda", 6, 12)
+    whole = ca.dropout_keep_mask(777, b, h, t, t, 0.1, "cuda")
+    print("24 head offset: heads 6..11 of 12, dropout 0.1 (B 8, T 128, D "
+          "64, f32): launch vs plain %s (bound %g of max); vs the whole "
+          "launch's heads bit for bit: %s; dropout_keep_mask(offset 6) == "
+          "the whole mask's heads: %s" % (
+              {k2: "%.2e" % e for k2, e in errs.items()}, RTOL_FA_BWD_F32,
+              same, bool(torch.equal(keep, whole[:, 6:]))), flush=True)
+    if (max(errs.values()) > RTOL_FA_BWD_F32 or not same
+            or not torch.equal(keep, whole[:, 6:])):
+        fail("24: the attention kernels with a head offset")
+    return errs
+
+
+def tp_phase(fluid, ca, cl, card, tmp):
+    """Phase 24. Returns the five kernels' launches in 24a's tp run on
+    rank 0."""
+    t24 = time.monotonic()
+    mark("24")
+    head_offset_check(ca)
+    store = os.path.join(tmp, "tp_store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(rank, TP_RANKS, store, tmp))
+             for rank in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_WAIT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    for rank in range(TP_RANKS):
+        with open(os.path.join(tmp, "tp_rank%d.log" % rank)) as f:
+            sys.stdout.write(f.read())
+    if hung or any(p.exitcode for p in procs):
+        fail("24: ranks %s hung, exit codes %s" % (
+            hung, [p.exitcode for p in procs]))
+    with open(os.path.join(tmp, "tp_launches.json")) as f:
+        launches = json.load(f)
+    print("phase 24 (tensor and sequence parallel, ZeRO-1) took %.1f s"
+          % (time.monotonic() - t24), flush=True)
+    return launches
+
+
+def tp_rank(rank, world, store, tmp):
+    """24a-24d on one of `world` ranks over gloo on the one card; writes
+    what it prints to tp_rank<rank>.log under `tmp` and exits non-zero on
+    a failed gate."""
+    log = open(os.path.join(tmp, "tp_rank%d.log" % rank), "w")
+    sys.stdout = log
+    try:
+        _tp_rank(rank, world, store, tmp)
+    except SystemExit:
+        raise
+    except BaseException:
+        import traceback
+
+        print("FAIL: 24 rank %d:\n%s" % (rank, traceback.format_exc()))
+        raise SystemExit(1)
+    finally:
+        log.flush()
+
+
+def _tp_rank(rank, world, store, tmp):
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.ops import cuda_build
+    from paddle_tpu_torch.parallel import mesh
+
+    missing = [n for n in cuda_build.KERNELS
+               if not os.path.exists(cuda_build.library_path(n))]
+    if missing:
+        fail("24 rank %d: kernels %s not built by the parent" % (
+            rank, missing))
+    mesh.init_group(rank=rank, world_size=world, backend="gloo",
+                    device="cuda:0", store=dist.FileStore(store, world),
+                    timeout=datetime.timedelta(seconds=TP_WAIT))
+    try:
+        _tp_rank_runs(rank, world, tmp)
+    finally:
+        dist.destroy_process_group()
+
+
+def _far(a, b, names):
+    """(max over `names` of max|a - b|, over the largest |value| of any of
+    them: "within x of max|param|"; the worst of max|a - b| /
+    max|b| parameter by parameter, and the parameter it is at)."""
+    diff = top = 0.0
+    worst = (-1.0, "")
+    for n in names:
+        d = float((a[n].float() - b[n].float()).abs().max())
+        m = float(b[n].float().abs().max())
+        diff, top = max(diff, d), max(top, m)
+        worst = max(worst, (d / max(m, 1e-30), n))
+    return diff / top, worst
+
+
+def _tp_rank_runs(rank, world, tmp):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import bert, gpt
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.parallel import fleet
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel import tensor_parallel as tpl
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+    from paddle_tpu_torch.parallel.sharding import DistributedProgram
+
+    def one_card(build, feed, steps=TP_STEPS):
+        """Rank 0's one-card run of `build()`'s program: (losses, the
+        parameters after the last step); None on the other ranks."""
+        _, main, startup, loss = build(None)
+        if rank != 0:
+            return None
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        params = sorted(p.name for p in main.all_parameters())
+        losses, _, after = dp_steps(fluid.Executor(), main, feed, loss,
+                                    scope, params, steps=steps)
+        return losses, after[-1]
+
+    def parallel(tag, build, feed, strategy, steps=TP_STEPS):
+        """`steps` of `build()`'s program through fleet with `strategy` on
+        every rank: (losses, global parameters, launches, reshards,
+        collectives, step walls, the rank's moment bytes)."""
+        fl = fleet.Fleet().init(fleet.UserDefinedRoleMaker(
+            rank, worker_num=world))
+        s = fleet.DistributedStrategy()
+        for k, v in strategy.items():
+            setattr(s, k, v)
+        _, main, startup, loss = build(fleet_minimize(fl, s))
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        prog = fl.main_program
+        params = sorted(p.name for p in main.all_parameters())
+        fns = zero_counters(ca, cl)
+        tpl.reset_counts()
+        losses, walls, _ = dp_steps(fluid.Executor(), prog, feed, loss,
+                                    scope, (), steps=steps)
+        launches = {n: fn.launches for n, fn in fns.items()}
+        snap = prog.consolidated_scope(scope)
+        moments = sum(scope[n].numel() * scope[n].element_size()
+                      for n in scope.keys() if "_moment" in n)
+        print("%s rank %d [%s]: losses %s, step walls %s ms, launches %s, "
+              "fallbacks %s, collectives (calls, bytes) %s, Adam moments "
+              "%.1f MB on this rank, peak memory %.2f GiB" % (
+                  tag, rank, card_line(), losses,
+                  " ".join("%.1f" % (1e3 * w) for w in walls), launches,
+                  {"%s/%s" % k: v for k, v in sorted(tpl.RESHARDS.items())},
+                  {"%s/%s" % k: v for k, v in sorted(
+                      tpl.COLLECTIVES.items())}, moments / 1e6,
+                  torch.cuda.max_memory_allocated() / 2 ** 30), flush=True)
+        return (losses, {n: snap[n] for n in params}, launches,
+                dict(tpl.RESHARDS), walls, moments)
+
+    def gate(tag, got, ref, tol):
+        if rank != 0:
+            return
+        losses, params = got[0], got[1]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+        far, (own, at) = _far(params, ref[1], sorted(ref[1]))
+        print("%s vs %s: losses %s vs %s (rel %.2e), parameters after %d "
+              "Adam steps within %.2e of max|param| (bound %g; parameter "
+              "by parameter at most %.2e of its own max, at %s)" % (
+                  tag, "one card" if tol != ZERO_TOL else "plain dp",
+                  losses, ref[0], rel, len(losses), far, tol, own, at),
+              flush=True)
+        if rel > tol or far > tol:
+            fail("%s: disagrees with its reference" % tag)
+
+    bert_tp = [(p, s) for p, s in bert.tp_rules()]
+    # 24a: tp = 2 with bert.tp_rules, dropout 0.1
+    def build_a(minimize):
+        return tp_bert_program(fluid, bert, 0.1, minimize)
+
+    cfg = bert.BertConfig()
+    feed = dp_feed(bert, cfg)
+    ref = one_card(build_a, feed)
+    got = parallel("24a tp=2", build_a, feed,
+                   {"tensor_parallel_degree": 2,
+                    "tensor_parallel_rules": bert_tp})
+    gate("24a tp=2", got, ref, TP_TOL)
+    if any(got[2][n] != PER_STEP[n] * TP_STEPS for n in PER_STEP):
+        fail("24a rank %d: launches %s, want %s a step" % (
+            rank, got[2], PER_STEP))
+    if rank == 0:
+        with open(os.path.join(tmp, "tp_launches.json"), "w") as f:
+            json.dump(got[2], f)
+    del ref, got
+
+    # 24b: dp = 2 with sharding_degree = 2, dropout 0, against plain dp
+    def build_b(minimize):
+        return tp_bert_program(fluid, bert, 0.0, minimize)
+
+    plain = parallel("24b plain dp=2", build_b, feed, {})
+    zero = parallel("24b ZeRO-1 dp=2", build_b, feed, {"sharding_degree": 2})
+    gate("24b ZeRO-1 dp=2", zero, plain, ZERO_TOL)
+    print("24b rank %d: Adam moments %.1f MB with ZeRO-1 against %.1f MB "
+          "plain (ratio %.4f)" % (rank, zero[5] / 1e6, plain[5] / 1e6,
+                                  zero[5] / plain[5]), flush=True)
+    if zero[5] * 2 > plain[5] * 1.001:
+        fail("24b: the moments are not split over dp")
+    del plain, zero
+
+    # 24c: the fused attention under dp1 x sp2, and BERT-base under
+    # sequence_parallel_degree = 2
+    ring_attention_check(rank, fluid, ca, ra, build_mesh, DistributedProgram)
+    ref = one_card(build_b, feed)
+    got = parallel("24c sp=2", build_b, feed, {"sequence_parallel_degree": 2})
+    gate("24c sp=2", got, ref, TP_TOL)
+    del ref, got
+
+    # 24d: GPT-2-small at tp = 2, vocab-parallel cross-entropy
+    def build_d(minimize):
+        return tp_gpt_program(fluid, gpt, minimize)
+
+    gcfg = gpt.GPTConfig()
+    ids, labels = gpt.synthetic_lm_batch(gcfg, GPT_TP_BATCH, GPT_TP_SEQ,
+                                         seed=SEED)
+    gfeed = {"gpt_ids": ids, "gpt_labels": labels}
+    ref = one_card(build_d, gfeed)
+    got = parallel("24d GPT-2-small tp=2", build_d, gfeed,
+                   {"tensor_parallel_degree": 2,
+                    "tensor_parallel_rules": list(gpt.tp_rules())})
+    if ("softmax_with_cross_entropy", "tp") in got[3]:
+        fail("24d: the cross-entropy gathered its logits")
+    gate("24d GPT-2-small tp=2", got, ref, TP_TOL)
+
+
+def ring_attention_check(rank, fluid, ca, ra, build_mesh, DistributedProgram):
+    """24c's fused-attention program at (B 2, H 12, T 2048, D 64), f32 and
+    bf16, causal and not: q, k, v parameters, loss sum(out * dout), under
+    dp1 x sp2 (the ring on each rank's T block of 1024) against the one-card
+    kernels on the whole (rank 0): the output and q/k/v's gradients."""
+    mesh = build_mesh({"dp": 1, "sp": 2})
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            main, startup = fluid.Program(), fluid.Program()
+            with fresh_names(), fluid.program_guard(main, startup):
+                q, k, v = (fluid.layers.create_parameter(
+                    list(RING_SHAPE), name, name=n) for n in ("rq", "rk",
+                                                              "rv"))
+                dout = fluid.data("rdout", list(RING_SHAPE), dtype=name)
+                out = fluid.layers.fused_multihead_attention(q, k, v,
+                                                             causal=causal)
+                loss = fluid.layers.reduce_sum(
+                    fluid.layers.elementwise_mul(out, dout))
+                grads = fluid.backward.append_backward(loss)
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            vals = {n: torch.randn(RING_SHAPE, device="cuda", generator=g)
+                    .to(dtype) for n in ("rq", "rk", "rv", "rdout")}
+            fetch = [out] + [gv for _, gv in grads]
+            scope = fluid.Scope()
+            for n in ("rq", "rk", "rv"):
+                scope.set(n, vals[n].clone())
+            feed = {"rdout": vals["rdout"]}
+            before = ra.RingFlash.launches
+            fwd0 = ca.flash_attention.launches
+            got = fluid.Executor().run(DistributedProgram(main, mesh),
+                                       feed=feed, fetch_list=fetch,
+                                       scope=scope, return_numpy=False)
+            rings = ra.RingFlash.launches - before
+            fwd = ca.flash_attention.launches - fwd0
+            if rank != 0:
+                continue
+            one = fluid.Scope()
+            for n in ("rq", "rk", "rv"):
+                one.set(n, vals[n].clone())
+            want = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                        scope=one, return_numpy=False)
+            errs = [float((a.float() - b.float()).abs().max())
+                    / float(b.float().abs().max()) for a, b in zip(got, want)]
+            print("24c fused attention %s causal=%s under dp1 x sp2: ring "
+                  "runs %d (flash forward launches %d on this rank), out and "
+                  "dq/dk/dv within %s of max against the one-card kernels "
+                  "(bound %g)" % (name, causal, rings, fwd,
+                                  " ".join("%.2e" % e for e in errs),
+                                  RING_TOL[dtype]), flush=True)
+            if rings != 1 or max(errs) > RING_TOL[dtype]:
+                fail("24c: the ring under sp")
+
+
 def card_line():
     return sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -11421,6 +11811,9 @@ def main():
         # two gloo ranks on the card); its steps are timed, so before the
         # profiles
         dp_launches = dp_phase(fluid, bert, ca, cl, card, tmp)
+        # phase 24: tensor and sequence parallel, ZeRO-1 (two gloo ranks
+        # on the card); its steps are timed, so before the profiles
+        tp_launches = tp_phase(fluid, ca, cl, card, tmp)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -11601,8 +11994,9 @@ def main():
     # in 19a's timed CRNN-CTC steps, launches_ckpt in 20a's run B (its
     # steps before the save and after the load), launches_quant in 21c's
     # served int8 batches, launches_adamw in 22d's AdamW BERT-base steps,
-    # launches_contrib in 22a-22c and 22e together (all 0) and launches_dp
-    # in 23a's fleet run (3 steps at world size 1 over nccl)
+    # launches_contrib in 22a-22c and 22e together (all 0), launches_dp
+    # in 23a's fleet run (3 steps at world size 1 over nccl) and
+    # launches_tp in 24a's tp run on rank 0 (3 steps on its 6 heads)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -11632,6 +12026,7 @@ def main():
                      launches_adamw=adamw_launches[name],
                      launches_contrib=contrib_launches[name],
                      launches_dp=dp_launches[name],
+                     launches_tp=tp_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

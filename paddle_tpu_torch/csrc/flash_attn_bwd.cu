@@ -90,7 +90,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int heads, int tq, int tk, int d, float sm_scale,
                     int causal, int use_dropout, uint32_t threshold, float inv_keep, int seed,
-                    int ref_bq, int ref_bk, int vec) {
+                    int ref_bq, int ref_bk, int heads_total, int head_off, int vec) {
   constexpr int kBc = inner_rows(DP);
   constexpr int kLd = row_ld<T, DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -107,7 +107,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t qoff = (size_t)bh * tq * d;
   const size_t koff = (size_t)bh * tk * d;
   const float* kpm_row = kpm ? kpm + (size_t)(bh / heads) * tk : nullptr;
-  const uint32_t seed_bh = fold_bh_seed(seed, bh);
+  const uint32_t seed_bh = fold_bh_seed(seed, global_bh(bh, heads, heads_total, head_off));
 
   auto load_k_tile = [&](int k0, int buf) {
     load_tile<T, kBc, DP>(ks + buf * kBc * kLd, k + koff, k0, tk, d, vec);
@@ -199,7 +199,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       float* __restrict__ dkpm, int heads, int tq, int tk, int d,
                       float sm_scale, int causal, int use_dropout, uint32_t threshold,
-                      float inv_keep, int seed, int ref_bq, int ref_bk, int vec) {
+                      float inv_keep, int seed, int ref_bq, int ref_bk, int heads_total,
+                      int head_off, int vec) {
   constexpr int kBc = inner_rows(DP);
   constexpr int kLd = row_ld<T, DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -218,7 +219,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t koff = (size_t)bh * tk * d;
   const float* lse_bh = lse + (size_t)bh * tq;
   const float* delta_bh = delta + (size_t)bh * tq;
-  const uint32_t seed_bh = fold_bh_seed(seed, bh);
+  const uint32_t seed_bh = fold_bh_seed(seed, global_bh(bh, heads, heads_total, head_off));
 
   auto load_q_tile = [&](int q0, int buf) {
     load_tile<T, kBc, DP>(qs + buf * kBc * kLd, q + qoff, q0, tq, d, vec);
@@ -325,7 +326,7 @@ struct Args {
   int causal, use_dropout;
   unsigned threshold;
   float inv_keep;
-  int seed, ref_bq, ref_bk;
+  int seed, ref_bq, ref_bk, heads_total, head_off;
 };
 
 // Two owned tiles, two double-buffered inner tiles, and f32 rows beside
@@ -364,7 +365,8 @@ cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
       static_cast<const float*>(a.kpm), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(dq), a.heads, a.tq, a.tk, a.d, a.sm_scale, a.causal, a.use_dropout,
-      a.threshold, a.inv_keep, a.seed, a.ref_bq, a.ref_bk, vec_ok<T>(a));
+      a.threshold, a.inv_keep, a.seed, a.ref_bq, a.ref_bk, a.heads_total, a.head_off,
+      vec_ok<T>(a));
   return cudaGetLastError();
 }
 
@@ -381,7 +383,7 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, void* dkpm, cudaStrea
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dkpm), a.heads, a.tq,
       a.tk, a.d, a.sm_scale, a.causal, a.use_dropout, a.threshold, a.inv_keep, a.seed,
-      a.ref_bq, a.ref_bk, vec_ok<T>(a));
+      a.ref_bq, a.ref_bk, a.heads_total, a.head_off, vec_ok<T>(a));
   return cudaGetLastError();
 }
 
@@ -401,22 +403,23 @@ void pick(int kernel, int d, const void** fn, int* smem) {
 
 bool valid(const Args& a) {
   return a.d >= 1 && a.d <= kMaxD && a.bh >= 1 && a.heads >= 1 && a.tq >= 1 && a.tk >= 1 &&
-         a.ref_bq >= 1 && a.ref_bk >= 1;
+         a.ref_bq >= 1 && a.ref_bk >= 1 && a.head_off >= 0 &&
+         a.head_off + a.heads <= a.heads_total;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout (bh, tq, d); k, v (bh, tk, d); kpm
 // (bh / heads, tk) f32 or null; lse, delta (bh, tq) f32; dq like q. Returns a
-// cudaError_t.
+// cudaError_t. heads_total and head_off: as flash_attn_fwd's.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* kpm,
                                  const void* dout, const void* lse, const void* delta, void* dq,
                                  int bh, int heads, int tq, int tk, int d, float sm_scale,
                                  int causal, int use_dropout, unsigned threshold,
-                                 float inv_keep, int seed, int ref_bq, int ref_bk, int dtype,
-                                 void* stream) {
+                                 float inv_keep, int seed, int ref_bq, int ref_bk,
+                                 int heads_total, int head_off, int dtype, void* stream) {
   const Args a{q, k, v, kpm, dout, lse, delta, bh, heads, tq, tk, d, sm_scale, causal,
-               use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk};
+               use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk, heads_total, head_off};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -434,9 +437,10 @@ extern "C" int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* delta, void* dk, void* dv, void* dkpm, int bh,
                                    int heads, int tq, int tk, int d, float sm_scale, int causal,
                                    int use_dropout, unsigned threshold, float inv_keep, int seed,
-                                   int ref_bq, int ref_bk, int dtype, void* stream) {
+                                   int ref_bq, int ref_bk, int heads_total, int head_off,
+                                   int dtype, void* stream) {
   const Args a{q, k, v, kpm, dout, lse, delta, bh, heads, tq, tk, d, sm_scale, causal,
-               use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk};
+               use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk, heads_total, head_off};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

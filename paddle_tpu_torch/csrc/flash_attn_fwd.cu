@@ -52,7 +52,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ kpm, T* __restrict__ o, float* __restrict__ lse,
                  int heads, int tq, int tk, int d, float sm_scale, int causal,
                  int use_dropout, uint32_t threshold, float inv_keep, int seed, int ref_bq,
-                 int ref_bk, int vec) {
+                 int ref_bk, int heads_total, int head_off, int vec) {
   constexpr int kBc = inner_rows(DP);
   constexpr int kLd = row_ld<T, DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -68,7 +68,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t qoff = (size_t)bh * tq * d;
   const size_t koff = (size_t)bh * tk * d;
   const float* kpm_row = kpm ? kpm + (size_t)(bh / heads) * tk : nullptr;
-  const uint32_t seed_bh = fold_bh_seed(seed, bh);
+  const uint32_t seed_bh = fold_bh_seed(seed, global_bh(bh, heads, heads_total, head_off));
 
   auto load_k_tile = [&](int k0, int buf) {
     load_tile<T, kBc, DP>(ks + buf * kBc * kLd, k + koff, k0, tk, d, vec);
@@ -190,7 +190,7 @@ template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kpm, void* o,
                    void* lse, int bh, int heads, int tq, int tk, int d, float sm_scale,
                    int causal, int use_dropout, unsigned threshold, float inv_keep, int seed,
-                   int ref_bq, int ref_bk, cudaStream_t stream) {
+                   int ref_bq, int ref_bk, int heads_total, int head_off, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<T, DP>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -202,26 +202,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kpm,
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(kpm), static_cast<T*>(o), static_cast<float*>(lse), heads, tq,
-      tk, d, sm_scale, causal, use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk, vec);
+      tk, d, sm_scale, causal, use_dropout, threshold, inv_keep, seed, ref_bq, ref_bk,
+      heads_total, head_off, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q (bh, tq, d); k, v (bh, tk, d); kpm (bh / heads, tk)
-// f32 or null; o like q; lse (bh, tq) f32. Returns a cudaError_t.
+// f32 or null; o like q; lse (bh, tq) f32. The dropout hash takes head h of this
+// launch as head head_off + h of heads_total. Returns a cudaError_t.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kpm,
                               void* o, void* lse, int bh, int heads, int tq, int tk, int d,
                               float sm_scale, int causal, int use_dropout, unsigned threshold,
-                              float inv_keep, int seed, int ref_bq, int ref_bk, int dtype,
+                              float inv_keep, int seed, int ref_bq, int ref_bk,
+                              int heads_total, int head_off, int dtype,
                               void* stream) {
   if (d < 1 || d > kMaxD || bh < 1 || heads < 1 || tq < 1 || tk < 1 || ref_bq < 1 ||
-      ref_bk < 1)
+      ref_bk < 1 || head_off < 0 || head_off + heads > heads_total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FWD_ARGS                                                                             \
   q, k, v, kpm, o, lse, bh, heads, tq, tk, d, sm_scale, causal, use_dropout, threshold,      \
-      inv_keep, seed, ref_bq, ref_bk, s
+      inv_keep, seed, ref_bq, ref_bk, heads_total, head_off, s
   if (dtype == 0)
     return (int)(d <= 64 ? launch<float, 64>(FWD_ARGS) : launch<float, 128>(FWD_ARGS));
   if (dtype == 1)

@@ -37,6 +37,14 @@ __device__ __forceinline__ uint32_t fold_bh_seed(int seed, int bh) {
   return (uint32_t)seed + (uint32_t)bh * 1000003u;
 }
 
+// The (batch·head) index the dropout hash folds in: the head's index among
+// heads_total heads, this launch's `heads` starting at head_off (a
+// tensor-parallel rank runs its own heads; heads_total = heads and
+// head_off = 0 give bh itself).
+__device__ __forceinline__ int global_bh(int bh, int heads, int heads_total, int head_off) {
+  return (bh / heads) * heads_total + head_off + bh % heads;
+}
+
 // Keep bit of score (row, col): the hash in the REFERENCE's tile coordinates
 // (row / ref_bq, col / ref_bk, row % ref_bq, col % ref_bk), whatever tile the
 // kernel uses.

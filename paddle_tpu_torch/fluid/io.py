@@ -78,11 +78,29 @@ def _scope_payload(var_list, scope):
     return payload
 
 
+def _global_values(program, scope):
+    """(the Program, a scope with the global values): a program run by a
+    ``DistributedProgram`` (parallel/sharding.py) that keeps tp-, sp- or
+    ZeRO-split state has its blocks gathered into a copy of `scope` (a
+    collective: every rank saves)."""
+    if hasattr(program, "_state_plan"):
+        dist, program = program, program._program
+    else:
+        dist = getattr(program, "_distributed", None)
+    if dist is not None and dist._state_plan()[1]:
+        scope = dist.consolidated_scope(scope)
+    return program, scope
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
+    """Write the vars to ``dirname/filename`` (npz). A tensor-parallel or
+    ZeRO-split persistable is written as its global value
+    (:func:`_global_values`)."""
     main_program = main_program or default_main_program()
-    var_list = _collect(main_program, predicate or is_persistable, vars)
     scope = scope if scope is not None else global_scope()
+    main_program, scope = _global_values(main_program, scope)
+    var_list = _collect(main_program, predicate or is_persistable, vars)
     os.makedirs(dirname, exist_ok=True)
     np.savez(os.path.join(dirname, filename or "__vars__.npz"),
              **_scope_payload(var_list, scope))
@@ -229,9 +247,10 @@ def save(program, model_path):
     ``model_path + ".pdparams.npz"``, its JSON to ``".pdmodel.json"``."""
     dirname = os.path.dirname(model_path) or "."
     os.makedirs(dirname, exist_ok=True)
+    program, scope = _global_values(program, global_scope())
     persistables = [v for v in program.list_vars() if v.persistable]
     np.savez(model_path + ".pdparams.npz",
-             **_scope_payload(persistables, global_scope()))
+             **_scope_payload(persistables, scope))
     with open(model_path + ".pdmodel.json", "w") as f:
         f.write(program.to_json())
 

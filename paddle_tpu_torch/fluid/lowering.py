@@ -33,6 +33,13 @@ hands ``build_step_fn`` a ``grad_comm`` hook, which ``_run_training``
 calls with the global block's raw gradients right after its backward op
 and before the optimizer ops read them, as the JAX package's hook sits
 between jax.vjp and the update.
+
+Tensor and sequence parallel: a run over a mesh with tp or sp axes, or
+with ZeRO-split optimizer state, carries each env value's layout
+(``LowerContext.layouts``, parallel/tensor_parallel.py); ``apply_op``
+runs the op's layout rule or the fallback, and a gradient takes its
+target's layout. The collectives the rules insert are differentiable, so
+the one tape needs no gradient rule of its own for tp or sp.
 """
 import contextlib
 import threading
@@ -99,8 +106,12 @@ def apply_op(op, env, ctx):
     gate = ins.pop("SkipGate", None)
     ctx.current_env = env  # control-flow ops run their blocks on a copy
     ctx.current_op = op
+    layouts = ctx.layouts
     try:
-        outs = fn(ctx, ins, op.attrs)
+        if layouts is None:
+            outs = fn(ctx, ins, op.attrs)
+        else:
+            outs = _apply_laid_out(op, fn, ins, gate, ctx, layouts)
     except (OpLoweringError, NotImplementedError):
         raise
     except Exception as e:
@@ -112,6 +123,29 @@ def apply_op(op, env, ctx):
         _skip_gate(op, ins, outs, gate[0])
     bind_outputs(op, outs, env)
     return env
+
+
+def _apply_laid_out(op, fn, ins, gate, ctx, layouts):
+    """The op under the run's layouts (parallel/tensor_parallel.py): its
+    rule or the fallback; records its outputs' layouts."""
+    from ..parallel import tensor_parallel as tpl
+
+    if gate:
+        name = op.input("SkipGate")[0]
+        gate[0] = tpl.whole(ctx, gate[0], layouts.get(name, tpl.WHOLE),
+                            op.type)
+    lays = {slot: [layouts.get(n, tpl.WHOLE) for n in op.inputs[slot]]
+            for slot in ins}
+    outs, out_lays = tpl.run(op.type, fn, ctx, ins, op.attrs, lays)
+    for slot, names in op.outputs.items():
+        got = out_lays.get(slot, ())
+        for i, n in enumerate(names):
+            lay = got[i] if i < len(got) else None
+            if lay is None or lay.whole:
+                layouts.pop(n, None)
+            else:
+                layouts[n] = lay
+    return outs
 
 
 def _skip_gate(op, ins, outs, gate):
@@ -220,11 +254,21 @@ def _run_training(op_list, env, ctx):
                                       bw_op.attrs["targets"]],
                                seed, retain=idx != at[-1])
             grad_names = bw_op.output("Grads")
+            if ctx.layouts is not None:     # a gradient lies as its target
+                for t, n in zip(bw_op.attrs["targets"], grad_names):
+                    lay = ctx.layouts.get(t)
+                    if lay is None:
+                        ctx.layouts.pop(n, None)
+                    else:
+                        ctx.layouts[n] = lay
             # the data-parallel gradient hook (module docstring)
             gc = getattr(ctx, "grad_comm", None)
             if gc is not None and bw_op.block.idx == 0:
                 synced = gc(dict(zip(grad_names, grads)))
                 grads = [synced.get(n, g) for n, g in zip(grad_names, grads)]
+                for n, lay in getattr(gc, "grad_layouts", {}).items():
+                    if n in synced:
+                        ctx.layouts[n] = lay
             for n, g in zip(grad_names, grads):
                 env[n] = g.requires_grad_() if n in later_targets else g
     with torch.no_grad(), record_function("paddle_tpu_torch::optimizer"):
@@ -562,7 +606,7 @@ def live_plan(program, fetch_names):
 
 def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
                   grad_comm=None, mesh_axes=None, mesh=None,
-                  batch_stats_group=None):
+                  batch_stats_group=None, layouts=None, groups=None):
     """Return step(state, feeds, generator, shared_generator) ->
     (fetches, new_state).
 
@@ -582,7 +626,14 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
     collective ops' rings to the rank group; ``batch_stats_group`` is the
     group ``batch_norm`` takes its training statistics over; and
     ``shared_generator`` draws what every rank draws alike
-    (:class:`~paddle_tpu_torch.ops.registry.LowerContext`)."""
+    (:class:`~paddle_tpu_torch.ops.registry.LowerContext`).
+
+    Tensor and sequence parallel: ``layouts`` (name -> Layout, the
+    state's and the feeds' that are split) turns the run's layouts on,
+    and ``groups`` maps each mesh axis of more than one rank to this
+    rank's line along it. The step then keeps the layouts of its env's
+    values after the run in ``step.layouts``, for the caller to make its
+    fetches and state global."""
     block = program.global_block()
     plan = live_plan(program, fetch_names)      # None: every op runs
     op_list = list(block.ops) if plan is None else plan.ops[0]
@@ -598,6 +649,10 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
         ctx.keep_names = keep
         ctx.grad_comm = grad_comm
         ctx.batch_stats_group = batch_stats_group
+        if layouts is not None:
+            ctx.layouts = dict(layouts)
+            ctx.groups = dict(groups or {})
+            ctx.split_axes = tuple(a for a in ctx.groups if a != "dp")
         env = dict(state)
         env.update(feeds)
         guard = torch.inference_mode() if is_test else torch.no_grad()
@@ -612,6 +667,7 @@ def build_step_fn(program, feed_names, fetch_names, device, is_test=False,
             )
         fetches = [env[n] for n in fetch_names]
         new_state = {n: env[n] for n in persist if n in env}
+        step.layouts = ctx.layouts
         return fetches, new_state
 
     return step

@@ -1,7 +1,8 @@
 """BERT-base pretraining model, built through the paddle_tpu_torch.fluid
 layer API. Port of paddle_tpu/models/bert.py: the same layer calls build
-the same Program, op for op and name for name, as the JAX package. The
-tensor-parallel ``tp_rules`` wait for the parallel slice.
+the same Program, op for op and name for name, as the JAX package.
+``tp_rules`` are the JAX package's tensor-parallel rules, run by
+parallel/sharding.py's ``DistributedProgram`` and ``fleet``.
 """
 import numpy as np
 
@@ -10,8 +11,8 @@ from ..fluid import layers
 from ..fluid.param_attr import ParamAttr
 from .decode_utils import split_heads
 
-__all__ = ["BertConfig", "build_bert_pretrain", "bert_base", "bert_tiny",
-           "synthetic_batch"]
+__all__ = ["BertConfig", "build_bert_pretrain", "tp_rules", "bert_base",
+           "bert_tiny", "synthetic_batch"]
 
 
 class BertConfig:
@@ -170,6 +171,23 @@ def build_bert_pretrain(cfg, seq_len, is_test=False):
         "logits": logits,
         "loss": mean_loss,
     }
+
+
+def tp_rules():
+    """Tensor-parallel sharding rules for the BERT parameter naming above:
+    column-shard qkv/ffn1 (+ their biases), row-shard attnout/ffn2,
+    vocab-shard the embedding."""
+    from ..parallel.mesh import P
+
+    return [
+        (r"enc_l\d+_qkv\.w", P(None, "tp")),
+        (r"enc_l\d+_qkv\.b", P("tp")),
+        (r"enc_l\d+_ffn1\.w", P(None, "tp")),
+        (r"enc_l\d+_ffn1\.b", P("tp")),
+        (r"enc_l\d+_attnout\.w", P("tp", None)),
+        (r"enc_l\d+_ffn2\.w", P("tp", None)),
+        (r"word_emb", P("tp", None)),
+    ]
 
 
 def synthetic_batch(cfg, batch, seq_len, seed=0):

@@ -10,7 +10,8 @@ held to. :func:`build_gpt_decode_step_q` is the int8-resident step of
 the disaggregated fleet's decode replicas, :func:`build_gpt_prefill_delta`
 the prefix pool's and the session tier's suffix prefill, and
 :func:`build_gpt_verify_block` the target half of speculative decoding.
-``tp_rules`` waits for the parallel slice (ROADMAP.md Queue 1 item 8).
+``tp_rules`` are the JAX package's tensor-parallel rules for the training
+graph (parallel/sharding.py).
 """
 import numpy as np
 
@@ -22,7 +23,7 @@ __all__ = ["GPTConfig", "gpt_tiny", "build_gpt_lm", "GPTDecodeCell",
            "SamplingDecoder", "build_gpt_generate", "build_gpt_prefill",
            "build_gpt_prefill_delta", "build_gpt_verify_block",
            "build_gpt_decode_step", "build_gpt_decode_step_q",
-           "synthetic_lm_batch"]
+           "tp_rules", "synthetic_lm_batch"]
 
 
 class GPTConfig:
@@ -749,6 +750,25 @@ def build_gpt_decode_step_q(cfg, cache_len):
                            "gpt_step_k", "gpt_step_v",
                            "gpt_step_kscale", "gpt_step_vscale"],
             "fetch_vars": [nxt, k_q, v_q, k_s, v_s]}
+
+
+def tp_rules():
+    """Tensor-parallel sharding rules for the GPT parameter naming
+    (cf. bert.tp_rules): column-shard q/k/v and ffn.fc1 (+ biases),
+    row-shard the attention output and ffn.fc2, vocab-shard the token
+    embedding and the output projection's vocab dim."""
+    from ..parallel.mesh import P
+
+    return [
+        (r"gpt\d+\.self\.[qkv]\.w", P(None, "tp")),
+        (r"gpt\d+\.self\.[qkv]\.b", P("tp")),
+        (r"gpt\d+\.ffn\.fc1\.w", P(None, "tp")),
+        (r"gpt\d+\.ffn\.fc1\.b", P("tp")),
+        (r"gpt\d+\.self\.o\.w", P("tp", None)),
+        (r"gpt\d+\.ffn\.fc2\.w", P("tp", None)),
+        (r"gpt_tok_emb", P("tp", None)),
+        (r"gpt_out\.w", P(None, "tp")),
+    ]
 
 
 def synthetic_lm_batch(cfg, batch, seq_len, seed=0):

@@ -5,8 +5,8 @@ same Program, op for op and name for name, as the JAX package.
 
 ``embedding(is_sparse=True)`` keeps a dense gradient, as the reference
 does: the lookup is a gather whose gradient autograd scatters into a
-dense (vocab, dim) table. ``wd_tp_rules`` shards the tables over a mesh
-and waits for the parallel slice (ROADMAP.md Queue 1, item 8).
+dense (vocab, dim) table. ``wd_tp_rules`` shards the tables' vocabulary
+over the ``tp`` axis (parallel/sharding.py).
 """
 import numpy as np
 
@@ -88,10 +88,11 @@ def build_wide_deep(
 
 
 def wd_tp_rules():
-    raise NotImplementedError(
-        "wd_tp_rules shards the embedding tables over a device mesh: it "
-        "comes with the parallel slice of paddle_tpu_torch (ROADMAP.md "
-        "Queue 1, item 8)")
+    """Shard the big embedding tables' vocab dim over 'tp' — the
+    collective replacement for pserver-sharded lookup tables."""
+    from ..parallel.mesh import P
+
+    return [(r"ctr_emb", P("tp", None)), (r"ctr_wide_emb", P("tp", None))]
 
 
 def synthetic_ctr_batch(batch, num_sparse_fields=26, sparse_vocab=100000,

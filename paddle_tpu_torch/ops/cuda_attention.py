@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .registry import register_op, single
+from .registry import register_layout_rule, register_op, single
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_dq",
            "flash_attention_dq_plain", "flash_attention_dkdv",
@@ -90,17 +90,22 @@ def _int32(seed):
     return seed
 
 
-def dropout_keep_mask(seed, batch, heads, tq, tk, dropout_p, device=None):
+def dropout_keep_mask(seed, batch, heads, tq, tk, dropout_p, device=None,
+                      head_offset=0, total_heads=None):
     """Bool (B, H, Tq, Tk) keep mask, bit for bit the one
     pallas_attention draws: murmur3 fmix32 over seed ⊕ qi·0x9E3779B9 ⊕
     kj·0x85EBCA6B + r·0x27D4EB2F + c·0x165667B1, the seed folded per
     batch·head (+bh·1000003, int32 wraparound), in the reference's tile
-    coordinates. Computed in int64 masked to 32 bits after each step."""
+    coordinates. Computed in int64 masked to 32 bits after each step.
+    `heads` heads from `head_offset` of `total_heads` (default `heads`):
+    the mask of those heads of the whole value's, as a tensor-parallel
+    rank draws it."""
     ref_bq, ref_bk = reference_blocks(tq, tk)
     i64 = dict(dtype=torch.int64, device=device)
     rows = torch.arange(tq, **i64)
     cols = torch.arange(tk, **i64)
     bh = torch.arange(batch * heads, **i64)
+    bh = (bh // heads) * (total_heads or heads) + head_offset + bh % heads
     seed_bh = ((_int32(seed) & _M32) + bh * 1000003) & _M32
     h = (seed_bh[:, None, None]
          ^ _mul32(rows // ref_bq, 0x9E3779B9)[None, :, None]
@@ -114,6 +119,11 @@ def dropout_keep_mask(seed, batch, heads, tq, tk, dropout_p, device=None):
     h = h ^ (h >> 16)
     keep = h >= _dropout_threshold(dropout_p)
     return keep.reshape(batch, heads, tq, tk)
+
+
+def _heads(heads, h):
+    """(head offset, total heads) of a launch of `h` heads."""
+    return (0, h) if heads is None else (int(heads[0]), int(heads[1]))
 
 
 def _check_args(q, k, v, seed, dropout_p):
@@ -144,10 +154,12 @@ def _scores(q, k, key_padding_mask, sm_scale, causal):
 
 
 def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
-                          sm_scale=None, causal=False, dropout_p=0.0):
+                          sm_scale=None, causal=False, dropout_p=0.0,
+                          heads=None):
     """The kernel's function in plain torch (f32 math, P rounded to the
     input dtype before P·V where the reference rounds it): returns (out
-    like q, lse (B, H, Tq) f32)."""
+    like q, lse (B, H, Tq) f32). `heads`: (head offset, total heads) of
+    these heads in the dropout hash (:func:`dropout_keep_mask`)."""
     _check_args(q, k, v, seed, dropout_p)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -159,7 +171,8 @@ def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
     l_safe = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l_safe == 0.0, torch.ones_like(l_safe), l_safe)
     if dropout_p > 0.0:
-        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device)
+        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device,
+                                 *_heads(heads, h))
         p = torch.where(keep, p, torch.zeros_like(p)) * (1.0 / (1.0 - dropout_p))
     # P∘keep/(1−p) rounds to the input dtype before P·V, as the reference's
     # p_use.astype(v.dtype) does (a no-op in f32); l is the unrounded sum
@@ -172,18 +185,20 @@ def flash_attention_plain(q, k, v, key_padding_mask=None, seed=None,
 
 
 def flash_attention(q, k, v, key_padding_mask=None, seed=None, sm_scale=None,
-                    causal=False, dropout_p=0.0):
+                    causal=False, dropout_p=0.0, heads=None):
     """Flash multi-head attention forward: q (B, H, Tq, D), k/v
     (B, H, Tk, D) -> (out like q, lse (B, H, Tq) f32). Launches
     ``csrc/flash_attn_fwd.cu`` on CUDA tensors (counted in
     ``flash_attention.launches``); runs :func:`flash_attention_plain` on
-    CPU tensors."""
+    CPU tensors. `heads`: (head offset, total heads), where these H heads
+    lie among the whole value's for the dropout hash (a tensor-parallel
+    rank's own heads); default (0, H)."""
     _check_args(q, k, v, seed, dropout_p)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_padding_mask, seed,
-                                     sm_scale, causal, dropout_p)
+                                     sm_scale, causal, dropout_p, heads)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -211,7 +226,7 @@ def flash_attention(q, k, v, key_padding_mask=None, seed=None, sm_scale=None,
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -225,7 +240,7 @@ def flash_attention(q, k, v, key_padding_mask=None, seed=None, sm_scale=None,
             _dropout_threshold(dropout_p) if use_dropout else 0,
             1.0 / (1.0 - dropout_p),
             _int32(seed) if use_dropout else 0, ref_bq, ref_bk,
-            _DTYPE_CODE[q.dtype],
+            *_heads(heads, h)[::-1], _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, "flash_attn_fwd")
     flash_attention.launches += 1
@@ -236,7 +251,7 @@ flash_attention.launches = 0
 
 
 def _bwd_plain_parts(q, k, v, key_padding_mask, seed, do, lse, delta,
-                     sm_scale, causal, dropout_p):
+                     sm_scale, causal, dropout_p, heads=None):
     """(sm_scale, P∘keep/(1−p), dS) in f32, as both backward kernels
     re-form them from the saved lse."""
     _check_args(q, k, v, seed, dropout_p)
@@ -252,7 +267,8 @@ def _bwd_plain_parts(q, k, v, key_padding_mask, seed, do, lse, delta,
     dp = torch.matmul(do.to(v.dtype).float(), v.float().transpose(-1, -2))
     pd = p
     if dropout_p > 0.0:
-        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device)
+        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p, q.device,
+                                 *_heads(heads, h))
         inv = 1.0 / (1.0 - dropout_p)
         pd = torch.where(keep, p, torch.zeros_like(p)) * inv
         dp = torch.where(keep, dp, torch.zeros_like(dp)) * inv
@@ -273,27 +289,29 @@ def _dkdv_from(q, k, v, key_padding_mask, do, sm_scale, pd, ds):
 
 
 def flash_attention_dq_plain(q, k, v, key_padding_mask, seed, do, lse, delta,
-                             sm_scale=None, causal=False, dropout_p=0.0):
+                             sm_scale=None, causal=False, dropout_p=0.0,
+                             heads=None):
     """The dQ kernel's function in plain torch: dq like q."""
     sm_scale, _, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
                                        lse, delta, sm_scale, causal,
-                                       dropout_p)
+                                       dropout_p, heads)
     return _dq_from(q, k, sm_scale, ds)
 
 
 def flash_attention_dkdv_plain(q, k, v, key_padding_mask, seed, do, lse,
                                delta, sm_scale=None, causal=False,
-                               dropout_p=0.0):
+                               dropout_p=0.0, heads=None):
     """The dK/dV kernel's function in plain torch: (dk like k, dv like v,
     dkpm per (batch, head) (B, H, Tk) f32 or None)."""
     sm_scale, pd, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
                                         lse, delta, sm_scale, causal,
-                                        dropout_p)
+                                        dropout_p, heads)
     return _dkdv_from(q, k, v, key_padding_mask, do, sm_scale, pd, ds)
 
 
 def flash_attention_bwd_plain(q, k, v, key_padding_mask, seed, do, lse, delta,
-                              sm_scale=None, causal=False, dropout_p=0.0):
+                              sm_scale=None, causal=False, dropout_p=0.0,
+                              heads=None):
     """The two backward kernels' function in plain torch (f32 math,
     rounding to the input dtype where the reference rounds), P and dS
     formed once: returns (dq like q, dk like k, dv like v, dkpm per
@@ -302,13 +320,13 @@ def flash_attention_bwd_plain(q, k, v, key_padding_mask, seed, do, lse, delta,
     (B, H, Tq)."""
     sm_scale, pd, ds = _bwd_plain_parts(q, k, v, key_padding_mask, seed, do,
                                         lse, delta, sm_scale, causal,
-                                        dropout_p)
+                                        dropout_p, heads)
     return (_dq_from(q, k, sm_scale, ds),) + _dkdv_from(
         q, k, v, key_padding_mask, do, sm_scale, pd, ds)
 
 
 def _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta, sm_scale,
-              causal, dropout_p, name):
+              causal, dropout_p, name, heads=None):
     """Check the backward kernels' inputs; returns the C arguments after
     the pointers, and the f32 key-padding mask or None."""
     _check_args(q, k, v, seed, dropout_p)
@@ -344,18 +362,19 @@ def _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta, sm_scale,
             int(use_dropout),
             _dropout_threshold(dropout_p) if use_dropout else 0,
             1.0 / (1.0 - dropout_p), _int32(seed) if use_dropout else 0,
-            ref_bq, ref_bk, _DTYPE_CODE[q.dtype],
+            ref_bq, ref_bk, *_heads(heads, h)[::-1], _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     return tail, kpm
 
 
 _BWD_TAIL_TYPES = [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def flash_attention_dq(q, k, v, key_padding_mask, seed, do, lse, delta,
-                       sm_scale=None, causal=False, dropout_p=0.0):
+                       sm_scale=None, causal=False, dropout_p=0.0, heads=None):
     """dQ of flash attention (B, H, Tq, D) like q. Launches the dQ kernel
     of ``csrc/flash_attn_bwd.cu`` on CUDA tensors (counted in
     ``flash_attention_dq.launches``); runs
@@ -365,9 +384,10 @@ def flash_attention_dq(q, k, v, key_padding_mask, seed, do, lse, delta,
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, key_padding_mask, seed, do,
                                         lse, delta, sm_scale, causal,
-                                        dropout_p)
+                                        dropout_p, heads)
     tail, kpm = _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta,
-                          sm_scale, causal, dropout_p, "flash_attention_dq")
+                          sm_scale, causal, dropout_p, "flash_attention_dq",
+                          heads)
     fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_dq
     fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL_TYPES
     fn.restype = ctypes.c_int
@@ -385,7 +405,8 @@ flash_attention_dq.launches = 0
 
 
 def flash_attention_dkdv(q, k, v, key_padding_mask, seed, do, lse, delta,
-                         sm_scale=None, causal=False, dropout_p=0.0):
+                         sm_scale=None, causal=False, dropout_p=0.0,
+                         heads=None):
     """(dK like k, dV like v, dkpm per (batch, head) (B, H, Tk) f32 or
     None) of flash attention. Launches the dK/dV kernel of
     ``csrc/flash_attn_bwd.cu`` on CUDA tensors (counted in
@@ -396,9 +417,10 @@ def flash_attention_dkdv(q, k, v, key_padding_mask, seed, do, lse, delta,
     if q.device.type == "cpu":
         return flash_attention_dkdv_plain(q, k, v, key_padding_mask, seed, do,
                                           lse, delta, sm_scale, causal,
-                                          dropout_p)
+                                          dropout_p, heads)
     tail, kpm = _bwd_args(q, k, v, key_padding_mask, seed, do, lse, delta,
-                          sm_scale, causal, dropout_p, "flash_attention_dkdv")
+                          sm_scale, causal, dropout_p, "flash_attention_dkdv",
+                          heads)
     fn = cuda_build.load("flash_attn_bwd").flash_attn_bwd_dkdv
     fn.argtypes = [ctypes.c_void_p] * 10 + _BWD_TAIL_TYPES
     fn.restype = ctypes.c_int
@@ -422,7 +444,8 @@ flash_attention_dkdv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, key_padding_mask, seed, out, lse, do,
-                        sm_scale=None, causal=False, dropout_p=0.0):
+                        sm_scale=None, causal=False, dropout_p=0.0,
+                        heads=None):
     """Gradients of flash attention from the forward's out and lse and the
     output's gradient ``do``: (dq, dk, dv, dkpm per (batch, head) or
     None). delta = rowsum(dO∘O) is taken here in f32, as
@@ -430,7 +453,7 @@ def flash_attention_bwd(q, k, v, key_padding_mask, seed, out, lse, do,
     (or, on the CPU, the plain version once)."""
     delta = (do.float() * out.float()).sum(dim=-1)
     args = (q, k, v, key_padding_mask, seed, do, lse, delta, sm_scale,
-            causal, dropout_p)
+            causal, dropout_p, heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(*args)
     return (flash_attention_dq(*args),) + tuple(flash_attention_dkdv(*args))
@@ -443,16 +466,17 @@ class FlashAttention(torch.autograd.Function):
     backward kernels. lse is an output without a gradient.
 
     ``FlashAttention.apply(q, k, v, key_padding_mask, seed, sm_scale,
-    causal, dropout_p)`` -> (out, lse)."""
+    causal, dropout_p[, heads])`` -> (out, lse); `heads` as
+    :func:`flash_attention`'s."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, seed, sm_scale, causal,
-                dropout_p):
+                dropout_p, heads=None):
         out, lse = flash_attention(q, k, v, key_padding_mask, seed, sm_scale,
-                                   causal, dropout_p)
+                                   causal, dropout_p, heads)
         ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
         ctx.seed, ctx.sm_scale = seed, sm_scale
-        ctx.causal, ctx.dropout_p = causal, dropout_p
+        ctx.causal, ctx.dropout_p, ctx.heads = causal, dropout_p, heads
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -461,11 +485,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, kpm, out, lse = ctx.saved_tensors
         dq, dk, dv, dkpm_bh = flash_attention_bwd(
             q, k, v, kpm, ctx.seed, out, lse, dout.contiguous(),
-            ctx.sm_scale, ctx.causal, ctx.dropout_p)
+            ctx.sm_scale, ctx.causal, ctx.dropout_p, ctx.heads)
         dkpm = None
         if kpm is not None and ctx.needs_input_grad[3]:
             dkpm = dkpm_bh.sum(dim=1).to(kpm.dtype)
-        return dq, dk, dv, dkpm, None, None, None, None
+        return (dq, dk, dv, dkpm) + (None,) * (len(ctx.needs_input_grad) - 4)
 
 
 @register_op("fused_multihead_attention")
@@ -488,3 +512,71 @@ def _fused_mha_lowering(ctx, ins, attrs):
     out, _ = FlashAttention.apply(q, k, v, kpm, seed, q.shape[-1] ** -0.5,
                                   causal, p)
     return single(out)
+
+
+@register_layout_rule("fused_multihead_attention", active=True)
+def _fused_mha_rule(ctx, ins, attrs, lays):
+    """Under tensor and sequence parallelism (parallel/tensor_parallel.py).
+
+    - tp: when H divides by the tp size, the rank runs the flash kernels
+      on its own H/tp heads (the dropout hash told their offset among the
+      H heads, so the masks are the one-device run's), and the output is
+      split on heads.
+    - sp: with the reference's conditions (pallas_attention.py, the ring
+      branch): no key-padding mask, no dropout, q shaped like k, T
+      divisible by sp, the rank's T block rides the ring
+      (parallel/ring_attention.py: :class:`RingFlash` on the card, the
+      plain block ring on the CPU), and the output is split on T.
+
+    Whole q/k/v are cut to the rank's block after f; the two compose as
+    P(dp, tp, sp, None). Otherwise (None) the op takes the fallback."""
+    from ..parallel import ring_attention as ra
+    from ..parallel import tensor_parallel as tpl
+
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    kpm = ins["KeyPaddingMask"][0] if ins.get("KeyPaddingMask") else None
+    qkv_lays = [lays[s][0] for s in ("Q", "K", "V")]
+    if any(lay.partial for lay in qkv_lays) or (
+            kpm is not None and not lays["KeyPaddingMask"][0].whole):
+        return None
+    gq = tpl.global_shape(q.shape, qkv_lays[0], ctx.groups)
+    gk = tpl.global_shape(k.shape, qkv_lays[1], ctx.groups)
+    causal = bool(attrs.get("causal", False))
+    p = float(attrs.get("dropout_prob", 0.0))
+    if attrs.get("is_test", False) or ctx.is_test:
+        p = 0.0
+    tp, sp = ctx.groups.get("tp"), ctx.groups.get("sp")
+    want = {}
+    if tp is not None and gq[1] % tp.size == 0:
+        want["tp"] = 1
+    ring = (sp is not None and kpm is None and p == 0.0 and gq == gk
+            and gq[2] % sp.size == 0)
+    if ring:
+        want["sp"] = 2
+    if not want or any(lay.split.get(a, d) != d or set(lay.split) - set(want)
+                       for lay in qkv_lays for a, d in want.items()):
+        return None
+    target = tpl.Layout(want)
+    got = []
+    for x, lay in zip((q, k, v), qkv_lays):
+        for a, d in sorted(want.items()):
+            if a not in lay.split:
+                x = tpl.scatter(x, ctx.groups[a], a, d)
+        got.append(x.contiguous())
+    q, k, v = got
+    if kpm is not None and "tp" in want:
+        kpm = tpl.enter(kpm, tp, "tp")
+    seed = ctx.next_seed() if p > 0.0 else None
+    scale = gq[-1] ** -0.5
+    if ring:
+        if q.device.type == "cuda":
+            out = ra.RingFlash.apply(q, k, v, sp, causal, scale)
+        else:
+            out = ra.ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), sp, causal=causal,
+                                    scale=scale).transpose(1, 2)
+    else:
+        heads = (tp.rank * q.shape[1], gq[1]) if "tp" in want else None
+        out, _ = FlashAttention.apply(q, k, v, kpm, seed, scale, causal, p,
+                                      heads)
+    return single(out), {"Out": [target]}

@@ -27,7 +27,7 @@ import torch
 from .detection_ops import jclip, jmax, scalar
 from .math_ops import jax_abs
 from .promotion import promote
-from .registry import register_op, single
+from .registry import LOWERINGS, register_layout_rule, register_op, single
 
 
 def _log_softmax(x, axis):
@@ -94,6 +94,58 @@ def _softmax_with_ce(ctx, ins, attrs):
             -1, lab.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
         loss = (-picked).masked_fill(lab == ignore, 0.0)[..., None]
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_layout_rule("softmax_with_cross_entropy")
+def _softmax_with_ce_rule(ctx, ins, attrs, lays):
+    """Hard labels over logits split on their rows only: the rank's rows
+    (the labels cut to match). Over logits split on their last axis (the
+    vocabulary): vocab-parallel, the logits never gathered. The max, the
+    sum of the exponentials and the target's logit each come from one
+    all-reduce over the axis (the max's carries no gradient, the other
+    two are g); the loss is log(sum) + max - target, and the Softmax
+    output stays split. Other split dims (rows) stay split on both
+    outputs."""
+    from ..parallel import tensor_parallel as tpl
+
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    ll, lb = lays["Logits"][0], lays["Label"][0]
+    last = logits.dim() - 1
+    axis = attrs.get("axis", -1) % logits.dim()
+    vocab = ll.axis_on(last)
+    if (ll.partial or lb.partial or axis != last
+            or attrs.get("soft_label", False) or vocab in lb.split):
+        return None
+    rows = {a: d for a, d in ll.split.items() if a != vocab}
+    if set(lb.split) - set(rows):
+        return None
+    for a, d in sorted(rows.items()):
+        if a not in lb.split:
+            label = tpl.cut(label, ctx.groups[a], d)
+        elif lb.split[a] != d:
+            return None
+    out_rows = tpl.Layout(rows)
+    if vocab is None:       # split on rows only: the rank's rows
+        out = LOWERINGS["softmax_with_cross_entropy"](
+            ctx, {"Logits": [logits], "Label": [label]}, attrs)
+        return out, {"Softmax": [ll], "Loss": [out_rows]}
+    g = ctx.groups[vocab]
+    x = logits.float()
+    m = g.all_reduce(x.detach().amax(dim=-1, keepdim=True), op="max")
+    e = torch.exp(x - m)
+    total = tpl.reduce(e.sum(dim=-1, keepdim=True), g, vocab)
+    per = logits.shape[-1]
+    lo = g.rank * per
+    lab = _squeeze_label(label).long()
+    mine = (lab >= lo) & (lab < lo + per)
+    picked = x.gather(-1, (lab - lo).clamp(0, per - 1)[..., None])[..., 0]
+    target = tpl.reduce(torch.where(mine, picked, torch.zeros_like(picked)),
+                        g, vocab)
+    loss = torch.log(total[..., 0]) + m[..., 0] - target
+    loss = loss.masked_fill(lab == attrs.get("ignore_index", -100), 0.0)
+    softmax = (e / total).to(logits.dtype)
+    return ({"Softmax": [softmax], "Loss": [loss[..., None].to(
+        logits.dtype)]}, {"Softmax": [ll], "Loss": [out_rows]})
 
 
 @register_op("huber_loss")

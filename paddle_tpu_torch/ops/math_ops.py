@@ -17,7 +17,7 @@ import torch
 
 from .detection_ops import jmax
 from .promotion import promote
-from .registry import register_op, single
+from .registry import LOWERINGS, register_layout_rule, register_op, single
 
 
 def _broadcast_y(x, y, axis):
@@ -401,3 +401,279 @@ def _as_tensors(x, v):
     if not isinstance(v, torch.Tensor):
         v = torch.tensor(v, dtype=x.dtype, device=x.device)
     return x, v
+
+
+# ---------------------------------------------------------------------------
+# layout rules under tensor and sequence parallelism
+# (parallel/tensor_parallel.py): where each op's output lies when an input is
+# split or partial over a mesh axis; None sends the op to the fallback
+# ---------------------------------------------------------------------------
+def _tpl():
+    from ..parallel import tensor_parallel
+
+    return tensor_parallel
+
+
+def _y_dims(gx, gy, axis):
+    """{dim of Y: dim of X} of Paddle's broadcast of Y into X, read from
+    the whole values' shapes; None when Y does not align into X."""
+    if gx == gy:
+        return {d: d for d in range(len(gy))}
+    if len(gy) > len(gx):
+        return None
+    if axis == -1 or axis is None:
+        axis = len(gx) - len(gy)
+    n = len(gy)
+    while n and gy[n - 1] == 1 and axis + n > len(gx):
+        n -= 1
+    if axis < 0 or axis + n > len(gx):
+        return None
+    return {d: axis + d for d in range(n)}
+
+
+def _binary_rule(fn, linear):
+    """X and Y split alike on the dims they share; a whole operand is cut
+    to the other's block (after f), or entered whole where it broadcasts;
+    partial operands are reduced first, except a sum or difference of two
+    values partial over the same axis, which stays partial."""
+    def rule(ctx, ins, attrs, lays):
+        tpl = _tpl()
+        x, y = ins["X"][0], ins["Y"][0]
+        lx, ly = lays["X"][0], lays["Y"][0]
+        both = lx.partial & ly.partial if linear else frozenset()
+        x, lx = tpl.resolve_partial(ctx, x, lx, both)
+        y, ly = tpl.resolve_partial(ctx, y, ly, both)
+        gx = tpl.global_shape(x.shape, lx, ctx.groups)
+        gy = tpl.global_shape(y.shape, ly, ctx.groups)
+        ymap = _y_dims(gx, gy, attrs.get("axis", -1))
+        if ymap is None:
+            return None
+        back = {xd: yd for yd, xd in ymap.items()}
+        for a in sorted(set(lx.split) | set(ly.split)):
+            g = ctx.groups[a]
+            dx, dy = lx.split.get(a), ly.split.get(a)
+            if dx is not None and dy is not None:
+                if ymap.get(dy) != dx:
+                    return None
+            elif dx is not None:
+                yd = back.get(dx)
+                if yd is not None and gy[yd] == gx[dx]:
+                    y = tpl.scatter(y, g, a, yd)
+                    ly = ly.with_split(a, yd)
+                elif yd is None or gy[yd] == 1:
+                    y = tpl.enter(y, g, a)
+                else:
+                    return None
+            else:
+                xd = ymap.get(dy)
+                if xd is None or gx[xd] != gy[dy]:
+                    return None
+                x = tpl.scatter(x, g, a, xd)
+                lx = lx.with_split(a, xd)
+        out = fn(ctx, {"X": [x], "Y": [y]}, attrs)
+        return out, {"Out": [tpl.Layout(lx.split, both)]}
+
+    return rule
+
+
+for _name in ("elementwise_add", "elementwise_sub", "elementwise_mul",
+              "elementwise_div", "elementwise_max", "elementwise_min",
+              "elementwise_pow", "equal", "not_equal", "less_than",
+              "less_equal", "greater_than", "greater_equal"):
+    register_layout_rule(_name)(_binary_rule(
+        LOWERINGS[_name], _name in ("elementwise_add", "elementwise_sub")))
+
+
+def _fits(x, dim, group):
+    return x.shape[dim] % group.size == 0
+
+
+@register_layout_rule("mul")
+def _mul_rule(ctx, ins, attrs, lays):
+    """X split on a row dim, or Y on a column dim: the output is split
+    there (the other operand entered whole). X split on its first
+    contraction dim, or Y on its first (dim 0): the other operand is cut
+    to match and the output is partial."""
+    tpl = _tpl()
+    x, y = ins["X"][0], ins["Y"][0]
+    x, lx = tpl.resolve_partial(ctx, x, lays["X"][0])
+    y, ly = tpl.resolve_partial(ctx, y, lays["Y"][0])
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    split, partial = {}, set()
+    for a in sorted(set(lx.split) | set(ly.split)):
+        g = ctx.groups[a]
+        dx, dy = lx.split.get(a), ly.split.get(a)
+        if dx is not None and dx < xnc:
+            if dy is not None:
+                return None
+            y = tpl.enter(y, g, a)
+            split[a] = dx
+        elif dx is not None:
+            if dx != xnc or (dy is not None and dy != 0):
+                return None
+            if dy is None:
+                if not _fits(y, 0, g):
+                    return None
+                y = tpl.scatter(y, g, a, 0)
+            partial.add(a)
+        elif dy >= ync:
+            x = tpl.enter(x, g, a)
+            split[a] = xnc + dy - ync
+        else:
+            if dy != 0 or not _fits(x, xnc, g):
+                return None
+            x = tpl.scatter(x, g, a, xnc)
+            partial.add(a)
+    out = LOWERINGS["mul"](ctx, {"X": [x], "Y": [y]}, attrs)
+    return out, {"Out": [tpl.Layout(split, partial)]}
+
+
+@register_layout_rule("matmul")
+def _matmul_rule(ctx, ins, attrs, lays):
+    """Batched products of operands of two or more dims: a batch dim split
+    alike on both (or cut on the whole one, or entered where it
+    broadcasts) stays split; X's row dim or Y's column dim split gives an
+    output split there; the contraction dim split on both (the whole one
+    cut to match) gives a partial output."""
+    tpl = _tpl()
+    x, y = ins["X"][0], ins["Y"][0]
+    if x.dim() < 2 or y.dim() < 2:
+        return None
+    x, lx = tpl.resolve_partial(ctx, x, lays["X"][0])
+    y, ly = tpl.resolve_partial(ctx, y, lays["Y"][0])
+    nx, ny = x.dim(), y.dim()
+    no = max(nx, ny)
+    xm, xk = (nx - 1, nx - 2) if attrs.get("transpose_X") else (nx - 2,
+                                                               nx - 1)
+    yk, yn = (ny - 1, ny - 2) if attrs.get("transpose_Y") else (ny - 2,
+                                                               ny - 1)
+    gx = tpl.global_shape(x.shape, lx, ctx.groups)
+    gy = tpl.global_shape(y.shape, ly, ctx.groups)
+    split, partial = {}, set()
+    for a in sorted(set(lx.split) | set(ly.split)):
+        g = ctx.groups[a]
+        dx, dy = lx.split.get(a), ly.split.get(a)
+        if dx == xk or dy == yk:
+            if dx is None:
+                if not _fits(x, xk, g):
+                    return None
+                x = tpl.scatter(x, g, a, xk)
+            elif dx != xk:
+                return None
+            if dy is None:
+                if not _fits(y, yk, g):
+                    return None
+                y = tpl.scatter(y, g, a, yk)
+            elif dy != yk:
+                return None
+            partial.add(a)
+        elif dx == xm:
+            if dy is not None:
+                return None
+            y = tpl.enter(y, g, a)
+            split[a] = no - 2
+        elif dy == yn:
+            if dx is not None:
+                return None
+            x = tpl.enter(x, g, a)
+            split[a] = no - 1
+        else:
+            # a batch dim of one operand, matched on the other
+            od = dx + no - nx if dx is not None else dy + no - ny
+            i, j = od - (no - nx), od - (no - ny)
+            if dx is not None and dy is not None:
+                if dy != j:
+                    return None
+            elif dx is not None:
+                if j < 0 or gy[j] == 1:
+                    y = tpl.enter(y, g, a)
+                elif gy[j] == gx[dx]:
+                    y = tpl.scatter(y, g, a, j)
+                else:
+                    return None
+            else:
+                if i < 0 or gx[i] == 1:
+                    x = tpl.enter(x, g, a)
+                elif gx[i] == gy[dy]:
+                    x = tpl.scatter(x, g, a, i)
+                else:
+                    return None
+            split[a] = od
+    out = LOWERINGS["matmul"](ctx, {"X": [x], "Y": [y]}, attrs)
+    return out, {"Out": [tpl.Layout(split, partial)]}
+
+
+@register_layout_rule("mean")
+def _mean_rule(ctx, ins, attrs, lays):
+    """The rank's sum over the whole value's count, summed over the split
+    and partial axes (g): the mean, whole."""
+    tpl = _tpl()
+    x, lay = ins["X"][0], lays["X"][0]
+    if not x.is_floating_point():
+        return None
+    out = x.sum() / _prod(tpl.global_shape(x.shape, lay, ctx.groups))
+    for a in sorted(set(lay.split) | lay.partial):
+        out = tpl.reduce(out, ctx.groups[a], a)
+    return single(out), {}
+
+
+def _reduce_rule(mean):
+    def rule(ctx, ins, attrs, lays):
+        """reduce_sum / reduce_mean: a reduced split dim makes the result
+        partial, and it is summed (g) at once; a kept split dim stays
+        split; a partial input stays partial (both are linear)."""
+        tpl = _tpl()
+        x, lay = ins["X"][0], lays["X"][0]
+        if not x.is_floating_point():
+            return None
+        keep = attrs.get("keep_dim", False)
+        dim = attrs.get("dim", None)
+        if attrs.get("reduce_all", False) or dim is None:
+            dims = tuple(range(x.dim()))
+        else:
+            dims = tuple(sorted(d % x.dim() for d in dim))
+        if not dims:
+            return None
+        if mean:
+            gshape = tpl.global_shape(x.shape, lay, ctx.groups)
+            out = x.sum(dim=dims, keepdim=keep) / _prod(
+                gshape[d] for d in dims)
+        else:
+            out = LOWERINGS["reduce_sum"](ctx, ins, attrs)["Out"][0]
+        split = {}
+        for a, d in sorted(lay.split.items()):
+            if d in dims:
+                out = tpl.reduce(out, ctx.groups[a], a)
+            else:
+                split[a] = d if keep else d - sum(r < d for r in dims)
+        return single(out), {"Out": [tpl.Layout(split, lay.partial)]}
+
+    return rule
+
+
+register_layout_rule("reduce_sum")(_reduce_rule(False))
+register_layout_rule("reduce_mean")(_reduce_rule(True))
+
+
+@register_layout_rule("scale")
+def _scale_rule(ctx, ins, attrs, lays):
+    """Elementwise; linear (a partial input stays partial) with no bias."""
+    if ins.get("ScaleTensor") and not lays["ScaleTensor"][0].whole:
+        return None
+    linear = attrs.get("bias", 0.0) == 0.0
+    return _tpl().unary(ctx, ins, attrs, lays, LOWERINGS["scale"],
+                        linear=linear)
+
+
+@register_layout_rule("isfinite")
+def _isfinite_rule(ctx, ins, attrs, lays):
+    """Every element of the whole value finite: the rank's flag, reduced
+    by min over the split axes (the AMP skip gate reads it alike on every
+    rank)."""
+    tpl = _tpl()
+    x, lay = tpl.resolve_partial(ctx, ins["X"][0], lays["X"][0])
+    ok = torch.isfinite(x).all().to(torch.int32)
+    for a in sorted(lay.split):
+        ok = ctx.groups[a].all_reduce(ok, op="min")
+    return single(ok.to(torch.bool)), {}

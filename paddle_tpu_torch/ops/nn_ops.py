@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from .cuda_layernorm import LayerNorm
 from .detection_ops import jclip, jmax, jmin, scalar, table
-from .registry import register_op, single
+from .registry import LOWERINGS, register_layout_rule, register_op, single
 from .tensor_ops import linspace_f32
 
 
@@ -837,3 +837,134 @@ def _add_position_encoding(ctx, ins, attrs):
     pe = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(f32)
     return single(attrs.get("alpha", 1.0) * x
                   + attrs.get("beta", 1.0) * table(pe, x.device, x.dtype)[None])
+
+
+# ---------------------------------------------------------------------------
+# layout rules under tensor and sequence parallelism
+# (parallel/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+def _tpl():
+    from ..parallel import tensor_parallel
+
+    return tensor_parallel
+
+
+def _elementwise_rule(ctx, ins, attrs, lays):
+    """An activation runs on the rank's block; a partial input is summed
+    first."""
+    return _tpl().unary(ctx, ins, attrs, lays,
+                        LOWERINGS[ctx.current_op.type])
+
+
+register_layout_rule(
+    "relu", "sigmoid", "tanh", "gelu", "exp", "sqrt", "square", "log",
+    "floor", "ceil", "cos", "sin", "erf", "rsqrt", "reciprocal", "softplus",
+    "softsign", "leaky_relu", "elu", "relu6", "swish", "hard_swish",
+    "hard_sigmoid", "logsigmoid", "abs", "sign")(_elementwise_rule)
+
+
+@register_layout_rule("softmax")
+def _softmax_rule(ctx, ins, attrs, lays):
+    """Over a dim that is not split: on the rank's block."""
+    x, lay = ins["X"][0], lays["X"][0]
+    if lay.axis_on(attrs.get("axis", -1) % x.dim()) is not None:
+        return None
+    return _tpl().unary(ctx, ins, attrs, lays, LOWERINGS["softmax"])
+
+
+@register_layout_rule("dropout")
+def _dropout_rule(ctx, ins, attrs, lays):
+    """On a split value: the keep mask of the whole value drawn from the
+    run's generator (the draw the one-device run makes), the rank's block
+    kept."""
+    tpl = _tpl()
+    x, lay = tpl.resolve_partial(ctx, ins["X"][0], lays["X"][0])
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False) or ctx.is_test:
+        out = LOWERINGS["dropout"](ctx, {"X": [x]}, attrs)
+        return out, {"Out": [lay], "Mask": [lay]}
+    keep_prob = 1.0 - p
+    keep = tpl.rng_block(ctx, x.shape, lay, lambda shape: torch.rand(
+        shape, generator=ctx.next_rng(), device=x.device)) < keep_prob
+    if impl == "upscale_in_train":
+        x = x / max(keep_prob, 1e-8)
+    out = x.masked_fill(~keep, 0.0)
+    return ({"Out": [out], "Mask": [keep.to(out.dtype)]},
+            {"Out": [lay], "Mask": [lay]})
+
+
+@register_layout_rule("layer_norm")
+def _layer_norm_rule(ctx, ins, attrs, lays):
+    """Split on the rows (dims before ``begin_norm_axis``): the kernel
+    normalizes the rank's rows, the scale and bias entered whole (f)."""
+    tpl = _tpl()
+    x, lay = tpl.resolve_partial(ctx, ins["X"][0], lays["X"][0])
+    begin = attrs.get("begin_norm_axis", 1)
+    if any(d >= begin for d in lay.split.values()):
+        return None
+    ins = dict(ins, X=[x])
+    for slot in ("Scale", "Bias"):
+        if ins.get(slot):
+            if not lays[slot][0].whole:
+                return None
+            v = ins[slot][0]
+            for a in sorted(lay.split):
+                v = tpl.enter(v, ctx.groups[a], a)
+            ins[slot] = [v]
+    out = LOWERINGS["layer_norm"](ctx, ins, attrs)
+    stats = lay if out["Mean"][0].dim() == begin else None
+    if stats is None:
+        out["Mean"], out["Variance"] = [None], [None]
+    return out, {"Y": [lay], "Mean": [stats], "Variance": [stats]}
+
+
+@register_layout_rule("lookup_table_v2")
+def _lookup_rule(ctx, ins, attrs, lays):
+    """A table split on its rows (the vocabulary): each rank looks up the
+    ids in its rows, zeros elsewhere, and the lookups are summed (g). A
+    table split on its columns gives rows split there. Ids split over an
+    axis give rows split alike (the table entered whole over it)."""
+    tpl = _tpl()
+    w, ids = ins["W"][0], ins["Ids"][0]
+    lw, li = lays["W"][0], lays["Ids"][0]
+    if lw.partial or li.partial:
+        return None
+    squeeze = (ids.dim() >= 2 and ids.shape[-1] == 1
+               and attrs.get("_squeeze", True))
+    nd = ids.dim() - 1 if squeeze else ids.dim()
+    if squeeze and li.axis_on(ids.dim() - 1) is not None:
+        return None
+    split = dict(li.split)
+    for a in sorted(set(li.split) - set(lw.split)):
+        w = tpl.enter(w, ctx.groups[a], a)
+    rows = None
+    for a, d in sorted(lw.split.items()):
+        if a in li.split:
+            return None
+        if d == 0:
+            rows = a
+        else:
+            split[a] = nd
+    if rows is None:
+        out = LOWERINGS["lookup_table_v2"](ctx, dict(ins, W=[w]), attrs)
+        return out, {"Out": [tpl.Layout(split)]}
+    g = ctx.groups[rows]
+    if squeeze:
+        ids = ids[..., 0]
+    per = w.shape[0]
+    vocab = per * g.size
+    lo = g.rank * per
+    idx = torch.where(ids < 0, ids + vocab, ids)
+    mine = (idx >= lo) & (idx < lo + per)
+    out = F.embedding((idx - lo).clamp(0, per - 1), w)
+    out = out * mine[..., None].to(out.dtype)
+    out = tpl.reduce(out, g, rows)
+    valid = (idx >= 0) & (idx < vocab)
+    out = torch.where(valid[..., None], out,
+                      torch.full((), float("nan"), dtype=w.dtype,
+                                 device=w.device))
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return single(out), {"Out": [tpl.Layout(split)]}

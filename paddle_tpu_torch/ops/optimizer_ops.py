@@ -18,7 +18,7 @@ BERT word embedding has 23.4 M). dpsgd's noise comes from the run's
 generator, so it cannot match the JAX package's draws bit for bit."""
 import torch
 
-from .registry import register_op
+from .registry import LOWERINGS, register_layout_rule, register_op
 
 
 @register_op("sgd")
@@ -278,3 +278,55 @@ def _dpsgd(ctx, ins, attrs):
     noise = sigma * clip * torch.randn(
         g.shape, generator=ctx.next_rng(replicated=True), device=g.device)
     return {"ParamOut": [p - lr * (g + noise / batch_size)]}
+
+
+# ---------------------------------------------------------------------------
+# layout rule under tensor parallelism and ZeRO-1 (parallel/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+# the per-element slots of the update ops that run on a block as they run
+# on the whole value (the norms of lars, lamb and dpsgd read all of it)
+_ELEMENTWISE_SLOTS = {
+    "sgd": ("Param", "Grad"),
+    "momentum": ("Param", "Grad", "Velocity"),
+    "adam": ("Param", "Grad", "Moment1", "Moment2"),
+    "adagrad": ("Param", "Grad", "Moment"),
+    "decayed_adagrad": ("Param", "Grad", "Moment"),
+    "adamax": ("Param", "Grad", "Moment", "InfNorm"),
+    "rmsprop": ("Param", "Grad", "MeanSquare", "Moment", "MeanGrad"),
+}
+
+
+@register_layout_rule(*_ELEMENTWISE_SLOTS)
+def _update_rule(ctx, ins, attrs, lays):
+    """The update on blocks. A tp-split parameter, its gradient and its
+    moments share a layout, and the op runs on the rank's blocks. Under
+    ZeRO-1 the moments (and the gradient, reduce-scattered by the dp
+    hook) are split over dp as well: the parameter is cut to the same
+    block, the op runs there, and an all-gather over dp makes the
+    parameter whole again. Other inputs (the learning rate, the beta
+    powers) must be whole."""
+    from ..parallel import tensor_parallel as tpl
+
+    op = ctx.current_op.type
+    slots = [s for s in _ELEMENTWISE_SLOTS[op] if ins.get(s)]
+    if any(not lay.whole for slot, ls in lays.items() if slot not in slots
+           for lay in ls):
+        return None
+    ref = max((lays[s][0] for s in slots), key=lambda lay: len(lay.split))
+    ins = dict(ins)
+    for s in slots:
+        x, lay = tpl.resolve_partial(ctx, ins[s][0], lays[s][0])
+        if any(ref.split.get(a) != d for a, d in lay.split.items()):
+            return None
+        for a, d in sorted(ref.split.items()):
+            if a not in lay.split:
+                x = tpl.cut(x, ctx.groups[a], d)
+        ins[s] = [x]
+    out = LOWERINGS[op](ctx, ins, attrs)
+    param = tpl.Layout(lays["Param"][0].split)
+    out["ParamOut"] = [tpl.conform(ctx, out["ParamOut"][0], ref, param)]
+    out_lays = {"ParamOut": [param]}
+    for slot in out:
+        if slot != "ParamOut" and slot[:-3] in slots:
+            out_lays[slot] = [ref]
+    return out, out_lays

@@ -27,6 +27,31 @@ def register_op(name):
     return deco
 
 
+# op type -> its layout rule under tensor and sequence parallelism, and the
+# op types whose rule runs with whole inputs too (parallel/tensor_parallel.py)
+LAYOUT_RULES = {}
+ACTIVE_RULES = set()
+
+
+def register_layout_rule(*op_types, active=False):
+    """Register ``rule(ctx, ins, attrs, lays) -> (outs, out_lays) or None``
+    for `op_types` (parallel/tensor_parallel.py ``run``). ``lays`` maps
+    each input slot to its values' layouts, ``out_lays`` each output slot
+    to its values' (a missing slot is whole); None means the rule does not
+    fit and the op takes the fallback. `active`: the rule runs with whole
+    inputs too, whenever the run has a tp or sp axis."""
+    def deco(fn):
+        for t in op_types:
+            if t in LAYOUT_RULES:
+                raise ValueError("layout rule for %s registered twice" % t)
+            LAYOUT_RULES[t] = fn
+            if active:
+                ACTIVE_RULES.add(t)
+        return fn
+
+    return deco
+
+
 def get_lowering(op_type):
     fn = LOWERINGS.get(op_type)
     if fn is None:
@@ -71,6 +96,13 @@ class LowerContext:
     every rank must draw alike (:meth:`next_rng` with ``replicated``);
     ``generator`` is offset by rank, for draws over a rank's own slice
     of the batch.
+
+    Tensor and sequence parallel (parallel/tensor_parallel.py):
+    ``layouts`` maps each env name whose value is split or partial over
+    a mesh axis to its ``Layout`` (None: the run has no such axis, and
+    every op runs its ordinary lowering); ``groups`` maps each mesh axis
+    of more than one rank to this rank's line along it, and
+    ``split_axes`` holds the tp and sp axes among them.
     """
 
     def __init__(self, device, generator=None, is_test=False, program=None,
@@ -91,6 +123,9 @@ class LowerContext:
         self.current_op = None
         self.keep_names = ()
         self._constants = {}
+        self.layouts = None
+        self.groups = {}
+        self.split_axes = ()
 
     def live_ops(self, block):
         """The ops of `block` this run executes, in order."""

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..fluid import core
 from .promotion import promote
-from .registry import register_op, single
+from .registry import LOWERINGS, register_layout_rule, register_op, single
 
 
 @register_op("cast")
@@ -623,3 +623,106 @@ def _print(ctx, ins, attrs):
     print((attrs.get("message", "") + "{x}").format(
         x=x.detach().cpu().numpy()), flush=True)
     return single(x)
+
+
+# ---------------------------------------------------------------------------
+# layout rules under tensor and sequence parallelism
+# (parallel/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+def _tpl():
+    from ..parallel import tensor_parallel
+
+    return tensor_parallel
+
+
+@register_layout_rule("cast")
+def _cast_rule(ctx, ins, attrs, lays):
+    return _tpl().unary(ctx, ins, attrs, lays, LOWERINGS["cast"])
+
+
+def _prefix(shape, n):
+    p = 1
+    for d in shape[:n]:
+        p *= int(d)
+    return p
+
+
+@register_layout_rule("reshape2")
+def _reshape_rule(ctx, ins, attrs, lays):
+    """A split dim survives while it stays the outer factor of its group:
+    input dim d maps to the output dim o with the same product of the
+    dims before it, when o's size divides by the axis size. So (B, T, H)
+    split on H is (B, T, nh, dh) split on nh when nh divides."""
+    tpl = _tpl()
+    if ins.get("ShapeTensor"):
+        return None
+    x, lay = ins["X"][0], lays["X"][0]
+    gin = tpl.global_shape(x.shape, lay, ctx.groups)
+    shape = [gin[i] if s == 0 else int(s)
+             for i, s in enumerate(attrs["shape"])]
+    if -1 in shape:
+        known = _prefix([s for s in shape if s != -1], len(shape))
+        shape[shape.index(-1)] = _prefix(gin, len(gin)) // known
+    split = {}
+    for a, d in lay.split.items():
+        n = ctx.groups[a].size
+        at = [o for o in range(len(shape))
+              if _prefix(shape, o) == _prefix(gin, d) and shape[o] % n == 0
+              and shape[o] > 1]
+        if not at:
+            return None
+        split[a] = at[0]
+    local = list(shape)
+    for a, o in split.items():
+        local[o] //= ctx.groups[a].size
+    out = LOWERINGS["reshape2"](ctx, {"X": [x]}, dict(attrs, shape=local))
+    return out, {"Out": [tpl.Layout(split, lay.partial)]}
+
+
+@register_layout_rule("transpose2")
+def _transpose_rule(ctx, ins, attrs, lays):
+    """The split dims move with the permutation."""
+    perm = [p % ins["X"][0].dim() for p in attrs["axis"]]
+    lay = lays["X"][0].moved({old: new for new, old in enumerate(perm)})
+    return LOWERINGS["transpose2"](ctx, ins, attrs), {"Out": [lay]}
+
+
+@register_layout_rule("unsqueeze2")
+def _unsqueeze_rule(ctx, ins, attrs, lays):
+    """The split dims shift past the new ones."""
+    x = ins["X"][0]
+    pos = list(range(x.dim()))
+    for a in sorted(attrs["axes"]):
+        a = a if a >= 0 else a + len(pos) + 1
+        pos = [p + 1 if p >= a else p for p in pos]
+    lay = lays["X"][0].moved(dict(enumerate(pos)))
+    return LOWERINGS["unsqueeze2"](ctx, ins, attrs), {"Out": [lay]}
+
+
+@register_layout_rule("squeeze2")
+def _squeeze_rule(ctx, ins, attrs, lays):
+    """The split dims shift past the dropped ones; a split dim is never
+    dropped (its whole size is not 1)."""
+    tpl = _tpl()
+    x, lay = ins["X"][0], lays["X"][0]
+    gshape = tpl.global_shape(x.shape, lay, ctx.groups)
+    axes = attrs.get("axes", [])
+    drop = {a % x.dim() for a in axes} if axes else set(range(x.dim()))
+    drop = {d for d in drop if gshape[d] == 1}
+    if any(x.shape[d] != 1 for d in drop):
+        return None
+    keep = [d for d in range(x.dim()) if d not in drop]
+    out = x.squeeze(tuple(sorted(drop))) if drop else x
+    return ({"Out": [out], "XShape": [_xshape(x)]},
+            {"Out": [lay.moved({d: i for i, d in enumerate(keep)})]})
+
+
+@register_layout_rule("slice")
+def _slice_rule(ctx, ins, attrs, lays):
+    """A slice of dims that are not split keeps every block whole: it
+    runs on the rank's block."""
+    lay = lays["Input"][0]
+    n = ins["Input"][0].dim()
+    if any(lay.axis_on(a % n) is not None for a in attrs["axes"]):
+        return None
+    return LOWERINGS["slice"](ctx, ins, attrs), {"Out": [lay]}

@@ -1,11 +1,18 @@
 """paddle_tpu_torch.parallel — the distributed subsystem (port of
 paddle_tpu/parallel) on torch.distributed, one process per rank:
 
-- :mod:`.mesh` — the rank group (the ``"dp"`` axis over the world or a
-  subset of its ranks, nccl or gloo) and its collectives;
-- :mod:`.sharding` — ``DistributedProgram``: data-parallel execution of
-  a Program (feeds sliced by rank, gradients averaged in the gradient
-  hook, global batch-norm moments, global fetches);
+- :mod:`.mesh` — the rank group: a mesh of ``dp``, ``tp`` and ``sp``
+  axes over the world or a subset of its ranks (nccl or gloo), its lines
+  along each axis, and their collectives;
+- :mod:`.sharding` — ``DistributedProgram``: data, tensor and sequence
+  parallel execution of a Program and ZeRO-1 (feeds sliced by rank,
+  parameters and optimizer state split by rules, gradients averaged over
+  dp in the gradient hook, global batch-norm moments, global fetches);
+- :mod:`.tensor_parallel` — the layouts of a run's values over the mesh
+  axes, the differentiable collectives that move between them, and the
+  fallback of an op without a layout rule;
+- :mod:`.ring_attention` — ring attention over the ``sp`` axis, plain
+  and on the flash kernels;
 - :mod:`.fleet` — the fleet API (``init``, ``distributed_optimizer``,
   ``DistributedStrategy``, the role makers);
 - :mod:`.comms` — the gradient-communication subsystem: the block codec,
@@ -14,13 +21,14 @@ paddle_tpu/parallel) on torch.distributed, one process per rank:
   :class:`FileStore`) and the :class:`HeartbeatMonitor` the serving
   routers classify replicas with.
 
-ZeRO and tensor-parallel rules (ROADMAP.md Queue 1 item 8.3), ring
-attention (8.4), pipeline, MoE and LocalSGD (8.5), checkpointing and
-``FleetGuard`` (8.6) and the transpilers and launchers (8.7) wait for
+Pipeline, MoE and LocalSGD (ROADMAP.md Queue 1 item 8.5), checkpointing
+and ``FleetGuard`` (8.6) and the transpilers and launchers (8.7) wait for
 their items.
 """
 from . import mesh  # noqa: F401
 from . import sharding  # noqa: F401
+from . import tensor_parallel  # noqa: F401
+from . import ring_attention  # noqa: F401
 from . import fleet  # noqa: F401
 from . import comms  # noqa: F401
 from . import elastic  # noqa: F401

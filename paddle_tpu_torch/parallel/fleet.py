@@ -7,16 +7,18 @@ minimize / main_program. ``init`` joins the world of ranks the role
 maker describes (parallel/mesh.py ``init_group``: ``PADDLE_TRAINER_ID``
 / ``PADDLE_TRAINERS_NUM`` for ``PaddleCloudRoleMaker``), and
 ``minimize`` hands back the program every rank runs through the
-ordinary Executor: a :class:`..sharding.DistributedProgram` (gradients
-averaged in the gradient hook, ``grad_sync_mode="gspmd"``, the default)
-or a :class:`..comms.GradSyncProgram` (bucketed, optionally quantized
-gradient sync, ``"comms"``).
+ordinary Executor: a :class:`..sharding.DistributedProgram` over the
+mesh ``{"dp": W / (tp·sp), "tp": tp, "sp": sp}`` with the strategy's
+``tensor_parallel_rules`` and, for ``sharding_degree > 1``, ZeRO-1's
+``ShardingRule(".*", P("dp"))`` on the optimizer state
+(``grad_sync_mode="gspmd"``, the default), or a
+:class:`..comms.GradSyncProgram` (bucketed, optionally quantized
+gradient sync, ``"comms"``, pure dp).
 
-The JAX package's refusals stay (``use_dgc``, pipeline degree, pserver
-mode, and the exclusions among LocalSGD, comms and ZeRO). What it runs
-and the port does not yet raises naming its item: tensor/sequence
-parallel degrees and ``sharding_degree > 1`` (ZeRO) item 8.3, LocalSGD
-item 8.5.
+The JAX package's refusals and warnings stay (``use_dgc``, pipeline
+degree, pserver mode, the exclusions among LocalSGD, comms, tp/sp and
+ZeRO, and ``sharding_degree`` without a dp axis). LocalSGD raises naming
+its item, 8.5.
 """
 import os
 import warnings
@@ -24,8 +26,8 @@ import warnings
 import torch.distributed as dist
 
 from ..fluid import framework
-from .mesh import build_mesh, init_group, world
-from .sharding import DistributedProgram
+from .mesh import P, build_mesh, init_group, world
+from .sharding import DistributedProgram, ShardingRule
 
 __all__ = [
     "init", "is_worker", "is_server", "worker_num", "worker_index",
@@ -379,25 +381,37 @@ class Fleet:
                 "gradient) or 'comms' (parallel/comms explicit "
                 "bucketed/quantized gradient sync)" % (s.grad_sync_mode,)
             )
-        if tp > 1 or sp > 1 or s.tensor_parallel_rules:
-            raise NotImplementedError(
-                "tensor/sequence parallel degrees %d/%d and "
-                "tensor_parallel_rules come with ROADMAP.md Queue 1 item "
-                "8.3 (the port's fleet build is data-parallel)" % (tp, sp))
-        self._mesh = build_mesh({"dp": world().size})
+        # the mesh as the JAX package lays it out: dp takes the ranks
+        # tp and sp leave
+        ndev = world().size
+        axes = {}
+        used = tp * sp
+        if ndev // used >= 1:
+            axes["dp"] = ndev // used
+        if tp > 1:
+            axes["tp"] = tp
+        if sp > 1:
+            axes["sp"] = sp
+        self._mesh = build_mesh(axes)
+        rules = [ShardingRule(p, spec) for p, spec in s.tensor_parallel_rules]
+        opt_rules = []
         if s.sharding_degree > 1:
-            if self._mesh.size <= 1:
+            # ZeRO-1: optimizer state (moments etc.) split over dp;
+            # params keep their tp/replicated layout. Any degree > 1
+            # splits over the FULL dp axis, as the JAX package does.
+            dp = axes.get("dp", 1)
+            if dp <= 1:
                 warnings.warn(
                     "sharding_degree=%d has no effect: the dp mesh axis "
-                    "is size %d — optimizer state stays replicated"
-                    % (s.sharding_degree, self._mesh.size)
+                    "is size %d (all devices consumed by tp/sp) — "
+                    "optimizer state stays replicated"
+                    % (s.sharding_degree, dp)
                 )
             else:
-                raise NotImplementedError(
-                    "sharding_degree=%d (ZeRO-1 optimizer-state sharding "
-                    "over dp) comes with ROADMAP.md Queue 1 item 8.3"
-                    % s.sharding_degree)
-        self._distributed_program = DistributedProgram(program, self._mesh)
+                opt_rules.append(ShardingRule(r".*", P("dp")))
+        self._distributed_program = DistributedProgram(
+            program, self._mesh, param_rules=rules,
+            opt_state_rules=opt_rules)
         return self._distributed_program
 
     def _first_worker_saves(self, save, main_program):

@@ -3,10 +3,14 @@
 The JAX package is single-controller: one process holds every device and
 lays them out as the named axes of a ``jax.sharding.Mesh``. The port runs
 one process per rank on ``torch.distributed``, the same script on every
-rank. A :class:`RankGroup` is the data-parallel (``"dp"``) axis over a set
-of those ranks, with this process's place in it and the device it
-computes on; ``mesh.shape``, ``mesh.axis_names``, :func:`dp_size` and
-:func:`require_dp_axis` read as the JAX package's do.
+rank. A :class:`RankGroup` is a mesh of named axes (``"dp"``, ``"tp"``,
+``"sp"``) over a set of those ranks, with this process's place in it and
+the device it computes on. Rank coordinates are the JAX package's:
+``np.array(ranks).reshape(sizes)`` in the caller's axis order, so
+``{"dp": 2, "tp": 2}`` puts ranks 0 and 1 in one tp line.
+:meth:`RankGroup.axis_group` is the line of the mesh along one axis that
+holds this rank, a group of its own; ``mesh.shape``, ``mesh.axis_names``,
+:func:`dp_size` and :func:`require_dp_axis` read as the JAX package's do.
 
 Joining the world (:func:`init_group`):
 
@@ -29,6 +33,7 @@ package's collectives are outside any mesh axis.
 import os
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -41,8 +46,7 @@ _default_mesh = None
 
 class P(tuple):
     """A partition spec (the JAX package's ``jax.sharding.PartitionSpec``):
-    for each dim, the mesh axis it is split over, or None. The port splits
-    over ``"dp"`` on the leading dim only."""
+    for each dim, the mesh axis it is split over, or None."""
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
@@ -143,7 +147,8 @@ def world():
     (:func:`init_group`), else a world of one rank on the default
     device with no process group."""
     mesh = _default_mesh
-    if mesh is not None and mesh.ranks == tuple(range(_world_size())):
+    if mesh is not None and mesh.ranks == tuple(range(_world_size())) \
+            and mesh.axis_names == ("dp",):
         return mesh
     if dist.is_initialized():
         backend = dist.get_backend()
@@ -166,21 +171,25 @@ def _default_device():
 
 
 class RankGroup:
-    """The ``"dp"`` axis over `ranks` (global ranks, in dp order).
+    """A mesh of named axes over `ranks` (global ranks, in the order of
+    ``np.array(ranks).reshape(sizes)``); by default the one ``"dp"`` axis.
 
-    ``rank`` is this process's position on the axis (None when it is
-    not a member), ``group`` the torch ProcessGroup its collectives run
-    on (None: one rank, collectives are the identity), ``device`` the
-    device it computes on."""
+    ``rank`` is this process's position in `ranks` (None when it is not
+    a member), ``group`` the torch ProcessGroup over all of them (None:
+    one rank, collectives are the identity), ``device`` the device it
+    computes on. ``lines`` maps each axis of a mesh of more than one
+    axis to the :class:`RankGroup` of this rank's line along it
+    (:func:`build_mesh` makes them)."""
 
-    axis_names = ("dp",)
-
-    def __init__(self, ranks, rank, group, backend, device):
+    def __init__(self, ranks, rank, group, backend, device, axes=None,
+                 lines=None):
         self.ranks = tuple(int(r) for r in ranks)
         self.rank = rank
         self.group = group
         self.backend = backend
         self.device = torch.device(device)
+        self._axes = dict(axes) if axes else {"dp": len(self.ranks)}
+        self._lines = dict(lines or {})
 
     @property
     def size(self):
@@ -188,20 +197,32 @@ class RankGroup:
 
     @property
     def shape(self):
-        return {"dp": self.size}
+        return dict(self._axes)
+
+    @property
+    def axis_names(self):
+        return tuple(self._axes)
+
+    def coords(self):
+        """{axis: this rank's coordinate along it}."""
+        if self.rank is None:
+            return None
+        at = np.unravel_index(self.rank, tuple(self._axes.values()))
+        return {a: int(c) for a, c in zip(self._axes, at)}
 
     def axis_group(self, axis):
-        """The group of mesh axis `axis` (only ``"dp"`` exists)."""
-        if axis != "dp":
-            raise NotImplementedError(
-                "mesh axis %r: the port's rank group has the 'dp' axis "
-                "only; tp/sp axes come with ROADMAP.md Queue 1 item 8.3, "
-                "8.4" % (axis,))
-        return self
+        """The group of this rank's line along mesh axis `axis`, whose
+        ``rank`` is the rank's coordinate on that axis."""
+        if axis not in self._axes:
+            raise ValueError("mesh %s has no axis %r" % (self.shape, axis))
+        if len(self._axes) == 1:
+            return self
+        return self._lines[axis]
 
     def __repr__(self):
-        return "RankGroup(dp=%d, rank=%s, backend=%s, device=%s)" % (
-            self.size, self.rank, self.backend, self.device)
+        return "RankGroup(%s, rank=%s, backend=%s, device=%s)" % (
+            ", ".join("%s=%d" % kv for kv in self._axes.items()), self.rank,
+            self.backend, self.device)
 
     def check_own_cards(self):
         """Raise when two ranks of the group compute on one card: nccl
@@ -365,18 +386,24 @@ def factorizations(n_devices, axes=("dp", "tp", "pp")):
             {axes[0]: 1} for sizes in out]
 
 
+# mesh axes the port runs; "pp" and "ep" name the items that bring them
+_LATER_AXES = {"pp": "ROADMAP.md Queue 1 item 8.5 (pipeline)",
+               "ep": "ROADMAP.md Queue 1 item 10 (retrieval)"}
+
+
 def build_mesh(axes=None, ranks=None):
-    """The :class:`RankGroup` of ``{"dp": size}`` over `ranks` (global
-    ranks; default every rank of :func:`world`). A -1 size is inferred;
-    the sizes must multiply to the number of ranks. Axes other than dp
-    of size > 1 raise (tp and sp come with ROADMAP.md Queue 1 item 8.3).
-    A group over part of the world is a ``torch.distributed.new_group``,
-    which every rank of the world must call, members or not."""
+    """The :class:`RankGroup` of `axes` (``{axis: size}``, in order; the
+    ``"dp"``, ``"tp"`` and ``"sp"`` axes) over `ranks` (global ranks;
+    default every rank of :func:`world`). A -1 size is inferred; the sizes
+    must multiply to the number of ranks. A mesh of more than one axis
+    makes a ``torch.distributed.new_group`` for every line of every axis
+    (:meth:`RankGroup.axis_group`), and a group over part of the world is
+    one too: every rank of the world calls it, members or not, so that
+    the groups are made in one order."""
     w = world()
     ranks = list(w.ranks if ranks is None else ranks)
     n = len(ranks)
-    axes = dict(axes or {"dp": n})
-    sizes = dict(axes)
+    sizes = dict(axes or {"dp": n})
     if -1 in sizes.values():
         known = 1
         for s in sizes.values():
@@ -385,34 +412,64 @@ def build_mesh(axes=None, ranks=None):
         for k, s in sizes.items():
             if s == -1:
                 sizes[k] = n // known
-    wide = sorted(a for a, s in sizes.items() if a != "dp" and s > 1)
-    if wide:
+    sizes = {a: int(s) for a, s in sizes.items()}
+    later = sorted(a for a, s in sizes.items() if a in _LATER_AXES and s > 1)
+    if later:
         raise NotImplementedError(
-            "mesh axes %s: the port's rank group is data-parallel only; "
-            "tensor/sequence/pipeline axes come with ROADMAP.md Queue 1 "
-            "items 8.3-8.5" % wide)
+            "mesh axis %r: the port's rank group runs dp, tp and sp axes; "
+            "%s comes with %s" % (later[0], later[0], _LATER_AXES[later[0]]))
     total = 1
     for s in sizes.values():
-        total *= int(s)
+        total *= s
     if total != n:
         raise ValueError(
             "mesh axes %s multiply to %d but %d ranks available"
             % (sizes, total, n))
-    if ranks == list(w.ranks):
-        return w
     bad = [r for r in ranks if r not in w.ranks]
     if bad:
         raise ValueError("ranks %s are outside a world of %d"
                          % (bad, w.size))
     me = ranks.index(w.rank) if w.rank in ranks else None
-    return RankGroup(ranks, me, dist.new_group(ranks), w.backend, w.device)
+    if ranks == list(w.ranks):
+        if list(sizes) == ["dp"]:
+            return w
+        group = w.group
+    else:
+        group = dist.new_group(ranks) if w.group is not None else None
+    lines = {}
+    if len(sizes) > 1:
+        grid = np.array(ranks).reshape(tuple(sizes.values()))
+        for i, (axis, size) in enumerate(sizes.items()):
+            rows = np.moveaxis(grid, i, -1).reshape(-1, size)
+            for row in rows:
+                row = [int(r) for r in row]
+                if size == 1:
+                    pg = None
+                elif size == n:
+                    pg = group
+                else:
+                    pg = dist.new_group(row) if w.group is not None else None
+                if w.rank in row:
+                    lines[axis] = RankGroup(row, row.index(w.rank), pg,
+                                            w.backend, w.device,
+                                            {axis: size})
+    return RankGroup(ranks, me, group, w.backend, w.device, sizes, lines)
 
 
 def shrink_mesh(mesh, survivors=None, dead=None):
     """Shrink-to-survivors rebuild: a new pure-dp group over the subset
     of `mesh`'s ranks named by `survivors` (positions on its dp axis)
     or, equivalently, everything NOT in `dead`. Every rank of the world
-    calls it (``new_group``)."""
+    calls it (``new_group``). Only data parallelism can absorb lost
+    ranks — a tp/sp-split tensor has no complete copy on the survivors —
+    so meshes with a non-trivial second axis are refused."""
+    nontrivial = [n for n in mesh.axis_names
+                  if n != "dp" and mesh.shape[n] > 1]
+    if nontrivial:
+        raise NotImplementedError(
+            "shrink_mesh only supports pure-dp meshes: axis %s > 1 means "
+            "parameter shards (not copies) lived on the lost device"
+            % nontrivial)
     ranks = list(mesh.ranks)
     if survivors is None:
         gone = set(dead or ())

@@ -564,8 +564,19 @@ def test_world_of_one_without_a_group_is_the_plain_run():
 def test_group_construction_refusals(monkeypatch):
     from paddle_tpu_torch.parallel import mesh
 
-    with pytest.raises(NotImplementedError, match="8.3"):
+    with pytest.raises(ValueError, match="multiply"):
         mesh.build_mesh({"dp": 1, "tp": 2})
+    with pytest.raises(NotImplementedError, match="8.5"):
+        mesh.build_mesh({"dp": 1, "pp": 2})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mesh.build_mesh({"ep": 2})
+    one = mesh.build_mesh({"dp": 1, "tp": 1, "sp": 1})
+    assert one.shape == {"dp": 1, "tp": 1, "sp": 1}
+    assert one.coords() == {"dp": 0, "tp": 0, "sp": 0}
+    assert one.axis_group("tp").size == 1
+    with pytest.raises(NotImplementedError, match="pure-dp"):
+        mesh.shrink_mesh(mesh.RankGroup([0, 1], 0, None, "gloo", "cpu",
+                                        {"dp": 1, "tp": 2}), dead=[1])
     with pytest.raises(ValueError, match="multiply"):
         mesh.build_mesh({"dp": 2})
     with pytest.raises(ValueError, match="nccl backend needs a card"):
@@ -615,7 +626,9 @@ def test_fleet_refusals_name_their_items():
         fl.distributed_optimizer(fluid.optimizer.SGD(0.1), s).minimize(loss)
         return fl
 
-    with pytest.raises(NotImplementedError, match="8.3"):
+    # a one-rank world has no room for tp = 2, as the JAX package's mesh
+    # of one device has none
+    with pytest.raises(ValueError, match="multiply"):
         build(tensor_parallel_degree=2)
     with pytest.raises(NotImplementedError, match="8.5"):
         build(use_local_sgd=True)
@@ -633,9 +646,21 @@ def test_fleet_refusals_name_their_items():
                                                     ShardingRule)
     from paddle_tpu_torch.parallel.mesh import build_mesh
 
-    with pytest.raises(NotImplementedError, match="8.3"):
-        DistributedProgram(fluid.default_main_program(), build_mesh(),
-                           param_rules=[ShardingRule("w", (None, "tp"))])
+    # a tp rule on a mesh of one tp rank keeps the parameter whole: the
+    # program runs as the plain one
+    build()
+    main = fluid.default_main_program()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(fluid.default_startup_program())
+    w = [p.name for p in main.all_parameters() if p.name.endswith(".w_0")]
+    dp = DistributedProgram(main, build_mesh({"dp": 1, "tp": 1}),
+                            param_rules=[ShardingRule(w[0], (None, "tp"))],
+                            opt_state_rules=[ShardingRule(".*", ("dp",))])
+    assert dp.param_sharding(w[0], (4, 2)) == (None, "tp")
+    feed = {"x": np.ones((3, 4), "float32")}
+    got = exe.run(dp, feed=feed, fetch_list=[main.global_block().ops[-1]
+                                               .output_arg_names[0]])
+    assert np.isfinite(got[0]).all()
 
 
 def test_strategy_from_plan_is_the_jax_packages():

@@ -416,3 +416,296 @@ def comms_suite(rank, world, xs, block, jobs, feed, save_dir):
     return {"flat": flat_allreduces(rank, world, xs, block),
             "jobs": dp_jobs(rank, world, jobs),
             "drills": comms_drills(rank, world, feed, save_dir)}
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallel, ZeRO-1 (tests/test_torch_tensor_parallel.py,
+# tests/test_torch_ring_attention.py)
+# ---------------------------------------------------------------------------
+def tp_fc(fluid, minimize):
+    """test_distributed.py::test_tp_sharded_matmul_matches_replicated's
+    column-parallel fc (no training)."""
+    x = fluid.data("x", [None, 16], dtype="float32")
+    y = fluid.layers.fc(
+        x, size=32, param_attr=fluid.ParamAttr(
+            name="wt", initializer=fluid.initializer.Constant(0.03)),
+        bias_attr=False)
+    return None, [y]
+
+
+def zero_fc(fluid, minimize):
+    """test_distributed.py::test_fleet_zero_shards_optimizer_state's fc,
+    Adam(0.01)."""
+    x = fluid.data("zx", [None, 16], dtype="float32")
+    y = fluid.layers.fc(x, size=8)
+    loss = fluid.layers.reduce_mean(y)
+    minimize(fluid.optimizer.Adam(learning_rate=0.01), loss)
+    return loss, []
+
+
+def bert_tiny_config(bert, dropout=0.0):
+    return bert.BertConfig(vocab_size=128, hidden=64, num_layers=2, heads=4,
+                           ffn=128, max_seq=BERT_SEQ, dropout=dropout)
+
+
+def _bert(dropout, adam):
+    def build(fluid, minimize):
+        """BERT pretraining at 2 layers, hidden 64, 4 heads, vocab 128:
+        SGD(0.5), or Adam(1e-3) (the ZeRO runs)."""
+        import importlib
+
+        bert = importlib.import_module(
+            fluid.__name__.split(".")[0] + ".models.bert")
+        io = bert.build_bert_pretrain(bert_tiny_config(bert, dropout),
+                                      BERT_SEQ)
+        opt = (fluid.optimizer.Adam(learning_rate=1e-3) if adam
+               else fluid.optimizer.SGD(learning_rate=0.5))
+        minimize(opt, io["loss"])
+        return io["loss"], []
+
+    return build
+
+
+GPT_SEQ = 16
+
+
+def gpt_lm(fluid, minimize):
+    """test_gpt.py::test_gpt_trains_sharded_dp_tp's GPT (gpt_tiny, vocab
+    96), Adam(5e-3)."""
+    import importlib
+
+    gpt = importlib.import_module(
+        fluid.__name__.split(".")[0] + ".models.gpt")
+    cfg = gpt.gpt_tiny(vocab=96, max_len=32)
+    vs = gpt.build_gpt_lm(cfg, GPT_SEQ)
+    minimize(fluid.optimizer.Adam(5e-3), vs["loss"])
+    return vs["loss"], []
+
+
+ATTN = (2, 2, 16, 8)
+
+
+def attn(fluid, minimize):
+    """test_distributed.py::test_fused_attention_rides_ring_under_sp_mesh's
+    causal fused attention (no training)."""
+    q = fluid.data("aq", list(ATTN), dtype="float32")
+    k = fluid.data("ak", list(ATTN), dtype="float32")
+    v = fluid.data("av", list(ATTN), dtype="float32")
+    return None, [fluid.layers.fused_multihead_attention(q, k, v,
+                                                         causal=True)]
+
+
+def vocab_ce(fluid, minimize):
+    """An embedding lookup and a tied vocabulary projection into
+    softmax_with_cross_entropy (ignore_index -1), SGD(0.5): the
+    vocab-parallel lookup and cross-entropy under a tp rule on the
+    table."""
+    ids = fluid.data("ids", [None, 6], dtype="int64")
+    lab = fluid.data("lab", [None, 6, 1], dtype="int64")
+    emb = fluid.layers.embedding(ids, size=[32, 8],
+                                 param_attr=fluid.ParamAttr(name="vemb"))
+    table = fluid.default_main_program().global_block().var("vemb")
+    logits = fluid.layers.matmul(emb, table, transpose_y=True)
+    loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+        logits, lab, ignore_index=-1))
+    minimize(fluid.optimizer.SGD(0.5), loss)
+    return loss, [logits]
+
+
+def fallbacks(fluid, minimize):
+    """The fallback's two paths behind a column-split fc (``col.w``) and a
+    row-split one (``row.w``): a value split on the dim an op reads whole
+    (``softmax`` over the split columns: gathered), and a partial value
+    into an op without a rule (``cumsum`` of the row-split fc's output:
+    reduced). ``relu`` of the partial value reduces it in its own rule."""
+    x = fluid.data("fx", [None, 8], dtype="float32")
+    h = fluid.layers.fc(x, 8, bias_attr=False,
+                        param_attr=fluid.ParamAttr(name="col.w"))
+    s = fluid.layers.softmax(h)
+    r = fluid.layers.fc(h, 8, bias_attr=False,
+                        param_attr=fluid.ParamAttr(name="row.w"))
+    a = fluid.layers.relu(r)
+    c = fluid.layers.cumsum(r, axis=1)
+    loss = fluid.layers.elementwise_add(
+        fluid.layers.elementwise_add(fluid.layers.mean(s),
+                                     fluid.layers.mean(a)),
+        fluid.layers.mean(c))
+    minimize(fluid.optimizer.SGD(0.1), loss)
+    return loss, [s, a, c]
+
+
+MODELS.update({"tp_fc": tp_fc, "zero_fc": zero_fc,
+               "bert_tiny": _bert(0.0, False),
+               "bert_tiny_drop": _bert(0.1, False),
+               "bert_tiny_adam": _bert(0.0, True),
+               "gpt_lm": gpt_lm, "attn": attn, "vocab_ce": vocab_ce,
+               "fallbacks": fallbacks})
+
+
+def layout_run(rank, world, model, feeds, params=None, mesh=None,
+               rules=(), zero=False, feed_specs=None, strategy=None,
+               fetch=(), save_dir=None, seed=11):
+    """Build `model` in the port, run its startup on the CPU (then set
+    `params`), and run one step per feed: through a DistributedProgram
+    over `mesh` ({axis: size}) with the tp `rules` [(pattern, spec)], the
+    ZeRO rule when `zero` and `feed_specs`; through fleet with the
+    DistributedStrategy attrs `strategy`; or, with neither, the plain
+    Executor (every rank alike). Returns the fetches (with the names in
+    `fetch` after the model's), the global state after every step
+    (``consolidated_scope``), this rank's own state shapes, the fallback
+    and collective counts, and with `save_dir` the names and shapes
+    ``fluid.io.save_persistables`` wrote."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import params_from_numpy
+    from paddle_tpu_torch.parallel import fleet as fleet_mod
+    from paddle_tpu_torch.parallel import tensor_parallel as tpl
+    from paddle_tpu_torch.parallel.mesh import P, build_mesh
+    from paddle_tpu_torch.parallel.sharding import (DistributedProgram,
+                                                    ShardingRule)
+
+    fresh_port_state()
+    tpl.reset_counts()
+    main = fluid.default_main_program()
+    main.random_seed = fluid.default_startup_program().random_seed = seed
+    minimize, fl = plain_minimize, None
+    if strategy is not None:
+        fl = fleet_mod.Fleet().init(
+            fleet_mod.UserDefinedRoleMaker(rank, worker_num=world))
+        s = fleet_mod.DistributedStrategy()
+        for k, v in strategy.items():
+            setattr(s, k, v)
+
+        def minimize(opt, loss):
+            fl.distributed_optimizer(opt, s).minimize(loss)
+
+    loss, extra = MODELS[model](fluid, minimize)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.global_scope()
+    exe.run(fluid.default_startup_program())
+    for n, t in params_from_numpy(params or {}, "cpu").items():
+        scope.set(n, t)
+    if fl is not None:
+        prog = fl.main_program
+    elif mesh is not None:
+        prog = DistributedProgram(
+            main, build_mesh(mesh),
+            param_rules=[ShardingRule(p, P(*s)) for p, s in rules],
+            opt_state_rules=[ShardingRule(".*", P("dp"))] if zero else None,
+            feed_specs={k: P(*v) for k, v in (feed_specs or {}).items()})
+    else:
+        prog = main
+    fetch_list = ([loss] if loss is not None else []) + extra + list(fetch)
+    out = {"fetches": [], "states": []}
+    for feed in feeds:
+        out["fetches"].append(exe.run(prog, feed=feed,
+                                      fetch_list=fetch_list))
+        snap = (prog.consolidated_scope(scope)
+                if hasattr(prog, "consolidated_scope") else scope)
+        out["states"].append(scope_state(snap))
+    out["local_shapes"] = {n: tuple(scope[n].shape) for n in scope.keys()
+                           if isinstance(scope[n], torch.Tensor)}
+    out["reshards"] = dict(tpl.RESHARDS)
+    out["collectives"] = {k: list(v) for k, v in tpl.COLLECTIVES.items()}
+    if save_dir is not None:
+        import numpy as np
+
+        mine = os.path.join(save_dir, "rank%d" % rank)
+        fluid.io.save_persistables(exe, mine, prog)
+        with np.load(os.path.join(mine, "__persistables__.npz")) as f:
+            out["saved"] = {n: f[n].copy() for n in f.files}
+    return out
+
+
+def tp_resume(rank, world, feeds, rules, save_dir):
+    """BERT-tiny at tp = `world` with `rules`: one step per feed but the
+    last, ``save_persistables`` (the global values), the last step; then
+    a fresh scope from the startup program, ``load_persistables`` (whole
+    values, cut again on the next run) and the last step through a new
+    DistributedProgram. Returns both last losses and the saved shapes."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.parallel.mesh import P, build_mesh
+    from paddle_tpu_torch.parallel.sharding import DistributedProgram
+    from paddle_tpu_torch.parallel.sharding import ShardingRule
+
+    fresh_port_state()
+    main = fluid.default_main_program()
+    main.random_seed = fluid.default_startup_program().random_seed = 11
+    loss, _ = MODELS["bert_tiny"](fluid, plain_minimize)
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(fluid.default_startup_program())
+    mesh = build_mesh({"tp": world})
+
+    def program():
+        return DistributedProgram(main, mesh, param_rules=[
+            ShardingRule(p, P(*s)) for p, s in rules])
+
+    prog = program()
+    for feed in feeds[:-1]:
+        exe.run(prog, feed=feed, fetch_list=[loss])
+    mine = os.path.join(save_dir, "rank%d" % rank)
+    fluid.io.save_persistables(exe, mine, prog)
+    on = float(exe.run(prog, feed=feeds[-1], fetch_list=[loss])[0])
+    fluid.executor._scope_stack[:] = [fluid.executor.Scope()]
+    exe.run(fluid.default_startup_program())
+    fluid.io.load_persistables(exe, mine, main)
+    shapes = {n: tuple(fluid.global_scope()[n].shape)
+              for n in ("enc_l0_qkv.w", "word_emb")}
+    resumed = float(exe.run(program(), feed=feeds[-1],
+                            fetch_list=[loss])[0])
+    return {"on": on, "resumed": resumed, "loaded_shapes": shapes}
+
+
+def layout_jobs(rank, world, jobs):
+    """layout_run (or the function a job names under "fn") for each
+    kwargs dict of `jobs`, in order."""
+    out = []
+    for job in jobs:
+        job = dict(job)
+        fn = globals()[job.pop("fn", "layout_run")]
+        out.append(fn(rank, world, **job))
+    return out
+
+
+def ring_cases(rank, world, q, k, v, dout):
+    """ring_attention_sharded over an sp axis of the whole world, causal
+    and not: (out, dq, dk, dv) of sum(out * dout) for each, and whether
+    the plain ring ran (it is the CPU path)."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"sp": world})
+    out = {}
+    for causal in (False, True):
+        leaves = [torch.from_numpy(a.copy()).requires_grad_()
+                  for a in (q, k, v)]
+        got = ra.ring_attention_sharded(*leaves, mesh, causal=causal)
+        (got * torch.from_numpy(dout)).sum().backward()
+        out[causal] = [got.detach().numpy()] + [t.grad.numpy()
+                                                for t in leaves]
+    return out
+
+
+def ring_suite(rank, world, q, k, v, dout, jobs):
+    """ring_cases, then layout_jobs with the fused attention's ring calls
+    counted (a spy on ``ring_attention``)."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+
+    out = {"ring": ring_cases(rank, world, q, k, v, dout)}
+    calls = []
+    orig = ra.ring_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    ra.ring_attention = spy
+    try:
+        out["jobs"] = []
+        for job in jobs:
+            del calls[:]
+            got = layout_run(rank, world, **job)
+            got["ring_calls"] = len(calls)
+            out["jobs"].append(got)
+    finally:
+        ra.ring_attention = orig
+    return out
