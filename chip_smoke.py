@@ -206,7 +206,7 @@ Phases, each of which exits non-zero on failure:
    seed 1234) behind ``local_fleet(n_replicas=4, per_device=True)`` with
    buckets (1, 2, 4, 8, 16), max batch 16, max wait 1 ms, queue 256 (on
    one card every replica shares cuda:0, each with its own parameters),
-   and bench.py:953's load cut to 8 closed-loop clients x 10 requests of 1-4
+   and bench.py:953's load cut to 8 closed-loop clients x 5 requests of 1-4
    rows, driven on one replica alone and round-robin on the raw engines,
    then through the router with every counter at 0 just before (the
    main path's launches): 12 attention and 25 LayerNorm forward launches
@@ -232,7 +232,7 @@ Phases, each of which exits non-zero on failure:
    4 more requests answered by the survivor within the bound; (d) the
    main path of disaggregated serving at ``GPTConfig()`` (phase 8's
    weights, cache_len 1024, the default buckets) under bench.py:1232's
-   mixed-tenant load cut to 1 request a client (6 latency clients of
+   mixed-tenant load cut to 1 request a client (3 latency clients of
    3/5/6 prompt tokens and 16 new; 2 bulk clients of 700 and 6 new),
    every counter
    at 0 just before each leg: (i) a colocated ``DecodeEngine(slots=4)``,
@@ -257,7 +257,7 @@ Phases, each of which exits non-zero on failure:
    families and a ``fleet_slo_burn`` gauge for each tenant.
 13. KV reuse and speculative decoding, after phase 12 and before the
    profiles, on phase 8's weights (``GPTConfig()``, cache_len 1024, the
-   default buckets) under bench.py:1472's traffic cut to 8 clients (a
+   default buckets) under bench.py:1472's traffic cut to 4 clients (a
    shared 24-token system prompt plus unique 4-8 token tails, 12 new
    tokens, 2 slots, k = 4): (a) a plain ``DecodeEngine`` against the
    main path, the same engine with ``PrefixPool(prefix_lens=(24,))`` and
@@ -343,7 +343,7 @@ Phases, each of which exits non-zero on failure:
    predictor; (c) ``rnn(LSTMCell)`` and ``rnn(GRUCell)`` with lengths
    and ``is_reverse``, ``contrib.layers.basic_lstm`` (2 layers,
    bidirectional), ``layers.lstm`` (``cudnn_lstm``, 2 layers,
-   bidirectional), ``dynamic_gru`` and ``dynamic_lstmp`` at B 32, T 63,
+   bidirectional), ``dynamic_gru`` and ``dynamic_lstmp`` at B 16, T 63,
    hidden 512, outputs and parameter gradients card vs CPU within
    1e-3·max; (d) tests/test_book.py's ``rnn_encoder_decoder``
    (``DynamicRNN``) and contrib-decoder chapters at hidden 512,
@@ -497,7 +497,7 @@ Phases, each of which exits non-zero on failure:
    against CPU. (c) The card's int8 model saved by
    ``save_quantized_model``, loaded by ``load_inference_model`` and
    served a batch of 32 other images on the card (the main path: 54
-   ``torch._int_mm`` calls, int8 weights in the scope, 5 timed batches);
+   ``torch._int_mm`` calls, int8 weights in the scope, 3 timed batches);
    each quantized op run by the port on the CPU on the card's own input
    activations of the first 8 rows gives the card's output bit for bit;
    and the model run on the CPU on those rows: the logits within 3x the
@@ -547,7 +547,7 @@ Phases, each of which exits non-zero on failure:
    (spawned worker processes, batch 4 each, 3 steps): the ranks'
    parameters bit for bit alike after every step, losses and parameters
    within 1e-3 (of max|param|) of a one-rank run on the batch of 8, each
-   rank's 12/12/12/25/25 launches a step; then 5 more steps timed: the
+   rank's 12/12/12/25/25 launches a step; then 2 more steps timed: the
    step's median and p90 and the gradient sync's share of the median. (c) ``grad_sync_mode="comms"`` in 4 MB
    buckets: fp32 within 1e-3 of (b), int8 with error feedback within
    5e-3 of fp32's last loss (the JAX package's
@@ -578,6 +578,31 @@ Phases, each of which exits non-zero on failure:
    tp = 2 with ``gpt.tp_rules()``: no ``softmax_with_cross_entropy``
    fallback (the logits are never gathered), gated as (a). The kernels
    line gains ``launches_tp`` (24a's run on rank 0).
+25. pipeline parallel, MoE over ``ep`` and LocalSGD (item 8.5), two gloo
+   ranks spawned on the one card as 24's. (a) bench.py:518's BERT-base
+   step (batch 8, Adam(1e-4), f32) through ``PipelineOptimizer`` cut
+   after encoder layer 5, 4 microbatches: 3 steps at dropout 0 against
+   the one-card run (which both ranks run first, alike), losses within
+   1e-6 relative and parameters within 1e-4·max|param|, the stages'
+   parameters bit for bit alike, each stage's launches its own layers'
+   kernels once a microbatch (24/24/24/52/52 and 24/24/24/48/48 a step),
+   the ring's exchanges and the gradients' sum over the pp line timed
+   synchronized; then 3 steps at dropout 0.1: the keep rate within 5
+   binomial sigmas of 0.9, no two microbatches' masks alike, every
+   attention seed distinct. (b) LocalSGD on the same step at dp = 2
+   (SGD 0.01, 8 steps, dropout 0) through fleet's ``use_local_sgd``: k =
+   1 within 1e-6·max|param| of plain dp; k = 4 the ranks alike bit for
+   bit after steps 4 and 8 only, no parameter collective between,
+   12/12/12/25/25 launches a step; k = 4 with the int8 delta sync within
+   pmax|delta| / 254 + 2·eps·|value| of the exact average. (c)
+   Switch-Base-8's expert layer (B 8, T 128, H 768, F 3072, E 8,
+   capacity 1.25: C 160), 3 Adam steps card vs CPU (each card step from
+   the CPU's state; y within 1e-5 of max on the tokens routed alike, a
+   routing flip only below a top-2 gap of 1e-5), then at ep = 2 (4
+   experts a rank) within 5e-2 of the replicated run, one fallback a
+   step (``square_error_cost``), no kernel launch. The kernels line
+   gains ``launches_pp`` (25a's gated steps, both stages),
+   ``launches_lsgd`` (25b's k = 4 run on rank 0) and ``launches_moe``.
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -2754,7 +2779,8 @@ NMT_NEAR_TIE = 2e-6
 NMT_TRAIN_TOL = 1e-3    # 9c: losses (relative) and gradients (of max)
 NMT_RELU_EDGE = 1e-5    # 9c: a relu unit this close to 0 may round either way
 NMT_FLIP_TOL = 5e-2     # 9c: a gradient behind such a unit (phase 7's cap)
-NMT_TRAIN_STEPS, NMT_TIMED_STEPS = 3, 10
+# 9c: 10 timed steps before PR 25's depth cuts
+NMT_TRAIN_STEPS, NMT_TIMED_STEPS = 3, 5
 GEN_PROMPT, GEN_NEW, GEN_BATCH = 16, 16, 2
 
 
@@ -3682,7 +3708,8 @@ def ctr_profile(epoch, stats, card):
 # chat traffic streamed over chunked :generate. 11d: the standalone
 # entry point in a child process. 11e: a quarter of 11b's load and a
 # phase-8c-sized load with telemetry off and on.
-HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_MAX_ROWS = 4, 8, 4
+# 11b: 8 requests a client before PR 25's depth cuts
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_MAX_ROWS = 4, 4, 4
 HTTP_TOL = 1e-3                  # x max|x|, as phase 4 holds card vs CPU
 HTTP_WAIT = 300.0                # s: the bound of every wait in phase 11
 HTTP_CANCEL_AFTER = 3            # tokens a client reads before hanging up
@@ -3818,7 +3845,7 @@ def json_round_trip_ms(reply):
 def http_predict_phase(fluid, serving, ca, cl, bert, dirname, card,
                        cfg=None, seq=SEQ):
     """11b: BERT-base pruned to encoder_out behind ModelRegistry.load and
-    ServingServer; 4 closed-loop clients x 8 :predict requests of 1-4 rows
+    ServingServer; 4 closed-loop clients x 4 :predict requests of 1-4 rows
     with every counter at 0 just before (12 attention and 25 LayerNorm
     forward launches per dispatch); each reply within 1e-3 x max|x| of the
     same rows through a solo card Predictor. Returns the registry, the
@@ -4260,11 +4287,13 @@ def telemetry_cost(url, requests, eng, prompts, solo, card,
 # then a decode-replica kill under an 80-token canary. 12e: the lossless
 # fleet token for token against a colocated engine; the int8-resident
 # cache. 12f: the lossless fleet behind the HTTP server.
-FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 10
+# 12a: 10 requests a client before PR 25's depth cuts
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_PER_CLIENT = 4, 8, 5
 FLEET_ROWS, FLEET_BATCHES = (1, 2, 3, 4), (1, 2, 4, 8, 16)
 FLEET_TOL = 1e-3                 # x max|x|: replies against a solo bucket
 FLEET_WAIT = 300.0               # s: the bound of every wait in phase 12
-DIS_LAT_CLIENTS, DIS_LAT_LENS, DIS_LAT_NEW = 6, (3, 5, 6), 16
+# 12d-12f: 6 latency clients before PR 25's depth cuts
+DIS_LAT_CLIENTS, DIS_LAT_LENS, DIS_LAT_NEW = 3, (3, 5, 6), 16
 DIS_BULK_CLIENTS, DIS_BULK_LEN, DIS_BULK_NEW = 2, 700, 6
 DIS_PER_CLIENT, DIS_CANARY_NEW = 1, 80     # bench.py sends 3 a client
 DIS_SLO_MS = 250.0               # the latency tenant's per-token SLO
@@ -4881,7 +4910,7 @@ def dis_tenants(disagg, model, capped=False):
 
 def dis_requests(vocab):
     """bench.py:1232's mixed-tenant load, cut to DIS_PER_CLIENT requests a
-    client: per client, (tenant, prompt, new tokens); 6 latency clients
+    client: per client, (tenant, prompt, new tokens); 3 latency clients
     cycle 3/5/6-token prompts, each from its own offset, 2 bulk clients
     send 700-token prompts."""
     rng = np.random.default_rng(GPT_SEED + 12)
@@ -5230,13 +5259,14 @@ def disagg_phase(fluid, serving, ca, cl, cfg, scope, card, tmp):
 # phase 13: KV reuse and speculative decoding
 # ---------------------------------------------------------------------------
 # bench.py:1472 _measure_spec_serving's traffic on phase 8's GPTConfig()
-# weights, cut from 12 clients to 8: one shared 24-token system prompt plus
+# weights, cut from 12 clients to 4: one shared 24-token system prompt plus
 # a unique tail of 4-8 tokens each (rng seed 0, drawn in the lane's order),
 # 12 new tokens, 2 slots, cache_len 1024, the default buckets, drafts of
-# k = 4; 6 two-turn conversations on 2 slots (turn 1 the first 6-8 prompt
+# k = 4; 3 two-turn conversations on 2 slots (turn 1 the first 6-8 prompt
 # tokens, turn 2 four new ones, 6 new tokens each turn).
-SPEC_CLIENTS, SPEC_SHARED, SPEC_MAX_NEW = 8, 24, 12
-SPEC_SLOTS, SPEC_K, SPEC_SESSIONS, SPEC_TURN_NEW = 2, 4, 6, 6
+SPEC_CLIENTS, SPEC_SHARED, SPEC_MAX_NEW = 4, 24, 12
+# 13c: 6 sessions before PR 25's depth cuts
+SPEC_SLOTS, SPEC_K, SPEC_SESSIONS, SPEC_TURN_NEW = 2, 4, 3, 6
 # host bytes of the pool and the tier: an fp32 entry or handoff of one
 # GPTConfig() slot at cache_len 1024 is 75.5 MB, and the JAX package's
 # defaults (64 MiB, 256 MiB) would hold none or 3 of them
@@ -5608,7 +5638,7 @@ def spec_phase(fluid, serving, gpt, ca, cl, cfg, scope, card):
     early.stop()
     stats["13b"] = dict(spec_accept_rate=eacc, tokens_per_s=n_tok / ewall)
 
-    # 13c: session tiering, 6 two-turn conversations on 2 slots
+    # 13c: session tiering, 3 two-turn conversations on 2 slots
     turn1 = [prompts[c][:6 + (c % 3)] for c in range(SPEC_SESSIONS)]
     turn2 = [rng.integers(1, cfg.vocab, 4).astype(np.int64)
              for _ in range(SPEC_SESSIONS)]
@@ -6436,8 +6466,8 @@ def operator_vs_cpu(fluid):
 # dataset.imdb's vocabulary, fed ragged batches through DataFeeder: 5 steps
 # card vs CPU, then the timed steps (the main path); 16b the prediction
 # saved and served by Predictor.from_model; 16c the cells and multi-layer
-# recurrent ops at B 32, T 63, hidden 512, card vs CPU (the batch cut from
-# 128 to pay for phase 23: the CPU side took 19-54 s); 16d the recurrent
+# recurrent ops at B 16, T 63, hidden 512, card vs CPU (the batch cut from
+# 128 to pay for phases 23 and 25: the CPU side took 19-54 s); 16d the recurrent
 # seq2seq chapters (DynamicRNN, TrainingDecoder, BeamSearchDecoder) at
 # hidden 512, embedding 512, vocabulary 30,000, batch 16.
 RNN_EMB, RNN_HID, RNN_STACKED, RNN_CLASSES = 128, 512, 3, 2
@@ -6446,7 +6476,7 @@ RNN_CHECK_STEPS = 5
 RNN_TOL = 1e-3          # 16a, 16c, 16d: losses (relative), values (of max)
 RNN_PRED_TOL = 1e-4     # 16b: the card's probabilities against the CPU's
 RNN_FLIP_TOL = 5e-2     # 16a: a gradient below the max pools once one moves
-CELL_B, CELL_T, CELL_H = 32, 63, 512
+CELL_B, CELL_T, CELL_H = 16, 63, 512
 MT_HID, MT_EMB, MT_VOCAB, MT_BATCH, MT_T, MT_BEAM = 512, 512, 30000, 16, 24, 4
 MT_STEPS = 3
 MT_NEAR_TIE = 2e-6
@@ -9456,7 +9486,7 @@ INT8_SEED = 21
 INT8_IMAGE, INT8_CLASSES = 224, 1000
 INT8_CALIB_BATCH, INT8_CALIB_BATCHES = 8, 4
 INT8_SERVE_BATCH = 32
-INT8_TIMED = 5
+INT8_TIMED = 3                 # 5 before PR 25's depth cuts
 INT8_CPU_ROWS = 8           # 21c: the served rows the CPU runs too
 # 21a: a calibrated scale on the card against the CPU's: the KL search
 # picks among thresholds 8 histogram bins apart (of 2048 over the
@@ -10747,9 +10777,9 @@ def contrib_phase(fluid, resnet, bert, ca, cl, card, tmp):
 # bench.py:518's BERT-base step
 # ---------------------------------------------------------------------------
 DP_STEPS = 3                  # checked steps
-DP_TIMED = 5                  # 23b-23c: timed steps after them
+DP_TIMED = 2                  # 23b-23c: timed steps after them (5 before
+#                               PR 25's depth cuts)
 DP_BATCH = 8                  # the global batch; 23b-23c give 4 to a rank
-DP_RANKS = 2
 DP_TOL = 1e-3                 # 23b-23c: of max|param|, and loss relative
 DP_EF_GAP = 5e-3              # test_comms_quantized_ef_converges_to_fp32
 DP_BUCKET_BYTES = 4 << 20
@@ -10801,7 +10831,8 @@ def dp_steps(exe, prog, feed, loss, scope, params, steps=DP_STEPS):
 
 
 def dp_phase(fluid, bert, ca, cl, card, tmp):
-    """Phase 23. Returns the five kernels' launches in 23a's fleet run."""
+    """Phase 23a. Returns the five kernels' launches in its fleet run and
+    its seconds."""
     import torch.distributed as dist
     from paddle_tpu_torch.parallel import fleet, mesh
 
@@ -10850,82 +10881,23 @@ def dp_phase(fluid, bert, ca, cl, card, tmp):
     finally:
         dist.destroy_process_group()
         mesh.set_default_mesh(None)
-    t23b = time.monotonic()
-    mark("23b-23c")
-    store = os.path.join(tmp, "dp_store")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dp_rank, args=(rank, DP_RANKS, store, tmp))
-             for rank in range(DP_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_WAIT
-    for p in procs:
-        p.join(max(1.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(30)
-    for rank in range(DP_RANKS):
-        with open(os.path.join(tmp, "dp_rank%d.log" % rank)) as f:
-            sys.stdout.write(f.read())
-    if hung or any(p.exitcode for p in procs):
-        fail("23b-23c: ranks %s hung, exit codes %s" % (
-            hung, [p.exitcode for p in procs]))
-    print("phase 23 (data parallel: 23a %.1f s, 23b-23c %.1f s) took %.1f s"
-          % (t23b - t23, time.monotonic() - t23b, time.monotonic() - t23),
-          flush=True)
-    return launches
+    return launches, time.monotonic() - t23
 
 
-def dp_rank(rank, world, store, tmp):
-    """23b-23c on one of `world` ranks over gloo on the one card; writes
-    what it prints to dp_rank<rank>.log under `tmp` and exits non-zero
-    on a failed gate."""
-    log = open(os.path.join(tmp, "dp_rank%d.log" % rank), "w")
-    sys.stdout = log
-    try:
-        _dp_rank(rank, world, store)
-    except SystemExit:
-        raise
-    except BaseException:
-        import traceback
-
-        print("FAIL: 23b-23c rank %d:\n%s" % (rank, traceback.format_exc()))
-        raise SystemExit(1)
-    finally:
-        log.flush()
-
-
-def _dp_rank(rank, world, store):
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def dp_rank_runs(rank, world, group, tmp):
+    """23b-23c on this rank (the kernels built by the parent)."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import cuda_attention as ca
-    from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import cuda_layernorm as cl
-    from paddle_tpu_torch.parallel import fleet, mesh
+    from paddle_tpu_torch.parallel import fleet
     from paddle_tpu_torch.parallel.comms import allreduce_wire_bytes
     from paddle_tpu_torch.parallel.comms import bucket_padded_len
 
-    # the parent built every kernel: a rank only loads _build/
-    missing = [n for n in cuda_build.KERNELS
-               if not os.path.exists(cuda_build.library_path(n))]
-    if missing:
-        fail("23b rank %d: kernels %s not built by the parent" % (
-            rank, missing))
-    group = mesh.init_group(rank=rank, world_size=world, backend="gloo",
-                            device="cuda:0",
-                            store=dist.FileStore(store, world),
-                            timeout=datetime.timedelta(seconds=DP_WAIT))
-    try:
-        _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
-                      allreduce_wire_bytes, bucket_padded_len)
-    finally:
-        dist.destroy_process_group()
+    mark("23b-23c rank %d" % rank)
+    _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
+                  allreduce_wire_bytes, bucket_padded_len)
 
 
 def _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
@@ -11086,7 +11058,6 @@ def _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
 # and 8.4) on bench.py:518's BERT-base step and GPT-2-small, two gloo ranks
 # on the one card
 # ---------------------------------------------------------------------------
-TP_RANKS = 2
 TP_STEPS = 3
 TP_TOL = 1e-4              # 24a, 24c, 24d: losses relative, parameters of
 #                            their max|param|
@@ -11176,79 +11147,6 @@ def head_offset_check(ca):
     return errs
 
 
-def tp_phase(fluid, ca, cl, card, tmp):
-    """Phase 24. Returns the five kernels' launches in 24a's tp run on
-    rank 0."""
-    t24 = time.monotonic()
-    mark("24")
-    head_offset_check(ca)
-    store = os.path.join(tmp, "tp_store")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=tp_rank, args=(rank, TP_RANKS, store, tmp))
-             for rank in range(TP_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TP_WAIT
-    for p in procs:
-        p.join(max(1.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(30)
-    for rank in range(TP_RANKS):
-        with open(os.path.join(tmp, "tp_rank%d.log" % rank)) as f:
-            sys.stdout.write(f.read())
-    if hung or any(p.exitcode for p in procs):
-        fail("24: ranks %s hung, exit codes %s" % (
-            hung, [p.exitcode for p in procs]))
-    with open(os.path.join(tmp, "tp_launches.json")) as f:
-        launches = json.load(f)
-    print("phase 24 (tensor and sequence parallel, ZeRO-1) took %.1f s"
-          % (time.monotonic() - t24), flush=True)
-    return launches
-
-
-def tp_rank(rank, world, store, tmp):
-    """24a-24d on one of `world` ranks over gloo on the one card; writes
-    what it prints to tp_rank<rank>.log under `tmp` and exits non-zero on
-    a failed gate."""
-    log = open(os.path.join(tmp, "tp_rank%d.log" % rank), "w")
-    sys.stdout = log
-    try:
-        _tp_rank(rank, world, store, tmp)
-    except SystemExit:
-        raise
-    except BaseException:
-        import traceback
-
-        print("FAIL: 24 rank %d:\n%s" % (rank, traceback.format_exc()))
-        raise SystemExit(1)
-    finally:
-        log.flush()
-
-
-def _tp_rank(rank, world, store, tmp):
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from paddle_tpu_torch.ops import cuda_build
-    from paddle_tpu_torch.parallel import mesh
-
-    missing = [n for n in cuda_build.KERNELS
-               if not os.path.exists(cuda_build.library_path(n))]
-    if missing:
-        fail("24 rank %d: kernels %s not built by the parent" % (
-            rank, missing))
-    mesh.init_group(rank=rank, world_size=world, backend="gloo",
-                    device="cuda:0", store=dist.FileStore(store, world),
-                    timeout=datetime.timedelta(seconds=TP_WAIT))
-    try:
-        _tp_rank_runs(rank, world, tmp)
-    finally:
-        dist.destroy_process_group()
-
-
 def _far(a, b, names):
     """(max over `names` of max|a - b|, over the largest |value| of any of
     them: "within x of max|param|"; the worst of max|a - b| /
@@ -11263,7 +11161,8 @@ def _far(a, b, names):
     return diff / top, worst
 
 
-def _tp_rank_runs(rank, world, tmp):
+def tp_rank_runs(rank, world, group, tmp):
+    """24a-24d on this rank. Returns 24a's launches."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.models import bert, gpt
     from paddle_tpu_torch.ops import cuda_attention as ca
@@ -11273,6 +11172,8 @@ def _tp_rank_runs(rank, world, tmp):
     from paddle_tpu_torch.parallel import tensor_parallel as tpl
     from paddle_tpu_torch.parallel.mesh import build_mesh
     from paddle_tpu_torch.parallel.sharding import DistributedProgram
+
+    mark("24 rank %d" % rank)
 
     def one_card(build, feed, steps=TP_STEPS):
         """Rank 0's one-card run of `build()`'s program: (losses, the
@@ -11351,9 +11252,7 @@ def _tp_rank_runs(rank, world, tmp):
     if any(got[2][n] != PER_STEP[n] * TP_STEPS for n in PER_STEP):
         fail("24a rank %d: launches %s, want %s a step" % (
             rank, got[2], PER_STEP))
-    if rank == 0:
-        with open(os.path.join(tmp, "tp_launches.json"), "w") as f:
-            json.dump(got[2], f)
+    tp_launches = got[2]
     del ref, got
 
     # 24b: dp = 2 with sharding_degree = 2, dropout 0, against plain dp
@@ -11393,6 +11292,7 @@ def _tp_rank_runs(rank, world, tmp):
     if ("softmax_with_cross_entropy", "tp") in got[3]:
         fail("24d: the cross-entropy gathered its logits")
     gate("24d GPT-2-small tp=2", got, ref, TP_TOL)
+    return {"tp": tp_launches}
 
 
 def ring_attention_check(rank, fluid, ca, ra, build_mesh, DistributedProgram):
@@ -11447,6 +11347,601 @@ def ring_attention_check(rank, fluid, ca, ra, build_mesh, DistributedProgram):
                                   RING_TOL[dtype]), flush=True)
             if rings != 1 or max(errs) > RING_TOL[dtype]:
                 fail("24c: the ring under sp")
+
+
+# ---------------------------------------------------------------------------
+# phase 25: pipeline parallel, MoE over an ep axis and LocalSGD (Queue 1
+# item 8.5), two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+PP_STEPS = 3               # 25a: gated steps at dropout 0, then at 0.1
+PP_MICRO = 4               # 25a: microbatches of the batch of 8
+PP_CUT = 5                 # 25a: cut after encoder layer 5: 6 layers a stage
+PP_LOSS_TOL = 1e-6         # 25a: losses relative, against one card
+PP_PARAM_TOL = 1e-4        # 25a: parameters of max|param|
+PP_KEEP_SIGMAS = 5         # 25a: the keep rate at dropout 0.1, from 0.9,
+#                            in binomial standard deviations of its count
+LSGD_STEPS = 8             # 25b
+LSGD_K = 4
+LSGD_LR = 0.01             # 25b: SGD
+LSGD_TOL = 1e-6            # 25b: k = 1 against plain dp, of max|param|
+MOE_B, MOE_T, MOE_H, MOE_F, MOE_E = 8, 128, 768, 3072, 8   # Switch-Base-8
+MOE_CAP = 1.25
+MOE_STEPS = 3
+MOE_TOL = 1e-5             # 25c: card vs CPU, of max
+MOE_TIE = 1e-5             # 25c: a top-2 gate gap below it is a near-tie
+MOE_EP_RTOL = 5e-2         # 25c: ep = 2 against the replicated run (test_moe.py)
+PP_WAIT = 420              # s: a rank's collectives, and the ranks' join
+
+
+def layer_out(program, i):
+    """The name of BERT encoder layer i's output (its second LayerNorm's
+    Y): a pipeline cut after layer i."""
+    for op in program.global_block().ops:
+        if op.type == "layer_norm" and op.input("Scale") == [
+                "enc_l%d_ln2.w" % i]:
+            return op.output("Y")[0]
+    raise KeyError("no encoder layer %d" % i)
+
+
+def stage_launches(runner, micro):
+    """The five kernels' launches a step on each stage, from the ops of
+    its span: one flash forward, dQ and dK/dV a fused attention and one
+    LayerNorm forward and backward a layer_norm, each a microbatch."""
+    plan = runner._stage_plan()
+    out = []
+    for lo, hi in plan["spans"]:
+        types = [op.type for op in plan["region"][lo:hi]]
+        att = types.count("fused_multihead_attention") * micro
+        ln = types.count("layer_norm") * micro
+        out.append({"flash_attn_fwd": att, "flash_attn_bwd_dq": att,
+                    "flash_attn_bwd_dkdv": att, "layer_norm_fwd": ln,
+                    "layer_norm_bwd": ln})
+    return out
+
+
+# the phases whose ranks run in the two spawned processes, in order: (tag,
+# log file, the function, its seconds' key)
+RANK_PHASES = (("23b-23c", "dp_rank%d.log", "dp_rank_runs"),
+               ("24", "tp_rank%d.log", "tp_rank_runs"),
+               ("25", "pp_rank%d.log", "pp_rank_runs"))
+RANKS = 2                  # 23b-25: gloo ranks on the one card
+RANK_WAIT = DP_WAIT + TP_WAIT + PP_WAIT
+
+
+def parallel_phases(fluid, bert, ca, cl, card, tmp):
+    """Phases 23-25: 23a in this process, 24's head-offset check of the
+    attention kernels, then one spawn of two gloo ranks on the card that
+    runs 23b-23c, 24 and 25 in turn (a spawn and its imports cost ~10
+    s). Returns the launches of 23a, 24a and 25."""
+    dp_launches, secs23a = dp_phase(fluid, bert, ca, cl, card, tmp)
+    t0 = time.monotonic()
+    mark("24's kernel check")
+    head_offset_check(ca)
+    secs24 = time.monotonic() - t0
+    mark("23b-23c, 24, 25 on two ranks")
+    store = os.path.join(tmp, "rank_store")
+    ctx = multiprocessing.get_context("spawn")
+    start = time.time() - (time.monotonic() - T_START)
+    procs = [ctx.Process(target=phase_rank,
+                         args=(rank, RANKS, store, tmp, start))
+             for rank in range(RANKS)]
+    for p in procs:
+        p.start()
+    # a rank that fails leaves the other in a collective: stop at once
+    deadline = time.monotonic() + RANK_WAIT
+    while (time.monotonic() < deadline and any(p.is_alive() for p in procs)
+           and not any(p.exitcode for p in procs)):
+        time.sleep(0.5)
+    hung = [r for r, p in enumerate(procs)
+            if p.is_alive() and not any(q.exitcode for q in procs)]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    for _, log, _ in RANK_PHASES:
+        for rank in range(RANKS):
+            path = os.path.join(tmp, log % rank)
+            if os.path.exists(path):
+                with open(path) as f:
+                    sys.stdout.write(f.read())
+    if hung or any(p.exitcode for p in procs):
+        fail("23b-25: ranks %s hung, exit codes %s" % (
+            hung, [p.exitcode for p in procs]))
+    with open(os.path.join(tmp, "rank_phases0.json")) as f:
+        got = json.load(f)
+    secs = got["seconds"]
+    print("phase 23 (data parallel: 23a %.1f s, 23b-23c %.1f s on the "
+          "ranks) took %.1f s" % (secs23a, secs["23b-23c"],
+                                 secs23a + secs["23b-23c"]), flush=True)
+    print("phase 24 (tensor and sequence parallel, ZeRO-1: the kernel check "
+          "%.1f s, %.1f s on the ranks) took %.1f s" % (
+              secs24, secs["24"], secs24 + secs["24"]), flush=True)
+    pp = [got["pp"]]
+    with open(os.path.join(tmp, "rank_phases1.json")) as f:
+        pp.append(json.load(f)["pp"])
+    launches = {"pp": {n: sum(g[n] for g in pp) for n in PER_STEP},
+                "lsgd": got["lsgd"], "moe": got["moe"]}
+    print("phase 25 (pipeline, LocalSGD, MoE) took %.1f s on the ranks (the "
+          "ranks' start %.1f s); 25a's launches over %d steps: %s by rank, "
+          "%s together" % (secs["25"], got["start_seconds"], PP_STEPS, pp,
+                           launches["pp"]), flush=True)
+    return dp_launches, got["tp"], launches
+
+
+def phase_rank(rank, world, store, tmp, start):
+    """23b-23c, 24 and 25 on one of `world` ranks over gloo on the one
+    card, each phase printing to its own log under `tmp`
+    (dp_rank<rank>.log, tp_rank<rank>.log, pp_rank<rank>.log); writes its
+    launches and the phases' seconds to rank_phases<rank>.json and exits
+    non-zero on a failed gate."""
+    import torch.distributed as dist
+
+    global T_START
+    T_START = time.monotonic() - (time.time() - start)
+    t0 = time.monotonic()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.ops import cuda_build
+    from paddle_tpu_torch.parallel import mesh
+
+    out = {"seconds": {}}
+    with open(os.path.join(tmp, RANK_PHASES[0][1] % rank), "w") as log:
+        missing = [n for n in cuda_build.KERNELS
+                   if not os.path.exists(cuda_build.library_path(n))]
+        if missing:
+            log.write("FAIL: rank %d: kernels %s not built by the parent\n"
+                      % (rank, missing))
+            raise SystemExit(1)
+    group = mesh.init_group(rank=rank, world_size=world, backend="gloo",
+                            device="cuda:0",
+                            store=dist.FileStore(store, world),
+                            timeout=datetime.timedelta(seconds=RANK_WAIT))
+    out["start_seconds"] = time.monotonic() - t0
+    try:
+        for tag, name, fn in RANK_PHASES:
+            t1 = time.monotonic()
+            log = open(os.path.join(tmp, name % rank),
+                       "a" if tag == RANK_PHASES[0][0] else "w")
+            sys.stdout = log
+            try:
+                got = globals()[fn](rank, world, group, tmp)
+            except SystemExit:
+                raise
+            except BaseException:
+                import traceback
+
+                print("FAIL: %s rank %d:\n%s" % (tag, rank,
+                                                 traceback.format_exc()))
+                raise SystemExit(1)
+            finally:
+                log.flush()
+            if got:
+                out.update(got)
+            out["seconds"][tag] = time.monotonic() - t1
+        with open(os.path.join(tmp, "rank_phases%d.json" % rank), "w") as f:
+            json.dump(out, f)
+        # no rank tears its groups down while a peer is still in one
+        group.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_rank_runs(rank, world, group, tmp):
+    """25a-25c on this rank: the launches of 25a's gated steps, 25b's k = 4
+    run and 25c."""
+    mark("25 rank %d" % rank)
+    return {"pp": pp_bert_runs(rank, group),
+            "lsgd": lsgd_runs(rank, world, group),
+            "moe": moe_runs(rank, group)}
+
+
+def _sync_timed(cls, name, where):
+    """Wrap method `name` of `cls` so that each call is timed between two
+    synchronizations of the card, added to `where`."""
+    orig = getattr(cls, name)
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = orig(self, *a, **kw)
+        torch.cuda.synchronize()
+        where.append(time.monotonic() - t0)
+        return out
+
+    setattr(cls, name, timed)
+    return orig
+
+
+def pp_bert_runs(rank, group):
+    """25a: bench.py:518's BERT-base step through PipelineOptimizer on two
+    stages. Returns this rank's launches over the gated steps."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import pipeline_executor as pe
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.ops.registry import LOWERINGS, LowerContext
+    from paddle_tpu_torch.parallel.pipeline import Ring
+
+    tag = "25a rank %d" % rank
+
+    def pipeline(opt, loss):
+        main = loss.block.program
+        fluid.optimizer.PipelineOptimizer(
+            opt, cut_list=[layer_out(main, PP_CUT)],
+            num_microbatches=PP_MICRO).minimize(loss)
+
+    cfg = bert.BertConfig()
+    feed = dp_feed(bert, cfg)
+    mark("25a rank %d: the one-card reference" % rank)
+    # every rank runs it, side by side on the card: rank 0's is the gate's
+    # reference, and rank 1 comes to the pipeline warm
+    _, main, startup, loss = tp_bert_program(fluid, bert, 0.0)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    params = sorted(p.name for p in main.all_parameters())
+    ref = dp_steps(fluid.Executor(), main, feed, loss, scope, params,
+                   steps=PP_STEPS)
+    del main, scope
+    ref_losses = torch.tensor(ref[0], dtype=torch.float64,
+                              device=ref[2][-1][params[0]].device)
+    if not torch.equal(ref_losses, group.broadcast(ref_losses, root=1)):
+        fail("%s: the two ranks' one-card runs differ: %s" % (tag, ref[0]))
+    mark("25a rank %d: two stages, dropout 0" % rank)
+    _, main, startup, loss = tp_bert_program(fluid, bert, 0.0, pipeline)
+    params = sorted(p.name for p in main.all_parameters())
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    ring_s, sum_s = [], []
+    orig_move = _sync_timed(Ring, "_move", ring_s)
+    orig_sum = _sync_timed(pe.PipelineProgram, "_sum_over_line", sum_s)
+    fns = zero_counters(ca, cl)
+    losses, walls, after, rings, sums = [], [], [], [], []
+    exe = fluid.Executor()
+    try:
+        for step in range(PP_STEPS):
+            del ring_s[:], sum_s[:]
+            lw, ww, aw = dp_steps(exe, main, feed, loss, scope, params,
+                                  steps=1)
+            losses += lw
+            walls += ww
+            after += aw
+            rings.append(sum(ring_s))
+            sums.append(sum(sum_s))
+    finally:
+        Ring._move, pe.PipelineProgram._sum_over_line = orig_move, orig_sum
+    launches = {n: fn.launches for n, fn in fns.items()}
+    runner = main._parallel_info["_runner"]
+    want = stage_launches(runner, PP_MICRO)[rank]
+    print("%s [%s]: stage %d of 2 (layers %s), %d microbatches of %d rows; "
+          "launches over %d steps %s (predicted %s a step: its 6 layers' "
+          "kernels once a microbatch); step walls %s ms, of which the "
+          "ring's exchanges (synchronized, waiting for the other stage "
+          "included) %s ms and the gradients' sum over the pp line %s ms; "
+          "ring bytes sent a step %d; peak memory %.2f GiB" % (
+              tag, card_line(), rank, "0-5" if rank == 0 else "6-11",
+              PP_MICRO, DP_BATCH // PP_MICRO, PP_STEPS, launches, want,
+              " ".join("%.1f" % (1e3 * w) for w in walls),
+              " ".join("%.1f" % (1e3 * w) for w in rings),
+              " ".join("%.1f" % (1e3 * w) for w in sums),
+              runner.last_step["ring_bytes"],
+              torch.cuda.max_memory_allocated() / 2 ** 30), flush=True)
+    if any(launches[n] != want[n] * PP_STEPS for n in PER_STEP):
+        fail("%s: launches %s, want %s a step" % (tag, launches, want))
+    flat = torch.cat([after[-1][n].reshape(-1) for n in params])
+    other = group.broadcast(flat, root=1)
+    if rank == 0:
+        if not torch.equal(flat, other):
+            fail("25a: the stages' parameters differ after %d steps"
+                 % PP_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+        far, (own, at) = _far(after[-1], ref[2][-1], params)
+        print("25a two stages vs one card on the batch of 8: losses %s vs %s "
+              "(rel %.2e, bound %g), parameters after %d Adam steps within "
+              "%.2e of max|param| (bound %g; parameter by parameter at most "
+              "%.2e of its own max, at %s); the stages' parameters bit for "
+              "bit alike" % (losses, ref[0], rel, PP_LOSS_TOL, PP_STEPS, far,
+                             PP_PARAM_TOL, own, at), flush=True)
+        if rel > PP_LOSS_TOL or far > PP_PARAM_TOL:
+            fail("25a: two stages disagree with one card")
+    del main, scope, after, ref, flat, other
+
+    mark("25a rank %d: two stages, dropout 0.1" % rank)
+    _, main, startup, loss = tp_bert_program(fluid, bert, 0.1, pipeline)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    masks, seeds = [], []
+    drop = LOWERINGS["dropout"]
+    next_seed = LowerContext.next_seed
+
+    def spy_dropout(ctx, ins, attrs):
+        out = drop(ctx, ins, attrs)
+        masks.append((ctx.current_op.output("Out")[0], out["Mask"][0]))
+        return out
+
+    def spy_seed(self):
+        s = next_seed(self)
+        seeds.append(s)
+        return s
+
+    LOWERINGS["dropout"] = spy_dropout
+    LowerContext.next_seed = spy_seed
+    exe = fluid.Executor()
+    try:
+        drops, every_seed = [], []
+        for step in range(PP_STEPS):
+            del masks[:], seeds[:]
+            lw, _, _ = dp_steps(exe, main, feed, loss, scope, (), steps=1)
+            kept = sum(float(m.sum()) for _, m in masks)
+            total = sum(m.numel() for _, m in masks)
+            first = [m for n, m in masks if n == masks[0][0]]
+            alike = sum(torch.equal(first[i], first[j])
+                        for i in range(len(first))
+                        for j in range(i + 1, len(first)))
+            drops.append((lw[0], len(masks), total, kept / total, len(first),
+                          alike, len(seeds), len(set(seeds))))
+            every_seed += seeds
+    finally:
+        LOWERINGS["dropout"] = drop
+        LowerContext.next_seed = next_seed
+    print("%s dropout 0.1: (loss, dropout calls, elements, keep rate, the "
+          "first dropout's masks, pairs of them alike, attention seeds, "
+          "distinct) a step: %s; %d distinct attention seeds over the %d "
+          "steps" % (tag, drops, len(set(every_seed)), PP_STEPS), flush=True)
+    for loss_v, calls, total, keep, n_first, alike, n_seeds, distinct in drops:
+        if (not np.isfinite(loss_v) or abs(keep - 0.9) > PP_KEEP_SIGMAS
+                * (0.09 / total) ** 0.5
+                or n_first != PP_MICRO or alike or distinct != n_seeds
+                or n_seeds != want["flash_attn_fwd"]):
+            fail("%s: the microbatches' draws at dropout 0.1" % tag)
+    if len(set(every_seed)) != len(every_seed):
+        fail("%s: a step drew another step's attention seeds" % tag)
+    del main, scope
+    return launches
+
+
+def lsgd_runs(rank, world, group):
+    """25b: LocalSGD on BERT-base at dp = 2 (batch 4 a rank), dropout 0,
+    SGD. Returns rank 0's launches in the k = 4 run."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.parallel import fleet
+
+    tag = "25b rank %d" % rank
+    cfg = bert.BertConfig()
+    feed = dp_feed(bert, cfg)
+
+    def program(strategy):
+        fl = fleet.Fleet().init(fleet.UserDefinedRoleMaker(
+            rank, worker_num=world))
+        s = fleet.DistributedStrategy()
+        for k, v in strategy.items():
+            setattr(s, k, v)
+        main, startup = fluid.Program(), fluid.Program()
+        with fresh_names(), fluid.program_guard(main, startup):
+            io = bert.build_bert_pretrain(bert.BertConfig(dropout=0.0), SEQ)
+            fl.distributed_optimizer(fluid.optimizer.SGD(LSGD_LR),
+                                     s).minimize(io["loss"])
+        main.random_seed = startup.random_seed = SEED
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        return fl.main_program, io["loss"], scope, sorted(
+            p.name for p in main.all_parameters())
+
+    def steps(prog, loss, scope, params, check=None):
+        losses, walls, syncs = [], [], []
+        for step in range(LSGD_STEPS):
+            lw, ww, aw = dp_steps(fluid.Executor(), prog, feed, loss, scope,
+                                  params, steps=1)
+            losses += lw
+            walls += ww
+            syncs.append(getattr(prog, "param_collectives", None))
+            if check is not None:
+                check(step, aw[0])
+        return losses, walls, syncs, {n: scope[n].clone() for n in params}
+
+    def alike(after, params):
+        """Rank 1's parameters sent to rank 0 and compared bit for bit
+        there; the answer sent back to every rank."""
+        flat = torch.cat([after[n].reshape(-1) for n in params])
+        same = torch.tensor([float(torch.equal(
+            flat, group.broadcast(flat, root=1)))], device=flat.device)
+        return bool(group.broadcast(same, root=0)[0])
+
+    out = {}
+    mark("%s: plain dp and k = 1" % tag)
+    for name, strategy in (("plain dp", {}),
+                           ("k=1", {"use_local_sgd": True,
+                                    "local_sgd_k_steps": 1})):
+        prog, loss, scope, params = program(strategy)
+        out[name] = steps(prog, loss, scope, params)
+        del prog, scope
+    far, (own, at) = _far(out["k=1"][3], out["plain dp"][3], params)
+    print("%s [%s]: k = 1 against plain dp over %d SGD steps: losses %s vs "
+          "%s, parameters within %.2e of max|param| (bound %g; at most %.2e "
+          "of its own max, at %s); parameter collectives a step %s; step "
+          "walls %s ms (plain dp %s)" % (
+              tag, card_line(), LSGD_STEPS, out["k=1"][0],
+              out["plain dp"][0], far, LSGD_TOL, own, at, out["k=1"][2],
+              " ".join("%.1f" % (1e3 * w) for w in out["k=1"][1]),
+              " ".join("%.1f" % (1e3 * w) for w in out["plain dp"][1])),
+          flush=True)
+    if far > LSGD_TOL or out["k=1"][2] != [1] * LSGD_STEPS:
+        fail("25b: k = 1 is not plain dp")
+    del out
+
+    mark("%s: k = 4" % tag)
+    prog, loss, scope, params = program({"use_local_sgd": True,
+                                         "local_sgd_k_steps": LSGD_K})
+    agree = []
+    fns = zero_counters(ca, cl)
+    losses, walls, syncs, _ = steps(
+        prog, loss, scope, params,
+        lambda step, after: agree.append(alike(after, params)))
+    launches = {n: fn.launches for n, fn in fns.items()}
+    want = [(s + 1) % LSGD_K == 0 for s in range(LSGD_STEPS)]
+    print("%s k = %d: losses %s, the ranks' parameters bit for bit alike "
+          "after each step %s (want %s), parameter collectives a step %s, "
+          "launches %s, step walls %s ms" % (
+              tag, LSGD_K, losses, agree, want, syncs, launches,
+              " ".join("%.1f" % (1e3 * w) for w in walls)), flush=True)
+    if (agree != want or syncs != [int(w) for w in want]
+            or not all(np.isfinite(losses))
+            or any(launches[n] != PER_STEP[n] * LSGD_STEPS
+                   for n in PER_STEP)):
+        fail("25b: k = %d" % LSGD_K)
+    del prog, scope
+
+    mark("%s: k = 4, int8 delta sync" % tag)
+    prog, loss, scope, params = program({"use_local_sgd": True,
+                                         "local_sgd_k_steps": LSGD_K,
+                                         "local_sgd_quantized_sync": True})
+    worst = []
+    average = prog._average
+
+    eps = torch.finfo(torch.float32).eps
+
+    def checked(sc):
+        """The int8 average against the exact one, element by element,
+        within pmax|delta| / 254 of the parameter plus float slack: the
+        two roundings of anchor + mean, 2·eps·|value|."""
+        exact, bound = {}, {}
+        for n in params:
+            v, a = sc[n], sc[n + "@LSGD_ANCHOR"]
+            exact[n] = a + group.all_reduce(v - a) / group.size
+            bound[n] = float(group.all_reduce(
+                (v - a).abs().max().reshape(1), op="max")) / 254
+        average(sc)
+        worst.append(max(
+            (float(((sc[n] - exact[n]).abs() / (
+                bound[n] * (1 + 1e-5) + 2 * eps * exact[n].abs())
+                .clamp_min(1e-30)).max()), n)
+            for n in params))
+
+    prog._average = checked
+    losses, walls, syncs, after = steps(prog, loss, scope, params)
+    print("%s k = %d int8: losses %s, parameter collectives a step %s, the "
+          "worst error over its bound (pmax|delta| / 254 + 2·eps·|value|) "
+          "at each sync %s, "
+          "the ranks alike after: %s" % (
+              tag, LSGD_K, losses, syncs,
+              ["%.3f (%s)" % w for w in worst], alike(after, params)),
+          flush=True)
+    if (len(worst) != LSGD_STEPS // LSGD_K or max(w for w, _ in worst) > 1
+            or not alike(after, params) or not all(np.isfinite(losses))):
+        fail("25b: the int8 delta sync")
+    return launches
+
+
+def moe_runs(rank, group):
+    """25c: Switch-Base-8's expert layer (B 8, T 128, H 768, F 3072, E 8,
+    capacity 1.25: C = 160), 3 Adam steps card vs CPU (rank 0), then at
+    ep = 2 over the two ranks against the replicated run. Returns the
+    five kernels' launches (none)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.parallel import moe
+    from paddle_tpu_torch.parallel import tensor_parallel as tpl
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+    from paddle_tpu_torch.parallel.sharding import (DistributedProgram,
+                                                    ShardingRule)
+
+    tag = "25c rank %d" % rank
+    main, startup = fluid.Program(), fluid.Program()
+    with fresh_names(), fluid.program_guard(main, startup):
+        x = fluid.data("moe_x", shape=[MOE_B, MOE_T, MOE_H], dtype="float32")
+        y, aux = moe.switch_ffn(x, MOE_E, MOE_F, capacity_factor=MOE_CAP,
+                                name="moe")
+        lbl = fluid.data("moe_lbl", shape=[MOE_B, MOE_T, MOE_H],
+                         dtype="float32")
+        loss = fluid.layers.elementwise_add(
+            fluid.layers.reduce_mean(fluid.layers.square_error_cost(y, lbl)),
+            fluid.layers.scale(aux, scale=0.01))
+        fluid.optimizer.Adam(5e-3).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    ops = main.global_block().ops
+    route = next(op for op in ops if op.type == "arg_max").output("Out")[0]
+    probs = next(op for op in ops if op.type == "softmax").output("Out")[0]
+    xv = np.random.default_rng(SEED).standard_normal(
+        (MOE_B, MOE_T, MOE_H)).astype("float32")
+    feed = {"moe_x": xv, "moe_lbl": np.tanh(xv)[:, :, ::-1].copy()}
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    init = clone_scope(fluid, cpu)
+    fns = zero_counters(ca, cl)
+    capacity = int(np.ceil(MOE_B * MOE_T / MOE_E * MOE_CAP))
+    if rank == 0:
+        mark("%s: card vs CPU" % tag)
+        rows = []
+        for step in range(MOE_STEPS):
+            card = clone_scope(fluid, cpu, "cuda")
+            got = fluid.Executor().run(main, feed=feed, scope=card,
+                                       fetch_list=[loss, y, route, probs])
+            want = fluid.Executor(fluid.CPUPlace()).run(
+                main, feed=feed, scope=cpu,
+                fetch_list=[loss, y, route, probs])
+            flips = np.flatnonzero(got[2].reshape(-1) != want[2].reshape(-1))
+            p = np.sort(want[3].reshape(-1, MOE_E), axis=1)
+            margin = (p[:, -1] - p[:, -2])[flips]
+            keep = np.ones(MOE_B * MOE_T, bool)
+            keep[flips] = False
+            err = float(np.abs(got[1].reshape(-1, MOE_H)[keep]
+                               - want[1].reshape(-1, MOE_H)[keep]).max()
+                        / np.abs(want[1]).max())
+            rows.append((float(got[0]), float(want[0]), err, len(flips),
+                         float(margin.max()) if len(flips) else 0.0))
+        print("%s [%s]: S %d tokens, C %d a expert; (card loss, CPU loss, "
+              "y within x of max on the tokens routed alike, routing flips, "
+              "their largest top-2 gap) a step, each card step from the "
+              "CPU's state: %s (bounds %g, a flip only below a gap of %g)"
+              % (tag, card_line(), MOE_B * MOE_T, capacity, rows, MOE_TOL,
+                 MOE_TIE), flush=True)
+        for card_l, cpu_l, err, n_flips, gap in rows:
+            if (err > MOE_TOL or abs(card_l - cpu_l) > MOE_TOL * abs(cpu_l)
+                    or gap > MOE_TIE):
+                fail("25c: the expert layer card vs CPU")
+    mark("%s: ep = 2" % tag)
+    repl = None
+    if rank == 0:
+        scope = clone_scope(fluid, init, "cuda")
+        repl = [float(fluid.Executor().run(main, feed=feed, scope=scope,
+                                           fetch_list=[loss])[0])
+                for _ in range(MOE_STEPS)]
+    tpl.reset_counts()
+    scope = clone_scope(fluid, init, "cuda")
+    prog = DistributedProgram(main, build_mesh({"ep": 2}), param_rules=[
+        ShardingRule(p, s) for p, s in moe.moe_ep_rules("moe")])
+    walls, ep = [], []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ep.append(float(fluid.Executor().run(prog, feed=feed, scope=scope,
+                                             fetch_list=[loss])[0]))
+        walls.append(time.monotonic() - t0)
+    shapes = {n: tuple(scope[n].shape) for n in ("moe.w1", "moe.w2",
+                                                 "moe.b1", "moe.b2")}
+    launches = {n: fn.launches for n, fn in fns.items()}
+    print("%s ep = 2: losses %s, the rank's expert weights %s, fallbacks "
+          "%s, collectives (calls, bytes) %s, step walls %s ms, launches "
+          "%s" % (tag, ep, shapes,
+                  {"%s/%s" % k: v for k, v in sorted(tpl.RESHARDS.items())},
+                  {"%s/%s" % k: v for k, v in sorted(
+                      tpl.COLLECTIVES.items())},
+                  " ".join("%.1f" % (1e3 * w) for w in walls), launches),
+          flush=True)
+    if (any(s[0] != MOE_E // 2 for s in shapes.values())
+            or set(tpl.RESHARDS) - {("square_error_cost", "ep")}
+            or any(launches.values())):
+        fail("%s: the experts' split over ep" % tag)
+    if rank == 0:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ep, repl))
+        print("25c ep = 2 against the replicated run %s: rel %.2e (bound "
+              "%g)" % (repl, rel, MOE_EP_RTOL), flush=True)
+        if rel > MOE_EP_RTOL or not ep[-1] < ep[0]:
+            fail("25c: ep = 2 strays from the replicated run")
+    return launches
 
 
 def card_line():
@@ -11807,13 +12302,13 @@ def main():
         # before the profiles (22a's re-assert profile comes with them)
         adamw_launches, contrib_launches, prof22 = contrib_phase(
             fluid, resnet, bert, ca, cl, card, tmp)
-        # phase 23: data parallel (23a at world size 1 over nccl, 23b-23c
-        # two gloo ranks on the card); its steps are timed, so before the
+        # phases 23-25: data parallel (23a at world size 1 over nccl),
+        # then 23b-23c, tensor and sequence parallel with ZeRO-1 (24) and
+        # pipeline parallel, LocalSGD and MoE (25) on one spawn of two
+        # gloo ranks on the card; their steps are timed, so before the
         # profiles
-        dp_launches = dp_phase(fluid, bert, ca, cl, card, tmp)
-        # phase 24: tensor and sequence parallel, ZeRO-1 (two gloo ranks
-        # on the card); its steps are timed, so before the profiles
-        tp_launches = tp_phase(fluid, ca, cl, card, tmp)
+        dp_launches, tp_launches, pp_launches = parallel_phases(
+            fluid, bert, ca, cl, card, tmp)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -11995,8 +12490,11 @@ def main():
     # steps before the save and after the load), launches_quant in 21c's
     # served int8 batches, launches_adamw in 22d's AdamW BERT-base steps,
     # launches_contrib in 22a-22c and 22e together (all 0), launches_dp
-    # in 23a's fleet run (3 steps at world size 1 over nccl) and
-    # launches_tp in 24a's tp run on rank 0 (3 steps on its 6 heads)
+    # in 23a's fleet run (3 steps at world size 1 over nccl),
+    # launches_tp in 24a's tp run on rank 0 (3 steps on its 6 heads),
+    # launches_pp in 25a's gated steps on both stages together (3 steps of
+    # 4 microbatches), launches_lsgd in 25b's k = 4 run on rank 0 (8
+    # steps) and launches_moe in 25c on rank 0 (all 0)
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -12027,6 +12525,9 @@ def main():
                      launches_contrib=contrib_launches[name],
                      launches_dp=dp_launches[name],
                      launches_tp=tp_launches[name],
+                     launches_pp=pp_launches["pp"][name],
+                     launches_lsgd=pp_launches["lsgd"][name],
+                     launches_moe=pp_launches["moe"][name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

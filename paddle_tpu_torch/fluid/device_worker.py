@@ -73,8 +73,9 @@ class DownpourSGD(DeviceWorker):
 
 
 class Section(DeviceWorker):
-    """ref device_worker.py:193 — pipeline-parallel section worker (the
-    pipeline itself comes with the parallel slice)."""
+    """ref device_worker.py:193 — pipeline-parallel section worker; the
+    port's pipeline is parallel/pipeline.py (the GPipe schedule over the
+    ``pp`` axis of a rank group, one stage a rank)."""
 
     def __init__(self):
         super().__init__()

@@ -22,7 +22,9 @@ end of its epoch; ``run_pipelined`` (fluid/async_pipeline.py) prepares
 the next batch's feeds on a stager thread while the current step runs.
 A program that runs itself — a ``CompiledProgram``, a data-parallel
 ``DistributedProgram`` or ``GradSyncProgram`` — is handed the run
-(``_executor_run``), as in the JAX package.
+(``_executor_run``), as in the JAX package; a program that
+``PipelineOptimizer.minimize`` built runs this rank's stage of the GPipe
+schedule (fluid/pipeline_executor.py).
 """
 import numpy as np
 import torch
@@ -262,6 +264,15 @@ class Executor:
             return program._executor_run(self, feed, fetch_list, scope,
                                          return_numpy)
         scope = scope if scope is not None else global_scope()
+        # PipelineOptimizer-annotated programs run the GPipe schedule
+        info = getattr(program, "_parallel_info", None)
+        if info and info.get("mode") == "pipeline" and not getattr(
+                program, "_is_start_up_program", False):
+            from .pipeline_executor import run_pipeline_program
+
+            return run_pipeline_program(self, program, feed or {},
+                                        fetch_list or [], scope,
+                                        return_numpy)
         feed = feed or {}
         fetch_names = [_as_name(f) for f in (fetch_list or [])]
         with obs.span("executor.run"):

@@ -10,8 +10,9 @@ runs the forward region under torch.autograd, differentiates it at the
 ``backward`` op and runs the updates after it (fluid/lowering.py).
 RecomputeOptimizer puts its checkpoints on the backward op, and the
 Executor replays each segment between two checkpoints in the backward
-pass. PipelineOptimizer waits for the parallel slice (ROADMAP.md Queue 1,
-item 8) and the dygraph minimize for item 9.
+pass. PipelineOptimizer records its configuration on the program, which
+the Executor runs through fluid/pipeline_executor.py; the dygraph
+minimize waits for ROADMAP.md Queue 1 item 9.
 """
 from . import framework, unique_name
 from .backward import append_backward
@@ -1124,14 +1125,51 @@ class LookaheadOptimizer:
 
 
 class PipelineOptimizer:
-    """Pipeline-parallel wrapper (ref optimizer.py:3193): waits for the
-    port's parallel slice."""
+    """Pipeline-parallel wrapper (ref optimizer.py:3193): minimizes with
+    the wrapped optimizer and records the pipeline's configuration on the
+    program, which ``Executor.run`` then runs through
+    fluid/pipeline_executor.py (one stage a rank of the mesh's ``pp``
+    axis, the GPipe microbatch schedule). ``mesh`` is a rank group with
+    a ``pp`` axis (default: the first ``len(cut_list) + 1`` ranks of the
+    world), beside which a ``dp`` axis may stand; ``feed_specs`` splits
+    feeds over dp (``P("dp", ...)``); ``opt_state_rules`` splits
+    optimizer state over dp (ZeRO-1). ``param_rules`` is accepted only
+    to raise, as in the JAX package."""
 
-    def __init__(self, optimizer, *args, **kwargs):
-        raise NotImplementedError(
-            "PipelineOptimizer is not ported yet: it comes with the "
-            "parallel slice of paddle_tpu_torch (ROADMAP.md Queue 1, "
-            "item 8)")
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=None,
+                 mesh=None, feed_specs=None, param_rules=None,
+                 opt_state_rules=None):
+        self._optimizer = optimizer
+        self._cut_list = cut_list
+        self._place_list = place_list
+        self._concurrency_list = concurrency_list
+        self._queue_size = queue_size
+        self._sync_steps = sync_steps
+        self._num_microbatches = num_microbatches
+        self._mesh = mesh
+        self._feed_specs = feed_specs
+        self._param_rules = param_rules
+        self._opt_state_rules = opt_state_rules
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        out = self._optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set
+        )
+        prog = loss.block.program
+        prog._parallel_info = {
+            "mode": "pipeline",
+            "cut_list": self._cut_list,
+            "sync_steps": self._sync_steps,
+            "n_microbatches": self._num_microbatches,
+            "mesh": self._mesh,
+            "feed_specs": self._feed_specs,
+            "param_rules": self._param_rules,
+            "opt_state_rules": self._opt_state_rules,
+        }
+        return out
 
 
 SGD = SGDOptimizer

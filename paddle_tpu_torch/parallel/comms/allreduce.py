@@ -23,8 +23,8 @@ Total wire bytes: ``2 * (n-1)/n * (N + 4N/block)`` vs the fp32 ring's
 ``group`` is a :class:`paddle_tpu_torch.parallel.mesh.RankGroup`; every
 rank calls each function with a flat vector of the same length.
 ``pmean_int8`` is the legacy tensor-wide-scale single-shot variant
-LocalSGD's delta sync rides (LocalSGD itself comes with ROADMAP.md
-Queue 1 item 8.5).
+LocalSGD's delta sync rides (parallel/local_sgd.py,
+``quantized_sync=True``).
 """
 import torch
 

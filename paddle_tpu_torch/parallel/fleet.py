@@ -11,14 +11,17 @@ ordinary Executor: a :class:`..sharding.DistributedProgram` over the
 mesh ``{"dp": W / (tp·sp), "tp": tp, "sp": sp}`` with the strategy's
 ``tensor_parallel_rules`` and, for ``sharding_degree > 1``, ZeRO-1's
 ``ShardingRule(".*", P("dp"))`` on the optimizer state
-(``grad_sync_mode="gspmd"``, the default), or a
+(``grad_sync_mode="gspmd"``, the default), a
 :class:`..comms.GradSyncProgram` (bucketed, optionally quantized
-gradient sync, ``"comms"``, pure dp).
+gradient sync, ``"comms"``, pure dp), or with ``use_local_sgd`` a
+:class:`..local_sgd.LocalSGDProgram` (``local_sgd_k_steps``,
+``local_sgd_quantized_sync``, pure dp).
 
 The JAX package's refusals and warnings stay (``use_dgc``, pipeline
 degree, pserver mode, the exclusions among LocalSGD, comms, tp/sp and
-ZeRO, and ``sharding_degree`` without a dp axis). LocalSGD raises naming
-its item, 8.5.
+ZeRO, and ``sharding_degree`` without a dp axis). Saves go through the
+program's ``consolidated_scope`` where it keeps per-rank state
+(LocalSGD, comms).
 """
 import os
 import warnings
@@ -343,9 +346,15 @@ class Fleet:
                     "two sync disciplines exclude each other (LocalSGD's "
                     "quantized payload is local_sgd_quantized_sync)"
                 )
-            raise NotImplementedError(
-                "DistributedStrategy.use_local_sgd: LocalSGDProgram comes "
-                "with ROADMAP.md Queue 1 item 8.5")
+            from .local_sgd import LocalSGDProgram
+
+            self._mesh = build_mesh({"dp": world().size})
+            self._distributed_program = LocalSGDProgram(
+                program, self._mesh, k_steps=s.local_sgd_k_steps,
+                quantized_sync=s.local_sgd_quantized_sync,
+                param_rules=[ShardingRule(p, spec)
+                             for p, spec in s.tensor_parallel_rules])
+            return self._distributed_program
         if s.grad_sync_mode == "comms":
             from .comms import CommConfig, GradSyncProgram
 

@@ -4,8 +4,8 @@ The JAX package is single-controller: one process holds every device and
 lays them out as the named axes of a ``jax.sharding.Mesh``. The port runs
 one process per rank on ``torch.distributed``, the same script on every
 rank. A :class:`RankGroup` is a mesh of named axes (``"dp"``, ``"tp"``,
-``"sp"``) over a set of those ranks, with this process's place in it and
-the device it computes on. Rank coordinates are the JAX package's:
+``"sp"``, ``"pp"``, ``"ep"``) over a set of those ranks, with this
+process's place in it and the device it computes on. Rank coordinates are the JAX package's:
 ``np.array(ranks).reshape(sizes)`` in the caller's axis order, so
 ``{"dp": 2, "tp": 2}`` puts ranks 0 and 1 in one tp line.
 :meth:`RankGroup.axis_group` is the line of the mesh along one axis that
@@ -386,20 +386,15 @@ def factorizations(n_devices, axes=("dp", "tp", "pp")):
             {axes[0]: 1} for sizes in out]
 
 
-# mesh axes the port runs; "pp" and "ep" name the items that bring them
-_LATER_AXES = {"pp": "ROADMAP.md Queue 1 item 8.5 (pipeline)",
-               "ep": "ROADMAP.md Queue 1 item 10 (retrieval)"}
-
-
 def build_mesh(axes=None, ranks=None):
     """The :class:`RankGroup` of `axes` (``{axis: size}``, in order; the
-    ``"dp"``, ``"tp"`` and ``"sp"`` axes) over `ranks` (global ranks;
-    default every rank of :func:`world`). A -1 size is inferred; the sizes
-    must multiply to the number of ranks. A mesh of more than one axis
-    makes a ``torch.distributed.new_group`` for every line of every axis
-    (:meth:`RankGroup.axis_group`), and a group over part of the world is
-    one too: every rank of the world calls it, members or not, so that
-    the groups are made in one order."""
+    ``"dp"``, ``"tp"``, ``"sp"``, ``"pp"`` and ``"ep"`` axes) over `ranks`
+    (global ranks; default every rank of :func:`world`). A -1 size is
+    inferred; the sizes must multiply to the number of ranks. A mesh of
+    more than one axis makes a ``torch.distributed.new_group`` for every
+    line of every axis (:meth:`RankGroup.axis_group`), and a group over
+    part of the world is one too: every rank of the world calls it,
+    members or not, so that the groups are made in one order."""
     w = world()
     ranks = list(w.ranks if ranks is None else ranks)
     n = len(ranks)
@@ -413,11 +408,6 @@ def build_mesh(axes=None, ranks=None):
             if s == -1:
                 sizes[k] = n // known
     sizes = {a: int(s) for a, s in sizes.items()}
-    later = sorted(a for a, s in sizes.items() if a in _LATER_AXES and s > 1)
-    if later:
-        raise NotImplementedError(
-            "mesh axis %r: the port's rank group runs dp, tp and sp axes; "
-            "%s comes with %s" % (later[0], later[0], _LATER_AXES[later[0]]))
     total = 1
     for s in sizes.values():
         total *= s

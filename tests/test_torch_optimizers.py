@@ -398,7 +398,19 @@ def test_optimizer_trains_like_jax(kind):
 
 
 def test_pipeline_and_dygraph_minimize_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fluid.optimizer.PipelineOptimizer(fluid.optimizer.SGD(0.1))
+    # PipelineOptimizer is ported: on a world of one rank its program
+    # runs into the JAX package's refusal (one device per stage)
+    from paddle_tpu_torch.fluid.lowering import OpLoweringError
+
+    x = fluid.data("px", [None, 4], dtype="float32")
+    h = fluid.layers.fc(x, 4, act="relu")
+    loss = fluid.layers.reduce_mean(fluid.layers.fc(h, 1))
+    fluid.optimizer.PipelineOptimizer(
+        fluid.optimizer.SGD(0.1), cut_list=[h]).minimize(loss)
+    assert fluid.default_main_program()._parallel_info["mode"] == "pipeline"
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(fluid.default_startup_program())
+    with pytest.raises(OpLoweringError, match="one device per stage"):
+        exe.run(feed={"px": np.ones((2, 4), "float32")}, fetch_list=[loss])
     with pytest.raises(NotImplementedError, match="item 9"):
         fluid.optimizer.SGD(0.1).minimize(torch.zeros(()))

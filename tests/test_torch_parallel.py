@@ -566,13 +566,15 @@ def test_group_construction_refusals(monkeypatch):
 
     with pytest.raises(ValueError, match="multiply"):
         mesh.build_mesh({"dp": 1, "tp": 2})
-    with pytest.raises(NotImplementedError, match="8.5"):
+    # the pp and ep axes are axes like the others: a one-rank world has
+    # no room for 2 ranks on them
+    with pytest.raises(ValueError, match="multiply"):
         mesh.build_mesh({"dp": 1, "pp": 2})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="multiply"):
         mesh.build_mesh({"ep": 2})
-    one = mesh.build_mesh({"dp": 1, "tp": 1, "sp": 1})
-    assert one.shape == {"dp": 1, "tp": 1, "sp": 1}
-    assert one.coords() == {"dp": 0, "tp": 0, "sp": 0}
+    one = mesh.build_mesh({"dp": 1, "tp": 1, "sp": 1, "pp": 1, "ep": 1})
+    assert one.shape == {"dp": 1, "tp": 1, "sp": 1, "pp": 1, "ep": 1}
+    assert one.coords() == {"dp": 0, "tp": 0, "sp": 0, "pp": 0, "ep": 0}
     assert one.axis_group("tp").size == 1
     with pytest.raises(NotImplementedError, match="pure-dp"):
         mesh.shrink_mesh(mesh.RankGroup([0, 1], 0, None, "gloo", "cpu",
@@ -630,7 +632,9 @@ def test_fleet_refusals_name_their_items():
     # of one device has none
     with pytest.raises(ValueError, match="multiply"):
         build(tensor_parallel_degree=2)
-    with pytest.raises(NotImplementedError, match="8.5"):
+    # LocalSGD needs a dp axis of more than one rank, as in the JAX
+    # package
+    with pytest.raises(ValueError, match="dp mesh axis of size > 1"):
         build(use_local_sgd=True)
     with pytest.raises(NotImplementedError, match="use_dgc"):
         build(use_dgc=True)

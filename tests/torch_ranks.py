@@ -1,8 +1,10 @@
 """Run a function on W gloo ranks of the port, each its own process.
 
-Imported by the data-parallel tests of ``paddle_tpu_torch``
-(tests/test_torch_parallel.py, tests/test_torch_comms.py); it imports
-torch and the port only, never jax, so a rank starts quickly.
+Imported by the multi-rank tests of ``paddle_tpu_torch``
+(tests/test_torch_parallel.py, test_torch_comms.py,
+test_torch_tensor_parallel.py, test_torch_ring_attention.py and, through
+tests/torch_pipeline_ranks.py, the pipeline, MoE and LocalSGD tests); it
+imports torch and the port only, never jax, so a rank starts quickly.
 
 :func:`run_ranks` spawns W processes (``multiprocessing`` ``spawn``),
 each of which joins a gloo world on a ``FileStore`` under the caller's
@@ -10,7 +12,9 @@ directory (no TCP port: the suite runs under xdist), computes on the
 CPU, calls ``fn(rank, world, *args)`` and pickles what it returns. The
 caller joins them with its own time limit and kills every rank on a
 timeout, so a hung collective cannot hang the suite; a rank's exception
-is raised in the caller with its traceback.
+is raised in the caller with its traceback, and a rank that exits with
+any code but 0 fails the call. A rank whose function returned tears its
+process groups down only after every rank has returned (:func:`_leave`).
 """
 import datetime
 import multiprocessing as mp
@@ -68,6 +72,7 @@ def run_ranks(fn, world, workdir, args=(), timeout=120.0):
 
 def _rank_main(fn, rank, world, workdir, args, timeout):
     torch.set_num_threads(1)
+    store, done = None, False
     try:
         from paddle_tpu_torch.parallel import mesh
 
@@ -78,13 +83,42 @@ def _rank_main(fn, rank, world, workdir, args, timeout):
         result = fn(rank, world, *args)
         with open(os.path.join(workdir, "rank%d.pkl" % rank), "wb") as f:
             pickle.dump(result, f)
+        done = True
     except BaseException:
         with open(os.path.join(workdir, "rank%d.err" % rank), "w") as f:
             f.write(traceback.format_exc())
         raise
     finally:
         if dist.is_initialized():
-            dist.destroy_process_group()
+            _leave(store, world, done, timeout)
+
+
+def _leave(store, world, done, timeout):
+    """Tear this rank's process groups down only once no rank can still
+    be inside a collective or a ``new_group``: a rank that closes its
+    gloo pairs while a peer is still using them makes the peer fail (a
+    "Connection closed by peer" in its next group), or aborts itself in
+    teardown (exit -6). A rank whose `fn` finished meets the others on
+    the store (files, no sockets); then its subgroups go, then the
+    world; and no rank exits before every rank has destroyed its groups.
+    A rank whose `fn` raised tears down at once: its peers fail in their
+    next collective, and the caller reports the error."""
+    wait = datetime.timedelta(seconds=timeout)
+
+    def meet(tag):
+        if store is None or not done:
+            return
+        if store.add("teardown/" + tag, 1) == world:
+            store.set("teardown/%s/all" % tag, "1")
+        store.wait(["teardown/%s/all" % tag], wait)
+
+    meet("finished")
+    world_pg = dist.group.WORLD
+    for pg in list(dist.distributed_c10d._world.pg_map):
+        if pg is not world_pg:
+            dist.destroy_process_group(pg)
+    dist.destroy_process_group()
+    meet("destroyed")
 
 
 def fresh_port_state():
@@ -239,6 +273,19 @@ def subgroups(rank, world):
             total = float(group.all_reduce(torch.tensor([float(rank)])))
         out[tag] = (group.ranks, group.rank, total)
     return out
+
+
+def leave_at_once(rank, world):
+    """A group over ranks 1 and 3 and the world shrunk past rank 0, made
+    on every rank, then straight back: rank 0, outside the shrunk group,
+    is done before the others have connected theirs."""
+    from paddle_tpu_torch.parallel.mesh import (build_mesh,
+                                                get_default_mesh,
+                                                shrink_mesh)
+
+    pair = build_mesh({"dp": 2}, ranks=[1, 3])
+    shrunk = shrink_mesh(get_default_mesh(), dead=[0])
+    return pair.rank, shrunk.rank
 
 
 def collective_suite(rank, world, cases, jobs=()):
