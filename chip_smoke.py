@@ -603,6 +603,25 @@ Phases, each of which exits non-zero on failure:
    step (``square_error_cost``), no kernel launch. The kernels line
    gains ``launches_pp`` (25a's gated steps, both stages),
    ``launches_lsgd`` (25b's k = 4 run on rank 0) and ``launches_moe``.
+26. checkpoints, guarded execution and elastic training (item 8.6).
+   (a) bench.py:518's step (bf16 AMP, dropout 0) under
+   ``TrainGuard(save_every=2)``: run U uninterrupted; run C with a
+   retried run fault and an injected NaN fetch at step 3 (a counted
+   skip) and a save fault at its second save (the crash); run R, a
+   second ``TrainGuard`` on C's executor, resumes from the first save:
+   its losses and every persistable bit for bit U's, C and R launching
+   12/12/12/25/25 a run (``launches_guard``); a ``wait=False`` save
+   while the next step runs, whose manifest holds the state's digests at
+   the save; the save and restore seconds and the step's MB; dropout
+   0.1 at BERT-base width, depth 2, crashed and resumed once, held by
+   its keep rate. (b) ``FleetGuard`` on 3 spawned worker processes on
+   the card over a ``FileStore`` (BERT-base width, depth 2, f32,
+   ``sync_vars`` the LayerNorm parameters, ``save_every=2``); worker 1
+   is sent SIGKILL once a consensus step exists; the survivors detect
+   it, shrink to [0, 2], restore, and finish every step with finite
+   losses and 2/2/2/5/5 launches a run; each prints its detection time,
+   generation, slowest beat gap a step and longest host wait
+   (``launches_fleet_guard``: both survivors).
 
 Phase 12 prints, after 12a's loads, after the contention measurement
 (during which the router's health tick is held: the measurement does not
@@ -625,6 +644,8 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -649,7 +670,7 @@ ATOL_LN_F32 = 1e-5
 RTOL_FA_BWD_F32 = 1e-4          # max|d| <= 1e-4 * max|grad|
 ATOL_LN_BWD_F32 = 1e-3
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
-TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+TRAIN_STEPS, TRAIN_WARMUP = 12, 3    # 20 timed steps before phase 26's cuts
 T_START = time.monotonic()
 
 
@@ -2771,7 +2792,8 @@ def gpt_profile(step, stats, card):
 NMT_SEED = 7
 NMT_BATCH, NMT_SRC, NMT_TGT, NMT_MAX_OUT, NMT_BEAM = 32, 32, 32, 48, 4
 NMT_CHECK_BATCH = 4
-NMT_ITERS, NMT_B128_ITERS = 2, 2    # timed translations
+# timed translations (2 and 2 before phase 26's depth cuts)
+NMT_ITERS, NMT_B128_ITERS = 1, 1
 NMT_TOL = 1e-4          # 9a: encoder output and beam scores (of max)
 # 9a: a step's selection is a near-tie where two of its beam + 1 best
 # candidates are closer than this share of their magnitude
@@ -2780,7 +2802,7 @@ NMT_TRAIN_TOL = 1e-3    # 9c: losses (relative) and gradients (of max)
 NMT_RELU_EDGE = 1e-5    # 9c: a relu unit this close to 0 may round either way
 NMT_FLIP_TOL = 5e-2     # 9c: a gradient behind such a unit (phase 7's cap)
 # 9c: 10 timed steps before PR 25's depth cuts
-NMT_TRAIN_STEPS, NMT_TIMED_STEPS = 3, 5
+NMT_TRAIN_STEPS, NMT_TIMED_STEPS = 3, 3   # 3, 5 before phase 26's cuts
 GEN_PROMPT, GEN_NEW, GEN_BATCH = 16, 16, 2
 
 
@@ -6208,7 +6230,7 @@ def surface_phase(fluid, bert, ca, cl, lowering):
 # 15b an attached py_reader staged to the card, 15c profile_op_stats and a
 # torch.profiler trace of the step, 15d a program built with Variable's
 # operators, card against CPU.
-FEED_STEPS = 12
+FEED_STEPS = 8             # 12 before phase 26's depth cuts
 FEED_DEPTH = 2
 OPERATOR_RTOL = 1e-6
 KERNEL_SYMBOLS = {"flash_attn_fwd": "flash_fwd_kernel",
@@ -6472,13 +6494,13 @@ def operator_vs_cpu(fluid):
 # hidden 512, embedding 512, vocabulary 30,000, batch 16.
 RNN_EMB, RNN_HID, RNN_STACKED, RNN_CLASSES = 128, 512, 3, 2
 RNN_BATCH, RNN_LR, RNN_SEED = 128, 0.002, 1606
-RNN_CHECK_STEPS = 5
+RNN_CHECK_STEPS = 3        # 5 before phase 26's depth cuts
 RNN_TOL = 1e-3          # 16a, 16c, 16d: losses (relative), values (of max)
 RNN_PRED_TOL = 1e-4     # 16b: the card's probabilities against the CPU's
 RNN_FLIP_TOL = 5e-2     # 16a: a gradient below the max pools once one moves
 CELL_B, CELL_T, CELL_H = 16, 63, 512
 MT_HID, MT_EMB, MT_VOCAB, MT_BATCH, MT_T, MT_BEAM = 512, 512, 30000, 16, 24, 4
-MT_STEPS = 3
+MT_STEPS = 2               # 3 before phase 26's depth cuts
 MT_NEAR_TIE = 2e-6
 
 
@@ -9283,7 +9305,7 @@ def ocr_ops_vs_cpu(lowering, device="cuda"):
 # fluid.load, and B's file read by the port on the CPU. 20b: the
 # loss-scaling state, which decorate(use_bf16=True) does not keep: BERT-base
 # width at depth 2 under decorate(use_bf16=False, init_loss_scaling=2^15).
-CKPT_STEPS = 3
+CKPT_STEPS = 2             # 3 before phase 26's depth cuts
 
 
 def as_host(v):
@@ -9486,7 +9508,7 @@ INT8_SEED = 21
 INT8_IMAGE, INT8_CLASSES = 224, 1000
 INT8_CALIB_BATCH, INT8_CALIB_BATCHES = 8, 4
 INT8_SERVE_BATCH = 32
-INT8_TIMED = 3                 # 5 before PR 25's depth cuts
+INT8_TIMED = 2                 # 5, then 3, before two rounds of depth cuts
 INT8_CPU_ROWS = 8           # 21c: the served rows the CPU runs too
 # 21a: a calibrated scale on the card against the CPU's: the KL search
 # picks among thresholds 8 histogram bins apart (of 2048 over the
@@ -9896,7 +9918,7 @@ DIGITS_TOL, DIGITS_FLIP_TOL = 1e-3, 0.2   # 22b: steps_vs_cpu, as 18a
 NAS_DEPTHS = (18, 34, 50)
 NAS_BATCH = 16
 ADAMW_COEFF = 0.01
-ADAMW_STEPS = 10                      # 22d's timed steps after the warm-up
+ADAMW_STEPS = 5                       # 22d's timed steps after the warm-up
 CONTRIB_TOL = 1e-5                    # 22e: card vs CPU, of max
 SOCKET_FILE = "slim_LightNASStrategy_controller_server.socket"
 
@@ -10777,8 +10799,8 @@ def contrib_phase(fluid, resnet, bert, ca, cl, card, tmp):
 # bench.py:518's BERT-base step
 # ---------------------------------------------------------------------------
 DP_STEPS = 3                  # checked steps
-DP_TIMED = 2                  # 23b-23c: timed steps after them (5 before
-#                               PR 25's depth cuts)
+DP_TIMED = 1                  # 23b-23c: timed steps after them (5, then
+#                               2, before two rounds of depth cuts)
 DP_BATCH = 8                  # the global batch; 23b-23c give 4 to a rank
 DP_TOL = 1e-3                 # 23b-23c: of max|param|, and loss relative
 DP_EF_GAP = 5e-3              # test_comms_quantized_ef_converges_to_fp32
@@ -11058,7 +11080,7 @@ def _dp_rank_runs(rank, world, group, fluid, obs, bert, ca, cl, fleet,
 # and 8.4) on bench.py:518's BERT-base step and GPT-2-small, two gloo ranks
 # on the one card
 # ---------------------------------------------------------------------------
-TP_STEPS = 3
+TP_STEPS = 2               # 3 before phase 26's depth cuts
 TP_TOL = 1e-4              # 24a, 24c, 24d: losses relative, parameters of
 #                            their max|param|
 ZERO_TOL = 1e-6            # 24b: parameters of max|param| against plain dp
@@ -11353,7 +11375,8 @@ def ring_attention_check(rank, fluid, ca, ra, build_mesh, DistributedProgram):
 # phase 25: pipeline parallel, MoE over an ep axis and LocalSGD (Queue 1
 # item 8.5), two gloo ranks on the one card
 # ---------------------------------------------------------------------------
-PP_STEPS = 3               # 25a: gated steps at dropout 0, then at 0.1
+PP_STEPS = 2               # 25a: gated steps at dropout 0, then at 0.1 (3
+                           # before phase 26's depth cuts)
 PP_MICRO = 4               # 25a: microbatches of the batch of 8
 PP_CUT = 5                 # 25a: cut after encoder layer 5: 6 layers a stage
 PP_LOSS_TOL = 1e-6         # 25a: losses relative, against one card
@@ -11366,7 +11389,7 @@ LSGD_LR = 0.01             # 25b: SGD
 LSGD_TOL = 1e-6            # 25b: k = 1 against plain dp, of max|param|
 MOE_B, MOE_T, MOE_H, MOE_F, MOE_E = 8, 128, 768, 3072, 8   # Switch-Base-8
 MOE_CAP = 1.25
-MOE_STEPS = 3
+MOE_STEPS = 2              # 3 before phase 26's depth cuts
 MOE_TOL = 1e-5             # 25c: card vs CPU, of max
 MOE_TIE = 1e-5             # 25c: a top-2 gate gap below it is a near-tie
 MOE_EP_RTOL = 5e-2         # 25c: ep = 2 against the replicated run (test_moe.py)
@@ -11944,6 +11967,395 @@ def moe_runs(rank, group):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: checkpoints, guarded execution and elastic training (Queue 1
+# item 8.6)
+# ---------------------------------------------------------------------------
+# 26a: bench.py:518's step at dropout 0 (BERT-base, batch 8, seq 128, bf16
+# AMP through decorate(use_bf16=True), Adam(1e-4)) under
+# TrainGuard(save_every=2), from one set of startup values: run U
+# uninterrupted; run C under a fault spec (a retried run fault at step 3,
+# an injected NaN fetch at step 3 counted as a skip, a save fault at the
+# second save: the crash); run R, a second TrainGuard on C's Executor,
+# resumes from C's first save. R's losses and every persistable must be
+# U's bit for bit; the launches of C and R together (the main path) are
+# launches_guard. Then a wait=False save of the state while the next step
+# runs: its digests are those of the state at the save. Then the published
+# dropout 0.1 at BERT-base width, depth 2, crashed and resumed once, held
+# by its keep rate.
+# 26b: FleetGuard on GUARD_WORKERS processes on the one card over a
+# FileStore: BERT-base width at depth 2, the five kernels, save_every
+# GUARD_FLEET_SAVE, sync_vars= the LayerNorm parameters (the store's
+# all-reduce is JSON); the parent sends SIGKILL to worker 1 once a
+# consensus step exists; the survivors detect it, shrink to {0, 2},
+# restore the newest consensus step and finish with finite losses.
+GUARD_STEPS = 4            # 26a: saves at 2 (kept) and 4 (the crash)
+GUARD_DROP_DEPTH = 2       # 26a: the dropout-0.1 run's layers
+GUARD_WORKERS = 3
+GUARD_FLEET_STEPS = 4
+GUARD_FLEET_SAVE = 2
+GUARD_HB = dict(heartbeat_interval=0.25, miss_threshold=12,
+                collective_timeout=60.0, startup_grace=180.0)
+GUARD_WAIT = 240           # 26b: every worker process, start to finish
+GUARD_KEEP_SIGMAS = 5
+
+
+def step_dir_mb(dirname, step):
+    d = os.path.join(dirname, str(step))
+    return sum(os.path.getsize(os.path.join(d, f))
+               for f in os.listdir(d)) / 1e6
+
+
+def guarded_run(R, exe, main, loss, scope, feeds, **kw):
+    """A TrainGuard over `feeds` (step i takes feeds[i - 1]) that also
+    records each step's fetched loss; returns (guard, losses by step)."""
+    losses = {}
+    tg = R.TrainGuard(exe, program=main, fetch_list=[loss], scope=scope,
+                      feed_fn=lambda step: feeds[step - 1],
+                      backoff_base=0.001, **kw)
+    run = tg.guard.run
+
+    def recording(*a, **k):
+        rep = run(*a, **k)
+        losses[len(losses) + 1] = rep[0]
+        return rep
+
+    tg.guard.run = recording
+    return tg, losses
+
+
+def guard_phase(fluid, bert, ca, cl, card, tmp):
+    """26a. Returns the launches of runs C and R (the main path)."""
+    from paddle_tpu_torch.fluid import resilience as R
+    from paddle_tpu_torch.integrity import digest as dg
+    from paddle_tpu_torch.parallel import checkpoint as ckpt
+
+    cfg = bert.BertConfig(dropout=0.0)
+    main, startup, loss = train_program(fluid, bert, cfg,
+                                        dict(use_bf16=True))
+    feeds = []
+    for i in range(GUARD_STEPS):
+        ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED + 26 + i)
+        feeds.append({"input_ids": ids, "mlm_labels": labels})
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+
+    def fresh():
+        scope = fluid.Scope()
+        for n, t in init.items():
+            scope.set(n, t.clone())
+        return scope
+
+    scope_u = fresh()
+    tg_u, losses_u = guarded_run(R, fluid.Executor(), main, loss, scope_u,
+                                 feeds)
+    tg_u.train(num_steps=GUARD_STEPS)
+    d = os.path.join(tmp, "guard26")
+    scope_c, exe_c = fresh(), fluid.Executor()
+    del init
+    fns = zero_counters(ca, cl)
+    R.FaultInjector.install(
+        "run:at=3:RuntimeError;fetch:at=3:nan;save:at=2:OSError")
+    try:
+        tg_c, losses_c = guarded_run(R, exe_c, main, loss, scope_c, feeds,
+                                     ckpt_dir=d, save_every=2)
+        try:
+            tg_c.train(num_steps=GUARD_STEPS)
+            fail("26a: the save fault did not stop run C")
+        except OSError as e:
+            if "injected fault" not in str(e):
+                raise
+    finally:
+        R.FaultInjector.uninstall()
+    crashed_at = ckpt.latest_step(d)
+    tg_r, losses_r = guarded_run(R, exe_c, main, loss, scope_c, feeds,
+                                 ckpt_dir=d, save_every=2)
+    summary = tg_r.train(num_steps=GUARD_STEPS)
+    torch.cuda.synchronize()
+    runs = sum(1 for e in tg_c.log.of("step")) + len(losses_r)
+    launches = check_launches("26a runs C and R (main path)", fns,
+                              {n: PER_STEP[n] * runs for n in PER_STEP})
+    ev_c = [(e["kind"], e.get("step")) for e in tg_c.log.events
+            if e["kind"] in ("step", "retry", "skip", "save")]
+    skipped = [e["step"] for e in tg_c.log.of("step") if e["skipped"]]
+    first = summary["first_step"]
+    resumed = [losses_r[i + 1] for i in range(len(losses_r))]
+    want = [losses_u[s] for s in range(first, GUARD_STEPS + 1)]
+    same = sum(a.tobytes() == b.tobytes() for a, b in zip(resumed, want))
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    bad = differing(names, scope_c, scope_u)
+    saves = [e["seconds"] for e in tg_c.log.of("save") + tg_r.log.of("save")]
+    restore = tg_r.log.of("restore")[0]
+    mb = step_dir_mb(d, summary["final_step"])
+    print("26a bert_base bf16 AMP, dropout 0 [%s]: run C %s, skipped %s, "
+          "crashed at its second save with latest_step %s; run R resumed "
+          "from %s at step %d to %d: losses %s, U's %s: %d of %d "
+          "bit-identical; %d persistables: %d differ%s; a step %.1f MB, "
+          "saves %s s, restore %.3f s (%d values)" % (
+              card, ev_c, skipped, crashed_at, summary["resumed_from"],
+              first, summary["final_step"],
+              " ".join("%.6f" % float(x) for x in resumed),
+              " ".join("%.6f" % float(x) for x in want), same, len(want),
+              len(names), len(bad), (": " + ", ".join(bad[:6])) if bad
+              else "", mb, " ".join("%.3f" % s for s in saves),
+              restore["seconds"], restore["vars"]), flush=True)
+    if (crashed_at != 2 or summary["resumed_from"] != 2
+            or summary["final_step"] != GUARD_STEPS or skipped != [3]
+            or not tg_c.log.of("retry") or same != len(want) or bad
+            or not all(np.isfinite(float(x)) for x in want)):
+        fail("26a: the resumed run is not the uninterrupted one")
+    del scope_u, tg_u
+
+    # a background save while the next step runs
+    d2 = os.path.join(tmp, "guard26_async")
+    state = exe_c._gather_state(main, scope_c)
+    at_save = dg.digest_state(ckpt._snapshot(state))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ckpt.save_checkpoint(d2, state, step=GUARD_STEPS + 1, wait=False)
+    call_s = time.monotonic() - t0
+    exe_c.run(main, feed=feeds[0], fetch_list=[loss], scope=scope_c)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    ckpt.finalize(d2)
+    join_s = time.monotonic() - t1
+    from paddle_tpu_torch.integrity import envelope
+
+    written = envelope.read_manifest(ckpt.manifest_path(
+        d2, GUARD_STEPS + 1))["digests"]
+    moved = sum(at_save[n] != dg.tensor_digest(ckpt._host_view(
+        {n: scope_c.find_value(n)})[n]) for n in at_save)
+    print("26a wait=False save of %d values: the call %.3f s (the host "
+          "copy), joined by finalize %.3f s after the next step; its "
+          "digests are the state's at the save: %s (%d values moved by "
+          "the step since)" % (len(state), call_s, join_s,
+                               written == at_save, moved), flush=True)
+    if written != at_save or not moved:
+        fail("26a: the background save does not hold the state at the save")
+    del state, scope_c, exe_c
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(d2, ignore_errors=True)
+
+    # the published dropout 0.1, crashed once and resumed, held by its keep
+    # rate: the resumed steps draw other masks than an uninterrupted run's
+    # (the Executor's run count seeds them, ROADMAP.md Queue 3)
+    from paddle_tpu_torch.ops.registry import LOWERINGS
+
+    main, startup, loss = train_program(
+        fluid, bert, bert.BertConfig(num_layers=GUARD_DROP_DEPTH),
+        dict(use_bf16=True))
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    drop, masks = LOWERINGS["dropout"], []
+
+    def spy_dropout(ctx, ins, attrs):
+        out = drop(ctx, ins, attrs)
+        masks.append(out["Mask"][0])
+        return out
+
+    d3 = os.path.join(tmp, "guard26_drop")
+    LOWERINGS["dropout"] = spy_dropout
+    R.FaultInjector.install("save:at=2:OSError")
+    try:
+        tg, drop_losses = guarded_run(R, exe, main, loss, scope, feeds,
+                                      ckpt_dir=d3, save_every=1)
+        try:
+            tg.train(num_steps=2)
+            fail("26a: the save fault did not stop the dropout 0.1 run")
+        except OSError as e:
+            if "injected fault" not in str(e):
+                raise
+        R.FaultInjector.uninstall()
+        tg, more = guarded_run(R, exe, main, loss, scope, feeds,
+                               ckpt_dir=d3, save_every=1)
+        resumed_from = tg.train(num_steps=2)["resumed_from"]
+    finally:
+        LOWERINGS["dropout"] = drop
+        R.FaultInjector.uninstall()
+    kept = sum(float(m.float().sum()) for m in masks)
+    total = sum(m.numel() for m in masks)
+    vals = [float(x) for x in list(drop_losses.values()) + list(
+        more.values())]
+    print("26a dropout 0.1: %d runs, crashed at the second save and "
+          "resumed from step %s, %d dropout calls, keep rate %.5f of %d, "
+          "losses %s" % (len(vals), resumed_from, len(masks), kept / total,
+                         total, " ".join("%.6f" % v for v in vals)),
+          flush=True)
+    if (abs(kept / total - 0.9) > GUARD_KEEP_SIGMAS * (0.09 / total) ** 0.5
+            or not all(np.isfinite(vals)) or len(vals) != 3
+            or resumed_from != 1):
+        fail("26a: dropout 0.1 under TrainGuard")
+    shutil.rmtree(d3, ignore_errors=True)
+    return launches
+
+
+def guard_worker(w, world, root, start):
+    """26b: one FleetGuard worker on the card; writes its summary, its
+    launches and its beat gaps to guard_worker<w>.json under `root`."""
+    global T_START
+    T_START = time.monotonic() - (time.time() - start)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.ops import cuda_build
+
+    missing = [n for n in cuda_build.KERNELS
+               if not os.path.exists(cuda_build.library_path(n))]
+    if missing:
+        print("FAIL: worker %d: kernels %s not built by the parent"
+              % (w, missing), flush=True)
+        raise SystemExit(1)
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_layernorm as cl
+    from paddle_tpu_torch.parallel import elastic as E
+
+    cfg = bert.BertConfig(num_layers=2)
+    main, startup, loss = train_program(fluid, bert, cfg)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = []
+    for i in range(GUARD_FLEET_STEPS):
+        ids, labels = bert.synthetic_batch(cfg, 8, SEQ, seed=SEED + 260 + i)
+        feeds.append({"input_ids": ids, "mlm_labels": labels})
+    norms = sorted(v.name for v in main.global_block().all_parameters()
+                   if "layer_norm" in v.name or "_ln" in v.name)
+    beats, gaps, dead_at = [], [], []
+
+    def on_event(ev):
+        if ev["kind"] == "step":
+            gaps.append(max((b - a for a, b in zip(beats, beats[1:])),
+                            default=0.0))
+            del beats[:-1]
+        elif ev["kind"] == "worker_dead":
+            dead_at.append(time.time())
+
+    guard = E.FleetGuard(
+        exe, program=main, store=E.FileStore(os.path.join(root, "store")),
+        worker_index=w, world_size=world, config=E.ElasticConfig(
+            **GUARD_HB), ckpt_dir=os.path.join(root, "ck"),
+        fetch_list=[loss], feed_fn=lambda step, g: feeds[step - 1],
+        scope=scope, save_every=GUARD_FLEET_SAVE, sync_vars=norms,
+        on_event=on_event)
+    for name in ("beat", "keepalive"):
+        orig = getattr(guard.monitor, name)
+
+        def stamped(*a, _orig=orig, **k):
+            beats.append(time.monotonic())
+            return _orig(*a, **k)
+
+        setattr(guard.monitor, name, stamped)
+    runs = []
+    run = guard.guard.run
+
+    def counted(*a, **k):
+        rep = run(*a, **k)
+        runs.append(float(rep[0]))
+        return rep
+
+    guard.guard.run = counted
+    fns = zero_counters(ca, cl)
+    summary = guard.train(num_steps=GUARD_FLEET_STEPS)
+    torch.cuda.synchronize()
+    summary.pop("events")
+    out = dict(summary, launches={n: fn.launches for n, fn in fns.items()},
+               runs=len(runs), losses=runs, beat_gaps=gaps,
+               dead_at=dead_at, sync_vars=len(norms))
+    with open(os.path.join(root, "guard_worker%d.json" % w), "w") as f:
+        json.dump(out, f)
+
+
+def fleet_guard_phase(card, tmp):
+    """26b. Returns the launches of the survivors together."""
+    from paddle_tpu_torch.parallel import checkpoint as ckpt
+
+    root = os.path.join(tmp, "guard26b")
+    os.makedirs(root)
+    ctx = multiprocessing.get_context("spawn")
+    start = time.time() - (time.monotonic() - T_START)
+    procs = [ctx.Process(target=guard_worker,
+                         args=(w, GUARD_WORKERS, root, start))
+             for w in range(GUARD_WORKERS)]
+    for p in procs:
+        p.start()
+    victim, killed_at, kill_step, consensus = 1, None, None, None
+    deadline = time.monotonic() + GUARD_WAIT
+    try:
+        while time.monotonic() < deadline:
+            if any(p.exitcode for p in procs):
+                break
+            beacon = os.path.join(root, "store", "heartbeat", "%d.json"
+                                  % victim)
+            try:
+                with open(beacon) as f:
+                    kill_step = json.load(f).get("step", 0)
+            except (OSError, ValueError):
+                kill_step = 0
+            consensus = ckpt.latest_consensus_step(os.path.join(root, "ck"))
+            if kill_step > GUARD_FLEET_SAVE and consensus is not None:
+                procs[victim].kill()
+                killed_at = time.time()
+                break
+            time.sleep(0.05)
+        while time.monotonic() < deadline and any(
+                p.is_alive() for i, p in enumerate(procs) if i != victim):
+            if any(p.exitcode for i, p in enumerate(procs) if i != victim):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if killed_at is None or codes[victim] != -signal.SIGKILL or any(
+            codes[i] for i in range(GUARD_WORKERS) if i != victim):
+        fail("26b: exit codes %s (worker %d killed: %s)" % (
+            codes, victim, killed_at is not None))
+    survivors = [i for i in range(GUARD_WORKERS) if i != victim]
+    got = {}
+    for w in survivors:
+        with open(os.path.join(root, "guard_worker%d.json" % w)) as f:
+            got[w] = json.load(f)
+    want_step = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 2,
+                 "flash_attn_bwd_dkdv": 2, "layer_norm_fwd": 5,
+                 "layer_norm_bwd": 5}
+    launches = {n: 0 for n in PER_STEP}
+    for w in survivors:
+        s = got[w]
+        detect = min(s["dead_at"]) - killed_at if s["dead_at"] else None
+        print("26b worker %d [%s]: final step %d, generation %d, members "
+              "%s, resumed from %s, detected the kill after %s s, %d runs "
+              "(losses %s), slowest beat gap a step %s s, longest host "
+              "wait %.3f s, %d LayerNorm parameters synced, launches %s, "
+              "counters %s" % (
+                  w, card, s["final_step"], s["generation"], s["members"],
+                  s["resumed_from"], None if detect is None
+                  else "%.3f" % detect, s["runs"],
+                  " ".join("%.4f" % v for v in s["losses"]),
+                  " ".join("%.3f" % g for g in s["beat_gaps"]),
+                  s["max_blocked"], s["sync_vars"], s["launches"],
+                  {k: v for k, v in sorted(s["counters"].items())
+                   if k in ("save", "restore", "shrink", "worker_dead",
+                            "heartbeat_miss", "step", "resume")}),
+              flush=True)
+        if (s["final_step"] != GUARD_FLEET_STEPS or s["members"] !=
+                survivors or s["generation"] < 1 or detect is None
+                or s["counters"].get("restore", 0) < 1
+                or s["max_blocked"] > GUARD_HB["collective_timeout"]
+                or not all(np.isfinite(s["losses"]))
+                or s["launches"] != {n: want_step[n] * s["runs"]
+                                     for n in want_step}):
+            fail("26b: worker %d did not finish the shrunken fleet's run"
+                 % w)
+        for n in launches:
+            launches[n] += s["launches"][n]
+    print("26b: SIGKILL to worker %d at its step %d, consensus step %s "
+          "then; the survivors' launches together %s" % (
+              victim, kill_step, consensus, launches), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def card_line():
     return sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -11991,6 +12403,21 @@ def main():
     mark("phase 3, the kernels against their plain versions")
     errs = check_kernels(ca, cl)
     errs.update(check_bwd_kernels(ca, cl))
+    # every kernel again with each buffer flush against unmapped address
+    # space: a read or write outside a buffer faults here, at its case,
+    # not at random later (the LayerNorm backward once read bfloat16
+    # gamma past its end)
+    import chip_kernel_bounds
+
+    t3 = time.monotonic()
+    n_cases, bad = chip_kernel_bounds.check_all(ca, cl)
+    print("phase 3 bounds: %d cases (chip_kernel_bounds.py), every buffer "
+          "flush against unmapped pages at its end, then at its start: no "
+          "access outside a buffer; %d disagree with the plain version; "
+          "%.1f s" % (n_cases, len(bad), time.monotonic() - t3), flush=True)
+    if bad:
+        fail("phase 3 bounds: %s" % "; ".join(
+            "%s %.3e" % lb for lb in bad[:4]))
 
     mark("phase 4, serving BERT-base")
     rng = np.random.default_rng(SEED)
@@ -12309,6 +12736,18 @@ def main():
         # profiles
         dp_launches, tp_launches, pp_launches = parallel_phases(
             fluid, bert, ca, cl, card, tmp)
+        # phase 26: checkpoints, guarded execution and elastic training;
+        # its saves and restores are timed, so before the profiles
+        t26 = time.monotonic()
+        mark("26a")
+        guard_launches = guard_phase(fluid, bert, ca, cl, card, tmp)
+        t26b = time.monotonic()
+        mark("26b, %d FleetGuard workers" % GUARD_WORKERS)
+        fleet_guard_launches = fleet_guard_phase(card, tmp)
+        print("phase 26 (checkpoints, guarded execution, elastic training: "
+              "26a %.1f s, 26b %.1f s) took %.1f s" % (
+                  t26b - t26, time.monotonic() - t26b,
+                  time.monotonic() - t26), flush=True)
         # profiles last: a torch.profiler session leaves the host slower
         # for the rest of the process, so nothing is timed after one
         t15 = time.monotonic()
@@ -12494,7 +12933,10 @@ def main():
     # launches_tp in 24a's tp run on rank 0 (3 steps on its 6 heads),
     # launches_pp in 25a's gated steps on both stages together (3 steps of
     # 4 microbatches), launches_lsgd in 25b's k = 4 run on rank 0 (8
-    # steps) and launches_moe in 25c on rank 0 (all 0)
+    # steps) and launches_moe in 25c on rank 0 (all 0), launches_guard in
+    # 26a's runs C and R under TrainGuard (the retried run launches
+    # nothing), launches_fleet_guard in 26b's two surviving FleetGuard
+    # workers together
     record = []
     for name, (src, replaces) in sources.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -12528,6 +12970,8 @@ def main():
                      launches_pp=pp_launches["pp"][name],
                      launches_lsgd=pp_launches["lsgd"][name],
                      launches_moe=pp_launches["moe"][name],
+                     launches_guard=guard_launches[name],
+                     launches_fleet_guard=fleet_guard_launches[name],
                      design=design[name])
         # ms, plain_ms, bound_ms, bound_by, library_ms (and library_scope)
         entry.update(times[(name, torch.float32)])

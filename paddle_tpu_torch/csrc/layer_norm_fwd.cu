@@ -62,7 +62,7 @@ __device__ __forceinline__ uint4 ones16<__nv_bfloat16>() {
 // beta[c] as f32, or 0 where beta is absent (null).
 template <typename W>
 __device__ __forceinline__ float beta_at(const W* beta, int c) {
-  return beta ? to_f(__ldg(beta + c)) : 0.f;
+  return beta ? load_f(beta + c) : 0.f;
 }
 
 // A row held in registers: CH chunks per lane of V elements each; chunk j of
@@ -77,7 +77,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ x, uint4 (&xv)[CH
     if constexpr (V > 1)
       xv[j] = c0 < h ? __ldg(reinterpret_cast<const uint4*>(x + c0)) : make_uint4(0, 0, 0, 0);
     else
-      xs[j] = c0 < h ? to_f(__ldg(x + c0)) : 0.f;
+      xs[j] = c0 < h ? load_f(x + c0) : 0.f;
   }
 }
 

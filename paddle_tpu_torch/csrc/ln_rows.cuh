@@ -1,7 +1,8 @@
 // Shared by the two LayerNorm kernel sources (layer_norm_fwd.cu,
 // layer_norm_bwd.cu): the accessors of a row held in registers as 16-byte
-// chunks, gamma where it may be absent, the test of whether the rows can take
-// 16-byte accesses, and the SM count their launches spread the rows over.
+// chunks, the scalar load, gamma where it may be absent, the test of whether
+// the rows can take 16-byte accesses, and the SM count their launches spread
+// the rows over.
 #pragma once
 #include <stdint.h>
 
@@ -36,10 +37,20 @@ __device__ __forceinline__ void set_elem<__nv_bfloat16>(uint4& r, int e, float x
   w = (e & 1) ? ((w & 0x0000ffffu) | (bits << 16)) : ((w & 0xffff0000u) | bits);
 }
 
+// *p as f32, by a plain load: the compiler keeps it under the bounds test
+// around it. Not __ldg: cuda_bf16.h's __ldg(const __nv_bfloat16*) is an asm
+// statement without side effects, which the compiler may hoist above that
+// test, and the LayerNorm backward then read bfloat16 gamma past its end (an
+// illegal address where gamma ended a mapping; chip_kernel_bounds.py).
+template <typename T>
+__device__ __forceinline__ float load_f(const T* p) {
+  return to_f(*p);
+}
+
 // gamma[c] as f32, or 1 where gamma is absent (null).
 template <typename W>
 __device__ __forceinline__ float gamma_at(const W* gamma, int c) {
-  return gamma ? to_f(__ldg(gamma + c)) : 1.f;
+  return gamma ? load_f(gamma + c) : 1.f;
 }
 
 // Rows of h elements of `elem_bytes` each can be read and written with

@@ -97,6 +97,12 @@ class VarType:
     RAW = "raw"
 
 
+class VarDesc:
+    """Holds :class:`VarType`, so Fluid 1.5 scripts that name dtypes as
+    ``fluid.core.VarDesc.VarType.FP32`` run unchanged."""
+    VarType = VarType
+
+
 _TORCH = {
     VarType.BOOL: torch.bool,
     VarType.INT8: torch.int8,

@@ -26,6 +26,8 @@ A program that runs itself — a ``CompiledProgram``, a data-parallel
 ``PipelineOptimizer.minimize`` built runs this rank's stage of the GPipe
 schedule (fluid/pipeline_executor.py).
 """
+import warnings
+
 import numpy as np
 import torch
 
@@ -512,10 +514,19 @@ class Executor:
 
     def close(self):
         """Mark the executor closed (ref executor.py close): a later
-        ``run`` raises. Idempotent. The port holds no compiled
-        executables and writes no asynchronous checkpoints, so there is
-        nothing else to release."""
+        ``run`` raises. Flushes pending ``wait=False`` checkpoint writes
+        (parallel.checkpoint.finalize) so a process exiting right after
+        an async save can't lose it. Idempotent."""
+        if self._closed:
+            return
         self._closed = True
+        from ..parallel import checkpoint as _ckpt
+
+        try:
+            _ckpt.finalize()
+        except Exception as e:  # noqa: BLE001 — closing must not raise
+            warnings.warn("checkpoint finalize on Executor.close failed: "
+                          "%s: %s" % (type(e).__name__, e))
 
     def _next_generator(self, program):
         """A fresh generator per run: seeded from ``program.random_seed``

@@ -54,6 +54,15 @@ def convert_np_dtype_to_dtype_(np_dtype):
     return core.convert_dtype(np_dtype)
 
 
+def dtype_is_floating(dtype):
+    return core.convert_dtype(dtype) in (
+        core.VarType.FP16,
+        core.VarType.BF16,
+        core.VarType.FP32,
+        core.VarType.FP64,
+    )
+
+
 def cpu_places(device_count=None):
     return [core.CPUPlace(i) for i in range(device_count or 1)]
 

@@ -78,18 +78,101 @@ def _scope_payload(var_list, scope):
     return payload
 
 
+def _distributed_of(program):
+    """(the Program, the ``DistributedProgram`` that runs it or None) of
+    a Program, a CompiledProgram or a DistributedProgram."""
+    if hasattr(program, "_state_plan"):
+        return program._program, program
+    program = getattr(program, "_program", program)
+    return program, getattr(program, "_distributed", None)
+
+
 def _global_values(program, scope):
     """(the Program, a scope with the global values): a program run by a
     ``DistributedProgram`` (parallel/sharding.py) that keeps tp-, sp- or
     ZeRO-split state has its blocks gathered into a copy of `scope` (a
     collective: every rank saves)."""
-    if hasattr(program, "_state_plan"):
-        dist, program = program, program._program
-    else:
-        dist = getattr(program, "_distributed", None)
+    program, dist = _distributed_of(program)
     if dist is not None and dist._state_plan()[1]:
         scope = dist.consolidated_scope(scope)
     return program, scope
+
+
+def _persistable_state(program, scope):
+    """(the Program, {name: value} of its persistables with their global
+    values): what the step-managed store saves, for
+    ``save_persistables(use_orbax=True)``, ``resilience.TrainGuard`` and
+    ``parallel.elastic.FleetGuard``. A collective where the program
+    keeps split state (:func:`_global_values`)."""
+    program, scope = _global_values(program, scope)
+    state = {}
+    for v in _collect(program, is_persistable):
+        val = scope.find_value(v.name)
+        if val is not None:
+            state[v.name] = val
+    return program, state
+
+
+def _store_group(program):
+    """The rank group whose ranks share one directory of the step-managed
+    store, or None for a program that one process runs. Every rank of a
+    ``DistributedProgram`` holds the same global values, so rank 0 of
+    its group writes them (:func:`_store_save`) and every rank reads
+    them back (:func:`_agreed_step`); the next run cuts each rank's
+    blocks again. A program whose ranks each keep state of their own
+    (``StackedDpProgram``: LocalSGD, the gradient-sync modes) is
+    refused: one directory holds one copy."""
+    _, dist = _distributed_of(program)
+    mesh = getattr(dist, "_mesh", None)
+    if mesh is None or mesh.group is None:
+        return None
+    if not dist._replicated_state:
+        raise NotImplementedError(
+            "the step-managed checkpoint store over a %s: each of its %d "
+            "ranks keeps state of its own, and a step directory holds one "
+            "copy. Save each rank's with save_persistables(use_orbax="
+            "False) into a directory of its own, or train under "
+            "parallel.elastic.FleetGuard, whose workers each keep their "
+            "own checkpoints" % (type(dist).__name__, mesh.size))
+    return mesh
+
+
+def _store_save(program, scope, dirname, step, **kw):
+    """Save the program's persistables (:func:`_persistable_state`) as
+    step `step` of the store under `dirname`, once for the rank group
+    (:func:`_store_group`: rank 0 writes). Every rank takes part, and
+    every rank meets the ``save`` fault site once. Returns the number of
+    values saved."""
+    from ..parallel.checkpoint import save_checkpoint
+    from .resilience import fault_check
+
+    group = _store_group(program)
+    _, state = _persistable_state(program, scope)
+    if group is None or group.rank == 0:
+        save_checkpoint(dirname, state, step=step, **kw)
+    else:
+        fault_check("save")     # the writer's save_checkpoint checks it
+    return len(state)
+
+
+def _agreed_step(program, step, dirname):
+    """`step` (None: no checkpoint), the step this rank chose in the
+    store under `dirname`, after checking that rank 0 of the program's
+    group (:func:`_store_group`) chose the same one; ranks that see
+    different checkpoints raise before any of them restores."""
+    group = _store_group(program)
+    if group is None:
+        return step
+    mine = -1 if step is None else int(step)
+    first = int(group.broadcast(torch.tensor(
+        [mine], dtype=torch.int64, device=group.device))[0])
+    if first != mine:
+        raise RuntimeError(
+            "rank %d of %s chose checkpoint step %s under %r and rank 0 "
+            "chose %s: the ranks of one program must share one checkpoint "
+            "directory" % (group.rank, group, step, dirname,
+                           None if first < 0 else first))
+    return step
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
@@ -114,20 +197,21 @@ def save_params(executor, dirname, main_program=None, filename=None,
     )
 
 
-def _no_orbax(what):
-    raise NotImplementedError(
-        "%s reads parallel/checkpoint.py (the sharded checkpoint store), "
-        "which the port brings with ROADMAP.md Queue 1 item 8.6; use the "
-        "__persistables__.npz path (use_orbax=False) until then" % what)
-
-
 def save_persistables(executor, dirname, main_program=None, filename=None,
                       use_orbax=False, step=0, scope=None):
     """Write every persistable var (parameters, optimizer moments,
     batch-norm statistics, learning-rate and loss-scaling counters) to
-    ``dirname/__persistables__.npz``."""
+    ``dirname/__persistables__.npz``. With use_orbax=True the write goes
+    to the step-managed store (parallel/checkpoint.py) as step `step`:
+    retention, atomic steps and digest manifests, split state as its
+    global values, written once for a program's rank group into the
+    directory its ranks share (:func:`_store_save`). The name is the JAX
+    package's, whose store is orbax; the port's store is its own."""
     if use_orbax:
-        _no_orbax("save_persistables(use_orbax=True)")
+        _store_save(main_program or default_main_program(),
+                    scope if scope is not None else global_scope(),
+                    dirname, step)
+        return
     save_vars(
         executor, dirname, main_program, predicate=is_persistable,
         filename=filename or "__persistables__.npz", scope=scope,
@@ -163,9 +247,16 @@ def load_params(executor, dirname, main_program=None, filename=None,
 def load_persistables(executor, dirname, main_program=None, filename=None,
                       use_orbax=False, step=None, scope=None):
     """Read ``__persistables__.npz`` into the scope (host arrays; the next
-    run moves them to its device)."""
+    run moves them to its device). With use_orbax=True read step `step`
+    (the newest verified one when None) of the step-managed store,
+    shape-checked against the program's vars."""
     if use_orbax:
-        _no_orbax("load_persistables(use_orbax=True)")
+        from ..parallel.checkpoint import load_checkpoint
+
+        main = main_program or default_main_program()
+        _apply_state(main, load_checkpoint(dirname, step=step),
+                     scope if scope is not None else global_scope())
+        return
     load_vars(
         executor, dirname, main_program, predicate=is_persistable,
         filename=filename or "__persistables__.npz", scope=scope,
@@ -173,9 +264,20 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
 
 
 def load_latest_persistables(executor, dirname, main_program=None):
-    """The crash-resume entry point over the step-managed checkpoint
-    store; raises until that store is ported."""
-    _no_orbax("load_latest_persistables")
+    """Crash-resume entry point over the step-managed store: load the
+    newest complete checkpoint under `dirname` into the scope and
+    return its step number, or return None (loading nothing) when no
+    checkpoint exists yet — so a cold start and a restart are the same
+    call site. ``resilience.TrainGuard`` wires this automatically."""
+    from ..parallel.checkpoint import restore_latest
+
+    program = main_program or default_main_program()
+    found = restore_latest(dirname)
+    if _agreed_step(program, found and found[0], dirname) is None:
+        return None
+    step, state = found
+    _apply_state(program, state, global_scope())
+    return step
 
 
 def save_inference_model(
@@ -284,7 +386,15 @@ def load_program_state(model_path, var_list=None):
 def set_program_state(program, state_dict):
     """ref io.py set_program_state: write a {name: ndarray} dict into the
     global scope for the program's persistable vars (shape-checked)."""
-    scope = global_scope()
+    _apply_state(program, state_dict, global_scope())
+
+
+def _apply_state(program, state_dict, scope):
+    """Write the values of `state_dict` of the program's persistables
+    into the scope that holds each (shape-checked; host values, which
+    the next run moves to its device). Returns how many it wrote."""
+    program, _ = _distributed_of(program)
+    n = 0
     for v in program.list_vars():
         if not v.persistable or v.name not in state_dict:
             continue
@@ -296,7 +406,9 @@ def set_program_state(program, state_dict):
                 "set_program_state: shape mismatch for %r: program says "
                 "%s, state has %s" % (v.name, v.shape, arr.shape)
             )
-        scope.set(v.name, _restored(arr))
+        scope.update(v.name, _restored(arr))
+        n += 1
+    return n
 
 
 def batch(reader, batch_size, drop_last=False):

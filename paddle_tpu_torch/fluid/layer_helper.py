@@ -286,3 +286,10 @@ class LayerHelper:
             attrs=act,
         )
         return tmp
+
+    def is_instance(self, param_name, cls):
+        param = self.kwargs.get(param_name)
+        if not isinstance(param, cls):
+            raise TypeError(
+                "%s of %s must be %s" % (param_name, self.layer_type, cls)
+            )

@@ -9,7 +9,7 @@ introspection half (op registry listing) is real; direct operator
 construction raises with the modern path.
 """
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
-from ..ops.registry import LOWERINGS
+from ..ops.registry import KNOWN_UNSUPPORTED, LOWERINGS
 
 __all__ = ["get_all_op_protos", "Operator", "OperatorFactory",
            "OpDescCreationMethod"]
@@ -54,10 +54,10 @@ class OperatorFactory(object):
     """ref op.py:178 — C++ OperatorBase construction."""
 
     def types(self):
-        return sorted(LOWERINGS)
+        return sorted(set(LOWERINGS) | set(KNOWN_UNSUPPORTED))
 
     def get_op_info(self, t):
-        if t not in LOWERINGS:
+        if t not in LOWERINGS and t not in KNOWN_UNSUPPORTED:
             raise ValueError("Operator %r has not been registered" % t)
         return _OpProto(t)
 

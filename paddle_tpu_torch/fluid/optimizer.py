@@ -205,6 +205,11 @@ class Optimizer:
         )
         return optimize_ops, params_grads
 
+    def load(self, state_dict):
+        """A no-op, as in the JAX package: the executor's scope holds the
+        accumulators' values, and ``fluid.io.load`` restores them."""
+
+
 class SGDOptimizer(Optimizer):
     """ref optimizer.py:696"""
 

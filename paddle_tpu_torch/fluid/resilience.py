@@ -1,11 +1,21 @@
-"""Fault injection for the serving fleet (port of the fault-injection half
-of paddle_tpu/fluid/resilience.py).
+"""Resilient training runtime: fault injection, guarded execution,
+auto-checkpoint/resume (port of paddle_tpu/fluid/resilience.py).
 
 - **FaultInjector** — deterministic, env-driven fault injection
   (``PADDLE_TPU_FAULT_SPEC``) at named runtime sites, so every recovery
-  path of the fleet is testable without flaky sleeps or monkeypatching.
-- **EventLog** — the bounded structured event log the heartbeat monitor
-  emits into, routed through :mod:`paddle_tpu_torch.observability`.
+  path is testable without flaky sleeps or monkeypatching.
+- **GuardedExecutor / run_guarded()** — ``Executor.run`` plus bounded
+  retry with exponential backoff + deterministic jitter for transient
+  errors, an optional wall-clock watchdog per run, and a non-finite
+  fetch guard that skips NaN/Inf steps (cooperating with AMP dynamic
+  loss scaling, whose skip-gate already made the update a no-op) and
+  raises after N consecutive bad steps.
+- **TrainGuard** — a loop driver wiring periodic auto-checkpointing
+  (parallel/checkpoint.py) with crash-resume from ``latest_step``,
+  py_reader feeder-thread restart, epoch rollover on EOF, and a
+  structured event log (step/retry/skip/save/restore/reader_restart).
+- **EventLog** — the bounded structured event log, routed through
+  :mod:`paddle_tpu_torch.observability`.
 
 Fault spec grammar (clauses joined by ``;`` or ``,``), the JAX package's::
 
@@ -18,8 +28,9 @@ Fault spec grammar (clauses joined by ``;`` or ``,``), the JAX package's::
               | "load" | "wire" | "mailbox"
     trigger  := "every=" N | "at=" N      (N counts checks at that site,
                                            1-based)
-    action   := exception class name (builtins), "nan" (site "fetch"
-                only), "slow" (sleep PADDLE_TPU_FAULT_SLOW_S seconds,
+    action   := exception class name (builtins or "EOFException"),
+                "nan" (site "fetch" only: corrupt the first fetched
+                float into NaN), "slow" (sleep PADDLE_TPU_FAULT_SLOW_S seconds,
                 default 0.25), "slow=" SECONDS (per-clause duration), or
                 "corrupt=" MODE ("bitflip" | "truncate" | "torn", sites
                 "save" | "load" | "wire" | "mailbox" only)
@@ -33,9 +44,12 @@ router's per-attempt dispatch and in the decode engine's step,
 ``wire`` in the KV handoff encoder (``serving/disagg/kv_wire.py``),
 ``mailbox`` in the FileStore writer, ``collective`` in the collective
 op lowerings (``ops/collective_ops.py``) and each gradient sync's
-dispatch (``parallel/comms/grad_sync.py``), and ``barrier`` in the
-``barrier`` op and ``Fleet.barrier_worker``. ``save`` and ``fetch``
-parse but fire nowhere yet (they come with guarded training, item 11).
+dispatch (``parallel/comms/grad_sync.py``) and the elastic store
+all-reduce, ``barrier`` in the ``barrier`` op, ``Fleet.barrier_worker``
+and the elastic rendezvous, ``save`` in
+``parallel.checkpoint.save_checkpoint`` (before anything touches disk;
+its ``corrupt=`` arm in the digest manifest's write, ``load`` in its
+read) and ``fetch`` in ``GuardedExecutor.run``.
 
 Collective deadlines, as the JAX package has them:
 ``collective_deadline(seconds)`` arms a wall-clock deadline on this
@@ -46,27 +60,31 @@ no new collective is issued after a peer is presumed lost.
 With the env var unset and no injector installed, the hooks are inert
 (one dict lookup per site check).
 
-Not ported yet, each raising ``NotImplementedError`` that names ROADMAP.md
-Queue 1 item 11: ``GuardedExecutor``, ``TrainGuard`` and ``run_guarded``
-(guarded training: retry, watchdog, non-finite skip, auto-checkpoint).
-The typed step errors come with them.
+Run health (``TrainGuard(runhealth=)``, the goodput notes), the compile
+cache (``TrainGuard(compile_cache=)``) and the static analyzer behind a
+retry's diagnosis wait for ROADMAP.md Queue 1 item 11.
 """
 import collections
 import os
+import random
 import re
 import threading
 import time
 
 import numpy as np
+import torch
 
+from . import core
+from .lowering import OpLoweringError
 from .. import observability as obs
 
 __all__ = [
     "FaultInjector", "FaultSpecError", "GuardedExecutor", "TrainGuard",
-    "EventLog", "fault_check", "run_guarded", "fault_corrupt",
-    "fault_corrupt_mode", "corrupt_bytes", "corrupt_array",
+    "EventLog", "StepReport", "StepTimeoutError", "NonFiniteError",
     "CollectiveTimeoutError", "collective_deadline", "collective_check",
-    "deadline_remaining",
+    "deadline_remaining", "fault_check", "fault_nonfinite", "run_guarded",
+    "fault_corrupt", "fault_corrupt_mode", "corrupt_bytes",
+    "corrupt_array",
 ]
 
 FAULT_SPEC_ENV = "PADDLE_TPU_FAULT_SPEC"
@@ -76,11 +94,22 @@ class FaultSpecError(ValueError):
     """Malformed PADDLE_TPU_FAULT_SPEC."""
 
 
+class StepTimeoutError(RuntimeError):
+    """A guarded run exceeded its wall-clock budget. Not retried by
+    default: the abandoned run may still be writing the scope's
+    tensors, so a blind re-run could race it — surface to the driver
+    instead."""
+
+
+class NonFiniteError(FloatingPointError):
+    """Raised after N consecutive non-finite (NaN/Inf) guarded steps."""
+
+
 class CollectiveTimeoutError(RuntimeError):
     """A collective/barrier path exceeded its deadline. Never retried
     blindly: the peer that missed the rendezvous may be dead, and
-    re-entering the same collective would hang again — the caller must
-    first re-establish fleet membership."""
+    re-entering the same collective would hang again — the caller
+    (FleetGuard) must first re-establish fleet membership."""
 
 
 # ---------------------------------------------------------------------------
@@ -200,13 +229,14 @@ class _Clause:
 def _resolve_exception(name):
     import builtins
 
+    if name == "EOFException":
+        return core.EOFException
     exc = getattr(builtins, name, None)
     if isinstance(exc, type) and issubclass(exc, BaseException):
         return exc
     raise FaultSpecError(
         "unknown fault action %r (want a builtin exception name, "
-        "'slow', or 'nan' for the fetch site; the reader's "
-        "EOFException comes with ROADMAP.md Queue 1 item 11)" % name
+        "'EOFException', 'slow', or 'nan' for the fetch site)" % name
     )
 
 
@@ -387,12 +417,19 @@ class FaultInjector:
 
 
 def fault_check(site):
-    """Hook called from instrumented sites (the router's dispatch, a
-    replica's admission, the beacon writer, the decode step). No-op
-    unless an injector is active."""
+    """Hook called from instrumented sites (Executor.run, py_reader
+    _next_feed, checkpoint save, the router's dispatch, the beacon
+    writer). No-op unless an injector is active."""
     inj = FaultInjector.active()
     if inj is not None:
         inj.check(site)
+
+
+def fault_nonfinite(site="fetch"):
+    """True when a 'nan' clause fires at `site` (GuardedExecutor uses
+    this to corrupt a fetched loss, testing the non-finite guard)."""
+    inj = FaultInjector.active()
+    return bool(inj is not None and inj.check(site))
 
 
 def fault_corrupt_mode(site):
@@ -530,11 +567,22 @@ class EventLog:
 # ---------------------------------------------------------------------------
 
 
+class StepReport(list):
+    """The fetch list returned by a guarded run, with step metadata.
+    Subclasses list so existing unpack-the-fetches call sites keep
+    working: ``loss, = guarded.run(...)``."""
+
+    skipped = False      # non-finite step, update assumed skipped/ignored
+    managed = False      # AMP dynamic loss scaling owned the skip
+    retries = 0          # transient failures retried away for this step
+    nonfinite = False
 
 
-# ---------------------------------------------------------------------------
-# guarded execution (ROADMAP.md Queue 1 item 11)
-# ---------------------------------------------------------------------------
+def _default_transients():
+    # OSError covers ConnectionError/TimeoutError; RuntimeError is what
+    # torch and CUDA raise for runtime-side failures. OpLoweringError (a
+    # RuntimeError subclass) is a *graph* error and is never retried.
+    return (RuntimeError, OSError)
 
 
 def _later(what):
@@ -544,20 +592,514 @@ def _later(what):
 
 
 class GuardedExecutor:
-    """``Executor.run`` with retry, watchdog and a non-finite guard — not
-    ported yet (ROADMAP.md Queue 1 item 11)."""
+    """``Executor.run`` with bounded retry, a wall-clock watchdog, and a
+    non-finite fetch guard. Drop-in: ``run()`` takes the Executor.run
+    signature and returns the fetch list (a :class:`StepReport`).
 
-    def __init__(self, *args, **kwargs):
-        raise _later("GuardedExecutor")
+    - Transient errors (`transient_types`, default RuntimeError+OSError)
+      are retried up to `max_retries` times with exponential backoff
+      (`backoff_base * 2**attempt`, capped at `backoff_max`) plus
+      deterministic jitter. ``core.EOFException``, ``OpLoweringError``
+      and ``StepTimeoutError`` are never retried.
+    - With `timeout` set, each attempt runs under a watchdog thread and
+      raises :class:`StepTimeoutError` at expiry (the dispatch thread is
+      abandoned — daemonized — and the error is not retried).
+    - Fetched float arrays are checked for NaN/Inf. A bad step is
+      counted and *skipped* (``report.skipped``) — cooperating with AMP
+      dynamic loss scaling, whose in-graph skip gate already kept the
+      params/optimizer state untouched — until
+      `max_consecutive_nonfinite` consecutive bad steps, which raise
+      :class:`NonFiniteError`. Pass ``nonfinite_action="raise"`` to
+      fail on the first bad step instead.
+    """
+
+    NEVER_RETRY = (core.EOFException, core.ReaderNotStartedError,
+                   OpLoweringError, StepTimeoutError, FaultSpecError,
+                   CollectiveTimeoutError)
+
+    def __init__(self, executor, max_retries=3, backoff_base=0.05,
+                 backoff_max=2.0, jitter=0.25, timeout=None,
+                 nonfinite_action="skip", max_consecutive_nonfinite=5,
+                 transient_types=None, amp_optimizer=None, on_event=None,
+                 seed=0, recorder=None):
+        if nonfinite_action not in ("skip", "raise"):
+            raise ValueError(
+                "nonfinite_action must be 'skip' or 'raise', got %r"
+                % (nonfinite_action,))
+        self._exe = executor
+        self._recorder = recorder
+        self.max_retries = int(max_retries)
+        self.backoff_base = float(backoff_base)
+        self.backoff_max = float(backoff_max)
+        self.jitter = float(jitter)
+        self.timeout = timeout
+        self.nonfinite_action = nonfinite_action
+        self.max_consecutive_nonfinite = int(max_consecutive_nonfinite)
+        self.transient_types = tuple(
+            transient_types if transient_types is not None
+            else _default_transients())
+        self.amp_optimizer = amp_optimizer
+        self.counters = collections.Counter()
+        self._on_event = on_event
+        self._consecutive_nonfinite = 0
+        self._rng = random.Random(seed)
+
+    # -- events ----------------------------------------------------------
+    def _emit(self, kind, **fields):
+        self.counters[kind] += 1
+        # hub routing happens HERE, at the origin; relays into a
+        # TrainGuard/FleetGuard EventLog re-emit with _forward=False
+        obs.event(kind, source="guard", recorder=self._recorder,
+                  **fields)
+        if self._on_event is not None:
+            self._on_event(dict(kind=kind, **fields))
+
+    # -- pieces ----------------------------------------------------------
+    def _backoff(self, attempt):
+        delay = min(self.backoff_max,
+                    self.backoff_base * (2.0 ** (attempt - 1)))
+        return delay * (1.0 + self.jitter * self._rng.random())
+
+    def _invoke(self, args, kwargs):
+        if not self.timeout:
+            return self._exe.run(*args, **kwargs)
+        box = {}
+        done = threading.Event()
+
+        def _worker():
+            try:
+                box["result"] = self._exe.run(*args, **kwargs)
+            except BaseException as e:  # relayed to the caller below
+                box["error"] = e
+            finally:
+                done.set()
+
+        t = threading.Thread(
+            target=_worker, daemon=True, name="paddle_tpu-guarded-run")
+        t.start()
+        if not done.wait(self.timeout):
+            self._emit("timeout", timeout=self.timeout)
+            raise StepTimeoutError(
+                "Executor.run exceeded %.3fs wall-clock budget (the "
+                "dispatch thread was abandoned and may still be writing "
+                "the scope's tensors and launching work on the card's "
+                "stream — restore from the last checkpoint before "
+                "re-running)" % self.timeout
+            )
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _analyze_failure(self, program, feed, fetch_list):
+        """Extra fields for the retry event: none — the static analyzer
+        that diagnoses a failed step waits for ROADMAP.md Queue 1 item
+        11 (the JAX package's returns {} too with its analyzer off)."""
+        return {}
+
+    def _amp_managed(self):
+        opt = self.amp_optimizer
+        return bool(opt is not None
+                    and getattr(opt, "get_finite_flag", None)
+                    and opt.get_finite_flag() is not None)
+
+    @staticmethod
+    def _nonfinite(fetches):
+        for v in fetches:
+            if isinstance(v, torch.Tensor):
+                # a tensor fetch (return_numpy=False): reduce where it
+                # lives and transfer ONE flag, not the whole fetch
+                if torch.is_floating_point(v) and \
+                        not bool(torch.isfinite(v).all()):
+                    return True
+                continue
+            arr = np.asarray(v)
+            if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                return True
+        return False
+
+    @staticmethod
+    def _nan_like(v):
+        if isinstance(v, torch.Tensor):
+            return torch.full_like(
+                v, float("nan"),
+                dtype=v.dtype if torch.is_floating_point(v)
+                else torch.float32)
+        first = np.asarray(v)
+        return np.full(
+            first.shape, np.nan,
+            dtype=first.dtype if first.dtype.kind == "f" else "float32")
+
+    # -- the guarded run -------------------------------------------------
+    def run(self, program=None, feed=None, fetch_list=None,
+            return_numpy=True, **kwargs):
+        """Executor.run under the guard. ``return_numpy=False`` passes
+        through: the StepReport then holds the fetched tensors (no
+        per-step host copy) and the non-finite guard reduces them where
+        they live."""
+        attempt = 0
+        while True:
+            try:
+                fetches = self._invoke(
+                    (program,), dict(feed=feed, fetch_list=fetch_list,
+                                     return_numpy=return_numpy,
+                                     **kwargs))
+                break
+            except self.NEVER_RETRY:
+                raise
+            except self.transient_types as e:
+                attempt += 1
+                if attempt > self.max_retries:
+                    raise
+                delay = self._backoff(attempt)
+                extra = {}
+                if attempt == 1:
+                    extra = self._analyze_failure(program, feed,
+                                                  fetch_list)
+                self._emit("retry", attempt=attempt, delay=delay,
+                           error="%s: %s" % (type(e).__name__, e),
+                           **extra)
+                # the goodput note of the backoff waits for run health
+                # (ROADMAP.md Queue 1 item 11)
+                time.sleep(delay)
+
+        report = StepReport(fetches if fetches is not None else [])
+        report.retries = attempt
+        if fault_nonfinite("fetch") and len(report):
+            # injected NaN loss: corrupt the first fetch so the guard
+            # below exercises the real skip path end-to-end
+            report[0] = self._nan_like(report[0])
+        if self._nonfinite(report):
+            report.nonfinite = True
+            self._consecutive_nonfinite += 1
+            bad = self._consecutive_nonfinite
+            if (self.nonfinite_action == "raise"
+                    or bad >= self.max_consecutive_nonfinite):
+                raise NonFiniteError(
+                    "non-finite fetch on %d consecutive step(s) "
+                    "(threshold %d) — the run has diverged"
+                    % (bad, self.max_consecutive_nonfinite)
+                )
+            report.skipped = True
+            report.managed = self._amp_managed()
+            self._emit("skip", consecutive=bad, managed=report.managed)
+        else:
+            self._consecutive_nonfinite = 0
+        if self.amp_optimizer is not None:
+            # loss-scale telemetry at the origin: one gauge read per
+            # step, plus the skipped-steps counter when AMP's in-graph
+            # gate owned this skip
+            publish = getattr(self.amp_optimizer,
+                              "publish_step_telemetry", None)
+            if publish is not None:
+                try:
+                    publish(scope=kwargs.get("scope"),
+                            skipped=report.skipped and report.managed)
+                except Exception:  # noqa: BLE001 — telemetry only
+                    pass
+        return report
+
+    def reset_nonfinite_streak(self):
+        """Forget consecutive non-finite history (call after restoring
+        state from a checkpoint — the streak belonged to the rolled-back
+        trajectory)."""
+        self._consecutive_nonfinite = 0
+
+
+def run_guarded(executor, program=None, feed=None, fetch_list=None,
+                scope=None, **guard_opts):
+    """One-shot convenience: ``GuardedExecutor(executor, **opts).run(...)``."""
+    guard = GuardedExecutor(executor, **guard_opts)
+    kwargs = {} if scope is None else {"scope": scope}
+    return guard.run(program, feed=feed, fetch_list=fetch_list, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the loop driver
+# ---------------------------------------------------------------------------
+
+
+def _all_finite(value):
+    if isinstance(value, torch.Tensor):
+        return (not torch.is_floating_point(value)
+                or bool(torch.isfinite(value).all()))
+    a = np.asarray(value)
+    return a.dtype.kind != "f" or bool(np.isfinite(a).all())
 
 
 class TrainGuard:
-    """The auto-checkpointing training loop driver — not ported yet
-    (ROADMAP.md Queue 1 item 11)."""
+    """Fault-tolerant training loop: guarded steps + periodic
+    auto-checkpointing + crash-resume + reader restart.
 
-    def __init__(self, *args, **kwargs):
-        raise _later("TrainGuard")
+    ::
 
+        guard = TrainGuard(exe, program=prog, ckpt_dir=dirname,
+                           fetch_list=[loss], feed_fn=make_feed,
+                           save_every=50)
+        summary = guard.train(num_steps=1000)
 
-def run_guarded(*args, **kwargs):
-    raise _later("run_guarded")
+    Steps are 1-based; checkpoint step K means "step K completed". On
+    ``train()``, if `ckpt_dir` holds checkpoints (a previous run
+    crashed), state is restored from ``latest_step`` and training
+    resumes at the next step — completed steps are not re-run. Batches
+    come from `feed_fn(step)` or, when None, from a started py_reader
+    attached to the program (pass the reader objects via `readers` so
+    dead feeder threads can be restarted and EOF rolls the epoch over).
+
+    The executor's run count seeds each step's random draws, as in the
+    JAX package: a resume on the same executor has counted the steps it
+    replays, so at dropout > 0 the resumed steps draw other masks than
+    an uninterrupted run would (ROADMAP.md Queue 3).
+
+    The event log records ``restore``/``step``/``retry``/``skip``/
+    ``save``/``eof``/``reader_restart``/``final`` events with bounded
+    memory; ``summary["counters"]`` aggregates them. ``runhealth=`` and
+    ``compile_cache=`` wait for ROADMAP.md Queue 1 item 11.
+    """
+
+    def __init__(self, executor, program=None, ckpt_dir=None,
+                 fetch_list=None, feed_fn=None, readers=None,
+                 save_every=0, final_save=True, resume=True, scope=None,
+                 reader_restarts=2, restart_on_eof=True, max_to_keep=None,
+                 save_wait=True, on_event=None, log_maxlen=10000,
+                 recorder=None, compile_cache=False, stage_to_device=False,
+                 runhealth=None, lr_var=None, **guard_opts):
+        if compile_cache:
+            raise _later("TrainGuard(compile_cache=) (the persistent "
+                         "compile cache)")
+        if runhealth is not None:
+            raise _later("TrainGuard(runhealth=) (the run-health "
+                         "observatory)")
+        self._exe = executor
+        self._program = program
+        self._ckpt_dir = ckpt_dir
+        self._stage_to_device = bool(stage_to_device)
+        self._fetch_list = fetch_list
+        self._feed_fn = feed_fn
+        self._readers = list(readers or [])
+        self._save_every = int(save_every)
+        self._final_save = final_save
+        self._resume = resume
+        self._scope = scope
+        self._reader_restarts = int(reader_restarts)
+        self._restart_on_eof = restart_on_eof
+        self._max_to_keep = max_to_keep
+        self._save_wait = save_wait
+        # lr_var names the learning-rate Variable (or its name) that
+        # rollback_to_last_finite's lr-cut scales in the scope
+        self._lr_var = lr_var
+        self.log = EventLog(maxlen=log_maxlen, sink=on_event,
+                            recorder=recorder, source="resilience")
+        self.guard = GuardedExecutor(
+            executor, on_event=self._relay, recorder=recorder,
+            **guard_opts)
+
+    def _relay(self, ev):
+        # already hub-routed by GuardedExecutor._emit at the origin
+        self.log.emit(ev.pop("kind"), _forward=False, **ev)
+
+    # -- checkpoint plumbing --------------------------------------------
+    def _resolve(self):
+        from .executor import global_scope
+        from .framework import default_main_program
+
+        program = self._program if self._program is not None \
+            else default_main_program()
+        scope = self._scope if self._scope is not None else global_scope()
+        return program, scope
+
+    def _maybe_resume(self, program, scope):
+        """Restore from the newest checkpoint; returns the last
+        completed step (0 when starting fresh)."""
+        if not (self._resume and self._ckpt_dir):
+            return 0
+        from ..parallel import checkpoint as ckpt
+        from .io import _agreed_step, _apply_state
+
+        step = _agreed_step(program, ckpt.latest_step(self._ckpt_dir),
+                            self._ckpt_dir)
+        if step is None:
+            return 0
+        t0 = time.monotonic()
+        state = ckpt.load_checkpoint(self._ckpt_dir, step=step)
+        restored = _apply_state(program, state, scope)
+        self.log.emit("restore", step=step, vars=restored,
+                      dirname=self._ckpt_dir,
+                      seconds=round(time.monotonic() - t0, 6))
+        # warm-start invalidation: batches staged before the restore
+        # belong to the pre-crash stream position — restart started
+        # readers so nothing stale is consumed. Its own event kind, so
+        # it never burns the reader_restarts failure budget.
+        started = [r for r in self._readers
+                   if getattr(r, "_started", False)]
+        if started:
+            for r in started:
+                r.restart()
+            self.log.emit("staging_invalidate", step=step,
+                          reason="resume", readers=len(started))
+        return int(step)
+
+    def save(self, step, program=None, scope=None):
+        """Checkpoint the program's persistable state as `step`."""
+        if program is None or scope is None:
+            rprogram, rscope = self._resolve()
+            program = program or rprogram
+            scope = scope or rscope
+        from .io import _store_save
+
+        t0 = time.monotonic()
+        n = _store_save(program, scope, self._ckpt_dir, int(step),
+                        max_to_keep=self._max_to_keep,
+                        wait=self._save_wait)
+        dt = time.monotonic() - t0
+        # the checkpoint goodput note waits for run health (item 11)
+        self.log.emit("save", step=int(step), vars=n,
+                      seconds=round(dt, 6))
+
+    def _restart_readers(self, step, reason):
+        for r in self._readers:
+            r.reset()
+            r.start()
+        self.log.emit("reader_restart", step=step, reason=reason,
+                      readers=len(self._readers))
+
+    # -- the loop --------------------------------------------------------
+    def train(self, num_steps):
+        """Run steps until `num_steps` have completed (counting steps
+        finished by a previous crashed run). Returns a summary dict."""
+        program, scope = self._resolve()
+        if self._stage_to_device:
+            # overlap host→device batch transfer with device compute
+            # (layers/io.py device staging; generation-bound, so the
+            # reader restarts below also invalidate staged batches)
+            for r in self._readers:
+                stage = getattr(r, "prefetch_to_device", None)
+                if stage is not None:
+                    stage(self._exe.place)
+        return self._train_loop(num_steps, program, scope)
+
+    def _train_loop(self, num_steps, program, scope):
+        fetch_list = self._fetch_list
+        start = self._maybe_resume(program, scope)
+        completed = start
+        last_saved = start if start else None
+        last_eof_step = None
+        step = start + 1
+        while step <= num_steps:
+            feed = self._feed_fn(step) if self._feed_fn else None
+            try:
+                report = self.guard.run(
+                    program, feed=feed, fetch_list=fetch_list,
+                    scope=scope)
+            except core.EOFException:
+                self.log.emit("eof", step=step)
+                if not (self._readers and self._restart_on_eof):
+                    raise
+                if last_eof_step == step:
+                    # two EOFs with no step in between: the reader
+                    # yields nothing — restarting forever won't help
+                    raise
+                last_eof_step = step
+                self._restart_readers(step, "eof")
+                continue
+            except (Exception,) as e:
+                if (self._readers
+                        and self.log.counters["reader_restart"]
+                        < self._reader_restarts
+                        and not isinstance(e, NonFiniteError)):
+                    # a dead feeder thread surfaces as the producer's
+                    # exception (once) or a missing-feed lowering error
+                    # on the next pop — a reset()+start() rebuilds the
+                    # thread and retries this step on a fresh epoch
+                    self._restart_readers(
+                        step, "%s: %s" % (type(e).__name__, e))
+                    continue
+                raise
+            completed = step
+            self.log.emit("step", step=step, skipped=report.skipped,
+                          retries=report.retries)
+            if (self._ckpt_dir and self._save_every
+                    and step % self._save_every == 0):
+                self.save(step, program, scope)
+                last_saved = step
+            step += 1
+        if (self._ckpt_dir and self._final_save and completed > start
+                and last_saved != completed):
+            self.save(completed, program, scope)
+            last_saved = completed
+        self.log.emit("final", step=completed)
+        return {
+            "resumed_from": start if start else None,
+            "first_step": start + 1,
+            "final_step": completed,
+            "steps_run": completed - start,
+            "last_saved": last_saved,
+            "counters": dict(self.log.counters),
+            "events": list(self.log.events),
+        }
+
+    # -- divergence remediation -----------------------------------------
+    def rollback_to_last_finite(self, lr_scale=None, program=None,
+                                scope=None):
+        """Restore the newest checkpoint whose float state is entirely
+        finite (walking past any NaN-poisoned saves), optionally scale
+        the learning-rate variable by ``lr_scale``, and reset the
+        non-finite streak so the restored trajectory re-baselines.
+
+        Returns ``{"step", "vars", "skipped_steps", "lr", "lr_scale"}``
+        on success, None when no finite checkpoint exists (or there is
+        no ckpt_dir). The var restore is the same scope.update walk as
+        crash-resume, so the restored state is bit-identical to a clean
+        ``load_checkpoint`` resume from that step."""
+        if not self._ckpt_dir:
+            return None
+        from ..parallel import checkpoint as ckpt
+        from .executor import to_numpy
+        from .io import _agreed_step, _apply_state
+
+        if program is None or scope is None:
+            rprogram, rscope = self._resolve()
+            program = program or rprogram
+            scope = scope or rscope
+        t0 = time.monotonic()
+        state = None
+        chosen = None
+        skipped = []
+        for step in ckpt.all_steps(self._ckpt_dir):
+            try:
+                cand = ckpt.load_checkpoint(self._ckpt_dir, step=step)
+            except Exception:  # torn/corrupt save: keep walking back
+                skipped.append(int(step))
+                continue
+            if all(_all_finite(a) for a in cand.values()):
+                state, chosen = cand, int(step)
+                break
+            skipped.append(int(step))
+        if _agreed_step(program, chosen, self._ckpt_dir) is None:
+            self.log.emit("rollback_failed", reason="no finite checkpoint",
+                          skipped_steps=skipped)
+            return None
+        restored = _apply_state(program, state, scope)
+        out = {"step": chosen, "vars": restored,
+               "skipped_steps": skipped, "lr": None,
+               "lr_scale": lr_scale}
+        if lr_scale is not None and self._lr_var is not None:
+            name = getattr(self._lr_var, "name", self._lr_var)
+            raw = scope.find_value(name)
+            if raw is not None:
+                raw = to_numpy(raw) if isinstance(raw, torch.Tensor) \
+                    else np.asarray(raw)
+                cut = raw.astype("float32") * float(lr_scale)
+                scope.update(name, cut)
+                out["lr"] = float(cut.reshape(-1)[0])
+        # staged batches + failure streaks belong to the abandoned
+        # trajectory
+        started = [r for r in self._readers
+                   if getattr(r, "_started", False)]
+        for r in started:
+            r.restart()
+        self.guard.reset_nonfinite_streak()
+        self.log.emit("rollback", step=chosen, vars=restored,
+                      skipped_steps=skipped, lr_scale=lr_scale,
+                      lr=out["lr"], readers=len(started),
+                      seconds=round(time.monotonic() - t0, 6))
+        return out

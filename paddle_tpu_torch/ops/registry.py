@@ -52,14 +52,64 @@ def register_layout_rule(*op_types, active=False):
     return deco
 
 
+# Known-unsupported op manifest (the JAX package's, with its keys):
+# reference op types with NO lowering BY DESIGN, each with the
+# alternative a porting user should reach for. Anything not here and not
+# registered is an accidental gap — the error text tells the two apart.
+KNOWN_UNSUPPORTED = {
+    # pserver / async-distributed machinery -> sharding + collectives
+    "send": "pserver RPC: gradients ride torch.distributed collectives "
+            "inside the step (fleet collective mode)",
+    "recv": "pserver RPC: see 'send'",
+    "fetch_barrier": "pserver sync barrier: the ranks' steps are "
+                     "synchronous",
+    "send_barrier": "pserver sync barrier: the ranks' steps are "
+                    "synchronous",
+    "listen_and_serv": "pserver main loop: no parameter servers on the "
+                       "card; use fleet collective mode",
+    "ref_by_trainer_id": "pserver sharding detail; use mesh sharding",
+    "distributed_lookup_table": "vocab-sharded embedding over the mesh "
+                                "(parallel/tensor_parallel.py) replaces "
+                                "the pserver-sharded table",
+    "nccl_init": "NCCL context: mesh.init_group makes the "
+                 "torch.distributed groups",
+    "gen_nccl_id": "NCCL context: mesh.init_group makes the "
+                   "torch.distributed groups",
+    # GPU-runtime specifics of the reference
+    "cudnn_lstm": "use layers.lstm / the cell API",
+    "fused_embedding_fc_lstm": "compose embedding + fc + lstm",
+    "tensorrt_engine": "TensorRT subgraph: the Predictor runs the whole "
+                       "program on the card instead",
+    "anakin_engine": "Anakin subgraph: see 'tensorrt_engine'",
+    # mkldnn / x86 quantization runtime
+    "dequantize_mkldnn": "int8 runs via quantized_mul/quantized_conv2d",
+    "quantize_mkldnn": "int8 runs via quantized_mul/quantized_conv2d",
+    # reader ops: the data path is DataLoader/dataset + the native ring
+    "create_py_reader": "use fluid.DataLoader.from_generator",
+    "read": "use fluid.DataLoader / dataset trainer path",
+    "open_files": "use fluid.dataset (QueueDataset/InMemoryDataset)",
+}
+
+
 def get_lowering(op_type):
     fn = LOWERINGS.get(op_type)
     if fn is None:
+        if op_type in KNOWN_UNSUPPORTED:
+            raise NotImplementedError(
+                "op '%s' is intentionally unsupported on the card: %s"
+                % (op_type, KNOWN_UNSUPPORTED[op_type])
+            )
+        import difflib
+
+        close = difflib.get_close_matches(
+            op_type, list(LOWERINGS), n=3, cutoff=0.6)
+        hint = ("; nearest supported: %s" % ", ".join(close)) if close \
+            else ""
         raise NotImplementedError(
-            "op '%s' has no torch lowering yet: paddle_tpu_torch ports "
-            "paddle_tpu slice by slice and this slice covers %d ops (%s); "
-            "see ROADMAP.md for the slice that brings it"
-            % (op_type, len(LOWERINGS), ", ".join(sorted(LOWERINGS)))
+            "no torch lowering registered for op '%s' (registered: %d "
+            "ops%s). If the reference supports this op, this is a "
+            "coverage gap — please report it."
+            % (op_type, len(LOWERINGS), hint)
         )
     return fn
 

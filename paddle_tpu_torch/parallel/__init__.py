@@ -26,13 +26,17 @@ paddle_tpu/parallel) on torch.distributed, one process per rank:
   ``DistributedStrategy``, the role makers);
 - :mod:`.comms` — the gradient-communication subsystem: the block codec,
   the quantized two-shot allreduce, bucketing and ``GradSyncProgram``;
+- :mod:`.checkpoint` — step-managed checkpoints: atomic steps,
+  retention, background saves, digest manifests and the consensus
+  markers of an elastic fleet;
 - :mod:`.elastic` — heartbeat stores (:class:`InMemoryStore`,
-  :class:`FileStore`) and the :class:`HeartbeatMonitor` the serving
-  routers classify replicas with.
+  :class:`FileStore`), the :class:`HeartbeatMonitor` the serving
+  routers classify replicas with, and :class:`FleetGuard`, the elastic
+  training driver (guarded steps, store all-reduce over the live
+  members, consensus checkpoints, shrink-to-survivors).
 
-Checkpointing and ``FleetGuard`` (ROADMAP.md Queue 1 item 8.6), the
-transpilers and launchers (8.7) and the retrieval tables over ``ep``
-(10) wait for their items.
+The transpilers and launchers (ROADMAP.md Queue 1 item 8.7) and the
+retrieval tables over ``ep`` (10) wait for their items.
 """
 from . import mesh  # noqa: F401
 from . import sharding  # noqa: F401
@@ -40,6 +44,7 @@ from . import tensor_parallel  # noqa: F401
 from . import ring_attention  # noqa: F401
 from . import fleet  # noqa: F401
 from . import comms  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import elastic  # noqa: F401
 from . import pipeline  # noqa: F401
 from . import moe  # noqa: F401

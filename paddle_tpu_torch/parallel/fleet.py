@@ -219,7 +219,7 @@ class Fleet:
         self._origin_program = None
         self._distributed_program = None
         self._optimizer = None
-        self._elastic = None  # an elastic guard (item 8.6), if any
+        self._elastic = None  # FleetGuard (parallel/elastic.py), if any
 
     # -- lifecycle -------------------------------------------------------
     def init(self, role_maker=None, is_collective=True):
@@ -260,10 +260,10 @@ class Fleet:
         return ",".join(eps) if to_string else eps
 
     def attach_elastic(self, guard):
-        """Wire an elastic guard in: barriers go through its heartbeat
-        store (real cross-worker rendezvous with deadlines) instead of
-        the group's barrier. The port's FleetGuard comes with ROADMAP.md
-        Queue 1 item 8.6."""
+        """Wire a :class:`parallel.elastic.FleetGuard` in: barriers go
+        through its heartbeat store (real cross-worker rendezvous with
+        deadlines, aborted early when a waited-on peer is confirmed
+        dead) instead of the group's barrier."""
         self._elastic = guard
         return self
 

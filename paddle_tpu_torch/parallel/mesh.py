@@ -449,8 +449,18 @@ def build_mesh(axes=None, ranks=None):
 def shrink_mesh(mesh, survivors=None, dead=None):
     """Shrink-to-survivors rebuild: a new pure-dp group over the subset
     of `mesh`'s ranks named by `survivors` (positions on its dp axis)
-    or, equivalently, everything NOT in `dead`. Every rank of the world
-    calls it (``new_group``). Only data parallelism can absorb lost
+    or, equivalently, everything NOT in `dead`. Every live rank of the
+    world calls it, and a dead rank cannot: ``new_group`` makes the
+    group without a world-wide barrier (torch's default), the members
+    connect through the world's store alone, and the group's name comes
+    from a count of ``new_group`` calls that every live rank keeps alike.
+    (``use_local_synchronization=True`` would name the group by the
+    groups each member holds, which differ after a subgroup over part of
+    the world.) The world's store must outlive the dead rank: a
+    ``FileStore``, or a ``TCPStore`` whose host survives. The survivors
+    keep their global ranks and take new positions in the group; nothing
+    may use the old group again (a gloo collective over it waits for the
+    dead rank until its timeout). Only data parallelism can absorb lost
     ranks — a tp/sp-split tensor has no complete copy on the survivors —
     so meshes with a non-trivial second axis are refused."""
     nontrivial = [n for n in mesh.axis_names
@@ -472,8 +482,14 @@ def shrink_mesh(mesh, survivors=None, dead=None):
         raise ValueError(
             "survivor positions %s out of range for a %d-rank mesh"
             % (bad, len(ranks)))
-    return build_mesh({"dp": len(survivors)},
-                      ranks=[ranks[i] for i in survivors])
+    ranks = [ranks[i] for i in survivors]
+    w = world()
+    me = ranks.index(w.rank) if w.rank in ranks else None
+    group = None
+    if w.group is not None and len(ranks) > 1:
+        group = w.group if ranks == list(w.ranks) else dist.new_group(ranks)
+    return RankGroup(ranks, me, group, w.backend, w.device,
+                     {"dp": len(ranks)})
 
 
 def set_default_mesh(mesh):

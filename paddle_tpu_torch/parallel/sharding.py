@@ -632,8 +632,41 @@ class StackedDpProgram(DistributedProgram):
             if isinstance(v, torch.Tensor):
                 scope.update(name, self._collapse(v))
 
+    # -- elastic shrink ---------------------------------------------------
     def shrink_dp(self, scope, surviving_shards, new_mesh=None):
-        raise NotImplementedError(
-            "%s.shrink_dp: shrinking the rank group to the survivors of "
-            "a lost rank comes with the elastic FleetGuard, ROADMAP.md "
-            "Queue 1 item 8.6" % self._mode_name)
+        """Shrink-to-survivors (parallel/elastic.py): rebuild the rank
+        group over the surviving dp positions (``mesh.shrink_mesh``,
+        which the dead rank never calls), so the next step's collectives
+        reduce over the NEW group — the averaging denominator is
+        rescaled from the old world to the survivor count instead of
+        waiting on, or averaging in, the dead rank. Returns the new
+        group. Both checks run before anything changes.
+
+        The JAX package drops the dead workers' rows from its stacked
+        state; here each rank holds only its own copy, so `scope` keeps
+        its values."""
+        old_ndp = self._mesh.shape["dp"]
+        keep = sorted(set(surviving_shards))
+        bad = [i for i in keep if not 0 <= i < old_ndp]
+        if bad:
+            raise ValueError(
+                "surviving shard positions %s out of range for dp=%d"
+                % (bad, old_ndp))
+        if len(keep) < 2:
+            raise ValueError(
+                "%s needs >= 2 surviving shards (got %d of %d); "
+                "with one worker left, consolidate the scope and fall "
+                "back to single-worker training"
+                % (self._mode_name, len(keep), old_ndp))
+        if new_mesh is None:
+            from .mesh import shrink_mesh
+
+            new_mesh = shrink_mesh(self._mesh, survivors=keep)
+        if new_mesh.shape.get("dp") != len(keep):
+            raise ValueError(
+                "new mesh dp axis is %s but %d shards survive"
+                % (new_mesh.shape.get("dp"), len(keep)))
+        self._mesh = new_mesh
+        self._dp = None
+        self._groups = None
+        return new_mesh

@@ -192,6 +192,8 @@ def test_uniform_random_shape_dtype_range():
 def test_unported_op_names_the_gap():
     # every op type of the JAX package's registry is ported (the
     # collectives came last, with the parallel slice): an unknown type
-    # still names the gap
-    with pytest.raises(NotImplementedError, match="no torch lowering yet"):
+    # still names the gap, as the JAX package's refusal does
+    with pytest.raises(NotImplementedError,
+                       match="no torch lowering registered for op "
+                             "'no_such_op'"):
         pt_lowering("no_such_op")

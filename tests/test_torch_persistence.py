@@ -12,8 +12,9 @@ the CPU.
   bfloat16 persistable is stored as the JAX package stores it, its bits
   under numpy's void ``V2``, and read back as bfloat16.
 - ``set_program_state`` refuses a wrong shape with the reference's
-  error; ``use_orbax`` and ``load_latest_persistables`` raise, naming
-  item 8.6.
+  error; ``use_orbax`` and ``load_latest_persistables`` go to the
+  step-managed store (parallel/checkpoint.py; tests/
+  test_torch_checkpoint.py holds it against the JAX package's).
 - Resume: 2k Adam steps with dropout equal k steps, ``save_persistables``,
   a fresh scope, ``load_persistables`` and k more steps on the same
   Executor, bit for bit (the executor's run count seeds each step's
@@ -273,15 +274,30 @@ def test_set_program_state_refuses_a_wrong_shape_as_the_reference_does():
 
 
 def test_orbax_paths_wait_for_item_8_6(tmp_path):
+    """Item 8.6 is in: the orbax paths save and load every persistable
+    (Adam moments, batch-norm statistics, the decay counter) through the
+    step-managed store."""
+    main, startup, loss, _ = _net(fluid, None)
     exe = fluid.Executor(fluid.CPUPlace())
-    for call in (
-            lambda: fluid.io.save_persistables(exe, str(tmp_path),
-                                               use_orbax=True),
-            lambda: fluid.io.load_persistables(exe, str(tmp_path),
-                                               use_orbax=True),
-            lambda: fluid.io.load_latest_persistables(exe, str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="8.6"):
-            call()
+    exe.run(startup)
+    exe.run(main, feed=_feed(0), fetch_list=[loss])
+    d = str(tmp_path / "steps")
+    assert fluid.io.load_latest_persistables(exe, d, main) is None
+    fluid.io.save_persistables(exe, d, main, use_orbax=True, step=3)
+    scope = fluid.global_scope()
+    names = [v.name for v in main.list_vars()
+             if v.persistable and scope.find_value(v.name) is not None]
+    want = {n: scope[n].clone() for n in names}
+    for n in names:
+        scope.set(n, torch.zeros_like(want[n]))
+    assert fluid.io.load_latest_persistables(exe, d, main) == 3
+    for n in names:
+        assert torch.equal(torch.as_tensor(scope[n]), want[n]), n
+    for n in names:
+        scope.set(n, torch.zeros_like(want[n]))
+    fluid.io.load_persistables(exe, d, main, use_orbax=True, step=3)
+    for n in names:
+        assert torch.equal(torch.as_tensor(scope[n]), want[n]), n
 
 
 def test_program_helpers_match_the_jax_package():

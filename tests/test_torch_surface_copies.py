@@ -191,12 +191,13 @@ def test_small_modules(case):
 def test_op_protos_over_the_port_registry():
     from paddle_tpu.fluid import op as jop
     from paddle_tpu_torch.fluid import op as pop
-    from paddle_tpu_torch.ops.registry import LOWERINGS
+    from paddle_tpu_torch.ops.registry import KNOWN_UNSUPPORTED, LOWERINGS
 
     types = [o.type for o in pop.get_all_op_protos()]
     assert len(types) == len(LOWERINGS) == 324 and types == sorted(types)
     assert set(types) <= {o.type for o in jop.get_all_op_protos()}
-    assert pop.Operator.types() == types
+    assert pop.Operator.types() == jop.Operator.types() == sorted(
+        set(types) | set(KNOWN_UNSUPPORTED))
     assert pop.Operator.get_op_info("mul").type == "mul"
     for mod in (jop, pop):
         with pytest.raises(ValueError, match="has not been registered"):
